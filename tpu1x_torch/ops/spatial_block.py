@@ -1,0 +1,80 @@
+"""Spatial half of an STBlock: x + proj(MHA(qkv(LN1(x)))), bidirectional
+over the S tokens of each frame, heads flat in C."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from tpu1x_torch import kernels
+from tpu1x_torch.ops._util import check_tensor, dense, ptr, require
+from tpu1x_torch.ops.attention import mha_reference
+from tpu1x_torch.ops.layernorm import layer_norm_plain
+
+
+def spatial_block_plain(x, wqkv, wproj, *, num_heads: int, scale: float,
+                        bqkv=None, bproj=None, ln_scale=None, ln_bias=None):
+    """The JAX package's `spatial_block_reference`: the serving path's
+    mixed precision, in plain torch."""
+    N, S, C = x.shape
+    H = num_heads
+    xn = x if ln_scale is None else layer_norm_plain(x, ln_scale, ln_bias)
+    qkv = dense(xn, wqkv, bqkv)
+    q, k, v = (t.reshape(N, S, H, C // H) for t in qkv.split(C, dim=-1))
+    out = mha_reference(q, k, v, scale=scale, causal=False)
+    return x + dense(out.reshape(N, S, C), wproj, bproj)
+
+
+def spatial_block(x: torch.Tensor, wqkv: torch.Tensor, wproj: torch.Tensor, *,
+                  num_heads: int, scale: float,
+                  bqkv: Optional[torch.Tensor] = None,
+                  bproj: Optional[torch.Tensor] = None,
+                  ln_scale: Optional[torch.Tensor] = None,
+                  ln_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (N, S, C) -> x + proj(mha(qkv(ln(x)))).
+
+    CPU tensors take `spatial_block_plain`. CUDA tensors launch
+    csrc/spatial_block.cu, which replaces the Pallas kernel
+    tpu1x/ops/spatial_block.py:spatial_block. It takes bf16 x and weights
+    ((C, 3C), (C, C), biases (3C,), (C,) or None), fp32 LN params or None,
+    S == 256, head_dim 32 and C % 64 == 0.
+
+    Bound on the H100: tensor-core operations. One row is 256 KB in bf16,
+    more than a block's shared memory, so the TPU's one-program-per-row
+    design becomes three launches (LN1 + qkv GEMM, attention per (row, head,
+    64-query tile) with the head's keys in shared memory, proj GEMM + bias +
+    residual); the (N, H, S, S) logits never leave registers.
+    """
+    if not x.is_cuda:
+        return spatial_block_plain(x, wqkv, wproj, num_heads=num_heads,
+                                   scale=scale, bqkv=bqkv, bproj=bproj,
+                                   ln_scale=ln_scale, ln_bias=ln_bias)
+    N, S, C = x.shape
+    dev, bf = x.device, torch.bfloat16
+    require(S == 256, f"spatial_block kernel needs S == 256, got {S}")
+    require(C == 32 * num_heads and C % 64 == 0,
+            f"spatial_block kernel needs head_dim 32 and C % 64 == 0, got "
+            f"C={C}, heads={num_heads}")
+    require((ln_scale is None) == (ln_bias is None),
+            "pass both LN params or neither")
+    check_tensor(x, "x", (N, S, C), bf, dev)
+    check_tensor(wqkv, "wqkv", (C, 3 * C), bf, dev)
+    check_tensor(wproj, "wproj", (C, C), bf, dev)
+    if bqkv is not None:
+        check_tensor(bqkv, "bqkv", (3 * C,), bf, dev)
+    if bproj is not None:
+        check_tensor(bproj, "bproj", (C,), bf, dev)
+    if ln_scale is not None:
+        check_tensor(ln_scale, "ln_scale", (C,), torch.float32, dev)
+        check_tensor(ln_bias, "ln_bias", (C,), torch.float32, dev)
+    qkv = torch.empty(N, S, 3 * C, dtype=bf, device=dev)
+    attn = torch.empty_like(x)
+    out = torch.empty_like(x)
+    err = kernels.lib("spatial_block").tpu1x_spatial_block(
+        x.data_ptr(), wqkv.data_ptr(), ptr(bqkv), wproj.data_ptr(), ptr(bproj),
+        ptr(ln_scale), ptr(ln_bias), qkv.data_ptr(), attn.data_ptr(),
+        out.data_ptr(), N, S, C, num_heads, scale, kernels.stream_of(x))
+    kernels.check(err, "spatial_block")
+    kernels.count("spatial_block")
+    return out
