@@ -1,6 +1,8 @@
 """The port stands alone: importing `tpu1x_torch` (every module) and
 `chip_smoke` loads neither JAX nor the JAX package, needs neither `nvcc`
-nor `triton`, and a CPU rollout through the port launches no kernel.
+nor `triton`, and a CPU rollout and a CPU train step through the port
+launch no kernel; the train step defaults to the card and raises without
+one.
 
 Runs in a fresh interpreter, because this test process has JAX loaded.
 """
@@ -39,6 +41,32 @@ model = STMaskGIT(cfg).init_weights(torch.Generator().manual_seed(0))
 prompt = torch.randint(0, cfg.image_vocab_size, (2, 2, 4, 4))
 out = RolloutEngine(model, cfg, device="cpu").rollout(prompt, 2)
 assert tuple(out.shape) == (2, 1, 4, 4, 4), out.shape
+
+from tpu1x_torch.train.optim import TrainOptimizer
+from tpu1x_torch.train.step import make_eval_step, make_train_step
+for name in ("tpu1x_torch.data.corruption", "tpu1x_torch.train.optim",
+             "tpu1x_torch.train.step", "tpu1x_torch.ops.spatial_train_block",
+             "tpu1x_torch.ops.temporal_train_block",
+             "tpu1x_torch.ops.mlp_train_block",
+             "tpu1x_torch.ops._train_kernels"):
+    assert name in sys.modules, name
+cfg = genie_tiny(d_model=32, num_prompt_frames=2)
+model = STMaskGIT(cfg).init_weights(torch.Generator().manual_seed(0))
+optimizer = TrainOptimizer(model, cfg, learning_rate=1e-3)
+for make in (lambda **kw: make_train_step(model, optimizer, cfg, **kw),
+             lambda **kw: make_eval_step(model, cfg, **kw)):
+    try:
+        make()  # the card is the default, and there is none here
+    except RuntimeError as e:
+        assert "cuda" in str(e), e
+    else:
+        raise AssertionError("the default device did not raise without a card")
+tokens = torch.randint(0, cfg.image_vocab_size, (2, 4, 4, 4))
+out = make_train_step(model, optimizer, cfg, device="cpu")(tokens)
+assert torch.isfinite(out["loss"]) and torch.isfinite(out["grad_norm"])
+out = make_eval_step(model, cfg, device="cpu")(tokens)
+assert torch.isfinite(out["loss"])
+
 assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
 assert not kernels._libs
 for name in ("jax", "tpu1x", "triton"):

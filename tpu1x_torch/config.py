@@ -56,6 +56,7 @@ class GenieConfig:
     mlp_ratio: float = 4.0
     mlp_drop: float = 0.0
     mlp_bias: bool = True
+    gelu_approx: bool = False  # tanh GELU in training; exact erf otherwise
 
     # additive per-frame action embedding; 0 disables it
     action_vocab_size: int = 0

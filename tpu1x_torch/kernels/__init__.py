@@ -31,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
 # C entry points of each library: (name, argtypes). Every entry point
 # returns the cudaError_t of its launches (0 on success).
 SIGNATURES = {
@@ -44,10 +44,27 @@ SIGNATURES = {
         # out, N, S, C, H, scale, stream
         ("tpu1x_spatial_block", [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F,
                                  P]),
+        # qkv, d_o, dqkv, o, N, S, C, H, scale, stream
+        ("tpu1x_spatial_attention_bwd", [P, P, P, P, I, I, I, I, F, P]),
     ],
     "temporal_attention": [
-        # q, k, v, out, B, T, S, C, ld, scale, stream
-        ("tpu1x_temporal_attention", [P, P, P, P, I, I, I, I, I, F, P]),
+        # q, k, v, out, B, T, S, C, ld, scale, causal, stream
+        ("tpu1x_temporal_attention", [P, P, P, P, I, I, I, I, I, F, I, P]),
+        # q, k, v, dout, dq, dk, dv, B, T, S, C, ld, ld_do, ld_out, scale,
+        # causal, stream
+        ("tpu1x_temporal_attention_bwd", [P] * 7 + [I] * 7 + [F, I, P]),
+    ],
+    "train_block": [
+        # A, lda, B, ldb, C, C2, Cf, ldc, bias, resid, ldr, aux, ld_aux,
+        # ln_scale, ln_bias, M, N, K, mode, act, fused, k_chunk, stream
+        ("tpu1x_gemm", [P, L, P, L, P, P, P, L, P, P, L, P, L, P, P, I, I, I,
+                        I, I, I, I, P]),
+        # x, out, rows, N, ld, stream
+        ("tpu1x_col_sum", [P, P, I, I, L, P]),
+        # x, scale, bias, xn, stats, rows, C, eps, stream
+        ("tpu1x_ln_fwd", [P, P, P, P, P, I, I, F, P]),
+        # x, stats, scale, d_xn, dout, dx, dscale, dbias, rows, C, stream
+        ("tpu1x_ln_bwd", [P] * 8 + [I, I, P]),
     ],
     "temporal_mlp_block": [
         # x, k_cache, v_cache, t_B, wqkv, bqkv, wproj, bproj, ln_scale,
@@ -64,6 +81,12 @@ LAUNCHES: Dict[str, int] = {
     "temporal_mlp_block_pair": 0,
     "temporal_attention": 0,
     "layer_norm": 0,
+    "temporal_attention_bwd": 0,
+    "spatial_train_block_bwd": 0,
+    "temporal_train_block": 0,
+    "temporal_train_block_bwd": 0,
+    "mlp_train_block": 0,
+    "mlp_train_block_bwd": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -9,6 +9,7 @@ and a learned mask embedding replaces it wherever the id is the mask id.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -25,13 +26,16 @@ def factored_embed(tables, mask_embed: torch.Tensor, token_ids: torch.Tensor,
                    mask_token_id: int) -> torch.Tensor:
     """Sum of the per-digit embeddings, with `mask_embed` (C,) where the id
     is the mask id. The sum runs in the tables' dtype, one digit at a time,
-    as the JAX package does."""
+    as the JAX package does. `F.embedding` and not `table[digits]`: the
+    values are the same, but the backward of plain indexing sorts all
+    B T S indices into V rows and took a tenth of a GENIE_138M train step
+    on the H100."""
     is_mask = token_ids == mask_token_id
     safe = torch.where(is_mask, torch.zeros_like(token_ids), token_ids)
     digits = factorize_token_ids(safe, len(tables), tables[0].shape[0])
     x = None
     for k, table in enumerate(tables):
-        e = table[digits[..., k]]
+        e = F.embedding(digits[..., k], table)
         x = e if x is None else x + e
     return torch.where(is_mask[..., None], mask_embed.to(x.dtype), x)
 

@@ -1,6 +1,7 @@
-"""Causal attention over the frame axis of (B, T, S, C), heads flat (the
-serving prefill's temporal attention). Forward and causal only: the
-backward and the non-causal form wait for the training slice."""
+"""Attention over the frame axis of (B, T, S, C), causal or not, heads flat
+(the serving prefill's temporal attention, and the attention part of the
+temporal train block), differentiable: forward and backward each have a
+kernel on the card."""
 
 from __future__ import annotations
 
@@ -11,9 +12,11 @@ from tpu1x_torch.ops._util import require
 from tpu1x_torch.ops.attention import mha_reference
 
 
-def temporal_attention_plain(q, k, v, *, scale: float, num_heads: int):
+def temporal_attention_plain(q, k, v, *, scale: float, num_heads: int,
+                             causal: bool = True):
     """The JAX package's `temporal_attention_reference`: transpose to
-    (B, S, T, H, D), attend over T, transpose back."""
+    (B, S, T, H, D), attend over T, transpose back. Differentiable by
+    ordinary autograd."""
     B, T, S, C = q.shape
     H = num_heads
 
@@ -21,38 +24,21 @@ def temporal_attention_plain(q, k, v, *, scale: float, num_heads: int):
         return t.transpose(1, 2).reshape(B, S, T, H, C // H)
 
     out = mha_reference(to_ref(q), to_ref(k), to_ref(v), scale=scale,
-                        causal=True)
+                        causal=causal)
     return out.reshape(B, S, T, C).transpose(1, 2)
 
 
-def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                       scale: float, num_heads: int) -> torch.Tensor:
-    """Causal attention over axis 1 of q, k, v (B, T, S, C); returns
-    (B, T, S, C).
-
-    CPU tensors take `temporal_attention_plain`. CUDA tensors launch
-    csrc/temporal_attention.cu, which replaces the forward Pallas kernel of
-    tpu1x/ops/temporal_attention.py (_temporal_fwd / _fwd_kernel). It takes
-    bf16 q, k, v that may be column slices of one (B, T, S, 3C) qkv tensor
-    (last axis contiguous, the same strides for all three), T <= 16,
-    head_dim 32 and C % 256 == 0.
-
-    Bound on the H100: device memory. One block per (b, s) reads each frame
-    of q, k, v once from device memory, four lanes per head, and keeps the
-    <= 16 logits of a query in registers.
-    """
-    if not q.is_cuda:
-        return temporal_attention_plain(q, k, v, scale=scale,
-                                        num_heads=num_heads)
+def _check_qkv(q, k, v, num_heads: int) -> int:
+    """The checks both kernels share; returns the row stride of q, k, v."""
     B, T, S, C = q.shape
     require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
-            "temporal_attention kernel takes bf16 q, k, v")
+            "temporal_attention kernels take bf16 q, k, v")
     require(k.shape == q.shape and v.shape == q.shape,
             "q, k, v must share one shape")
     require(q.device == k.device == v.device, "q, k, v on different devices")
-    require(T <= 16, f"temporal_attention kernel needs T <= 16, got {T}")
+    require(T <= 16, f"temporal_attention kernels need T <= 16, got {T}")
     require(C == 32 * num_heads and C % 256 == 0,
-            f"temporal_attention kernel needs head_dim 32 and C % 256 == 0, "
+            f"temporal_attention kernels need head_dim 32 and C % 256 == 0, "
             f"got C={C}, heads={num_heads}")
     ld = q.stride(2)
     want = (T * S * ld, S * ld, ld, 1)
@@ -61,10 +47,80 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 f"{name} strides {t.stride()} are not (T S ld, S ld, ld, 1)")
         require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
     require(ld % 8 == 0, "row stride must be a multiple of 8")
+    return ld
+
+
+def launch_forward(q, k, v, *, scale: float, num_heads: int,
+                   causal: bool) -> torch.Tensor:
+    """Check, launch the forward kernel on CUDA q, k, v and count it."""
+    B, T, S, C = q.shape
+    ld = _check_qkv(q, k, v, num_heads)
     out = torch.empty(B, T, S, C, dtype=q.dtype, device=q.device)
     err = kernels.lib("temporal_attention").tpu1x_temporal_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, S, C,
-        ld, scale, kernels.stream_of(q))
+        ld, scale, int(causal), kernels.stream_of(q))
     kernels.check(err, "temporal_attention")
     kernels.count("temporal_attention")
     return out
+
+
+def launch_backward(q, k, v, dout, *, scale: float, num_heads: int,
+                    causal: bool):
+    """Check, launch the backward kernel and count it. Returns dqkv, one
+    new (B, T, S, 3C) tensor whose column thirds are dq, dk, dv."""
+    B, T, S, C = q.shape
+    ld = _check_qkv(q, k, v, num_heads)
+    require(dout.dtype == torch.bfloat16 and dout.device == q.device
+            and dout.shape == q.shape and dout.is_contiguous(),
+            "dout must be a contiguous bf16 tensor like q")
+    dqkv = torch.empty(B, T, S, 3 * C, dtype=q.dtype, device=q.device)
+    dq, dk, dv = dqkv.split(C, dim=-1)
+    err = kernels.lib("temporal_attention").tpu1x_temporal_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, S, C, ld, C,
+        3 * C, scale, int(causal), kernels.stream_of(q))
+    kernels.check(err, "temporal_attention_bwd")
+    kernels.count("temporal_attention_bwd")
+    return dqkv
+
+
+class _TemporalAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale, num_heads, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = dict(scale=scale, num_heads=num_heads, causal=causal)
+        return launch_forward(q, k, v, **ctx.args)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dqkv = launch_backward(q, k, v, dout.contiguous(), **ctx.args)
+        return (*dqkv.split(q.shape[-1], dim=-1), None, None, None)
+
+
+def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       scale: float, num_heads: int,
+                       causal: bool = True) -> torch.Tensor:
+    """Attention over axis 1 of q, k, v (B, T, S, C), causal by default;
+    returns (B, T, S, C). Differentiable.
+
+    CPU tensors take `temporal_attention_plain`. CUDA tensors launch
+    csrc/temporal_attention.cu, which replaces the Pallas kernels of
+    tpu1x/ops/temporal_attention.py: the forward (_temporal_fwd /
+    _fwd_kernel) and, under autograd, the backward (_temporal_bwd /
+    _bwd_kernel), which recomputes the probabilities from q and k. Both take
+    bf16 q, k, v that may be column slices of one (B, T, S, 3C) qkv tensor
+    (last axis contiguous, the same strides for all three), T <= 16,
+    head_dim 32 and C % 256 == 0. The backward returns dq, dk, dv as column
+    slices of one (B, T, S, 3C) tensor.
+
+    Bound on the H100: device memory. One block per (b, s) reads each frame
+    of q, k, v (and dout) once from device memory and keeps the <= 16 logits
+    of a query in registers, four lanes to a head; the backward parks the
+    rounded p and ds of all frame pairs in shared memory between its pass
+    over the query frames (dq) and its pass over the key frames (dk, dv).
+    """
+    if not q.is_cuda:
+        return temporal_attention_plain(q, k, v, scale=scale,
+                                        num_heads=num_heads, causal=causal)
+    return _TemporalAttention.apply(q, k, v, scale, num_heads, causal)

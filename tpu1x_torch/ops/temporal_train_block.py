@@ -1,0 +1,121 @@
+"""Temporal sub-layer of an STBlock for training:
+x + proj(causal temporal MHA(qkv(x))) over (B, T, S, C), no pre-LN,
+differentiable, forward and backward by hand on the card."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from tpu1x_torch import kernels
+from tpu1x_torch.ops import _train_kernels as tk
+from tpu1x_torch.ops import temporal_attention as ta
+from tpu1x_torch.ops._util import dense
+
+
+def temporal_train_block_plain(x, wqkv, wproj, *, num_heads: int,
+                               scale: float, bqkv=None, bproj=None):
+    """The JAX package's `temporal_train_block_reference` in plain torch,
+    differentiable by ordinary autograd."""
+    C = x.shape[-1]
+    q, k, v = dense(x, wqkv, bqkv).split(C, dim=-1)
+    out = ta.temporal_attention_plain(q, k, v, scale=scale,
+                                      num_heads=num_heads, causal=True)
+    return x + dense(out, wproj, bproj)
+
+
+def _qkv_and_attention(x, wqkv, bqkv, num_heads, scale):
+    B, T, S, C = x.shape
+    qkv = tk.gemm(x.view(-1, C), wqkv, bias=bqkv).view(B, T, S, 3 * C)
+    q, k, v = qkv.split(C, dim=-1)
+    ao = ta.launch_forward(q, k, v, scale=scale, num_heads=num_heads,
+                           causal=True)
+    return (q, k, v), ao
+
+
+def temporal_train_block_fwd(x, wqkv, wproj, bqkv, bproj, *, num_heads: int,
+                             scale: float):
+    """The forward on the card, bf16 x (B, T, S, C) and weights: the qkv
+    GEMM, the temporal attention kernel on column views of qkv, the proj
+    GEMM with bias and residual."""
+    C = x.shape[-1]
+    _, ao = _qkv_and_attention(x, wqkv, bqkv, num_heads, scale)
+    out = tk.gemm(ao.view(-1, C), wproj, bias=bproj, resid=x.view(-1, C))
+    kernels.count("temporal_train_block")
+    return out.view(x.shape)
+
+
+def temporal_train_block_bwd(x, dout, wqkv, wproj, bqkv, *, num_heads: int,
+                             scale: float, proj_bias: bool):
+    """The backward on the card. Returns (dx bf16, dwqkv, dwproj, dbqkv,
+    dbproj) with the weight and bias gradients in fp32.
+
+    Launches: the qkv GEMM and the attention forward (recompute: the
+    attention output feeds dWproj); d_ao = dout Wproj^T; the temporal
+    attention backward, which writes dq, dk, dv into one (B, T, S, 3C)
+    tensor; dWproj = ao^T dout and dWqkv = x^T dqkv (split reductions, fp32
+    atomics); the bias column sums; dx = dout + dqkv Wqkv^T.
+    """
+    C = x.shape[-1]
+    x2, do2 = x.view(-1, C), dout.view(-1, C)
+    (q, k, v), ao = _qkv_and_attention(x, wqkv, bqkv, num_heads, scale)
+    d_ao = tk.gemm(do2, wproj, mode="nt").view(x.shape)
+    dqkv2 = ta.launch_backward(q, k, v, d_ao, scale=scale,
+                               num_heads=num_heads,
+                               causal=True).view(-1, 3 * C)
+    dwproj = tk.gemm(ao.view(-1, C), do2, mode="tn")
+    dbproj = tk.col_sum(do2) if proj_bias else None
+    dwqkv = tk.gemm(x2, dqkv2, mode="tn")
+    dbqkv = tk.col_sum(dqkv2) if bqkv is not None else None
+    dx = tk.gemm(dqkv2, wqkv, mode="nt", resid=do2)
+    kernels.count("temporal_train_block_bwd")
+    return dx.view(x.shape), dwqkv, dwproj, dbqkv, dbproj
+
+
+class _TemporalTrainBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wqkv, wproj, bqkv, bproj, num_heads, scale):
+        w = (tk.as_bf16(wqkv), tk.as_bf16(wproj), tk.as_bf16(bqkv))
+        ctx.save_for_backward(x, *w)
+        ctx.dtypes = tk.dtypes_of(wqkv, wproj, bqkv, bproj)
+        ctx.args = dict(num_heads=num_heads, scale=scale)
+        return temporal_train_block_fwd(x, *w, tk.as_bf16(bproj), **ctx.args)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, *w = ctx.saved_tensors
+        grads = temporal_train_block_bwd(
+            x, dout.contiguous(), *w, proj_bias=ctx.dtypes[3] is not None,
+            **ctx.args)
+        return (grads[0], *tk.like(grads[1:], ctx.dtypes), None, None)
+
+
+def temporal_train_block(x: torch.Tensor, wqkv: torch.Tensor,
+                         wproj: torch.Tensor, *, num_heads: int, scale: float,
+                         bqkv: Optional[torch.Tensor] = None,
+                         bproj: Optional[torch.Tensor] = None):
+    """Differentiable x (B, T, S, C) -> x + proj(causal MHA over T of
+    qkv(x)), heads flat in C, no pre-norm.
+
+    wqkv (C, 3C), wproj (C, C) and the optional biases may be fp32 master
+    parameters: gradients come back in each parameter's dtype.
+
+    CPU tensors take `temporal_train_block_plain` under ordinary autograd.
+    CUDA tensors launch `temporal_train_block_fwd` and, under autograd,
+    `temporal_train_block_bwd`, which replace the Pallas kernels
+    tpu1x/ops/temporal_train_block.py:_ttb_fwd and _ttb_bwd. They take bf16
+    contiguous x, T <= 16, head_dim 32 and C % 256 == 0. Residuals are x and
+    the weights only. The TPU kernels keep q, k, v and their gradients in
+    VMEM; here they make one round trip through device memory as one
+    (B, T, S, 3C) tensor each, whose column views the attention kernels
+    read and write in place. Bound on the H100: tensor-core operations for
+    the GEMMs, device memory for the attention kernels. The weight
+    gradients are summed with fp32 atomics, so their last bits differ from
+    run to run.
+    """
+    if not x.is_cuda:
+        return temporal_train_block_plain(x, wqkv, wproj, num_heads=num_heads,
+                                          scale=scale, bqkv=bqkv, bproj=bproj)
+    return _TemporalTrainBlock.apply(x.contiguous(), wqkv, wproj, bqkv, bproj,
+                                     num_heads, scale)

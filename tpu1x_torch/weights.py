@@ -5,6 +5,9 @@ conversion (tpu1x/train/checkpoint.py, `convert_to_torch_state_dict`): it
 takes the flax tree as nested dicts of arrays (numpy, or anything
 `numpy.asarray` reads) in either layer layout, and returns a state dict with
 the reference's names that `STMaskGIT.load_state_dict` takes.
+The mapping is linear (transposes and unstacking), so it also carries a tree
+shaped like the params (gradients, Adam moments) to the names of
+`STMaskGIT.named_parameters()`.
 """
 
 from __future__ import annotations
@@ -76,3 +79,4 @@ def params_from_jax(params: Mapping[str, Any],
         linear(f"{pre}.mlp.fc2", lp["mlp"]["fc2"])
     return {k: torch.from_numpy(np.ascontiguousarray(v))
             for k, v in sd.items()}
+
