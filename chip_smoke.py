@@ -40,7 +40,21 @@
    step, and the peak memory. Then holds the loss, the gradient norm and
    every parameter's gradient of the kernel path against the plain path and
    an fp32 plain run on the card (see `check_step_against_plain`).
-7. Prints the `kernels` JSON line, the card line, and last the result line.
+7. The qk_norm=True model and the int8 KV cache, which take each decode
+   layer op by op: holds the decode attention kernels (one frame and the
+   [prev, cur] pair, bf16 and int8 cache, t_B mixed in 0..15, two layers of
+   a (16, 32, 16, 256, 512) cache), the spatial block with the qk-LN, the
+   fused attention forward and backward (causal and not, at (128, 256, 16,
+   32), SDPA forward and backward as the library time) and the MLP train
+   block without LN against their plain versions, by the gates of 3 and 5.
+   Runs the rollout of 4 on `genie_138m(qk_norm=True)` with the int8 cache
+   at full depth (exact launch counts, times, device time by kernel, the
+   dequantized prefill cache and the logits against the plain path), and on
+   the two other combinations (qk_norm=True with the bf16 cache,
+   qk_norm=False with the int8 cache) at 8 layers. Trains
+   `genie_138m(qk_norm=True)` as in 6, with its own launch counts, and holds
+   the step's gradients against the plain path and an fp32 run.
+8. Prints the `kernels` JSON line, the card line, and last the result line.
 
 Any failure exits non-zero without the result line, as does a run without a
 CUDA device or outside the repository.
@@ -69,6 +83,8 @@ from tpu1x_torch.models.sampler import generate_cached_fused
 from tpu1x_torch.models.st_maskgit import STMaskGIT
 from tpu1x_torch.models.st_transformer import STBlock
 from tpu1x_torch.ops import _train_kernels as tk
+from tpu1x_torch.ops import attention as attn
+from tpu1x_torch.ops import decode_attention as da
 from tpu1x_torch.ops import mlp_train_block as mtb
 from tpu1x_torch.ops import spatial_train_block as stb
 from tpu1x_torch.ops import temporal_attention as ta
@@ -118,12 +134,27 @@ SOURCES = {
                         "tpu1x/ops/mlp_train_block.py:219"),
     "mlp_train_block_bwd": ("tpu1x_torch/csrc/train_block.cu",
                             "tpu1x/ops/mlp_train_block.py:260"),
+    "temporal_decode_attention": ("tpu1x_torch/csrc/decode_attention.cu",
+                                  "tpu1x/ops/decode_attention.py:349"),
+    "temporal_decode2_attention": ("tpu1x_torch/csrc/decode_attention.cu",
+                                   "tpu1x/ops/decode_attention.py:282"),
+    "flash_mha": ("tpu1x_torch/csrc/flash_attention.cu",
+                  "tpu1x/ops/pallas_attention.py:65"),
+    "flash_mha_bwd": ("tpu1x_torch/csrc/flash_attention.cu",
+                      "tpu1x/ops/pallas_attention.py:132"),
 }
 # launches per layer in one rollout: the prefill, 9 single-frame decodes
 # (2 steps of the first new frame, then step 1 of the other 7), 7 pairs
 PER_LAYER = {"spatial_block": 1 + 9 + 7, "temporal_mlp_block": 9,
              "temporal_mlp_block_pair": 7, "temporal_attention": 1,
              "layer_norm": 1}
+# the same rollout op by op (qk_norm, or the int8 cache): the decode
+# attention kernels take the temporal+MLP block's place; without qk_norm
+# the prefill keeps its temporal attention and LN2, and each of the 16
+# decodes launches LN2 as well
+PER_LAYER_QK = {"spatial_block": 1 + 9 + 7, "temporal_decode_attention": 9,
+                "temporal_decode2_attention": 7}
+PER_LAYER_INT8 = dict(PER_LAYER_QK, temporal_attention=1, layer_norm=1 + 16)
 # launches per layer in one train step; the temporal train block launches
 # the temporal attention forward twice (forward, and recompute in its
 # backward) and its backward once
@@ -131,6 +162,10 @@ TRAIN_PER_LAYER = {"spatial_block": 1, "spatial_train_block_bwd": 1,
                    "temporal_train_block": 1, "temporal_train_block_bwd": 1,
                    "mlp_train_block": 1, "mlp_train_block_bwd": 1,
                    "temporal_attention": 2, "temporal_attention_bwd": 1}
+# under qk_norm: the fused attention pair on the spatial axis, the MLP train
+# block without LN; the rest is plain torch under autograd
+TRAIN_PER_LAYER_QK = {"flash_mha": 1, "flash_mha_bwd": 1,
+                      "mlp_train_block": 1, "mlp_train_block_bwd": 1}
 
 
 def expected_launches(per_layer, layers):
@@ -155,6 +190,22 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of `fn`, from torch.profiler: its kernels
+    alone. `time_ms` includes the wrapper's host time, which is the longer
+    of the two for the smallest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(a.self_device_time_total for a in prof.key_averages()
+               if a.device_type == torch.autograd.DeviceType.CUDA
+               ) / 1e3 / iters
 
 
 def bound(nbytes: float, tensor_flops: float = 0.0, fp32_flops: float = 0.0):
@@ -245,11 +296,16 @@ def spatial_weights(inp, C):
                 ln_bias=inp.normal(C, std=0.1, dtype=torch.float32))
 
 
-def check_spatial_block(inp, C, H, N):
+def check_spatial_block(inp, C, H, N, qk_ln=False):
     w = spatial_weights(inp, C)
+    if qk_ln:  # the qk_norm models: no pre-LN, one LN over head_dim
+        w.update(ln_scale=None, ln_bias=None,
+                 qk_ln_scale=inp.normal(C // H, std=0.1, mean=1.0,
+                                        dtype=torch.float32),
+                 qk_ln_bias=inp.normal(C // H, std=0.1, dtype=torch.float32))
     x = inp.normal(N, 256, C)
     kw = dict(num_heads=H, scale=(C // H) ** -0.5, **w)
-    err = compare(f"spatial_block N={N}", spatial_block(x, **kw),
+    err = compare(f"spatial_block N={N} qk_ln={qk_ln}", spatial_block(x, **kw),
                   spatial_block_plain(x, **kw), 3e-2, 3e-2)
     S = 256
     bms, by = bound(nbytes(x, x, *w.values()),
@@ -318,6 +374,155 @@ def check_temporal_mlp_block(inp, C, H, L, caches, pair):
                 library_ms=None)
 
 
+def quantize_cache(kc):
+    """(T, L, B, S, C) bf16 -> (int8 cache, (L, B, T, S) fp32 scales), a
+    layer at a time."""
+    q = torch.empty_like(kc, dtype=torch.int8)
+    T, L, Bc, S, _ = kc.shape
+    scale = torch.empty(L, Bc, T, S, dtype=torch.float32, device=kc.device)
+    for layer in range(L):
+        q[:, layer], sc = da.quantize_kv(kc[:, layer])  # (T, B, S)
+        scale[layer] = sc.transpose(0, 1)
+    return q, scale
+
+
+def check_decode_attention(inp, C, H, L, caches, scales, pair):
+    """K7 (one frame) or K8 (the pair) against the plain version, on column
+    views of one qkv product, at two layers, t_B mixed in 0..15 (0: no cache
+    slot is valid). `scales`: None for the bf16 cache."""
+    kc, vc = caches
+    T, S = kc.shape[0], 256
+    frames = 2 if pair else 1
+    qkv = inp.normal(frames * B, S, 3 * C)
+    q, k, v = qkv.split(C, dim=-1)
+    t_B = (torch.arange(B, device=qkv.device) * 7 % (T - frames + 1)).to(
+        torch.int32)
+    kw = dict(scale=(C // H) ** -0.5, num_heads=H)
+    if scales is not None:
+        kw.update(k_scale=scales[0], v_scale=scales[1])
+    name = ("temporal_decode2_attention" if pair
+            else "temporal_decode_attention")
+    name += "[int8]" if scales is not None else ""
+    if pair:
+        args = (q[:B], q[B:], kc, vc, k[:B], v[:B], k[B:], v[B:], t_B)
+        kernel, plain = (da.temporal_decode2_attention,
+                         da.temporal_decode2_attention_plain)
+    else:
+        args = (q, kc, vc, k, v, t_B)
+        kernel, plain = (da.temporal_decode_attention,
+                         da.temporal_decode_attention_plain)
+    err = 0.0
+    for layer in (L // 2, L - 1):
+        got, want = kernel(*args, layer=layer, **kw), plain(*args, layer=layer,
+                                                            **kw)
+        if not pair:
+            got, want = (got,), (want,)
+        for g, w in zip(got, want):
+            err = max(err, compare(f"{name} layer {layer}", g, w, 3e-2, 3e-2))
+    layer = L // 2
+    # the engine's forms: the output into halves of one tensor, k/v copied
+    # into a layer of a stack; the same bits
+    out = torch.zeros(frames * B, S, C, dtype=qkv.dtype, device=qkv.device)
+    kv = torch.zeros(2, B, S, C, dtype=qkv.dtype, device=qkv.device)
+    into = kernel(*args, layer=layer, kv_out=(kv[0], kv[1]),
+                  out=(out[:B], out[B:]) if pair else out, **kw)
+    ref = kernel(*args, layer=layer, **kw)
+    same = (torch.equal(out, torch.cat(ref) if pair else ref)
+            and torch.equal(kv[0], k[:B]) and torch.equal(kv[1], v[:B])
+            and (into[0] if pair else into).data_ptr() == out.data_ptr())
+    if not same:
+        raise AssertionError(f"{name}: out / kv_out change the result")
+    slots = int(t_B.sum())  # this run's data: slots t < t_B[b] per row
+    cache_bytes = 2 * slots * S * (C * kc.element_size()
+                                   + (4 if scales is not None else 0))
+    macs = B * S * C * (frames * slots / B + frames * (frames + 1) / 2)
+    # q.k: bf16 operands (int8 values are exact in bf16); p.v in fp32
+    bms, by = bound(cache_bytes + nbytes(qkv, t_B) + frames * B * S * C * 2,
+                    tensor_flops=2 * macs, fp32_flops=2 * macs)
+    return {name: dict(
+        max_abs_err=err, shape=list(qkv.shape), t_B=t_B.tolist(),
+        bound_ms=bms, bound_by=by,
+        ms=time_ms(lambda: kernel(*args, layer=layer, **kw)),
+        device_ms=device_ms(lambda: kernel(*args, layer=layer, **kw)),
+        plain_ms=time_ms(lambda: plain(*args, layer=layer, **kw), iters=5),
+        library_ms=None)}
+
+
+def check_flash_mha(inp, H):
+    """K9 and K10 at the qk_norm train step's shape (128, 256, 16, 32),
+    q, k, v as thirds of one qkv product, against `mha_reference` and its
+    autograd; SDPA forward and backward are timed beside them."""
+    R, N, D = TB * 16, 256, 32
+    t = dict(qkv=inp.normal(R, N, 3, H, D))
+    dout = inp.normal(R, N, H, D)
+    scale = D ** -0.5
+    out = {}
+    for causal in (False, True):
+        tag = "[causal]" if causal else ""
+        kw = dict(scale=scale, causal=causal)
+
+        def kernel(qkv):
+            return attn.flash_mha(*qkv.unbind(-3), **kw)
+
+        def plain(qkv):
+            return attn.mha_reference(*qkv.unbind(-3), **kw)
+
+        out_err, grads = both_paths("flash_mha" + tag, kernel, plain, t, dout)
+        q, k, v = t["qkv"].unbind(-3)
+        lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))  # (R, H, N, D) views
+
+        def sdpa():
+            return F.scaled_dot_product_attention(lq, lk, lv,
+                                                  is_causal=causal,
+                                                  scale=scale)
+        lib_out = sdpa()
+        pairs = N * (N + 1) // 2 if causal else N * N
+        io = R * N * H * D * 2
+        fwd = bound(4 * io, tensor_flops=4 * R * H * pairs * D)
+        # logits, dv, dp, dq, dk: five products of 2 D per (query, key)
+        bwd = bound(7 * io, tensor_flops=10 * R * H * pairs * D)
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: attn.flash_mha_fwd(q, k, v, **kw))
+            lib_fwd = time_ms(sdpa)
+        out["flash_mha" + tag] = entry(
+            out_err, {}, q.shape, fwd_ms, plain_ms(plain, t), fwd,
+            library_ms=lib_fwd)
+        out["flash_mha_bwd" + tag] = entry(
+            grads["qkv"]["max_abs_err"], grads, q.shape,
+            time_ms(lambda: attn.flash_mha_bwd(q, k, v, dout, **kw)),
+            plain_ms(plain, t, dout), bwd,
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                lib_out, (lq, lk, lv), dout.transpose(1, 2),
+                retain_graph=True)))
+    return out
+
+
+def check_op_path_kernels(C, H, L, device):
+    """The kernels of the op-by-op paths (qk_norm, int8 cache)."""
+    inp = Inputs(2, device)
+    out = {}
+    for N in (B, 2 * B, B * P):
+        out[f"spatial_block[qk_ln,N={N}]"] = check_spatial_block(
+            inp, C, H, N, qk_ln=True)
+    T = 16
+    caches = (inp.normal(T, L, B, 256, C), inp.normal(T, L, B, 256, C))
+    for pair in (False, True):
+        out.update(check_decode_attention(inp, C, H, L, caches, None, pair))
+    (kq, ks), (vq, vs) = quantize_cache(caches[0]), quantize_cache(caches[1])
+    del caches
+    for pair in (False, True):
+        out.update(check_decode_attention(inp, C, H, L, (kq, vq), (ks, vs),
+                                          pair))
+    del kq, vq, ks, vs
+    out.update(check_flash_mha(inp, H))
+    out.update(check_mlp_train_block(inp, C, ln=False))
+    torch.cuda.empty_cache()
+    for name, r in out.items():
+        print(f"kernel {name}: " + json.dumps(r), flush=True)
+    return out
+
+
 def check_kernels(C, H, L, device):
     inp = Inputs(0, device)
     out = {}
@@ -350,6 +555,8 @@ class PlainDecodeEngine(DecodeEngine):
                                              temporal_mlp_block_plain),
         temporal_mlp_block_pair=functools.partial(
             plain_on_cache, temporal_mlp_block_pair_plain),
+        temporal_decode_attention=da.temporal_decode_attention_plain,
+        temporal_decode2_attention=da.temporal_decode2_attention_plain,
     )
 
 
@@ -364,12 +571,16 @@ def plain_rollout(cfg, engine, params, prompt, generator):
     return tokens.reshape(B, 1, P + NEW, *prompt.shape[2:])
 
 
-def check_rollout(cfg, device):
+def check_rollout(cfg, device, cache_dtype="bf16", per_layer=PER_LAYER,
+                  full=True):
+    """One configuration's rollout: counts, output, times, and the cache
+    and logits against the plain path. `full` False (the combinations run
+    at a cut depth) times one run and skips the profile."""
     g = torch.Generator(device=device).manual_seed(0)
     model = STMaskGIT(cfg, device=device).init_weights(g)
     engine = RolloutEngine(model, cfg, device=device, maskgit_steps=STEPS,
-                           temperature=0.0)
-    plain = PlainDecodeEngine(cfg, device=device)
+                           temperature=0.0, cache_dtype=cache_dtype)
+    plain = PlainDecodeEngine(cfg, device=device, cache_dtype=cache_dtype)
     side = cfg.latent_side_len
     prompt = torch.randint(0, cfg.image_vocab_size, (B, P, side, side),
                            generator=g, device=device)
@@ -394,7 +605,7 @@ def check_rollout(cfg, device):
     kernels.reset_launches()
     out, wall = timed(kernel_path)
     launches = dict(kernels.LAUNCHES)
-    want = expected_launches(PER_LAYER, cfg.num_layers)
+    want = expected_launches(per_layer, cfg.num_layers)
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
 
@@ -405,17 +616,20 @@ def check_rollout(cfg, device):
     if int(out.min()) < 0 or int(out.max()) >= cfg.image_vocab_size:
         raise AssertionError("rollout tokens out of the vocabulary")
 
-    walls = sorted([wall] + [timed(kernel_path)[1] for _ in range(2)])
-    wall = walls[1]  # the median of three
+    walls = sorted([wall] + [timed(kernel_path)[1]
+                             for _ in range(2 if full else 0)])
+    wall = walls[len(walls) // 2]  # the median of three
     out_plain, wall_plain = timed(plain_path)
     agree = float((out[:, 0, P:] == out_plain[:, 0, P:]).float().mean())
 
     return dict(launches=launches, rollout_s=wall, rollout_s_runs=walls,
                 plain_rollout_s=wall_plain, s_per_frame=wall / NEW,
                 s_per_frame_per_row=wall / (NEW * B), token_agreement=agree,
-                layers=cfg.num_layers,
+                layers=cfg.num_layers, qk_norm=cfg.qk_norm,
+                cache_dtype=cache_dtype,
                 device_time=profile_device(
-                    lambda: engine.rollout(prompt, NEW, seeded())),
+                    lambda: engine.rollout(prompt, NEW, seeded()))
+                if full else None,
                 **check_prefill_and_logits(model, cfg, prompt, engine, plain))
 
 
@@ -454,10 +668,13 @@ def check_prefill_and_logits(model, cfg, prompt, engine, plain):
     down, two bf16 paths drift apart by their rounding alone, so the whole
     cache and the logits are held by relative L2 error: at most 3e-2 from
     the plain path, and no farther from an fp32 plain run than the bf16
-    plain path is (1.25x + 1e-3)."""
+    plain path is (1.25x + 1e-3). An int8 cache is compared dequantized, by
+    the same gates: every path quantizes its own k and v, so a value that
+    the two bf16 paths round to neighbouring int8 steps differs by one step,
+    amax / 127 of its token, which is inside the elementwise gate."""
     device = engine.device
     ref = PlainDecodeEngine(cfg, device=device, compute_dtype=torch.float32,
-                            gelu="tanh")
+                            gelu="tanh", cache_dtype=plain.cache_dtype)
     ref_params = prepare_serving_params(model, cfg, torch.float32, device)
     masked = torch.full((B, cfg.S), cfg.mask_token_id, dtype=torch.long,
                         device=device)
@@ -468,8 +685,13 @@ def check_prefill_and_logits(model, cfg, prompt, engine, plain):
         cache = eng.prefill(params, prompt)
         logits, _ = eng.decode_frame(params, masked, P, cache,
                                      return_kv=False)
-        got[name] = {"k": cache["k"][:P], "v": cache["v"][:P],
-                     "logits": logits}
+        got[name] = {"logits": logits}
+        for key in ("k", "v"):
+            got[name][key] = cache[key][:P]
+            if key + "_scale" in cache:  # (L, B, T, S) -> (T, L, B, S)
+                got[name][key] = da.dequantize_kv(
+                    cache[key][:P],
+                    cache[key + "_scale"].permute(2, 0, 1, 3)[:P])
         del cache
     out = {}
     for key in ("k", "v"):
@@ -602,23 +824,26 @@ def check_temporal_train_block(inp, C, H):
             plain_ms(plain, t, dout), bwd)}
 
 
-def check_mlp_train_block(inp, C):
+def check_mlp_train_block(inp, C, ln=True):
+    """With `ln` False: the block without its LayerNorm, as the qk_norm
+    models call it (exact erf only)."""
     S, N, F4 = 256, TB * 16, 4 * C
     w = block_weights(inp, C)
     t = dict(x=inp.normal(N, S, C), **{
-        k: w[k].float() for k in ("wfc1", "wfc2", "bfc1", "bfc2", "ln_scale",
-                                  "ln_bias")})
+        k: w[k].float() for k in ("wfc1", "wfc2", "bfc1", "bfc2") + (
+            ("ln_scale", "ln_bias") if ln else ())})
     dout = inp.normal(N, S, C)
     out = {}
-    for approx in (False, True):  # exact erf is the shipped configs' GELU
-        name = "mlp_train_block" + ("[tanh]" if approx else "")
+    for approx in (False, True) if ln else (False,):  # erf: the shipped GELU
+        name = "mlp_train_block" + ("[tanh]" if approx else "") + (
+            "" if ln else "[no-ln]")
         plain = functools.partial(mtb.mlp_train_block_plain,
                                   gelu_approx=approx)
         out_err, grads = both_paths(
             name, functools.partial(mtb.mlp_train_block, gelu_approx=approx),
             plain, t, dout)
         w16 = [tk.as_bf16(t[k]) for k in ("wfc1", "wfc2", "bfc1", "bfc2")]
-        ln = (t["ln_scale"], t["ln_bias"])
+        ln_params = (t["ln_scale"], t["ln_bias"]) if ln else (None, None)
         R = N * S
         weights = 2 * C * F4
         fwd = bound(2 * R * C * 2 + weights * 2,
@@ -630,12 +855,13 @@ def check_mlp_train_block(inp, C):
         out[name] = entry(
             out_err, {}, t["x"].shape,
             time_ms(lambda: mtb.mlp_train_block_fwd(
-                t["x"], *w16, *ln, gelu_approx=approx)),
+                t["x"], *w16, *ln_params, gelu_approx=approx)),
             plain_ms(plain, t), fwd)
-        out[name.replace("block", "block_bwd")] = entry(
+        out[name.replace("block", "block_bwd", 1)] = entry(
             grads["x"]["max_abs_err"], grads, t["x"].shape,
             time_ms(lambda: mtb.mlp_train_block_bwd(
-                t["x"], dout, *w16[:3], *ln, gelu_approx=approx, bias=True)),
+                t["x"], dout, *w16[:3], *ln_params, gelu_approx=approx,
+                bias=True)),
             plain_ms(plain, t, dout), bwd)
     return out
 
@@ -698,14 +924,15 @@ def plain_blocks():
     kernel_ops = STBlock.ops
     STBlock.ops = SimpleNamespace(spatial=stb.spatial_train_block_plain,
                                   temporal=ttb.temporal_train_block_plain,
-                                  mlp=mtb.mlp_train_block_plain)
+                                  mlp=mtb.mlp_train_block_plain,
+                                  mha=attn.mha_reference)
     try:
         yield
     finally:
         STBlock.ops = kernel_ops
 
 
-def check_training(cfg, device):
+def check_training(cfg, device, per_layer=TRAIN_PER_LAYER):
     g = torch.Generator(device=device).manual_seed(0)
     model = STMaskGIT(cfg, device=device).init_weights(g)
     init = {k: v.clone() for k, v in model.state_dict().items()}
@@ -722,7 +949,7 @@ def check_training(cfg, device):
     first = step(tokens, noise=noise)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    want = expected_launches(TRAIN_PER_LAYER, cfg.num_layers)
+    want = expected_launches(per_layer, cfg.num_layers)
     if launches != want:
         raise AssertionError(f"train launches {launches}, expected {want}")
 
@@ -750,13 +977,13 @@ def check_training(cfg, device):
                accs=[float(m["acc"]) for m in metrics], step_s=step_s,
                step_s_runs=walls, tokens_per_s=TB * cfg.T * cfg.S / step_s,
                peak_memory_bytes=peak, batch=TB, layers=cfg.num_layers,
-               lr=TRAIN_LR, device_time=device_time)
+               qk_norm=cfg.qk_norm, lr=TRAIN_LR, device_time=device_time)
     del step, optimizer, metrics
     model.load_state_dict(init)
     return model, out
 
 
-def check_step_against_plain(model, cfg, device):
+def check_step_against_plain(model, cfg, device, per_layer=TRAIN_PER_LAYER):
     """Loss, gradient norm and every parameter's gradient after one forward
     and backward from the same weights and the same corrupted batch, at the
     full depth and width and B = CB (the plain path's autograd keeps every
@@ -767,7 +994,15 @@ def check_step_against_plain(model, cfg, device):
     32 back, so gradients are held in relative L2: every parameter's, and
     all parameters' together, within 3e-2 of the plain path's, and the
     kernel path no farther from the fp32 run than the bf16 plain path is
-    (1.25x + 1e-3)."""
+    (1.25x + 1e-3). The qk-LN parameters of the qk_norm models (32 values
+    each, every one a sum over all tokens and heads of terms that cancel)
+    carry that drift amplified about tenfold, also where both paths run the
+    same plain code (the temporal attention: up to 5% between the two bf16
+    paths). They are held to the fp32 run alone, parameter by parameter, at
+    2x + 1e-3 of the plain path's distance: the fused attention backward
+    rounds p and ds to bf16 for its products (0.26% relative L2 on dq, dk,
+    dv in its own check), which the spatial qk-LN gradients show as up to
+    3.9% from fp32 where the plain path has 2.2%."""
     g = torch.Generator(device=device).manual_seed(2)
     side = cfg.latent_side_len
     tokens = torch.randint(0, cfg.image_vocab_size, (CB, cfg.T, side, side),
@@ -790,7 +1025,7 @@ def check_step_against_plain(model, cfg, device):
 
     kernels.reset_launches()
     got = {"kernel": run(model, False)}
-    want = expected_launches(TRAIN_PER_LAYER, cfg.num_layers)
+    want = expected_launches(per_layer, cfg.num_layers)
     if kernels.LAUNCHES != want:
         raise AssertionError(f"the kernel path launched {kernels.LAUNCHES}")
     kernels.reset_launches()
@@ -804,6 +1039,15 @@ def check_step_against_plain(model, cfg, device):
     per_param = {n: rel_l2(got["kernel"][2][n], got["plain"][2][n])
                  for n in got["plain"][2]}
     worst = sorted(per_param.items(), key=lambda kv: -kv[1])[:5]
+    qk_ln = {}  # name -> (kernel vs plain, kernel vs fp32, plain vs fp32)
+    for n in [n for n in per_param if "_attn.norm." in n]:
+        qk_ln[n] = (per_param.pop(n), rel_l2(got["kernel"][2][n],
+                                             got["fp32"][2][n]),
+                    rel_l2(got["plain"][2][n], got["fp32"][2][n]))
+    failed = {n: v for n, v in per_param.items() if not v <= 3e-2}
+    failed.update({n: v for n, v in qk_ln.items()
+                   if not v[1] <= 2 * v[2] + 1e-3})
+    worst_qk_ln = sorted(qk_ln.items(), key=lambda kv: -kv[1][0])[:3]
     fk, fp, f32 = flat("kernel"), flat("plain"), flat("fp32")
     out = {"batch": CB, "layers": cfg.num_layers,
            "loss": {k: v[0] for k, v in got.items()},
@@ -811,11 +1055,12 @@ def check_step_against_plain(model, cfg, device):
            "grads_rel_l2": {"kernel_vs_plain": rel_l2(fk, fp),
                             "kernel_vs_fp32": rel_l2(fk, f32),
                             "plain_vs_fp32": rel_l2(fp, f32)},
-           "worst_params_kernel_vs_plain": worst}
+           "worst_params_kernel_vs_plain": worst,
+           "worst_qk_ln_params": worst_qk_ln, "failed_params": failed}
     r = out["grads_rel_l2"]
     loss_k, loss_p, loss_32 = (out["loss"][k] for k in ("kernel", "plain",
                                                         "fp32"))
-    ok = (worst[0][1] <= 3e-2 and r["kernel_vs_plain"] <= 3e-2
+    ok = (not failed and r["kernel_vs_plain"] <= 3e-2
           and r["kernel_vs_fp32"] <= 1.25 * r["plain_vs_fp32"] + 1e-3
           and abs(loss_k - loss_p) <= 2e-2
           and abs(loss_k - loss_32) <= 1.25 * abs(loss_p - loss_32) + 2e-2
@@ -881,6 +1126,47 @@ def main() -> int:
         print(f"plain-path comparison: {time.perf_counter() - t0:.1f} s",
               flush=True)
         del model
+        torch.cuda.empty_cache()
+
+        # ---- the op-by-op paths: qk_norm=True and the int8 cache
+        t0 = time.perf_counter()
+        results.update(check_op_path_kernels(cfg.d_model, cfg.num_heads,
+                                             cfg.num_layers, device))
+        print(f"op-path kernel checks: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        cfg_qk = genie_138m(qk_norm=True)
+        t0 = time.perf_counter()
+        roll_qk = check_rollout(cfg_qk, device, "int8", PER_LAYER_QK)
+        print("rollout qk_norm int8: " + json.dumps(roll_qk), flush=True)
+        print(f"rollout qk_norm int8 phase: {time.perf_counter() - t0:.1f} s; "
+              f"{roll_qk['s_per_frame']:.4f} s/frame at B={B} on {card}",
+              flush=True)
+        t0 = time.perf_counter()
+        for label, c, cache_dtype, per_layer in (
+                ("qk_norm bf16", genie_138m(qk_norm=True, num_layers=8),
+                 "bf16", PER_LAYER_QK),
+                ("int8", genie_138m(num_layers=8), "int8", PER_LAYER_INT8)):
+            print(f"rollout {label}, 8 layers: " + json.dumps(
+                check_rollout(c, device, cache_dtype, per_layer, full=False)),
+                flush=True)
+        print(f"8-layer rollouts: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        t0 = time.perf_counter()
+        model, train_qk = check_training(cfg_qk, device, TRAIN_PER_LAYER_QK)
+        print("training qk_norm: " + json.dumps(train_qk), flush=True)
+        print(f"training qk_norm phase: {time.perf_counter() - t0:.1f} s; "
+              f"{train_qk['step_s']:.4f} s/step, "
+              f"{train_qk['tokens_per_s']:.0f} tokens/s, peak "
+              f"{train_qk['peak_memory_bytes'] / 2**30:.2f} GiB at B={TB} on "
+              f"{card}", flush=True)
+        t0 = time.perf_counter()
+        print("qk_norm train step against the plain path: " + json.dumps(
+            check_step_against_plain(model, cfg_qk, device,
+                                     TRAIN_PER_LAYER_QK)), flush=True)
+        print(f"qk_norm plain-path comparison: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del model
 
         line = []
         for name in SOURCES:
@@ -889,16 +1175,29 @@ def main() -> int:
             # the path that the kernel first served (the rollout for the
             # serving kernels, the train step for the training kernels);
             # `train_launches` is the train step's count for all of them.
+            # The decode attention kernels and the fused attention pair are
+            # counted on the qk_norm paths; the former also carry their
+            # int8-cache time, and every kernel its counts on those paths.
             r = results[f"{name}[N={B}]" if name == "spatial_block" else name]
             source, replaces = SOURCES[name]
-            path = roll if name in PER_LAYER else train
-            line.append({
+            path = (roll if name in PER_LAYER else roll_qk
+                    if name in PER_LAYER_QK else train_qk
+                    if name.startswith("flash_mha") else train)
+            item = {
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": path["launches"][name],
                 "train_launches": train["launches"][name],
+                "qk_norm_int8_rollout_launches": roll_qk["launches"][name],
+                "qk_norm_train_launches": train_qk["launches"][name],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+            if name + "[int8]" in results:  # the decode attention kernels
+                q8 = results[name + "[int8]"]
+                item.update(device_ms=r["device_ms"], int8_ms=q8["ms"],
+                            int8_device_ms=q8["device_ms"],
+                            int8_bound_ms=q8["bound_ms"])
+            line.append(item)
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
         print(json.dumps({"kernels": line}), flush=True)
         print(card, flush=True)

@@ -1,6 +1,7 @@
 """The port stands alone: importing `tpu1x_torch` (every module) and
 `chip_smoke` loads neither JAX nor the JAX package, needs neither `nvcc`
-nor `triton`, and a CPU rollout and a CPU train step through the port
+nor `triton`, and a CPU rollout (block path, and op by op with qk_norm and
+the int8 cache) and a CPU train step (pre-LN and qk_norm) through the port
 launch no kernel; the train step defaults to the card and raises without
 one.
 
@@ -41,6 +42,11 @@ model = STMaskGIT(cfg).init_weights(torch.Generator().manual_seed(0))
 prompt = torch.randint(0, cfg.image_vocab_size, (2, 2, 4, 4))
 out = RolloutEngine(model, cfg, device="cpu").rollout(prompt, 2)
 assert tuple(out.shape) == (2, 1, 4, 4, 4), out.shape
+qk_cfg = genie_tiny(d_model=32, qk_norm=True)
+qk_model = STMaskGIT(qk_cfg).init_weights(torch.Generator().manual_seed(0))
+out = RolloutEngine(qk_model, qk_cfg, device="cpu",
+                    cache_dtype="int8").rollout(prompt, 2)
+assert tuple(out.shape) == (2, 1, 4, 4, 4), out.shape
 
 from tpu1x_torch.train.optim import TrainOptimizer
 from tpu1x_torch.train.step import make_eval_step, make_train_step
@@ -48,7 +54,9 @@ for name in ("tpu1x_torch.data.corruption", "tpu1x_torch.train.optim",
              "tpu1x_torch.train.step", "tpu1x_torch.ops.spatial_train_block",
              "tpu1x_torch.ops.temporal_train_block",
              "tpu1x_torch.ops.mlp_train_block",
-             "tpu1x_torch.ops._train_kernels"):
+             "tpu1x_torch.ops._train_kernels",
+             "tpu1x_torch.ops.decode_attention",
+             "tpu1x_torch.ops.attention"):
     assert name in sys.modules, name
 cfg = genie_tiny(d_model=32, num_prompt_frames=2)
 model = STMaskGIT(cfg).init_weights(torch.Generator().manual_seed(0))
@@ -66,6 +74,12 @@ out = make_train_step(model, optimizer, cfg, device="cpu")(tokens)
 assert torch.isfinite(out["loss"]) and torch.isfinite(out["grad_norm"])
 out = make_eval_step(model, cfg, device="cpu")(tokens)
 assert torch.isfinite(out["loss"])
+qk_cfg = genie_tiny(d_model=32, num_prompt_frames=2, qk_norm=True)
+qk_model = STMaskGIT(qk_cfg).init_weights(torch.Generator().manual_seed(0))
+out = make_train_step(qk_model, TrainOptimizer(qk_model, qk_cfg,
+                                               learning_rate=1e-3),
+                      qk_cfg, device="cpu")(tokens)
+assert torch.isfinite(out["loss"]) and torch.isfinite(out["grad_norm"])
 
 assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
 assert not kernels._libs

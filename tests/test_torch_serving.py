@@ -247,10 +247,17 @@ def test_params_from_jax_layouts(scan_layers):
 
 
 def test_unported_options_raise(tiny):
-    with pytest.raises(NotImplementedError):
-        DecodeEngine(genie_tiny(qk_norm=True), device="cpu")
-    with pytest.raises(NotImplementedError):
-        DecodeEngine(tiny["cfg"], device="cpu", cache_dtype="int8")
+    """qk_norm and the int8 cache are served (tests/test_torch_qk_norm.py);
+    a cache dtype that neither package has raises."""
+    assert not DecodeEngine(genie_tiny(qk_norm=True),
+                            device="cpu").block_fusion
+    assert DecodeEngine(tiny["cfg"], device="cpu",
+                        cache_dtype="int8").cache_dtype == "int8"
+    with pytest.raises(ValueError, match="cache_dtype"):
+        DecodeEngine(tiny["cfg"], device="cpu", cache_dtype="fp8")
+    with pytest.raises(ValueError, match="cache_dtype"):
+        RolloutEngine(tiny["model"], tiny["cfg"], device="cpu",
+                      cache_dtype="int4")
 
 
 def test_cuda_without_a_card_raises(tiny):

@@ -133,9 +133,11 @@ def test_logits_loss_and_acc(kw):
     ("pallas", dict()),   # the three Pallas train kernels, interpret mode
     ("xla", dict()),
     ("xla", dict(qk_norm=True)),
+    ("pallas", dict(qk_norm=True)),  # the JAX side's qk_norm kernel route
     ("pallas", dict(use_mup=True, mup_base_d_model=16, qkv_bias=True,
                     action_vocab_size=5)),
-], ids=["pallas", "xla", "xla-qk_norm", "pallas-mup-bias-actions"])
+], ids=["pallas", "xla", "xla-qk_norm", "pallas-qk_norm",
+        "pallas-mup-bias-actions"])
 def test_every_parameter_gradient(attn_impl, kw):
     """d loss / d parameter for every parameter: atol 2e-5 + rtol 2e-3 of
     the gradient (fp32; the Pallas MLP kernel's rational erf against erf

@@ -6,8 +6,10 @@
 // intermediate in VMEM. On the H100 one bf16 row at S=256, C=512 is 256 KB,
 // more than the 227 KB of shared memory a block may use, so the work is cut
 // into three launches instead:
-//   (a) GEMM with the LN1 prologue: qkv = LN1(x) @ Wqkv (+ bias), (N, S, 3C);
-//   (b) attention per (frame, head, 64-query tile): the head's S=256 keys and
+//   (a) GEMM with the optional LN1 prologue: qkv = LN1(x) @ Wqkv (+ bias),
+//       (N, S, 3C);
+//   (b) attention per (frame, head, 64-query tile), with the optional
+//       per-head qk-LayerNorm of the qk_norm models: the head's S=256 keys and
 //       values sit in shared memory, the 16 x 256 logits of each warp stay in
 //       registers, softmax in fp32, probabilities rounded to bf16 and fed
 //       straight from the logit registers into the PV product;
@@ -36,9 +38,17 @@ constexpr int SB_QT = 64;      // queries per block: 4 warps x 16 rows
 constexpr int SB_LD = SB_D + 8;
 
 // qkv (N, S, 3C) -> out (N, S, C). grid (S / 64, H, N), 128 threads.
+// QKLN: the fp32 LayerNorm over the 32 channels of the head, one pair of
+// (32,) parameters shared by q and k and by all heads (variance
+// E[x^2] - E[x]^2, eps 1e-5), is applied to the q and k rows in shared
+// memory and rounded to bf16 before the q k^T product, as the TPU kernel
+// does on its transposed rows. Compiled in under the flag, so that the
+// kernel without it keeps its code.
+template <bool QKLN>
 __global__ void __launch_bounds__(128)
     spatial_attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                             int C, float scale) {
+                             int C, float scale, const float* __restrict__ qk_scale,
+                             const float* __restrict__ qk_bias) {
   __shared__ __align__(16) bf16 Ks[SB_S * SB_LD];
   __shared__ __align__(16) bf16 Vs[SB_S * SB_LD];
   __shared__ __align__(16) bf16 Qs[SB_QT * SB_LD];
@@ -59,6 +69,29 @@ __global__ void __launch_bounds__(128)
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
+
+  if (QKLN) {  // one thread per row of K (256) and Q (64)
+    for (int r = tid; r < SB_S + SB_QT; r += 128) {
+      bf16* row = r < SB_S ? &Ks[r * SB_LD] : &Qs[(r - SB_S) * SB_LD];
+      float f[SB_D];
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int d = 0; d < SB_D; d += 8) load8(row + d, f + d);
+#pragma unroll
+      for (int d = 0; d < SB_D; ++d) {
+        s1 += f[d];
+        s2 += f[d] * f[d];
+      }
+      const float mu = s1 / SB_D;
+      const float rs = rsqrtf(s2 / SB_D - mu * mu + 1e-5f);
+#pragma unroll
+      for (int d = 0; d < SB_D; ++d)
+        f[d] = (f[d] - mu) * rs * qk_scale[d] + qk_bias[d];
+#pragma unroll
+      for (int d = 0; d < SB_D; d += 8) store8(row + d, f + d);
+    }
+    __syncthreads();
+  }
 
   uint32_t qa[2][4];
 #pragma unroll
@@ -403,23 +436,35 @@ __global__ void __launch_bounds__(SBB_THREADS)
 }  // namespace
 
 // x, out (N, S, C); wqkv (C, 3C); wproj (C, C); biases bf16 or null;
-// ln_scale/ln_bias fp32 (C,) or null; qkv_buf (N, S, 3C) and attn_buf
-// (N, S, C) are scratch. Requires S == 256, C == 32 * H, C % 64 == 0.
+// ln_scale/ln_bias fp32 (C,) or null (no pre-LN); qk_ln_scale/qk_ln_bias
+// fp32 (32,) or null (no qk-LN); qkv_buf (N, S, 3C) and attn_buf (N, S, C)
+// are scratch. Requires S == 256, C == 32 * H, C % 64 == 0.
 extern "C" int tpu1x_spatial_block(const void* x, const void* wqkv,
                                    const void* bqkv, const void* wproj,
                                    const void* bproj, const void* ln_scale,
-                                   const void* ln_bias, void* qkv_buf,
+                                   const void* ln_bias, const void* qk_ln_scale,
+                                   const void* qk_ln_bias, void* qkv_buf,
                                    void* attn_buf, void* out, int N, int S,
                                    int C, int H, float scale, void* stream) {
-  if (S != SB_S || C != H * SB_D || C % GBN) return cudaErrorInvalidValue;
+  if (S != SB_S || C != H * SB_D || C % GBN ||
+      (qk_ln_scale == nullptr) != (qk_ln_bias == nullptr))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   GemmParams a = gemm_params(x, wqkv, qkv_buf, N * S, 3 * C, C);
   a.bias = static_cast<const bf16*>(bqkv);
   a.ln_scale = static_cast<const float*>(ln_scale);
   a.ln_bias = static_cast<const float*>(ln_bias);
   TPU1X_TRY(launch_gemm(a, s));
-  spatial_attention_kernel<<<dim3(S / SB_QT, H, N), 128, 0, s>>>(
-      static_cast<const bf16*>(qkv_buf), static_cast<bf16*>(attn_buf), C, scale);
+  const dim3 grid(S / SB_QT, H, N);
+  const bf16* qkv = static_cast<const bf16*>(qkv_buf);
+  const float* qs = static_cast<const float*>(qk_ln_scale);
+  const float* qb = static_cast<const float*>(qk_ln_bias);
+  if (qs != nullptr)
+    spatial_attention_kernel<true><<<grid, 128, 0, s>>>(
+        qkv, static_cast<bf16*>(attn_buf), C, scale, qs, qb);
+  else
+    spatial_attention_kernel<false><<<grid, 128, 0, s>>>(
+        qkv, static_cast<bf16*>(attn_buf), C, scale, nullptr, nullptr);
   TPU1X_TRY(cudaGetLastError());
   GemmParams b = gemm_params(attn_buf, wproj, out, N * S, C, C);
   b.bias = static_cast<const bf16*>(bproj);

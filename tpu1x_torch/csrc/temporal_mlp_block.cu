@@ -20,139 +20,14 @@
 // one frame at B=16, C=512 (26 us of tensor-core time); the cache read is
 // 2 B S C bytes per slot (8.4 MB). The attention reads only slots t < t_B[b]
 // of one layer: the TPU kernel streamed all T slots and masked, which is the
-// same arithmetic on more bytes. Each head's 32-channel dot product lives in
-// four lanes (8 channels each, 16-byte loads), which takes the place of the
-// TPU's 0/1 head matrix; the fp32 softmax over at most T + 2 logits stays in
-// registers. Probabilities stay fp32 through PV, as the reference's do.
+// same arithmetic on more bytes. The attention kernel is the one of
+// csrc/decode_attention.cuh (four lanes per head, fp32 softmax over at most
+// T + 2 logits in registers, probabilities fp32 through PV, as the
+// reference's), shared with the stand-alone decode attention.
 
-#include "common.cuh"
+#include "decode_attention.cuh"
 
 using namespace tpu1x;
-
-namespace {
-
-constexpr int TM_MAXT = 16;
-
-// qkv (B, F, S, 3C); caches (T, L, B, S, C); attn (B, F, S, C);
-// k_out/v_out (B, S, C) get frame 0's k and v, when they are not null.
-// grid (S, B), C/8 threads.
-template <int F>
-__global__ void decode_attention_kernel(
-    const bf16* __restrict__ qkv, const bf16* __restrict__ kc,
-    const bf16* __restrict__ vc, const int* __restrict__ t_B,
-    bf16* __restrict__ attn, bf16* __restrict__ k_out, bf16* __restrict__ v_out,
-    int B, int S, int C, int T, int L, int layer, float scale) {
-  const int s = blockIdx.x, b = blockIdx.y, c0 = threadIdx.x * 8;
-  const int tb = max(0, min(t_B[b], T));
-  const long ld = 3L * C;
-
-  float q[F][8], ks[F][8], vs[F][8];
-#pragma unroll
-  for (int f = 0; f < F; ++f) {
-    const bf16* row = qkv + ((long)(b * F + f) * S + s) * ld + c0;
-    load8(row, q[f]);
-    load8(row + C, ks[f]);
-    load8(row + 2 * C, vs[f]);
-    if (f == 0 && k_out != nullptr) {
-      const long o = ((long)b * S + s) * C + c0;
-      *reinterpret_cast<uint4*>(k_out + o) = *reinterpret_cast<const uint4*>(row + C);
-      *reinterpret_cast<uint4*>(v_out + o) =
-          *reinterpret_cast<const uint4*>(row + 2 * C);
-    }
-  }
-  auto slot = [&](int t) { return ((((long)t * L + layer) * B + b) * S + s) * C + c0; };
-
-  float lg[F][TM_MAXT], m[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) m[f] = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < TM_MAXT; ++j) {
-    if (j < tb) {
-      float kf[8];
-      load8(kc + slot(j), kf);
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        float d = 0.f;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) d += q[f][i] * kf[i];
-        lg[f][j] = quad_sum(d) * scale;
-        m[f] = fmaxf(m[f], lg[f][j]);
-      }
-    }
-  }
-  // in-pass logits: each frame against itself; with a pair, cur against prev
-  float ls[F], lp = 0.f;
-#pragma unroll
-  for (int f = 0; f < F; ++f) {
-    float d = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) d += q[f][i] * ks[f][i];
-    ls[f] = quad_sum(d) * scale;
-    m[f] = fmaxf(m[f], ls[f]);
-  }
-  if (F == 2) {
-    float d = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) d += q[F - 1][i] * ks[0][i];
-    lp = quad_sum(d) * scale;
-    m[F - 1] = fmaxf(m[F - 1], lp);
-  }
-
-  float den[F], es[F], ep = 0.f;
-#pragma unroll
-  for (int f = 0; f < F; ++f) {
-    den[f] = 0.f;
-#pragma unroll
-    for (int j = 0; j < TM_MAXT; ++j) {
-      if (j < tb) {
-        lg[f][j] = __expf(lg[f][j] - m[f]);
-        den[f] += lg[f][j];
-      }
-    }
-    es[f] = __expf(ls[f] - m[f]);
-  }
-  if (F == 2) {
-    ep = __expf(lp - m[F - 1]);
-    den[F - 1] += ep;
-  }
-#pragma unroll
-  for (int f = 0; f < F; ++f) den[f] += es[f];
-
-  float acc[F][8];
-#pragma unroll
-  for (int f = 0; f < F; ++f)
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[f][i] = 0.f;
-#pragma unroll
-  for (int j = 0; j < TM_MAXT; ++j) {
-    if (j < tb) {
-      float vf[8];
-      load8(vc + slot(j), vf);
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        const float p = lg[f][j] / den[f];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[f][i] += p * vf[i];
-      }
-    }
-  }
-#pragma unroll
-  for (int f = 0; f < F; ++f) {
-    const float p = es[f] / den[f];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[f][i] += p * vs[f][i];
-  }
-  if (F == 2) {
-    const float p = ep / den[F - 1];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[F - 1][i] += p * vs[0][i];
-  }
-#pragma unroll
-  for (int f = 0; f < F; ++f)
-    store8(attn + ((long)(b * F + f) * S + s) * C + c0, acc[f]);
-}
-
-}  // namespace
 
 // x, out (B, frames, S, C) bf16; caches (T, L, B, S, C) bf16; t_B (B,) int32;
 // weights bf16 (in, out); biases bf16 or null; ln_scale/ln_bias fp32 (C,);
@@ -167,9 +42,7 @@ extern "C" int tpu1x_temporal_mlp_block(
     void* attn_buf, void* x1_buf, void* h_buf, void* out, void* k_out,
     void* v_out, int B, int frames, int S, int C, int F4, int T, int L,
     int layer, int gelu_tanh, float scale, void* stream) {
-  if ((frames != 1 && frames != 2) || T > TM_MAXT || C % 256 || F4 % GBN ||
-      layer < 0 || layer >= L)
-    return cudaErrorInvalidValue;
+  if ((frames != 1 && frames != 2) || F4 % GBN) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * frames * S;
 
@@ -177,21 +50,29 @@ extern "C" int tpu1x_temporal_mlp_block(
   a.bias = static_cast<const bf16*>(bqkv);
   TPU1X_TRY(launch_gemm(a, s));
 
-  const dim3 grid(S, B);
+  // q, k, v are column thirds of qkv_buf (B, frames, S, 3C)
+  DecodeAttnArgs d{};
   const bf16* qkv = static_cast<const bf16*>(qkv_buf);
-  if (frames == 1)
-    decode_attention_kernel<1><<<grid, C / 8, 0, s>>>(
-        qkv, static_cast<const bf16*>(k_cache), static_cast<const bf16*>(v_cache),
-        static_cast<const int*>(t_B), static_cast<bf16*>(attn_buf),
-        static_cast<bf16*>(k_out), static_cast<bf16*>(v_out), B, S, C, T, L,
-        layer, scale);
-  else
-    decode_attention_kernel<2><<<grid, C / 8, 0, s>>>(
-        qkv, static_cast<const bf16*>(k_cache), static_cast<const bf16*>(v_cache),
-        static_cast<const int*>(t_B), static_cast<bf16*>(attn_buf),
-        static_cast<bf16*>(k_out), static_cast<bf16*>(v_out), B, S, C, T, L,
-        layer, scale);
-  TPU1X_TRY(cudaGetLastError());
+  for (int f = 0; f < frames; ++f) {
+    d.q[f] = qkv + (long)f * S * 3 * C;
+    d.k[f] = d.q[f] + C;
+    d.v[f] = d.q[f] + 2 * C;
+    d.out[f] = static_cast<bf16*>(attn_buf) + (long)f * S * C;
+  }
+  for (int i = 0; i < 3; ++i) {
+    d.sb[i] = (long)frames * S * 3 * C;
+    d.ld[i] = 3L * C;
+  }
+  d.osb = (long)frames * S * C;
+  d.old = C;
+  d.kc = k_cache;
+  d.vc = v_cache;
+  d.t_B = static_cast<const int*>(t_B);
+  d.k_out = static_cast<bf16*>(k_out);
+  d.v_out = static_cast<bf16*>(v_out);
+  d.B = B, d.S = S, d.C = C, d.T = T, d.L = L, d.layer = layer;
+  d.scale = scale;
+  TPU1X_TRY(launch_decode_attention(d, frames, s));
 
   GemmParams p = gemm_params(attn_buf, wproj, x1_buf, M, C, C);
   p.bias = static_cast<const bf16*>(bproj);

@@ -40,10 +40,9 @@ SIGNATURES = {
         ("tpu1x_layer_norm", [P, P, P, P, I, I, F, P]),
     ],
     "spatial_block": [
-        # x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, qkv_buf, attn_buf,
-        # out, N, S, C, H, scale, stream
-        ("tpu1x_spatial_block", [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F,
-                                 P]),
+        # x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, qk_ln_scale,
+        # qk_ln_bias, qkv_buf, attn_buf, out, N, S, C, H, scale, stream
+        ("tpu1x_spatial_block", [P] * 12 + [I, I, I, I, F, P]),
         # qkv, d_o, dqkv, o, N, S, C, H, scale, stream
         ("tpu1x_spatial_attention_bwd", [P, P, P, P, I, I, I, I, F, P]),
     ],
@@ -73,6 +72,21 @@ SIGNATURES = {
         # scale, stream
         ("tpu1x_temporal_mlp_block", [P] * 21 + [I] * 9 + [F, P]),
     ],
+    "decode_attention": [
+        # q0, q1, k0, k1, v0, v1, sbq, ldq, sbk, ldk, sbv, ldv, k_cache,
+        # v_cache, k_scale, v_scale, t_B, out0, out1, osb, old, k_out, v_out,
+        # B, frames, S, C, T, L, layer, scale, stream
+        ("tpu1x_decode_attention", [P] * 6 + [L] * 6 + [P] * 7 + [L, L, P, P]
+         + [I] * 7 + [F, P]),
+    ],
+    "flash_attention": [
+        # q, k, v, out, rsq, tsq, rsk, tsk, rsv, tsv, R, N, H, D, scale,
+        # causal, stream
+        ("tpu1x_flash_mha", [P] * 4 + [L] * 6 + [I] * 4 + [F, I, P]),
+        # q, k, v, d_o, dq, dk, dv, rsq, tsq, rsk, tsk, rsv, tsv, rsg, tsg,
+        # R, N, H, D, scale, causal, stream
+        ("tpu1x_flash_mha_bwd", [P] * 7 + [L] * 8 + [I] * 4 + [F, I, P]),
+    ],
 }
 
 LAUNCHES: Dict[str, int] = {
@@ -87,6 +101,10 @@ LAUNCHES: Dict[str, int] = {
     "temporal_train_block_bwd": 0,
     "mlp_train_block": 0,
     "mlp_train_block_bwd": 0,
+    "temporal_decode_attention": 0,
+    "temporal_decode2_attention": 0,
+    "flash_mha": 0,
+    "flash_mha_bwd": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -24,6 +24,7 @@ from tpu1x_torch.models.factorization import (FactorizedEmbedding,
                                               factored_embed,
                                               factorize_token_ids)
 from tpu1x_torch.models.st_transformer import STTransformerDecoder
+from tpu1x_torch.ops.decode_attention import quantize_kv
 
 
 def cosine_schedule(u: float) -> float:
@@ -153,10 +154,16 @@ def update_cache(cache: Dict[str, torch.Tensor],
                  kv_cur: Tuple[torch.Tensor, torch.Tensor],
                  t: int) -> Dict[str, torch.Tensor]:
     """Commit a frame's k/v, each (1, L, B, S, C), into slot `t` of the
-    T-major (T, L, B, S, C) cache. Writes IN PLACE (the JAX version returns
-    an updated copy) and returns the same dict."""
-    k_cur, v_cur = kv_cur
-    cache["k"][t].copy_(k_cur[0])
-    cache["v"][t].copy_(v_cur[0])
+    T-major (T, L, B, S, C) cache. An int8 cache (one with "k_scale" and
+    "v_scale", (L, B, T, S) fp32) gets the frame quantized per token, and
+    its scales at [:, :, t]. Writes IN PLACE (the JAX version returns an
+    updated copy) and returns the same dict."""
+    for key, cur in zip(("k", "v"), kv_cur):
+        if key + "_scale" in cache:
+            q, scale = quantize_kv(cur[0])  # (L, B, S, C), (L, B, S)
+            cache[key][t].copy_(q)
+            cache[key + "_scale"][:, :, t].copy_(scale)
+        else:
+            cache[key][t].copy_(cur[0])
     return cache
 

@@ -14,9 +14,13 @@ forward over (B, T, S, C).
 
 With qk_norm off, `STBlock.forward` is the three train blocks (spatial,
 temporal, MLP): on the card each launches its kernels forward and backward,
-on the CPU each takes its plain version under ordinary autograd. qk_norm on
-takes the plain composition on the CPU and raises on the card, where its
-attention kernels are not ported yet. Dropout is not ported: a rate above 0
+on the CPU each takes its plain version under ordinary autograd. With
+qk_norm on none of the fused spatial and temporal blocks applies, as in the
+JAX package: each attention is the qkv product, the fp32 qk-LayerNorm, `mha`
+and the proj product under ordinary autograd, where `mha` is the fused
+attention kernel pair (forward and backward) for the S = 256 spatial axis on
+the card and the plain attention for the T = 16 frame axis; the MLP is the
+MLP train block without its LayerNorm. Dropout is not ported: a rate above 0
 raises in training mode.
 """
 
@@ -28,7 +32,7 @@ import torch
 from torch import nn
 
 from tpu1x_torch.ops._util import dense
-from tpu1x_torch.ops.attention import mha_reference
+from tpu1x_torch.ops.attention import mha
 from tpu1x_torch.ops.layernorm import layer_norm_plain
 from tpu1x_torch.ops.mlp_train_block import mlp_train_block
 from tpu1x_torch.ops.spatial_train_block import spatial_train_block
@@ -49,9 +53,10 @@ class SelfAttention(nn.Module):
         if qk_norm:
             self.norm = nn.LayerNorm(head_dim, eps=1e-5, device=device)
 
-    def forward(self, x: torch.Tensor, causal: bool) -> torch.Tensor:
-        """The plain attention over axis -2 of x (..., N, C), with the
-        fp32 qk-LayerNorm shared by q and k when the module has one."""
+    def forward(self, x: torch.Tensor, causal: bool, mha=mha) -> torch.Tensor:
+        """Attention over axis -2 of x (..., N, C) by `mha`, between the
+        qkv and proj products, with the fp32 qk-LayerNorm shared by q and k
+        when the module has one."""
         H = self.num_heads
         qkv = dense(x, self.qkv.weight.t(), self.qkv.bias)
         q, k, v = qkv.reshape(*x.shape[:-1], 3, H, -1).unbind(-3)
@@ -60,7 +65,7 @@ class SelfAttention(nn.Module):
                                  self.norm.bias).to(v.dtype)
             k = layer_norm_plain(k.float(), self.norm.weight,
                                  self.norm.bias).to(v.dtype)
-        out = mha_reference(q, k, v, scale=self.scale, causal=causal)
+        out = mha(q, k, v, scale=self.scale, causal=causal)
         return dense(out.reshape(x.shape), self.proj.weight.t(),
                      self.proj.bias)
 
@@ -75,12 +80,13 @@ class Mlp(nn.Module):
 
 
 class STBlock(nn.Module):
-    # The three train blocks. Each takes its kernels for a CUDA tensor and
-    # its plain version for a CPU tensor; a measuring script that needs the
-    # plain path on the card as its oracle swaps this namespace.
+    # The three train blocks, and the attention of the qk_norm models. Each
+    # takes its kernels for a CUDA tensor and its plain version for a CPU
+    # tensor; a measuring script that needs the plain path on the card as
+    # its oracle swaps this namespace.
     ops = SimpleNamespace(spatial=spatial_train_block,
                           temporal=temporal_train_block,
-                          mlp=mlp_train_block)
+                          mlp=mlp_train_block, mha=mha)
 
     def __init__(self, num_heads: int, d_model: int, qkv_bias: bool = False,
                  proj_bias: bool = True, qk_norm: bool = True,
@@ -119,14 +125,9 @@ class STBlock(nn.Module):
         x = x_BTSC.to(self.dtype)
         sa, ta = self.spatial_attn, self.temporal_attn
         if self.qk_norm:
-            if x.is_cuda:
-                raise NotImplementedError(
-                    "qk_norm=True training on the card waits for the flash "
-                    "attention kernels (K9/K10); the CPU runs its plain "
-                    "composition")
-            x = x + sa(x, causal=False)
+            x = x + sa(x, causal=False, mha=self.ops.mha)
             x = x.transpose(1, 2)
-            x = (x + ta(x, causal=True)).transpose(1, 2)
+            x = (x + ta(x, causal=True, mha=self.ops.mha)).transpose(1, 2)
             return self._mlp(x.reshape(B * T, S, C), None).reshape(B, T, S, C)
         x = self.ops.spatial(
             x.reshape(B * T, S, C), sa.qkv.weight.t(), sa.proj.weight.t(),

@@ -1,11 +1,18 @@
-"""Plain multi-head attention, the oracle that the attention kernels' plain
-versions build on."""
+"""Multi-head attention over (..., N, H, D): the plain version, which is
+also the oracle that the other attention kernels' plain versions build on,
+and the fused kernel pair (forward and backward) for the card."""
 
 from __future__ import annotations
 
 import torch
 
+from tpu1x_torch import kernels
+from tpu1x_torch.ops._util import require
+
 NEG_INF = torch.finfo(torch.float32).min
+# `mha` sends fewer tokens than this (the frame axis, T = 16) to the plain
+# version
+FLASH_MIN_TOKENS = 64
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -25,3 +32,122 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(logits, dim=-1).to(out_dtype)
     out = torch.einsum("...hqk,...khd->...qhd", probs.float(), v.float())
     return out.to(out_dtype)
+
+
+def _rows(t: torch.Tensor, name: str, shape):
+    """`t` as (R, N, H, D) with its leading axes folded into one (a view
+    where the strides allow it, as they do for a third of a qkv product),
+    checked for what the kernels read; returns (tensor, row stride, token
+    stride)."""
+    require(t.is_cuda and t.dtype == torch.bfloat16
+            and tuple(t.shape) == tuple(shape),
+            f"{name} must be a bf16 CUDA tensor of shape {tuple(shape)}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    N, H, D = shape[-3:]
+    t = t.reshape(-1, N, H, D)
+    rs, ts, hs, ds = t.stride()
+    require(ds == 1 and hs == D and rs % 8 == 0 and ts % 8 == 0
+            and t.data_ptr() % 16 == 0,
+            f"{name}: strides {t.stride()} must be (8 i, 8 j, {D}, 1) and "
+            f"the data 16-byte aligned")
+    return t, rs, ts
+
+
+def _check_shape(q, k, v):
+    N, H, D = q.shape[-3:]
+    require(k.shape == q.shape and v.shape == q.shape,
+            "q, k, v must share one shape")
+    require(D == 32 and 64 <= N <= 256 and N % 64 == 0,
+            f"the flash attention kernels need head_dim 32, N % 64 == 0 and "
+            f"64 <= N <= 256, got N={N}, head_dim={D}")
+
+
+def flash_mha_fwd(q, k, v, *, scale: float, causal: bool) -> torch.Tensor:
+    """Check, launch the forward kernel on CUDA q, k, v (..., N, H, 32) and
+    count it. Returns a contiguous tensor of q's shape."""
+    _check_shape(q, k, v)
+    N, H, D = q.shape[-3:]
+    (q4, rsq, tsq), (k4, rsk, tsk), (v4, rsv, tsv) = (
+        _rows(t, name, q.shape) for name, t in (("q", q), ("k", k), ("v", v)))
+    out = torch.empty(q4.shape, dtype=q.dtype, device=q.device)
+    err = kernels.lib("flash_attention").tpu1x_flash_mha(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(), rsq, tsq,
+        rsk, tsk, rsv, tsv, q4.shape[0], N, H, D, scale, int(causal),
+        kernels.stream_of(q))
+    kernels.check(err, "flash_mha")
+    kernels.count("flash_mha")
+    return out.view(q.shape)
+
+
+def flash_mha_bwd(q, k, v, dout, *, scale: float, causal: bool):
+    """Check, launch the backward kernel and count it. Returns (dq, dk, dv),
+    contiguous, of q's shape."""
+    _check_shape(q, k, v)
+    N, H, D = q.shape[-3:]
+    (q4, rsq, tsq), (k4, rsk, tsk), (v4, rsv, tsv), (g4, rsg, tsg) = (
+        _rows(t, name, q.shape) for name, t in (("q", q), ("k", k), ("v", v),
+                                                ("dout", dout)))
+    dq, dk, dv = (torch.empty(q4.shape, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    err = kernels.lib("flash_attention").tpu1x_flash_mha_bwd(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), g4.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), rsq, tsq, rsk, tsk, rsv,
+        tsv, rsg, tsg, q4.shape[0], N, H, D, scale, int(causal),
+        kernels.stream_of(q))
+    kernels.check(err, "flash_mha_bwd")
+    kernels.count("flash_mha_bwd")
+    return dq.view(q.shape), dk.view(q.shape), dv.view(q.shape)
+
+
+class _FlashMha(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = dict(scale=scale, causal=causal)
+        return flash_mha_fwd(q, k, v, **ctx.args)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*flash_mha_bwd(q, k, v, dout.contiguous(), **ctx.args),
+                None, None)
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              scale: float, causal: bool = False) -> torch.Tensor:
+    """`mha_reference`'s contract, fused and differentiable: q, k, v
+    (..., N, H, D) with any leading axes, softmax(q k^T scale [causal]) v
+    per (row, head), in v's dtype.
+
+    CPU tensors take `mha_reference` under ordinary autograd. CUDA tensors
+    launch csrc/flash_attention.cu, which replaces the Pallas kernels
+    tpu1x/ops/pallas_attention.py:_flash_mha_bhnd (forward) and, under
+    autograd, _flash_mha_bwd_bhnd (backward; the residuals are q, k, v only,
+    and the probabilities are recomputed). The card path takes bf16,
+    head_dim 32, N % 64 == 0 and 64 <= N <= 256; fp32 inputs are for the CPU.
+    q, k and v are read where they lie, each with its own strides (the last
+    two axes contiguous, the others multiples of 8 that fold into one row
+    stride), so the v third of a (rows, N, 3, H, D) qkv product needs no
+    copy; outputs and gradients are new contiguous tensors.
+
+    The forward multiplies q k^T exactly (bf16 operands, fp32 accumulation),
+    keeps logits and softmax in fp32 and rounds p to bf16 for p v, as the
+    TPU kernel does. The backward rounds p and ds to bf16 for its four
+    products, where the TPU kernel keeps them fp32. Bound on the H100, by
+    the roofline: device memory (q, k, v, o once each; the gradients
+    likewise); nothing N x N reaches it.
+    """
+    if not q.is_cuda:
+        return mha_reference(q, k, v, scale=scale, causal=causal)
+    return _FlashMha.apply(q, k, v, scale, causal)
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+        causal: bool = False) -> torch.Tensor:
+    """Attention over axis -3: `flash_mha` from FLASH_MIN_TOKENS tokens up
+    (the S = 256 spatial axis), `mha_reference` below (at T = 16 the
+    kernel's grid of one block per (row, head) would be all launch and no
+    work), as the JAX package chooses."""
+    if q.shape[-3] >= FLASH_MIN_TOKENS:
+        return flash_mha(q, k, v, scale=scale, causal=causal)
+    return mha_reference(q, k, v, scale=scale, causal=causal)

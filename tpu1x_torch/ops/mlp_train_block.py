@@ -42,14 +42,14 @@ def _act(gelu_approx: bool, derivative: bool = False) -> str:
 def mlp_train_block_fwd(x, wfc1, wfc2, bfc1, bfc2, ln_scale, ln_bias, *,
                         gelu_approx: bool):
     """The forward on the card, bf16 x (N, S, C) and weights, fp32 LN
-    params: the fc1 GEMM with the LN2 prologue, bias and GELU in its
-    epilogue, then the fc2 GEMM with bias and residual. The GELU is exact
-    `erff` (the TPU kernel's rational erf stands in for an erf that Mosaic
-    lacks, and is not copied)."""
+    params or None: the fc1 GEMM with the LN2 prologue (when there is an
+    LN), bias and GELU in its epilogue, then the fc2 GEMM with bias and
+    residual. The GELU is exact `erff` (the TPU kernel's rational erf stands
+    in for an erf that Mosaic lacks, and is not copied)."""
     C = x.shape[-1]
     x2 = x.view(-1, C)
     h = tk.gemm(x2, wfc1, bias=bfc1, act=_act(gelu_approx),
-                ln=(ln_scale, ln_bias))
+                ln=None if ln_scale is None else (ln_scale, ln_bias))
     out = tk.gemm(h, wfc2, bias=bfc2, resid=x2)
     kernels.count("mlp_train_block")
     return out.view(x.shape)
@@ -64,21 +64,28 @@ def mlp_train_block_bwd(x, dout, wfc1, wfc2, bfc1, ln_scale, ln_bias, *,
     GELU(h) and the rounded pre-activation h; dWfc2 = g^T dout; d_h =
     (dout Wfc2^T) GELU'(h), the derivative in the GEMM's epilogue in fp32;
     dWfc1 = LN2(x)^T d_h; the bias column sums; d_xn = d_h Wfc1^T in fp32;
-    the LN backward with the residual's dout and the LN gradients. The
+    the LN backward with the residual's dout and the LN gradients. Without
+    LN params the two LN launches go, and dx = dout + d_h Wfc1^T comes out of
+    the last GEMM's residual epilogue (dln_scale and dln_bias are None). The
     (rows, 4C) hidden goes through device memory (the TPU kernel keeps it in
     VMEM).
     """
     C = x.shape[-1]
     x2, do2 = x.view(-1, C), dout.view(-1, C)
-    xn, stats = tk.ln_fwd(x2, ln_scale, ln_bias)
+    has_ln = ln_scale is not None
+    xn, stats = tk.ln_fwd(x2, ln_scale, ln_bias) if has_ln else (x2, None)
     g, h = tk.gemm(xn, wfc1, bias=bfc1, act=_act(gelu_approx), pre_out=True)
     dwfc2 = tk.gemm(g, do2, mode="tn")
     d_h = tk.gemm(do2, wfc2, mode="nt", aux=h, act=_act(gelu_approx, True))
     dwfc1 = tk.gemm(xn, d_h, mode="tn")
     dbfc1 = tk.col_sum(d_h) if bias else None
     dbfc2 = tk.col_sum(do2) if bias else None
-    d_xn = tk.gemm(d_h, wfc1, mode="nt", fp32_out=True)
-    dx, dln_s, dln_b = tk.ln_bwd(x2, stats, ln_scale, d_xn, do2)
+    if has_ln:
+        d_xn = tk.gemm(d_h, wfc1, mode="nt", fp32_out=True)
+        dx, dln_s, dln_b = tk.ln_bwd(x2, stats, ln_scale, d_xn, do2)
+    else:
+        dx = tk.gemm(d_h, wfc1, mode="nt", resid=do2)
+        dln_s = dln_b = None
     kernels.count("mlp_train_block_bwd")
     return dx.view(x.shape), dwfc1, dwfc2, dbfc1, dbfc2, dln_s, dln_b
 
@@ -121,9 +128,9 @@ def mlp_train_block(x: torch.Tensor, wfc1: torch.Tensor, wfc2: torch.Tensor,
     tensors launch `mlp_train_block_fwd` and, under autograd,
     `mlp_train_block_bwd`, which replace the Pallas kernels
     tpu1x/ops/mlp_train_block.py:_mlp_fwd and _mlp_bwd. The card path takes
-    bf16 contiguous x, C % 32 == 0, C <= 1024, hidden % 64 == 0 and needs
-    the LN params (the qk_norm configs, which have none, are not on the
-    card yet). Residuals are x and the weights only. Bound on the H100:
+    bf16 contiguous x, C % 32 == 0, C <= 1024 and hidden % 64 == 0; the LN
+    params are optional there too (the qk_norm configs have none).
+    Residuals are x and the weights only. Bound on the H100:
     tensor-core operations (16 rows C hidden FLOP forward and recompute,
     8 more in each of the three backward products). The weight and LN
     gradients are summed with fp32 atomics, so their last bits differ from
@@ -136,7 +143,5 @@ def mlp_train_block(x: torch.Tensor, wfc1: torch.Tensor, wfc2: torch.Tensor,
         return mlp_train_block_plain(x, wfc1, wfc2, bfc1=bfc1, bfc2=bfc2,
                                      ln_scale=ln_scale, ln_bias=ln_bias,
                                      gelu_approx=gelu_approx)
-    require(ln_scale is not None,
-            "the MLP train block on the card needs the LN2 parameters")
     return _MlpTrainBlock.apply(x.contiguous(), wfc1, wfc2, bfc1, bfc2,
                                 ln_scale, ln_bias, gelu_approx)

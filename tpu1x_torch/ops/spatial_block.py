@@ -14,7 +14,8 @@ from tpu1x_torch.ops.layernorm import layer_norm_plain
 
 
 def spatial_block_plain(x, wqkv, wproj, *, num_heads: int, scale: float,
-                        bqkv=None, bproj=None, ln_scale=None, ln_bias=None):
+                        bqkv=None, bproj=None, ln_scale=None, ln_bias=None,
+                        qk_ln_scale=None, qk_ln_bias=None):
     """The JAX package's `spatial_block_reference`: the serving path's
     mixed precision, in plain torch."""
     N, S, C = x.shape
@@ -22,6 +23,9 @@ def spatial_block_plain(x, wqkv, wproj, *, num_heads: int, scale: float,
     xn = x if ln_scale is None else layer_norm_plain(x, ln_scale, ln_bias)
     qkv = dense(xn, wqkv, bqkv)
     q, k, v = (t.reshape(N, S, H, C // H) for t in qkv.split(C, dim=-1))
+    if qk_ln_scale is not None:  # fp32 LN over head_dim, shared by q and k
+        q = layer_norm_plain(q, qk_ln_scale, qk_ln_bias)
+        k = layer_norm_plain(k, qk_ln_scale, qk_ln_bias)
     out = mha_reference(q, k, v, scale=scale, causal=False)
     return x + dense(out.reshape(N, S, C), wproj, bproj)
 
@@ -31,33 +35,42 @@ def spatial_block(x: torch.Tensor, wqkv: torch.Tensor, wproj: torch.Tensor, *,
                   bqkv: Optional[torch.Tensor] = None,
                   bproj: Optional[torch.Tensor] = None,
                   ln_scale: Optional[torch.Tensor] = None,
-                  ln_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x (N, S, C) -> x + proj(mha(qkv(ln(x)))).
+                  ln_bias: Optional[torch.Tensor] = None,
+                  qk_ln_scale: Optional[torch.Tensor] = None,
+                  qk_ln_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (N, S, C) -> x + proj(mha(qkv(ln(x)))), with the optional
+    LayerNorm of q and k over head_dim (one pair of parameters shared by q,
+    k and all heads) that the qk_norm models have in place of the pre-LN.
 
     CPU tensors take `spatial_block_plain`. CUDA tensors launch
     csrc/spatial_block.cu, which replaces the Pallas kernel
     tpu1x/ops/spatial_block.py:spatial_block. It takes bf16 x and weights
-    ((C, 3C), (C, C), biases (3C,), (C,) or None), fp32 LN params or None,
-    S == 256, head_dim 32 and C % 64 == 0.
+    ((C, 3C), (C, C), biases (3C,), (C,) or None), fp32 LN params (C,) or
+    None, fp32 qk-LN params (32,) or None, S == 256, head_dim 32 and
+    C % 64 == 0.
 
     Bound on the H100: tensor-core operations. One row is 256 KB in bf16,
     more than a block's shared memory, so the TPU's one-program-per-row
     design becomes three launches (LN1 + qkv GEMM, attention per (row, head,
     64-query tile) with the head's keys in shared memory, proj GEMM + bias +
-    residual); the (N, H, S, S) logits never leave registers.
+    residual); the (N, H, S, S) logits never leave registers. The qk-LN
+    normalises the head's q and k rows where they lie in shared memory.
     """
     if not x.is_cuda:
         return spatial_block_plain(x, wqkv, wproj, num_heads=num_heads,
                                    scale=scale, bqkv=bqkv, bproj=bproj,
-                                   ln_scale=ln_scale, ln_bias=ln_bias)
+                                   ln_scale=ln_scale, ln_bias=ln_bias,
+                                   qk_ln_scale=qk_ln_scale,
+                                   qk_ln_bias=qk_ln_bias)
     N, S, C = x.shape
     dev, bf = x.device, torch.bfloat16
     require(S == 256, f"spatial_block kernel needs S == 256, got {S}")
     require(C == 32 * num_heads and C % 64 == 0,
             f"spatial_block kernel needs head_dim 32 and C % 64 == 0, got "
             f"C={C}, heads={num_heads}")
-    require((ln_scale is None) == (ln_bias is None),
-            "pass both LN params or neither")
+    require((ln_scale is None) == (ln_bias is None)
+            and (qk_ln_scale is None) == (qk_ln_bias is None),
+            "pass both params of a LayerNorm or neither")
     check_tensor(x, "x", (N, S, C), bf, dev)
     check_tensor(wqkv, "wqkv", (C, 3 * C), bf, dev)
     check_tensor(wproj, "wproj", (C, C), bf, dev)
@@ -68,12 +81,16 @@ def spatial_block(x: torch.Tensor, wqkv: torch.Tensor, wproj: torch.Tensor, *,
     if ln_scale is not None:
         check_tensor(ln_scale, "ln_scale", (C,), torch.float32, dev)
         check_tensor(ln_bias, "ln_bias", (C,), torch.float32, dev)
+    if qk_ln_scale is not None:
+        check_tensor(qk_ln_scale, "qk_ln_scale", (32,), torch.float32, dev)
+        check_tensor(qk_ln_bias, "qk_ln_bias", (32,), torch.float32, dev)
     qkv = torch.empty(N, S, 3 * C, dtype=bf, device=dev)
     attn = torch.empty_like(x)
     out = torch.empty_like(x)
     err = kernels.lib("spatial_block").tpu1x_spatial_block(
         x.data_ptr(), wqkv.data_ptr(), ptr(bqkv), wproj.data_ptr(), ptr(bproj),
-        ptr(ln_scale), ptr(ln_bias), qkv.data_ptr(), attn.data_ptr(),
+        ptr(ln_scale), ptr(ln_bias), ptr(qk_ln_scale), ptr(qk_ln_bias),
+        qkv.data_ptr(), attn.data_ptr(),
         out.data_ptr(), N, S, C, num_heads, scale, kernels.stream_of(x))
     kernels.check(err, "spatial_block")
     kernels.count("spatial_block")

@@ -113,8 +113,8 @@ def spatial_train_block(x: torch.Tensor, wqkv: torch.Tensor,
     tpu1x/ops/spatial_train_block.py:_spatial_bwd (_bwd_kernel, default
     arithmetic). The card path takes bf16 x, S == 256, head_dim 32,
     C % 64 == 0, C <= 1024 and needs the LN params (the qk_norm configs,
-    which have none, are not on the card yet). Residuals are x and the
-    weights only; the backward recomputes LN1, qkv and the probabilities,
+    which have none, train through `flash_mha` instead). Residuals are x and
+    the weights only; the backward recomputes LN1, qkv and the probabilities,
     and the (N, H, S, S) probabilities never reach device memory. Bound on
     the H100: tensor-core operations (the GEMMs and the attention's eight
     S x S x 32 products per head). The weight and LN gradients are summed

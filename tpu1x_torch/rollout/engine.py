@@ -1,9 +1,12 @@
 """Batched world-model rollouts: K imagined futures per prompt, decoded with
 the KV-cached, fused-commit MaskGIT sampler over `DecodeEngine`.
 
-`score_policies` and `rank_policies` need the full forward
-(`compute_logits`), which waits for the training slice; so does the JAX
-package's uncached decode="full". Its int8 cache waits for its kernels.
+`cache_dtype="int8"` keeps the KV cache in per-token int8 with fp32 scales
+(half the bytes of the cache read); `DecodeEngine` then runs each layer op
+by op, as it does for the qk_norm models.
+
+`score_policies`, `rank_policies` and the JAX package's uncached
+decode="full" are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,12 +31,13 @@ class RolloutEngine:
 
     def __init__(self, model, config: GenieConfig, device="cuda",
                  maskgit_steps: int = 2, temperature: float = 0.0,
-                 unmask_mode: str = "random"):
+                 unmask_mode: str = "random", cache_dtype: str = "bf16"):
         self.config = config
         self.maskgit_steps = maskgit_steps
         self.temperature = temperature
         self.unmask_mode = unmask_mode
-        self.engine = DecodeEngine(config, device=device)
+        self.engine = DecodeEngine(config, device=device,
+                                   cache_dtype=cache_dtype)
         self.device = self.engine.device
         self.params = prepare_serving_params(
             model, config, compute_dtype=self.engine.dtype, device=self.device)
