@@ -56,6 +56,9 @@
    the step's gradients against the plain path and an fp32 run.
 8. Prints the `kernels` JSON line, the card line, and last the result line.
 
+K5, K9 and K10 and their library calls carry a profiler device time
+(`device_ms`, `library_device_ms`) beside the event time, as K7 and K8 do.
+
 Any failure exits non-zero without the result line, as does a run without a
 CUDA device or outside the repository.
 """
@@ -257,11 +260,17 @@ def check_layer_norm(inp, C):
     gb, bb = g.to(x.dtype), b.to(x.dtype)
     rows = x.numel() // C
     bms, by = bound(nbytes(x, x, g, b), fp32_flops=7 * rows * C)
+
+    def kernel():
+        return layer_norm(x, g, b)
+
+    def library():
+        return F.layer_norm(x, (C,), gb, bb)
     return dict(max_abs_err=err, shape=list(x.shape), bound_ms=bms,
-                bound_by=by,
-                ms=time_ms(lambda: layer_norm(x, g, b)),
+                bound_by=by, ms=time_ms(kernel), device_ms=device_ms(kernel),
                 plain_ms=time_ms(lambda: layer_norm_plain(x, g, b)),
-                library_ms=time_ms(lambda: F.layer_norm(x, (C,), gb, bb)))
+                library_ms=time_ms(library),
+                library_device_ms=device_ms(library))
 
 
 def check_temporal_attention(inp, C, H):
@@ -451,7 +460,9 @@ def check_decode_attention(inp, C, H, L, caches, scales, pair):
 def check_flash_mha(inp, H):
     """K9 and K10 at the qk_norm train step's shape (128, 256, 16, 32),
     q, k, v as thirds of one qkv product, against `mha_reference` and its
-    autograd; SDPA forward and backward are timed beside them."""
+    autograd; SDPA forward and backward are timed beside them, by events and
+    by the profiler's device time. K9's forward is also held at N = 64, 128
+    and 192 (4 rows), its other token counts, and at a negative scale."""
     R, N, D = TB * 16, 256, 32
     t = dict(qkv=inp.normal(R, N, 3, H, D))
     dout = inp.normal(R, N, H, D)
@@ -460,6 +471,18 @@ def check_flash_mha(inp, H):
     for causal in (False, True):
         tag = "[causal]" if causal else ""
         kw = dict(scale=scale, causal=causal)
+        # the forward at the kernel's other token counts, and with a
+        # negative scale (its row max is the min of the raw logits), on 4
+        # rows
+        other_n = {}
+        for n, sc in ((64, scale), (128, scale), (192, scale), (128, -scale)):
+            q, k, v = t["qkv"][:4, :n].unbind(-3)
+            key = f"N={n}, scale={sc:.4f}"
+            other_n[key] = compare(
+                f"flash_mha{tag} {key}",
+                attn.flash_mha_fwd(q, k, v, scale=sc, causal=causal),
+                attn.mha_reference(q, k, v, scale=sc, causal=causal),
+                3e-2, 3e-2)
 
         def kernel(qkv):
             return attn.flash_mha(*qkv.unbind(-3), **kw)
@@ -482,19 +505,29 @@ def check_flash_mha(inp, H):
         fwd = bound(4 * io, tensor_flops=4 * R * H * pairs * D)
         # logits, dv, dp, dq, dk: five products of 2 D per (query, key)
         bwd = bound(7 * io, tensor_flops=10 * R * H * pairs * D)
+
+        def fwd_kernel():
+            return attn.flash_mha_fwd(q, k, v, **kw)
+
+        def bwd_kernel():
+            return attn.flash_mha_bwd(q, k, v, dout, **kw)
+
+        def bwd_library():
+            return torch.autograd.grad(lib_out, (lq, lk, lv),
+                                       dout.transpose(1, 2), retain_graph=True)
         with torch.no_grad():
-            fwd_ms = time_ms(lambda: attn.flash_mha_fwd(q, k, v, **kw))
+            fwd_ms = time_ms(fwd_kernel)
             lib_fwd = time_ms(sdpa)
+            fwd_dev, lib_fwd_dev = device_ms(fwd_kernel), device_ms(sdpa)
         out["flash_mha" + tag] = entry(
             out_err, {}, q.shape, fwd_ms, plain_ms(plain, t), fwd,
-            library_ms=lib_fwd)
+            library_ms=lib_fwd, device_ms=fwd_dev,
+            library_device_ms=lib_fwd_dev, other_n_max_abs_err=other_n)
         out["flash_mha_bwd" + tag] = entry(
-            grads["qkv"]["max_abs_err"], grads, q.shape,
-            time_ms(lambda: attn.flash_mha_bwd(q, k, v, dout, **kw)),
-            plain_ms(plain, t, dout), bwd,
-            library_ms=time_ms(lambda: torch.autograd.grad(
-                lib_out, (lq, lk, lv), dout.transpose(1, 2),
-                retain_graph=True)))
+            grads["qkv"]["max_abs_err"], grads, q.shape, time_ms(bwd_kernel),
+            plain_ms(plain, t, dout), bwd, library_ms=time_ms(bwd_library),
+            device_ms=device_ms(bwd_kernel),
+            library_device_ms=device_ms(bwd_library))
     return out
 
 
@@ -759,10 +792,12 @@ def plain_ms(plain_fn, tensors, dout=None):
         out, list(leaves.values()), dout, retain_graph=True), iters=5)
 
 
-def entry(err, grads, shape, ms, plain, bnd, library_ms=None):
+def entry(err, grads, shape, ms, plain, bnd, library_ms=None, **extra):
+    """One kernel's result; `extra` adds keys such as device_ms and
+    library_device_ms."""
     return dict(max_abs_err=err, grads=grads, shape=list(shape), ms=ms,
                 plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1],
-                library_ms=library_ms)
+                library_ms=library_ms, **extra)
 
 
 def check_spatial_train_block(inp, C, H):
@@ -1090,7 +1125,8 @@ def main() -> int:
         print(f"build: {secs:.1f} s for {len(logs)} sources", flush=True)
         for name, log in logs.items():
             for line in log.splitlines():
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "Function properties" in line):
                     print(f"ptxas {name}: {line.strip()}")
 
         cfg = genie_138m()
@@ -1192,10 +1228,12 @@ def main() -> int:
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+            # profiler device times, where the check took them (K5, K7-K10)
+            item.update({k: r[k] for k in ("device_ms", "library_device_ms")
+                         if k in r})
             if name + "[int8]" in results:  # the decode attention kernels
                 q8 = results[name + "[int8]"]
-                item.update(device_ms=r["device_ms"], int8_ms=q8["ms"],
-                            int8_device_ms=q8["device_ms"],
+                item.update(int8_ms=q8["ms"], int8_device_ms=q8["device_ms"],
                             int8_bound_ms=q8["bound_ms"])
             line.append(item)
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -219,7 +219,8 @@ def test_spatial_block_qk_ln(pre_ln, qkv_bias):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("lead,N", [((3,), 64), ((2, 2), 128)])
+@pytest.mark.parametrize("lead,N", [((3,), 64), ((2, 2), 128), ((2,), 192),
+                                    ((1,), 256)])
 def test_flash_mha_and_gradients(causal, lead, N):
     """`flash_mha` (its plain version, on the CPU) against the JAX kernel
     pair in interpret mode: the value and dq, dk, dv of sum(out * cot)."""
@@ -242,6 +243,32 @@ def test_flash_mha_and_gradients(causal, lead, N):
     for name, g, w in zip("qkv", grads, want_grads):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
                                    **TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_mha_on_qkv_thirds(causal):
+    """q, k and v as strided thirds of one (..., N, 3, H, D) tensor, the
+    train step's layout, which the card kernels read in place: the value
+    and the gradient of the packed tensor, against the JAX kernel pair."""
+    from tpu1x.ops.pallas_attention import flash_mha as jax_flash
+    rng = np.random.default_rng(8)
+    qkv, cot = rand(rng, 2, 128, 3, 2, 8), rand(rng, 2, 128, 2, 8)
+
+    def loss(qkv):
+        out = jax_flash(qkv[..., 0, :, :], qkv[..., 1, :, :],
+                        qkv[..., 2, :, :], scale=0.3, causal=causal,
+                        interpret=True)
+        return jnp.sum(out * jnp.asarray(cot)), out
+
+    (_, want), want_grad = jax.value_and_grad(loss, has_aux=True)(
+        jnp.asarray(qkv))
+    leaf = t(qkv).requires_grad_(True)
+    q, k, v = leaf.unbind(-3)
+    assert q.stride()[-3] == 3 * 2 * 8 and not q.is_contiguous()
+    got = tattn.flash_mha(q, k, v, scale=0.3, causal=causal)
+    (grad,) = torch.autograd.grad((got * t(cot)).sum(), [leaf])
+    close(got.detach(), want)
+    close(grad, want_grad)
 
 
 @pytest.mark.parametrize("N", [64, 16])

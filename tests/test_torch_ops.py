@@ -100,14 +100,19 @@ def test_mha_reference(causal):
     close(got, want)
 
 
-@pytest.mark.parametrize("rows", [24, 13])
-def test_layer_norm(rows):
-    """rows=13 takes the JAX reference (rows % 8); the port has no such
-    rule, the kernel takes any row count."""
+@pytest.mark.parametrize(
+    "rows,C", [(24, 128), (13, 128), (24, 256), (24, 512), (24, 2048),
+               (1, 512)],
+    ids=["24", "13", "24-C256", "24-C512", "24-C2048", "1-C512"])
+def test_layer_norm(rows, C):
+    """rows=13 and the single row take the JAX reference (rows % 8); the
+    port has no such rule, the kernel takes any row count. C = 256, 512 and
+    2048 are 1, 2 and 8 chunks of 8 channels a lane, the card kernel's
+    smallest, the GENIE widths' and its largest instantiation."""
     from tpu1x.ops.layernorm import layer_norm as jax_layer_norm
     rng = np.random.default_rng(2)
-    x = rand(rng, rows, 128, scale=2.0) + 0.5
-    g, b = rand(rng, 128, scale=0.1) + 1.0, rand(rng, 128, scale=0.1)
+    x = rand(rng, rows, C, scale=2.0) + 0.5
+    g, b = rand(rng, C, scale=0.1) + 1.0, rand(rng, C, scale=0.1)
     want = jax_layer_norm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b),
                           interpret=True)
     close(layer_norm(t(x), t(g), t(b)), want)

@@ -130,12 +130,17 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stride), so the v third of a (rows, N, 3, H, D) qkv product needs no
     copy; outputs and gradients are new contiguous tensors.
 
-    The forward multiplies q k^T exactly (bf16 operands, fp32 accumulation),
-    keeps logits and softmax in fp32 and rounds p to bf16 for p v, as the
-    TPU kernel does. The backward rounds p and ds to bf16 for its four
-    products, where the TPU kernel keeps them fp32. Bound on the H100, by
-    the roofline: device memory (q, k, v, o once each; the gradients
-    likewise); nothing N x N reaches it.
+    The forward multiplies q k^T exactly (bf16 operands, fp32
+    accumulation) and keeps the softmax in fp32 with a running max over
+    64-key chunks; it rounds the unnormalised p to bf16 for p v and divides
+    by the row sum of the rounded p at the end, where the TPU kernel rounds
+    the normalised p. On the H100 it is persistent blocks of two
+    warpgroups, each (row, head) loaded once by TMA into a two-stage ring
+    while the one before computes, both products on wgmma, o stored by TMA;
+    its floors are the bytes (q, k, v, o once each) and the exponentials,
+    about equal. The backward rounds p and ds to bf16 for its four products,
+    where the TPU kernel keeps them fp32, and is bound by device memory;
+    nothing N x N reaches device memory either way.
     """
     if not q.is_cuda:
         return mha_reference(q, k, v, scale=scale, causal=causal)

@@ -32,8 +32,11 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     csrc/layer_norm.cu, which replaces the Pallas kernel
     tpu1x/ops/layernorm.py:layer_norm: x and the result bf16, scale and bias
     fp32 (C,), C % 8 == 0 and C <= 2048, any number of rows. The kernel is
-    bound by device memory; one warp per row keeps the row in registers
-    between the statistics and the write, so each byte moves once.
+    bound by device memory: each warp walks rows, holding a row in
+    registers between the statistics and the write (each byte moves once)
+    while the next row's 16-byte loads are in flight, with gamma and beta
+    in registers up to C = 1024, on a grid of the blocks the card keeps
+    resident.
     """
     if not x.is_cuda:
         return layer_norm_plain(x, scale, bias, eps)
