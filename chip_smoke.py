@@ -12,7 +12,10 @@
    the same function, that call (only timed here, never used by the port),
    and computes each kernel's bound from the H100 SXM data sheet: the larger
    of its bytes over the memory rate, its bf16 products over the tensor
-   cores' rate and its fp32 arithmetic over the fp32 units' rate.
+   cores' rate and its fp32 arithmetic over the fp32 units' rate. The
+   spatial block also at C = 256 (GENIE_35M's width); its two products
+   alone on its own GEMM (csrc/gemm_sm90.cuh) against a plain product with
+   the same rounding, beside torch.matmul.
 4. Runs RolloutEngine.rollout at GENIE_138M (random weights from a seed,
    B=16, 8 prompt + 8 new frames, maskgit_steps 2, temperature 0), with
    the launch counters set to 0 just before and read just after; checks
@@ -45,7 +48,9 @@
    [prev, cur] pair, bf16 and int8 cache, t_B mixed in 0..15, two layers of
    a (16, 32, 16, 256, 512) cache), the spatial block with the qk-LN, the
    fused attention forward and backward (causal and not, at (128, 256, 16,
-   32), SDPA forward and backward as the library time) and the MLP train
+   32), SDPA forward and backward as the library time; the forward's lse
+   against `mha_lse_reference`, the backward also against
+   `flash_mha_bwd_plain` on the forward's residuals) and the MLP train
    block without LN against their plain versions, by the gates of 3 and 5.
    Runs the rollout of 4 on `genie_138m(qk_norm=True)` with the int8 cache
    at full depth (exact launch counts, times, device time by kernel, the
@@ -56,8 +61,9 @@
    the step's gradients against the plain path and an fp32 run.
 8. Prints the `kernels` JSON line, the card line, and last the result line.
 
-K5, K9 and K10 and their library calls carry a profiler device time
-(`device_ms`, `library_device_ms`) beside the event time, as K7 and K8 do.
+K1 (both modes), K5, K9 and K10 and their library calls carry a profiler
+device time (`device_ms`, `library_device_ms`) beside the event time, as
+K7 and K8 do.
 
 Any failure exits non-zero without the result line, as does a run without a
 CUDA device or outside the repository.
@@ -89,6 +95,7 @@ from tpu1x_torch.ops import _train_kernels as tk
 from tpu1x_torch.ops import attention as attn
 from tpu1x_torch.ops import decode_attention as da
 from tpu1x_torch.ops import mlp_train_block as mtb
+from tpu1x_torch.ops import spatial_block as sb
 from tpu1x_torch.ops import spatial_train_block as stb
 from tpu1x_torch.ops import temporal_attention as ta
 from tpu1x_torch.ops import temporal_train_block as ttb
@@ -195,20 +202,35 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, windows: int = 3):
     """Device time of one call of `fn`, from torch.profiler: its kernels
-    alone. `time_ms` includes the wrapper's host time, which is the longer
-    of the two for the smallest kernels."""
+    alone, the median over `windows` profiler windows. `time_ms` includes
+    the wrapper's host time, which is the longer of the two for the
+    smallest kernels. The profiler now and then reports no device time for
+    a window, or only part of it (once a quarter of K10's, below its
+    event time): a window with none is dropped, and the median outvotes a
+    short one. None if every window came back empty (no number rather
+    than a wrong one)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(a.self_device_time_total for a in prof.key_averages()
-               if a.device_type == torch.autograd.DeviceType.CUDA
-               ) / 1e3 / iters
+    got = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(a.self_device_time_total for a in prof.key_averages()
+                    if a.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            got.append(total / 1e3 / iters)
+    # a lost event only shortens a window: of two, the longer
+    return sorted(got)[len(got) // 2] if got else None
+
+
+def tflops(flops: float, ms):
+    """The rate in TFLOP/s of `flops` in `ms`, or None without a time."""
+    return flops / ms / 1e9 if ms else None
 
 
 def bound(nbytes: float, tensor_flops: float = 0.0, fp32_flops: float = 0.0):
@@ -321,6 +343,7 @@ def check_spatial_block(inp, C, H, N, qk_ln=False):
                     tensor_flops=2 * N * S * C * (4 * C + 2 * S))
     return dict(max_abs_err=err, shape=list(x.shape), bound_ms=bms,
                 bound_by=by, ms=time_ms(lambda: spatial_block(x, **kw)),
+                device_ms=device_ms(lambda: spatial_block(x, **kw)),
                 plain_ms=time_ms(lambda: spatial_block_plain(x, **kw)),
                 library_ms=None)
 
@@ -460,9 +483,15 @@ def check_decode_attention(inp, C, H, L, caches, scales, pair):
 def check_flash_mha(inp, H):
     """K9 and K10 at the qk_norm train step's shape (128, 256, 16, 32),
     q, k, v as thirds of one qkv product, against `mha_reference` and its
-    autograd; SDPA forward and backward are timed beside them, by events and
-    by the profiler's device time. K9's forward is also held at N = 64, 128
-    and 192 (4 rows), its other token counts, and at a negative scale."""
+    autograd; K9's lse against `mha_lse_reference` (atol 1e-2: the kernel
+    sums the bf16-rounded p); K10 also against `flash_mha_bwd_plain` on the
+    kernel forward's residuals, by the gradient gates. SDPA forward and
+    backward are timed beside them, by events and by the profiler's device
+    time. K9 and K10 are also held so at N = 64, 128 and 192 (4 rows),
+    their other token counts, and at a negative scale. K10's bound is the TPU
+    kernel's work (q, k, v, d_o read and dq, dk, dv written once, 7
+    tensors), as in the rows before; `own_floor_ms` adds the residuals o
+    and lse that this design reads."""
     R, N, D = TB * 16, 256, 32
     t = dict(qkv=inp.normal(R, N, 3, H, D))
     dout = inp.normal(R, N, H, D)
@@ -471,18 +500,37 @@ def check_flash_mha(inp, H):
     for causal in (False, True):
         tag = "[causal]" if causal else ""
         kw = dict(scale=scale, causal=causal)
-        # the forward at the kernel's other token counts, and with a
-        # negative scale (its row max is the min of the raw logits), on 4
-        # rows
-        other_n = {}
+        # the forward and the backward at the kernel's other token counts
+        # (the backward's key tiles split unevenly between its warpgroups,
+        # or leave one idle at N = 64), and with a negative scale (the
+        # forward's row max is the min of the raw logits), on 4 rows
+        other_n, other_n_grads = {}, {}
         for n, sc in ((64, scale), (128, scale), (192, scale), (128, -scale)):
             q, k, v = t["qkv"][:4, :n].unbind(-3)
+            g = dout[:4, :n]
             key = f"N={n}, scale={sc:.4f}"
-            other_n[key] = compare(
+            (o, lse), (wo, wl) = (
+                f(q, k, v, scale=sc, causal=causal)
+                for f in (attn.flash_mha_fwd, attn.mha_lse_reference))
+            other_n[key] = compare(f"flash_mha{tag} {key}", o, wo, 3e-2, 3e-2)
+            compare(f"flash_mha{tag} {key} lse", lse, wl, 1e-2, 0.0)
+            errs = {
+                f"d{c} (residuals)": grad_errors(
+                    f"flash_mha_bwd{tag} {key} d{c} (residuals)", got, want)
+                for c, got, want in zip(
+                    "qkv",
+                    attn.flash_mha_bwd(q, k, v, o, lse, g, scale=sc,
+                                       causal=causal),
+                    attn.flash_mha_bwd_plain(q, k, v, o, lse, g, scale=sc,
+                                             causal=causal))}
+            _, grads = both_paths(
                 f"flash_mha{tag} {key}",
-                attn.flash_mha_fwd(q, k, v, scale=sc, causal=causal),
-                attn.mha_reference(q, k, v, scale=sc, causal=causal),
-                3e-2, 3e-2)
+                lambda qkv: attn.flash_mha(*qkv.unbind(-3), scale=sc,
+                                           causal=causal),
+                lambda qkv: attn.mha_reference(*qkv.unbind(-3), scale=sc,
+                                               causal=causal),
+                dict(qkv=t["qkv"][:4, :n]), g)
+            other_n_grads[key] = dict(errs, dqkv=grads["qkv"])
 
         def kernel(qkv):
             return attn.flash_mha(*qkv.unbind(-3), **kw)
@@ -492,6 +540,15 @@ def check_flash_mha(inp, H):
 
         out_err, grads = both_paths("flash_mha" + tag, kernel, plain, t, dout)
         q, k, v = t["qkv"].unbind(-3)
+        o, lse = attn.flash_mha_fwd(q, k, v, **kw)
+        lse_err = compare(f"flash_mha{tag} lse", lse,
+                          attn.mha_lse_reference(q, k, v, **kw)[1], 1e-2, 0.0)
+        residual_grads = {
+            f"d{n}": grad_errors(f"flash_mha_bwd{tag} d{n} (residuals)", g, w)
+            for n, g, w in zip("qkv", attn.flash_mha_bwd(q, k, v, o, lse,
+                                                         dout, **kw),
+                               attn.flash_mha_bwd_plain(q, k, v, o, lse,
+                                                        dout, **kw))}
         lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_(True)
                       for x in (q, k, v))  # (R, H, N, D) views
 
@@ -502,15 +559,17 @@ def check_flash_mha(inp, H):
         lib_out = sdpa()
         pairs = N * (N + 1) // 2 if causal else N * N
         io = R * N * H * D * 2
-        fwd = bound(4 * io, tensor_flops=4 * R * H * pairs * D)
+        fwd = bound(4 * io + nbytes(lse), tensor_flops=4 * R * H * pairs * D)
         # logits, dv, dp, dq, dk: five products of 2 D per (query, key)
-        bwd = bound(7 * io, tensor_flops=10 * R * H * pairs * D)
+        flops = 10 * R * H * pairs * D
+        bwd = bound(7 * io, tensor_flops=flops)
+        own_floor = bound(8 * io + nbytes(lse), tensor_flops=flops)
 
         def fwd_kernel():
             return attn.flash_mha_fwd(q, k, v, **kw)
 
         def bwd_kernel():
-            return attn.flash_mha_bwd(q, k, v, dout, **kw)
+            return attn.flash_mha_bwd(q, k, v, o, lse, dout, **kw)
 
         def bwd_library():
             return torch.autograd.grad(lib_out, (lq, lk, lv),
@@ -522,12 +581,43 @@ def check_flash_mha(inp, H):
         out["flash_mha" + tag] = entry(
             out_err, {}, q.shape, fwd_ms, plain_ms(plain, t), fwd,
             library_ms=lib_fwd, device_ms=fwd_dev,
-            library_device_ms=lib_fwd_dev, other_n_max_abs_err=other_n)
+            library_device_ms=lib_fwd_dev, other_n_max_abs_err=other_n,
+            lse_max_abs_err=lse_err)
         out["flash_mha_bwd" + tag] = entry(
-            grads["qkv"]["max_abs_err"], grads, q.shape, time_ms(bwd_kernel),
-            plain_ms(plain, t, dout), bwd, library_ms=time_ms(bwd_library),
-            device_ms=device_ms(bwd_kernel),
-            library_device_ms=device_ms(bwd_library))
+            grads["qkv"]["max_abs_err"], dict(grads, **residual_grads),
+            q.shape, time_ms(bwd_kernel), plain_ms(plain, t, dout), bwd,
+            library_ms=time_ms(bwd_library), device_ms=device_ms(bwd_kernel),
+            library_device_ms=device_ms(bwd_library),
+            own_floor_ms=own_floor[0], other_n_grads=other_n_grads)
+    return out
+
+
+def check_gemm_sm90(inp, C):
+    """K1's GEMM (csrc/gemm_sm90.cuh) alone at K1's products and row counts
+    (N = 16, 32, 128 frames of 256 tokens): qkv = a Wqkv + b (C -> 3C) and
+    proj = a Wproj + b + x (C -> C), against `gemm_sm90_plain` (the same
+    rounding chain; atol = rtol = 3e-2), by device time beside
+    torch.matmul of the same operands."""
+    out = {}
+    for N in (B, 2 * B, B * P):
+        M = N * 256
+        a, x = inp.normal(M, C), inp.normal(M, C)
+        for name, w, bias, resid in (
+                ("qkv", inp.normal(C, 3 * C, std=0.05),
+                 inp.normal(3 * C, std=0.1), None),
+                ("proj", inp.normal(C, C, std=0.05), inp.normal(C, std=0.1),
+                 x)):
+            err = compare(f"gemm_sm90 {name} rows={M}",
+                          sb.gemm_sm90(a, w, bias, resid),
+                          sb.gemm_sm90_plain(a, w, bias, resid), 3e-2, 3e-2)
+            n_out = w.shape[1]
+            bms, by = bound(nbytes(a, w, bias, resid) + M * n_out * 2,
+                            tensor_flops=2 * M * C * n_out)
+            dev = device_ms(lambda: sb.gemm_sm90(a, w, bias, resid))
+            out[f"{name}[rows={M}]"] = dict(
+                max_abs_err=err, bound_ms=bms, bound_by=by, device_ms=dev,
+                tflops=tflops(2 * M * C * n_out, dev),
+                library_device_ms=device_ms(lambda: torch.matmul(a, w)))
     return out
 
 
@@ -563,6 +653,9 @@ def check_kernels(C, H, L, device):
     out["temporal_attention"] = check_temporal_attention(inp, C, H)
     for N in (B, 2 * B, B * P):
         out[f"spatial_block[N={N}]"] = check_spatial_block(inp, C, H, N)
+    # GENIE_35M's width, which the kernel takes too
+    out[f"spatial_block[C=256,N={B}]"] = check_spatial_block(inp, 256, 8, B)
+    out["gemm_sm90"] = check_gemm_sm90(inp, C)
     T = 16
     caches = (inp.normal(T, L, B, 256, C), inp.normal(T, L, B, 256, C))
     out["temporal_mlp_block"] = check_temporal_mlp_block(
@@ -1228,9 +1321,10 @@ def main() -> int:
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-            # profiler device times, where the check took them (K5, K7-K10)
-            item.update({k: r[k] for k in ("device_ms", "library_device_ms")
-                         if k in r})
+            # profiler device times, where the check took them (K1, K5,
+            # K7-K10), and K10's floor with its residuals
+            item.update({k: r[k] for k in ("device_ms", "library_device_ms",
+                                           "own_floor_ms") if k in r})
             if name + "[int8]" in results:  # the decode attention kernels
                 q8 = results[name + "[int8]"]
                 item.update(int8_ms=q8["ms"], int8_device_ms=q8["device_ms"],

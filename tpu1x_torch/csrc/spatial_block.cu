@@ -5,20 +5,24 @@
 // (_kernel / _one_row). That kernel keeps one whole row (S x C) and every
 // intermediate in VMEM. On the H100 one bf16 row at S=256, C=512 is 256 KB,
 // more than the 227 KB of shared memory a block may use, so the work is cut
-// into three launches instead:
-//   (a) GEMM with the optional LN1 prologue: qkv = LN1(x) @ Wqkv (+ bias),
-//       (N, S, 3C);
-//   (b) attention per (frame, head, 64-query tile), with the optional
-//       per-head qk-LayerNorm of the qk_norm models: the head's S=256 keys and
-//       values sit in shared memory, the 16 x 256 logits of each warp stay in
-//       registers, softmax in fp32, probabilities rounded to bf16 and fed
-//       straight from the logit registers into the PV product;
-//   (c) GEMM with the epilogue + bproj + residual x.
-// The (N, H, S, S) logits never reach device memory; qkv and the attention
-// output make one round trip each. Bound: tensor-core operations
-// (2 N S C (4C + 2S) FLOP: 10.7 GFLOP at N=16 against 134 MB moved at most),
-// so the products run on mma.sync; the transposed-qkv layout of the TPU
-// kernel was a Mosaic workaround and is not carried over.
+// into launches instead, whose intermediates (xn, qkv and the attention
+// output, 4 + 12 + 4 MB at N = 16) stay in the 50 MB L2:
+//   (a) with the pre-LN, LN1 as its own row pass (csrc/layer_norm.cuh, K5's
+//       kernel: fp32 statistics, variance E[x^2] - E[x]^2, the result
+//       rounded to bf16), xn (N S, C);
+//   (b) qkv = xn @ Wqkv (+ bias), (N, S, 3C), on csrc/gemm_sm90.cuh (TMA,
+//       wgmma, persistent tiles);
+//   (c) attention per (frame, head): with the pre-LN, K9's flash forward
+//       (csrc/flash_attention.cuh) on the q, k and v thirds of qkv read in
+//       place; with the per-head qk-LayerNorm of the qk_norm models,
+//       spatial_attention_kernel below, per (frame, head, 64-query tile),
+//       which normalises the head's q and k rows in shared memory;
+//   (d) out = x + attn @ Wproj (+ bias) on the same GEMM, its epilogue the
+//       serving chain (round, + bias, round, + x, round).
+// The (N, H, S, S) logits never reach device memory. Bound: tensor-core
+// operations (2 N S C (4C + 2S) FLOP: 10.7 GFLOP at N=16 against 134 MB
+// moved at most); the transposed-qkv layout of the TPU kernel was a Mosaic
+// workaround and is not carried over.
 //
 // The backward of the attention part (tpu1x_spatial_attention_bwd below)
 // serves the spatial train block, which replaces the Pallas kernel
@@ -26,7 +30,9 @@
 // with the weights go through the shared GEMM (csrc/train_block.cu) and are
 // sequenced by tpu1x_torch/ops/spatial_train_block.py.
 
-#include "common.cuh"
+#include "flash_attention.cuh"
+#include "gemm_sm90.cuh"
+#include "layer_norm.cuh"
 
 using namespace tpu1x;
 
@@ -37,14 +43,15 @@ constexpr int SB_D = 32;       // head_dim
 constexpr int SB_QT = 64;      // queries per block: 4 warps x 16 rows
 constexpr int SB_LD = SB_D + 8;
 
-// qkv (N, S, 3C) -> out (N, S, C). grid (S / 64, H, N), 128 threads.
-// QKLN: the fp32 LayerNorm over the 32 channels of the head, one pair of
+// qkv (N, S, 3C) -> out (N, S, C) with the qk-LN. grid (S / 64, H, N), 128
+// threads. The fp32 LayerNorm over the 32 channels of the head, one pair of
 // (32,) parameters shared by q and k and by all heads (variance
 // E[x^2] - E[x]^2, eps 1e-5), is applied to the q and k rows in shared
 // memory and rounded to bf16 before the q k^T product, as the TPU kernel
-// does on its transposed rows. Compiled in under the flag, so that the
-// kernel without it keeps its code.
-template <bool QKLN>
+// does on its transposed rows; then the head's S=256 keys and values sit in
+// shared memory, the 16 x 256 logits of each warp stay in registers,
+// softmax in fp32, probabilities rounded to bf16 and fed straight from the
+// logit registers into the PV product (mma.sync).
 __global__ void __launch_bounds__(128)
     spatial_attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
                              int C, float scale, const float* __restrict__ qk_scale,
@@ -70,28 +77,27 @@ __global__ void __launch_bounds__(128)
   cp_async_wait<0>();
   __syncthreads();
 
-  if (QKLN) {  // one thread per row of K (256) and Q (64)
-    for (int r = tid; r < SB_S + SB_QT; r += 128) {
-      bf16* row = r < SB_S ? &Ks[r * SB_LD] : &Qs[(r - SB_S) * SB_LD];
-      float f[SB_D];
-      float s1 = 0.f, s2 = 0.f;
+  // one thread per row of K (256) and Q (64)
+  for (int r = tid; r < SB_S + SB_QT; r += 128) {
+    bf16* row = r < SB_S ? &Ks[r * SB_LD] : &Qs[(r - SB_S) * SB_LD];
+    float f[SB_D];
+    float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-      for (int d = 0; d < SB_D; d += 8) load8(row + d, f + d);
+    for (int d = 0; d < SB_D; d += 8) load8(row + d, f + d);
 #pragma unroll
-      for (int d = 0; d < SB_D; ++d) {
-        s1 += f[d];
-        s2 += f[d] * f[d];
-      }
-      const float mu = s1 / SB_D;
-      const float rs = rsqrtf(s2 / SB_D - mu * mu + 1e-5f);
-#pragma unroll
-      for (int d = 0; d < SB_D; ++d)
-        f[d] = (f[d] - mu) * rs * qk_scale[d] + qk_bias[d];
-#pragma unroll
-      for (int d = 0; d < SB_D; d += 8) store8(row + d, f + d);
+    for (int d = 0; d < SB_D; ++d) {
+      s1 += f[d];
+      s2 += f[d] * f[d];
     }
-    __syncthreads();
+    const float mu = s1 / SB_D;
+    const float rs = rsqrtf(s2 / SB_D - mu * mu + 1e-5f);
+#pragma unroll
+    for (int d = 0; d < SB_D; ++d)
+      f[d] = (f[d] - mu) * rs * qk_scale[d] + qk_bias[d];
+#pragma unroll
+    for (int d = 0; d < SB_D; d += 8) store8(row + d, f + d);
   }
+  __syncthreads();
 
   uint32_t qa[2][4];
 #pragma unroll
@@ -438,39 +444,59 @@ __global__ void __launch_bounds__(SBB_THREADS)
 // x, out (N, S, C); wqkv (C, 3C); wproj (C, C); biases bf16 or null;
 // ln_scale/ln_bias fp32 (C,) or null (no pre-LN); qk_ln_scale/qk_ln_bias
 // fp32 (32,) or null (no qk-LN); qkv_buf (N, S, 3C) and attn_buf (N, S, C)
-// are scratch. Requires S == 256, C == 32 * H, C % 64 == 0.
+// are scratch, and so is xn_buf (N, S, C), the pre-LN's output and then the
+// flash forward's lse, null only with the qk-LN and no pre-LN. Requires
+// S == 256, C == 32 * H, C % 64 == 0.
 extern "C" int tpu1x_spatial_block(const void* x, const void* wqkv,
                                    const void* bqkv, const void* wproj,
                                    const void* bproj, const void* ln_scale,
                                    const void* ln_bias, const void* qk_ln_scale,
-                                   const void* qk_ln_bias, void* qkv_buf,
-                                   void* attn_buf, void* out, int N, int S,
-                                   int C, int H, float scale, void* stream) {
-  if (S != SB_S || C != H * SB_D || C % GBN ||
-      (qk_ln_scale == nullptr) != (qk_ln_bias == nullptr))
+                                   const void* qk_ln_bias, void* xn_buf,
+                                   void* qkv_buf, void* attn_buf, void* out,
+                                   int N, int S, int C, int H, float scale,
+                                   void* stream) {
+  const bool pre_ln = ln_scale != nullptr, qk_ln = qk_ln_scale != nullptr;
+  if (S != SB_S || C != H * SB_D || C % 64 ||
+      pre_ln != (ln_bias != nullptr) || qk_ln != (qk_ln_bias != nullptr) ||
+      ((pre_ln || !qk_ln) && xn_buf == nullptr))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GemmParams a = gemm_params(x, wqkv, qkv_buf, N * S, 3 * C, C);
-  a.bias = static_cast<const bf16*>(bqkv);
-  a.ln_scale = static_cast<const float*>(ln_scale);
-  a.ln_bias = static_cast<const float*>(ln_bias);
-  TPU1X_TRY(launch_gemm(a, s));
-  const dim3 grid(S / SB_QT, H, N);
+  const int rows = N * S;
+  const void* a = x;
+  if (pre_ln) {
+    TPU1X_TRY(launch_layer_norm(x, ln_scale, ln_bias, xn_buf, rows, C, 1e-5f,
+                                s));
+    a = xn_buf;
+  }
+  TPU1X_TRY(
+      launch_gemm90(a, wqkv, qkv_buf, bqkv, nullptr, rows, 3 * C, C, s));
   const bf16* qkv = static_cast<const bf16*>(qkv_buf);
-  const float* qs = static_cast<const float*>(qk_ln_scale);
-  const float* qb = static_cast<const float*>(qk_ln_bias);
-  if (qs != nullptr)
-    spatial_attention_kernel<true><<<grid, 128, 0, s>>>(
-        qkv, static_cast<bf16*>(attn_buf), C, scale, qs, qb);
-  else
-    spatial_attention_kernel<false><<<grid, 128, 0, s>>>(
-        qkv, static_cast<bf16*>(attn_buf), C, scale, nullptr, nullptr);
-  TPU1X_TRY(cudaGetLastError());
-  GemmParams b = gemm_params(attn_buf, wproj, out, N * S, C, C);
-  b.bias = static_cast<const bf16*>(bproj);
-  b.resid = static_cast<const bf16*>(x);
-  TPU1X_TRY(launch_gemm(b, s));
-  return cudaSuccess;
+  if (qk_ln) {
+    spatial_attention_kernel<<<dim3(S / SB_QT, H, N), 128, 0, s>>>(
+        qkv, static_cast<bf16*>(attn_buf), C, scale,
+        static_cast<const float*>(qk_ln_scale),
+        static_cast<const float*>(qk_ln_bias));
+    TPU1X_TRY(cudaGetLastError());
+  } else {
+    // the q, k, v thirds of each token's 3C values, as (N, S, H, 32) views;
+    // the lse that the forward writes (N H S floats, an eighth of xn's
+    // bytes) goes to xn, which the qkv product has read
+    const long rs = (long)S * 3 * C, ts = 3L * C;
+    TPU1X_TRY(launch_flash_fwd(qkv, qkv + C, qkv + 2 * C, attn_buf,
+                               static_cast<float*>(xn_buf), rs, ts, rs, ts,
+                               rs, ts, N, S, H, SB_D, scale, false, s));
+  }
+  return launch_gemm90(attn_buf, wproj, out, bproj, x, rows, C, C, s);
+}
+
+// C (M, N) = epilogue(A (M, K) B (K, N)) on the GEMM of the two products
+// above, all bf16 and contiguous: rounded, + bias (N,) if not null,
+// rounded, + resid (M, N) if not null, rounded.
+extern "C" int tpu1x_gemm_sm90(const void* A, const void* B, void* C,
+                               const void* bias, const void* resid, int M,
+                               int N, int K, void* stream) {
+  return launch_gemm90(A, B, C, bias, resid, M, N, K,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // qkv, dqkv (N, S, 3C); d_o, o (N, S, C), all bf16. Requires S == 256 and

@@ -41,8 +41,11 @@ SIGNATURES = {
     ],
     "spatial_block": [
         # x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, qk_ln_scale,
-        # qk_ln_bias, qkv_buf, attn_buf, out, N, S, C, H, scale, stream
-        ("tpu1x_spatial_block", [P] * 12 + [I, I, I, I, F, P]),
+        # qk_ln_bias, xn_buf, qkv_buf, attn_buf, out, N, S, C, H, scale,
+        # stream
+        ("tpu1x_spatial_block", [P] * 13 + [I, I, I, I, F, P]),
+        # A, B, C, bias, resid, M, N, K, stream
+        ("tpu1x_gemm_sm90", [P] * 5 + [I] * 3 + [P]),
         # qkv, d_o, dqkv, o, N, S, C, H, scale, stream
         ("tpu1x_spatial_attention_bwd", [P, P, P, P, I, I, I, I, F, P]),
     ],
@@ -80,12 +83,12 @@ SIGNATURES = {
          + [I] * 7 + [F, P]),
     ],
     "flash_attention": [
-        # q, k, v, out, rsq, tsq, rsk, tsk, rsv, tsv, R, N, H, D, scale,
+        # q, k, v, out, lse, rsq, tsq, rsk, tsk, rsv, tsv, R, N, H, D, scale,
         # causal, stream
-        ("tpu1x_flash_mha", [P] * 4 + [L] * 6 + [I] * 4 + [F, I, P]),
-        # q, k, v, d_o, dq, dk, dv, rsq, tsq, rsk, tsk, rsv, tsv, rsg, tsg,
-        # R, N, H, D, scale, causal, stream
-        ("tpu1x_flash_mha_bwd", [P] * 7 + [L] * 8 + [I] * 4 + [F, I, P]),
+        ("tpu1x_flash_mha", [P] * 5 + [L] * 6 + [I] * 4 + [F, I, P]),
+        # q, k, v, o, d_o, lse, dq, dk, dv, rsq, tsq, rsk, tsk, rsv, tsv,
+        # rso, tso, rsg, tsg, R, N, H, D, scale, causal, stream
+        ("tpu1x_flash_mha_bwd", [P] * 9 + [L] * 10 + [I] * 4 + [F, I, P]),
     ],
 }
 

@@ -34,6 +34,46 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(out_dtype)
 
 
+def mha_lse_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      scale: float, causal: bool = False):
+    """`mha_reference` and the residual that the fused backward starts
+    from: (o, lse), lse (..., H, N) fp32, the natural log of the sum over
+    the keys in view of exp(scale q.k), for each query."""
+    logits = torch.einsum("...qhd,...khd->...hqk", q.float(), k.float())
+    logits = logits * scale
+    if causal:
+        n = q.shape[-3]
+        mask = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~mask, NEG_INF)
+    return (mha_reference(q, k, v, scale=scale, causal=causal),
+            torch.logsumexp(logits, dim=-1))
+
+
+def flash_mha_bwd_plain(q, k, v, o, lse, dout, *, scale: float,
+                        causal: bool):
+    """The fused backward's arithmetic in plain torch: from the residuals o
+    and lse (`mha_lse_reference`), p = exp(scale q.k - lse), delta =
+    sum_d dout o, ds = p (dout.v - delta); dv = p^T dout, dq = scale ds k,
+    dk = scale ds^T q. p and ds are rounded to dout's dtype for their
+    products, as the kernel rounds them to bf16; fp32 inputs keep fp32, the
+    JAX VJP's arithmetic. Returns (dq, dk, dv) in q's dtype and shape."""
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, dout))
+    logits = torch.einsum("...qhd,...khd->...hqk", qf, kf) * scale
+    p = torch.exp(logits - lse.float().unsqueeze(-1))
+    if causal:
+        n = q.shape[-3]
+        mask = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+        p = p.masked_fill(~mask, 0.0)
+    delta = torch.einsum("...qhd,...qhd->...hq", gf, o.float())
+    dp = torch.einsum("...qhd,...khd->...hqk", gf, vf)
+    ds = p * (dp - delta.unsqueeze(-1))
+    p, ds = (t.to(dout.dtype).float() for t in (p, ds))
+    dv = torch.einsum("...hqk,...qhd->...khd", p, gf)
+    dq = torch.einsum("...hqk,...khd->...qhd", ds, kf) * scale
+    dk = torch.einsum("...hqk,...qhd->...khd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 def _rows(t: torch.Tensor, name: str, shape):
     """`t` as (R, N, H, D) with its leading axes folded into one (a view
     where the strides allow it, as they do for a third of a qkv product),
@@ -62,38 +102,51 @@ def _check_shape(q, k, v):
             f"64 <= N <= 256, got N={N}, head_dim={D}")
 
 
-def flash_mha_fwd(q, k, v, *, scale: float, causal: bool) -> torch.Tensor:
+def _lse_shape(q):
+    *lead, N, H, _ = q.shape
+    return (*lead, H, N)
+
+
+def flash_mha_fwd(q, k, v, *, scale: float, causal: bool):
     """Check, launch the forward kernel on CUDA q, k, v (..., N, H, 32) and
-    count it. Returns a contiguous tensor of q's shape."""
+    count it. Returns (o, lse): o contiguous of q's shape, lse fp32
+    (..., H, N) as `mha_lse_reference` gives it."""
     _check_shape(q, k, v)
     N, H, D = q.shape[-3:]
     (q4, rsq, tsq), (k4, rsk, tsk), (v4, rsv, tsv) = (
         _rows(t, name, q.shape) for name, t in (("q", q), ("k", k), ("v", v)))
     out = torch.empty(q4.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty(_lse_shape(q), dtype=torch.float32, device=q.device)
     err = kernels.lib("flash_attention").tpu1x_flash_mha(
-        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(), rsq, tsq,
-        rsk, tsk, rsv, tsv, q4.shape[0], N, H, D, scale, int(causal),
-        kernels.stream_of(q))
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), rsq, tsq, rsk, tsk, rsv, tsv, q4.shape[0], N, H, D,
+        scale, int(causal), kernels.stream_of(q))
     kernels.check(err, "flash_mha")
     kernels.count("flash_mha")
-    return out.view(q.shape)
+    return out.view(q.shape), lse
 
 
-def flash_mha_bwd(q, k, v, dout, *, scale: float, causal: bool):
-    """Check, launch the backward kernel and count it. Returns (dq, dk, dv),
-    contiguous, of q's shape."""
+def flash_mha_bwd(q, k, v, o, lse, dout, *, scale: float, causal: bool):
+    """Check, launch the backward kernel on the forward's inputs and
+    residuals (o, lse) and the output's gradient, and count it. Returns
+    (dq, dk, dv), contiguous, of q's shape."""
     _check_shape(q, k, v)
     N, H, D = q.shape[-3:]
-    (q4, rsq, tsq), (k4, rsk, tsk), (v4, rsv, tsv), (g4, rsg, tsg) = (
-        _rows(t, name, q.shape) for name, t in (("q", q), ("k", k), ("v", v),
-                                                ("dout", dout)))
+    (q4, rsq, tsq), (k4, rsk, tsk), (v4, rsv, tsv), (o4, rso, tso), \
+        (g4, rsg, tsg) = (
+            _rows(t, name, q.shape) for name, t in (
+                ("q", q), ("k", k), ("v", v), ("o", o), ("dout", dout)))
+    require(lse.is_cuda and lse.dtype == torch.float32
+            and tuple(lse.shape) == _lse_shape(q) and lse.is_contiguous(),
+            f"lse must be a contiguous fp32 CUDA tensor of shape "
+            f"{_lse_shape(q)}")
     dq, dk, dv = (torch.empty(q4.shape, dtype=q.dtype, device=q.device)
                   for _ in range(3))
     err = kernels.lib("flash_attention").tpu1x_flash_mha_bwd(
-        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), g4.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), rsq, tsq, rsk, tsk, rsv,
-        tsv, rsg, tsg, q4.shape[0], N, H, D, scale, int(causal),
-        kernels.stream_of(q))
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
+        g4.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), rsq, tsq, rsk, tsk, rsv, tsv, rso, tso, rsg, tsg,
+        q4.shape[0], N, H, D, scale, int(causal), kernels.stream_of(q))
     kernels.check(err, "flash_mha_bwd")
     kernels.count("flash_mha_bwd")
     return dq.view(q.shape), dk.view(q.shape), dv.view(q.shape)
@@ -102,15 +155,15 @@ def flash_mha_bwd(q, k, v, dout, *, scale: float, causal: bool):
 class _FlashMha(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale, causal):
-        ctx.save_for_backward(q, k, v)
         ctx.args = dict(scale=scale, causal=causal)
-        return flash_mha_fwd(q, k, v, **ctx.args)
+        out, lse = flash_mha_fwd(q, k, v, **ctx.args)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
-        return (*flash_mha_bwd(q, k, v, dout.contiguous(), **ctx.args),
-                None, None)
+        return (*flash_mha_bwd(*ctx.saved_tensors, dout.contiguous(),
+                               **ctx.args), None, None)
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -122,13 +175,14 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     CPU tensors take `mha_reference` under ordinary autograd. CUDA tensors
     launch csrc/flash_attention.cu, which replaces the Pallas kernels
     tpu1x/ops/pallas_attention.py:_flash_mha_bhnd (forward) and, under
-    autograd, _flash_mha_bwd_bhnd (backward; the residuals are q, k, v only,
-    and the probabilities are recomputed). The card path takes bf16,
+    autograd, _flash_mha_bwd_bhnd (backward). The card path takes bf16,
     head_dim 32, N % 64 == 0 and 64 <= N <= 256; fp32 inputs are for the CPU.
     q, k and v are read where they lie, each with its own strides (the last
     two axes contiguous, the others multiples of 8 that fold into one row
     stride), so the v third of a (rows, N, 3, H, D) qkv product needs no
-    copy; outputs and gradients are new contiguous tensors.
+    copy; outputs and gradients are new contiguous tensors. The residuals
+    are q, k, v, the output o (which the caller's next product keeps
+    anyway) and the per-query log-sum-exp lse (4 bytes a query and head).
 
     The forward multiplies q k^T exactly (bf16 operands, fp32
     accumulation) and keeps the softmax in fp32 with a running max over
@@ -138,9 +192,13 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     warpgroups, each (row, head) loaded once by TMA into a two-stage ring
     while the one before computes, both products on wgmma, o stored by TMA;
     its floors are the bytes (q, k, v, o once each) and the exponentials,
-    about equal. The backward rounds p and ds to bf16 for its four products,
-    where the TPU kernel keeps them fp32, and is bound by device memory;
-    nothing N x N reaches device memory either way.
+    about equal. The backward (`flash_mha_bwd_plain`'s arithmetic) takes p
+    from lse with one exponential a logit and delta = sum d_o o, and makes
+    the TPU kernel's five products on wgmma, key tiles outermost, with dq
+    summed in shared memory; it rounds p and ds to bf16 for its products,
+    where the TPU kernel keeps them fp32. Nothing N x N reaches device
+    memory either way; PERF.md has both kernels' times against their
+    floors and against SDPA.
     """
     if not q.is_cuda:
         return mha_reference(q, k, v, scale=scale, causal=causal)

@@ -30,6 +30,42 @@ def spatial_block_plain(x, wqkv, wproj, *, num_heads: int, scale: float,
     return x + dense(out.reshape(N, S, C), wproj, bproj)
 
 
+def gemm_sm90_plain(a, b, bias=None, resid=None):
+    """What `gemm_sm90` computes, in plain torch: a @ b rounded to a's
+    dtype, + bias rounded, + resid rounded (the serving chain)."""
+    y = dense(a, b, bias)
+    return y if resid is None else resid + y
+
+
+def gemm_sm90(a: torch.Tensor, b: torch.Tensor,
+              bias: Optional[torch.Tensor] = None,
+              resid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1's two products alone, for the card checks: a (M, K) @ b (K, N)
+    (+ bias (N,)) (+ resid (M, N)), bf16, on the GEMM of
+    csrc/gemm_sm90.cuh (TMA, wgmma). CPU tensors take `gemm_sm90_plain`.
+    Not counted: K1's wrapper counts the launches that carry these
+    products."""
+    if not a.is_cuda:
+        return gemm_sm90_plain(a, b, bias, resid)
+    (M, K), (Kb, N) = a.shape, b.shape
+    dev, bf = a.device, torch.bfloat16
+    require(K == Kb and N % 64 == 0 and K % 64 == 0,
+            f"gemm_sm90 needs a (M, K) @ b (K, N), N and K multiples of 64, "
+            f"got {tuple(a.shape)} @ {tuple(b.shape)}")
+    check_tensor(a, "a", (M, K), bf, dev)
+    check_tensor(b, "b", (K, N), bf, dev)
+    if bias is not None:
+        check_tensor(bias, "bias", (N,), bf, dev)
+    if resid is not None:
+        check_tensor(resid, "resid", (M, N), bf, dev)
+    out = torch.empty(M, N, dtype=bf, device=dev)
+    err = kernels.lib("spatial_block").tpu1x_gemm_sm90(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), ptr(bias), ptr(resid), M,
+        N, K, kernels.stream_of(a))
+    kernels.check(err, "gemm_sm90")
+    return out
+
+
 def spatial_block(x: torch.Tensor, wqkv: torch.Tensor, wproj: torch.Tensor, *,
                   num_heads: int, scale: float,
                   bqkv: Optional[torch.Tensor] = None,
@@ -51,10 +87,13 @@ def spatial_block(x: torch.Tensor, wqkv: torch.Tensor, wproj: torch.Tensor, *,
 
     Bound on the H100: tensor-core operations. One row is 256 KB in bf16,
     more than a block's shared memory, so the TPU's one-program-per-row
-    design becomes three launches (LN1 + qkv GEMM, attention per (row, head,
-    64-query tile) with the head's keys in shared memory, proj GEMM + bias +
-    residual); the (N, H, S, S) logits never leave registers. The qk-LN
-    normalises the head's q and k rows where they lie in shared memory.
+    design becomes launches whose intermediates stay in L2: the pre-LN as a
+    row pass (K5's kernel), the qkv product on a TMA-fed wgmma GEMM
+    (csrc/gemm_sm90.cuh), the attention (with the pre-LN: K9's flash
+    forward on the q, k, v thirds of qkv; with the qk-LN: a kernel per
+    (frame, head, 64-query tile) that normalises the head's q and k rows in
+    shared memory), and the proj product + bias + residual on the same
+    GEMM; the (N, H, S, S) logits never leave the SM.
     """
     if not x.is_cuda:
         return spatial_block_plain(x, wqkv, wproj, num_heads=num_heads,
@@ -84,13 +123,16 @@ def spatial_block(x: torch.Tensor, wqkv: torch.Tensor, wproj: torch.Tensor, *,
     if qk_ln_scale is not None:
         check_tensor(qk_ln_scale, "qk_ln_scale", (32,), torch.float32, dev)
         check_tensor(qk_ln_bias, "qk_ln_bias", (32,), torch.float32, dev)
+    # the pre-LN's output, then the flash attention's lse (no qk-LN)
+    xn = (torch.empty_like(x)
+          if ln_scale is not None or qk_ln_scale is None else None)
     qkv = torch.empty(N, S, 3 * C, dtype=bf, device=dev)
     attn = torch.empty_like(x)
     out = torch.empty_like(x)
     err = kernels.lib("spatial_block").tpu1x_spatial_block(
         x.data_ptr(), wqkv.data_ptr(), ptr(bqkv), wproj.data_ptr(), ptr(bproj),
         ptr(ln_scale), ptr(ln_bias), ptr(qk_ln_scale), ptr(qk_ln_bias),
-        qkv.data_ptr(), attn.data_ptr(),
+        ptr(xn), qkv.data_ptr(), attn.data_ptr(),
         out.data_ptr(), N, S, C, num_heads, scale, kernels.stream_of(x))
     kernels.check(err, "spatial_block")
     kernels.count("spatial_block")
