@@ -13,9 +13,12 @@
    and computes each kernel's bound from the H100 SXM data sheet: the larger
    of its bytes over the memory rate, its bf16 products over the tensor
    cores' rate and its fp32 arithmetic over the fp32 units' rate. The
-   spatial block also at C = 256 (GENIE_35M's width); its two products
-   alone on its own GEMM (csrc/gemm_sm90.cuh) against a plain product with
-   the same rounding, beside torch.matmul.
+   spatial block also at C = 256 (GENIE_35M's width); the temporal+MLP
+   block (one frame and the pair) with the tanh and the exact-erf GELU, at
+   C = 512 and at C = 256 with 8 heads; the GEMM of csrc/gemm_sm90.cuh
+   alone at the spatial block's two products and the temporal+MLP block's
+   two MLP products (fc1 with either GELU, fc2) against a plain product
+   with the same rounding, beside torch.matmul.
 4. Runs RolloutEngine.rollout at GENIE_138M (random weights from a seed,
    B=16, 8 prompt + 8 new frames, maskgit_steps 2, temperature 0), with
    the launch counters set to 0 just before and read just after; checks
@@ -59,11 +62,16 @@
    qk_norm=False with the int8 cache) at 8 layers. Trains
    `genie_138m(qk_norm=True)` as in 6, with its own launch counts, and holds
    the step's gradients against the plain path and an fp32 run.
-8. Prints the `kernels` JSON line, the card line, and last the result line.
+8. Action conditioning, at 8 layers of GENIE_138M with 16 action ids and
+   seeded actions: the rollout of 4 (launch counts, the prefill cache and
+   the step-0 logits against the plain path), one `make_train_step` step
+   through the kernels and through the plain train blocks (launch counts,
+   loss, gradient norm), and the step's gradients as in 6.
+9. Prints the `kernels` JSON line, the card line, and last the result line.
 
-K1 (both modes), K5, K9 and K10 and their library calls carry a profiler
-device time (`device_ms`, `library_device_ms`) beside the event time, as
-K7 and K8 do.
+K1 (both modes), K2, K3, K5, K9 and K10 carry a profiler device time
+(`device_ms`; their library calls `library_device_ms`) beside the event
+time, as K7 and K8 do.
 
 Any failure exits non-zero without the result line, as does a run without a
 CUDA device or outside the repository.
@@ -359,7 +367,12 @@ def block_weights(inp, C):
                 wfc2=inp.normal(F4, C, std=0.05), bfc2=inp.normal(C, std=0.1))
 
 
-def check_temporal_mlp_block(inp, C, H, L, caches, pair):
+def check_temporal_mlp_block(inp, C, H, L, caches, pair, gelu_tanh=True,
+                             timed=True):
+    """K2 (one frame) or K3 (the pair) against its plain version at C
+    channels and H heads, with the tanh or the exact-erf GELU (the two
+    instantiations of the GEMM's GELU epilogue); with `timed`, its event and
+    device time, its plain version's and its bound."""
     kc, vc = caches
     T = kc.shape[0]
     w = block_weights(inp, C)
@@ -369,8 +382,9 @@ def check_temporal_mlp_block(inp, C, H, L, caches, pair):
     t_B = (P + torch.arange(B, device=x.device) % (T - P - frames + 1)).to(
         torch.int32)
     layer = L // 2
-    kw = dict(scale=(C // H) ** -0.5, num_heads=H, gelu_tanh=True, **w)
+    kw = dict(scale=(C // H) ** -0.5, num_heads=H, gelu_tanh=gelu_tanh, **w)
     name = "temporal_mlp_block_pair" if pair else "temporal_mlp_block"
+    name += f"[C={C},{'tanh' if gelu_tanh else 'erf'}]"
     kernel = temporal_mlp_block_pair if pair else temporal_mlp_block
     plain = temporal_mlp_block_pair_plain if pair else temporal_mlp_block_plain
     got = kernel(x, kc, vc, t_B, layer=layer, **kw)
@@ -389,6 +403,8 @@ def check_temporal_mlp_block(inp, C, H, L, caches, pair):
             and torch.equal(kv[1][1], got[2]) and kv[0][0].eq(0).all()
             and torch.equal(dropped[0], got[0]) and dropped[1] is None):
         raise AssertionError(f"{name}: kv_out / return_kv change the output")
+    if not timed:
+        return dict(max_abs_err=err, shape=list(x.shape))
     S = 256
     slots = int(t_B.sum())  # this run's data: slots t < t_B[b] per row
     cache_bytes = 2 * slots * S * C * 2
@@ -398,9 +414,12 @@ def check_temporal_mlp_block(inp, C, H, L, caches, pair):
     logit_macs = B * S * C * (frames * slots / B + frames * (frames + 1) / 2)
     bms, by = bound(cache_bytes + io, tensor_flops=flops + 2 * logit_macs,
                     fp32_flops=2 * logit_macs)
+
+    def run():
+        return kernel(x, kc, vc, t_B, layer=layer, **kw)
     return dict(max_abs_err=err, shape=list(x.shape), t_B=t_B.tolist(),
-                layer=layer, bound_ms=bms, bound_by=by,
-                ms=time_ms(lambda: kernel(x, kc, vc, t_B, layer=layer, **kw)),
+                layer=layer, bound_ms=bms, bound_by=by, ms=time_ms(run),
+                device_ms=device_ms(run),
                 plain_ms=time_ms(lambda: plain(x, kc[:, layer], vc[:, layer],
                                                t_B, **kw), iters=5),
                 library_ms=None)
@@ -593,31 +612,44 @@ def check_flash_mha(inp, H):
 
 
 def check_gemm_sm90(inp, C):
-    """K1's GEMM (csrc/gemm_sm90.cuh) alone at K1's products and row counts
-    (N = 16, 32, 128 frames of 256 tokens): qkv = a Wqkv + b (C -> 3C) and
-    proj = a Wproj + b + x (C -> C), against `gemm_sm90_plain` (the same
-    rounding chain; atol = rtol = 3e-2), by device time beside
-    torch.matmul of the same operands."""
-    out = {}
+    """The GEMM of csrc/gemm_sm90.cuh alone, against `gemm_sm90_plain` (the
+    same rounding chain; atol = rtol = 3e-2), by device time beside
+    torch.matmul of the same operands: K1's products at its row counts (N =
+    16, 32, 128 frames of 256 tokens), qkv = a Wqkv + b (C -> 3C) and proj =
+    a Wproj + b + x (C -> C); K2's and K3's MLP products at theirs (4096 and
+    8192 rows), fc1 = GELU(a Wfc1 + b) (C -> 4C, tanh and exact erf) and
+    fc2 = h Wfc2 + b + x (4C -> C)."""
+    F4 = 4 * C
+    cases = []
     for N in (B, 2 * B, B * P):
         M = N * 256
         a, x = inp.normal(M, C), inp.normal(M, C)
-        for name, w, bias, resid in (
-                ("qkv", inp.normal(C, 3 * C, std=0.05),
-                 inp.normal(3 * C, std=0.1), None),
-                ("proj", inp.normal(C, C, std=0.05), inp.normal(C, std=0.1),
-                 x)):
-            err = compare(f"gemm_sm90 {name} rows={M}",
-                          sb.gemm_sm90(a, w, bias, resid),
-                          sb.gemm_sm90_plain(a, w, bias, resid), 3e-2, 3e-2)
-            n_out = w.shape[1]
-            bms, by = bound(nbytes(a, w, bias, resid) + M * n_out * 2,
-                            tensor_flops=2 * M * C * n_out)
-            dev = device_ms(lambda: sb.gemm_sm90(a, w, bias, resid))
-            out[f"{name}[rows={M}]"] = dict(
-                max_abs_err=err, bound_ms=bms, bound_by=by, device_ms=dev,
-                tflops=tflops(2 * M * C * n_out, dev),
-                library_device_ms=device_ms(lambda: torch.matmul(a, w)))
+        cases += [("qkv", a, inp.normal(C, 3 * C, std=0.05),
+                   inp.normal(3 * C, std=0.1), None, None),
+                  ("proj", a, inp.normal(C, C, std=0.05),
+                   inp.normal(C, std=0.1), x, None)]
+    for M in (B * 256, 2 * B * 256):
+        a, x, h = inp.normal(M, C), inp.normal(M, C), inp.normal(M, F4)
+        w1, b1 = inp.normal(C, F4, std=0.05), inp.normal(F4, std=0.1)
+        cases += [("fc1[tanh]", a, w1, b1, None, "tanh"),
+                  ("fc1[erf]", a, w1, b1, None, "erf"),
+                  ("fc2", h, inp.normal(F4, C, std=0.05),
+                   inp.normal(C, std=0.1), x, None)]
+    out = {}
+    for name, a, w, bias, resid, act in cases:
+        M, K = a.shape
+        n_out = w.shape[1]
+        err = compare(f"gemm_sm90 {name} rows={M}",
+                      sb.gemm_sm90(a, w, bias, resid, act),
+                      sb.gemm_sm90_plain(a, w, bias, resid, act), 3e-2, 3e-2)
+        flops = 2 * M * K * n_out
+        bms, by = bound(nbytes(a, w, bias, resid) + M * n_out * 2,
+                        tensor_flops=flops)
+        dev = device_ms(lambda: sb.gemm_sm90(a, w, bias, resid, act))
+        out[f"{name}[rows={M}]"] = dict(
+            max_abs_err=err, bound_ms=bms, bound_by=by, device_ms=dev,
+            tflops=tflops(flops, dev),
+            library_device_ms=device_ms(lambda: torch.matmul(a, w)))
     return out
 
 
@@ -658,10 +690,20 @@ def check_kernels(C, H, L, device):
     out["gemm_sm90"] = check_gemm_sm90(inp, C)
     T = 16
     caches = (inp.normal(T, L, B, 256, C), inp.normal(T, L, B, 256, C))
-    out["temporal_mlp_block"] = check_temporal_mlp_block(
-        inp, C, H, L, caches, pair=False)
-    out["temporal_mlp_block_pair"] = check_temporal_mlp_block(
-        inp, C, H, L, caches, pair=True)
+    for name, pair in (("temporal_mlp_block", False),
+                       ("temporal_mlp_block_pair", True)):
+        out[name] = check_temporal_mlp_block(inp, C, H, L, caches, pair)
+        out[name + "[erf]"] = check_temporal_mlp_block(
+            inp, C, H, L, caches, pair, gelu_tanh=False, timed=False)
+    del caches
+    # GENIE_35M's width, 8 heads, both GELU forms, on a 4-layer cache
+    caches = (inp.normal(T, 4, B, 256, 256), inp.normal(T, 4, B, 256, 256))
+    for name, pair in (("temporal_mlp_block", False),
+                       ("temporal_mlp_block_pair", True)):
+        for approx in (True, False):
+            out[f"{name}[C=256,{'tanh' if approx else 'erf'}]"] = (
+                check_temporal_mlp_block(inp, 256, 8, 4, caches, pair,
+                                         gelu_tanh=approx, timed=False))
     del caches
     for name, r in out.items():
         print(f"kernel {name}: " + json.dumps(r), flush=True)
@@ -686,14 +728,14 @@ class PlainDecodeEngine(DecodeEngine):
     )
 
 
-def plain_rollout(cfg, engine, params, prompt, generator):
+def plain_rollout(cfg, engine, params, prompt, generator, actions=None):
     """What `RolloutEngine.rollout` does, through `engine`'s ops."""
     tokens, _ = generate_cached_fused(
         functools.partial(engine.prefill, params),
         functools.partial(engine.decode_frame, params, return_kv=False),
         functools.partial(engine.decode_frame_pair, params),
         prompt.reshape(B, -1), NEW, generator, cfg, maskgit_steps=STEPS,
-        temperature=0.0)
+        temperature=0.0, actions_BT=actions)
     return tokens.reshape(B, 1, P + NEW, *prompt.shape[2:])
 
 
@@ -701,7 +743,8 @@ def check_rollout(cfg, device, cache_dtype="bf16", per_layer=PER_LAYER,
                   full=True):
     """One configuration's rollout: counts, output, times, and the cache
     and logits against the plain path. `full` False (the combinations run
-    at a cut depth) times one run and skips the profile."""
+    at a cut depth) times one run and skips the profile. A configuration
+    with an action vocabulary rolls out under seeded (B, P + NEW) actions."""
     g = torch.Generator(device=device).manual_seed(0)
     model = STMaskGIT(cfg, device=device).init_weights(g)
     engine = RolloutEngine(model, cfg, device=device, maskgit_steps=STEPS,
@@ -710,6 +753,9 @@ def check_rollout(cfg, device, cache_dtype="bf16", per_layer=PER_LAYER,
     side = cfg.latent_side_len
     prompt = torch.randint(0, cfg.image_vocab_size, (B, P, side, side),
                            generator=g, device=device)
+    actions = (torch.randint(0, cfg.action_vocab_size, (B, P + NEW),
+                             generator=g, device=device)
+               if cfg.action_vocab_size > 0 else None)
 
     def seeded():
         return torch.Generator(device=device).manual_seed(1)
@@ -721,10 +767,10 @@ def check_rollout(cfg, device, cache_dtype="bf16", per_layer=PER_LAYER,
         return out, time.perf_counter() - t0
 
     def kernel_path(gen):
-        return engine.rollout(prompt, NEW, gen)
+        return engine.rollout(prompt, NEW, gen, actions=actions)
 
     def plain_path(gen):
-        return plain_rollout(cfg, plain, engine.params, prompt, gen)
+        return plain_rollout(cfg, plain, engine.params, prompt, gen, actions)
 
     kernel_path(seeded())  # first-call set-up, not timed
     torch.cuda.synchronize()
@@ -747,23 +793,32 @@ def check_rollout(cfg, device, cache_dtype="bf16", per_layer=PER_LAYER,
     wall = walls[len(walls) // 2]  # the median of three
     out_plain, wall_plain = timed(plain_path)
     agree = float((out[:, 0, P:] == out_plain[:, 0, P:]).float().mean())
+    device_time = None
+    if full:
+        device_time = profile_device(lambda: kernel_path(seeded()))
+        # the block path's products all run on csrc/gemm_sm90.cuh
+        shared = [k for k in device_time["port"]
+                  if k.startswith("void tpu1x::gemm_kernel<")]
+        if not cfg.qk_norm and cache_dtype == "bf16" and shared:
+            raise AssertionError(f"the rollout ran the shared GEMM: {shared}")
 
     return dict(launches=launches, rollout_s=wall, rollout_s_runs=walls,
                 plain_rollout_s=wall_plain, s_per_frame=wall / NEW,
                 s_per_frame_per_row=wall / (NEW * B), token_agreement=agree,
                 layers=cfg.num_layers, qk_norm=cfg.qk_norm,
                 cache_dtype=cache_dtype,
-                device_time=profile_device(
-                    lambda: engine.rollout(prompt, NEW, seeded()))
-                if full else None,
-                **check_prefill_and_logits(model, cfg, prompt, engine, plain))
+                action_vocab_size=cfg.action_vocab_size,
+                device_time=device_time,
+                **check_prefill_and_logits(model, cfg, prompt, engine, plain,
+                                           actions))
 
 
 def profile_device(run, top: int = 12):
     """Device time by kernel over one call of `run` (one more rollout, one
     more train step), from torch.profiler: the total, its share of that
     call's wall time (the device's busy share; the profiler's own host cost
-    is in the wall), and the largest kernels in ms."""
+    is in the wall), the largest kernels in ms, and every kernel of this
+    port (`tpu1x::`) with its calls and ms."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -778,7 +833,9 @@ def profile_device(run, top: int = 12):
     return {"wall_ms": wall * 1e3, "device_ms": total,
             "busy_share": total / (wall * 1e3),
             "top": [[a.key[:60], a.count, a.self_device_time_total / 1e3]
-                    for a in ranked[:top]]}
+                    for a in ranked[:top]],
+            "port": {a.key: [a.count, a.self_device_time_total / 1e3]
+                     for a in ranked if "tpu1x::" in a.key}}
 
 
 def rel_l2(a, b) -> float:
@@ -786,9 +843,11 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def check_prefill_and_logits(model, cfg, prompt, engine, plain):
+def check_prefill_and_logits(model, cfg, prompt, engine, plain,
+                             actions=None):
     """The prefill cache and the first new frame's step-0 logits of the
-    kernel path against the plain path, each path on its own cache.
+    kernel path against the plain path, each path on its own cache, under
+    `actions` (B, P + NEW) where given.
 
     Layer 0 of the cache is held elementwise (atol = rtol = 3e-2). Deeper
     down, two bf16 paths drift apart by their rounding alone, so the whole
@@ -808,9 +867,12 @@ def check_prefill_and_logits(model, cfg, prompt, engine, plain):
     for name, eng, params in (("kernel", engine.engine, engine.params),
                               ("plain", plain, engine.params),
                               ("fp32", ref, ref_params)):
-        cache = eng.prefill(params, prompt)
-        logits, _ = eng.decode_frame(params, masked, P, cache,
-                                     return_kv=False)
+        cache = eng.prefill(params, prompt,
+                            None if actions is None else actions[:, :P])
+        logits, _ = eng.decode_frame(
+            params, masked, P, cache,
+            action_B=None if actions is None else actions[:, P],
+            return_kv=False)
         got[name] = {"logits": logits}
         for key in ("k", "v"):
             got[name][key] = cache[key][:P]
@@ -1137,13 +1199,16 @@ def check_step_against_plain(model, cfg, device, per_layer=TRAIN_PER_LAYER):
                            generator=g, device=device)
     batch = maskgit_corrupt(tokens, draw_noise(tokens.shape, cfg, g, device),
                             cfg)
+    actions = (torch.randint(0, cfg.action_vocab_size, (CB, cfg.T),
+                             generator=g, device=device)
+               if cfg.action_vocab_size > 0 else None)
     ref = STMaskGIT(dataclasses.replace(cfg, dtype="float32"), device=device)
     ref.load_state_dict(model.state_dict())
 
     def run(m, plain):
         m.train().zero_grad(set_to_none=True)
         with plain_blocks() if plain else contextlib.nullcontext():
-            out = m(batch["input_ids"], batch["labels"])
+            out = m(batch["input_ids"], batch["labels"], actions)
             out["loss"].backward()
         grads = {n: p.grad for n, p in m.named_parameters()}
         m.zero_grad(set_to_none=True)
@@ -1197,6 +1262,56 @@ def check_step_against_plain(model, cfg, device, per_layer=TRAIN_PER_LAYER):
     if not ok:
         raise AssertionError(f"train step against the plain path: {out}")
     return out
+
+
+def check_action_conditioning(device, layers=8, actions=16):
+    """Action conditioning on the card: GENIE_138M at `layers` layers with
+    an action vocabulary of `actions` ids. The rollout under seeded actions
+    (`check_rollout`: exact launch counts, the prefill cache and the step-0
+    logits against `PlainDecodeEngine`); one `make_train_step` step with
+    actions_BT through the kernels (exact launch counts) and through the
+    plain train blocks, from the same weights, batch, corruption and
+    actions (loss and gradient norm); and every parameter's gradient under
+    the same actions against the plain path and an fp32 run
+    (`check_step_against_plain`). Actions enter through the embedding
+    alone, so every kernel sees what it sees without them."""
+    cfg = genie_138m(num_layers=layers, action_vocab_size=actions)
+    roll = check_rollout(cfg, device, full=False)
+    g = torch.Generator(device=device).manual_seed(3)
+    model = STMaskGIT(cfg, device=device).init_weights(g)
+    side = cfg.latent_side_len
+    tokens = torch.randint(0, cfg.image_vocab_size, (CB, cfg.T, side, side),
+                           generator=g, device=device)
+    acts = torch.randint(0, actions, (CB, cfg.T), generator=g, device=device)
+    noise = draw_noise(tokens.shape, cfg, g, device)
+    steps = {}
+    for path in ("kernel", "plain"):
+        m = STMaskGIT(cfg, device=device)
+        m.load_state_dict(model.state_dict())
+        step = make_train_step(m, TrainOptimizer(m, cfg,
+                                                 learning_rate=TRAIN_LR,
+                                                 max_grad_norm=1.0), cfg)
+        kernels.reset_launches()
+        with plain_blocks() if path == "plain" else contextlib.nullcontext():
+            r = step(tokens, actions_BT=acts, noise=noise)
+        torch.cuda.synchronize()
+        want = expected_launches(TRAIN_PER_LAYER if path == "kernel" else {},
+                                 layers)
+        if kernels.LAUNCHES != want:
+            raise AssertionError(f"action train step, {path} path: launches "
+                                 f"{kernels.LAUNCHES}, expected {want}")
+        steps[path] = {k: float(v) for k, v in r.items()}
+        del step, m
+    # the gates of `check_step_against_plain` on the loss and the norm
+    got, want = steps["kernel"], steps["plain"]
+    if not (all(math.isfinite(v) for v in got.values())
+            and abs(got["loss"] - want["loss"]) <= 2e-2
+            and abs(got["grad_norm"] / want["grad_norm"] - 1) <= 5e-2):
+        raise AssertionError(f"action train step against the plain path: "
+                             f"{steps}")
+    return dict(rollout=roll, train_step=steps,
+                train_step_against_plain=check_step_against_plain(
+                    model, cfg, device))
 
 
 def main() -> int:
@@ -1279,6 +1394,11 @@ def main() -> int:
                 check_rollout(c, device, cache_dtype, per_layer, full=False)),
                 flush=True)
         print(f"8-layer rollouts: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        print("action conditioning, 8 layers: " + json.dumps(
+            check_action_conditioning(device)), flush=True)
+        print(f"action conditioning: {time.perf_counter() - t0:.1f} s",
               flush=True)
 
         t0 = time.perf_counter()

@@ -152,18 +152,36 @@ def test_bwd_plain_on_qkv_thirds(causal):
     close(torch.stack(grads, dim=-3), want)
 
 
-@pytest.mark.parametrize("bias", [False, True])
-@pytest.mark.parametrize("resid", [False, True])
-def test_gemm_sm90_plain(bias, resid):
-    """`gemm_sm90` on CPU tensors: a @ b (+ bias) (+ resid), the JAX
-    package's dot and adds, in fp32."""
+# the epilogue's forms: no activation (ids as before the GELU existed), the
+# tanh GELU and the exact-erf GELU, each with and without bias and residual
+GEMM_CASES = [pytest.param(act, bias, resid,
+                           id=("" if act is None else f"{act}-")
+                           + f"{resid}-{bias}")
+              for act in (None, "tanh", "erf") for resid in (False, True)
+              for bias in (False, True)]
+
+
+@pytest.mark.parametrize("act,bias,resid", GEMM_CASES)
+def test_gemm_sm90_plain(act, bias, resid):
+    """`gemm_sm90` on CPU tensors: a @ b (+ bias) (GELU) (+ resid), the JAX
+    package's serving chain `gelu(dense(h, w, b), approximate=...)` and
+    adds (tpu1x/ops/temporal_mlp_block.py's reference), in fp32."""
     rng = np.random.default_rng(15)
     a, b = rand(rng, 96, 64), rand(rng, 64, 128, scale=0.1)
     bb, r = rand(rng, 128), rand(rng, 96, 128)
     want = jnp.dot(jnp.asarray(a), jnp.asarray(b),
                    precision=jax.lax.Precision.HIGHEST)
     want = want + (jnp.asarray(bb) if bias else 0.0)
+    if act is not None:
+        want = jax.nn.gelu(want, approximate=act == "tanh")
     want = (jnp.asarray(r) if resid else 0.0) + want
     got = tsb.gemm_sm90(t(a), t(b), t(bb) if bias else None,
-                        t(r) if resid else None)
+                        t(r) if resid else None, act=act)
     close(got, want)
+
+
+def test_gemm_sm90_act_is_checked():
+    """An activation the epilogue does not have is refused, on any device."""
+    a, b = torch.zeros(4, 64), torch.zeros(64, 64)
+    with pytest.raises(ValueError, match="act must be one of"):
+        tsb.gemm_sm90(a, b, act="relu")

@@ -192,12 +192,18 @@ def block_weights(rng, C, F4, qkv_bias, mlp_bias):
     return w
 
 
-@pytest.mark.parametrize("qkv_bias,mlp_bias,gelu_tanh",
-                         [(False, True, True), (True, False, False)])
-def test_temporal_mlp_block_single(qkv_bias, mlp_bias, gelu_tanh):
+# (C, heads): the small width, and GENIE_35M's C=256 with 8 heads of 32
+# channels, the narrowest width the card's kernels take (ids of the small
+# width as before the wide cases existed)
+@pytest.mark.parametrize("qkv_bias,mlp_bias,gelu_tanh,C,H", [
+    pytest.param(False, True, True, 64, 2, id="False-True-True"),
+    pytest.param(True, False, False, 64, 2, id="True-False-False"),
+    pytest.param(False, True, True, 256, 8, id="C256-tanh"),
+    pytest.param(True, True, False, 256, 8, id="C256-erf")])
+def test_temporal_mlp_block_single(qkv_bias, mlp_bias, gelu_tanh, C, H):
     from tpu1x.ops.temporal_mlp_block import temporal_mlp_block as jax_tmb
     rng = np.random.default_rng(6)
-    B, S, C, H, T, L, layer = 2, 32, 64, 2, 8, 3, 1
+    B, S, T, L, layer = 2, 32, 8, 3, 1
     w = block_weights(rng, C, 4 * C, qkv_bias, mlp_bias)
     x = rand(rng, B, S, C, scale=0.5)
     kc, vc = rand(rng, T, L, B, S, C, scale=0.5), rand(rng, T, L, B, S, C, scale=0.5)
@@ -214,11 +220,15 @@ def test_temporal_mlp_block_single(qkv_bias, mlp_bias, gelu_tanh):
         close(g, wnt)
 
 
-@pytest.mark.parametrize("layer,t_prev", [(2, (2, 6)), (0, (0, 7))])
-def test_temporal_mlp_block_pair(layer, t_prev):
+@pytest.mark.parametrize("layer,t_prev,C,H,gelu_tanh", [
+    pytest.param(2, (2, 6), 64, 2, True, id="2-t_prev0"),
+    pytest.param(0, (0, 7), 64, 2, True, id="0-t_prev1"),
+    pytest.param(1, (3, 6), 256, 8, True, id="C256-tanh"),
+    pytest.param(2, (0, 5), 256, 8, False, id="C256-erf")])
+def test_temporal_mlp_block_pair(layer, t_prev, C, H, gelu_tanh):
     from tpu1x.ops.temporal_mlp_block import temporal_mlp_block_pair as jax_pair
     rng = np.random.default_rng(7)
-    B, S, C, H, T, L = 2, 32, 64, 2, 8, 3
+    B, S, T, L = 2, 32, 8, 3
     w = block_weights(rng, C, 4 * C, False, True)
     z = rand(rng, B, 2, S, C, scale=0.5)
     kc, vc = rand(rng, T, L, B, S, C, scale=0.5), rand(rng, T, L, B, S, C, scale=0.5)
@@ -226,10 +236,11 @@ def test_temporal_mlp_block_pair(layer, t_prev):
     scale = (C // H) ** -0.5
     want = jax_pair(jnp.asarray(z), jnp.asarray(kc), jnp.asarray(vc),
                     jnp.asarray(tB), layer=layer, scale=scale, num_heads=H,
-                    tile_s=16, interpret=True,
+                    gelu_tanh=gelu_tanh, tile_s=16, interpret=True,
                     **{k: jnp.asarray(v) for k, v in w.items()})
     got = temporal_mlp_block_pair(t(z), t(kc), t(vc), t(tB), layer=layer,
                                   scale=scale, num_heads=H,
+                                  gelu_tanh=gelu_tanh,
                                   **{k: t(v) for k, v in w.items()})
     for g, wnt in zip(got, want):
         close(g, wnt)

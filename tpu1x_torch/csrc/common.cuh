@@ -1,7 +1,8 @@
 // Shared device code of the port's kernels: bf16 helpers, the Hopper
 // warp-level tensor-core primitives (ldmatrix, mma.sync m16n8k16, cp.async),
-// and one tiled bf16 GEMM with fp32 accumulators that the spatial block and
-// the temporal+MLP block both use for their weight products.
+// and one tiled bf16 GEMM with fp32 accumulators that the training kernels
+// (K11-K13, csrc/train_block.cu) use for their weight products. The serving
+// blocks (K1, K2, K3) run theirs on csrc/gemm_sm90.cuh (TMA, wgmma).
 //
 // The GEMM computes C = epilogue(prologue(A) @ B) for row-major A (M, K),
 // B (K, N) and C (M, N), all bf16 (form GEMM_NN). Two more forms of the same
@@ -29,8 +30,8 @@
 // Tiles are 128 x 64 x 32 with two cp.async stages; 8 warps each own a
 // 32 x 32 piece of the output as 2 x 4 mma tiles. Bound on the H100: the
 // tensor cores for the large products (K = 512 or 2048 at the GENIE widths);
-// this first version uses mma.sync, not wgmma/TMA, so it reaches a fraction
-// of the 989 TFLOP/s peak.
+// it uses mma.sync, not wgmma/TMA, so it reaches a fraction of the 989
+// TFLOP/s peak; moving K11-K13 onto csrc/gemm_sm90.cuh is still to do.
 
 #pragma once
 

@@ -1,8 +1,13 @@
 // C = epilogue(A B) on the tensor cores of Hopper: row-major bf16 A (M, K),
 // B (K, N) and C (M, N), fp32 accumulators, and the serving chain of
 // csrc/common.cuh's GEMM_NN as the epilogue: round to bf16, + bias
-// (rounded), + residual (rounded). The spatial block's (K1's) qkv and proj
-// products run on it; the other kernels keep common.cuh's mma.sync GEMM.
+// (rounded), GELU (rounded), + residual (rounded). It carries the weight
+// products of the spatial block (K1: qkv, proj) and of the temporal+MLP
+// block (K2 and K3: qkv, proj, fc1 with the GELU, fc2); the training
+// kernels keep common.cuh's mma.sync GEMM. The GELU, tanh or exact erf, is
+// a template parameter of the kernel, so the instantiation without it
+// compiles to the code it had before the GELU existed (one epilogue for
+// every use once cost the rollout 5%).
 //
 // Bound on the H100: tensor-core operations for K1's products (2 M K N
 // FLOP against (M K + K N + 2 M N) bf16 values: at M = 4096, K = 512,
@@ -22,7 +27,9 @@
 //   transposed flag; its lbo, the bytes between 64-column atoms, is unused
 //   at this width), four k16 steps a stage, keeping one stage's group in
 //   flight and releasing the stage before it;
-// - the epilogue works on the accumulator registers and stores bf16 pairs.
+// - the epilogue works on the accumulator registers and stores bf16 pairs;
+//   the GELU applies the JAX serving chain's gelu(dense(h, w, b)): the
+//   product rounded, + bias rounded, GELU in fp32 rounded.
 // The tile width, 64 columns, was chosen by measurement at K1's products
 // (M = 4096 / 8192 / 32768 rows, K = 512; device time on an NVIDIA H100
 // 80GB HBM3 at 700 W, chip_variants.py gemm): against 128 columns (wgmma
@@ -32,8 +39,12 @@
 // 0.0150 / 0.0285 / 0.1316: twice the tiles fill the 132 SMs more evenly,
 // and a tile's epilogue is half as long.
 //
-// ptxas (sm_90a): 62 registers a thread, no spills; 99392 bytes of dynamic
-// shared memory a block (four 24 KB stages): two blocks an SM.
+// ptxas (sm_90a): 62 registers a thread without the GELU, 66 with the tanh
+// GELU, 72 with the erf GELU, no spills; 99392 bytes of dynamic shared
+// memory a block (four 24 KB stages): two blocks an SM. On K2's MLP
+// products (4096 rows, C = 512, F4 = 2048; device time on an NVIDIA H100
+// 80GB HBM3 at 700 W, chip_smoke.py's gemm_sm90 phase) fc1 with the GELU
+// runs at 210-218 TFLOP/s, fc2 (K = 2048) at 381-383.
 //
 // Requires N % 64 == 0, K % 64 == 0, 16-byte aligned rows; any M (TMA fills
 // the rows past M with zeros, and the epilogue skips them).
@@ -76,7 +87,8 @@ struct Gemm90Args {
 
 // ta: A (M, K) in boxes of 64 x 128; tb: B (K, N) in boxes of 64 x 64;
 // both 128-byte swizzle. grid: the tiles or the resident blocks, whichever
-// are fewer.
+// are fewer. ACT: ACT_NONE, ACT_GELU_TANH or ACT_GELU_ERF.
+template <int ACT>
 __global__ void __launch_bounds__(G9_THREADS)
     gemm90_kernel(const __grid_constant__ CUtensorMap ta,
                   const __grid_constant__ CUtensorMap tb, Gemm90Args p) {
@@ -162,6 +174,8 @@ __global__ void __launch_bounds__(G9_THREADS)
         const long at = (long)row * p.N + col;
         float v0 = bf16r(acc[4 * j + 2 * h]), v1 = bf16r(acc[4 * j + 2 * h + 1]);
         if (p.bias) v0 = bf16r(v0 + bb.x), v1 = bf16r(v1 + bb.y);
+        if constexpr (ACT != ACT_NONE)
+          v0 = bf16r(gelu(v0, ACT)), v1 = bf16r(gelu(v1, ACT));
         if (p.resid) {
           const float2 rr = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(p.resid + at));
@@ -173,13 +187,35 @@ __global__ void __launch_bounds__(G9_THREADS)
   }
 }
 
+// One instantiation's launch; `resident` is kept for each, since two
+// instantiations need not have the same occupancy. `static`: an `inline`
+// launcher's static would be shared by every library of the process that
+// includes this header.
+template <int ACT>
+static cudaError_t launch_gemm90_act(const CUtensorMap& ta,
+                                     const CUtensorMap& tb, const Gemm90Args& a,
+                                     int tiles, cudaStream_t stream) {
+  // the blocks the card keeps resident, found once a process
+  static int resident = 0;
+  if (resident == 0)
+    TPU1X_TRY(resident_blocks(gemm90_kernel<ACT>, G9_THREADS, G9_SMEM,
+                              &resident));
+  gemm90_kernel<ACT><<<tiles < resident ? tiles : resident, G9_THREADS,
+                       G9_SMEM, stream>>>(ta, tb, a);
+  return cudaGetLastError();
+}
+
 // C = epilogue(A B) with A (M, K), B (K, N), C and resid (M, N) contiguous
-// bf16, bias (N,) bf16 or null, resid null or not.
+// bf16, bias (N,) bf16 or null, resid null or not, act one of ACT_NONE,
+// ACT_GELU_TANH, ACT_GELU_ERF.
 static inline cudaError_t launch_gemm90(const void* A, const void* B,
                                         void* C, const void* bias,
                                         const void* resid, int M, int N, int K,
-                                        cudaStream_t stream) {
-  if (N % G9_BN || K % G9_BK || M < 0) return cudaErrorInvalidValue;
+                                        cudaStream_t stream,
+                                        int act = ACT_NONE) {
+  if (N % G9_BN || K % G9_BK || M < 0 ||
+      (act != ACT_NONE && act != ACT_GELU_TANH && act != ACT_GELU_ERF))
+    return cudaErrorInvalidValue;
   if (M == 0) return cudaSuccess;
   CUtensorMap ta, tb;
   const cuuint64_t a_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
@@ -195,14 +231,11 @@ static inline cudaError_t launch_gemm90(const void* A, const void* B,
   Gemm90Args a{static_cast<bf16*>(C), static_cast<const bf16*>(bias),
                static_cast<const bf16*>(resid), M, N, K};
   const int tiles = (M + G9_BM - 1) / G9_BM * (N / G9_BN);
-  // the blocks the card keeps resident, found once a process
-  static int resident = 0;
-  if (resident == 0)
-    TPU1X_TRY(
-        resident_blocks(gemm90_kernel, G9_THREADS, G9_SMEM, &resident));
-  gemm90_kernel<<<tiles < resident ? tiles : resident, G9_THREADS, G9_SMEM,
-                  stream>>>(ta, tb, a);
-  return cudaGetLastError();
+  if (act == ACT_GELU_TANH)
+    return launch_gemm90_act<ACT_GELU_TANH>(ta, tb, a, tiles, stream);
+  if (act == ACT_GELU_ERF)
+    return launch_gemm90_act<ACT_GELU_ERF>(ta, tb, a, tiles, stream);
+  return launch_gemm90_act<ACT_NONE>(ta, tb, a, tiles, stream);
 }
 
 }  // namespace tpu1x

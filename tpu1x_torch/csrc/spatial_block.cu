@@ -490,13 +490,15 @@ extern "C" int tpu1x_spatial_block(const void* x, const void* wqkv,
 }
 
 // C (M, N) = epilogue(A (M, K) B (K, N)) on the GEMM of the two products
-// above, all bf16 and contiguous: rounded, + bias (N,) if not null,
-// rounded, + resid (M, N) if not null, rounded.
+// above (and of the temporal+MLP block's four), all bf16 and contiguous:
+// rounded, + bias (N,) if not null, rounded, GELU (act ACT_GELU_TANH or
+// ACT_GELU_ERF; ACT_NONE: none), rounded, + resid (M, N) if not null,
+// rounded.
 extern "C" int tpu1x_gemm_sm90(const void* A, const void* B, void* C,
                                const void* bias, const void* resid, int M,
-                               int N, int K, void* stream) {
+                               int N, int K, int act, void* stream) {
   return launch_gemm90(A, B, C, bias, resid, M, N, K,
-                       static_cast<cudaStream_t>(stream));
+                       static_cast<cudaStream_t>(stream), act);
 }
 
 // qkv, dqkv (N, S, 3C); d_o, o (N, S, C), all bf16. Requires S == 256 and

@@ -44,8 +44,8 @@ SIGNATURES = {
         # qk_ln_bias, xn_buf, qkv_buf, attn_buf, out, N, S, C, H, scale,
         # stream
         ("tpu1x_spatial_block", [P] * 13 + [I, I, I, I, F, P]),
-        # A, B, C, bias, resid, M, N, K, stream
-        ("tpu1x_gemm_sm90", [P] * 5 + [I] * 3 + [P]),
+        # A, B, C, bias, resid, M, N, K, act, stream
+        ("tpu1x_gemm_sm90", [P] * 5 + [I] * 4 + [P]),
         # qkv, d_o, dqkv, o, N, S, C, H, scale, stream
         ("tpu1x_spatial_attention_bwd", [P, P, P, P, I, I, I, I, F, P]),
     ],
@@ -70,10 +70,10 @@ SIGNATURES = {
     ],
     "temporal_mlp_block": [
         # x, k_cache, v_cache, t_B, wqkv, bqkv, wproj, bproj, ln_scale,
-        # ln_bias, wfc1, bfc1, wfc2, bfc2, qkv_buf, attn_buf, x1_buf, h_buf,
-        # out, k_out, v_out, B, frames, S, C, F4, T, L, layer, gelu_tanh,
-        # scale, stream
-        ("tpu1x_temporal_mlp_block", [P] * 21 + [I] * 9 + [F, P]),
+        # ln_bias, wfc1, bfc1, wfc2, bfc2, qkv_buf, attn_buf, x1_buf, xn_buf,
+        # h_buf, out, k_out, v_out, B, frames, S, C, F4, T, L, layer,
+        # gelu_tanh, scale, stream
+        ("tpu1x_temporal_mlp_block", [P] * 22 + [I] * 9 + [F, P]),
     ],
     "decode_attention": [
         # q0, q1, k0, k1, v0, v1, sbq, ldq, sbk, ldk, sbv, ldv, k_cache,

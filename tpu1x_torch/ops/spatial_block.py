@@ -8,7 +8,7 @@ from typing import Optional
 import torch
 
 from tpu1x_torch import kernels
-from tpu1x_torch.ops._util import check_tensor, dense, ptr, require
+from tpu1x_torch.ops._util import check_tensor, dense, gelu, ptr, require
 from tpu1x_torch.ops.attention import mha_reference
 from tpu1x_torch.ops.layernorm import layer_norm_plain
 
@@ -30,23 +30,35 @@ def spatial_block_plain(x, wqkv, wproj, *, num_heads: int, scale: float,
     return x + dense(out.reshape(N, S, C), wproj, bproj)
 
 
-def gemm_sm90_plain(a, b, bias=None, resid=None):
+# the GEMM epilogue's activations, as csrc/common.cuh numbers them
+GEMM_ACTS = {None: 0, "tanh": 1, "erf": 2}
+
+
+def gemm_sm90_plain(a, b, bias=None, resid=None, act=None):
     """What `gemm_sm90` computes, in plain torch: a @ b rounded to a's
-    dtype, + bias rounded, + resid rounded (the serving chain)."""
+    dtype, + bias rounded, GELU rounded (act "tanh" or "erf"; None: none),
+    + resid rounded (the serving chain)."""
+    require(act in GEMM_ACTS, f"act must be one of {list(GEMM_ACTS)}, "
+            f"got {act!r}")
     y = dense(a, b, bias)
+    if act is not None:
+        y = gelu(y, act == "tanh")
     return y if resid is None else resid + y
 
 
 def gemm_sm90(a: torch.Tensor, b: torch.Tensor,
               bias: Optional[torch.Tensor] = None,
-              resid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K1's two products alone, for the card checks: a (M, K) @ b (K, N)
-    (+ bias (N,)) (+ resid (M, N)), bf16, on the GEMM of
+              resid: Optional[torch.Tensor] = None,
+              act: Optional[str] = None) -> torch.Tensor:
+    """The products of K1 and of K2/K3 alone, for the card checks: a (M, K)
+    @ b (K, N) (+ bias (N,)) (GELU) (+ resid (M, N)), bf16, on the GEMM of
     csrc/gemm_sm90.cuh (TMA, wgmma). CPU tensors take `gemm_sm90_plain`.
-    Not counted: K1's wrapper counts the launches that carry these
+    Not counted: the blocks' wrappers count the launches that carry these
     products."""
     if not a.is_cuda:
-        return gemm_sm90_plain(a, b, bias, resid)
+        return gemm_sm90_plain(a, b, bias, resid, act)
+    require(act in GEMM_ACTS, f"act must be one of {list(GEMM_ACTS)}, "
+            f"got {act!r}")
     (M, K), (Kb, N) = a.shape, b.shape
     dev, bf = a.device, torch.bfloat16
     require(K == Kb and N % 64 == 0 and K % 64 == 0,
@@ -61,7 +73,7 @@ def gemm_sm90(a: torch.Tensor, b: torch.Tensor,
     out = torch.empty(M, N, dtype=bf, device=dev)
     err = kernels.lib("spatial_block").tpu1x_gemm_sm90(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), ptr(bias), ptr(resid), M,
-        N, K, kernels.stream_of(a))
+        N, K, GEMM_ACTS[act], kernels.stream_of(a))
     kernels.check(err, "gemm_sm90")
     return out
 

@@ -109,6 +109,7 @@ def _launch(x, k_cache, v_cache, t_B, layer, frames, kv_out, return_kv, *,
     qkv = torch.empty(M, 3 * C, dtype=bf, device=dev)
     attn = torch.empty(M, C, dtype=bf, device=dev)
     x1 = torch.empty(M, C, dtype=bf, device=dev)
+    xn = torch.empty(M, C, dtype=bf, device=dev)
     h = torch.empty(M, F4, dtype=bf, device=dev)
     out = torch.empty_like(x)
     k_out = v_out = None
@@ -124,7 +125,8 @@ def _launch(x, k_cache, v_cache, t_B, layer, frames, kv_out, return_kv, *,
         wqkv.data_ptr(), ptr(bqkv), wproj.data_ptr(), ptr(bproj),
         ln_scale.data_ptr(), ln_bias.data_ptr(), wfc1.data_ptr(), ptr(bfc1),
         wfc2.data_ptr(), ptr(bfc2), qkv.data_ptr(), attn.data_ptr(),
-        x1.data_ptr(), h.data_ptr(), out.data_ptr(), ptr(k_out),
+        x1.data_ptr(), xn.data_ptr(), h.data_ptr(), out.data_ptr(),
+        ptr(k_out),
         ptr(v_out), B, frames, S, C, F4, T, L, layer, int(gelu_tanh),
         scale, kernels.stream_of(x))
     kernels.check(err, "temporal_mlp_block")
@@ -149,9 +151,12 @@ def temporal_mlp_block(x: torch.Tensor, k_cache: torch.Tensor,
     csrc/temporal_mlp_block.cu, which replaces the Pallas kernel
     tpu1x/ops/temporal_mlp_block.py:temporal_mlp_block (_kernel_single):
     bf16 activations, caches and weights, fp32 LN params, int32 t_B, head_dim
-    32, C % 256 == 0, T <= 16. Bound on the H100: the tensor cores for the
-    four weight products (GEMMs on mma.sync) and device memory for the cache
-    read, which touches only the slots t < t_B[b] of one layer.
+    32, C % 256 == 0, F4 % 64 == 0, T <= 16. Six launches on one stream:
+    the four weight products on the TMA-fed wgmma GEMM of
+    csrc/gemm_sm90.cuh (fc1 with its GELU epilogue), the cache attention
+    between qkv and proj, LN2 as a row pass before fc1. Bound on the H100:
+    the tensor cores for the products and device memory for the cache read,
+    which touches only the slots t < t_B[b] of one layer.
     """
     w = dict(scale=scale, num_heads=num_heads, wqkv=wqkv, wproj=wproj,
              ln_scale=ln_scale, ln_bias=ln_bias, wfc1=wfc1, wfc2=wfc2,
