@@ -36,7 +36,11 @@
    in relative L2 (both paths round to bf16 at several places between the
    products, each rounding 2^-9 relative; the weight gradients sum 32768
    rows in fp32, in another order and, with atomics, in an order that
-   changes from run to run).
+   changes from run to run). The MLP train block also at C = 256 (with and
+   without LN, both GELUs), and a profile of its forward and backward must
+   show no kernel of csrc/common.cuh's GEMM; then each training form of
+   csrc/gemm_sm90.cuh alone at the MLP block's products against its plain
+   version, with its TFLOP/s beside torch.matmul's.
 6. Trains GENIE_138M (random weights and tokens from seed 0, B=8, T=16)
    through `make_train_step` on the card: the launch counters are set to 0
    before the first step and read after it; ten steps on the one batch and
@@ -69,7 +73,7 @@
    loss, gradient norm), and the step's gradients as in 6.
 9. Prints the `kernels` JSON line, the card line, and last the result line.
 
-K1 (both modes), K2, K3, K5, K9 and K10 carry a profiler device time
+K1 (both modes), K2, K3, K5, K9, K10 and K13 carry a profiler device time
 (`device_ms`; their library calls `library_device_ms`) beside the event
 time, as K7 and K8 do.
 
@@ -1014,9 +1018,14 @@ def check_temporal_train_block(inp, C, H):
             plain_ms(plain, t, dout), bwd)}
 
 
-def check_mlp_train_block(inp, C, ln=True):
-    """With `ln` False: the block without its LayerNorm, as the qk_norm
-    models call it (exact erf only)."""
+def check_mlp_train_block(inp, C, ln=True, timed=True):
+    """K13 forward and backward, values and every gradient, with the tanh
+    and the exact-erf GELU, against `mlp_train_block_plain`'s autograd; with
+    `ln` False without its LayerNorm, as the qk_norm models call it. With
+    `timed`: the event and device times, the plain version's and the
+    bounds, and a profile of one forward and backward, which must launch no
+    kernel of `common.cuh`'s GEMM (K13's products run on
+    csrc/gemm_sm90.cuh)."""
     S, N, F4 = 256, TB * 16, 4 * C
     w = block_weights(inp, C)
     t = dict(x=inp.normal(N, S, C), **{
@@ -1024,14 +1033,20 @@ def check_mlp_train_block(inp, C, ln=True):
             ("ln_scale", "ln_bias") if ln else ())})
     dout = inp.normal(N, S, C)
     out = {}
-    for approx in (False, True) if ln else (False,):  # erf: the shipped GELU
+    for approx in (False, True):  # erf: the shipped GELU
         name = "mlp_train_block" + ("[tanh]" if approx else "") + (
-            "" if ln else "[no-ln]")
+            "" if ln else "[no-ln]") + ("" if C == 512 else f"[C={C}]")
         plain = functools.partial(mtb.mlp_train_block_plain,
                                   gelu_approx=approx)
         out_err, grads = both_paths(
             name, functools.partial(mtb.mlp_train_block, gelu_approx=approx),
             plain, t, dout)
+        bwd_name = name.replace("block", "block_bwd", 1)
+        if not timed:
+            out[name] = dict(max_abs_err=out_err, shape=list(t["x"].shape))
+            out[bwd_name] = dict(max_abs_err=grads["x"]["max_abs_err"],
+                                 grads=grads)
+            continue
         w16 = [tk.as_bf16(t[k]) for k in ("wfc1", "wfc2", "bfc1", "bfc2")]
         ln_params = (t["ln_scale"], t["ln_bias"]) if ln else (None, None)
         R = N * S
@@ -1042,18 +1057,85 @@ def check_mlp_train_block(inp, C, ln=True):
         bwd = bound(3 * R * C * 2 + weights * (2 + 4) + (F4 + 3 * C) * 4,
                     tensor_flops=10 * R * C * F4,
                     fp32_flops=20 * R * F4 + 20 * R * C)
-        out[name] = entry(
-            out_err, {}, t["x"].shape,
-            time_ms(lambda: mtb.mlp_train_block_fwd(
-                t["x"], *w16, *ln_params, gelu_approx=approx)),
-            plain_ms(plain, t), fwd)
-        out[name.replace("block", "block_bwd", 1)] = entry(
-            grads["x"]["max_abs_err"], grads, t["x"].shape,
-            time_ms(lambda: mtb.mlp_train_block_bwd(
-                t["x"], dout, *w16[:3], *ln_params, gelu_approx=approx,
-                bias=True)),
-            plain_ms(plain, t, dout), bwd)
+
+        def run_fwd():
+            return mtb.mlp_train_block_fwd(t["x"], *w16, *ln_params,
+                                           gelu_approx=approx)
+
+        def run_bwd():
+            return mtb.mlp_train_block_bwd(t["x"], dout, *w16[:3], *ln_params,
+                                           gelu_approx=approx, bias=True)
+        profile = profile_device(lambda: (run_fwd(), run_bwd()))
+        shared = [k for k in profile["port"]
+                  if k.startswith("void tpu1x::gemm_kernel<")]
+        if shared:
+            raise AssertionError(f"{name} ran common.cuh's GEMM: {shared}")
+        out[name] = entry(out_err, {}, t["x"].shape, time_ms(run_fwd),
+                          plain_ms(plain, t), fwd,
+                          device_ms=device_ms(run_fwd),
+                          profile=profile["port"])
+        out[bwd_name] = entry(grads["x"]["max_abs_err"], grads, t["x"].shape,
+                              time_ms(run_bwd), plain_ms(plain, t, dout), bwd,
+                              device_ms=device_ms(run_bwd))
     return out
+
+
+def check_gemm90_train(inp, C):
+    """The training forms of csrc/gemm_sm90.cuh alone, at K13's products
+    (the pre-LN train step's 32768 rows, C -> 4C and back): fc1 = GELU(xn
+    Wfc1 + b) (nn, erf with and without the pre-activation out, tanh with
+    it), fc2 = h Wfc2 + b + x (nn), d_g = (dout Wfc2^T) GELU'(h) (nt, erf
+    and tanh), d_xn = d_h Wfc1^T in fp32 (nt), dx = d_h Wfc1^T + dout (nt,
+    the qk_norm form), dWfc2 = g^T dout and dWfc1 = xn^T d_h (tn, both
+    orientations). Each against `gemm90_plain` (bf16 outputs atol = rtol =
+    3e-2; fp32 outputs by the gradient gates), by device time and TFLOP/s
+    beside `torch.matmul` of the same operands (timed only)."""
+    R, F4 = TB * 16 * 256, 4 * C
+    xn, x, dout = inp.normal(R, C), inp.normal(R, C), inp.normal(R, C)
+    h, g, d_h = inp.normal(R, F4), inp.normal(R, F4), inp.normal(R, F4)
+    w1, w2 = inp.normal(C, F4, std=0.05), inp.normal(F4, C, std=0.05)
+    b1, b2 = inp.normal(F4, std=0.1), inp.normal(C, std=0.1)
+    cases = [
+        ("fc1[erf]", xn, w1, dict(bias=b1, act="gelu_erf")),
+        ("fc1[erf,pre]", xn, w1, dict(bias=b1, act="gelu_erf",
+                                      pre_out=True)),
+        ("fc1[tanh,pre]", xn, w1, dict(bias=b1, act="gelu_tanh",
+                                       pre_out=True)),
+        ("fc2", h, w2, dict(bias=b2, resid=x)),
+        ("d_g[erf]", dout, w2, dict(form="nt", aux=h, act="dgelu_erf")),
+        ("d_g[tanh]", dout, w2, dict(form="nt", aux=h, act="dgelu_tanh")),
+        ("d_xn", d_h, w1, dict(form="nt", fp32_out=True)),
+        ("dx[no-ln]", d_h, w1, dict(form="nt", resid=dout)),
+        ("dWfc2", g, dout, dict(form="tn")),
+        ("dWfc1", xn, d_h, dict(form="tn")),
+    ]
+    out = {}
+    for name, a, b, kw in cases:
+        form = kw.get("form", "nn")
+        got = tk.gemm90(a, b, **kw)
+        want = tk.gemm90_plain(a, b, **kw)
+        got, want = ((got, want) if kw.get("pre_out")
+                     else ((got,), (want,)))
+        err = 0.0
+        for i, (gv, wv) in enumerate(zip(got, want)):
+            tag = f"gemm90 {name}" + (" pre" if i else "")
+            err = max(err, grad_errors(tag, gv, wv)["max_abs_err"]
+                      if gv.dtype == torch.float32
+                      else compare(tag, gv, wv, 3e-2, 3e-2))
+        M, N = got[0].shape
+        K = a.shape[0] if form == "tn" else a.shape[1]
+        flops = 2 * M * N * K
+        bms, by = bound(nbytes(a, b, *(v for v in kw.values()
+                                      if isinstance(v, torch.Tensor)),
+                               *got), tensor_flops=flops)
+        dev = device_ms(lambda: tk.gemm90(a, b, **kw))
+        lhs = a.t() if form == "tn" else a
+        rhs = b.t() if form == "nt" else b
+        r = dict(max_abs_err=err, shape=[M, N, K], bound_ms=bms, bound_by=by,
+                 device_ms=dev, tflops=tflops(flops, dev),
+                 library_device_ms=device_ms(lambda: torch.matmul(lhs, rhs)))
+        out[name] = r
+    return {"gemm90_train": out}
 
 
 def check_temporal_attention_bwd(inp, C, H):
@@ -1101,6 +1183,11 @@ def check_train_kernels(C, H, device):
     out.update(check_spatial_train_block(inp, C, H))
     out.update(check_temporal_train_block(inp, C, H))
     out.update(check_mlp_train_block(inp, C))
+    # GENIE_35M's width, with and without the LN
+    for ln in (True, False):
+        out.update(check_mlp_train_block(inp, 256, ln=ln, timed=False))
+    torch.cuda.empty_cache()
+    out.update(check_gemm90_train(inp, C))
     torch.cuda.empty_cache()
     for name, r in out.items():
         print(f"kernel {name}: " + json.dumps(r), flush=True)

@@ -2,7 +2,10 @@
 
     python3 chip_variants.py flash NAME=LIB ...
     python3 chip_variants.py gemm NAME=LIB ...
+    python3 chip_variants.py tn NAME=LIB ...
     python3 chip_variants.py block
+    python3 chip_variants.py mlp
+    python3 chip_variants.py train
 
 Each LIB is a shared library built from a variant of a source in
 `tpu1x_torch/csrc` (nvcc with `kernels.NVCC_FLAGS`, `-I` its own copy of the
@@ -20,6 +23,12 @@ in one process on one card; every time is the profiler's device time
   rows; 512 -> 2048 with bias and the tanh GELU, 2048 -> 512 with bias and
   residual), each result held against `gemm_sm90_plain` (atol = rtol =
   3e-2).
+- `tn`: the weight gradients of the MLP train block (`train_block.cu`'s
+  `tpu1x_gemm90_train`, form TN, the fp32 buffer zeroed in each call) at
+  the pre-LN train step's 32768 rows: dWfc2 = g^T dout (2048 x 512) and
+  dWfc1 = xn^T d_h (512 x 2048), each held against `gemm90_plain` by
+  `chip_smoke.grad_errors`. A variant of `gemm_sm90.cuh`'s chunk rule
+  (`launch_gemm90_act`) times another number of chunks of the reduction.
 - `block`: K2 and K3 (`temporal_mlp_block`, one frame and the pair)
   through this checkout's own wrappers, at the pre-LN rollout's shapes
   (GENIE_138M: B=16, S=256, C=512, 16 heads, F4=2048, a (16, 32, 16, 256,
@@ -27,6 +36,15 @@ in one process on one card; every time is the profiler's device time
   (median of three windows) and of each of its launches, in order. It
   takes no builds: run it from a checkout (a parent's copy too) to time
   that checkout's kernels.
+- `mlp`: K13 (`mlp_train_block_fwd` / `_bwd`) through this checkout's own
+  wrappers, at the pre-LN train step's shape (GENIE_138M, B=8: x (128, 256,
+  512) bf16, F4 = 2048, exact-erf GELU, biases), with the LN and without
+  it (the qk_norm step's form): the device time of one call (median of
+  three windows) and of each of its launches, in order, by kernel name.
+  No builds, as `block`.
+- `train`: K11's backward (`spatial_train_block_bwd`) and K12's forward
+  and backward (`temporal_train_block_fwd` / `_bwd`) at the pre-LN train
+  step's shapes, timed as `mlp`. No builds.
 
 Prints one line per build and case, and the card.
 """
@@ -41,6 +59,7 @@ import torch
 
 import chip_smoke as cs
 from tpu1x_torch import kernels
+from tpu1x_torch.ops import _train_kernels as tk
 from tpu1x_torch.ops import spatial_block as sb
 
 P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
@@ -134,6 +153,35 @@ def gemm(libs, dev):
                 tflops=cs.tflops(2 * M * K * N, ms))), flush=True)
 
 
+def tn(libs, dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    for lib in libs.values():
+        lib.tpu1x_gemm90_train.argtypes = [P] * 8 + [I] * 5 + [P]
+    R, C, F4 = cs.TB * 16 * 256, 512, 2048
+    for name, M, N in (("dWfc2", F4, C), ("dWfc1", C, F4)):
+        a = torch.randn(R, M, generator=g, device=dev).bfloat16()
+        b = torch.randn(R, N, generator=g, device=dev).bfloat16()
+        want = tk.gemm90_plain(a, b, form="tn")
+        out = torch.empty(M, N, dtype=torch.float32, device=dev)
+        for build in in_turns(libs):
+            lib = libs[build]
+
+            def run():
+                out.zero_()
+                return lib.tpu1x_gemm90_train(
+                    a.data_ptr(), b.data_ptr(), None, None, out.data_ptr(),
+                    None, None, None, M, N, R, tk.MODE["tn"], 0, stream)
+            if run() != 0:
+                raise RuntimeError(f"{build}: the GEMM did not launch")
+            err = cs.grad_errors(f"{build} {name}", out, want)["max_abs_err"]
+            ms = cs.device_ms(run)
+            print(json.dumps(dict(
+                build=build, case=name, M=M, N=N, K=R, max_abs_err=err,
+                device_ms=ms, tflops=cs.tflops(2 * M * N * R, ms))),
+                flush=True)
+
+
 def by_launch(fn, iters: int = 20):
     """[[kernel name, device ms], ...] for each launch of one call of `fn`,
     in launch order, the mean over `iters` calls in one profiler window;
@@ -181,20 +229,73 @@ def block(dev):
                               by_launch=by_launch(run))), flush=True)
 
 
+def timed_calls(calls):
+    """One line for each (label, fn) of `calls`: device time, event time and
+    device time by launch of one call."""
+    for label, fn in calls:
+        print(json.dumps(dict(kernel=label, device_ms=cs.device_ms(fn),
+                              event_ms=cs.time_ms(fn),
+                              by_launch=by_launch(fn))), flush=True)
+
+
+def mlp(dev):
+    from tpu1x_torch.ops import mlp_train_block as mtb
+    inp = cs.Inputs(0, dev)
+    C, N, S = 512, cs.TB * 16, 256
+    w = cs.block_weights(inp, C)
+    x, dout = inp.normal(N, S, C), inp.normal(N, S, C)
+    calls = []
+    for tag, ln in (("", (w["ln_scale"], w["ln_bias"])),
+                    ("[no-ln]", (None, None))):
+        calls += [
+            ("mlp_train_block" + tag, lambda ln=ln: mtb.mlp_train_block_fwd(
+                x, w["wfc1"], w["wfc2"], w["bfc1"], w["bfc2"], *ln,
+                gelu_approx=False)),
+            ("mlp_train_block_bwd" + tag,
+             lambda ln=ln: mtb.mlp_train_block_bwd(
+                 x, dout, w["wfc1"], w["wfc2"], w["bfc1"], *ln,
+                 gelu_approx=False, bias=True))]
+    timed_calls(calls)
+
+
+def train(dev):
+    from tpu1x_torch.ops import spatial_train_block as stb
+    from tpu1x_torch.ops import temporal_train_block as ttb
+    inp = cs.Inputs(0, dev)
+    C, H, S, T = 512, 16, 256, 16
+    kw = dict(num_heads=H, scale=(C // H) ** -0.5)
+    sw = cs.spatial_weights(inp, C)
+    xs, ds = inp.normal(cs.TB * T, S, C), inp.normal(cs.TB * T, S, C)
+    xt, dt = inp.normal(cs.TB, T, S, C), inp.normal(cs.TB, T, S, C)
+    timed_calls([
+        ("spatial_train_block_bwd", lambda: stb.spatial_train_block_bwd(
+            xs, ds, sw["wqkv"], sw["wproj"], None, sw["ln_scale"],
+            sw["ln_bias"], proj_bias=True, **kw)),
+        ("temporal_train_block", lambda: ttb.temporal_train_block_fwd(
+            xt, sw["wqkv"], sw["wproj"], None, sw["bproj"], **kw)),
+        ("temporal_train_block_bwd", lambda: ttb.temporal_train_block_bwd(
+            xt, dt, sw["wqkv"], sw["wproj"], None, proj_bias=True, **kw))])
+
+
+MODES = {"block": block, "mlp": mlp, "train": train}
+# mode: (the source its builds are variants of, the timing)
+VARIANTS = {"flash": ("flash_attention", flash),
+            "gemm": ("spatial_block", gemm), "tn": ("train_block", tn)}
+
+
 def main() -> int:
     mode = sys.argv[1] if len(sys.argv) > 1 else None
-    if not torch.cuda.is_available() or mode not in ("flash", "gemm", "block") \
-            or (mode != "block") != (len(sys.argv) > 2):
+    if not torch.cuda.is_available() or mode not in (*VARIANTS, *MODES) \
+            or (mode not in MODES) != (len(sys.argv) > 2):
         print(__doc__, file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    if mode == "block":
-        block(dev)
+    if mode in MODES:
+        MODES[mode](dev)
         print(cs.card_line(), flush=True)
         return 0
-    libs = builds(sys.argv[2:], "flash_attention" if mode == "flash"
-                  else "spatial_block")
-    (flash if mode == "flash" else gemm)(libs, dev)
+    source, fn = VARIANTS[mode]
+    fn(builds(sys.argv[2:], source), dev)
     print(cs.card_line(), flush=True)
     return 0
 

@@ -1,37 +1,34 @@
 // Shared device code of the port's kernels: bf16 helpers, the Hopper
 // warp-level tensor-core primitives (ldmatrix, mma.sync m16n8k16, cp.async),
-// and one tiled bf16 GEMM with fp32 accumulators that the training kernels
-// (K11-K13, csrc/train_block.cu) use for their weight products. The serving
-// blocks (K1, K2, K3) run theirs on csrc/gemm_sm90.cuh (TMA, wgmma).
+// and one tiled bf16 GEMM with fp32 accumulators that the spatial and
+// temporal train blocks (K11, K12, csrc/train_block.cu) use for their
+// weight products. The serving blocks (K1, K2, K3) and the MLP train block
+// (K13) run theirs on csrc/gemm_sm90.cuh (TMA, wgmma).
 //
-// The GEMM computes C = epilogue(prologue(A) @ B) for row-major A (M, K),
-// B (K, N) and C (M, N), all bf16 (form GEMM_NN). Two more forms of the same
-// kernel serve the training backward:
+// The GEMM computes C = epilogue(A @ B) for row-major A (M, K), B (K, N)
+// and C (M, N), all bf16 (form GEMM_NN). Two more forms of the same kernel
+// serve the training backward:
 //   GEMM_NT  C = A @ B^T with B stored (N, K) row-major (dx and the hidden
-//            gradients: do Wproj^T, dqkv Wqkv^T, do Wfc2^T, d_h Wfc1^T);
+//            gradients: do Wproj^T, dqkv Wqkv^T);
 //   GEMM_TN  C += A^T @ B with A stored (K, M) and B (K, N) row-major, the
 //            reduction over the K rows split over blockIdx.z and combined
 //            with fp32 atomic adds into a zeroed fp32 C (the weight
 //            gradients, which sum all N*S rows; the order of the adds, and
 //            so the last bits, differ from run to run).
 // For GEMM_NN:
-//   prologue  optional LayerNorm of each row of A over K (fp32 statistics,
-//             variance E[x^2] - E[x]^2, result rounded to bf16), as the JAX
-//             package's pre-LN does before its products;
-//   epilogue  round to bf16, then each of: + bias (rounded), GELU (tanh or
-//             erf, rounded), + residual (rounded): the rounding steps of the
-//             JAX serving path's dot -> astype -> add chain. With `fused`
-//             the chain is the training kernels': fp32 accumulator + bias,
-//             GELU (or times GELU'(aux), the MLP backward), one rounding,
-//             then + residual (rounded); `C2`, if given, receives the
-//             rounded pre-activation. With `Cf` the fp32 accumulators are
+//   epilogue  round to bf16, then each of: + bias (rounded), + residual
+//             (rounded): the rounding steps of the JAX serving path's dot ->
+//             astype -> add chain. With `fused` the chain is the training
+//             kernels': fp32 accumulator + bias, one rounding, then +
+//             residual (rounded). With `Cf` the fp32 accumulators are
 //             stored (or atomically added) as they are and nothing else
 //             applies.
 // Tiles are 128 x 64 x 32 with two cp.async stages; 8 warps each own a
 // 32 x 32 piece of the output as 2 x 4 mma tiles. Bound on the H100: the
 // tensor cores for the large products (K = 512 or 2048 at the GENIE widths);
 // it uses mma.sync, not wgmma/TMA, so it reaches a fraction of the 989
-// TFLOP/s peak; moving K11-K13 onto csrc/gemm_sm90.cuh is still to do.
+// TFLOP/s peak; moving K11 and K12 onto csrc/gemm_sm90.cuh's training
+// forms is still to do.
 
 #pragma once
 
@@ -168,16 +165,9 @@ struct GemmParams {
   const bf16* bias;      // (N,) or null
   const bf16* resid;     // (M, N) or null
   long ldr;
-  const float* ln_scale;  // (K,) or null: LayerNorm prologue on A's rows
-  const float* ln_bias;
   int M, N, K;
-  int act;
-  float eps;
   // training forms (all zero or null on the serving path)
   int fused;        // 1: the training kernels' rounding chain (see above)
-  const bf16* aux;  // (M, N) pre-activation for ACT_DGELU_*
-  long ld_aux;
-  bf16* C2;         // (M, N), ldc: rounded pre-activation, or null
   float* Cf;        // fp32 output instead of C, ldc; GEMM_TN adds atomically
   int k_chunk;      // GEMM_TN: rows of the reduction per blockIdx.z
 };
@@ -190,7 +180,7 @@ constexpr int G_ASZ = GBM * G_ALD;  // >= GBK * G_TLD
 constexpr int G_BSZ = GBN * G_ALD;  // >= GBK * G_BLD; GEMM_NT keeps (GBN, GBK)
 
 // Requires N % 64 == 0, K % 32 == 0, 16-byte aligned rows; any M (GEMM_TN:
-// M % 8 == 0 and k_chunk % 32 == 0). The LN prologue is for GEMM_NN only.
+// M % 8 == 0 and k_chunk % 32 == 0).
 // TRAIN compiles the training epilogues (`fused`, `Cf`) in; without it the
 // kernel is the serving path's alone, whose code the training forms must not
 // slow down (the one epilogue for both cost the rollout 5%).
@@ -198,42 +188,13 @@ template <int MODE, bool TRAIN>
 __global__ void __launch_bounds__(GTHREADS) gemm_kernel(GemmParams p) {
   __shared__ __align__(16) bf16 As[2][G_ASZ];
   __shared__ __align__(16) bf16 Bs[2][G_BSZ];
-  __shared__ float mu_s[GBM], rs_s[GBM];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bm = blockIdx.y * GBM, bn = blockIdx.x * GBN;
-  const bool ln = MODE == GEMM_NN && p.ln_scale != nullptr;
   int kbase = 0, kend = p.K;
   if (MODE == GEMM_TN) {
     kbase = blockIdx.z * p.k_chunk;
     kend = min(p.K, kbase + p.k_chunk);
     if (kend <= kbase) return;
-  }
-
-  if (ln) {  // row statistics over the whole K axis, one warp per row
-    for (int r = warp; r < GBM; r += GTHREADS / 32) {
-      const int row = bm + r;
-      float s = 0.f, ss = 0.f;
-      if (row < p.M) {
-        const bf16* a = p.A + (long)row * p.lda;
-        for (int k = lane * 8; k < p.K; k += 256) {
-          float f[8];
-          load8(a + k, f);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            s += f[i];
-            ss += f[i] * f[i];
-          }
-        }
-      }
-      s = warp_sum(s);
-      ss = warp_sum(ss);
-      if (lane == 0) {
-        const float mu = s / p.K;
-        mu_s[r] = mu;
-        rs_s[r] = rsqrtf(ss / p.K - mu * mu + p.eps);
-      }
-    }
-    __syncthreads();
   }
 
   auto load_tile = [&](int kt, int st) {
@@ -267,23 +228,6 @@ __global__ void __launch_bounds__(GTHREADS) gemm_kernel(GemmParams p) {
       }
     }
   };
-  // Each thread normalises the A chunks it copied itself, so its own
-  // cp.async wait is all the ordering this needs.
-  auto norm_tile = [&](int kt, int st) {
-    const int k0 = kt * GBK;
-    for (int c = tid; c < GBM * GBK / 8; c += GTHREADS) {
-      const int r = c >> 2, kc = (c & 3) * 8;
-      bf16* e = &As[st][r * G_ALD + kc];
-      float f[8];
-      load8(e, f);
-      const float mu = mu_s[r], rs = rs_s[r];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        f[i] = (f[i] - mu) * rs * p.ln_scale[k0 + kc + i] + p.ln_bias[k0 + kc + i];
-      store8(e, f);
-    }
-  };
-
   float acc[2][4][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -305,7 +249,6 @@ __global__ void __launch_bounds__(GTHREADS) gemm_kernel(GemmParams p) {
     } else {
       cp_async_wait<0>();
     }
-    if (ln) norm_tile(kt, st);
     __syncthreads();
     uint32_t bt[4][4];  // GEMM_NT: both k16 steps of each 8-column tile
     if (MODE == GEMM_NT) {
@@ -384,25 +327,9 @@ __global__ void __launch_bounds__(GTHREADS) gemm_kernel(GemmParams p) {
           r[1] = rr.y;
         }
         if (TRAIN) {
-          float x[2] = {0.f, 0.f};
-          if (p.aux) {
-            const float2 xx = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                p.aux + (long)row * p.ld_aux + col));
-            x[0] = xx.x;
-            x[1] = xx.y;
-          }
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (p.bias) v[e] += __bfloat162float(p.bias[col + e]);
-          if (p.C2)
-            *reinterpret_cast<uint32_t*>(p.C2 + (long)row * p.ldc + col) =
-                pack_bf16(v[0], v[1]);
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            if (p.act == ACT_GELU_TANH || p.act == ACT_GELU_ERF)
-              v[e] = gelu(v[e], p.act);
-            else if (p.act == ACT_DGELU_TANH || p.act == ACT_DGELU_ERF)
-              v[e] *= dgelu(x[e], p.act == ACT_DGELU_TANH);
+            if (p.bias) v[e] += __bfloat162float(p.bias[col + e]);
             v[e] = bf16r(v[e]);
             if (p.resid) v[e] = bf16r(r[e] + v[e]);
           }
@@ -411,7 +338,6 @@ __global__ void __launch_bounds__(GTHREADS) gemm_kernel(GemmParams p) {
           for (int e = 0; e < 2; ++e) {
             v[e] = bf16r(v[e]);
             if (p.bias) v[e] = bf16r(v[e] + __bfloat162float(p.bias[col + e]));
-            if (p.act != ACT_NONE) v[e] = bf16r(gelu(v[e], p.act));
             if (p.resid) v[e] = bf16r(r[e] + v[e]);
           }
         }
@@ -427,18 +353,16 @@ inline cudaError_t launch_gemm(const GemmParams& p, cudaStream_t s,
                                int mode = GEMM_NN) {
   dim3 grid(p.N / GBN, (p.M + GBM - 1) / GBM);
   const bool train = p.fused || p.Cf;
-  if (!train && (mode != GEMM_NN || p.aux || p.C2))
-    return cudaErrorInvalidValue;
+  if (!train && mode != GEMM_NN) return cudaErrorInvalidValue;
   if (mode == GEMM_NN) {
     if (train)
       gemm_kernel<GEMM_NN, true><<<grid, GTHREADS, 0, s>>>(p);
     else
       gemm_kernel<GEMM_NN, false><<<grid, GTHREADS, 0, s>>>(p);
   } else if (mode == GEMM_NT) {
-    if (p.ln_scale) return cudaErrorInvalidValue;
     gemm_kernel<GEMM_NT, true><<<grid, GTHREADS, 0, s>>>(p);
   } else {
-    if (p.ln_scale || !p.Cf || p.k_chunk <= 0 || p.k_chunk % GBK || p.M % 8)
+    if (!p.Cf || p.k_chunk <= 0 || p.k_chunk % GBK || p.M % 8)
       return cudaErrorInvalidValue;
     grid.z = (p.K + p.k_chunk - 1) / p.k_chunk;
     gemm_kernel<GEMM_TN, true><<<grid, GTHREADS, 0, s>>>(p);
@@ -458,12 +382,9 @@ inline GemmParams gemm_params(const void* A, const void* B, void* C, int M,
   p.C = static_cast<bf16*>(C);
   p.ldc = N;
   p.ldr = N;
-  p.ld_aux = N;
   p.M = M;
   p.N = N;
   p.K = K;
-  p.act = ACT_NONE;
-  p.eps = 1e-5f;
   return p;
 }
 

@@ -126,6 +126,14 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
 }
 // A box of shared memory out to a tensor map, in the issuing thread's bulk
 // group (cp.async.bulk.commit_group / wait_group).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src,
+                                             int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, "
+      "%2}], [%3];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src,
                                              int c0, int c1, int c2, int c3) {
   asm volatile(

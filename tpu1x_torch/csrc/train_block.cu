@@ -10,11 +10,17 @@
 // and CUDA blocks run in parallel, so nothing accumulates "across the grid".
 // Each block is therefore a fixed sequence of launches over all rows at once,
 // sequenced by its wrapper in tpu1x_torch/ops/:
-//   tpu1x_gemm     the shared tensor-core GEMM of common.cuh in its three
-//                  forms: A B (forward products, recompute), A B^T (dx and
-//                  hidden gradients, with the GELU' epilogue for the MLP) and
-//                  A^T B (weight gradients: the reduction over all N*S rows is
-//                  split over blocks and combined with fp32 atomics);
+//   tpu1x_gemm90_train  the training forms of csrc/gemm_sm90.cuh (TMA,
+//                  wgmma), which carry the MLP train block's seven products:
+//                  A B (fc1 with bias and GELU, optionally keeping the
+//                  pre-activation; fc2 with bias and residual), A B^T (d_g
+//                  with the GELU' epilogue, d_xn in fp32 or dx with the
+//                  residual) and A^T B (the weight gradients: the reduction
+//                  over all N*S rows split into chunks, combined with fp32
+//                  atomics);
+//   tpu1x_gemm     the mma.sync GEMM of common.cuh in the same three forms
+//                  (bias and residual epilogues, fp32 store, fp32 atomics),
+//                  for the spatial and temporal train blocks;
 //   tpu1x_col_sum  bias gradients: column sums of a bf16 (rows, N) tensor in
 //                  fp32, per-block partial sums combined with atomics;
 //   tpu1x_ln_fwd   LayerNorm of each row (fp32 statistics, variance
@@ -26,7 +32,7 @@
 // stream. Bounds: the GEMMs by tensor-core operations, the other three by
 // device memory (each reads its rows once).
 
-#include "common.cuh"
+#include "gemm_sm90.cuh"
 
 using namespace tpu1x;
 
@@ -189,32 +195,100 @@ __global__ void __launch_bounds__(256)
 
 }  // namespace
 
-// The shared GEMM with every operand and option explicit. mode: 0 A B,
+// The training forms of csrc/gemm_sm90.cuh, all operands contiguous: form G9_NN (A (M, K), B
+// (K, N)), G9_NT (B stored (N, K)) or G9_TN (A stored (K, M)). TN adds
+// A^T B into Cf (M, N) fp32, zeroed by the caller on the same stream, the
+// reduction over K in as many chunks as fill the card; act
+// ACT_NONE, C, pre, bias, resid and aux null. NT with Cf stores the fp32
+// accumulators; act ACT_NONE, the bf16 pointers null. Otherwise the bf16
+// training chain into C (M, N): + bias (N,) if not null, GELU (NN: act
+// ACT_GELU_TANH or ACT_GELU_ERF) or times GELU'(aux (M, N)) (NT: act
+// ACT_DGELU_TANH or ACT_DGELU_ERF), one rounding, + resid (M, N) if not
+// null, rounded; pre (NN), if not null, receives the rounded acc + bias.
+// At most one of pre, aux and resid: the epilogue stages it beside C.
+extern "C" int tpu1x_gemm90_train(const void* A, const void* B, void* C,
+                                  void* pre, void* Cf, const void* bias,
+                                  const void* resid, const void* aux, int M,
+                                  int N, int K, int form, int act,
+                                  void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N % G9_BN || K % G9_BK || M < 0 || form < G9_NN || form > G9_TN ||
+      act < ACT_NONE || act > ACT_DGELU_ERF)
+    return cudaErrorInvalidValue;
+  // the combinations that have an instantiation
+  const bool dg = act == ACT_DGELU_TANH || act == ACT_DGELU_ERF;
+  const bool no_epilogue = !C && !pre && !bias && !resid && !aux &&
+                           act == ACT_NONE;
+  bool ok;
+  if (form == G9_TN)
+    ok = Cf && no_epilogue && M % 8 == 0;
+  else if (Cf)
+    ok = form == G9_NT && no_epilogue;
+  else
+    ok = C && dg == (aux != nullptr) && (!pre || form == G9_NN) &&
+         (form == G9_NN ? !dg : act == ACT_NONE || dg) &&
+         (pre != nullptr) + (aux != nullptr) + (resid != nullptr) <= 1;
+  if (!ok) return cudaErrorInvalidValue;
+  if (M == 0) return cudaSuccess;
+  // tc, t2: the staged epilogue's tiles (unread by the other epilogues)
+  CUtensorMap ta, tb, tc = {}, t2 = {};
+  TPU1X_TRY(form == G9_TN ? g9_map(&ta, A, K, M, 64)
+                          : g9_map(&ta, A, M, K, G9_BM));
+  TPU1X_TRY(form == G9_NT ? g9_map(&tb, B, N, K, 64) : g9_map(&tb, B, K, N, 64));
+  if (C) TPU1X_TRY(g9_map(&tc, C, M, N, 64));
+  const void* second = pre ? pre : aux ? aux : resid;
+  if (second) TPU1X_TRY(g9_map(&t2, second, M, N, 64));
+  Gemm90Args a{static_cast<bf16*>(C), static_cast<const bf16*>(bias),
+               static_cast<const bf16*>(resid), M, N, K,
+               static_cast<bf16*>(pre), static_cast<const bf16*>(aux),
+               static_cast<float*>(Cf), 1};
+  const int tiles = (M + G9_BM - 1) / G9_BM * (N / G9_BN);
+  if (form == G9_TN)
+    return launch_gemm90_act<ACT_NONE, G9_TN, G9_RED>(ta, tb, a, tiles, s,
+                                                      tc, t2);
+  if (Cf)
+    return launch_gemm90_act<ACT_NONE, G9_NT, G9_F32>(ta, tb, a, tiles, s, tc,
+                                                      t2);
+  if (form == G9_NT) {
+    if (act == ACT_DGELU_TANH)
+      return launch_gemm90_act<ACT_DGELU_TANH, G9_NT, G9_FUSED>(ta, tb, a,
+                                                                tiles, s, tc,
+                                                                t2);
+    if (act == ACT_DGELU_ERF)
+      return launch_gemm90_act<ACT_DGELU_ERF, G9_NT, G9_FUSED>(ta, tb, a,
+                                                               tiles, s, tc,
+                                                               t2);
+    return launch_gemm90_act<ACT_NONE, G9_NT, G9_FUSED>(ta, tb, a, tiles, s,
+                                                        tc, t2);
+  }
+  if (act == ACT_GELU_TANH)
+    return launch_gemm90_act<ACT_GELU_TANH, G9_NN, G9_FUSED>(ta, tb, a, tiles,
+                                                             s, tc, t2);
+  if (act == ACT_GELU_ERF)
+    return launch_gemm90_act<ACT_GELU_ERF, G9_NN, G9_FUSED>(ta, tb, a, tiles,
+                                                            s, tc, t2);
+  return launch_gemm90_act<ACT_NONE, G9_NN, G9_FUSED>(ta, tb, a, tiles, s, tc,
+                                                      t2);
+}
+
+// The mma.sync GEMM with every operand and option explicit. mode: 0 A B,
 // 1 A B^T (B stored (N, K)), 2 A^T B (A stored (K, M); Cf zeroed, k_chunk
-// rows of the reduction per block). C / C2 bf16 (M, N) at ldc, or Cf fp32.
+// rows of the reduction per block). C bf16 (M, N) at ldc, or Cf fp32.
 // Null pointers switch their option off.
 extern "C" int tpu1x_gemm(const void* A, long lda, const void* B, long ldb,
-                          void* C, void* C2, void* Cf, long ldc,
-                          const void* bias, const void* resid, long ldr,
-                          const void* aux, long ld_aux, const void* ln_scale,
-                          const void* ln_bias, int M, int N, int K, int mode,
-                          int act, int fused, int k_chunk, void* stream) {
+                          void* C, void* Cf, long ldc, const void* bias,
+                          const void* resid, long ldr, int M, int N, int K,
+                          int mode, int fused, int k_chunk, void* stream) {
   if (N % GBN || K % GBK || mode < GEMM_NN || mode > GEMM_TN)
     return cudaErrorInvalidValue;
   GemmParams p = gemm_params(A, B, C, M, N, K);
   p.lda = lda;
   p.ldb = ldb;
   p.ldc = ldc;
-  p.C2 = static_cast<bf16*>(C2);
   p.Cf = static_cast<float*>(Cf);
   p.bias = static_cast<const bf16*>(bias);
   p.resid = static_cast<const bf16*>(resid);
   p.ldr = ldr;
-  p.aux = static_cast<const bf16*>(aux);
-  p.ld_aux = ld_aux;
-  p.ln_scale = static_cast<const float*>(ln_scale);
-  p.ln_bias = static_cast<const float*>(ln_bias);
-  p.act = act;
   p.fused = fused;
   p.k_chunk = k_chunk;
   return launch_gemm(p, static_cast<cudaStream_t>(stream), mode);

@@ -57,10 +57,11 @@ SIGNATURES = {
         ("tpu1x_temporal_attention_bwd", [P] * 7 + [I] * 7 + [F, I, P]),
     ],
     "train_block": [
-        # A, lda, B, ldb, C, C2, Cf, ldc, bias, resid, ldr, aux, ld_aux,
-        # ln_scale, ln_bias, M, N, K, mode, act, fused, k_chunk, stream
-        ("tpu1x_gemm", [P, L, P, L, P, P, P, L, P, P, L, P, L, P, P, I, I, I,
-                        I, I, I, I, P]),
+        # A, B, C, pre, Cf, bias, resid, aux, M, N, K, form, act, stream
+        ("tpu1x_gemm90_train", [P] * 8 + [I] * 5 + [P]),
+        # A, lda, B, ldb, C, Cf, ldc, bias, resid, ldr, M, N, K, mode, fused,
+        # k_chunk, stream
+        ("tpu1x_gemm", [P, L, P, L, P, P, L, P, P, L, I, I, I, I, I, I, P]),
         # x, out, rows, N, ld, stream
         ("tpu1x_col_sum", [P, P, I, I, L, P]),
         # x, scale, bias, xn, stats, rows, C, eps, stream

@@ -24,6 +24,18 @@ def gelu(x: torch.Tensor, tanh: bool) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if tanh else "none")
 
 
+def dgelu(x: torch.Tensor, tanh: bool) -> torch.Tensor:
+    """d gelu(x) / dx, of the tanh approximation or of the exact erf form
+    (the JAX package's `_dgelu_f32`, with erf itself)."""
+    if tanh:
+        k = 0.7978845608028654  # sqrt(2 / pi)
+        th = torch.tanh(k * (x + 0.044715 * x * x * x))
+        du = k * (1.0 + 3 * 0.044715 * x * x)
+        return 0.5 * (1.0 + th) + 0.5 * x * (1.0 - th * th) * du
+    phi = torch.exp(-0.5 * x * x) * 0.3989422804014327
+    return 0.5 * (1.0 + torch.erf(x * 0.7071067811865476)) + x * phi
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
