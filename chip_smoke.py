@@ -36,18 +36,21 @@
    in relative L2 (both paths round to bf16 at several places between the
    products, each rounding 2^-9 relative; the weight gradients sum 32768
    rows in fp32, in another order and, with atomics, in an order that
-   changes from run to run). The MLP train block also at C = 256 (with and
-   without LN, both GELUs), and a profile of its forward and backward must
-   show no kernel of csrc/common.cuh's GEMM; then each training form of
-   csrc/gemm_sm90.cuh alone at the MLP block's products against its plain
-   version, with its TFLOP/s beside torch.matmul's.
+   changes from run to run). The three train blocks also at C = 256 with 8
+   heads (the MLP block with and without LN, both GELUs), and a profile of
+   the MLP block's forward and backward must show no GEMM of the port but
+   csrc/gemm_sm90.cuh's; then each training form of csrc/gemm_sm90.cuh
+   alone at the three blocks' products against its plain version, with its
+   TFLOP/s beside torch.matmul's.
 6. Trains GENIE_138M (random weights and tokens from seed 0, B=8, T=16)
    through `make_train_step` on the card: the launch counters are set to 0
    before the first step and read after it; ten steps on the one batch and
    corruption at a constant learning rate must give a finite loss that
-   starts within 1.5 of 2 ln 512 and falls; prints the median step time of the last
-   five, the device's busy share and device time by kernel over one more
-   step, and the peak memory. Then holds the loss, the gradient norm and
+   starts within 1.5 of 2 ln 512 and falls; prints the median step time of
+   the last five, the device's busy share and device time by kernel over one
+   more step (which must show K9's and K10's kernels, no kernel of
+   spatial_block.cu's own and no GEMM but csrc/gemm_sm90.cuh's), and the
+   peak memory. Then holds the loss, the gradient norm and
    every parameter's gradient of the kernel path against the plain path and
    an fp32 plain run on the card (see `check_step_against_plain`).
 7. The qk_norm=True model and the int8 KV cache, which take each decode
@@ -146,7 +149,7 @@ SOURCES = {
                    "tpu1x/ops/layernorm.py:45"),
     "temporal_attention_bwd": ("tpu1x_torch/csrc/temporal_attention.cu",
                                "tpu1x/ops/temporal_attention.py:154"),
-    "spatial_train_block_bwd": ("tpu1x_torch/csrc/spatial_block.cu",
+    "spatial_train_block_bwd": ("tpu1x_torch/csrc/train_block.cu",
                                 "tpu1x/ops/spatial_train_block.py:256"),
     "temporal_train_block": ("tpu1x_torch/csrc/train_block.cu",
                              "tpu1x/ops/temporal_train_block.py:213"),
@@ -179,11 +182,13 @@ PER_LAYER_QK = {"spatial_block": 1 + 9 + 7, "temporal_decode_attention": 9,
 PER_LAYER_INT8 = dict(PER_LAYER_QK, temporal_attention=1, layer_norm=1 + 16)
 # launches per layer in one train step; the temporal train block launches
 # the temporal attention forward twice (forward, and recompute in its
-# backward) and its backward once
+# backward) and its backward once; the spatial train block's backward
+# launches the fused attention forward (recompute) and backward once each
 TRAIN_PER_LAYER = {"spatial_block": 1, "spatial_train_block_bwd": 1,
                    "temporal_train_block": 1, "temporal_train_block_bwd": 1,
                    "mlp_train_block": 1, "mlp_train_block_bwd": 1,
-                   "temporal_attention": 2, "temporal_attention_bwd": 1}
+                   "temporal_attention": 2, "temporal_attention_bwd": 1,
+                   "flash_mha": 1, "flash_mha_bwd": 1}
 # under qk_norm: the fused attention pair on the spatial axis, the MLP train
 # block without LN; the rest is plain torch under autograd
 TRAIN_PER_LAYER_QK = {"flash_mha": 1, "flash_mha_bwd": 1,
@@ -508,7 +513,9 @@ def check_flash_mha(inp, H):
     q, k, v as thirds of one qkv product, against `mha_reference` and its
     autograd; K9's lse against `mha_lse_reference` (atol 1e-2: the kernel
     sums the bf16-rounded p); K10 also against `flash_mha_bwd_plain` on the
-    kernel forward's residuals, by the gradient gates. SDPA forward and
+    kernel forward's residuals, by the gradient gates, into new tensors and
+    into the thirds of one (R, N, 3C) tensor (which must equal the former
+    exactly, as the spatial train block's backward calls it). SDPA forward and
     backward are timed beside them, by events and by the profiler's device
     time. K9 and K10 are also held so at N = 64, 128 and 192 (4 rows),
     their other token counts, and at a negative scale. K10's bound is the TPU
@@ -566,12 +573,26 @@ def check_flash_mha(inp, H):
         o, lse = attn.flash_mha_fwd(q, k, v, **kw)
         lse_err = compare(f"flash_mha{tag} lse", lse,
                           attn.mha_lse_reference(q, k, v, **kw)[1], 1e-2, 0.0)
+        contiguous = attn.flash_mha_bwd(q, k, v, o, lse, dout, **kw)
+        want = attn.flash_mha_bwd_plain(q, k, v, o, lse, dout, **kw)
         residual_grads = {
             f"d{n}": grad_errors(f"flash_mha_bwd{tag} d{n} (residuals)", g, w)
-            for n, g, w in zip("qkv", attn.flash_mha_bwd(q, k, v, o, lse,
-                                                         dout, **kw),
-                               attn.flash_mha_bwd_plain(q, k, v, o, lse,
-                                                        dout, **kw))}
+            for n, g, w in zip("qkv", contiguous, want)}
+        # K10 writing dq, dk, dv into the thirds of one (R, N, 3C) tensor,
+        # as the spatial train block's backward calls it: the contiguous
+        # call's values exactly, and nothing written outside them
+        dqkv = torch.full((R, N, 3 * H * D), float("nan"), dtype=dout.dtype,
+                          device=dout.device)
+        thirds = dqkv.view(R, N, 3, H, D).unbind(2)
+        attn.flash_mha_bwd(q, k, v, o, lse, dout, out=thirds, **kw)
+        if not torch.equal(dqkv.view(R, N, 3, H, D),
+                           torch.stack(contiguous, 2)):
+            raise AssertionError(f"flash_mha_bwd{tag} into the thirds of "
+                                 f"dqkv differs from the contiguous call")
+        residual_grads.update({
+            f"d{n} (qkv thirds)": grad_errors(
+                f"flash_mha_bwd{tag} d{n} (qkv thirds)", g, w)
+            for n, g, w in zip("qkv", thirds, want)})
         lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_(True)
                       for x in (q, k, v))  # (R, H, N, D) views
 
@@ -799,12 +820,8 @@ def check_rollout(cfg, device, cache_dtype="bf16", per_layer=PER_LAYER,
     agree = float((out[:, 0, P:] == out_plain[:, 0, P:]).float().mean())
     device_time = None
     if full:
+        # every product of the rollout runs on csrc/gemm_sm90.cuh
         device_time = profile_device(lambda: kernel_path(seeded()))
-        # the block path's products all run on csrc/gemm_sm90.cuh
-        shared = [k for k in device_time["port"]
-                  if k.startswith("void tpu1x::gemm_kernel<")]
-        if not cfg.qk_norm and cache_dtype == "bf16" and shared:
-            raise AssertionError(f"the rollout ran the shared GEMM: {shared}")
 
     return dict(launches=launches, rollout_s=wall, rollout_s_runs=walls,
                 plain_rollout_s=wall_plain, s_per_frame=wall / NEW,
@@ -817,12 +834,15 @@ def check_rollout(cfg, device, cache_dtype="bf16", per_layer=PER_LAYER,
                                            actions))
 
 
-def profile_device(run, top: int = 12):
+def profile_device(run, top: int = 12, must=(), must_not=()):
     """Device time by kernel over one call of `run` (one more rollout, one
     more train step), from torch.profiler: the total, its share of that
     call's wall time (the device's busy share; the profiler's own host cost
     is in the wall), the largest kernels in ms, and every kernel of this
-    port (`tpu1x::`) with its calls and ms."""
+    port (`tpu1x::`) with its calls and ms. Raises if a device kernel's
+    name holds a string of `must_not`, or no kernel's holds one of
+    `must`; and if a GEMM of the port other than csrc/gemm_sm90.cuh's ran
+    (every product of the port is on it)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -832,6 +852,15 @@ def profile_device(run, top: int = 12):
         wall = time.perf_counter() - t0
     on_device = [a for a in prof.key_averages()
                  if a.device_type == torch.autograd.DeviceType.CUDA]
+    names = [a.key for a in on_device]
+    other_gemms = [k for k in names if "tpu1x::" in k and "gemm" in k
+                   and "gemm90_kernel<" not in k]
+    banned = [k for k in names for bad in must_not if bad in k]
+    missing = [want for want in must if not any(want in k for k in names)]
+    if other_gemms or banned or missing:
+        raise AssertionError(f"profile: GEMMs off gemm_sm90.cuh {other_gemms}"
+                             f", forbidden kernels {banned}, kernels that "
+                             f"did not run {missing}")
     total = sum(a.self_device_time_total for a in on_device) / 1e3
     ranked = sorted(on_device, key=lambda a: -a.self_device_time_total)
     return {"wall_ms": wall * 1e3, "device_ms": total,
@@ -959,16 +988,25 @@ def entry(err, grads, shape, ms, plain, bnd, library_ms=None, **extra):
                 library_ms=library_ms, **extra)
 
 
-def check_spatial_train_block(inp, C, H):
+def check_spatial_train_block(inp, C, H, timed=True):
+    """K11's backward (with K1's forward under autograd), values and every
+    gradient, against `spatial_train_block_plain`'s autograd; with `timed`
+    its event and device times, the plain backward's and the bound."""
     S, N = 256, TB * 16
     t = dict(x=inp.normal(N, S, C), **{
         k: v.float() for k, v in spatial_weights(inp, C).items()})
     dout = inp.normal(N, S, C)
     kw = dict(num_heads=H, scale=(C // H) ** -0.5)
+    tag = "" if C == 512 else f"[C={C}]"
     out_err, grads = both_paths(
-        "spatial_train_block",
+        "spatial_train_block" + tag,
         functools.partial(stb.spatial_train_block, **kw),
         functools.partial(stb.spatial_train_block_plain, **kw), t, dout)
+    if not timed:
+        return {"spatial_train_block_bwd" + tag: dict(
+            max_abs_err=grads["x"]["max_abs_err"], grads=dict(grads,
+                                                               out=out_err),
+            shape=list(t["x"].shape))}
     w16 = (tk.as_bf16(t["wqkv"]), tk.as_bf16(t["wproj"]), None,
            t["ln_scale"], t["ln_bias"])
     R = N * S
@@ -977,15 +1015,21 @@ def check_spatial_train_block(inp, C, H):
     # per head logits, o, dp, dq, dk, dv of 2 S S D each
     bnd = bound(moved, tensor_flops=R * C * (22 * C + 12 * S),
                 fp32_flops=20 * R * C + 10 * N * H * S * S)
+
+    def run():
+        return stb.spatial_train_block_bwd(t["x"], dout, *w16,
+                                           proj_bias=True, **kw)
     return {"spatial_train_block_bwd": entry(
         grads["x"]["max_abs_err"], dict(grads, out=out_err), t["x"].shape,
-        time_ms(lambda: stb.spatial_train_block_bwd(
-            t["x"], dout, *w16, proj_bias=True, **kw)),
+        time_ms(run),
         plain_ms(functools.partial(stb.spatial_train_block_plain, **kw), t,
-                 dout), bnd)}
+                 dout), bnd, device_ms=device_ms(run))}
 
 
-def check_temporal_train_block(inp, C, H):
+def check_temporal_train_block(inp, C, H, timed=True):
+    """K12's forward and backward, values and every gradient, against
+    `temporal_train_block_plain`'s autograd; with `timed` their event and
+    device times, the plain version's and the bounds."""
     S, T = 256, 16
     t = dict(x=inp.normal(TB, T, S, C),
              wqkv=inp.normal(C, 3 * C, std=0.05, dtype=torch.float32),
@@ -993,10 +1037,16 @@ def check_temporal_train_block(inp, C, H):
              bproj=inp.normal(C, std=0.1, dtype=torch.float32))
     dout = inp.normal(TB, T, S, C)
     kw = dict(num_heads=H, scale=(C // H) ** -0.5)
+    tag = "" if C == 512 else f"[C={C}]"
     plain = functools.partial(ttb.temporal_train_block_plain, **kw)
     out_err, grads = both_paths(
-        "temporal_train_block",
+        "temporal_train_block" + tag,
         functools.partial(ttb.temporal_train_block, **kw), plain, t, dout)
+    if not timed:
+        return {"temporal_train_block" + tag: dict(
+                    max_abs_err=out_err, shape=list(t["x"].shape)),
+                "temporal_train_block_bwd" + tag: dict(
+                    max_abs_err=grads["x"]["max_abs_err"], grads=grads)}
     w16 = [tk.as_bf16(t[k]) for k in ("wqkv", "wproj")]
     b16 = tk.as_bf16(t["bproj"])
     R, pairs = TB * T * S, T * (T + 1) // 2
@@ -1005,17 +1055,20 @@ def check_temporal_train_block(inp, C, H):
                 tensor_flops=8 * R * C * C + 4 * TB * S * C * pairs)
     bwd = bound(3 * R * C * 2 + weights * (2 + 4) + C * 4,
                 tensor_flops=22 * R * C * C + 12 * TB * S * C * pairs)
+
+    def run_fwd():
+        return ttb.temporal_train_block_fwd(t["x"], *w16, None, b16, **kw)
+
+    def run_bwd():
+        return ttb.temporal_train_block_bwd(t["x"], dout, *w16, None,
+                                            proj_bias=True, **kw)
     return {
         "temporal_train_block": entry(
-            out_err, {}, t["x"].shape,
-            time_ms(lambda: ttb.temporal_train_block_fwd(
-                t["x"], *w16, None, b16, **kw)),
-            plain_ms(plain, t), fwd),
+            out_err, {}, t["x"].shape, time_ms(run_fwd), plain_ms(plain, t),
+            fwd, device_ms=device_ms(run_fwd)),
         "temporal_train_block_bwd": entry(
-            grads["x"]["max_abs_err"], grads, t["x"].shape,
-            time_ms(lambda: ttb.temporal_train_block_bwd(
-                t["x"], dout, *w16, None, proj_bias=True, **kw)),
-            plain_ms(plain, t, dout), bwd)}
+            grads["x"]["max_abs_err"], grads, t["x"].shape, time_ms(run_bwd),
+            plain_ms(plain, t, dout), bwd, device_ms=device_ms(run_bwd))}
 
 
 def check_mlp_train_block(inp, C, ln=True, timed=True):
@@ -1024,8 +1077,7 @@ def check_mlp_train_block(inp, C, ln=True, timed=True):
     `ln` False without its LayerNorm, as the qk_norm models call it. With
     `timed`: the event and device times, the plain version's and the
     bounds, and a profile of one forward and backward, which must launch no
-    kernel of `common.cuh`'s GEMM (K13's products run on
-    csrc/gemm_sm90.cuh)."""
+    GEMM of the port but csrc/gemm_sm90.cuh's (`profile_device`)."""
     S, N, F4 = 256, TB * 16, 4 * C
     w = block_weights(inp, C)
     t = dict(x=inp.normal(N, S, C), **{
@@ -1065,11 +1117,8 @@ def check_mlp_train_block(inp, C, ln=True, timed=True):
         def run_bwd():
             return mtb.mlp_train_block_bwd(t["x"], dout, *w16[:3], *ln_params,
                                            gelu_approx=approx, bias=True)
+        # K13's products all run on csrc/gemm_sm90.cuh
         profile = profile_device(lambda: (run_fwd(), run_bwd()))
-        shared = [k for k in profile["port"]
-                  if k.startswith("void tpu1x::gemm_kernel<")]
-        if shared:
-            raise AssertionError(f"{name} ran common.cuh's GEMM: {shared}")
         out[name] = entry(out_err, {}, t["x"].shape, time_ms(run_fwd),
                           plain_ms(plain, t), fwd,
                           device_ms=device_ms(run_fwd),
@@ -1081,20 +1130,27 @@ def check_mlp_train_block(inp, C, ln=True, timed=True):
 
 
 def check_gemm90_train(inp, C):
-    """The training forms of csrc/gemm_sm90.cuh alone, at K13's products
-    (the pre-LN train step's 32768 rows, C -> 4C and back): fc1 = GELU(xn
-    Wfc1 + b) (nn, erf with and without the pre-activation out, tanh with
-    it), fc2 = h Wfc2 + b + x (nn), d_g = (dout Wfc2^T) GELU'(h) (nt, erf
-    and tanh), d_xn = d_h Wfc1^T in fp32 (nt), dx = d_h Wfc1^T + dout (nt,
-    the qk_norm form), dWfc2 = g^T dout and dWfc1 = xn^T d_h (tn, both
-    orientations). Each against `gemm90_plain` (bf16 outputs atol = rtol =
-    3e-2; fp32 outputs by the gradient gates), by device time and TFLOP/s
-    beside `torch.matmul` of the same operands (timed only)."""
+    """The training forms of csrc/gemm_sm90.cuh alone, at the train blocks'
+    products (the pre-LN train step's 32768 rows). K13's (C -> 4C and
+    back): fc1 = GELU(xn Wfc1 + b) (nn, erf with and without the
+    pre-activation out, tanh with it), fc2 = h Wfc2 + b + x (nn), d_g =
+    (dout Wfc2^T) GELU'(h) (nt, erf and tanh), d_xn = d_h Wfc1^T in fp32
+    (nt), dx = d_h Wfc1^T + dout (nt, the qk_norm form), dWfc2 = g^T dout
+    and dWfc1 = xn^T d_h (tn, both orientations). K11's and K12's (C -> 3C
+    and C -> C): qkv = a Wqkv + b (nn), proj = a Wproj + b + x (nn), d_o =
+    dout Wproj^T (nt), d_xn = dqkv Wqkv^T in fp32 (nt), dx = dqkv Wqkv^T +
+    dout (nt), dWproj = o^T dout and dWqkv = xn^T dqkv (tn). Each against
+    `gemm90_plain` (bf16 outputs atol = rtol = 3e-2; fp32 outputs by the
+    gradient gates), by device time and TFLOP/s beside `torch.matmul` of
+    the same operands (timed only)."""
     R, F4 = TB * 16 * 256, 4 * C
     xn, x, dout = inp.normal(R, C), inp.normal(R, C), inp.normal(R, C)
     h, g, d_h = inp.normal(R, F4), inp.normal(R, F4), inp.normal(R, F4)
     w1, w2 = inp.normal(C, F4, std=0.05), inp.normal(F4, C, std=0.05)
     b1, b2 = inp.normal(F4, std=0.1), inp.normal(C, std=0.1)
+    o, dqkv = inp.normal(R, C), inp.normal(R, 3 * C)
+    wqkv, wproj = inp.normal(C, 3 * C, std=0.05), inp.normal(C, C, std=0.05)
+    bqkv = inp.normal(3 * C, std=0.1)
     cases = [
         ("fc1[erf]", xn, w1, dict(bias=b1, act="gelu_erf")),
         ("fc1[erf,pre]", xn, w1, dict(bias=b1, act="gelu_erf",
@@ -1108,6 +1164,13 @@ def check_gemm90_train(inp, C):
         ("dx[no-ln]", d_h, w1, dict(form="nt", resid=dout)),
         ("dWfc2", g, dout, dict(form="tn")),
         ("dWfc1", xn, d_h, dict(form="tn")),
+        ("qkv", xn, wqkv, dict(bias=bqkv)),
+        ("proj", o, wproj, dict(bias=b2, resid=x)),
+        ("d_o", dout, wproj, dict(form="nt")),
+        ("d_xn[qkv]", dqkv, wqkv, dict(form="nt", fp32_out=True)),
+        ("dx[qkv]", dqkv, wqkv, dict(form="nt", resid=dout)),
+        ("dWproj", o, dout, dict(form="tn")),
+        ("dWqkv", xn, dqkv, dict(form="tn")),
     ]
     out = {}
     for name, a, b, kw in cases:
@@ -1183,7 +1246,9 @@ def check_train_kernels(C, H, device):
     out.update(check_spatial_train_block(inp, C, H))
     out.update(check_temporal_train_block(inp, C, H))
     out.update(check_mlp_train_block(inp, C))
-    # GENIE_35M's width, with and without the LN
+    # GENIE_35M's width, 8 heads; the MLP block with and without the LN
+    out.update(check_spatial_train_block(inp, 256, 8, timed=False))
+    out.update(check_temporal_train_block(inp, 256, 8, timed=False))
     for ln in (True, False):
         out.update(check_mlp_train_block(inp, 256, ln=ln, timed=False))
     torch.cuda.empty_cache()
@@ -1249,7 +1314,13 @@ def check_training(cfg, device, per_layer=TRAIN_PER_LAYER):
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
     step_s = sorted(walls[-5:])[2]
-    device_time = profile_device(lambda: step(tokens, noise=noise))
+    # the pre-LN step: K11's attention backward is K10's kernel, beside the
+    # recompute on K9's; of spatial_block.cu's own kernels none runs (the
+    # qk-LN attention is the qk_norm models')
+    pre_ln = {} if cfg.qk_norm else dict(
+        must=("flash_fwd_kernel", "flash_bwd_kernel"),
+        must_not=("spatial_attention",))
+    device_time = profile_device(lambda: step(tokens, noise=noise), **pre_ln)
     out = dict(launches=launches, losses=losses, grad_norms=norms,
                accs=[float(m["acc"]) for m in metrics], step_s=step_s,
                step_s_runs=walls, tokens_per_s=TB * cfg.T * cfg.S / step_s,

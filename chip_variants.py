@@ -16,19 +16,22 @@ in one process on one card; every time is the profiler's device time
 
 - `flash`: K9 and K10 (`flash_attention.cu`) at the qk_norm train step's
   (R, N, H, D) = (128, 256, 16, 32), q, k, v as thirds of one tensor,
-  causal and not.
+  causal and not; K10's dq, dk, dv contiguous, as the qk_norm step has
+  them.
 - `gemm`: the blocks' GEMM (`spatial_block.cu`'s `tpu1x_gemm_sm90`) at
   K1's products (4096 / 8192 / 32768 rows; 512 -> 1536 with bias, 512 ->
   512 with bias and residual) and K2's and K3's MLP products (4096 / 8192
   rows; 512 -> 2048 with bias and the tanh GELU, 2048 -> 512 with bias and
   residual), each result held against `gemm_sm90_plain` (atol = rtol =
   3e-2).
-- `tn`: the weight gradients of the MLP train block (`train_block.cu`'s
+- `tn`: the weight gradients of the train blocks (`train_block.cu`'s
   `tpu1x_gemm90_train`, form TN, the fp32 buffer zeroed in each call) at
-  the pre-LN train step's 32768 rows: dWfc2 = g^T dout (2048 x 512) and
-  dWfc1 = xn^T d_h (512 x 2048), each held against `gemm90_plain` by
-  `chip_smoke.grad_errors`. A variant of `gemm_sm90.cuh`'s chunk rule
-  (`launch_gemm90_act`) times another number of chunks of the reduction.
+  the pre-LN train step's 32768 rows: K13's dWfc2 = g^T dout (2048 x 512)
+  and dWfc1 = xn^T d_h (512 x 2048), K11's and K12's dWproj = o^T dout
+  (512 x 512) and dWqkv = xn^T dqkv (512 x 1536), each held against
+  `gemm90_plain` by `chip_smoke.grad_errors`. A variant of
+  `gemm_sm90.cuh`'s chunk rule (`launch_gemm90_act`) times another number
+  of chunks of the reduction.
 - `block`: K2 and K3 (`temporal_mlp_block`, one frame and the pair)
   through this checkout's own wrappers, at the pre-LN rollout's shapes
   (GENIE_138M: B=16, S=256, C=512, 16 heads, F4=2048, a (16, 32, 16, 256,
@@ -42,9 +45,12 @@ in one process on one card; every time is the profiler's device time
   it (the qk_norm step's form): the device time of one call (median of
   three windows) and of each of its launches, in order, by kernel name.
   No builds, as `block`.
-- `train`: K11's backward (`spatial_train_block_bwd`) and K12's forward
-  and backward (`temporal_train_block_fwd` / `_bwd`) at the pre-LN train
-  step's shapes, timed as `mlp`. No builds.
+- `train`: K11's backward (`spatial_train_block_bwd`: LN1, the serving
+  qkv product, K9's forward, d_o, K10's backward, the weight gradients,
+  the column sums, d_xn, the LN backward) and K12's forward and backward
+  (`temporal_train_block_fwd` / `_bwd`: the training forms around K4 and
+  K6) at the pre-LN train step's shapes, timed as `mlp`, each launch by
+  its kernel's name. No builds.
 
 Prints one line per build and case, and the card.
 """
@@ -93,7 +99,7 @@ def flash(libs, dev):
     for lib in libs.values():
         lib.tpu1x_flash_mha.argtypes = [P] * 5 + [L] * 6 + [I] * 4 + [F, I, P]
         lib.tpu1x_flash_mha_bwd.argtypes = (
-            [P] * 9 + [L] * 10 + [I] * 4 + [F, I, P])
+            [P] * 9 + [L] * 16 + [I] * 4 + [F, I, P])
     for name in in_turns(libs):
         lib = libs[name]
         for causal in (0, 1):
@@ -105,7 +111,8 @@ def flash(libs, dev):
 
             def bwd():
                 return lib.tpu1x_flash_mha_bwd(
-                    *ptr, rs, ts, rs, ts, rs, ts, crs, cts, crs, cts, *shape)
+                    *ptr, rs, ts, rs, ts, rs, ts, crs, cts, crs, cts,
+                    *(crs, cts) * 3, *shape)
             if fwd() != 0:
                 raise RuntimeError(f"{name}: the forward did not launch")
             f_ms = cs.device_ms(fwd)
@@ -159,7 +166,8 @@ def tn(libs, dev):
     for lib in libs.values():
         lib.tpu1x_gemm90_train.argtypes = [P] * 8 + [I] * 5 + [P]
     R, C, F4 = cs.TB * 16 * 256, 512, 2048
-    for name, M, N in (("dWfc2", F4, C), ("dWfc1", C, F4)):
+    for name, M, N in (("dWfc2", F4, C), ("dWfc1", C, F4),
+                       ("dWproj", C, C), ("dWqkv", C, 3 * C)):
         a = torch.randn(R, M, generator=g, device=dev).bfloat16()
         b = torch.randn(R, N, generator=g, device=dev).bfloat16()
         want = tk.gemm90_plain(a, b, form="tn")

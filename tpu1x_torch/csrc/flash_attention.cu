@@ -7,7 +7,9 @@
 // transposes to (B, H, N, D) because Mosaic wants the head axis leading; here
 // the kernels take the (rows, N, H, D) tensors as they lie, each with its own
 // row and token strides, so that the v third of a (rows, N, 3, H, D) qkv
-// product and the freshly normalised q and k feed them without a copy.
+// product and the freshly normalised q and k feed them without a copy. The
+// backward writes dq, dk and dv through strides of their own too, so that
+// the spatial train block gets them as the thirds of one (rows, N, 3C) dqkv.
 //
 // The forward (K9) is csrc/flash_attention.cuh, which the spatial block
 // shares; here it also writes the per-query log-sum-exp that the backward
@@ -431,17 +433,22 @@ extern "C" int tpu1x_flash_mha(const void* q, const void* k, const void* v,
 
 // q, k, v, o, d_o: bf16 (R, N, H, 32) views as above (o with strides
 // (rso, tso), d_o with (rsg, tsg)); lse fp32 (R, H, N) from the forward;
-// dq, dk, dv bf16 (R, N, H, 32) contiguous.
+// dq, dk, dv bf16 (R, N, H, 32) views with strides (rsdq, tsdq), (rsdk,
+// tsdk), (rsdv, tsdv) (multiples of 8, 16-byte aligned bases): contiguous
+// tensors, or the three thirds of one (R, N, 3C) tensor, written by TMA
+// stores 64 tokens of one head at a time.
 extern "C" int tpu1x_flash_mha_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* d_o,
                                    const void* lse, void* dq, void* dk,
                                    void* dv, long rsq, long tsq, long rsk,
                                    long tsk, long rsv, long tsv, long rso,
-                                   long tso, long rsg, long tsg, int R, int N,
-                                   int H, int D, float scale, int causal,
-                                   void* stream) {
-  const long strides[10] = {rsq, tsq, rsk, tsk, rsv, tsv, rso, tso, rsg, tsg};
-  if (!flash_ok(N, D, strides, 10)) return cudaErrorInvalidValue;
+                                   long tso, long rsg, long tsg, long rsdq,
+                                   long tsdq, long rsdk, long tsdk, long rsdv,
+                                   long tsdv, int R, int N, int H, int D,
+                                   float scale, int causal, void* stream) {
+  const long strides[16] = {rsq,  tsq,  rsk,  tsk,  rsv,  tsv,  rso,  tso,
+                            rsg,  tsg,  rsdq, tsdq, rsdk, tsdk, rsdv, tsdv};
+  if (!flash_ok(N, D, strides, 16)) return cudaErrorInvalidValue;
   const int items = R * H;
   if (items == 0) return cudaSuccess;
   BwdMaps maps;
@@ -450,9 +457,10 @@ extern "C" int tpu1x_flash_mha_bwd(const void* q, const void* k, const void* v,
   for (int i = 0; i < 4; ++i)
     TPU1X_TRY(tensor_map(&maps.in[i], in[i], rs[i], ts[i], R, N, H));
   void* out[3] = {dq, dk, dv};
+  const long ors[3] = {rsdq, rsdk, rsdv}, ots[3] = {tsdq, tsdk, tsdv};
   for (int i = 0; i < 3; ++i)
-    TPU1X_TRY(tensor_map(&maps.out[i], out[i], (long)N * H * FA_D,
-                         (long)H * FA_D, R, N, H, FA_QT));
+    TPU1X_TRY(tensor_map(&maps.out[i], out[i], ors[i], ots[i], R, N, H,
+                         FA_QT));
   static const BwdKernel forms[2] = {flash_bwd_kernel<false>,
                                      flash_bwd_kernel<true>};
   static int resident[2] = {0, 0};

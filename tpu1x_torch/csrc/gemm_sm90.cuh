@@ -16,7 +16,9 @@
 //   that goes to the LN backward); or, for TN, added with fp32 atomics into
 //   a zeroed buffer, the reduction over K split in chunks (the launcher
 //   picks how many) so that the few output tiles of a weight gradient fill
-//   the card.
+//   the card. The same forms carry every product of the spatial and
+//   temporal train blocks (K11, K12) but K11's qkv recompute, which is the
+//   serving chain's (the forward's rounding).
 // The GELU, the operand layouts and the epilogue are template parameters,
 // so the serving instantiations compile to the code they had before the
 // training forms existed (one epilogue for every use once cost the rollout
@@ -403,11 +405,13 @@ static cudaError_t launch_gemm90_act(const CUtensorMap& ta,
                               &resident));
   Gemm90Args p = a;
   if constexpr (EPI == G9_RED) {
-    // chunks of the reduction over K: the most, up to 4 and dividing K / 64,
-    // that keep tiles x chunks within one wave of the resident blocks (2 of
-    // 4 at K13's weight gradients, 128 tiles for 264 blocks: 1 and 4 were
-    // slower on an H100)
-    int s = 4;
+    // chunks of the reduction over K: the most, up to 8 and dividing K / 64,
+    // that keep tiles x chunks within one wave of the resident blocks. On
+    // an H100 (chip_variants.py tn): 2 at K13's weight gradients (128 tiles
+    // for 264 blocks; 1 and 4 were slower) and at K11's and K12's dWqkv (96
+    // tiles); 8 at their dWproj (32 tiles), 13-15% less time than 4 (at
+    // 4, one block an SM had nothing to overlap with)
+    int s = 8;
     while (s > 1 && ((a.K / G9_BK) % s || units * s > resident)) --s;
     p.splits = s;
     units *= s;

@@ -11,16 +11,15 @@
 // Each block is therefore a fixed sequence of launches over all rows at once,
 // sequenced by its wrapper in tpu1x_torch/ops/:
 //   tpu1x_gemm90_train  the training forms of csrc/gemm_sm90.cuh (TMA,
-//                  wgmma), which carry the MLP train block's seven products:
-//                  A B (fc1 with bias and GELU, optionally keeping the
-//                  pre-activation; fc2 with bias and residual), A B^T (d_g
-//                  with the GELU' epilogue, d_xn in fp32 or dx with the
-//                  residual) and A^T B (the weight gradients: the reduction
-//                  over all N*S rows split into chunks, combined with fp32
-//                  atomics);
-//   tpu1x_gemm     the mma.sync GEMM of common.cuh in the same three forms
-//                  (bias and residual epilogues, fp32 store, fp32 atomics),
-//                  for the spatial and temporal train blocks;
+//                  wgmma), which carry every weight product of the three
+//                  blocks but the spatial block's qkv recompute (the
+//                  serving instantiation, tpu1x_gemm_sm90 in
+//                  spatial_block.cu, the forward's rounding): A B (with
+//                  bias; the GELU, optionally keeping the pre-activation;
+//                  the residual), A B^T (d_o, d_ao, d_g with the GELU'
+//                  epilogue, d_xn in fp32, dx with the residual) and A^T B
+//                  (the weight gradients: the reduction over all rows split
+//                  into chunks, combined with fp32 atomics);
 //   tpu1x_col_sum  bias gradients: column sums of a bf16 (rows, N) tensor in
 //                  fp32, per-block partial sums combined with atomics;
 //   tpu1x_ln_fwd   LayerNorm of each row (fp32 statistics, variance
@@ -28,6 +27,9 @@
 //   tpu1x_ln_bwd   dx = rstd (d_xhat - mean(d_xhat) - xhat mean(d_xhat xhat))
 //                  + dout, and the LN scale / bias gradients (column sums,
 //                  per-warp register sums combined with atomics).
+// The attention parts are other sources' kernels: K9's forward and K10's
+// backward (flash_attention.cu) for the spatial block, K4 and K6
+// (temporal_attention.cu) for the temporal block.
 // Buffers that atomics add into are zeroed by the wrapper on the same
 // stream. Bounds: the GEMMs by tensor-core operations, the other three by
 // device memory (each reads its rows once).
@@ -269,29 +271,6 @@ extern "C" int tpu1x_gemm90_train(const void* A, const void* B, void* C,
                                                             s, tc, t2);
   return launch_gemm90_act<ACT_NONE, G9_NN, G9_FUSED>(ta, tb, a, tiles, s, tc,
                                                       t2);
-}
-
-// The mma.sync GEMM with every operand and option explicit. mode: 0 A B,
-// 1 A B^T (B stored (N, K)), 2 A^T B (A stored (K, M); Cf zeroed, k_chunk
-// rows of the reduction per block). C bf16 (M, N) at ldc, or Cf fp32.
-// Null pointers switch their option off.
-extern "C" int tpu1x_gemm(const void* A, long lda, const void* B, long ldb,
-                          void* C, void* Cf, long ldc, const void* bias,
-                          const void* resid, long ldr, int M, int N, int K,
-                          int mode, int fused, int k_chunk, void* stream) {
-  if (N % GBN || K % GBK || mode < GEMM_NN || mode > GEMM_TN)
-    return cudaErrorInvalidValue;
-  GemmParams p = gemm_params(A, B, C, M, N, K);
-  p.lda = lda;
-  p.ldb = ldb;
-  p.ldc = ldc;
-  p.Cf = static_cast<float*>(Cf);
-  p.bias = static_cast<const bf16*>(bias);
-  p.resid = static_cast<const bf16*>(resid);
-  p.ldr = ldr;
-  p.fused = fused;
-  p.k_chunk = k_chunk;
-  return launch_gemm(p, static_cast<cudaStream_t>(stream), mode);
 }
 
 // Requires N % 8 == 0, ld % 8 == 0.

@@ -46,8 +46,6 @@ SIGNATURES = {
         ("tpu1x_spatial_block", [P] * 13 + [I, I, I, I, F, P]),
         # A, B, C, bias, resid, M, N, K, act, stream
         ("tpu1x_gemm_sm90", [P] * 5 + [I] * 4 + [P]),
-        # qkv, d_o, dqkv, o, N, S, C, H, scale, stream
-        ("tpu1x_spatial_attention_bwd", [P, P, P, P, I, I, I, I, F, P]),
     ],
     "temporal_attention": [
         # q, k, v, out, B, T, S, C, ld, scale, causal, stream
@@ -59,9 +57,6 @@ SIGNATURES = {
     "train_block": [
         # A, B, C, pre, Cf, bias, resid, aux, M, N, K, form, act, stream
         ("tpu1x_gemm90_train", [P] * 8 + [I] * 5 + [P]),
-        # A, lda, B, ldb, C, Cf, ldc, bias, resid, ldr, M, N, K, mode, fused,
-        # k_chunk, stream
-        ("tpu1x_gemm", [P, L, P, L, P, P, L, P, P, L, I, I, I, I, I, I, P]),
         # x, out, rows, N, ld, stream
         ("tpu1x_col_sum", [P, P, I, I, L, P]),
         # x, scale, bias, xn, stats, rows, C, eps, stream
@@ -88,8 +83,9 @@ SIGNATURES = {
         # causal, stream
         ("tpu1x_flash_mha", [P] * 5 + [L] * 6 + [I] * 4 + [F, I, P]),
         # q, k, v, o, d_o, lse, dq, dk, dv, rsq, tsq, rsk, tsk, rsv, tsv,
-        # rso, tso, rsg, tsg, R, N, H, D, scale, causal, stream
-        ("tpu1x_flash_mha_bwd", [P] * 9 + [L] * 10 + [I] * 4 + [F, I, P]),
+        # rso, tso, rsg, tsg, rsdq, tsdq, rsdk, tsdk, rsdv, tsdv, R, N, H, D,
+        # scale, causal, stream
+        ("tpu1x_flash_mha_bwd", [P] * 9 + [L] * 16 + [I] * 4 + [F, I, P]),
     ],
 }
 

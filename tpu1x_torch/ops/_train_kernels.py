@@ -1,16 +1,16 @@
 """Launchers of the device kernels that the three train blocks are built
 from (csrc/train_block.cu): the training forms of the TMA/wgmma GEMM of
-csrc/gemm_sm90.cuh (the MLP train block's products), the mma.sync GEMM of
-csrc/common.cuh (the spatial and temporal train blocks'), column sums, and
-the LayerNorm forward and backward over rows.
+csrc/gemm_sm90.cuh (every weight product of the train blocks but the
+spatial block's qkv recompute, which is the serving chain's `gemm_sm90`),
+column sums, and the LayerNorm forward and backward over rows.
 
-`gemm90`, `col_sum`, `ln_fwd` and `ln_bwd` take CPU tensors too, and then
-compute their plain versions (`*_plain`: the kernel's arithmetic and
-rounding points in plain torch, rounding to the operands' dtype where the
-kernel rounds to bf16), so that a train block's launch sequence runs on the
-CPU; `gemm` takes CUDA tensors only. On CUDA tensors each launches its
-kernel on the current stream or raises; the train-block wrappers sequence
-them. None of them counts a launch: the counters belong to the blocks.
+Each takes CPU tensors too, and then computes its plain version
+(`*_plain`: the kernel's arithmetic and rounding points in plain torch,
+rounding to the operands' dtype where the kernel rounds to bf16), so that a
+train block's launch sequence runs on the CPU. On CUDA tensors each
+launches its kernel on the current stream or raises; the train-block
+wrappers sequence them. None of them counts a launch: the counters belong
+to the blocks.
 """
 
 from __future__ import annotations
@@ -25,8 +25,6 @@ from tpu1x_torch.ops._util import dgelu, gelu, ptr, require
 BF16 = torch.bfloat16
 ACT = {None: 0, "gelu_tanh": 1, "gelu_erf": 2, "dgelu_tanh": 3, "dgelu_erf": 4}
 MODE = {"nn": 0, "nt": 1, "tn": 2}
-# blocks the GEMM_TN grid aims for: four waves of the H100's 132 SMs
-TN_BLOCKS = 4 * 132
 
 
 def _rows2d(t: torch.Tensor, name: str) -> None:
@@ -34,64 +32,6 @@ def _rows2d(t: torch.Tensor, name: str) -> None:
             and t.stride(0) % 8 == 0 and t.data_ptr() % 16 == 0,
             f"{name} must be a 2-D CUDA tensor with contiguous, 16-byte "
             f"aligned rows, got shape {tuple(t.shape)} strides {t.stride()}")
-
-
-def gemm(a: torch.Tensor, b: torch.Tensor, *, mode: str = "nn",
-         bias: Optional[torch.Tensor] = None,
-         resid: Optional[torch.Tensor] = None, fused: bool = True,
-         fp32_out: bool = False):
-    """One launch of the mma.sync GEMM on bf16 operands.
-
-    mode "nn": a (M, K) @ b (K, N); "nt": a (M, K) @ b (N, K)^T;
-    "tn": a (K, M)^T @ b (K, N), always fp32 (split reduction, atomics).
-    `bias` (N,) bf16, `resid` (M, N) bf16. `fused` picks the training
-    kernels' rounding (fp32 through the bias, one rounding, then the
-    residual) over the serving chain's (a rounding after every step).
-    `fp32_out` returns the fp32 accumulators with no epilogue. Returns
-    (M, N).
-    """
-    _rows2d(a, "a")
-    _rows2d(b, "b")
-    require(a.dtype == BF16 and b.dtype == BF16, "gemm takes bf16 operands")
-    if mode == "nn":
-        (M, K), (Kb, N) = a.shape, b.shape
-    elif mode == "nt":
-        (M, K), (N, Kb) = a.shape, b.shape
-    else:
-        (K, M), (Kb, N) = a.shape, b.shape
-    require(K == Kb, f"gemm {mode}: inner sizes {K} and {Kb} differ")
-    require(N % 64 == 0 and K % 32 == 0,
-            f"gemm needs N % 64 == 0 and K % 32 == 0, got N={N}, K={K}")
-    dev = a.device
-    k_chunk = 0
-    out = outf = None
-    if mode == "tn":
-        require(M % 8 == 0, f"gemm tn needs M % 8 == 0, got {M}")
-        require(bias is None and resid is None, "gemm tn has no epilogue")
-        tiles = (N // 64) * ((M + 127) // 128)
-        splits = max(1, min(K // 32, -(-TN_BLOCKS // tiles)))
-        k_chunk = -(-K // (splits * 32)) * 32
-        outf = torch.zeros(M, N, dtype=torch.float32, device=dev)
-    elif fp32_out:
-        outf = torch.empty(M, N, dtype=torch.float32, device=dev)
-    else:
-        out = torch.empty(M, N, dtype=BF16, device=dev)
-    for name, t, shape in (("bias", bias, (N,)), ("resid", resid, (M, N))):
-        if t is not None:
-            require(t.is_cuda and t.dtype == BF16 and tuple(t.shape) == shape
-                    and t.stride(-1) == 1,
-                    f"gemm {name} must be bf16 {shape}, got {t.dtype} "
-                    f"{tuple(t.shape)}")
-    require(fused or (mode == "nn" and not fp32_out),
-            "the serving chain (fused=False) is for mode nn with a bf16 "
-            "output only")
-    err = kernels.lib("train_block").tpu1x_gemm(
-        a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), ptr(out),
-        ptr(outf), N, ptr(bias), ptr(resid),
-        0 if resid is None else resid.stride(0), M, N, K, MODE[mode],
-        int(fused), k_chunk, kernels.stream_of(a))
-    kernels.check(err, f"gemm {mode}")
-    return outf if out is None else out
 
 
 def _gemm90_check(a, b, form, bias, resid, aux, act, fp32_out, pre_out):

@@ -74,23 +74,26 @@ def flash_mha_bwd_plain(q, k, v, o, lse, dout, *, scale: float,
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-def _rows(t: torch.Tensor, name: str, shape):
+def _rows(t: torch.Tensor, name: str, shape, writable: bool = False):
     """`t` as (R, N, H, D) with its leading axes folded into one (a view
     where the strides allow it, as they do for a third of a qkv product),
     checked for what the kernels read; returns (tensor, row stride, token
-    stride)."""
+    stride). A `writable` tensor (an output) must fold into a view."""
     require(t.is_cuda and t.dtype == torch.bfloat16
             and tuple(t.shape) == tuple(shape),
             f"{name} must be a bf16 CUDA tensor of shape {tuple(shape)}, got "
             f"{t.dtype} {tuple(t.shape)} on {t.device}")
     N, H, D = shape[-3:]
-    t = t.reshape(-1, N, H, D)
-    rs, ts, hs, ds = t.stride()
+    folded = t.reshape(-1, N, H, D)
+    require(not writable or folded.data_ptr() == t.data_ptr(),
+            f"{name}: its leading axes must fold into one row axis without "
+            f"a copy, got strides {t.stride()}")
+    rs, ts, hs, ds = folded.stride()
     require(ds == 1 and hs == D and rs % 8 == 0 and ts % 8 == 0
-            and t.data_ptr() % 16 == 0,
-            f"{name}: strides {t.stride()} must be (8 i, 8 j, {D}, 1) and "
-            f"the data 16-byte aligned")
-    return t, rs, ts
+            and folded.data_ptr() % 16 == 0,
+            f"{name}: strides {folded.stride()} must be (8 i, 8 j, {D}, 1) "
+            f"and the data 16-byte aligned")
+    return folded, rs, ts
 
 
 def _check_shape(q, k, v):
@@ -110,7 +113,10 @@ def _lse_shape(q):
 def flash_mha_fwd(q, k, v, *, scale: float, causal: bool):
     """Check, launch the forward kernel on CUDA q, k, v (..., N, H, 32) and
     count it. Returns (o, lse): o contiguous of q's shape, lse fp32
-    (..., H, N) as `mha_lse_reference` gives it."""
+    (..., H, N) as `mha_lse_reference` gives it. CPU tensors take
+    `mha_lse_reference` and count nothing."""
+    if not q.is_cuda:
+        return mha_lse_reference(q, k, v, scale=scale, causal=causal)
     _check_shape(q, k, v)
     N, H, D = q.shape[-3:]
     (q4, rsq, tsq), (k4, rsk, tsk), (v4, rsv, tsv) = (
@@ -126,10 +132,27 @@ def flash_mha_fwd(q, k, v, *, scale: float, causal: bool):
     return out.view(q.shape), lse
 
 
-def flash_mha_bwd(q, k, v, o, lse, dout, *, scale: float, causal: bool):
+def flash_mha_bwd(q, k, v, o, lse, dout, *, scale: float, causal: bool,
+                  out=None):
     """Check, launch the backward kernel on the forward's inputs and
     residuals (o, lse) and the output's gradient, and count it. Returns
-    (dq, dk, dv), contiguous, of q's shape."""
+    (dq, dk, dv) of q's shape: new contiguous tensors, or with `out` the
+    three given tensors (views such as the thirds of one qkv gradient),
+    written in place. CPU tensors take `flash_mha_bwd_plain` and count
+    nothing."""
+    if out is not None:
+        require(len(out) == 3 and all(
+            tuple(t.shape) == tuple(q.shape) and t.dtype == q.dtype
+            and t.device == q.device for t in out),
+            "out must be three tensors of q's shape, dtype and device")
+    if not q.is_cuda:
+        grads = flash_mha_bwd_plain(q, k, v, o, lse, dout, scale=scale,
+                                    causal=causal)
+        if out is None:
+            return grads
+        for t, g in zip(out, grads):
+            t.copy_(g)
+        return tuple(out)
     _check_shape(q, k, v)
     N, H, D = q.shape[-3:]
     (q4, rsq, tsq), (k4, rsk, tsk), (v4, rsv, tsv), (o4, rso, tso), \
@@ -140,16 +163,21 @@ def flash_mha_bwd(q, k, v, o, lse, dout, *, scale: float, causal: bool):
             and tuple(lse.shape) == _lse_shape(q) and lse.is_contiguous(),
             f"lse must be a contiguous fp32 CUDA tensor of shape "
             f"{_lse_shape(q)}")
-    dq, dk, dv = (torch.empty(q4.shape, dtype=q.dtype, device=q.device)
-                  for _ in range(3))
+    if out is None:
+        out = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                    for _ in range(3))
+    (dq4, rsdq, tsdq), (dk4, rsdk, tsdk), (dv4, rsdv, tsdv) = (
+        _rows(t, name, q.shape, writable=True)
+        for name, t in zip(("dq", "dk", "dv"), out))
     err = kernels.lib("flash_attention").tpu1x_flash_mha_bwd(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
-        g4.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), rsq, tsq, rsk, tsk, rsv, tsv, rso, tso, rsg, tsg,
-        q4.shape[0], N, H, D, scale, int(causal), kernels.stream_of(q))
+        g4.data_ptr(), lse.data_ptr(), dq4.data_ptr(), dk4.data_ptr(),
+        dv4.data_ptr(), rsq, tsq, rsk, tsk, rsv, tsv, rso, tso, rsg, tsg,
+        rsdq, tsdq, rsdk, tsdk, rsdv, tsdv, q4.shape[0], N, H, D, scale,
+        int(causal), kernels.stream_of(q))
     kernels.check(err, "flash_mha_bwd")
     kernels.count("flash_mha_bwd")
-    return dq.view(q.shape), dk.view(q.shape), dv.view(q.shape)
+    return tuple(out)
 
 
 class _FlashMha(torch.autograd.Function):
@@ -180,7 +208,8 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q, k and v are read where they lie, each with its own strides (the last
     two axes contiguous, the others multiples of 8 that fold into one row
     stride), so the v third of a (rows, N, 3, H, D) qkv product needs no
-    copy; outputs and gradients are new contiguous tensors. The residuals
+    copy; the output and the gradients are new contiguous tensors here
+    (`flash_mha_bwd` also writes into given views). The residuals
     are q, k, v, the output o (which the caller's next product keeps
     anyway) and the per-query log-sum-exp lse (4 bytes a query and head).
 

@@ -10,65 +10,58 @@ import torch
 
 from tpu1x_torch import kernels
 from tpu1x_torch.ops import _train_kernels as tk
+from tpu1x_torch.ops.attention import flash_mha_bwd, flash_mha_fwd
 from tpu1x_torch.ops._util import require
-from tpu1x_torch.ops.spatial_block import spatial_block, spatial_block_plain
+from tpu1x_torch.ops.spatial_block import (gemm_sm90, spatial_block,
+                                           spatial_block_plain)
 
 # The plain version is the serving block's: the same function, and ordinary
 # autograd differentiates it.
 spatial_train_block_plain = spatial_block_plain
 
 
-def spatial_attention_bwd(qkv: torch.Tensor, d_o: torch.Tensor, *,
-                          num_heads: int, scale: float):
-    """qkv (N, S, 3C), d_o (N, S, C) bf16 on the card -> (dqkv (N, S, 3C),
-    o (N, S, C)): the attention's gradients and its recomputed output."""
-    N, S, C3 = qkv.shape
-    C = C3 // 3
-    require(S == 256 and C == 32 * num_heads,
-            f"spatial attention backward needs S == 256 and head_dim 32, got "
-            f"S={S}, C={C}, heads={num_heads}")
-    for name, t in (("qkv", qkv), ("d_o", d_o)):
-        require(t.is_cuda and t.dtype == torch.bfloat16 and t.is_contiguous()
-                and t.data_ptr() % 16 == 0,
-                f"{name} must be contiguous, 16-byte aligned bf16 on the card")
-    dqkv = torch.empty_like(qkv)
-    o = torch.empty_like(d_o)
-    err = kernels.lib("spatial_block").tpu1x_spatial_attention_bwd(
-        qkv.data_ptr(), d_o.data_ptr(), dqkv.data_ptr(), o.data_ptr(), N, S,
-        C, num_heads, scale, kernels.stream_of(qkv))
-    kernels.check(err, "spatial_attention_bwd")
-    return dqkv, o
-
-
 def spatial_train_block_bwd(x, dout, wqkv, wproj, bqkv, ln_scale, ln_bias, *,
                             num_heads: int, scale: float, proj_bias: bool):
-    """The backward on the card: bf16 x, dout (N, S, C) and weights, fp32 LN
-    params. Returns (dx bf16, dwqkv, dwproj, dbqkv, dbproj, dln_scale,
-    dln_bias), all but dx in fp32; a bias gradient is None without its bias.
+    """The backward: x, dout (N, S, C) and weights in x's dtype, fp32 LN
+    params. Returns (dx in x's dtype, dwqkv, dwproj, dbqkv, dbproj,
+    dln_scale, dln_bias), all but dx in fp32; a bias gradient is None
+    without its bias.
 
-    Launches, in order: LN1 over rows; the qkv GEMM (recompute, the forward's
-    rounding); d_o = dout Wproj^T; the attention backward per (row, head),
-    which also recomputes the attention output; dWproj = o^T dout and
-    dWqkv = LN1(x)^T dqkv (split reductions with fp32 atomics); the bias
-    column sums; d_xn = dqkv Wqkv^T in fp32; the LN backward, which adds the
-    residual's dout and sums the LN gradients.
+    Launches, in order: LN1 over rows (`tk.ln_fwd`, whose statistics the
+    LN backward takes); qkv = xn Wqkv + b on the serving instantiation
+    of csrc/gemm_sm90.cuh (`gemm_sm90`, the forward's rounding chain, so
+    that qkv is the forward's bit for bit); o and lse from K9's forward
+    (`flash_mha_fwd`) on the q, k and v thirds of qkv read in place, the
+    forward's o exactly; d_o = dout Wproj^T; K10's backward
+    (`flash_mha_bwd`), which writes dq, dk and dv into the thirds of one
+    (N, S, 3C) dqkv; dWproj = o^T dout and dWqkv = xn^T dqkv (split
+    reductions with fp32 atomics); the bias column sums; d_xn = dqkv Wqkv^T
+    in fp32; the LN backward, which adds the residual's dout and sums the
+    LN gradients. Every product but the qkv recompute is a training form
+    of the same GEMM (`tk.gemm90`). CPU tensors run the same sequence on
+    the launchers' plain versions, in x's dtype, and count nothing.
     """
     N, S, C = x.shape
+    H = num_heads
     rows = N * S
     x2, do2 = x.reshape(rows, C), dout.reshape(rows, C)
     xn, stats = tk.ln_fwd(x2, ln_scale, ln_bias)
-    qkv = tk.gemm(xn, wqkv, bias=bqkv, fused=False)
-    d_o = tk.gemm(do2, wproj, mode="nt")
-    dqkv, o = spatial_attention_bwd(qkv.view(N, S, 3 * C), d_o.view(N, S, C),
-                                    num_heads=num_heads, scale=scale)
+    qkv = gemm_sm90(xn, wqkv, bqkv).view(N, S, 3, H, C // H)
+    q, k, v = qkv.unbind(2)
+    o, lse = flash_mha_fwd(q, k, v, scale=scale, causal=False)
+    d_o = tk.gemm90(do2, wproj, form="nt")
+    dqkv = torch.empty_like(qkv)
+    flash_mha_bwd(q, k, v, o, lse, d_o.view(o.shape), scale=scale,
+                  causal=False, out=dqkv.unbind(2))
     dqkv2 = dqkv.view(rows, 3 * C)
-    dwproj = tk.gemm(o.view(rows, C), do2, mode="tn")
+    dwproj = tk.gemm90(o.reshape(rows, C), do2, form="tn")
     dbproj = tk.col_sum(do2) if proj_bias else None
-    dwqkv = tk.gemm(xn, dqkv2, mode="tn")
+    dwqkv = tk.gemm90(xn, dqkv2, form="tn")
     dbqkv = tk.col_sum(dqkv2) if bqkv is not None else None
-    d_xn = tk.gemm(dqkv2, wqkv, mode="nt", fp32_out=True)
+    d_xn = tk.gemm90(dqkv2, wqkv, form="nt", fp32_out=True)
     dx, dln_s, dln_b = tk.ln_bwd(x2, stats, ln_scale, d_xn, do2)
-    kernels.count("spatial_train_block_bwd")
+    if x.is_cuda:
+        kernels.count("spatial_train_block_bwd")
     return dx.view(N, S, C), dwqkv, dwproj, dbqkv, dbproj, dln_s, dln_b
 
 
@@ -114,11 +107,14 @@ def spatial_train_block(x: torch.Tensor, wqkv: torch.Tensor,
     arithmetic). The card path takes bf16 x, S == 256, head_dim 32,
     C % 64 == 0, C <= 1024 and needs the LN params (the qk_norm configs,
     which have none, train through `flash_mha` instead). Residuals are x and
-    the weights only; the backward recomputes LN1, qkv and the probabilities,
-    and the (N, H, S, S) probabilities never reach device memory. Bound on
-    the H100: tensor-core operations (the GEMMs and the attention's eight
-    S x S x 32 products per head). The weight and LN gradients are summed
-    with fp32 atomics, so their last bits differ from run to run.
+    the weights only; the backward recomputes LN1, qkv, the attention
+    output and its log-sum-exp, and the (N, H, S, S) probabilities never
+    reach device memory. Bound on the H100: tensor-core operations (the
+    weight products, and the attention's forward and five backward
+    products of 2 S S D each per head). The attention backward rounds p and
+    ds to bf16 for its products and takes delta from the bf16 o (K10's
+    contract, `flash_mha`). The weight and LN gradients are summed with fp32
+    atomics, so their last bits differ from run to run.
     """
     if not x.is_cuda:
         return spatial_train_block_plain(

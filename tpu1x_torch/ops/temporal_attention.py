@@ -28,6 +28,19 @@ def temporal_attention_plain(q, k, v, *, scale: float, num_heads: int,
     return out.reshape(B, S, T, C).transpose(1, 2)
 
 
+def temporal_attention_bwd_plain(q, k, v, dout, *, scale: float,
+                                 num_heads: int, causal: bool = True):
+    """The backward of `temporal_attention_plain`: its VJP at dout, by
+    ordinary autograd. Returns dqkv, one new (B, T, S, 3C) tensor whose
+    column thirds are dq, dk, dv, as the backward kernel returns it."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = temporal_attention_plain(*leaves, scale=scale,
+                                       num_heads=num_heads, causal=causal)
+        grads = torch.autograd.grad(out, leaves, dout)
+    return torch.cat(grads, dim=-1)
+
+
 def _check_qkv(q, k, v, num_heads: int) -> int:
     """The checks both kernels share; returns the row stride of q, k, v."""
     B, T, S, C = q.shape
@@ -52,7 +65,11 @@ def _check_qkv(q, k, v, num_heads: int) -> int:
 
 def launch_forward(q, k, v, *, scale: float, num_heads: int,
                    causal: bool) -> torch.Tensor:
-    """Check, launch the forward kernel on CUDA q, k, v and count it."""
+    """Check, launch the forward kernel on CUDA q, k, v and count it. CPU
+    tensors take `temporal_attention_plain` and count nothing."""
+    if not q.is_cuda:
+        return temporal_attention_plain(q, k, v, scale=scale,
+                                        num_heads=num_heads, causal=causal)
     B, T, S, C = q.shape
     ld = _check_qkv(q, k, v, num_heads)
     out = torch.empty(B, T, S, C, dtype=q.dtype, device=q.device)
@@ -67,7 +84,12 @@ def launch_forward(q, k, v, *, scale: float, num_heads: int,
 def launch_backward(q, k, v, dout, *, scale: float, num_heads: int,
                     causal: bool):
     """Check, launch the backward kernel and count it. Returns dqkv, one
-    new (B, T, S, 3C) tensor whose column thirds are dq, dk, dv."""
+    new (B, T, S, 3C) tensor whose column thirds are dq, dk, dv. CPU
+    tensors take `temporal_attention_bwd_plain` and count nothing."""
+    if not q.is_cuda:
+        return temporal_attention_bwd_plain(q, k, v, dout, scale=scale,
+                                            num_heads=num_heads,
+                                            causal=causal)
     B, T, S, C = q.shape
     ld = _check_qkv(q, k, v, num_heads)
     require(dout.dtype == torch.bfloat16 and dout.device == q.device

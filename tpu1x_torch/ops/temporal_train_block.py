@@ -27,7 +27,7 @@ def temporal_train_block_plain(x, wqkv, wproj, *, num_heads: int,
 
 def _qkv_and_attention(x, wqkv, bqkv, num_heads, scale):
     B, T, S, C = x.shape
-    qkv = tk.gemm(x.view(-1, C), wqkv, bias=bqkv).view(B, T, S, 3 * C)
+    qkv = tk.gemm90(x.reshape(-1, C), wqkv, bias=bqkv).view(B, T, S, 3 * C)
     q, k, v = qkv.split(C, dim=-1)
     ao = ta.launch_forward(q, k, v, scale=scale, num_heads=num_heads,
                            causal=True)
@@ -36,40 +36,48 @@ def _qkv_and_attention(x, wqkv, bqkv, num_heads, scale):
 
 def temporal_train_block_fwd(x, wqkv, wproj, bqkv, bproj, *, num_heads: int,
                              scale: float):
-    """The forward on the card, bf16 x (B, T, S, C) and weights: the qkv
-    GEMM, the temporal attention kernel on column views of qkv, the proj
-    GEMM with bias and residual."""
+    """The forward, x (B, T, S, C) and weights in x's dtype: the qkv
+    product with bias, the temporal attention kernel (K4) on column views of
+    qkv, the proj product with bias and residual, both products on the
+    training forms of csrc/gemm_sm90.cuh (`tk.gemm90`: the bias added in
+    fp32, one rounding, then the residual). CPU tensors run the same
+    sequence on the launchers' plain versions and count nothing."""
     C = x.shape[-1]
     _, ao = _qkv_and_attention(x, wqkv, bqkv, num_heads, scale)
-    out = tk.gemm(ao.view(-1, C), wproj, bias=bproj, resid=x.view(-1, C))
-    kernels.count("temporal_train_block")
+    out = tk.gemm90(ao.reshape(-1, C), wproj, bias=bproj,
+                    resid=x.reshape(-1, C))
+    if x.is_cuda:
+        kernels.count("temporal_train_block")
     return out.view(x.shape)
 
 
 def temporal_train_block_bwd(x, dout, wqkv, wproj, bqkv, *, num_heads: int,
                              scale: float, proj_bias: bool):
-    """The backward on the card. Returns (dx bf16, dwqkv, dwproj, dbqkv,
+    """The backward. Returns (dx in x's dtype, dwqkv, dwproj, dbqkv,
     dbproj) with the weight and bias gradients in fp32.
 
-    Launches: the qkv GEMM and the attention forward (recompute: the
+    Launches: the qkv product and the attention forward (recompute: the
     attention output feeds dWproj); d_ao = dout Wproj^T; the temporal
-    attention backward, which writes dq, dk, dv into one (B, T, S, 3C)
+    attention backward (K6), which writes dq, dk, dv into one (B, T, S, 3C)
     tensor; dWproj = ao^T dout and dWqkv = x^T dqkv (split reductions, fp32
-    atomics); the bias column sums; dx = dout + dqkv Wqkv^T.
+    atomics); the bias column sums; dx = dout + dqkv Wqkv^T. The products
+    are the training forms of csrc/gemm_sm90.cuh (nn, nt, tn). CPU tensors
+    run the same sequence on the plain versions and count nothing.
     """
     C = x.shape[-1]
-    x2, do2 = x.view(-1, C), dout.view(-1, C)
+    x2, do2 = x.reshape(-1, C), dout.reshape(-1, C)
     (q, k, v), ao = _qkv_and_attention(x, wqkv, bqkv, num_heads, scale)
-    d_ao = tk.gemm(do2, wproj, mode="nt").view(x.shape)
+    d_ao = tk.gemm90(do2, wproj, form="nt").view(x.shape)
     dqkv2 = ta.launch_backward(q, k, v, d_ao, scale=scale,
                                num_heads=num_heads,
                                causal=True).view(-1, 3 * C)
-    dwproj = tk.gemm(ao.view(-1, C), do2, mode="tn")
+    dwproj = tk.gemm90(ao.reshape(-1, C), do2, form="tn")
     dbproj = tk.col_sum(do2) if proj_bias else None
-    dwqkv = tk.gemm(x2, dqkv2, mode="tn")
+    dwqkv = tk.gemm90(x2, dqkv2, form="tn")
     dbqkv = tk.col_sum(dqkv2) if bqkv is not None else None
-    dx = tk.gemm(dqkv2, wqkv, mode="nt", resid=do2)
-    kernels.count("temporal_train_block_bwd")
+    dx = tk.gemm90(dqkv2, wqkv, form="nt", resid=do2)
+    if x.is_cuda:
+        kernels.count("temporal_train_block_bwd")
     return dx.view(x.shape), dwqkv, dwproj, dbqkv, dbproj
 
 
@@ -105,7 +113,8 @@ def temporal_train_block(x: torch.Tensor, wqkv: torch.Tensor,
     CUDA tensors launch `temporal_train_block_fwd` and, under autograd,
     `temporal_train_block_bwd`, which replace the Pallas kernels
     tpu1x/ops/temporal_train_block.py:_ttb_fwd and _ttb_bwd. They take bf16
-    contiguous x, T <= 16, head_dim 32 and C % 256 == 0. Residuals are x and
+    contiguous x, T <= 16, head_dim 32 and C % 256 == 0; the products run on
+    the training forms of csrc/gemm_sm90.cuh. Residuals are x and
     the weights only. The TPU kernels keep q, k, v and their gradients in
     VMEM; here they make one round trip through device memory as one
     (B, T, S, 3C) tensor each, whose column views the attention kernels
