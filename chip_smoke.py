@@ -181,13 +181,14 @@ PER_LAYER_QK = {"spatial_block": 1 + 9 + 7, "temporal_decode_attention": 9,
                 "temporal_decode2_attention": 7}
 PER_LAYER_INT8 = dict(PER_LAYER_QK, temporal_attention=1, layer_norm=1 + 16)
 # launches per layer in one train step; the temporal train block launches
-# the temporal attention forward twice (forward, and recompute in its
-# backward) and its backward once; the spatial train block's backward
-# launches the fused attention forward (recompute) and backward once each
+# the temporal attention forward in its forward and the backward in its
+# backward, which writes the attention output (for dWproj) beside the
+# gradients; the spatial train block's backward launches the fused
+# attention forward (recompute) and backward once each
 TRAIN_PER_LAYER = {"spatial_block": 1, "spatial_train_block_bwd": 1,
                    "temporal_train_block": 1, "temporal_train_block_bwd": 1,
                    "mlp_train_block": 1, "mlp_train_block_bwd": 1,
-                   "temporal_attention": 2, "temporal_attention_bwd": 1,
+                   "temporal_attention": 1, "temporal_attention_bwd": 1,
                    "flash_mha": 1, "flash_mha_bwd": 1}
 # under qk_norm: the fused attention pair on the spatial axis, the MLP train
 # block without LN; the rest is plain torch under autograd
@@ -312,28 +313,60 @@ def check_layer_norm(inp, C):
                 library_device_ms=device_ms(library))
 
 
-def check_temporal_attention(inp, C, H):
-    qkv = inp.normal(B, P, 256, 3 * C)
-    q, k, v = qkv.split(C, dim=-1)  # the prefill's strided views
-    scale = (C // H) ** -0.5
-    kw = dict(scale=scale, num_heads=H)
-    err = compare("temporal_attention", temporal_attention(q, k, v, **kw),
-                  temporal_attention_plain(q, k, v, **kw), 3e-2, 3e-2)
-    D = C // H
+def temporal_bound(Bt, T, S, C, tensors, pairs, products):
+    """The bound of K4 (4 tensors, 2 products) or K6 (7 tensors, 8 with o;
+    5 products, 6 with o) at (Bt, T, S, C): bf16 tensors moved once, and
+    products of 2 head_dim FLOP a (query, key) pair and channel group."""
+    return bound(tensors * Bt * T * S * C * 2,
+                 tensor_flops=2 * products * Bt * S * C * pairs)
 
-    def heads(t):  # (B, T, S, C) -> (B, S, H, T, D) view
-        return t.reshape(B, P, 256, H, D).permute(0, 2, 3, 1, 4)
-    qh, kh, vh = heads(q), heads(k), heads(v)
-    pairs = P * (P + 1) // 2
-    # q.k and, with probabilities rounded to bf16, p.v: both bf16 products
-    bms, by = bound(4 * B * P * 256 * C * 2,
-                    tensor_flops=4 * B * 256 * C * pairs)
-    return dict(
-        max_abs_err=err, shape=list(q.shape), bound_ms=bms, bound_by=by,
-        ms=time_ms(lambda: temporal_attention(q, k, v, **kw)),
-        plain_ms=time_ms(lambda: temporal_attention_plain(q, k, v, **kw)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True, scale=scale)))
+
+def check_temporal_attention(inp, C, H):
+    """K4 on the thirds of one qkv tensor against its plain version: at the
+    rollout prefill's (B, P, 256, C), causal (the entry this script reports
+    for K4) and not (keys past T = 8 padded, masked in the kernel), at the
+    pre-LN train step's (TB, 16, 256, C), causal and not (at C = 256, 8
+    heads, the prefill's two); each with its event and device times, the
+    bound, the plain version's and SDPA's."""
+    out = {}
+    cases = [("", B, P, True), ("[non-causal]", B, P, False),
+             ("[train]", TB, 16, True), ("[train,non-causal]", TB, 16, False)]
+    if C != 512:
+        cases = [(f"[C={C}]", B, P, True), (f"[C={C},non-causal]", B, P, False)]
+    scale = (C // H) ** -0.5
+    for tag, Bt, T, causal in cases:
+        qkv = inp.normal(Bt, T, 256, 3 * C)
+        q, k, v = qkv.split(C, dim=-1)  # strided views, as both callers
+        kw = dict(scale=scale, num_heads=H, causal=causal)
+        err = compare("temporal_attention" + tag,
+                      temporal_attention(q, k, v, **kw),
+                      temporal_attention_plain(q, k, v, **kw), 3e-2, 3e-2)
+        D = C // H
+
+        def heads(t):  # (B, T, S, C) -> (B, S, H, T, D) view
+            return t.reshape(Bt, T, 256, H, D).permute(0, 2, 3, 1, 4)
+        qh, kh, vh = heads(q), heads(k), heads(v)
+        pairs = T * (T + 1) // 2 if causal else T * T
+        # q.k and, with probabilities rounded to bf16, p.v
+        bms, by = temporal_bound(Bt, T, 256, C, 4, pairs, 2)
+
+        def kernel():
+            return ta.launch_forward(q, k, v, **kw)
+
+        def library():
+            return F.scaled_dot_product_attention(qh, kh, vh,
+                                                  is_causal=causal,
+                                                  scale=scale)
+        # the event time through the entry a caller uses, the device time
+        # of the launch alone
+        out["temporal_attention" + tag] = dict(
+            max_abs_err=err, shape=list(q.shape), causal=causal,
+            bound_ms=bms, bound_by=by,
+            ms=time_ms(lambda: temporal_attention(q, k, v, **kw)),
+            device_ms=device_ms(kernel),
+            plain_ms=time_ms(lambda: temporal_attention_plain(q, k, v, **kw)),
+            library_ms=time_ms(library), library_device_ms=device_ms(library))
+    return out
 
 
 def spatial_weights(inp, C):
@@ -707,7 +740,8 @@ def check_kernels(C, H, L, device):
     inp = Inputs(0, device)
     out = {}
     out["layer_norm"] = check_layer_norm(inp, C)
-    out["temporal_attention"] = check_temporal_attention(inp, C, H)
+    out.update(check_temporal_attention(inp, C, H))
+    out.update(check_temporal_attention(inp, 256, 8))
     for N in (B, 2 * B, B * P):
         out[f"spatial_block[N={N}]"] = check_spatial_block(inp, C, H, N)
     # GENIE_35M's width, which the kernel takes too
@@ -1202,13 +1236,19 @@ def check_gemm90_train(inp, C):
 
 
 def check_temporal_attention_bwd(inp, C, H):
+    """K6 at the pre-LN train step's (TB, 16, 256, C), causal and not: the
+    output and dq, dk, dv of the kernels' autograd.Function against the
+    plain version's autograd, and the `o` that K6 writes beside them equal
+    to K4's output exactly; its event and device times without and with
+    `o`, the bounds, the plain backward's time and SDPA's backward's."""
     S, T, D = 256, 16, C // H
     t = dict(qkv=inp.normal(TB, T, S, 3 * C))
     dout = inp.normal(TB, T, S, C)
     scale = D ** -0.5
     out = {}
     for causal in (True, False):
-        name = "temporal_attention_bwd" + ("" if causal else "[non-causal]")
+        name = ("temporal_attention_bwd" + ("" if causal else "[non-causal]")
+                + ("" if C == 512 else f"[C={C}]"))
         kw = dict(scale=scale, num_heads=H, causal=causal)
 
         def kernel(qkv):
@@ -1219,6 +1259,12 @@ def check_temporal_attention_bwd(inp, C, H):
 
         out_err, grads = both_paths(name, kernel, plain, t, dout)
         q, k, v = t["qkv"].split(C, dim=-1)
+        o = torch.full_like(dout, float("nan"))
+        dqkv = ta.launch_backward(q, k, v, dout, o=o, **kw)
+        if not torch.equal(o, ta.launch_forward(q, k, v, **kw)):
+            raise AssertionError(f"{name}: o differs from K4's output")
+        if not torch.equal(dqkv, ta.launch_backward(q, k, v, dout, **kw)):
+            raise AssertionError(f"{name}: dq, dk, dv differ with o")
 
         def heads(x):  # (B, T, S, C) -> (B, S, H, T, D) view
             return x.reshape(TB, T, S, H, D).permute(0, 2, 3, 1, 4)
@@ -1227,15 +1273,27 @@ def check_temporal_attention_bwd(inp, C, H):
         lib_out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal,
                                                  scale=scale)
         pairs = T * (T + 1) // 2 if causal else T * T
-        # logits, dp, dq, dk, dv: five products of 2 D per (query, key, head)
-        bnd = bound(7 * TB * T * S * C * 2,
-                    tensor_flops=10 * TB * S * C * pairs)
+        # logits, dp, dq, dk, dv: five products (and o six) of 2 D FLOP a
+        # (query, key, head)
+        bnd = temporal_bound(TB, T, S, C, 7, pairs, 5)
+        bnd_o = temporal_bound(TB, T, S, C, 8, pairs, 6)
+
+        def bwd():
+            return ta.launch_backward(q, k, v, dout, **kw)
+
+        def bwd_o():
+            return ta.launch_backward(q, k, v, dout, o=o, **kw)
+
+        def library():
+            return torch.autograd.grad(lib_out, (lq, lk, lv), heads(dout),
+                                       retain_graph=True)
         out[name] = entry(
             grads["qkv"]["max_abs_err"], dict(grads, out=out_err), q.shape,
-            time_ms(lambda: ta.launch_backward(q, k, v, dout, **kw)),
-            plain_ms(plain, t, dout), bnd,
-            library_ms=time_ms(lambda: torch.autograd.grad(
-                lib_out, (lq, lk, lv), heads(dout), retain_graph=True)))
+            time_ms(bwd), plain_ms(plain, t, dout), bnd,
+            library_ms=time_ms(library), device_ms=device_ms(bwd),
+            library_device_ms=device_ms(library), o_equals_forward=True,
+            ms_with_o=time_ms(bwd_o), device_ms_with_o=device_ms(bwd_o),
+            bound_with_o_ms=bnd_o[0])
     return out
 
 
@@ -1243,6 +1301,7 @@ def check_train_kernels(C, H, device):
     inp = Inputs(1, device)
     out = {}
     out.update(check_temporal_attention_bwd(inp, C, H))
+    out.update(check_temporal_attention_bwd(inp, 256, 8))
     out.update(check_spatial_train_block(inp, C, H))
     out.update(check_temporal_train_block(inp, C, H))
     out.update(check_mlp_train_block(inp, C))
@@ -1316,10 +1375,14 @@ def check_training(cfg, device, per_layer=TRAIN_PER_LAYER):
     step_s = sorted(walls[-5:])[2]
     # the pre-LN step: K11's attention backward is K10's kernel, beside the
     # recompute on K9's; of spatial_block.cu's own kernels none runs (the
-    # qk-LN attention is the qk_norm models')
+    # qk-LN attention is the qk_norm models'); K4 and K6 are
+    # temporal_attention.cu's tiled kernels, and the names of the per-(b, s)
+    # kernels they replaced must not appear
     pre_ln = {} if cfg.qk_norm else dict(
-        must=("flash_fwd_kernel", "flash_bwd_kernel"),
-        must_not=("spatial_attention",))
+        must=("flash_fwd_kernel", "flash_bwd_kernel", "temporal_fwd_kernel",
+              "temporal_bwd_kernel"),
+        must_not=("spatial_attention", "temporal_attention_kernel",
+                  "temporal_attention_bwd_kernel"))
     device_time = profile_device(lambda: step(tokens, noise=noise), **pre_ln)
     out = dict(launches=launches, losses=losses, grad_norms=norms,
                accs=[float(m["acc"]) for m in metrics], step_s=step_s,

@@ -3,14 +3,18 @@
     python3 chip_variants.py flash NAME=LIB ...
     python3 chip_variants.py gemm NAME=LIB ...
     python3 chip_variants.py tn NAME=LIB ...
+    python3 chip_variants.py ta NAME=LIB ...
     python3 chip_variants.py block
     python3 chip_variants.py mlp
     python3 chip_variants.py train
+    python3 chip_variants.py temporal
+    python3 chip_variants.py l2
 
 Each LIB is a shared library built from a variant of a source in
 `tpu1x_torch/csrc` (nvcc with `kernels.NVCC_FLAGS`, `-I` its own copy of the
-headers), or `cur` for this checkout's own build; every build has this
-checkout's entry points. The builds run in turns, first to last and back,
+headers), a variant `.cu` file (built here, beside it, all at once), or
+`cur` for this checkout's own build; every build has this checkout's entry
+points. The builds run in turns, first to last and back,
 in one process on one card; every time is the profiler's device time
 (`chip_smoke.device_ms`).
 
@@ -32,6 +36,14 @@ in one process on one card; every time is the profiler's device time
   `gemm90_plain` by `chip_smoke.grad_errors`. A variant of
   `gemm_sm90.cuh`'s chunk rule (`launch_gemm90_act`) times another number
   of chunks of the reduction.
+- `ta`: K4 and K6 (`temporal_attention.cu`) through the C entry points,
+  q, k, v the thirds of one qkv tensor, causal: K4 at the pre-LN train
+  step's (8, 16, 256, 512) and the rollout prefill's (16, 8, 256, 512), K6
+  at the former without and with `o`; K4's output held against
+  `temporal_attention_plain` (atol = rtol = 3e-2) and K6's dq, dk, dv
+  against `temporal_attention_bwd_plain` by `chip_smoke.grad_errors`. A
+  variant that edits the tile's constants (`TA_POSITIONS`, `TA_HEADS`,
+  `TA_WARPS`, `TA_MAX_STAGES`) times another tile.
 - `block`: K2 and K3 (`temporal_mlp_block`, one frame and the pair)
   through this checkout's own wrappers, at the pre-LN rollout's shapes
   (GENIE_138M: B=16, S=256, C=512, 16 heads, F4=2048, a (16, 32, 16, 256,
@@ -51,6 +63,22 @@ in one process on one card; every time is the profiler's device time
   (`temporal_train_block_fwd` / `_bwd`: the training forms around K4 and
   K6) at the pre-LN train step's shapes, timed as `mlp`, each launch by
   its kernel's name. No builds.
+- `temporal`: K4 (`temporal_attention.launch_forward`) and K6
+  (`launch_backward`) through this checkout's own wrappers, q, k, v the
+  thirds of one qkv tensor: K4 at the pre-LN train step's (8, 16, 256,
+  512), causal and not, and at the rollout prefill's (16, 8, 256, 512); K6
+  at the train step's shape, causal and not, and causal with `o` (the
+  forward's output written beside the gradients, where the wrapper takes
+  `o`: K12's backward then launches no K4). Timed as `mlp`. No builds.
+- `l2`: three of K12's products at the pre-LN train step's shape (the
+  forward's proj with bias and residual, d_ao = dout Wproj^T, dWproj =
+  ao^T dout) through this checkout's wrappers, each after one of: nothing
+  (the same product before it), a read of 256 MB, a write of 256 MB (each
+  more than the card's 50 MB L2), K4 (whose output proj and dWproj then
+  take), or K6 (causal, without `o`). Timed as `mlp`, by launch: the
+  product is the last launch of each line. Run in a parent's copy and in
+  this checkout, it tells whether a product's time follows the kernel
+  before it. No builds.
 
 Prints one line per build and case, and the card.
 """
@@ -60,6 +88,7 @@ from __future__ import annotations
 import ctypes
 import json
 import sys
+from pathlib import Path
 
 import torch
 
@@ -72,11 +101,31 @@ P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
 
 
 def builds(args, source):
-    """{name: library} from NAME=LIB arguments."""
-    out = {}
+    """{name: library} from NAME=LIB arguments. A LIB that is a `.cu` file
+    is built first, beside it, with `kernels.NVCC_FLAGS`, its own folder
+    ahead of `tpu1x_torch/csrc` on the include path; all such builds run at
+    once."""
+    import subprocess
+    out, procs = {}, {}
     for arg in args:
         name, path = arg.split("=", 1)
-        out[name] = kernels.lib(source) if path == "cur" else ctypes.CDLL(path)
+        if path.endswith(".cu"):
+            so = path[:-3] + ".so"
+            cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I",
+                   str(Path(path).parent), "-I", str(kernels.CSRC), "-o", so,
+                   path]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True), so)
+            out[name] = None
+        else:
+            out[name] = (kernels.lib(source) if path == "cur"
+                         else ctypes.CDLL(path))
+    for name, (proc, so) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        out[name] = ctypes.CDLL(so)
     return out
 
 
@@ -285,10 +334,122 @@ def train(dev):
             xt, dt, sw["wqkv"], sw["wproj"], None, proj_bias=True, **kw))])
 
 
-MODES = {"block": block, "mlp": mlp, "train": train}
+def temporal(dev):
+    import inspect
+    from tpu1x_torch.ops import temporal_attention as ta
+    inp = cs.Inputs(0, dev)
+    C, H = 512, 16
+    kw = dict(scale=(C // H) ** -0.5, num_heads=H)
+    calls = []
+    for tag, (Bt, T) in (("train", (cs.TB, 16)), ("prefill", (cs.B, cs.P))):
+        q, k, v = inp.normal(Bt, T, 256, 3 * C).split(C, dim=-1)
+        for causal in ((True, False) if tag == "train" else (True,)):
+            calls.append((f"temporal_attention[{tag},causal={causal}]",
+                          lambda q=q, k=k, v=v, causal=causal:
+                          ta.launch_forward(q, k, v, causal=causal, **kw)))
+        if tag != "train":
+            continue
+        dout = inp.normal(Bt, T, 256, C)
+        for causal in (True, False):
+            calls.append((f"temporal_attention_bwd[causal={causal}]",
+                          lambda q=q, k=k, v=v, causal=causal:
+                          ta.launch_backward(q, k, v, dout, causal=causal,
+                                             **kw)))
+        if "o" in inspect.signature(ta.launch_backward).parameters:
+            o = torch.empty_like(dout)
+            calls.append(("temporal_attention_bwd[causal=True,o]",
+                          lambda q=q, k=k, v=v: ta.launch_backward(
+                              q, k, v, dout, causal=True, o=o, **kw)))
+    timed_calls(calls)
+
+
+def ta_builds(libs, dev):
+    from tpu1x_torch.ops import temporal_attention as ta
+    inp = cs.Inputs(0, dev)
+    C, H = 512, 16
+    scale = (C // H) ** -0.5
+    kw = dict(scale=scale, num_heads=H, causal=True)
+    stream = torch.cuda.current_stream().cuda_stream
+    card = torch.cuda.current_device()
+    for lib in libs.values():
+        for fn, argtypes in kernels.SIGNATURES["temporal_attention"]:
+            getattr(lib, fn).argtypes = argtypes
+    for tag, (Bt, T) in (("train", (cs.TB, 16)), ("prefill", (cs.B, cs.P))):
+        qkv = inp.normal(Bt, T, 256, 3 * C)
+        q, k, v = qkv.split(C, dim=-1)
+        dout = inp.normal(Bt, T, 256, C)
+        o = torch.empty_like(dout)
+        dqkv = torch.empty_like(qkv)
+        ptr = [t.data_ptr() for t in (q, k, v, dout, o, *dqkv.split(C, -1))]
+        want_o = ta.temporal_attention_plain(q, k, v, **kw)
+        want_d = (ta.temporal_attention_bwd_plain(q, k, v, dout, **kw)
+                  if tag == "train" else None)
+        for name in in_turns(libs):
+            lib = libs[name]
+
+            def fwd():
+                return lib.tpu1x_temporal_attention(
+                    *ptr[:3], ptr[4], Bt, T, 256, C, 3 * C, scale, 1, card,
+                    stream)
+
+            def bwd(with_o):
+                return lib.tpu1x_temporal_attention_bwd(
+                    *ptr[:4], ptr[4] if with_o else None, *ptr[5:], Bt, T,
+                    256, C, 3 * C, C, 3 * C, scale, 1, card, stream)
+            if fwd() != 0:
+                raise RuntimeError(f"{name}: the forward did not launch")
+            row = dict(build=name, case=tag, shape=[Bt, T, 256, C],
+                       fwd_err=cs.compare(f"{name} {tag}", o, want_o, 3e-2,
+                                          3e-2),
+                       fwd_device_ms=cs.device_ms(fwd))
+            for with_o in ((False, True) if want_d is not None else ()):
+                if bwd(with_o) != 0:
+                    raise RuntimeError(f"{name}: the backward did not launch")
+                for i, g in enumerate("qkv"):
+                    cs.grad_errors(f"{name} d{g}", dqkv.split(C, -1)[i],
+                                   want_d.split(C, -1)[i])
+                row["bwd_o_device_ms" if with_o else "bwd_device_ms"] = \
+                    cs.device_ms(lambda with_o=with_o: bwd(with_o))
+            print(json.dumps(row), flush=True)
+
+
+def l2(dev):
+    from tpu1x_torch.ops import temporal_attention as ta
+    inp = cs.Inputs(0, dev)
+    C, H, S, T = 512, 16, 256, 16
+    kw = dict(scale=(C // H) ** -0.5, num_heads=H, causal=True)
+    sw = cs.spatial_weights(inp, C)
+    x, dout = inp.normal(cs.TB, T, S, C), inp.normal(cs.TB, T, S, C)
+    x2, do2 = x.view(-1, C), dout.view(-1, C)
+    q, k, v = tk.gemm90(x2, sw["wqkv"]).view(cs.TB, T, S, 3 * C).split(
+        C, dim=-1)
+    ao = ta.launch_forward(q, k, v, **kw)
+    d_ao = tk.gemm90(do2, sw["wproj"], form="nt").view(x.shape)
+    buf = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+    products = {
+        "proj": lambda a: tk.gemm90(a.reshape(-1, C), sw["wproj"],
+                                    bias=sw["bproj"], resid=x2),
+        "d_ao": lambda a: tk.gemm90(do2, sw["wproj"], form="nt"),
+        "dWproj": lambda a: tk.gemm90(a.reshape(-1, C), do2, form="tn")}
+    # what runs before the product; the product takes the attention output
+    # it returns (K4's own, else the one above)
+    before = {
+        "alone": lambda: ao,
+        "read 256 MB": lambda: (buf.sum(), ao)[1],
+        "write 256 MB": lambda: (buf.zero_(), ao)[1],
+        "K4": lambda: ta.launch_forward(q, k, v, **kw),
+        "K6": lambda: (ta.launch_backward(q, k, v, d_ao, **kw), ao)[1]}
+    calls = [(f"{name}[after {b}]", lambda p=p, f=f: p(f()))
+             for name, p in products.items() for b, f in before.items()]
+    timed_calls(calls)
+
+
+MODES = {"block": block, "mlp": mlp, "train": train, "temporal": temporal,
+         "l2": l2}
 # mode: (the source its builds are variants of, the timing)
 VARIANTS = {"flash": ("flash_attention", flash),
-            "gemm": ("spatial_block", gemm), "tn": ("train_block", tn)}
+            "gemm": ("spatial_block", gemm), "tn": ("train_block", tn),
+            "ta": ("temporal_attention", ta_builds)}
 
 
 def main() -> int:

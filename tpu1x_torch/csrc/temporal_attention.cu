@@ -1,222 +1,558 @@
 // Attention over the frame axis of q, k, v shaped (B, T, S, C), causal or
 // not, heads flat in C (head_dim 32), computed in that layout with no
-// transpose; forward, and backward (dq, dk, dv).
+// transpose: the forward (K4), and the backward (K6), which writes dq, dk,
+// dv and, where asked, the forward's output o beside them.
 //
-// Replaces the Pallas kernels of tpu1x/ops/temporal_attention.py: the forward
-// (_temporal_fwd -> _fwd_kernel) and the backward (_temporal_bwd ->
-// _bwd_kernel). The TPU kernel reduced each head's dot
-// products through a 0/1 head matrix on the MXU, a lane trick; here four
-// lanes hold one head's 32 channels (8 each, 16-byte loads) and reduce with
-// two shuffles. One block per (b, s): 64 threads cover C=512. Bound on the
-// H100: device memory (q, k, v read once, out written once: 4 B T S C bytes,
-// 134 MB at the prefill's B=16, T=8); the T <= 16 logits of a query stay in
-// registers, and the re-reads of k and v for later queries hit L1.
-// Probabilities are rounded to bf16 before the PV sum, as the reference does.
+// Replaces the Pallas kernels of tpu1x/ops/temporal_attention.py: the
+// forward (_temporal_fwd -> _fwd_kernel) and the backward (_temporal_bwd ->
+// _bwd_kernel). The TPU kernels keep a (T, tile of S, C) block of q, k, v
+// (and dout) in VMEM and reduce each head's dot products through a 0/1
+// head matrix on the MXU, a lane trick that is not carried over.
 //
-// The backward recomputes the probabilities of each query frame from q and k
-// (fp32 softmax), forms ds = p (dp - sum p dp) and rounds p and ds to bf16
-// before the products. dk and dv sum over the query frames, so p and ds of
-// all (query, key) frame pairs wait in shared memory, (T, T) bf16 per head,
-// for a second pass over the key frames. Bound: device memory (q, k, v, dout
-// read once, dq, dk, dv written once: 7 B T S C elements); the re-reads of
-// the block's 4 T rows hit L1 or L2.
+// Bound on the H100: device memory. At the pre-LN train step's (B, T, S, C)
+// = (8, 16, 256, 512) the forward moves q, k, v and o once (134.2 MB,
+// 0.040 ms at 3.35 TB/s) for 0.57 GFLOP of bf16 products (about 4 FLOP a
+// byte, against the card's 295); the backward moves q, k, v, dout, dq, dk,
+// dv (234.9 MB, 0.070 ms), and 268.4 MB (0.080 ms) with o.
+//
+// Design. Every (b, s, head) is its own attention of T <= 16 frames by 32
+// channels, so a warp takes one problem of 16 rows at a time: one
+// position's 16 frames, or two positions' 8 frames where T <= 8 (keys of
+// the other position masked), with mma.sync m16n8k16: S = Q K^T is 4
+// products, P V 4, and the backward's dP = dO V^T, dQ = dS K, dK = dS^T Q,
+// dV = P^T dO 4 each. wgmma does not fit: its smallest product is a 64-row
+// tile, and these are many independent 16 x 16 problems, block-diagonal
+// rather than one product with 64 rows. What limits the kernels is bytes
+// in flight, so:
+//   - persistent blocks, one an SM (the ring fills most of shared memory),
+//     each walking tiles of TA_POSITIONS positions (twice that where T <=
+//     8) x TA_HEADS heads of one b;
+//   - a producer warp loads a tile's q, k, v (and dout) for all frames with
+//     one TMA box a tensor into a ring of up to TA_MAX_STAGES tiles, as many
+//     as fit in shared memory (4 forward, 3 backward), completing on the
+//     stage's "full" mbarrier, so the next tiles' loads are in flight while
+//     one computes, and every input byte is read from device memory once;
+//   - the box is the (d, t, h, s, b) view of the (B, T, S, C) tensor (the
+//     frame axis before the head axis, whatever their strides), so one
+//     (position, head) is tp consecutive 64-byte rows in shared memory, in
+//     the 64-byte swizzle, and ldmatrix reads them without bank conflicts;
+//     a box reaches past T when T < tp, and TMA fills those frames with
+//     zeros (and still counts their bytes);
+//   - the softmax runs in fp32 in the accumulators' layout, reduced across
+//     the four lanes of a row; the accumulators of P and dS are the A
+//     fragments of the next products, and their transposes (P^T, dS^T)
+//     come from movmatrix;
+//   - each result is written in bf16 over an operand that is no longer
+//     needed (o over v, dq over k, dk over q, dv over dout), in the same
+//     layout, and a storer warp stores the tile's results with one TMA
+//     store a tensor (frames >= T and positions >= S are not written) once
+//     every consumer warp has arrived on the stage's "done" mbarrier; it
+//     frees the stage ("empty") when TMA has read it. The consumer warps
+//     issue no global loads or stores at all.
+// Numbers: logits and dp are exact products summed in fp32; p is the fp32
+// softmax of the scaled logits (each row's exponentials times the
+// reciprocal of their sum, cheaper than eight IEEE divisions); delta =
+// sum p dp in fp32 from fp32 p; p and ds are rounded to bf16 before P V,
+// dV, dQ and dK; dq and dk are scaled after their sums, as the TPU kernel
+// does. The backward's o comes from the same device functions
+// as the forward's, so it equals K4's output bit for bit. Masked logits:
+// keys after the query (causal), or keys t >= T (not causal: zero-filled
+// keys would otherwise take weight). Padded query rows t >= T have zero q
+// and dout, so they add nothing to dk and dv.
+//
+// The tile is fixed. Measured with `chip_variants.py ta` on an H100 at
+// the train step's shape (PERF.md section 6), tiles of 1 x 8, 1 x 16 and
+// 2 x 8 (positions x heads) with 8 to 16 consumer warps are within 3% of
+// each other, 4 warps 2-4% slower; 4 x 8 and 2 x 16 leave the backward
+// one stage (the static_assert below).
+//
+// Requires T <= 16, head_dim 32, C % 256 == 0, strides that are multiples
+// of 8 and 16-byte aligned bases.
 
-#include "common.cuh"
+#include "sm90.cuh"
 
 using namespace tpu1x;
 
 namespace {
 
-constexpr int TA_MAXT = 16;
+constexpr int TA_D = 32;          // head_dim
+constexpr int TA_ROW = TA_D * 2;  // one frame of one head: 64 bytes
+// The tile: positions at 16 frames, heads, consumer warps (a producer and a
+// storer warp beside them), the most stages of the ring.
+constexpr int TA_POSITIONS = 2;
+constexpr int TA_HEADS = 8;
+constexpr int TA_WARPS = 16;
+constexpr int TA_MAX_STAGES = 4;
+constexpr int TA_SMEM_MAX = 232448;  // shared memory a block may use
+// A stage holds one box a tensor: 32 channels, 16 frames (or 8 and twice
+// the positions), TA_HEADS heads, TA_POSITIONS positions.
+constexpr int TA_BOX = TA_POSITIONS * 16 * TA_HEADS * TA_ROW;
+// 1024 bytes of alignment, and three mbarriers a stage.
+__host__ __device__ constexpr int ta_stages(int tensors) {
+  return (TA_SMEM_MAX - 1024) / (tensors * TA_BOX + 24) < TA_MAX_STAGES
+             ? (TA_SMEM_MAX - 1024) / (tensors * TA_BOX + 24)
+             : TA_MAX_STAGES;
+}
+__host__ __device__ constexpr int ta_smem(int tensors) {
+  return 1024 + ta_stages(tensors) * (tensors * TA_BOX + 24);
+}
+static_assert(ta_stages(4) >= 2, "the backward's ring needs two stages");
 
-// element (b, t, s, c) of q/k/v at ((b*T + t)*S + s)*ld + c; out contiguous.
-__global__ void temporal_attention_kernel(const bf16* __restrict__ q,
-                                          const bf16* __restrict__ k,
-                                          const bf16* __restrict__ v,
-                                          bf16* __restrict__ out, int T, int S,
-                                          int C, int ld, float scale,
-                                          int causal) {
-  const int s = blockIdx.x, b = blockIdx.y, c0 = threadIdx.x * 8;
-  auto at = [&](int t) { return ((long)(b * T + t) * S + s) * ld + c0; };
-  for (int t = 0; t < T; ++t) {
-    float qf[8];
-    load8(q + at(t), qf);
-    const int kmax = causal ? t + 1 : T;
-    float lg[TA_MAXT];
-    float m = -INFINITY;
+struct TaMaps {
+  CUtensorMap in[4];   // q, k, v, dout (the backward's)
+  CUtensorMap out[4];  // o, dq, dk, dv (the backward's)
+};
+
+struct TaArgs {
+  int T, S, C;
+  int tp;  // frames a box holds, 8 or 16; a problem is 16 / tp positions
+  int sg;  // positions a tile: TA_POSITIONS 16 / tp
+  int s_tiles, h_groups, tiles;
+  int with_o;  // the backward writes o
+  float scale;
+};
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            int c4, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%1, %2, "
+      "%3, %4, %5}], [%6];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4), "r"(src)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// The transpose of the 8 x 8 bf16 matrix whose fragment each lane holds.
+__device__ __forceinline__ uint32_t movt(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(d)
+               : "r"(a));
+  return d;
+}
+
+// Byte offset of 16-byte chunk c of row r of 64-byte rows in the 64-byte
+// swizzle, from a 512-byte boundary.
+__device__ __forceinline__ uint32_t chunk_at(int r, int c) {
+  return r * TA_ROW + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+// One problem's 16 x 32 operand of one tensor in a stage: rows 0-7 from
+// `lo`, rows 8-15 from `hi` (tp = 16: the next 8 frames of the same
+// position; tp = 8: the 8 frames of the next position).
+struct Rows {
+  uint32_t lo, hi;
+  __device__ __forceinline__ uint32_t at(int r, int c) const {
+    return (r & 8 ? hi : lo) + chunk_at(r & 7, c);
+  }
+};
+
+// ldmatrix addresses of a lane for k-step (or column pair) j. Row-major A
+// fragments, and B fragments of the transposed load (rows: the reduction
+// axis): matrices (rows 0-7, chunk 2j), (8-15, 2j), (0-7, 2j + 1), (8-15,
+// 2j + 1).
+__device__ __forceinline__ uint32_t a_lane(const Rows& x, int lane, int j) {
+  return x.at((lane & 7) + (lane & 8), 2 * j + (lane >> 4));
+}
+// B fragments of the plain load (rows: the product's N axis): matrices
+// (rows 0-7, chunk 2j), (0-7, 2j + 1), (8-15, 2j), (8-15, 2j + 1).
+__device__ __forceinline__ uint32_t b_lane(const Rows& x, int lane, int j) {
+  return x.at((lane & 7) + ((lane >> 4) << 3), 2 * j + ((lane >> 3) & 1));
+}
+
+// x[n][e]: row g + 8 (e >> 1), column 8 n + 2 q4 + (e & 1) of a 16 x 16
+// accumulator (g = lane / 4, q4 = lane % 4) -> the A fragment of a product
+// with it, rounded to bf16.
+__device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&x)[2][4]) {
+  a[0] = pack_bf16(x[0][0], x[0][1]);
+  a[1] = pack_bf16(x[0][2], x[0][3]);
+  a[2] = pack_bf16(x[1][0], x[1][1]);
+  a[3] = pack_bf16(x[1][2], x[1][3]);
+}
+
+// The A fragment of the transpose of the matrix whose A fragment is a.
+__device__ __forceinline__ void transpose_a(uint32_t (&t)[4],
+                                            const uint32_t (&a)[4]) {
+  t[0] = movt(a[0]);
+  t[1] = movt(a[2]);
+  t[2] = movt(a[1]);
+  t[3] = movt(a[3]);
+}
+
+// s = X Y^T of two 16 x 32 operands (X's rows by Y's rows), fp32.
+__device__ __forceinline__ void rows_by_rows(float (&s)[2][4], const Rows& x,
+                                             const Rows& y, int lane) {
+  uint32_t xa[2][4], yb[2][4];
 #pragma unroll
-    for (int j = 0; j < TA_MAXT; ++j) {
-      if (j < kmax) {
-        float kf[8];
-        load8(k + at(j), kf);
-        float d = 0.f;
+  for (int j = 0; j < 2; ++j) {
+    ldsm_x4(xa[j], a_lane(x, lane, j));
+    ldsm_x4(yb[j], b_lane(y, lane, j));
+  }
 #pragma unroll
-        for (int i = 0; i < 8; ++i) d += qf[i] * kf[i];
-        lg[j] = quad_sum(d) * scale;
-        m = fmaxf(m, lg[j]);
-      }
-    }
-    float sum = 0.f;
+  for (int n = 0; n < 2; ++n)
 #pragma unroll
-    for (int j = 0; j < TA_MAXT; ++j) {
-      if (j < kmax) {
-        lg[j] = __expf(lg[j] - m);
-        sum += lg[j];
-      }
-    }
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-    for (int j = 0; j < TA_MAXT; ++j) {
-      if (j < kmax) {
-        const float p = bf16r(lg[j] / sum);
-        float vf[8];
-        load8(v + at(j), vf);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[i] += p * vf[i];
-      }
-    }
-    store8(out + ((long)(b * T + t) * S + s) * C + c0, acc);
+  for (int j = 0; j < 2; ++j) {
+    mma_bf16(s[0], xa[j], &yb[j][0]);
+    mma_bf16(s[1], xa[j], &yb[j][2]);
   }
 }
 
-// q/k/v rows at stride ld, dout at ld_do, dq/dk/dv at ld_out (so that the
-// three gradients can be column slices of one (B, T, S, 3C) tensor).
-// grid (S, B, ceil(C / 512)), min(C, 512) / 8 threads: a block covers up to
-// 16 heads of one (b, s), four lanes to a head as in the forward.
-//   1  per query frame t: the logits and dp = dout_t . v_j of every key
-//      frame in registers, softmax, ds = p (dp - sum p dp), then
-//      dq_t = scale sum_j ds k_j; p and ds, rounded to bf16, go to shared
-//      memory as a (T, T) tile per head;
-//   2  per key frame j: dk_j = scale sum_t ds[t][j] q_t and
-//      dv_j = sum_t p[t][j] dout_t from those tiles, eight sums per thread.
-// A head's tile is written and read by lanes of one warp, so a warp
-// barrier orders the two phases.
-constexpr int TAB_HEADS = 16;  // heads per block
-
-__global__ void __launch_bounds__(TAB_HEADS * 4) temporal_attention_bwd_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv, int T,
-    int S, int C, int ld, int ld_do, int ld_out, float scale, int causal) {
-  __shared__ bf16 p_s[TAB_HEADS][TA_MAXT * TA_MAXT];
-  __shared__ bf16 ds_s[TAB_HEADS][TA_MAXT * TA_MAXT];
-  const int s = blockIdx.x, b = blockIdx.y;
-  const int c0 = blockIdx.z * TAB_HEADS * 32 + threadIdx.x * 8;
-  if (c0 >= C) return;  // a whole warp: C is a multiple of 256
-  const int head = threadIdx.x >> 2;
-  const bool writer = (threadIdx.x & 3) == 0;
-  auto row = [&](int t) { return (long)(b * T + t) * S + s; };
-
-  for (int t = 0; t < T; ++t) {
-    float qf[8], df[8];
-    load8(q + row(t) * ld + c0, qf);
-    load8(dout + row(t) * ld_do + c0, df);
-    const int kmax = causal ? t + 1 : T;
-    float lg[TA_MAXT], dp[TA_MAXT];
-    float m = -INFINITY;
+// acc = A Y, A a 16 x 16 fragment (by rows of Y), Y a 16 x 32 operand.
+__device__ __forceinline__ void a_by_rows(float (&acc)[4][4],
+                                          const uint32_t (&a)[4], const Rows& y,
+                                          int lane) {
 #pragma unroll
-    for (int j = 0; j < TA_MAXT; ++j) {
-      if (j < kmax) {
-        float kf[8], vf[8];
-        load8(k + row(j) * ld + c0, kf);
-        load8(v + row(j) * ld + c0, vf);
-        float a = 0.f, d = 0.f;
+  for (int n = 0; n < 4; ++n)
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          a += qf[i] * kf[i];
-          d += df[i] * vf[i];
-        }
-        lg[j] = quad_sum(a) * scale;
-        dp[j] = quad_sum(d);
-        m = fmaxf(m, lg[j]);
-      }
-    }
-    float sum = 0.f;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 #pragma unroll
-    for (int j = 0; j < TA_MAXT; ++j) {
-      if (j < kmax) {
-        lg[j] = __expf(lg[j] - m);
-        sum += lg[j];
-      }
-    }
-    float delta = 0.f;
-#pragma unroll
-    for (int j = 0; j < TA_MAXT; ++j) {
-      if (j < kmax) {
-        lg[j] = lg[j] / sum;
-        delta += lg[j] * dp[j];
-      }
-    }
-    float dqa[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < TA_MAXT; ++j) {
-      if (j < kmax) {
-        const bf16 ds = __float2bfloat16(lg[j] * (dp[j] - delta));
-        if (writer) {
-          p_s[head][t * TA_MAXT + j] = __float2bfloat16(lg[j]);
-          ds_s[head][t * TA_MAXT + j] = ds;
-        }
-        const float dsf = __bfloat162float(ds) * scale;
-        float kf[8];
-        load8(k + row(j) * ld + c0, kf);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) dqa[i] += dsf * kf[i];
-      }
-    }
-    store8(dq + row(t) * ld_out + c0, dqa);
+  for (int j = 0; j < 2; ++j) {
+    uint32_t yb[4];
+    ldsm_x4_t(yb, a_lane(y, lane, j));
+    mma_bf16(acc[2 * j], a, &yb[0]);
+    mma_bf16(acc[2 * j + 1], a, &yb[2]);
   }
+}
+
+// A 16 x 32 fp32 accumulator (acc[n][e]: row g + 8 (e >> 1), column 8 n +
+// 2 q4 + (e & 1)), times mul where SCALED, in bf16 over the operand `dst`
+// (whose reads by this warp are done).
+template <bool SCALED>
+__device__ __forceinline__ void put_rows(const float (&acc)[4][4], float mul,
+                                         const Rows& dst, int lane) {
+  const int g = lane >> 2, q4 = lane & 3;
   __syncwarp();
-
-  for (int j = 0; j < T; ++j) {
-    float dka[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    float dva[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int t = causal ? j : 0; t < T; ++t) {
-      float qf[8], df[8];
-      load8(q + row(t) * ld + c0, qf);
-      load8(dout + row(t) * ld_do + c0, df);
-      const float p = __bfloat162float(p_s[head][t * TA_MAXT + j]);
-      const float ds = __bfloat162float(ds_s[head][t * TA_MAXT + j]) * scale;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        dka[i] += ds * qf[i];
-        dva[i] += p * df[i];
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float x0 = acc[n][2 * h], x1 = acc[n][2 * h + 1];
+      if (SCALED) {
+        x0 *= mul;
+        x1 *= mul;
+      }
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                       dst.at(g + 8 * h, n) + 4 * q4),
+                   "r"(pack_bf16(x0, x1))
+                   : "memory");
+    }
+}
+
+// The probabilities of one problem: the logits q k^T times scale, masked,
+// and the fp32 softmax over the keys of each row, in the accumulators'
+// layout. Row t and key j are frames t % tp and j % tp of positions t / tp
+// and j / tp; a key is masked where its position is another (tp = 8), where
+// it follows the query (causal), or where its frame is >= T (not causal:
+// zero-filled keys would otherwise take weight).
+template <bool CAUSAL>
+__device__ __forceinline__ void probabilities(float (&p)[2][4], const Rows& q,
+                                              const Rows& k, int lane, int T,
+                                              int tp, float scale) {
+  const int g = lane >> 2, q4 = lane & 3;
+  rows_by_rows(p, q, k, lane);
+  float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 8 * n + 2 * q4 + (e & 1), t = g + 8 * (e >> 1);
+      const int jf = j & (tp - 1), tf = t & (tp - 1);
+      float x = __fmul_rn(p[n][e], scale);
+      if ((tp == 8 && n != (e >> 1)) || (CAUSAL ? jf > tf : jf >= T))
+        x = -INFINITY;
+      p[n][e] = x;
+      m[e >> 1] = fmaxf(m[e >> 1], x);
+    }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+  }
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[n][e] = __expf(__fsub_rn(p[n][e], m[e >> 1]));
+      sum[e >> 1] = __fadd_rn(sum[e >> 1], p[n][e]);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) sum[r] = __frcp_rn(quad_sum(sum[r]));
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[n][e] = __fmul_rn(p[n][e], sum[e >> 1]);
+}
+
+// The body of both kernels. grid: the tiles, or the blocks the card keeps
+// resident, whichever is fewer; (TA_WARPS + 2) 32 threads: the consumer
+// warps, the producer, the storer; dynamic shared memory ta_smem(NT). Tile
+// i is (b, positions sg (i / h_groups % s_tiles) .., heads TA_HEADS (i %
+// h_groups) ..); its problems are (16 / tp positions, one head), one a warp
+// at a time.
+template <bool BWD, bool CAUSAL>
+__device__ __forceinline__ void temporal_body(const TaMaps& maps,
+                                              const TaArgs& a) {
+  constexpr int NT = BWD ? 4 : 3;  // operands a tile
+  constexpr int HG = TA_HEADS, STAGES = ta_stages(NT);
+  constexpr uint32_t box = TA_BOX, stage_bytes = NT * box;
+  extern __shared__ unsigned char ta_raw[];
+  const uint32_t ring = (smem_u32(ta_raw) + 1023) & ~1023u;
+  const int span = 16 / a.tp;        // positions a problem
+  const int per = a.sg / span * HG;  // problems a tile
+  const uint32_t slot = a.tp * TA_ROW;  // one (position, head)
+  // three mbarriers a stage: the loads landed, the consumers are done, the
+  // stores have read the stage
+  const uint32_t full = ring + STAGES * stage_bytes;
+  const uint32_t done = full + 8 * STAGES, empty = done + 8 * STAGES;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(done + 8 * st, TA_WARPS);
+      mbar_init(empty + 8 * st, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= TA_WARPS) {  // the producer, then the storer
+    if (lane != 0) return;
+    const bool producer = warp == TA_WARPS;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x, ++it) {
+      const int st = it % STAGES, use = it / STAGES;
+      const int hgi = tile % a.h_groups, rest = tile / a.h_groups;
+      const int s0 = (rest % a.s_tiles) * a.sg, b = rest / a.s_tiles;
+      const uint32_t base = ring + st * stage_bytes;
+      if (producer) {
+        if (use > 0) mbar_wait(empty + 8 * st, (use - 1) & 1);
+        mbar_expect_tx(full + 8 * st, stage_bytes);
+#pragma unroll
+        for (int i = 0; i < NT; ++i)
+          tma_load_5d(base + i * box, &maps.in[i], 0, 0, hgi * HG, s0, b,
+                      full + 8 * st);
+      } else {
+        mbar_wait(done + 8 * st, use & 1);
+        // o over v, dq over k, dk over q, dv over dout
+        if (!BWD || a.with_o)
+          tma_store_5d(&maps.out[0], base + 2 * box, 0, 0, hgi * HG, s0, b);
+        if (BWD) {
+          tma_store_5d(&maps.out[1], base + box, 0, 0, hgi * HG, s0, b);
+          tma_store_5d(&maps.out[2], base, 0, 0, hgi * HG, s0, b);
+          tma_store_5d(&maps.out[3], base + 3 * box, 0, 0, hgi * HG, s0, b);
+        }
+        bulk_commit();
+        bulk_wait_read();
+        mbar_arrive(empty + 8 * st);
       }
     }
-    store8(dk + row(j) * ld_out + c0, dka);
-    store8(dv + row(j) * ld_out + c0, dva);
+    if (!producer) bulk_wait();  // the last stores have landed
+    return;
+  }
+
+  int it = 0;
+  for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x, ++it) {
+    const int st = it % STAGES, use = it / STAGES;
+    mbar_wait(full + 8 * st, use & 1);
+    for (int pi = warp; pi < per; pi += TA_WARPS) {
+      const int sl = pi / HG * span, hl = pi % HG;
+      // operand i: its box in stage st, the slot of (sl, hl), and rows 8-15
+      // 8 frames on (tp = 16) or one position on (tp = 8); a slot past S
+      // holds zeros, which TMA does not store
+      const uint32_t lo = ring + st * stage_bytes + (sl * HG + hl) * slot;
+      const uint32_t hi = lo + (a.tp == 16 ? 8 * TA_ROW : HG * slot);
+      const Rows q{lo, hi}, k{lo + box, hi + box},
+          v{lo + 2 * box, hi + 2 * box};
+      float p[2][4], acc[4][4];
+      uint32_t pa[4];
+      probabilities<CAUSAL>(p, q, k, lane, a.T, a.tp, a.scale);
+      to_a(pa, p);
+      if (!BWD) {
+        a_by_rows(acc, pa, v, lane);  // o = P V, over v
+        put_rows<false>(acc, 1.f, v, lane);
+        continue;
+      }
+      const Rows dout{lo + 3 * box, hi + 3 * box};
+      float dp[2][4];
+      rows_by_rows(dp, dout, v, lane);  // dP = dO V^T
+      float delta[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          delta[e >> 1] = fmaf(p[n][e], dp[n][e], delta[e >> 1]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) delta[r] = quad_sum(delta[r]);
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[n][e] = p[n][e] * (dp[n][e] - delta[e >> 1]);  // ds
+      uint32_t dsa[4], t[4];
+      to_a(dsa, dp);
+      if (a.with_o) {
+        a_by_rows(acc, pa, v, lane);  // o = P V, over v
+        put_rows<false>(acc, 1.f, v, lane);
+      }
+      a_by_rows(acc, dsa, k, lane);  // dQ = dS K, over k
+      put_rows<true>(acc, a.scale, k, lane);
+      transpose_a(t, dsa);
+      a_by_rows(acc, t, q, lane);  // dK = dS^T Q, over q
+      put_rows<true>(acc, a.scale, q, lane);
+      transpose_a(t, pa);
+      a_by_rows(acc, t, dout, lane);  // dV = P^T dO, over dout
+      put_rows<false>(acc, 1.f, dout, lane);
+    }
+    // this warp's results, written through the generic proxy, are read by
+    // the storer's TMA
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(done + 8 * st);
   }
 }
+
+template <bool CAUSAL>
+__global__ void __launch_bounds__((TA_WARPS + 2) * 32, 1)
+    temporal_fwd_kernel(const __grid_constant__ TaMaps maps, const TaArgs a) {
+  temporal_body<false, CAUSAL>(maps, a);
+}
+
+template <bool CAUSAL>
+__global__ void __launch_bounds__((TA_WARPS + 2) * 32, 1)
+    temporal_bwd_kernel(const __grid_constant__ TaMaps maps, const TaArgs a) {
+  temporal_body<true, CAUSAL>(maps, a);
+}
+
+// The (d, t, h, s, b) view of a (B, T, S, C) bf16 tensor with row stride
+// ld (elements) in the 64-byte swizzle; a box is tp frames of TA_HEADS
+// heads of sg positions of one b.
+cudaError_t frame_map(CUtensorMap* map, const void* base, int B, int T, int S,
+                      int C, int ld, int tp, int sg) {
+  const cuuint64_t dims[5] = {TA_D, (cuuint64_t)T, (cuuint64_t)(C / TA_D),
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t row = (cuuint64_t)ld * 2;
+  const cuuint64_t strides[4] = {row * S, TA_ROW, row, row * S * T};
+  const cuuint32_t box[5] = {TA_D, (cuuint32_t)tp, (cuuint32_t)TA_HEADS,
+                             (cuuint32_t)sg, 1};
+  return encode_map(map, base, 5, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// The shapes the kernels take (the wrapper's `_check_qkv` raises first).
+bool ta_ok(int T, int C, int ld) {
+  return T >= 1 && T <= 16 && C % 256 == 0 && (C / TA_D) % TA_HEADS == 0 &&
+         ld % 8 == 0;
+}
+
+// The tile at T frames: a box spans 16 frames, or 8 and twice the
+// positions where T <= 8, so that a stage holds TA_BOX bytes a tensor
+// either way (frames t >= T come back from TMA as zeros and still count).
+TaArgs args_of(int B, int T, int S, int C, float scale) {
+  TaArgs a = {};
+  a.T = T, a.S = S, a.C = C, a.scale = scale;
+  a.tp = T <= 8 ? 8 : 16;
+  a.sg = TA_POSITIONS * 16 / a.tp;
+  a.s_tiles = (S + a.sg - 1) / a.sg;
+  a.h_groups = C / TA_D / TA_HEADS;
+  a.tiles = B * a.s_tiles * a.h_groups;
+  return a;
+}
+
+template <bool BWD, bool CAUSAL>
+cudaError_t launch(const TaMaps& maps, const TaArgs& a, cudaStream_t stream) {
+  if (a.tiles == 0) return cudaSuccess;
+  constexpr int smem = ta_smem(BWD ? 4 : 3), threads = (TA_WARPS + 2) * 32;
+  auto kernel = BWD ? temporal_bwd_kernel<CAUSAL> : temporal_fwd_kernel<CAUSAL>;
+  // the shared-memory limit and the resident blocks, set at the first call
+  static int resident = 0;
+  if (resident == 0)
+    TPU1X_TRY(resident_blocks(kernel, threads, smem, &resident));
+  const int grid = a.tiles < resident ? a.tiles : resident;
+  kernel<<<grid, threads, smem, stream>>>(maps, a);
+  return cudaGetLastError();
+}
+
+// Makes `device`'s primary context current in the calling thread. The
+// tensor-map encoder (cuTensorMapEncodeTiled) needs one and fails in a
+// thread that has none yet: autograd's backward thread, when the backward
+// is its first call to the card.
+cudaError_t bind(int device) { return cudaSetDevice(device); }
 
 }  // namespace
 
-// Requires T <= 16, C % 256 == 0 (whole warps of 4-lane heads), ld % 8 == 0.
+// q, k, v: element (b, t, s, c) at ((b T + t) S + s) ld + c; out contiguous;
+// all on card `device`.
 extern "C" int tpu1x_temporal_attention(const void* q, const void* k,
                                         const void* v, void* out, int B, int T,
                                         int S, int C, int ld, float scale,
-                                        int causal, void* stream) {
-  if (T > TA_MAXT || C % 256 || ld % 8) return cudaErrorInvalidValue;
-  temporal_attention_kernel<<<dim3(S, B), C / 8, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), T, S, C, ld, scale, causal);
-  return cudaGetLastError();
+                                        int causal, int device, void* stream) {
+  if (!ta_ok(T, C, ld)) return cudaErrorInvalidValue;
+  TPU1X_TRY(bind(device));
+  const TaArgs a = args_of(B, T, S, C, scale);
+  TaMaps maps = {};
+  const void* in[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i)
+    TPU1X_TRY(frame_map(&maps.in[i], in[i], B, T, S, C, ld, a.tp, a.sg));
+  TPU1X_TRY(frame_map(&maps.out[0], out, B, T, S, C, C, a.tp, a.sg));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return causal ? launch<false, true>(maps, a, st)
+                : launch<false, false>(maps, a, st);
 }
 
-// Requires T <= 16, C % 256 == 0 (whole warps of 4-lane heads), strides that
-// are multiples of 8.
+// q, k, v at row stride ld, dout at ld_do, dq / dk / dv at ld_out (so that
+// the three can be column slices of one (B, T, S, 3C) tensor); o, where not
+// null, contiguous: the forward's output, as tpu1x_temporal_attention
+// writes it.
 extern "C" int tpu1x_temporal_attention_bwd(
-    const void* q, const void* k, const void* v, const void* dout, void* dq,
-    void* dk, void* dv, int B, int T, int S, int C, int ld, int ld_do,
-    int ld_out, float scale, int causal, void* stream) {
-  if (T > TA_MAXT || C % 256 || ld % 8 || ld_do % 8 || ld_out % 8)
+    const void* q, const void* k, const void* v, const void* dout, void* o,
+    void* dq, void* dk, void* dv, int B, int T, int S, int C, int ld,
+    int ld_do, int ld_out, float scale, int causal, int device,
+    void* stream) {
+  if (!ta_ok(T, C, ld) || ld_do % 8 || ld_out % 8)
     return cudaErrorInvalidValue;
-  const int chunk = TAB_HEADS * 32;
-  temporal_attention_bwd_kernel<<<dim3(S, B, (C + chunk - 1) / chunk),
-                                  (C < chunk ? C : chunk) / 8, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), T,
-      S, C, ld, ld_do, ld_out, scale, causal);
-  return cudaGetLastError();
+  TPU1X_TRY(bind(device));
+  TaArgs a = args_of(B, T, S, C, scale);
+  a.with_o = o != nullptr;
+  TaMaps maps = {};
+  const void* in[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i)
+    TPU1X_TRY(frame_map(&maps.in[i], in[i], B, T, S, C, i == 3 ? ld_do : ld,
+                        a.tp, a.sg));
+  void* out[4] = {o, dq, dk, dv};
+  for (int i = 0; i < 4; ++i)
+    if (out[i] != nullptr)
+      TPU1X_TRY(frame_map(&maps.out[i], out[i], B, T, S, C,
+                          i == 0 ? C : ld_out, a.tp, a.sg));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return causal ? launch<true, true>(maps, a, st)
+                : launch<true, false>(maps, a, st);
 }

@@ -25,13 +25,11 @@ def temporal_train_block_plain(x, wqkv, wproj, *, num_heads: int,
     return x + dense(out, wproj, bproj)
 
 
-def _qkv_and_attention(x, wqkv, bqkv, num_heads, scale):
+def _qkv(x, wqkv, bqkv):
+    """q, k, v: column views of one (B, T, S, 3C) product with bias."""
     B, T, S, C = x.shape
     qkv = tk.gemm90(x.reshape(-1, C), wqkv, bias=bqkv).view(B, T, S, 3 * C)
-    q, k, v = qkv.split(C, dim=-1)
-    ao = ta.launch_forward(q, k, v, scale=scale, num_heads=num_heads,
-                           causal=True)
-    return (q, k, v), ao
+    return qkv.split(C, dim=-1)
 
 
 def temporal_train_block_fwd(x, wqkv, wproj, bqkv, bproj, *, num_heads: int,
@@ -43,7 +41,8 @@ def temporal_train_block_fwd(x, wqkv, wproj, bqkv, bproj, *, num_heads: int,
     fp32, one rounding, then the residual). CPU tensors run the same
     sequence on the launchers' plain versions and count nothing."""
     C = x.shape[-1]
-    _, ao = _qkv_and_attention(x, wqkv, bqkv, num_heads, scale)
+    ao = ta.launch_forward(*_qkv(x, wqkv, bqkv), scale=scale,
+                           num_heads=num_heads, causal=True)
     out = tk.gemm90(ao.reshape(-1, C), wproj, bias=bproj,
                     resid=x.reshape(-1, C))
     if x.is_cuda:
@@ -56,21 +55,23 @@ def temporal_train_block_bwd(x, dout, wqkv, wproj, bqkv, *, num_heads: int,
     """The backward. Returns (dx in x's dtype, dwqkv, dwproj, dbqkv,
     dbproj) with the weight and bias gradients in fp32.
 
-    Launches: the qkv product and the attention forward (recompute: the
-    attention output feeds dWproj); d_ao = dout Wproj^T; the temporal
-    attention backward (K6), which writes dq, dk, dv into one (B, T, S, 3C)
-    tensor; dWproj = ao^T dout and dWqkv = x^T dqkv (split reductions, fp32
-    atomics); the bias column sums; dx = dout + dqkv Wqkv^T. The products
-    are the training forms of csrc/gemm_sm90.cuh (nn, nt, tn). CPU tensors
-    run the same sequence on the plain versions and count nothing.
+    Launches: the qkv product (recompute); d_ao = dout Wproj^T; the
+    temporal attention backward (K6), which writes dq, dk, dv into one
+    (B, T, S, 3C) tensor and the attention output ao (the forward's, bit
+    for bit: it feeds dWproj) beside them; dWproj = ao^T dout and dWqkv =
+    x^T dqkv (split reductions, fp32 atomics); the bias column sums; dx =
+    dout + dqkv Wqkv^T. The products are the training forms of
+    csrc/gemm_sm90.cuh (nn, nt, tn). CPU tensors run the same sequence on
+    the plain versions and count nothing.
     """
     C = x.shape[-1]
     x2, do2 = x.reshape(-1, C), dout.reshape(-1, C)
-    (q, k, v), ao = _qkv_and_attention(x, wqkv, bqkv, num_heads, scale)
+    q, k, v = _qkv(x, wqkv, bqkv)
     d_ao = tk.gemm90(do2, wproj, form="nt").view(x.shape)
+    ao = torch.empty(x.shape, dtype=q.dtype, device=q.device)
     dqkv2 = ta.launch_backward(q, k, v, d_ao, scale=scale,
-                               num_heads=num_heads,
-                               causal=True).view(-1, 3 * C)
+                               num_heads=num_heads, causal=True,
+                               o=ao).view(-1, 3 * C)
     dwproj = tk.gemm90(ao.reshape(-1, C), do2, form="tn")
     dbproj = tk.col_sum(do2) if proj_bias else None
     dwqkv = tk.gemm90(x2, dqkv2, form="tn")
