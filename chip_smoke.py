@@ -18,13 +18,17 @@
    C = 512 and at C = 256 with 8 heads; the GEMM of csrc/gemm_sm90.cuh
    alone at the spatial block's two products and the temporal+MLP block's
    two MLP products (fc1 with either GELU, fc2) against a plain product
-   with the same rounding, beside torch.matmul.
+   with the same rounding, beside torch.matmul. The decode attention (K7,
+   K8, both caches) at B = 16, 17, 272 and 16 in turn, and K2 at B = 16
+   then 17: a batch must not fail after another.
 4. Runs RolloutEngine.rollout at GENIE_138M (random weights from a seed,
    B=16, 8 prompt + 8 new frames, maskgit_steps 2, temperature 0), with
    the launch counters set to 0 just before and read just after; checks
    the counts and the output; times it (median of three runs) and the
    plain path (`PlainDecodeEngine`, this script's own oracle); profiles one
-   more run for device time by kernel; and holds the prefill cache and the
+   more run for device time by kernel (which must show the cache attention
+   on `decode_ring_kernel` and no `decode_attention_kernel`, the design
+   before it); and holds the prefill cache and the
    first step-0 logits against the plain path on the card (see
    `check_prefill_and_logits` for the tolerance).
 5. Holds the training kernels against their plain versions' autograd on the
@@ -41,7 +45,10 @@
    the MLP block's forward and backward must show no GEMM of the port but
    csrc/gemm_sm90.cuh's; then each training form of csrc/gemm_sm90.cuh
    alone at the three blocks' products against its plain version, with its
-   TFLOP/s beside torch.matmul's.
+   TFLOP/s beside torch.matmul's. Last, a training-form GEMM launch and the
+   fused attention's backward each as the first card call of a new thread
+   (no CUDA context current there, as in autograd's backward thread), held
+   against their plain versions.
 6. Trains GENIE_138M (random weights and tokens from seed 0, B=8, T=16)
    through `make_train_step` on the card: the launch counters are set to 0
    before the first step and read after it; ten steps on the one batch and
@@ -56,7 +63,10 @@
 7. The qk_norm=True model and the int8 KV cache, which take each decode
    layer op by op: holds the decode attention kernels (one frame and the
    [prev, cur] pair, bf16 and int8 cache, t_B mixed in 0..15, two layers of
-   a (16, 32, 16, 256, 512) cache), the spatial block with the qk-LN, the
+   a (16, 32, 16, 256, 512) cache; and at the pre-LN rollout's t_B, one
+   frame 8..15 and the pair 8..14, on the thirds of one (B, frames, S, 3C)
+   qkv tensor as K2 and K3 launch them, with their device time and bound),
+   the spatial block with the qk-LN, the
    fused attention forward and backward (causal and not, at (128, 256, 16,
    32), SDPA forward and backward as the library time; the forward's lse
    against `mha_lse_reference`, the backward also against
@@ -482,7 +492,11 @@ def quantize_cache(kc):
 def check_decode_attention(inp, C, H, L, caches, scales, pair):
     """K7 (one frame) or K8 (the pair) against the plain version, on column
     views of one qkv product, at two layers, t_B mixed in 0..15 (0: no cache
-    slot is valid). `scales`: None for the bf16 cache."""
+    slot is valid); then timed, and held, also at the pre-LN rollout's t_B
+    (one frame 8..15, the pair 8..14) on the thirds of one (B, frames, S,
+    3C) qkv tensor, as K2 and K3 launch it (`rollout`). `scales`: None for
+    the bf16 cache."""
+    from chip_variants import decode_bound
     kc, vc = caches
     T, S = kc.shape[0], 256
     frames = 2 if pair else 1
@@ -525,20 +539,31 @@ def check_decode_attention(inp, C, H, L, caches, scales, pair):
             and (into[0] if pair else into).data_ptr() == out.data_ptr())
     if not same:
         raise AssertionError(f"{name}: out / kv_out change the result")
-    slots = int(t_B.sum())  # this run's data: slots t < t_B[b] per row
-    cache_bytes = 2 * slots * S * (C * kc.element_size()
-                                   + (4 if scales is not None else 0))
-    macs = B * S * C * (frames * slots / B + frames * (frames + 1) / 2)
-    # q.k: bf16 operands (int8 values are exact in bf16); p.v in fp32
-    bms, by = bound(cache_bytes + nbytes(qkv, t_B) + frames * B * S * C * 2,
-                    tensor_flops=2 * macs, fp32_flops=2 * macs)
+    bms, by = decode_bound(t_B, S, C, frames, kc, scales)
+    # the rollout's t_B, in K2's and K3's layout
+    t_roll = (P + torch.arange(B, device=qkv.device)
+              % (T - P - frames + 1)).to(torch.int32)
+    qr, kr, vr = (x.unbind(1) for x in inp.normal(
+        B, frames, S, 3 * C).split(C, dim=-1))
+    roll = ((qr[0], qr[1], kc, vc, kr[0], vr[0], kr[1], vr[1], t_roll)
+            if pair else (qr[0], kc, vc, kr[0], vr[0], t_roll))
+    got, want = kernel(*roll, layer=layer, **kw), plain(*roll, layer=layer,
+                                                        **kw)
+    roll_err = max(compare(f"{name} rollout t_B", g, w, 3e-2, 3e-2)
+                   for g, w in zip(*((got, want) if pair
+                                     else ((got,), (want,)))))
+    roll_bms, roll_by = decode_bound(t_roll, S, C, frames, kc, scales)
     return {name: dict(
         max_abs_err=err, shape=list(qkv.shape), t_B=t_B.tolist(),
         bound_ms=bms, bound_by=by,
         ms=time_ms(lambda: kernel(*args, layer=layer, **kw)),
         device_ms=device_ms(lambda: kernel(*args, layer=layer, **kw)),
         plain_ms=time_ms(lambda: plain(*args, layer=layer, **kw), iters=5),
-        library_ms=None)}
+        library_ms=None,
+        rollout=dict(max_abs_err=roll_err, t_B=t_roll.tolist(),
+                     bound_ms=roll_bms, bound_by=roll_by,
+                     device_ms=device_ms(
+                         lambda: kernel(*roll, layer=layer, **kw))))}
 
 
 def check_flash_mha(inp, H):
@@ -854,8 +879,11 @@ def check_rollout(cfg, device, cache_dtype="bf16", per_layer=PER_LAYER,
     agree = float((out[:, 0, P:] == out_plain[:, 0, P:]).float().mean())
     device_time = None
     if full:
-        # every product of the rollout runs on csrc/gemm_sm90.cuh
-        device_time = profile_device(lambda: kernel_path(seeded()))
+        # every product of the rollout runs on csrc/gemm_sm90.cuh, and the
+        # cache attention (inside K2 and K3, or K7 and K8) on the ring kernel
+        device_time = profile_device(lambda: kernel_path(seeded()),
+                                     must=("decode_ring_kernel",),
+                                     must_not=("decode_attention_kernel",))
 
     return dict(launches=launches, rollout_s=wall, rollout_s_runs=walls,
                 plain_rollout_s=wall_plain, s_per_frame=wall / NEW,
@@ -1297,6 +1325,71 @@ def check_temporal_attention_bwd(inp, C, H):
     return out
 
 
+def check_fresh_thread(inp, C, H):
+    """`chip_variants.fresh_thread_launches`: a training-form GEMM launch and
+    K10's backward, each as the first card call of a new thread (no CUDA
+    context current there, as in autograd's backward thread), held against
+    their plain versions; fails where a launch returns an error."""
+    from chip_variants import fresh_thread_launches
+    out = fresh_thread_launches(inp, C, H)
+    for name, r in out.items():
+        if r["rc"] != 0:
+            raise AssertionError(f"{name} as a new thread's first card "
+                                 f"call: CUDA error {r['rc']}")
+    return out
+
+
+def check_decode_batches(C, H, device):
+    """K7 and K8 (bf16 and int8 cache) at B = 16, 17, 16 + 256 (one
+    launch per 256 rows) and 16 again, and K2 at B = 16 then 17, each
+    against its plain version by the gates of 3: a launch's shared memory
+    must not depend on the batches launched before it (S = 64 for K7 and
+    K8, a 2-layer cache, t_B mixed 0..15)."""
+    inp = Inputs(4, device)
+    T, L, S = 16, 2, 64
+    kw = dict(layer=1, scale=(C // H) ** -0.5, num_heads=H)
+    errs = {}
+    for Bt in (16, 17, 16 + 256, 16):
+        kc, vc = inp.normal(T, L, Bt, S, C), inp.normal(T, L, Bt, S, C)
+        (kq, ks), (vq, vs) = quantize_cache(kc), quantize_cache(vc)
+        t_B = (torch.arange(Bt, device=device) * 7 % 16).to(torch.int32)
+        for cache, ckw, kcc, vcc in (
+                ("bf16", {}, kc, vc),
+                ("int8", dict(k_scale=ks, v_scale=vs), kq, vq)):
+            for frames in (1, 2):
+                q, k, v = (x.unbind(1) for x in inp.normal(
+                    Bt, frames, S, 3 * C).split(C, dim=-1))
+                tb = t_B.clamp(max=T - frames)
+                if frames == 1:
+                    args = (q[0], kcc, vcc, k[0], v[0], tb)
+                    kernel, plain = (da.temporal_decode_attention,
+                                     da.temporal_decode_attention_plain)
+                else:
+                    args = (q[0], q[1], kcc, vcc, k[0], v[0], k[1], v[1], tb)
+                    kernel, plain = (da.temporal_decode2_attention,
+                                     da.temporal_decode2_attention_plain)
+                got = kernel(*args, **kw, **ckw)
+                want = plain(*args, **kw, **ckw)
+                got, want = ((got,), (want,)) if frames == 1 else (got, want)
+                name = f"{kernel.__name__}[{cache},B={Bt}]"
+                errs[name] = max(compare(name, g, w, 3e-2, 3e-2)
+                                 for g, w in zip(got, want))
+    del kc, vc, kq, vq, ks, vs
+    w = block_weights(inp, C)
+    bkw = dict(scale=(C // H) ** -0.5, num_heads=H, gelu_tanh=True, **w)
+    for Bt in (16, 17):
+        kc, vc = inp.normal(T, L, Bt, 256, C), inp.normal(T, L, Bt, 256, C)
+        x = inp.normal(Bt, 256, C)
+        t_B = (P + torch.arange(Bt, device=device) % (T - P)).to(torch.int32)
+        got = temporal_mlp_block(x, kc, vc, t_B, layer=1, **bkw)
+        want = temporal_mlp_block_plain(x, kc[:, 1], vc[:, 1], t_B, **bkw)
+        name = f"temporal_mlp_block[B={Bt}]"
+        errs[name] = compare(name, got[0], want[0], 3e-2, 3e-2)
+        compare(name + " k", got[1], want[1], 2e-2, 2e-2)
+        compare(name + " v", got[2], want[2], 2e-2, 2e-2)
+    return errs
+
+
 def check_train_kernels(C, H, device):
     inp = Inputs(1, device)
     out = {}
@@ -1562,6 +1655,9 @@ def main() -> int:
         t0 = time.perf_counter()
         results = check_kernels(cfg.d_model, cfg.num_heads, cfg.num_layers,
                                 device)
+        print("decode attention across batch sizes: " + json.dumps(
+            check_decode_batches(cfg.d_model, cfg.num_heads, device)),
+            flush=True)
         print(f"kernel checks: {time.perf_counter() - t0:.1f} s", flush=True)
 
         t0 = time.perf_counter()
@@ -1576,6 +1672,9 @@ def main() -> int:
                                            device))
         print(f"train kernel checks: {time.perf_counter() - t0:.1f} s",
               flush=True)
+        print("first card call of a new thread: " + json.dumps(
+            check_fresh_thread(Inputs(3, device), cfg.d_model,
+                               cfg.num_heads)), flush=True)
 
         t0 = time.perf_counter()
         model, train = check_training(cfg, device)
@@ -1670,6 +1769,9 @@ def main() -> int:
                 q8 = results[name + "[int8]"]
                 item.update(int8_ms=q8["ms"], int8_device_ms=q8["device_ms"],
                             int8_bound_ms=q8["bound_ms"])
+                for tag, res in (("", r), ("int8_", q8)):
+                    item.update({f"{tag}rollout_{k}": res["rollout"][k]
+                                 for k in ("device_ms", "bound_ms")})
             line.append(item)
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
         print(json.dumps({"kernels": line}), flush=True)

@@ -4,11 +4,15 @@
     python3 chip_variants.py gemm NAME=LIB ...
     python3 chip_variants.py tn NAME=LIB ...
     python3 chip_variants.py ta NAME=LIB ...
+    python3 chip_variants.py da NAME=LIB ...
     python3 chip_variants.py block
     python3 chip_variants.py mlp
     python3 chip_variants.py train
     python3 chip_variants.py temporal
     python3 chip_variants.py l2
+    python3 chip_variants.py decode
+    python3 chip_variants.py rollout
+    python3 chip_variants.py fresh
 
 Each LIB is a shared library built from a variant of a source in
 `tpu1x_torch/csrc` (nvcc with `kernels.NVCC_FLAGS`, `-I` its own copy of the
@@ -44,6 +48,11 @@ in one process on one card; every time is the profiler's device time
   against `temporal_attention_bwd_plain` by `chip_smoke.grad_errors`. A
   variant that edits the tile's constants (`TA_POSITIONS`, `TA_HEADS`,
   `TA_WARPS`, `TA_MAX_STAGES`) times another tile.
+- `da`: K7 and K8 (`decode_attention.cu`) through the C entry point, the
+  cases of `decode` (both cache types, both t_B mixes, one frame and the
+  pair), each result held against the plain version (atol = rtol = 3e-2).
+  A variant that edits the tile's constants (`DA_ROWS`, `DA_SMEM`,
+  `DA_SMEM_Q8`) times another tile.
 - `block`: K2 and K3 (`temporal_mlp_block`, one frame and the pair)
   through this checkout's own wrappers, at the pre-LN rollout's shapes
   (GENIE_138M: B=16, S=256, C=512, 16 heads, F4=2048, a (16, 32, 16, 256,
@@ -79,6 +88,30 @@ in one process on one card; every time is the profiler's device time
   product is the last launch of each line. Run in a parent's copy and in
   this checkout, it tells whether a product's time follows the kernel
   before it. No builds.
+- `decode`: K7 and K8 (`temporal_decode_attention`, `..2_attention`)
+  through this checkout's own wrappers at GENIE_138M's decode shape (B=16,
+  S=256, C=512, 16 heads, layer 16 of a (16, 32, 16, 256, 512) cache), q,
+  k, v the column thirds of one (B, frames, S, 3C) qkv tensor (K2's and
+  K3's layout), with the bf16 cache and the int8 one, at two t_B mixes:
+  `mixed` (chip_smoke.py's, 0..15, 0 included) and `rollout` (the pre-LN
+  rollout's: one frame 8..15, the pair t_prev 8..14). Each result is held
+  against the plain version (atol = rtol = 3e-2); prints the device time
+  and the bound (the bytes of the slots t < t_B[b] read once, the scales
+  of an int8 cache, q, k, v and out; or the operations, as chip_smoke.py
+  counts them). The `rollout` rows are K2's and K3's attention launch. No
+  builds.
+- `rollout`: the pre-LN GENIE_138M rollout of chip_smoke.py (random
+  weights from seed 0, B=16, 8 + 8 frames, maskgit_steps 2, temperature 0)
+  through this checkout's `RolloutEngine`: the host clock around eight
+  synchronized rollouts, the first untimed; prints the seven walls and
+  their median. Run in turns in a parent's copy and in this checkout,
+  one process each, it compares the end-to-end wall. No builds.
+- `fresh`: `fresh_thread_launches`, the check of `chip_smoke.py` phase 5:
+  a training-form GEMM launch and K10's backward through their C entry
+  points, each as the first card call of a new thread; prints each return
+  code and, where it is 0, the error against the plain version. Run in a
+  parent's copy, it shows whether that tree's launchers fail there. No
+  builds.
 
 Prints one line per build and case, and the card.
 """
@@ -88,6 +121,7 @@ from __future__ import annotations
 import ctypes
 import json
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -370,7 +404,6 @@ def ta_builds(libs, dev):
     scale = (C // H) ** -0.5
     kw = dict(scale=scale, num_heads=H, causal=True)
     stream = torch.cuda.current_stream().cuda_stream
-    card = torch.cuda.current_device()
     for lib in libs.values():
         for fn, argtypes in kernels.SIGNATURES["temporal_attention"]:
             getattr(lib, fn).argtypes = argtypes
@@ -389,13 +422,12 @@ def ta_builds(libs, dev):
 
             def fwd():
                 return lib.tpu1x_temporal_attention(
-                    *ptr[:3], ptr[4], Bt, T, 256, C, 3 * C, scale, 1, card,
-                    stream)
+                    *ptr[:3], ptr[4], Bt, T, 256, C, 3 * C, scale, 1, stream)
 
             def bwd(with_o):
                 return lib.tpu1x_temporal_attention_bwd(
                     *ptr[:4], ptr[4] if with_o else None, *ptr[5:], Bt, T,
-                    256, C, 3 * C, C, 3 * C, scale, 1, card, stream)
+                    256, C, 3 * C, C, 3 * C, scale, 1, stream)
             if fwd() != 0:
                 raise RuntimeError(f"{name}: the forward did not launch")
             row = dict(build=name, case=tag, shape=[Bt, T, 256, C],
@@ -443,13 +475,216 @@ def l2(dev):
              for name, p in products.items() for b, f in before.items()]
     timed_calls(calls)
 
+def rollout(dev):
+    from tpu1x_torch.model_zoo import genie_138m
+    from tpu1x_torch.models.st_maskgit import STMaskGIT
+    from tpu1x_torch.rollout.engine import RolloutEngine
+    cfg = genie_138m()
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = STMaskGIT(cfg, device=dev).init_weights(g)
+    engine = RolloutEngine(model, cfg, device=dev, maskgit_steps=cs.STEPS,
+                           temperature=0.0)
+    side = cfg.latent_side_len
+    prompt = torch.randint(0, cfg.image_vocab_size, (cs.B, cs.P, side, side),
+                           generator=g, device=dev)
+    walls = []
+    for _ in range(8):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.rollout(prompt, cs.NEW, gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    walls = walls[1:]  # the first call sets up
+    print(json.dumps(dict(kernel="rollout", walls=walls,
+                          median=sorted(walls)[len(walls) // 2])), flush=True)
+
+
+# GENIE_138M's decode: C, heads, layers, T, S
+DECODE_SHAPE = (512, 16, 32, 16, 256)
+
+
+def decode_bound(t_B, S, C, frames, kc, scales):
+    """The decode attention's bound at this run's t_B: the cache slots t <
+    t_B[b] read once (and an int8 cache's scales), q, k, v read and out
+    written once; or its operations. `chip_smoke.py` takes it from here."""
+    Bt = t_B.numel()
+    slots = int(t_B.sum())  # this run's data: slots t < t_B[b] per row
+    cache_bytes = 2 * slots * S * (C * kc.element_size()
+                                   + (4 if scales is not None else 0))
+    macs = Bt * S * C * (frames * slots / Bt + frames * (frames + 1) / 2)
+    # q.k: bf16 operands (int8 values are exact in bf16); p.v in fp32
+    return cs.bound(cache_bytes + 4 * frames * Bt * S * C * 2
+                    + cs.nbytes(t_B), tensor_flops=2 * macs,
+                    fp32_flops=2 * macs)
+
+
+def decode_cases(dev):
+    """The K7/K8 cases of `decode` and `da`: dicts with the wrapper, its
+    plain version, their arguments and the bound."""
+    from tpu1x_torch.ops import decode_attention as da
+    inp = cs.Inputs(0, dev)
+    C, H, L, T, S = DECODE_SHAPE
+    B = cs.B
+    kc, vc = inp.normal(T, L, B, S, C), inp.normal(T, L, B, S, C)
+    (kq, ks), (vq, vs) = cs.quantize_cache(kc), cs.quantize_cache(vc)
+    caches = {"bf16": (kc, vc, None, None), "int8": (kq, vq, ks, vs)}
+    rows = torch.arange(B, device=dev)
+    cases = []
+    for frames in (1, 2):
+        q, k, v = inp.normal(B, frames, S, 3 * C).split(C, dim=-1)
+        q, k, v = q.unbind(1), k.unbind(1), v.unbind(1)
+        for mix in ("mixed", "rollout"):
+            t_B = (rows * 7 % (T - frames + 1) if mix == "mixed"
+                   else cs.P + rows % (T - cs.P - frames + 1)).to(torch.int32)
+            for cache, (kcc, vcc, ksc, vsc) in caches.items():
+                if frames == 1:
+                    args = (q[0], kcc, vcc, k[0], v[0], t_B)
+                    kernel, plain = (da.temporal_decode_attention,
+                                     da.temporal_decode_attention_plain)
+                else:
+                    args = (q[0], q[1], kcc, vcc, k[0], v[0], k[1], v[1],
+                            t_B)
+                    kernel, plain = (da.temporal_decode2_attention,
+                                     da.temporal_decode2_attention_plain)
+                kw = dict(layer=L // 2, scale=(C // H) ** -0.5, num_heads=H,
+                          k_scale=ksc, v_scale=vsc)
+                bms, by = decode_bound(t_B, S, C, frames, kcc, ksc)
+                cases.append(dict(
+                    name=f"{kernel.__name__}[{cache},{mix}]", frames=frames,
+                    kernel=kernel, plain=plain, args=args, kw=kw, q=q, k=k,
+                    v=v, caches=(kcc, vcc, ksc, vsc), t_B=t_B,
+                    dims=(B, frames, S, C, T, L), bound_ms=bms, bound_by=by,
+                    t_B_list=t_B.tolist()))
+    return cases
+
+
+def decode(dev):
+    for c in decode_cases(dev):
+        got = c["kernel"](*c["args"], **c["kw"])
+        want = c["plain"](*c["args"], **c["kw"])
+        if c["frames"] == 1:
+            got, want = (got,), (want,)
+        err = max(cs.compare(c["name"], g, w, 3e-2, 3e-2)
+                  for g, w in zip(got, want))
+        ms = cs.device_ms(lambda: c["kernel"](*c["args"], **c["kw"]))
+        print(json.dumps(dict(
+            kernel=c["name"], t_B=c["t_B_list"], max_abs_err=err,
+            device_ms=ms, bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+            share_of_bound=c["bound_ms"] / ms if ms else None)), flush=True)
+
+
+def da_builds(libs, dev):
+    from tpu1x_torch.ops import decode_attention as da
+    stream = torch.cuda.current_stream().cuda_stream
+    for lib in libs.values():
+        for fn, argtypes in kernels.SIGNATURES["decode_attention"]:
+            getattr(lib, fn).argtypes = argtypes
+    for c in decode_cases(dev):
+        B, frames, S, C, T, L = c["dims"]
+        kcc, vcc, ksc, vsc = c["caches"]
+        want = c["plain"](*c["args"], **c["kw"])
+        want = (want,) if frames == 1 else want
+        out = torch.empty(frames, B, S, C, dtype=torch.bfloat16, device=dev)
+
+        def second(ts):
+            return ts[1].data_ptr() if frames == 2 else None
+        q, k, v = c["q"], c["k"], c["v"]
+        args = (q[0].data_ptr(), second(q), k[0].data_ptr(), second(k),
+                v[0].data_ptr(), second(v), *q[0].stride()[:2],
+                *k[0].stride()[:2], *v[0].stride()[:2], kcc.data_ptr(),
+                vcc.data_ptr(), None if ksc is None else ksc.data_ptr(),
+                None if vsc is None else vsc.data_ptr(), c["t_B"].data_ptr(),
+                out[0].data_ptr(), out[1].data_ptr() if frames == 2 else None,
+                S * C, C, None, None, B, frames, S, C, T, L, c["kw"]["layer"],
+                c["kw"]["scale"], stream)
+        for name in in_turns(libs):
+            lib = libs[name]
+
+            def run():
+                return lib.tpu1x_decode_attention(*args)
+            out.zero_()
+            if run() != 0:
+                raise RuntimeError(f"{name}: the kernel did not launch")
+            err = max(cs.compare(f"{name} {c['name']}", out[f], want[f],
+                                 3e-2, 3e-2) for f in range(frames))
+            ms = cs.device_ms(run)
+            print(json.dumps(dict(
+                build=name, kernel=c["name"], max_abs_err=err, device_ms=ms,
+                bound_ms=c["bound_ms"],
+                share_of_bound=c["bound_ms"] / ms if ms else None)),
+                flush=True)
+
+
+def fresh_thread_launches(inp, C, H):
+    """A training-form GEMM launch (K13's fc1 at 4096 rows: bias and the
+    erf GELU) and K10's backward (at (8, 256, H, 32), from the forward's
+    residuals), each through its C entry point as the first call to the card
+    of a new thread, which has no CUDA context current yet, as autograd's
+    backward thread has none when a backward is the first thing it runs: the
+    tensor-map encoder fails there unless the launcher binds the card.
+    Inputs and outputs come from this thread, where each entry point has
+    launched once before (so no first-use setup runs in the new one). Returns
+    {name: {"rc": the return code, and where it is 0 the error against the
+    plain version, by the gates of chip_smoke.py phase 5}}."""
+    import threading
+    from tpu1x_torch.ops import attention as attn
+    a, w = inp.normal(4096, C), inp.normal(C, 4 * C, std=0.05)
+    bias = inp.normal(4 * C, std=0.1)
+    g = torch.empty(4096, 4 * C, dtype=torch.bfloat16, device=a.device)
+    qkv = inp.normal(8, 256, 3, H, 32)
+    q, k, v = qkv.unbind(-3)
+    dout = inp.normal(8, 256, H, 32)
+    kw = dict(scale=32 ** -0.5, causal=False)
+    o, lse = attn.flash_mha_fwd(q, k, v, **kw)
+    dq, dk, dv = (torch.empty_like(dout) for _ in range(3))
+    rs, ts, crs, cts = q.stride(0), q.stride(1), *dout.stride()[:2]
+    stream = torch.cuda.current_stream().cuda_stream
+    train, flash = kernels.lib("train_block"), kernels.lib("flash_attention")
+    launches = {
+        "gemm90[nn, gelu_erf]": lambda: train.tpu1x_gemm90_train(
+            a.data_ptr(), w.data_ptr(), g.data_ptr(), None, None,
+            bias.data_ptr(), None, None, 4096, 4 * C, C, tk.MODE["nn"],
+            tk.ACT["gelu_erf"], stream),
+        "flash_mha_bwd": lambda: flash.tpu1x_flash_mha_bwd(
+            *(t.data_ptr() for t in (q, k, v, o, dout, lse, dq, dk, dv)),
+            rs, ts, rs, ts, rs, ts, *(crs, cts) * 5, 8, 256, H, 32,
+            kw["scale"], 0, stream)}
+    rc = {}
+    for name, launch in launches.items():
+        kernels.check(launch(), name)  # this thread's, with its context
+        torch.cuda.synchronize()
+        th = threading.Thread(target=lambda n=name, f=launch: rc.update(
+            {n: f()}))
+        th.start()
+        th.join()
+        torch.cuda.synchronize()
+    out = {name: {"rc": r} for name, r in rc.items()}
+    if rc["gemm90[nn, gelu_erf]"] == 0:
+        out["gemm90[nn, gelu_erf]"]["max_abs_err"] = cs.compare(
+            "gemm90 in a new thread", g,
+            tk.gemm90_plain(a, w, bias=bias, act="gelu_erf"), 3e-2, 3e-2)
+    if rc["flash_mha_bwd"] == 0:
+        want = attn.flash_mha_bwd_plain(q, k, v, o, lse, dout, **kw)
+        out["flash_mha_bwd"].update({
+            f"d{c}": cs.grad_errors(f"flash_mha_bwd in a new thread d{c}",
+                                    got, w_)
+            for c, got, w_ in zip("qkv", (dq, dk, dv), want)})
+    return out
+
+
+def fresh(dev):
+    print(json.dumps(fresh_thread_launches(cs.Inputs(3, dev), 512, 16)),
+          flush=True)
+
 
 MODES = {"block": block, "mlp": mlp, "train": train, "temporal": temporal,
-         "l2": l2}
+         "l2": l2, "decode": decode, "rollout": rollout, "fresh": fresh}
 # mode: (the source its builds are variants of, the timing)
 VARIANTS = {"flash": ("flash_attention", flash),
             "gemm": ("spatial_block", gemm), "tn": ("train_block", tn),
-            "ta": ("temporal_attention", ta_builds)}
+            "ta": ("temporal_attention", ta_builds),
+            "da": ("decode_attention", da_builds)}
 
 
 def main() -> int:

@@ -6,10 +6,12 @@
 // Replaces the Pallas kernels tpu1x/ops/decode_attention.py:
 // temporal_decode_attention (_kernel) and temporal_decode2_attention
 // (_kernel2). The kernel is csrc/decode_attention.cuh, which the
-// temporal+MLP block launches too; see there for the lane layout and the
-// bound (device memory: the valid cache slots, read once). q, k and v of a
-// frame may each be a strided (B, S, C) view, so that column thirds of one
-// qkv product, or its batch halves, feed the kernel without a copy.
+// temporal+MLP block launches too; see there for the design (slot tiles
+// bulk-copied into a ring of stages, one pass over K and V with an online
+// softmax) and the bound (device memory: the valid cache slots, read once).
+// q, k and v of a frame may each be a strided (B, S, C) view, so that
+// column thirds of one qkv product, or its batch halves, feed the kernel
+// without a copy.
 //
 // The TPU kernels multiply q and k in bf16 and round the probabilities to
 // bf16 before PV; this kernel keeps both in fp32, as the references do.
@@ -20,8 +22,9 @@ using namespace tpu1x;
 
 // q0, k0, v0 (and q1, k1, v1 with frames == 2): bf16 (B, S, C) views with
 // element strides (sbq, ldq, 1), (sbk, ldk, 1), (sbv, ldv, 1), multiples of
-// 8, 16-byte aligned. k_cache, v_cache (T, L, B, S, C): bf16, or int8 when
-// k_scale, v_scale (L, B, T, S) fp32 are given. t_B (B,) int32. out0 (out1):
+// 8, 16-byte aligned. k_cache, v_cache (T, L, B, S, C), 16-byte aligned:
+// bf16, or int8 when k_scale, v_scale (L, B, T, S) fp32 are given, 16-byte
+// aligned, with S % 4 == 0. t_B (B,) int32. out0 (out1):
 // bf16 views with strides (osb, old, 1). k_out, v_out: contiguous (B, S, C)
 // copies of k0, v0, or null.
 extern "C" int tpu1x_decode_attention(

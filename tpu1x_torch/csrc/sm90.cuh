@@ -151,6 +151,23 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
+// An L2 policy for data read once: its lines are the first to go.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+// bulk_load with an L2 policy (l2_evict_first).
+__device__ __forceinline__ void bulk_load_hint(uint32_t dst, const void* src,
+                                               uint32_t bytes, uint32_t bar,
+                                               uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "l"(policy)
+      : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -180,12 +197,32 @@ static inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
+// Makes the primary context of the calling thread's current card current,
+// once a thread. The tensor-map encoder (cuTensorMapEncodeTiled) fails with
+// no context current (autograd's backward thread, when a kernel's backward
+// is the first thing it runs). A thread that changes cards later does so
+// with cudaSetDevice, which makes the new card's context current. As for
+// every launch of the port, the caller makes the card that holds the
+// tensors current (torch.cuda.device). Once bound, a call costs one
+// thread-local load: a rollout encodes some ten thousand maps.
+inline cudaError_t bind_card() {
+  thread_local bool bound = false;
+  if (bound) return cudaSuccess;
+  int current = 0;
+  TPU1X_TRY(cudaGetDevice(&current));
+  TPU1X_TRY(cudaSetDevice(current));
+  bound = true;
+  return cudaSuccess;
+}
+
 // A bf16 tensor map of `rank` dimensions (innermost first), strides in
-// bytes of dimensions 1.., a box and a swizzle.
+// bytes of dimensions 1.., a box and a swizzle, encoded with the current
+// card's context current (bind_card).
 inline cudaError_t encode_map(CUtensorMap* map, const void* base, int rank,
                               const cuuint64_t* dims, const cuuint64_t* strides,
                               const cuuint32_t* box,
                               CUtensorMapSwizzle swizzle) {
+  TPU1X_TRY(bind_card());
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};

@@ -501,22 +501,14 @@ cudaError_t launch(const TaMaps& maps, const TaArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Makes `device`'s primary context current in the calling thread. The
-// tensor-map encoder (cuTensorMapEncodeTiled) needs one and fails in a
-// thread that has none yet: autograd's backward thread, when the backward
-// is its first call to the card.
-cudaError_t bind(int device) { return cudaSetDevice(device); }
-
 }  // namespace
 
-// q, k, v: element (b, t, s, c) at ((b T + t) S + s) ld + c; out contiguous;
-// all on card `device`.
+// q, k, v: element (b, t, s, c) at ((b T + t) S + s) ld + c; out contiguous.
 extern "C" int tpu1x_temporal_attention(const void* q, const void* k,
                                         const void* v, void* out, int B, int T,
                                         int S, int C, int ld, float scale,
-                                        int causal, int device, void* stream) {
+                                        int causal, void* stream) {
   if (!ta_ok(T, C, ld)) return cudaErrorInvalidValue;
-  TPU1X_TRY(bind(device));
   const TaArgs a = args_of(B, T, S, C, scale);
   TaMaps maps = {};
   const void* in[3] = {q, k, v};
@@ -535,11 +527,9 @@ extern "C" int tpu1x_temporal_attention(const void* q, const void* k,
 extern "C" int tpu1x_temporal_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout, void* o,
     void* dq, void* dk, void* dv, int B, int T, int S, int C, int ld,
-    int ld_do, int ld_out, float scale, int causal, int device,
-    void* stream) {
+    int ld_do, int ld_out, float scale, int causal, void* stream) {
   if (!ta_ok(T, C, ld) || ld_do % 8 || ld_out % 8)
     return cudaErrorInvalidValue;
-  TPU1X_TRY(bind(device));
   TaArgs a = args_of(B, T, S, C, scale);
   a.with_o = o != nullptr;
   TaMaps maps = {};

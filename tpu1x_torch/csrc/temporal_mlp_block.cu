@@ -18,11 +18,11 @@
 // C=512, twice that for the pair) stay largely in the 50 MB L2:
 //   (a) qkv = x @ Wqkv (+ bias), (rows, 3C), on csrc/gemm_sm90.cuh (TMA,
 //       wgmma, persistent tiles);
-//   (b) the cache attention of csrc/decode_attention.cuh (four lanes per
-//       head, fp32 softmax over at most T + 2 logits in registers,
-//       probabilities fp32 through PV, as the reference's), shared with the
-//       stand-alone decode attention; it reads q, k and v in place in qkv
-//       and writes frame 0's k and v;
+//   (b) the cache attention of csrc/decode_attention.cuh (each valid
+//       slot's K and V rows bulk-copied into a ring, one pass with an
+//       online fp32 softmax, probabilities fp32 through PV, as the
+//       reference's), shared with the stand-alone decode attention; it
+//       reads q, k and v in place in qkv and writes frame 0's k and v;
 //   (c) x1 = x + attn @ Wproj (+ bias), the GEMM's bias + residual epilogue;
 //   (d) xn = LN2(x1), K5's row pass (csrc/layer_norm.cuh: fp32 statistics,
 //       variance E[x^2] - E[x]^2, eps 1e-5, rounded to bf16);

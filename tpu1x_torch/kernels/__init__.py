@@ -48,11 +48,11 @@ SIGNATURES = {
         ("tpu1x_gemm_sm90", [P] * 5 + [I] * 4 + [P]),
     ],
     "temporal_attention": [
-        # q, k, v, out, B, T, S, C, ld, scale, causal, device, stream
-        ("tpu1x_temporal_attention", [P] * 4 + [I] * 5 + [F, I, I, P]),
+        # q, k, v, out, B, T, S, C, ld, scale, causal, stream
+        ("tpu1x_temporal_attention", [P] * 4 + [I] * 5 + [F, I, P]),
         # q, k, v, dout, o, dq, dk, dv, B, T, S, C, ld, ld_do, ld_out,
-        # scale, causal, device, stream
-        ("tpu1x_temporal_attention_bwd", [P] * 8 + [I] * 7 + [F, I, I, P]),
+        # scale, causal, stream
+        ("tpu1x_temporal_attention_bwd", [P] * 8 + [I] * 7 + [F, I, P]),
     ],
     "train_block": [
         # A, B, C, pre, Cf, bias, resid, aux, M, N, K, form, act, stream

@@ -155,16 +155,22 @@ def _view_strides(ts, name: str, shape, dev):
     return strides[0], strides[1]
 
 
-def _launch(qs, ks, vs, k_cache, v_cache, t_B, layer, k_scale, v_scale, out,
-            kv_out, scale, num_heads):
-    frames = len(qs)
+def _check(qs, ks, vs, k_cache, v_cache, t_B, layer, k_scale, v_scale, out,
+           kv_out, num_heads):
+    """The contract the kernel takes, checked before a launch: one tuple of
+    (B, S, C) views per kind, one view per frame. Returns the (batch, token)
+    strides of q, k, v and, where given, out. The cache's slot tiles and an
+    int8 cache's scales reach shared memory by bulk copies, which move whole
+    16-byte units between 16-byte aligned addresses: the caches and scales
+    are contiguous and aligned, and an int8 cache needs S % 4 == 0 (an
+    item's scales start at a token that is a multiple of 4)."""
     B, S, C = qs[0].shape
     T, L = k_cache.shape[:2]
     dev = qs[0].device
     require(T <= 16, f"decode attention kernel needs T <= 16, got {T}")
-    require(C == 32 * num_heads and C % 256 == 0,
-            f"decode attention kernel needs head_dim 32 and C % 256 == 0, "
-            f"got C={C}, heads={num_heads}")
+    require(C == 32 * num_heads and C % 256 == 0 and C <= 2048,
+            f"decode attention kernel needs head_dim 32, C % 256 == 0 and "
+            f"C <= 2048, got C={C}, heads={num_heads}")
     require(isinstance(layer, int) and 0 <= layer < L,
             f"layer must be an int in [0, {L}), got {layer!r}")
     require((k_scale is None) == (v_scale is None),
@@ -174,20 +180,32 @@ def _launch(qs, ks, vs, k_cache, v_cache, t_B, layer, k_scale, v_scale, out,
     check_tensor(k_cache, "k_cache", (T, L, B, S, C), cache_dtype, dev)
     check_tensor(v_cache, "v_cache", (T, L, B, S, C), cache_dtype, dev)
     if quantized:
-        require(S % 2 == 0, f"the int8 cache kernel needs an even S, got {S}")
+        require(S % 4 == 0,
+                f"the int8 cache kernel needs S % 4 == 0, got {S}")
         check_tensor(k_scale, "k_scale", (L, B, T, S), torch.float32, dev)
         check_tensor(v_scale, "v_scale", (L, B, T, S), torch.float32, dev)
     check_tensor(t_B, "t_B", (B,), torch.int32, dev)
-    sq = _view_strides(qs, "q", (B, S, C), dev)
-    sk = _view_strides(ks, "k", (B, S, C), dev)
-    sv = _view_strides(vs, "v", (B, S, C), dev)
-    if out is None:
-        buf = torch.empty(frames, B, S, C, dtype=torch.bfloat16, device=dev)
-        out = tuple(buf.unbind(0))
-    so = _view_strides(out, "out", (B, S, C), dev)
+    strides = [_view_strides(ts, name, (B, S, C), dev)
+               for ts, name in ((qs, "q"), (ks, "k"), (vs, "v"))]
+    if out is not None:
+        strides.append(_view_strides(out, "out", (B, S, C), dev))
     if kv_out is not None:
         check_tensor(kv_out[0], "k_out", (B, S, C), torch.bfloat16, dev)
         check_tensor(kv_out[1], "v_out", (B, S, C), torch.bfloat16, dev)
+    return strides
+
+
+def _launch(qs, ks, vs, k_cache, v_cache, t_B, layer, k_scale, v_scale, out,
+            kv_out, scale, num_heads):
+    frames = len(qs)
+    B, S, C = qs[0].shape
+    T, L = k_cache.shape[:2]
+    if out is None:
+        buf = torch.empty(frames, B, S, C, dtype=torch.bfloat16,
+                          device=qs[0].device)
+        out = tuple(buf.unbind(0))
+    sq, sk, sv, so = _check(qs, ks, vs, k_cache, v_cache, t_B, layer,
+                            k_scale, v_scale, out, kv_out, num_heads)
     second = (lambda ts: ts[1].data_ptr() if frames == 2 else None)
     err = kernels.lib("decode_attention").tpu1x_decode_attention(
         qs[0].data_ptr(), second(qs), ks[0].data_ptr(), second(ks),
@@ -225,16 +243,19 @@ def temporal_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     csrc/decode_attention.cu, which replaces the Pallas kernel
     tpu1x/ops/decode_attention.py:temporal_decode_attention (_kernel): bf16
     q, k_cur, v_cur, int32 t_B, `layer` a plain int, head_dim 32,
-    C % 256 == 0, T <= 16, S even for the int8 cache. q, k_cur, v_cur and
-    `out` may each be strided views, as the column thirds of one qkv product
-    are: last axis contiguous, the other two strides multiples of 8, the
-    data 16-byte aligned.
+    C % 256 == 0, C <= 2048, T <= 16, S % 4 == 0 for the int8 cache. q,
+    k_cur, v_cur and `out` may each be strided views, as the column thirds
+    of one qkv product are: last axis contiguous, the other two strides
+    multiples of 8, the data 16-byte aligned (`_check`).
 
     The TPU kernel multiplies q and k in bf16 and rounds the probabilities
     to bf16 before PV; this kernel keeps both fp32, as the reference does.
     Bound on the H100: device memory, the read of the cache slots t < t_B[b]
-    of one layer (the int8 cache halves it); an int8 slot's scales multiply
-    the logit and the probability, and no dequantized copy exists.
+    of one layer (the int8 cache halves it). Persistent blocks stream each
+    slot's tile of a few tokens' K and V rows into a ring of shared-memory
+    stages by bulk copies, and a thread per (token, head) runs an online
+    softmax over them in one pass; an int8 slot's scales multiply the logit
+    and the probability, and no dequantized copy exists.
     """
     kw = dict(layer=layer, scale=scale, num_heads=num_heads, k_scale=k_scale,
               v_scale=v_scale)

@@ -82,7 +82,7 @@ def launch_forward(q, k, v, *, scale: float, num_heads: int,
     out = torch.empty(B, T, S, C, dtype=q.dtype, device=q.device)
     err = kernels.lib("temporal_attention").tpu1x_temporal_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, S, C,
-        ld, scale, int(causal), q.device.index, kernels.stream_of(q))
+        ld, scale, int(causal), kernels.stream_of(q))
     kernels.check(err, "temporal_attention")
     kernels.count("temporal_attention")
     return out
@@ -113,7 +113,7 @@ def launch_backward(q, k, v, dout, *, scale: float, num_heads: int,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         None if o is None else o.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), B, T, S, C, ld, C, 3 * C, scale, int(causal),
-        q.device.index, kernels.stream_of(q))
+        kernels.stream_of(q))
     kernels.check(err, "temporal_attention_bwd")
     kernels.count("temporal_attention_bwd")
     return dqkv
