@@ -84,7 +84,19 @@
    the step-0 logits against the plain path), one `make_train_step` step
    through the kernels and through the plain train blocks (launch counts,
    loss, gradient norm), and the step's gradients as in 6.
-9. Prints the `kernels` JSON line, the card line, and last the result line.
+9. The evaluation path: K4 through the serving wrapper at the evaluator
+   prefill's (16, 16, 256, 512) (on the thirds of one qkv tensor and on
+   separate tensors), K1 at its N = 256 and K2 at t_B mixed 1..15 against
+   a cache full in every slot, by the gates of 3, on inputs of their own;
+   then at GENIE_138M `score_policies` (16 policies, 8 + 8 frames),
+   `evaluate_dataset` over 20 synthetic windows at B = 16, the evaluator's
+   rows path, `RolloutEngine(decode="full")`, the evaluate and generate
+   CLIs on a reference-layout checkpoint, and the qk_norm evaluator at 8
+   layers: exact launch counts, each against the plain path (see
+   `check_evaluation`), `gen_time` (the reference's s/frame), policies
+   per second and the evaluator's device time by kernel.
+10. Prints the `kernels` JSON line (with each kernel's `eval_launches`),
+   the card line, and last the result line.
 
 K1 (both modes), K2, K3, K5, K9, K10 and K13 carry a profiler device time
 (`device_ms`; their library calls `library_device_ms`) beside the event
@@ -99,21 +111,30 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import io
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
+from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from tpu1x_torch import kernels
 from tpu1x_torch.data.corruption import draw_noise, maskgit_corrupt
+from tpu1x_torch.data.token_store import RawTokenDataset, write_token_dataset
+from tpu1x_torch.eval import evaluate as ev_cli
+from tpu1x_torch.eval import generate as gen_cli
+from tpu1x_torch.eval.evaluate import (GenieEvaluator, eval_all_frames,
+                                       evaluate_dataset, frame_metrics)
 from tpu1x_torch.model_zoo import genie_138m
-from tpu1x_torch.models.sampler import generate_cached_fused
+from tpu1x_torch.models.sampler import generate_cached_fused, maskgit_generate
 from tpu1x_torch.models.st_maskgit import STMaskGIT
 from tpu1x_torch.models.st_transformer import STBlock
 from tpu1x_torch.ops import _train_kernels as tk
@@ -204,6 +225,19 @@ TRAIN_PER_LAYER = {"spatial_block": 1, "spatial_train_block_bwd": 1,
 # block without LN; the rest is plain torch under autograd
 TRAIN_PER_LAYER_QK = {"flash_mha": 1, "flash_mha_bwd": 1,
                       "mlp_train_block": 1, "mlp_train_block_bwd": 1}
+# the evaluation phase. One `compute_logits` under no_grad (a policy score,
+# a MaskGIT step of the rows path or of decode="full"): the train blocks'
+# forwards, the temporal one launching K4
+LOGITS_PER_LAYER = {"spatial_block": 1, "temporal_train_block": 1,
+                    "temporal_attention": 1, "mlp_train_block": 1}
+# one evaluator batch: the prefill of all T = 16 frames, then 2 MaskGIT
+# steps of each of the 15 frame tasks; op by op under qk_norm (the prefill's
+# temporal attention plain, no LN2)
+EVAL_PER_LAYER = {"spatial_block": 1 + 30, "temporal_mlp_block": 30,
+                  "temporal_attention": 1, "layer_norm": 1}
+EVAL_PER_LAYER_QK = {"spatial_block": 1 + 30, "temporal_decode_attention": 30}
+NP, CTX = 16, 8  # policies scored, frames of their shared context
+WINDOWS = 20  # evaluator windows: a batch of B and a tail of 4, padded
 
 
 def expected_launches(per_layer, layers):
@@ -331,22 +365,29 @@ def temporal_bound(Bt, T, S, C, tensors, pairs, products):
                  tensor_flops=2 * products * Bt * S * C * pairs)
 
 
-def check_temporal_attention(inp, C, H):
+def check_temporal_attention(inp, C, H, eval_shapes=False):
     """K4 on the thirds of one qkv tensor against its plain version: at the
     rollout prefill's (B, P, 256, C), causal (the entry this script reports
     for K4) and not (keys past T = 8 padded, masked in the kernel), at the
     pre-LN train step's (TB, 16, 256, C), causal and not (at C = 256, 8
-    heads, the prefill's two); each with its event and device times, the
-    bound, the plain version's and SDPA's."""
+    heads, the rollout prefill's two); with `eval_shapes` instead at the
+    evaluator prefill's (B, 16, 256, C), causal, on the thirds and on three
+    separate tensors; each with its event and device times, the bound, the
+    plain version's and SDPA's."""
     out = {}
     cases = [("", B, P, True), ("[non-causal]", B, P, False),
              ("[train]", TB, 16, True), ("[train,non-causal]", TB, 16, False)]
     if C != 512:
         cases = [(f"[C={C}]", B, P, True), (f"[C={C},non-causal]", B, P, False)]
+    if eval_shapes:
+        cases = [("[eval prefill]", B, 16, True),
+                 ("[eval prefill,separate]", B, 16, True)]
     scale = (C // H) ** -0.5
     for tag, Bt, T, causal in cases:
         qkv = inp.normal(Bt, T, 256, 3 * C)
         q, k, v = qkv.split(C, dim=-1)  # strided views, as both callers
+        if "separate" in tag:  # three tensors of their own
+            q, k, v = (x.contiguous() for x in (q, k, v))
         kw = dict(scale=scale, num_heads=H, causal=causal)
         err = compare("temporal_attention" + tag,
                       temporal_attention(q, k, v, **kw),
@@ -420,10 +461,13 @@ def block_weights(inp, C):
 
 
 def check_temporal_mlp_block(inp, C, H, L, caches, pair, gelu_tanh=True,
-                             timed=True):
+                             timed=True, first=P):
     """K2 (one frame) or K3 (the pair) against its plain version at C
     channels and H heads, with the tanh or the exact-erf GELU (the two
-    instantiations of the GEMM's GELU epilogue); with `timed`, its event and
+    instantiations of the GEMM's GELU epilogue), t_B mixed from `first` to
+    the last slot (P: the rollout's; 1: the evaluator's, which decodes
+    against a cache whose every slot holds a frame, the slots at or past t_B
+    included, and must read none of those); with `timed`, its event and
     device time, its plain version's and its bound."""
     kc, vc = caches
     T = kc.shape[0]
@@ -431,8 +475,8 @@ def check_temporal_mlp_block(inp, C, H, L, caches, pair, gelu_tanh=True,
     frames = 2 if pair else 1
     x = inp.normal(B, frames, 256, C) if pair else inp.normal(B, 256, C)
     # a different frame index per row, and a layer other than 0
-    t_B = (P + torch.arange(B, device=x.device) % (T - P - frames + 1)).to(
-        torch.int32)
+    t_B = (first + torch.arange(B, device=x.device)
+           % (T - first - frames + 1)).to(torch.int32)
     layer = L // 2
     kw = dict(scale=(C // H) ** -0.5, num_heads=H, gelu_tanh=gelu_tanh, **w)
     name = "temporal_mlp_block_pair" if pair else "temporal_mlp_block"
@@ -788,6 +832,24 @@ def check_kernels(C, H, L, device):
             out[f"{name}[C=256,{'tanh' if approx else 'erf'}]"] = (
                 check_temporal_mlp_block(inp, 256, 8, 4, caches, pair,
                                          gelu_tanh=approx, timed=False))
+    del caches
+    for name, r in out.items():
+        print(f"kernel {name}: " + json.dumps(r), flush=True)
+    return out
+
+
+def check_eval_kernels(C, H, L, device):
+    """The kernels at the evaluator's shapes, on inputs of their own: K4
+    through the serving wrapper at the prefill's (B, 16, 256, C), K1 at its
+    B T = 256 frames, and K2 at t_B mixed 1..15 on a (16, L, B, 256, C)
+    cache with every slot filled (the slots at or past t_B must not be
+    read), by the gates of the other checks."""
+    inp = Inputs(5, device)
+    out = check_temporal_attention(inp, C, H, eval_shapes=True)
+    out[f"spatial_block[N={B * 16}]"] = check_spatial_block(inp, C, H, B * 16)
+    caches = (inp.normal(16, L, B, 256, C), inp.normal(16, L, B, 256, C))
+    out["temporal_mlp_block[eval t_B]"] = check_temporal_mlp_block(
+        inp, C, H, L, caches, False, first=1)
     del caches
     for name, r in out.items():
         print(f"kernel {name}: " + json.dumps(r), flush=True)
@@ -1628,6 +1690,310 @@ def check_action_conditioning(device, layers=8, actions=16):
                     model, cfg, device))
 
 
+# -------------------------------------------------------------- evaluation
+
+def launches_of(run, per_layer, layers, what):
+    """Run `run()` with the counters set to 0 just before; fails unless it
+    launched `per_layer` x `layers` of each kernel and nothing else."""
+    kernels.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = expected_launches(per_layer, layers)
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+    return out, launches
+
+
+def median_s(run, n=3):
+    """Median host time of `n` synchronized calls, after an untimed one."""
+    run()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return sorted(walls)[n // 2], walls
+
+
+def check_scoring(model, cfg, device):
+    """`RolloutEngine.score_policies` at GENIE_138M: one shared CTX-frame
+    context, NP policies of T - CTX frames. Exact launch counts (one
+    `compute_logits` through the train blocks' forwards); the per-frame CE
+    within 3e-2 relative L2 of the same call through the plain train blocks
+    and no farther from an fp32 plain run than that path is (1.25x + 1e-3);
+    the scores the mean of the per-frame CE; `rank_policies` of both paths
+    printed, ungated (random weights give near-ties); the time of a call
+    (median of three after an untimed one)."""
+    g = torch.Generator(device=device).manual_seed(5)
+    side = cfg.latent_side_len
+    ctx = torch.randint(0, cfg.image_vocab_size, (CTX, side, side),
+                        generator=g, device=device)
+    conts = torch.randint(0, cfg.image_vocab_size,
+                          (NP, cfg.T - CTX, side, side), generator=g,
+                          device=device)
+    engine = RolloutEngine(model, cfg, device=device, decode="full")
+    ref = RolloutEngine(model, dataclasses.replace(cfg, dtype="float32"),
+                        device=device, decode="full")
+    engine.score_policies(ctx, conts)  # first-call set-up
+    (scores, frame_ce), launches = launches_of(
+        lambda: engine.score_policies(ctx, conts, per_frame=True),
+        LOGITS_PER_LAYER, cfg.num_layers, "score_policies")
+    scores_only = engine.score_policies(ctx, conts)
+    if tuple(frame_ce.shape) != (NP, cfg.T - CTX) or not (
+            torch.isfinite(frame_ce).all()
+            and torch.allclose(scores_only, frame_ce.mean(-1), rtol=1e-5)
+            and torch.allclose(scores, scores_only, rtol=1e-5)):
+        raise AssertionError(f"score_policies: {scores_only} {frame_ce}")
+    with plain_blocks():
+        (_, plain_ce), _ = launches_of(
+            lambda: engine.score_policies(ctx, conts, per_frame=True), {},
+            cfg.num_layers, "score_policies, plain path")
+        ranks_plain = engine.rank_policies(ctx, conts)
+        _, ce32 = ref.score_policies(ctx, conts, per_frame=True)
+    del ref
+    kp, k32, p32 = (rel_l2(frame_ce, plain_ce), rel_l2(frame_ce, ce32),
+                    rel_l2(plain_ce, ce32))
+    out = dict(policies=NP, context_frames=CTX, launches=launches,
+               scores=scores.tolist(),
+               rank_kernel=engine.rank_policies(ctx, conts).tolist(),
+               rank_plain=ranks_plain.tolist(),
+               frame_ce_rel_l2={"kernel_vs_plain": kp, "kernel_vs_fp32": k32,
+                                "plain_vs_fp32": p32})
+    if not (kp <= 3e-2 and k32 <= 1.25 * p32 + 1e-3):
+        raise AssertionError(f"score_policies against the plain path: {out}")
+    s, walls = median_s(lambda: engine.score_policies(ctx, conts))
+    out.update(score_s=s, score_s_runs=walls, policies_per_s=NP / s)
+    return engine, out
+
+
+def synthetic_dataset(cfg, root):
+    """WINDOWS non-overlapping windows of T frames (stride 1), random
+    tokens from seed 0, one segment: `write_token_dataset` into `root`."""
+    rng = np.random.default_rng(0)
+    side = cfg.latent_side_len
+    frames = rng.integers(0, cfg.image_vocab_size,
+                          (WINDOWS * cfg.T, side, side))
+    write_token_dataset(root, frames, vocab_size=cfg.image_vocab_size,
+                        segment_ids=np.zeros(len(frames), np.int32))
+    ds = RawTokenDataset(root, window_size=cfg.T, stride=1,
+                         filter_overlaps=True)
+    if len(ds) != WINDOWS:
+        raise AssertionError(f"{len(ds)} windows, expected {WINDOWS}")
+    return ds
+
+
+def against_plain_engine(ev, cfg, tokens, device):
+    """The cached path's step-0 logits and per-example CE over `ev`'s engine
+    against `eval_all_frames` over `PlainDecodeEngine`, from one seed:
+    logits within 3e-2 relative L2, every example's CE within 1%."""
+    got = {}
+    for name, eng in (("kernel", ev.engine),
+                      ("plain", PlainDecodeEngine(cfg, device=device))):
+        gen = torch.Generator(device=device).manual_seed(7)
+        frames, flogits = eval_all_frames(eng, ev.params, tokens, gen, cfg,
+                                          maskgit_steps=STEPS)
+        got[name] = (flogits, frame_metrics(tokens, frames, flogits, cfg)[1])
+    r = rel_l2(got["kernel"][0], got["plain"][0])
+    ce_k, ce_p = got["kernel"][1], got["plain"][1]
+    ce_err = float(((ce_k - ce_p).abs() / ce_p).max())
+    if not (r <= 3e-2 and ce_err <= 1e-2):
+        raise AssertionError(f"evaluator against the plain path: logits "
+                             f"relative L2 {r}, CE relative error {ce_err}")
+    return dict(logits_rel_l2=r, ce_max_rel_err=ce_err,
+                ce_kernel=ce_k.tolist())
+
+
+def check_evaluator(model, cfg, device, root):
+    """`evaluate_dataset` through `GenieEvaluator` (KV-cached) at B = 16 on
+    WINDOWS windows (a full batch and a padded tail): exact launch counts
+    (two batches of EVAL_PER_LAYER), count WINDOWS, a finite loss within 1.5
+    of 2 ln 512 (random weights); the first batch's step-0 logits and CE
+    against the plain path (`against_plain_engine`); `gen_time`, the
+    reference's s/frame, as the median of three `predict_metrics` calls at
+    B = 16 after an untimed one, over (T - 1) B frames; device time by
+    kernel over one more batch."""
+    ds = synthetic_dataset(cfg, root)
+    ev = GenieEvaluator(model, cfg, device=device, maskgit_steps=STEPS)
+    ids = ds.get_batch(np.arange(B)).reshape(B, -1)
+    ev.predict_metrics(ids)  # first-call set-up
+    results, launches = launches_of(
+        lambda: evaluate_dataset(ev, ds, batch_size=B, verbose=False),
+        {k: 2 * v for k, v in EVAL_PER_LAYER.items()}, cfg.num_layers,
+        "evaluate_dataset")
+    uniform = cfg.num_factored_vocabs * math.log(cfg.factored_vocab_size)
+    if not (results["count"] == WINDOWS and math.isfinite(results["loss"])
+            and abs(results["loss"] - uniform) <= 1.5
+            and 0 <= results["acc"] <= 1):
+        raise AssertionError(f"evaluate_dataset: {results}")
+    tokens = torch.from_numpy(ids).long().to(device).reshape(
+        B, cfg.T, cfg.latent_side_len, -1)
+    out = dict(results=results, launches=launches,
+               first_batch_against_plain=against_plain_engine(
+                   ev, cfg, tokens, device))
+    s, walls = median_s(lambda: ev.predict_metrics(ids))
+    frames = (cfg.T - 1) * B
+    out.update(batch_s=s, batch_s_runs=walls, gen_time=s / frames,
+               frames_per_batch=frames,
+               device_time=profile_device(
+                   lambda: ev.predict_metrics(ids),
+                   must=("decode_ring_kernel", "temporal_fwd_kernel")))
+    return ev, ds, out
+
+
+def check_rows_and_full(engine, ev, cfg, ds, device):
+    """The uncached paths against the cached one. `GenieEvaluator(use_cache=
+    False)` on 2 examples (30 rows, padded to one chunk of 64): exact launch
+    counts (one `compute_logits` a MaskGIT step), its step-0 logits within
+    3e-2 relative L2 of the cached path's. `RolloutEngine(decode="full")` at
+    B = 4, P + NEW frames: exact launch counts (one `compute_logits` a step
+    of each new frame), the prompt kept; the first new frame's step-0 logits
+    (`maskgit_generate` over the model) within 3e-2 relative L2 of the
+    cached decode's over the same prompt. Tokens are not gated: two bf16
+    paths may sample differently."""
+    ids = ds.get_batch(np.arange(2)).reshape(2, -1)
+    rows = GenieEvaluator(engine.model, cfg, device=device,
+                          maskgit_steps=STEPS, use_cache=False)
+    (_, got), launches_rows = launches_of(
+        lambda: rows.predict_zframe_logits(ids), {
+            k: STEPS * v for k, v in LOGITS_PER_LAYER.items()},
+        cfg.num_layers, "evaluator rows path")
+    del rows
+    _, want = ev.predict_zframe_logits(ids)
+    r_rows = rel_l2(torch.from_numpy(got), torch.from_numpy(want))
+
+    Bf, side = 4, cfg.latent_side_len
+    prompt = torch.from_numpy(ds.get_batch(np.arange(Bf))[:, :P]).to(
+        device).long()
+    gen = torch.Generator(device=device).manual_seed(1)
+    out, launches_full = launches_of(
+        lambda: engine.rollout(prompt, NEW, gen), {
+            k: NEW * STEPS * v for k, v in LOGITS_PER_LAYER.items()},
+        cfg.num_layers, "decode=full rollout")
+    if tuple(out.shape) != (Bf, 1, P + NEW, side, side) or not torch.equal(
+            out[:, 0, :P], prompt):
+        raise AssertionError(f"decode=full rollout: shape {out.shape} or "
+                             f"changed prompt")
+    masked = torch.full((Bf, NEW, side, side), cfg.mask_token_id,
+                        dtype=torch.long, device=device)
+    with torch.no_grad():
+        _, full0 = maskgit_generate(
+            engine.logits_fn(), torch.cat([prompt, masked], 1), P,
+            None, cfg, maskgit_steps=1)  # (B, V, F, h, w)
+        cache = ev.engine.prefill(ev.params, prompt)
+        cached0, _ = ev.engine.decode_frame(ev.params, masked[:, 0].reshape(
+            Bf, -1), P, cache, return_kv=False)  # (B, S, V, F)
+    full0 = full0.reshape(*full0.shape[:3], -1).permute(0, 3, 1, 2)
+    r_full = rel_l2(full0, cached0)
+    res = dict(rows_launches=launches_rows, rows_logits_rel_l2=r_rows,
+               full_launches=launches_full, full_step0_rel_l2=r_full)
+    if not (r_rows <= 3e-2 and r_full <= 3e-2):
+        raise AssertionError(f"uncached paths against the cached: {res}")
+    return res
+
+
+def check_clis(model, cfg, device, root):
+    """The evaluate and generate CLIs' `main` on a reference-layout
+    checkpoint directory (config.json, pytorch_model.bin of the seeded
+    model's state dict) and the synthetic dataset, with exact launch counts:
+    evaluate with --max_examples WINDOWS (its JSON line: loss, acc,
+    gen_time, count WINDOWS); generate with P prompt frames for 2 examples
+    (the cached rollout's counts), whose video.bin is read back: [prompt |
+    predicted | ground truth] frames, the prompt and ground truth equal to
+    the dataset's."""
+    ckpt = root / "ckpt"
+    ckpt.mkdir()
+    (ckpt / "config.json").write_text(json.dumps(dataclasses.asdict(cfg)))
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               ckpt / "pytorch_model.bin")
+    data = ["--val_data_dir", str(root / "data"), "--checkpoint_dir",
+            str(ckpt), "--stride", "1", "--device", str(device)]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, eval_launches = launches_of(
+            lambda: ev_cli.main(data + ["--max_examples", str(WINDOWS)]),
+            {k: 2 * v for k, v in EVAL_PER_LAYER.items()}, cfg.num_layers,
+            "evaluate CLI")
+    result = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if not ({"loss", "acc", "gen_time"} <= result.keys()
+            and result["count"] == WINDOWS):
+        raise AssertionError(f"evaluate CLI printed {result}")
+    n = 2
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, gen_launches = launches_of(
+            lambda: gen_cli.main(data + [
+                "--output_dir", str(root / "gen"), "--num_prompt_frames",
+                str(P), "--batch_size", str(n)]),
+            PER_LAYER, cfg.num_layers, "generate CLI")
+    video = RawTokenDataset(root / "gen", window_size=1,
+                            filter_interrupts=False)
+    side = cfg.latent_side_len
+    stream = np.asarray(video.data).reshape(n, cfg.T + NEW, side, side)
+    truth = RawTokenDataset(root / "data", window_size=cfg.T,
+                            stride=1).get_batch(np.arange(n))
+    if not (np.array_equal(stream[:, :P], truth[:, :P])
+            and np.array_equal(stream[:, cfg.T:], truth[:, P:])
+            and video.metadata["num_prompt_frames"] == P):
+        raise AssertionError("generate CLI: video.bin does not hold "
+                             "[prompt | predicted | ground truth]")
+    return dict(evaluate=result, evaluate_launches=eval_launches,
+                generate_launches=gen_launches,
+                generate_log=buf.getvalue().strip().splitlines())
+
+
+def check_qk_norm_evaluator(device, layers=8):
+    """One evaluator batch (B = 16, predict_metrics) on
+    `genie_138m(qk_norm=True)` at `layers` layers, op by op: exact launch
+    counts, and the step-0 logits and CE against the plain path."""
+    cfg = genie_138m(qk_norm=True, num_layers=layers)
+    g = torch.Generator(device=device).manual_seed(6)
+    model = STMaskGIT(cfg, device=device).init_weights(g)
+    side = cfg.latent_side_len
+    tokens = torch.randint(0, cfg.image_vocab_size, (B, cfg.T, side, side),
+                           generator=g, device=device)
+    ev = GenieEvaluator(model, cfg, device=device, maskgit_steps=STEPS)
+    ids = tokens.reshape(B, -1).cpu().numpy()
+    ev.predict_metrics(ids)
+    (_, loss, _), launches = launches_of(
+        lambda: ev.predict_metrics(ids), EVAL_PER_LAYER_QK, layers,
+        "qk_norm evaluator")
+    return dict(layers=layers, launches=launches, loss=loss.tolist(),
+                against_plain=against_plain_engine(ev, cfg, tokens, device))
+
+
+def check_evaluation(cfg, device):
+    """The evaluation phase: scoring, the evaluator, the uncached paths and
+    the CLIs at GENIE_138M (random weights from seed 0), then the qk_norm
+    evaluator at 8 layers."""
+    g = torch.Generator(device=device).manual_seed(0)
+    model = STMaskGIT(cfg, device=device).init_weights(g)
+    out = {}
+    engine, out["scoring"] = check_scoring(model, cfg, device)
+    print("evaluation scoring: " + json.dumps(out["scoring"]), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ev, ds, out["evaluator"] = check_evaluator(model, cfg, device,
+                                                   root / "data")
+        print("evaluation evaluator: " + json.dumps(out["evaluator"]),
+              flush=True)
+        out["uncached"] = check_rows_and_full(engine, ev, cfg, ds, device)
+        del engine, ev
+        torch.cuda.empty_cache()
+        print("evaluation uncached paths: " + json.dumps(out["uncached"]),
+              flush=True)
+        out["cli"] = check_clis(model, cfg, device, root)
+        print("evaluation CLIs: " + json.dumps(out["cli"]), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    out["qk_norm_evaluator"] = check_qk_norm_evaluator(device)
+    print("evaluation qk_norm evaluator: " + json.dumps(
+        out["qk_norm_evaluator"]), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1736,6 +2102,28 @@ def main() -> int:
         print(f"qk_norm plain-path comparison: "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         del model
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        results.update(check_eval_kernels(cfg.d_model, cfg.num_heads,
+                                          cfg.num_layers, device))
+        evaluation = check_evaluation(cfg, device)
+        ev_res, sc_res = evaluation["evaluator"], evaluation["scoring"]
+        print(f"evaluation phase: {time.perf_counter() - t0:.1f} s; "
+              f"gen_time {ev_res['gen_time']:.6f} s/frame (the reference's "
+              f"quantity: a batch's wall over (T-1) x B = "
+              f"{ev_res['frames_per_batch']} frames, B={B}); "
+              f"score_policies {sc_res['policies_per_s']:.1f} policies/s "
+              f"({NP} policies, {CTX} + {cfg.T - CTX} frames) on {card}",
+              flush=True)
+        eval_launches = {
+            "score_policies": sc_res["launches"],
+            "evaluate_dataset": ev_res["launches"],
+            "evaluator_rows": evaluation["uncached"]["rows_launches"],
+            "full_rollout": evaluation["uncached"]["full_launches"],
+            "evaluate_cli": evaluation["cli"]["evaluate_launches"],
+            "generate_cli": evaluation["cli"]["generate_launches"],
+            "qk_norm_evaluator": evaluation["qk_norm_evaluator"]["launches"]}
 
         line = []
         for name in SOURCES:
@@ -1758,6 +2146,8 @@ def main() -> int:
                 "train_launches": train["launches"][name],
                 "qk_norm_int8_rollout_launches": roll_qk["launches"][name],
                 "qk_norm_train_launches": train_qk["launches"][name],
+                "eval_launches": {k: v[name]
+                                  for k, v in eval_launches.items()},
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}

@@ -13,6 +13,7 @@
     python3 chip_variants.py decode
     python3 chip_variants.py rollout
     python3 chip_variants.py fresh
+    python3 chip_variants.py k2gate
 
 Each LIB is a shared library built from a variant of a source in
 `tpu1x_torch/csrc` (nvcc with `kernels.NVCC_FLAGS`, `-I` its own copy of the
@@ -112,6 +113,17 @@ in one process on one card; every time is the profiler's device time
   code and, where it is 0, the error against the plain version. Run in a
   parent's copy, it shows whether that tree's launchers fail there. No
   builds.
+
+- `k2gate`: K2 with the exact-erf GELU on the one input set known to
+  put an element of its output past `chip_smoke.py`'s elementwise gate
+  (atol = rtol = 3e-2) against the plain bf16 version: the inputs of
+  `check_kernels`' erf check when the evaluator-shape checks of
+  `check_eval_kernels` draw from the same stream before it. Prints that
+  element (kernel, plain, an fp32 run of the plain version on the same
+  inputs, and the fp32 residual x1 there) and, against the fp32 run, how
+  many elements of the kernel's and of the plain path's output lie
+  outside the same gate and their relative L2: whether the kernel or the
+  gate is at fault (ROADMAP C4). No builds.
 
 Prints one line per build and case, and the card.
 """
@@ -678,8 +690,67 @@ def fresh(dev):
           flush=True)
 
 
+def k2gate(dev):
+    from tpu1x_torch.ops._util import dense
+    from tpu1x_torch.ops.decode_attention import (
+        temporal_decode_attention_reference)
+    from tpu1x_torch.ops.temporal_mlp_block import (temporal_mlp_block,
+                                                    temporal_mlp_block_plain)
+    C, H, L, B = 512, 16, 32, cs.B
+    timing = cs.time_ms, cs.device_ms
+    cs.time_ms = cs.device_ms = lambda fn, **kw: 0.0  # inputs only
+    inp = cs.Inputs(0, dev)
+    try:  # check_kernels' draws up to the erf check, the eval checks' too
+        cs.check_layer_norm(inp, C)
+        cs.check_temporal_attention(inp, C, H)
+        cs.check_temporal_attention(inp, C, H, eval_shapes=True)
+        cs.check_temporal_attention(inp, 256, 8)
+        for n in (B, 2 * B, B * cs.P, B * 16):
+            cs.check_spatial_block(inp, C, H, n)
+        cs.check_spatial_block(inp, 256, 8, B)
+        cs.check_gemm_sm90(inp, C)
+        kc, vc = (inp.normal(16, L, B, 256, C), inp.normal(16, L, B, 256, C))
+        cs.check_temporal_mlp_block(inp, C, H, L, (kc, vc), False)
+    finally:
+        cs.time_ms, cs.device_ms = timing
+    w = cs.block_weights(inp, C)  # the erf check's draws, as it makes them
+    x = inp.normal(B, 256, C)
+    t_B = (cs.P + torch.arange(B, device=dev) % (16 - cs.P)).to(torch.int32)
+    layer = L // 2
+    kw = dict(scale=(C // H) ** -0.5, num_heads=H, gelu_tanh=False, **w)
+    kl, vl = kc[:, layer], vc[:, layer]
+    got = temporal_mlp_block(x, kc, vc, t_B, layer=layer, **kw)[0].float()
+    want = temporal_mlp_block_plain(x, kl, vl, t_B, **kw)[0].float()
+    f32 = {k: v.float() if torch.is_tensor(v) else v for k, v in kw.items()}
+    y32 = temporal_mlp_block_plain(x.float(), kl.float(), vl.float(), t_B,
+                                   **f32)[0]
+    q, k, v = dense(x.float(), f32["wqkv"], None).split(C, dim=-1)
+    att = temporal_decode_attention_reference(
+        q, kl.float(), vl.float(), k, v, t_B, scale=kw["scale"], num_heads=H)
+    x1 = x.float() + dense(att, f32["wproj"], f32["bproj"])
+
+    def past(a, ref):  # how far past the gate, elementwise
+        return (a - ref).abs() - 3e-2 - 3e-2 * ref.abs()
+    i = int(past(got, want).argmax())
+
+    def at(t):
+        return float(t.reshape(-1)[i])
+    print(json.dumps({
+        "k2gate": {"past_gate_vs_plain": int((past(got, want) > 0).sum()),
+                   "element": {"kernel": at(got), "plain": at(want),
+                               "fp32": at(y32), "x1_fp32": at(x1)},
+                   "past_gate_vs_fp32": {"kernel": int((past(got, y32) > 0)
+                                                       .sum()),
+                                         "plain": int((past(want, y32) > 0)
+                                                      .sum())},
+                   "rel_l2_vs_fp32": {"kernel": cs.rel_l2(got, y32),
+                                      "plain": cs.rel_l2(want, y32)},
+                   "elements": got.numel()}}), flush=True)
+
+
 MODES = {"block": block, "mlp": mlp, "train": train, "temporal": temporal,
-         "l2": l2, "decode": decode, "rollout": rollout, "fresh": fresh}
+         "l2": l2, "decode": decode, "rollout": rollout, "fresh": fresh,
+         "k2gate": k2gate}
 # mode: (the source its builds are variants of, the timing)
 VARIANTS = {"flash": ("flash_attention", flash),
             "gemm": ("spatial_block", gemm), "tn": ("train_block", tn),

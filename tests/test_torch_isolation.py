@@ -1,9 +1,10 @@
-"""The port stands alone: importing `tpu1x_torch` (every module) and
-`chip_smoke` loads neither JAX nor the JAX package, needs neither `nvcc`
-nor `triton`, and a CPU rollout (block path, and op by op with qk_norm and
-the int8 cache) and a CPU train step (pre-LN and qk_norm) through the port
-launch no kernel; the train step defaults to the card and raises without
-one.
+"""The port stands alone: importing `tpu1x_torch` (every module, the
+evaluation and data modules among them) and `chip_smoke` loads neither JAX
+nor the JAX package, needs neither `nvcc` nor `triton`, and a CPU rollout
+(block path, op by op with qk_norm and the int8 cache, and decode="full"),
+policy scores, the evaluator (cached and rows) and a CPU train step (pre-LN
+and qk_norm) through the port launch no kernel; the train step and the
+evaluator default to the card and raise without one.
 
 Runs in a fresh interpreter, because this test process has JAX loaded.
 """
@@ -33,6 +34,10 @@ assert shutil.which("nvcc") is None, "nvcc is on the PATH of this check"
 for name in ("jax", "jaxlib", "flax", "tpu1x", "triton"):
     assert not loaded(name), (name, loaded(name))
 assert not kernels._libs, "a kernel library was loaded at import"
+for name in ("tpu1x_torch.eval.evaluate", "tpu1x_torch.eval.generate",
+             "tpu1x_torch.eval.metrics", "tpu1x_torch.data.token_store",
+             "tpu1x_torch.data.native", "tpu1x_torch.train.checkpoint"):
+    assert name in sys.modules, name
 
 from tpu1x_torch.model_zoo import genie_tiny
 from tpu1x_torch.models.st_maskgit import STMaskGIT
@@ -47,6 +52,27 @@ qk_model = STMaskGIT(qk_cfg).init_weights(torch.Generator().manual_seed(0))
 out = RolloutEngine(qk_model, qk_cfg, device="cpu",
                     cache_dtype="int8").rollout(prompt, 2)
 assert tuple(out.shape) == (2, 1, 4, 4, 4), out.shape
+engine = RolloutEngine(model, cfg, device="cpu", decode="full")
+out = engine.rollout(prompt, 2)
+assert tuple(out.shape) == (2, 1, 4, 4, 4), out.shape
+scores = engine.score_policies(prompt[0], torch.randint(0, 64, (3, 2, 4, 4)))
+assert tuple(scores.shape) == (3,) and torch.isfinite(scores).all()
+
+from tpu1x_torch.eval.evaluate import GenieEvaluator
+tokens = torch.randint(0, cfg.image_vocab_size, (2, cfg.T * cfg.S))
+_, loss, _ = GenieEvaluator(model, cfg, device="cpu").predict_metrics(tokens)
+assert loss.shape == (2,)
+_, logits = GenieEvaluator(model, cfg, device="cpu",
+                           use_cache=False).predict_zframe_logits(tokens)
+assert logits.shape[0] == 2
+for use_cache in (True, False):
+    try:
+        GenieEvaluator(model, cfg, use_cache=use_cache)
+    except RuntimeError as e:
+        assert "cuda" in str(e), e
+    else:
+        raise AssertionError("the evaluator's default device did not raise "
+                             "without a card")
 
 from tpu1x_torch.train.optim import TrainOptimizer
 from tpu1x_torch.train.step import make_eval_step, make_train_step

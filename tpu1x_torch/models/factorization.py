@@ -22,6 +22,23 @@ def factorize_token_ids(token_ids: torch.Tensor, num_factored_vocabs: int = 2,
     return (token_ids[..., None] // powers) % factored_vocab_size
 
 
+def unfactorize_token_ids(factored_token_ids: torch.Tensor,
+                          num_factored_vocabs: int = 2,
+                          factored_vocab_size: int = 512) -> torch.Tensor:
+    """Inverse of `factorize_token_ids` over the last axis."""
+    powers = factored_vocab_size ** torch.arange(
+        num_factored_vocabs, dtype=factored_token_ids.dtype,
+        device=factored_token_ids.device)
+    return (factored_token_ids * powers).sum(-1)
+
+
+def factorize_labels(labels_BTHW: torch.Tensor, num_factored_vocabs: int = 2,
+                     factored_vocab_size: int = 512) -> torch.Tensor:
+    """(B, T, H, W) ids -> (B, num_factored_vocabs, T, H, W) digits."""
+    return factorize_token_ids(labels_BTHW, num_factored_vocabs,
+                               factored_vocab_size).movedim(-1, 1)
+
+
 def factored_embed(tables, mask_embed: torch.Tensor, token_ids: torch.Tensor,
                    mask_token_id: int) -> torch.Tensor:
     """Sum of the per-digit embeddings, with `mask_embed` (C,) where the id

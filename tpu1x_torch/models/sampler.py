@@ -10,6 +10,12 @@ The same contract as the JAX package's sampler (tpu1x/models/sampler.py):
   probabilities, "random" by uniform draws;
 - returned logits are each frame's step-0 logits.
 
+`maskgit_generate` and `generate` are the uncached sampler: every step runs
+the whole (B, T) sequence through a `logits_fn` such as
+`STMaskGIT.compute_logits`; `out_t` may differ from row to row, which lets
+the evaluator decode all frame tasks of an example as batch rows. The cached
+samplers decode one frame against the KV cache of `DecodeEngine`.
+
 Randomness comes from one explicit `torch.Generator`; it cannot reproduce
 `jax.random`, so only greedy sampling with greedy unmasking is comparable
 token for token between the two packages. Python loops take the place of
@@ -231,3 +237,62 @@ def generate_cached_fused(prefill_fn, decode_fn, decode_pair_fn,
         frames.append(sample_frame(logits0, t))
         logit_frames.append(_ref_layout(logits0, config))
     return _finish(input_ids_BN, frames, logit_frames)
+
+
+def maskgit_generate(logits_fn, prompt_BTHW: torch.Tensor, out_t, generator,
+                     config: GenieConfig, maskgit_steps: int = 2,
+                     temperature: float = 0.0, unmask_mode: str = "random"):
+    """Predict frame `out_t` of each row with `maskgit_steps` full forwards.
+
+    logits_fn: (B, T, H, W) ids -> (B, T, S, V, F) logits.
+    prompt_BTHW: (B, T, H, W) ids; frames at or after a row's out_t must be
+        fully masked.
+    out_t: int or (B,) ints, each row's target frame (>= 1).
+    Returns (sample (B, H, W) int64, step-0 logits (B, V, F, H, W) fp32).
+    """
+    if unmask_mode not in ("greedy", "random"):
+        raise ValueError(f"unmask_mode {unmask_mode!r}")
+    B, T, H, W = prompt_BTHW.shape
+    S = H * W
+    dev = prompt_BTHW.device
+    rows = torch.arange(B, device=dev)
+    out_t = torch.as_tensor(out_t, dtype=torch.long, device=dev).expand(B)
+    n_steps = n_per_step(config, maskgit_steps)
+    tokens = prompt_BTHW.long().clone()
+    unmasked = torch.zeros(B, S, dtype=torch.bool, device=dev)
+    orig_logits = None
+    for step in range(maskgit_steps):
+        frame_logits = logits_fn(tokens)[rows, out_t]  # (B, S, V, F)
+        if step == 0:
+            orig_logits = frame_logits
+        frame, unmasked = _frame_update(
+            tokens[rows, out_t].reshape(B, S), unmasked, frame_logits, step,
+            maskgit_steps, n_steps, generator, config, temperature,
+            unmask_mode)
+        tokens[rows, out_t] = frame.reshape(B, H, W)
+    return tokens[rows, out_t], _ref_layout(orig_logits, config)
+
+
+def generate(logits_fn, input_ids_BN: torch.Tensor, num_new_frames: int,
+             generator, config: GenieConfig, maskgit_steps: int = 2,
+             temperature: float = 0.0, unmask_mode: str = "random"):
+    """Uncached autoregressive rollout: each new frame by
+    `maskgit_generate` over the whole sequence, the frames after it masked.
+
+    input_ids_BN: (B, P * S) prompt ids. Returns (tokens (B, T * S) int64,
+    step-0 logits (B, V, F, num_new_frames, h, w) fp32).
+    """
+    prompt, P = _prompt(input_ids_BN, num_new_frames, config)
+    B, _, h, w = prompt.shape
+    tokens = torch.cat([prompt, torch.full(
+        (B, num_new_frames, h, w), config.mask_token_id, dtype=torch.long,
+        device=prompt.device)], dim=1)
+    logit_frames = []
+    for t in range(P, config.T):
+        sample, flogits = maskgit_generate(
+            logits_fn, tokens, t, generator, config,
+            maskgit_steps=maskgit_steps, temperature=temperature,
+            unmask_mode=unmask_mode)
+        tokens[:, t] = sample
+        logit_frames.append(flogits)
+    return tokens.reshape(B, -1), torch.stack(logit_frames, dim=3)

@@ -1,12 +1,16 @@
-"""Batched world-model rollouts: K imagined futures per prompt, decoded with
-the KV-cached, fused-commit MaskGIT sampler over `DecodeEngine`.
+"""Batched world-model rollouts and policy ranking.
 
-`cache_dtype="int8"` keeps the KV cache in per-token int8 with fp32 scales
-(half the bytes of the cache read); `DecodeEngine` then runs each layer op
-by op, as it does for the qk_norm models.
+`RolloutEngine.rollout` draws K imagined futures per prompt. With
+decode="cached" (the default) it runs the KV-cached, fused-commit MaskGIT
+sampler over `DecodeEngine`; `cache_dtype="int8"` keeps the KV cache in
+per-token int8 with fp32 scales (half the bytes of the cache read), and
+`DecodeEngine` then runs each layer op by op, as it does for the qk_norm
+models. decode="full" runs the uncached sampler, a whole-sequence forward
+(`STMaskGIT.compute_logits`) per MaskGIT step, the reference's strategy.
 
-`score_policies`, `rank_policies` and the JAX package's uncached
-decode="full" are not ported yet.
+`score_policies` scores P candidate continuations of one shared context by
+the world model's teacher-forced cross-entropy, and `rank_policies` orders
+them by it: the policy-ranking primitive of the evaluation challenge.
 """
 
 from __future__ import annotations
@@ -14,33 +18,64 @@ from __future__ import annotations
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from tpu1x_torch.config import GenieConfig
-from tpu1x_torch.models.sampler import generate_cached_fused
-from tpu1x_torch.serving import DecodeEngine, prepare_serving_params
+from tpu1x_torch.models.factorization import factorize_token_ids
+from tpu1x_torch.models.sampler import generate, generate_cached_fused
+from tpu1x_torch.models.st_maskgit import STMaskGIT
+from tpu1x_torch.serving import (DecodeEngine, prepare_serving_params,
+                                 resolve_device)
+
+
+def model_on(model, config: GenieConfig, device) -> STMaskGIT:
+    """An `STMaskGIT` in eval mode on `device` with the weights of `model`
+    (an `STMaskGIT` or its state dict); the caller's module is not moved."""
+    sd = model.state_dict() if isinstance(model, nn.Module) else model
+    m = STMaskGIT(config, device=resolve_device(device))
+    m.load_state_dict(sd)
+    return m.eval()
 
 
 class RolloutEngine:
-    """Rollouts of an `STMaskGIT` (or its state dict) on `device`.
+    """Rollouts and policy scores of an `STMaskGIT` (or its state dict) on
+    `device`.
 
-    The weights are cast and laid out once (`prepare_serving_params`); every
-    decode runs the port's kernels on CUDA and their plain versions on the
-    CPU.
+    The serving weights are cast and laid out once
+    (`prepare_serving_params`) for decode="cached"; the model itself, on the
+    device, serves decode="full" and `score_policies`. On CUDA every op
+    launches the port's kernels, on the CPU each takes its plain version.
+    The JAX engine's `mesh` argument (the P and batch axes sharded over
+    devices) waits for the port's `parallel/` (ROADMAP queue A4).
     """
 
     def __init__(self, model, config: GenieConfig, device="cuda",
                  maskgit_steps: int = 2, temperature: float = 0.0,
-                 unmask_mode: str = "random", cache_dtype: str = "bf16"):
+                 unmask_mode: str = "random", cache_dtype: str = "bf16",
+                 decode: str = "cached"):
+        if decode not in ("cached", "full"):
+            raise ValueError(f"decode must be 'cached' or 'full', got "
+                             f"{decode!r}")
         self.config = config
         self.maskgit_steps = maskgit_steps
         self.temperature = temperature
         self.unmask_mode = unmask_mode
+        self.decode = decode
         self.engine = DecodeEngine(config, device=device,
                                    cache_dtype=cache_dtype)
         self.device = self.engine.device
-        self.params = prepare_serving_params(
-            model, config, compute_dtype=self.engine.dtype, device=self.device)
+        self.model = model_on(model, config, self.device)
+        self.params = (prepare_serving_params(
+            self.model, config, compute_dtype=self.engine.dtype,
+            device=self.device) if decode == "cached" else None)
+
+    def logits_fn(self, actions_BT: Optional[torch.Tensor] = None):
+        """(B, T, H, W) ids -> (B, T, S, V, F) fp32 logits of the model."""
+        return functools.partial(self.model.compute_logits,
+                                 actions_BT=actions_BT)
 
     @torch.no_grad()
     def rollout(self, prompt_tokens: torch.Tensor, num_new_frames: int,
@@ -60,13 +95,71 @@ class RolloutEngine:
             actions = actions.to(self.device).long()
             if actions.shape[0] == B:
                 actions = actions.repeat_interleave(K, dim=0)
-        e, p = self.engine, self.params
-        # the fused sampler commits only the pair decode's k/v
-        tokens, _ = generate_cached_fused(
-            functools.partial(e.prefill, p),
-            functools.partial(e.decode_frame, p, return_kv=False),
-            functools.partial(e.decode_frame_pair, p),
-            flat, num_new_frames, generator, self.config,
-            maskgit_steps=self.maskgit_steps, temperature=self.temperature,
-            unmask_mode=self.unmask_mode, actions_BT=actions)
+        sampling = dict(maskgit_steps=self.maskgit_steps,
+                        temperature=self.temperature,
+                        unmask_mode=self.unmask_mode)
+        if self.decode == "full":
+            tokens, _ = generate(self.logits_fn(actions), flat,
+                                 num_new_frames, generator, self.config,
+                                 **sampling)
+        else:
+            e, p = self.engine, self.params
+            # the fused sampler commits only the pair decode's k/v
+            tokens, _ = generate_cached_fused(
+                functools.partial(e.prefill, p),
+                functools.partial(e.decode_frame, p, return_kv=False),
+                functools.partial(e.decode_frame_pair, p),
+                flat, num_new_frames, generator, self.config,
+                actions_BT=actions, **sampling)
         return tokens.reshape(B, K, P + num_new_frames, H, W)
+
+    @torch.no_grad()
+    def score_policies(self, context_tokens: torch.Tensor,
+                       continuation_tokens: torch.Tensor,
+                       actions: Optional[torch.Tensor] = None,
+                       per_frame: bool = False):
+        """Score P candidate policy continuations by world-model likelihood.
+
+        All policies share one observed context of T_ctx >= 1 frames; each
+        contributes the T - T_ctx frames it would produce, and optionally
+        its (P, T) action ids. The score is the teacher-forced factored
+        cross-entropy (summed over the factors) averaged over the S tokens
+        of each frame and over the frames at or after T_ctx only: context
+        frames never enter it, and no token is masked.
+
+        context_tokens (T_ctx, H, W), continuation_tokens (P, T - T_ctx, H,
+        W) ids. Returns (P,) fp32 mean CE per policy on the device (lower:
+        the world model finds that future more likely); with per_frame, also
+        the (P, T - T_ctx) CE per frame.
+        """
+        cfg = self.config
+        if context_tokens.dim() != 3:
+            raise ValueError("the context is one (T_ctx, H, W) window shared "
+                             "by all policies")
+        T_ctx = context_tokens.shape[0]
+        P, T_new = continuation_tokens.shape[:2]
+        if T_ctx < 1 or T_ctx + T_new != cfg.T:
+            raise ValueError(f"{T_ctx} context + {T_new} continuation frames "
+                             f"!= T={cfg.T}, or no context frame")
+        ctx = context_tokens.to(self.device).long()
+        cont = continuation_tokens.to(self.device).long()
+        windows = torch.cat([ctx.expand(P, *ctx.shape), cont], dim=1)
+        if actions is not None:
+            actions = actions.to(self.device).long()
+        # (P, T_new, S, V, F): the logits of the frames >= T_ctx only
+        logits = self.model.compute_logits(windows, actions)[:, T_ctx:]
+        targets = factorize_token_ids(cont.reshape(P, T_new, cfg.S),
+                                      cfg.num_factored_vocabs,
+                                      cfg.factored_vocab_size)
+        logp = F.log_softmax(logits.float(), dim=-2)
+        ce = -logp.gather(-2, targets[:, :, :, None]).sum(-1)[..., 0]
+        frame_ce = ce.mean(-1)  # (P, T_new)
+        scores = frame_ce.mean(-1)
+        return (scores, frame_ce) if per_frame else scores
+
+    def rank_policies(self, context_tokens, continuation_tokens,
+                      actions=None) -> np.ndarray:
+        """Policy indices, best (lowest CE) first."""
+        scores = self.score_policies(context_tokens, continuation_tokens,
+                                     actions)
+        return torch.argsort(scores, stable=True).cpu().numpy()
