@@ -6,8 +6,12 @@
 2. Builds every kernel from tpu1x_torch/csrc with nvcc, all in parallel.
 3. Holds each kernel against its plain PyTorch version on the card, in
    bf16, at the shapes of the GENIE_138M rollout (B=16, 8 prompt frames):
-   atol = rtol = 3e-2 on outputs, 2e-2 on the k/v outputs of the
-   temporal+MLP block, which are one bf16 product away from the inputs.
+   atol = rtol = 3e-2 on outputs. The temporal+MLP block (K2, K3) is held
+   as the prefill is (`held_to_plain`): elementwise (3e-2; 2e-2 on its k/v
+   outputs, one bf16 product away from the inputs) where it and the plain
+   bf16 path agree, all but 1e-4 of the elements, and as a whole within
+   3e-2 relative L2 of the plain path and no farther from an fp32 run of
+   the plain version than the plain path is.
    Times each kernel, its plain version and, where one PyTorch call computes
    the same function, that call (only timed here, never used by the port),
    and computes each kernel's bound from the H100 SXM data sheet: the larger
@@ -95,8 +99,25 @@
    layers: exact launch counts, each against the plain path (see
    `check_evaluation`), `gen_time` (the reference's s/frame), policies
    per second and the evaluator's device time by kernel.
-10. Prints the `kernels` JSON line (with each kernel's `eval_launches`),
-   the card line, and last the result line.
+10. The training runtime (`check_training_runtime`), in a temporary
+   directory it removes: the train CLI (`tpu1x_torch.train.train.main`) on
+   configs/genie_138m.json at full depth over a synthetic dataset
+   (`--overfit_first_batch`, B=8, accumulation 2, 6 updates, a checkpoint
+   and an eval at 3, visualize at 6) with exact launch counts per
+   micro-batch, eval and visualize call, a falling loss, metrics.jsonl
+   and vis_step_6 read back, its s/update beside the bare step's and the
+   busy share over two updates; `Checkpointer.restore` of step_3 bit for
+   bit and a resumed run to step 6 whose update from step 3 is within 2e-2
+   relative L2 of the uninterrupted run's; both exports of
+   final_checkpt_hf read back bit for bit, and the evaluate CLI on them;
+   one process group of world size 1 over NCCL, one update through DDP
+   and one through FSDP2 against the unwrapped step, and an FSDP2
+   checkpoint round trip; remat (qk_norm off / "attn_outs" / "none",
+   pre-LN off / "attn_outs") with launch counts, peak memory, step time
+   and gradients against remat off; dropout at 8 layers through the
+   kernels and the plain path with one seed.
+11. Prints the `kernels` JSON line (with each kernel's `eval_launches` and
+   `train_cli_launches`), the card line, and last the result line.
 
 K1 (both modes), K2, K3, K5, K9, K10 and K13 carry a profiler device time
 (`device_ms`; their library calls `library_device_ms`) beside the event
@@ -114,6 +135,7 @@ import functools
 import io
 import json
 import math
+import socket
 import subprocess
 import sys
 import tempfile
@@ -154,12 +176,21 @@ from tpu1x_torch.ops.temporal_mlp_block import (
     temporal_mlp_block_pair_plain, temporal_mlp_block_plain)
 from tpu1x_torch.rollout.engine import RolloutEngine
 from tpu1x_torch.serving import DecodeEngine, prepare_serving_params
+from tpu1x_torch.config import GenieConfig
+from tpu1x_torch.parallel.mesh import init_distributed
+from tpu1x_torch.parallel.sharding import full_state_dict
+from tpu1x_torch.train import train as train_cli
+from tpu1x_torch.train.checkpoint import (Checkpointer, _state_tensors,
+                                          load_pretrained,
+                                          load_torch_checkpoint)
 from tpu1x_torch.train.optim import TrainOptimizer
-from tpu1x_torch.train.step import make_train_step
+from tpu1x_torch.train.step import (TrainState, make_train_step,
+                                    shard_train_state)
+from tpu1x_torch.utils.profiling import H100_PEAKS
 
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
-PEAK_BF16_TENSOR = 989e12
-PEAK_FP32 = 67e12
+PEAK_BF16_TENSOR = H100_PEAKS["sxm"]["bfloat16"]
+PEAK_FP32 = H100_PEAKS["sxm"]["float32"]
 PEAK_BYTES = 3.35e12
 
 B, P, NEW, STEPS = 16, 8, 8, 2
@@ -319,6 +350,30 @@ def compare(name, got, want, atol, rtol):
             f"{name}: {int(bad.sum())} of {bad.numel()} elements outside "
             f"atol {atol} rtol {rtol}; max abs err {float(err.max()):.3e}")
     return float(err.max())
+
+
+def held_to_plain(name, got, want, want32, tol):
+    """K2's and K3's outputs against the plain bf16 path (`want`) and an
+    fp32 run of the plain version (`want32`): elementwise (atol = rtol =
+    `tol`) where the two bf16 paths agree, which must be all but 1e-4 of
+    the elements; and as a whole by relative L2, at most 3e-2 from the
+    plain path and no farther from the fp32 run than the plain path is
+    (1.25x + 1e-3), as the prefill is held. Two bf16 paths that round in
+    another order part by more than the elementwise gate on a rare element
+    (a residual that the MLP cancels): the plain path is as far from fp32
+    there as the kernel (`chip_variants.py k2gate`)."""
+    g, w, w32 = got.float(), want.float(), want32.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{name}: non-finite output")
+    err = (g - w).abs()
+    apart = int((err > tol + tol * w.abs()).sum())
+    out = {"max_abs_err": float(err.max()), "apart": apart,
+           "elements": g.numel(), "kernel_vs_plain": rel_l2(g, w),
+           "kernel_vs_fp32": rel_l2(g, w32), "plain_vs_fp32": rel_l2(w, w32)}
+    if not (apart <= 1e-4 * g.numel() and out["kernel_vs_plain"] <= 3e-2
+            and out["kernel_vs_fp32"] <= 1.25 * out["plain_vs_fp32"] + 1e-3):
+        raise AssertionError(f"{name} against the plain path: {out}")
+    return out
 
 
 def nbytes(*ts) -> int:
@@ -485,9 +540,14 @@ def check_temporal_mlp_block(inp, C, H, L, caches, pair, gelu_tanh=True,
     plain = temporal_mlp_block_pair_plain if pair else temporal_mlp_block_plain
     got = kernel(x, kc, vc, t_B, layer=layer, **kw)
     want = plain(x, kc[:, layer], vc[:, layer], t_B, **kw)
-    err = compare(name, got[0], want[0], 3e-2, 3e-2)
-    compare(name + " k", got[1], want[1], 2e-2, 2e-2)
-    compare(name + " v", got[2], want[2], 2e-2, 2e-2)
+    f32 = {k: v.float() if torch.is_tensor(v) else v for k, v in kw.items()}
+    y32 = plain(x.float(), kc[:, layer].float(), vc[:, layer].float(), t_B,
+                **f32)
+    held = {part: held_to_plain(f"{name} {part}", got[i], want[i], y32[i],
+                                tol)
+            for i, part, tol in ((0, "out", 3e-2), (1, "k", 2e-2),
+                                 (2, "v", 2e-2))}
+    err = held["out"]["max_abs_err"]
     # the decode engine's forms: k/v written into one layer of a (L, B, S,
     # C) stack, or not kept; the same bits as above
     kv = (torch.zeros(2, B, 256, C, dtype=x.dtype, device=x.device),
@@ -500,7 +560,7 @@ def check_temporal_mlp_block(inp, C, H, L, caches, pair, gelu_tanh=True,
             and torch.equal(dropped[0], got[0]) and dropped[1] is None):
         raise AssertionError(f"{name}: kv_out / return_kv change the output")
     if not timed:
-        return dict(max_abs_err=err, shape=list(x.shape))
+        return dict(max_abs_err=err, shape=list(x.shape), held=held)
     S = 256
     slots = int(t_B.sum())  # this run's data: slots t < t_B[b] per row
     cache_bytes = 2 * slots * S * C * 2
@@ -514,7 +574,8 @@ def check_temporal_mlp_block(inp, C, H, L, caches, pair, gelu_tanh=True,
     def run():
         return kernel(x, kc, vc, t_B, layer=layer, **kw)
     return dict(max_abs_err=err, shape=list(x.shape), t_B=t_B.tolist(),
-                layer=layer, bound_ms=bms, bound_by=by, ms=time_ms(run),
+                layer=layer, held=held, bound_ms=bms, bound_by=by,
+                ms=time_ms(run),
                 device_ms=device_ms(run),
                 plain_ms=time_ms(lambda: plain(x, kc[:, layer], vc[:, layer],
                                                t_B, **kw), iters=5),
@@ -974,6 +1035,12 @@ def profile_device(run, top: int = 12, must=(), must_not=()):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return device_summary(prof, wall, top, must, must_not)
+
+
+def device_summary(prof, wall, top=12, must=(), must_not=()):
+    """`profile_device`'s summary of a finished profile over `wall`
+    seconds."""
     on_device = [a for a in prof.key_averages()
                  if a.device_type == torch.autograd.DeviceType.CUDA]
     names = [a.key for a in on_device]
@@ -1488,6 +1555,21 @@ def plain_blocks():
         STBlock.ops = kernel_ops
 
 
+@contextlib.contextmanager
+def without_remat(model):
+    """`model`'s blocks run without recompute: the oracle then holds a
+    remat kernel path against a path that shares no remat code."""
+    blocks = [m for m in model.modules() if isinstance(m, STBlock)]
+    policies = [b.remat_policy for b in blocks]
+    for b in blocks:
+        b.remat_policy = None
+    try:
+        yield
+    finally:
+        for b, policy in zip(blocks, policies):
+            b.remat_policy = policy
+
+
 def check_training(cfg, device, per_layer=TRAIN_PER_LAYER):
     g = torch.Generator(device=device).manual_seed(0)
     model = STMaskGIT(cfg, device=device).init_weights(g)
@@ -1549,7 +1631,8 @@ def check_training(cfg, device, per_layer=TRAIN_PER_LAYER):
     return model, out
 
 
-def check_step_against_plain(model, cfg, device, per_layer=TRAIN_PER_LAYER):
+def check_step_against_plain(model, cfg, device, per_layer=TRAIN_PER_LAYER,
+                             dropout_seed=None):
     """Loss, gradient norm and every parameter's gradient after one forward
     and backward from the same weights and the same corrupted batch, at the
     full depth and width and B = CB (the plain path's autograd keeps every
@@ -1568,7 +1651,10 @@ def check_step_against_plain(model, cfg, device, per_layer=TRAIN_PER_LAYER):
     2x + 1e-3 of the plain path's distance: the fused attention backward
     rounds p and ds to bf16 for its products (0.26% relative L2 on dq, dk,
     dv in its own check), which the spatial qk-LN gradients show as up to
-    3.9% from fp32 where the plain path has 2.2%."""
+    3.9% from fp32 where the plain path has 2.2%. With `dropout_seed`, each
+    of the three runs draws its dropout masks from a generator of that
+    seed: the same masks on every path. The kernel path runs under the
+    model's remat setting; the plain and fp32 runs without remat."""
     g = torch.Generator(device=device).manual_seed(2)
     side = cfg.latent_side_len
     tokens = torch.randint(0, cfg.image_vocab_size, (CB, cfg.T, side, side),
@@ -1578,13 +1664,19 @@ def check_step_against_plain(model, cfg, device, per_layer=TRAIN_PER_LAYER):
     actions = (torch.randint(0, cfg.action_vocab_size, (CB, cfg.T),
                              generator=g, device=device)
                if cfg.action_vocab_size > 0 else None)
-    ref = STMaskGIT(dataclasses.replace(cfg, dtype="float32"), device=device)
+    ref = STMaskGIT(dataclasses.replace(cfg, dtype="float32", remat=False),
+                    device=device)
     ref.load_state_dict(model.state_dict())
 
     def run(m, plain):
+        # with dropout, each run draws its masks from the same seed
+        gen = (None if dropout_seed is None else
+               torch.Generator(device=device).manual_seed(dropout_seed))
         m.train().zero_grad(set_to_none=True)
-        with plain_blocks() if plain else contextlib.nullcontext():
-            out = m(batch["input_ids"], batch["labels"], actions)
+        with (plain_blocks() if plain else contextlib.nullcontext(),
+              without_remat(m) if plain else contextlib.nullcontext()):
+            out = m(batch["input_ids"], batch["labels"], actions,
+                    generator=gen)
             out["loss"].backward()
         grads = {n: p.grad for n, p in m.named_parameters()}
         m.zero_grad(set_to_none=True)
@@ -1994,6 +2086,456 @@ def check_evaluation(cfg, device):
     return out
 
 
+# -------------------------------------------------------- training runtime
+
+# one visualize call: the prefill of 8 frames, then 8 new frames of 2
+# MaskGIT decodes and a commit each (generate_cached, unfused: no K3)
+VIS_PER_LAYER = {"spatial_block": 1 + 24, "temporal_mlp_block": 24,
+                 "temporal_attention": 1, "layer_norm": 1}
+# the qk_norm step under remat: "attn_outs" keeps K9's output and lse, so
+# the backward launches K10 alone; "none" runs K9 again; both run the MLP
+# train block's forward again in the recompute
+REMAT_QK = {"attn_outs": {"flash_mha": 1, "flash_mha_bwd": 1,
+                          "mlp_train_block": 2, "mlp_train_block_bwd": 1},
+            "none": {"flash_mha": 2, "flash_mha_bwd": 1,
+                     "mlp_train_block": 2, "mlp_train_block_bwd": 1}}
+# with attn_drop and mlp_drop above 0 both attention sub-layers run op by
+# op (K9 and K10 on the spatial axis) and the MLP is plain
+DROPOUT_PER_LAYER = {"flash_mha": 1, "flash_mha_bwd": 1}
+RT_UPDATES, RT_ACCUMULATE, RT_EVAL_BATCHES, RT_LR = 6, 2, 2, 2e-5
+RT_CONFIG = Path(__file__).resolve().parent / "configs" / "genie_138m.json"
+
+
+def instrumented_cli(argv, profile_updates=None):
+    """`tpu1x_torch.train.train.main(argv)` with its train step, eval and
+    visualize wrapped: the launch counters are set to 0 just before each
+    micro-batch, eval and visualize call and read just after; the card is
+    synchronized at the start of every update (the host clock there gives
+    each update's wall, the loop's own work included); with
+    `profile_updates` (a, b), torch.profiler runs from the start of update
+    a to the start of update b. The `step_3` save snapshots the state on
+    the host first. Returns the records, the train step's `TrainState`
+    and the printed lines."""
+    rec = dict(micro=[], evals=[], vis=[], losses=[], starts={}, snaps={},
+               state=None, prof=None)
+    real = (train_cli.make_train_step, train_cli.run_eval,
+            train_cli.visualize, train_cli.Checkpointer)
+
+    class Snapshotting(real[3]):
+        def save(self, state, name, wait=False):
+            if name == "step_3":
+                rec["snaps"][name] = {
+                    k: v.detach().cpu().clone()
+                    for k, v in _state_tensors(state).items()}
+            return super().save(state, name, wait)
+
+    def make(*a, **kw):
+        step = real[0](*a, **kw)
+        rec["state"] = step.state
+
+        def counted(*sa, **skw):
+            opt = step.state.optimizer
+            if opt.micro == 0:  # an update starts
+                torch.cuda.synchronize()
+                n = opt.updates + 1
+                rec["starts"][n] = time.perf_counter()
+                if profile_updates and n == profile_updates[0]:
+                    from torch.profiler import ProfilerActivity, profile
+                    rec["prof"] = profile(activities=[
+                        ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    rec["prof"].start()
+                if profile_updates and n == profile_updates[1]:
+                    rec["prof"].stop()
+            kernels.reset_launches()
+            m = step(*sa, **skw)
+            rec["micro"].append(dict(kernels.LAUNCHES))
+            rec["losses"].append(m["loss"])
+            return m
+        counted.state = step.state
+        return counted
+
+    def run_eval(*a, **kw):
+        kernels.reset_launches()
+        out = real[1](*a, **kw)
+        torch.cuda.synchronize()
+        rec["evals"].append(dict(kernels.LAUNCHES))
+        return out
+
+    def visualize(*a, **kw):
+        kernels.reset_launches()
+        out = real[2](*a, **kw)
+        torch.cuda.synchronize()
+        rec["vis"].append(dict(kernels.LAUNCHES))
+        return out
+
+    train_cli.make_train_step, train_cli.run_eval = make, run_eval
+    train_cli.visualize, train_cli.Checkpointer = visualize, Snapshotting
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            train_cli.main(argv)
+        torch.cuda.synchronize()
+        rec["starts"]["end"] = time.perf_counter()
+    finally:
+        (train_cli.make_train_step, train_cli.run_eval, train_cli.visualize,
+         train_cli.Checkpointer) = real
+    rec["stdout"] = buf.getvalue().splitlines()
+    return rec
+
+
+def cli_launch_gates(rec, cfg, what):
+    """Exact launches of every micro-batch, eval and visualize call."""
+    L = cfg.num_layers
+    want = expected_launches(TRAIN_PER_LAYER, L)
+    bad = [i for i, got in enumerate(rec["micro"]) if got != want]
+    if bad:
+        raise AssertionError(f"{what}: micro-batches {bad} launched "
+                             f"{rec['micro'][bad[0]]}, expected {want}")
+    want_eval = expected_launches(
+        {k: RT_EVAL_BATCHES * v for k, v in LOGITS_PER_LAYER.items()}, L)
+    want_vis = expected_launches(VIS_PER_LAYER, L)
+    if any(e != want_eval for e in rec["evals"]) or any(
+            v != want_vis for v in rec["vis"]):
+        raise AssertionError(f"{what}: evals {rec['evals']} (expected "
+                             f"{want_eval}), visualize {rec['vis']} "
+                             f"(expected {want_vis})")
+    return {k: RT_ACCUMULATE * v for k, v in want.items()}
+
+
+def state_params(state):
+    return {k: v.detach().float().cpu()
+            for k, v in full_state_dict(state.model).items()}
+
+
+def check_cli_run(cfg, device, root):
+    """Phases 1 to 3 of the runtime: the CLI at GENIE_138M, its resume and
+    its exports (see `check_training_runtime`)."""
+    ds = synthetic_dataset(cfg, root / "data")
+    common = ["--train_data_dir", str(root / "data"), "--val_data_dir",
+              str(root / "data"), "--genie_config", str(RT_CONFIG),
+              "--device", str(device), "--window_size", str(cfg.T), "--stride", "1",
+              "--overfit_first_batch", "--per_device_train_batch_size",
+              str(TB), "--gradient_accumulation_steps", str(RT_ACCUMULATE),
+              "--max_train_steps", str(RT_UPDATES), "--checkpointing_steps",
+              "3", "--eval_every_n_steps", "3", "--max_eval_steps",
+              str(RT_EVAL_BATCHES), "--vis_every_n_steps", str(RT_UPDATES),
+              "--learning_rate", str(RT_LR), "--lr_scheduler_type",
+              "constant", "--seed", "0", "--report_to", "jsonl"]
+    out1, out2 = root / "run", root / "resumed"
+    rec = instrumented_cli(common + ["--output_dir", str(out1)])
+    per_update = cli_launch_gates(rec, cfg, "train CLI")
+    state1 = rec["state"]
+    if not (state1.optimizer.updates == RT_UPDATES and len(rec["evals"]) == 2
+            and len(rec["vis"]) == 1 and len(rec["micro"]) ==
+            RT_UPDATES * RT_ACCUMULATE):
+        raise AssertionError(f"train CLI: {state1.optimizer.updates} "
+                             f"updates, {len(rec['evals'])} evals, "
+                             f"{len(rec['vis'])} visualize calls")
+    losses = [float(x) for x in rec["losses"]]
+    per_upd = [sum(losses[i:i + RT_ACCUMULATE]) / RT_ACCUMULATE
+               for i in range(0, len(losses), RT_ACCUMULATE)]
+    if not (all(math.isfinite(x) for x in losses)
+            and per_upd[-1] < per_upd[0]):
+        raise AssertionError(f"train CLI losses by update {per_upd}")
+    logged = [json.loads(x) for x in
+              (out1 / "metrics.jsonl").read_text().splitlines()]
+    if not (any("train_loss" in x for x in logged)
+            and sum("eval_loss" in x for x in logged) == 2):
+        raise AssertionError(f"metrics.jsonl: {logged[1:]}")
+    vis = RawTokenDataset(out1 / f"vis_step_{RT_UPDATES}", window_size=1,
+                          filter_interrupts=False)
+    n, side, half = 4, cfg.latent_side_len, cfg.T // 2
+    stream = np.asarray(vis.data).reshape(n, cfg.T + half, side, side)
+    truth = RawTokenDataset(root / "data", window_size=cfg.T,
+                            stride=1).get_batch(np.arange(n))
+    if not (np.array_equal(stream[:, :half], truth[:, :half])
+            and np.array_equal(stream[:, cfg.T:], truth[:, half:])
+            and int(stream.max()) < cfg.image_vocab_size):
+        raise AssertionError("vis_step_6/video.bin does not hold [prompt | "
+                             "predicted | ground truth]")
+    starts = rec["starts"]
+    # updates 2, 4 and 5 run with no checkpoint, eval or visualize inside
+    walls = [starts[k + 1] - starts[k] for k in (2, 4, 5)]
+    s_update = sorted(walls)[1]
+
+    # the resume: the saved state bit for bit, then updates 4 to 6
+    saved = rec["snaps"]["step_3"]
+    run_cfg = GenieConfig.from_pretrained(out1 / "step_3_hf")
+    fresh = STMaskGIT(run_cfg, device=device)
+    state = TrainState(0, fresh, TrainOptimizer(
+        fresh, run_cfg, RT_LR, lr_scheduler_type="constant",
+        num_training_steps=RT_UPDATES,
+        gradient_accumulation_steps=RT_ACCUMULATE),
+        torch.Generator(device=device))
+    Checkpointer(out1).restore("step_3", state)
+    got = {k: v.detach().cpu() for k, v in _state_tensors(state).items()}
+    differ = sorted(k for k in saved if k not in got
+                    or not torch.equal(got[k], saved[k]))
+    if differ or set(got) != set(saved):
+        raise AssertionError(f"restore of step_3 differs in {differ[:5]}")
+    del fresh, state, got
+    rec2 = instrumented_cli(common + [
+        "--output_dir", str(out2), "--resume_from_checkpoint",
+        str(out1 / "step_3")], profile_updates=(4, 6))
+    cli_launch_gates(rec2, cfg, "resumed train CLI")
+    if not (any("resumed from step_3" in x for x in rec2["stdout"])
+            and rec2["state"].optimizer.updates == RT_UPDATES
+            and len(rec2["micro"]) == 3 * RT_ACCUMULATE):
+        raise AssertionError(f"resume: {rec2['stdout'][:3]}, "
+                             f"{rec2['state'].optimizer.updates} updates")
+    prof_wall = rec2["starts"][6] - rec2["starts"][4]
+    busy = device_summary(rec2["prof"], prof_wall)
+    s3 = {k[len("model/"):]: v.float() for k, v in saved.items()
+          if k.startswith("model/")}
+    fin1, fin2 = state_params(state1), state_params(rec2["state"])
+    names = sorted(s3)
+    d1 = torch.cat([(fin1[k] - s3[k]).reshape(-1) for k in names])
+    d2 = torch.cat([(fin2[k] - s3[k]).reshape(-1) for k in names])
+    delta = rel_l2(d2, d1)
+    worst = sorted(((rel_l2(fin2[k] - s3[k], fin1[k] - s3[k]), k)
+                    for k in names), reverse=True)[:3]
+    if not delta <= 2e-2:
+        raise AssertionError(f"resumed update: relative L2 {delta} from the "
+                             f"uninterrupted run's; worst {worst}")
+
+    # the exports of the uninterrupted run, read back by the port
+    final = out1 / "final_checkpt_hf"
+    model_sd = {k: v.detach().cpu()
+                for k, v in full_state_dict(state1.model).items()}
+    for name, sd in (("model.safetensors",
+                      load_torch_checkpoint(final, run_cfg)),
+                     ("params.msgpack", load_pretrained(final)[0])):
+        if set(sd) != set(model_sd) or not all(
+                torch.equal(sd[k], v) for k, v in model_sd.items()):
+            raise AssertionError(f"{name} is not the model bit for bit")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, eval_launches = launches_of(
+            lambda: ev_cli.main([
+                "--val_data_dir", str(root / "data"), "--checkpoint_dir",
+                str(final), "--stride", "1", "--batch_size", str(B),
+                "--max_examples", str(B), "--device", str(device)]),
+            EVAL_PER_LAYER, cfg.num_layers, "evaluate CLI on the export")
+    evaluated = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if not evaluated.get("count") == B:
+        raise AssertionError(f"evaluate CLI on the export: {evaluated}")
+    del ds
+    return dict(
+        launches_per_update=per_update, eval_launches=rec["evals"][0],
+        visualize_launches=rec["vis"][0], losses_by_update=per_upd,
+        update_walls_s=walls, s_per_update=s_update,
+        examples_per_s=TB * RT_ACCUMULATE / s_update,
+        busy_updates_4_5={k: busy[k] for k in ("wall_ms", "device_ms",
+                                               "busy_share", "top")},
+        resumed_update_rel_l2=delta, resumed_worst_params=worst,
+        metrics_logged=logged[1:], evaluate_cli=evaluated,
+        evaluate_cli_launches=eval_launches)
+
+
+def check_world_size_one(device):
+    """One process group of world size 1 over NCCL: one update of
+    GENIE_138M (B = CB, full depth) through DDP and one through FSDP2,
+    each against the unwrapped step from the same weights, batch and
+    draws: exact launch counts, the loss (within 2e-2), the gradient norm
+    (5e-2 relative) and each parameter's update (within 3e-2 relative L2,
+    the step gates); no warning of DDP about gradient strides (the fused
+    blocks return weight gradients through transposed views). Then an FSDP2
+    `Checkpointer` save and restore into a fresh sharded state, bit for
+    bit."""
+    import warnings
+    cfg = genie_138m()
+    g = torch.Generator(device=device).manual_seed(4)
+    model0 = STMaskGIT(cfg, device=device).init_weights(g)
+    init = {k: v.clone() for k, v in model0.state_dict().items()}
+    del model0
+    side = cfg.latent_side_len
+    tokens = torch.randint(0, cfg.image_vocab_size, (CB, cfg.T, side, side),
+                           generator=g, device=device)
+    noise = draw_noise(tokens.shape, cfg, g, device)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    if not init_distributed(str(device), f"tcp://localhost:{port}", 1, 0):
+        raise AssertionError("a process group existed already")
+    out, updates = {}, {}
+    try:
+        for mode in ("plain", "ddp", "fsdp"):
+            m = STMaskGIT(cfg, device=device)
+            m.load_state_dict(init)
+            state = TrainState(0, m, TrainOptimizer(
+                m, cfg, learning_rate=TRAIN_LR, max_grad_norm=1.0),
+                torch.Generator(device=device).manual_seed(5))
+            if mode != "plain":
+                state = shard_train_state(state, device, fsdp=mode == "fsdp")
+            step = make_train_step(state.model, state.optimizer, cfg,
+                                   device=device, generator=state.generator)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                r, launches = launches_of(
+                    lambda: step(tokens, noise=noise), TRAIN_PER_LAYER,
+                    cfg.num_layers, f"{mode} step")
+            strides = [str(w.message)[:200] for w in caught
+                       if "stride" in str(w.message).lower()]
+            if strides:
+                raise AssertionError(f"{mode}: {strides}")
+            out[mode] = {k: float(v) for k, v in r.items()}
+            updates[mode] = {k: v.detach().float() - init[k].float()
+                             for k, v in full_state_dict(
+                                 state.model).items()}
+            if mode == "fsdp":
+                out["fsdp_checkpoint"] = fsdp_round_trip(state, cfg, device)
+            del step, state, m
+        for mode in ("ddp", "fsdp"):
+            per = {k: rel_l2(updates[mode][k], updates["plain"][k])
+                   for k in updates["plain"]}
+            worst = max(per.items(), key=lambda kv: kv[1])
+            out[mode + "_worst_update_rel_l2"] = worst
+            got, want = out[mode], out["plain"]
+            if not (worst[1] <= 3e-2
+                    and abs(got["loss"] - want["loss"]) <= 2e-2
+                    and abs(got["grad_norm"] / want["grad_norm"] - 1)
+                    <= 5e-2):
+                raise AssertionError(f"{mode} against the unwrapped step: "
+                                     f"{out}")
+    finally:
+        torch.distributed.destroy_process_group()
+    return out
+
+
+def fsdp_round_trip(state, cfg, device):
+    """Save the sharded state and restore it into a fresh one: every local
+    shard, moment, counter and the generator bit for bit."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Checkpointer(tmp)
+        ckpt.save(state, "fsdp", wait=True)
+        saved = {k: (v.to_local() if hasattr(v, "to_local") else v).clone()
+                 for k, v in _state_tensors(state).items()}
+        m = STMaskGIT(cfg, device=device)
+        fresh = shard_train_state(TrainState(0, m, TrainOptimizer(
+            m, cfg, learning_rate=TRAIN_LR, max_grad_norm=1.0),
+            torch.Generator(device=device)), device, fsdp=True)
+        ckpt.restore("fsdp", fresh)
+        got = {k: v.to_local() if hasattr(v, "to_local") else v
+               for k, v in _state_tensors(fresh).items()}
+    differ = [k for k in saved if k not in got
+              or not torch.equal(got[k], saved[k])]
+    if differ or set(got) != set(saved):
+        raise AssertionError(f"FSDP2 restore differs in {differ[:5]}")
+    return {"tensors": len(saved), "bitwise": True}
+
+
+def check_remat(device):
+    """The train step at GENIE_138M (B = TB, full depth) under remat:
+    `qk_norm=True` with remat off, "attn_outs" and "none", and pre-LN with
+    remat off and "attn_outs". Each: exact launch counts of one forward and
+    backward, every parameter's gradient against its model's remat-off
+    gradient from the same weights and batch (the gradient gates of
+    `check_step_against_plain`: 3e-2 relative L2 per parameter and over
+    all), the peak memory and the median of three step times after one
+    untimed (`make_train_step`, AdamW included)."""
+    cases = (("qk_norm", None), ("qk_norm", "attn_outs"), ("qk_norm", "none"),
+             ("pre_ln", None), ("pre_ln", "attn_outs"))
+    out, grads = {}, {}
+    for arch, policy in cases:
+        cfg = genie_138m(qk_norm=arch == "qk_norm", remat=policy is not None,
+                         remat_policy=policy or "attn_outs")
+        per_layer = (TRAIN_PER_LAYER if arch == "pre_ln" else
+                     REMAT_QK.get(policy, TRAIN_PER_LAYER_QK))
+        g = torch.Generator(device=device).manual_seed(0)
+        model = STMaskGIT(cfg, device=device).init_weights(g)
+        side = cfg.latent_side_len
+        tokens = torch.randint(0, cfg.image_vocab_size,
+                               (TB, cfg.T, side, side), generator=g,
+                               device=device)
+        noise = draw_noise(tokens.shape, cfg, g, device)
+        batch = maskgit_corrupt(tokens, noise, cfg)
+
+        def forward_backward():
+            out_ = model.train()(batch["input_ids"], batch["labels"])
+            out_["loss"].backward()
+        _, launches = launches_of(forward_backward, per_layer,
+                                  cfg.num_layers, f"{arch} remat {policy}")
+        grads[arch, policy] = {n: p.grad.detach().cpu()
+                               for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        step = make_train_step(model, TrainOptimizer(
+            model, cfg, learning_rate=TRAIN_LR, max_grad_norm=1.0), cfg,
+            device=device)
+        step(tokens, noise=noise)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step(tokens, noise=noise)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        key = f"{arch}_{policy or 'off'}"
+        out[key] = dict(peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                        step_s=sorted(walls)[1], step_s_runs=walls,
+                        launches=launches)
+        del step, model, batch
+        torch.cuda.empty_cache()
+        if policy is not None:
+            off = grads[arch, None]
+            per = {n: rel_l2(v, off[n]) for n, v in grads[arch, policy].items()}
+            flat = rel_l2(torch.cat([v.reshape(-1) for v in
+                                     grads[arch, policy].values()]),
+                          torch.cat([off[n].reshape(-1) for n in
+                                     grads[arch, policy]]))
+            worst = max(per.items(), key=lambda kv: kv[1])
+            out[key].update(grads_rel_l2=flat, worst_param=worst)
+            if not (flat <= 3e-2 and worst[1] <= 3e-2):
+                raise AssertionError(f"{key}: gradients against remat off: "
+                                     f"{flat}, worst {worst}")
+            del grads[arch, policy]
+    return out
+
+
+def check_dropout(device, layers=8):
+    """GENIE_138M at `layers` layers with attn_drop = mlp_drop = 0.1: one
+    forward and backward through the kernels (exact launch counts: K9 and
+    K10 on every layer and nothing else) and through the plain path, with
+    the same dropout seed, by `check_step_against_plain`'s gates. The
+    kernel path runs under the default remat ("attn_outs": K9's output and
+    lse kept, the masks drawn again in the rerun); the plain and fp32 runs
+    without remat, so a fault in the mask replay shows against them."""
+    cfg = genie_138m(num_layers=layers, attn_drop=0.1, mlp_drop=0.1)
+    model = STMaskGIT(cfg, device=device).init_weights(
+        torch.Generator(device=device).manual_seed(6))
+    return check_step_against_plain(model, cfg, device, DROPOUT_PER_LAYER,
+                                    dropout_seed=7)
+
+
+def check_training_runtime(cfg, device, bare_step_s):
+    """The training runtime (`tpu1x_torch.train`), in a temporary directory
+    that it removes: the CLI at GENIE_138M, its resume and exports
+    (`check_cli_run`), DDP and FSDP2 at world size 1
+    (`check_world_size_one`), remat (`check_remat`) and dropout
+    (`check_dropout`)."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out["cli"] = check_cli_run(cfg, device, Path(tmp))
+        out["cli"]["phase_s"] = time.perf_counter() - t0
+    # the bare step at B = TB takes one micro-batch and one AdamW update
+    out["cli"]["bare_step_s"] = bare_step_s
+    out["cli"]["overhead_s_per_update"] = (
+        out["cli"]["s_per_update"] - RT_ACCUMULATE * bare_step_s)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["world_size_one"] = check_world_size_one(device)
+    out["world_size_one"]["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["remat"] = check_remat(device)
+    out["remat"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["dropout"] = check_dropout(device)
+    out["dropout"]["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2087,8 +2629,11 @@ def main() -> int:
         print(f"action conditioning: {time.perf_counter() - t0:.1f} s",
               flush=True)
 
+        # the qk_norm step as it was before remat (check_remat has remat)
+        cfg_qk_step = genie_138m(qk_norm=True, remat=False)
         t0 = time.perf_counter()
-        model, train_qk = check_training(cfg_qk, device, TRAIN_PER_LAYER_QK)
+        model, train_qk = check_training(cfg_qk_step, device,
+                                         TRAIN_PER_LAYER_QK)
         print("training qk_norm: " + json.dumps(train_qk), flush=True)
         print(f"training qk_norm phase: {time.perf_counter() - t0:.1f} s; "
               f"{train_qk['step_s']:.4f} s/step, "
@@ -2097,7 +2642,7 @@ def main() -> int:
               f"{card}", flush=True)
         t0 = time.perf_counter()
         print("qk_norm train step against the plain path: " + json.dumps(
-            check_step_against_plain(model, cfg_qk, device,
+            check_step_against_plain(model, cfg_qk_step, device,
                                      TRAIN_PER_LAYER_QK)), flush=True)
         print(f"qk_norm plain-path comparison: "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -2125,6 +2670,21 @@ def main() -> int:
             "generate_cli": evaluation["cli"]["generate_launches"],
             "qk_norm_evaluator": evaluation["qk_norm_evaluator"]["launches"]}
 
+        t0 = time.perf_counter()
+        runtime = check_training_runtime(cfg, device, train["step_s"])
+        rt_cli = runtime["cli"]
+        print("training runtime: " + json.dumps(runtime), flush=True)
+        print(f"training runtime phase: {time.perf_counter() - t0:.1f} s; "
+              f"the train CLI {rt_cli['s_per_update']:.4f} s/update "
+              f"({TB} x {RT_ACCUMULATE} examples, "
+              f"{rt_cli['examples_per_s']:.1f} examples/s; the bare step "
+              f"{rt_cli['bare_step_s']:.4f} s at B={TB}), busy "
+              f"{rt_cli['busy_updates_4_5']['busy_share']:.3f} over two "
+              f"updates; remat peaks " + ", ".join(
+                  f"{k} {v['peak_memory_bytes']} B {v['step_s']:.4f} s"
+                  for k, v in runtime["remat"].items()
+                  if isinstance(v, dict)) + f" on {card}", flush=True)
+
         line = []
         for name in SOURCES:
             # spatial_block is reported at the single-frame decode shape,
@@ -2148,6 +2708,10 @@ def main() -> int:
                 "qk_norm_train_launches": train_qk["launches"][name],
                 "eval_launches": {k: v[name]
                                   for k, v in eval_launches.items()},
+                "train_cli_launches": {
+                    "update": rt_cli["launches_per_update"][name],
+                    "eval": rt_cli["eval_launches"][name],
+                    "visualize": rt_cli["visualize_launches"][name]},
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}

@@ -123,7 +123,8 @@ in one process on one card; every time is the profiler's device time
   inputs, and the fp32 residual x1 there) and, against the fp32 run, how
   many elements of the kernel's and of the plain path's output lie
   outside the same gate and their relative L2: whether the kernel or the
-  gate is at fault (ROADMAP C4). No builds.
+  gate is at fault (ROADMAP C4); and what `chip_smoke.held_to_plain`, the
+  gate that replaced the elementwise one, gives there. No builds.
 
 Prints one line per build and case, and the card.
 """
@@ -736,7 +737,9 @@ def k2gate(dev):
     def at(t):
         return float(t.reshape(-1)[i])
     print(json.dumps({
-        "k2gate": {"past_gate_vs_plain": int((past(got, want) > 0).sum()),
+        "k2gate": {"held_to_plain": cs.held_to_plain(
+                       "k2gate", got, want, y32, 3e-2),
+                   "past_gate_vs_plain": int((past(got, want) > 0).sum()),
                    "element": {"kernel": at(got), "plain": at(want),
                                "fp32": at(y32), "x1_fp32": at(x1)},
                    "past_gate_vs_fp32": {"kernel": int((past(got, y32) > 0)

@@ -1,10 +1,11 @@
 """The port stands alone: importing `tpu1x_torch` (every module, the
-evaluation and data modules among them) and `chip_smoke` loads neither JAX
-nor the JAX package, needs neither `nvcc` nor `triton`, and a CPU rollout
-(block path, op by op with qk_norm and the int8 cache, and decode="full"),
-policy scores, the evaluator (cached and rows) and a CPU train step (pre-LN
-and qk_norm) through the port launch no kernel; the train step and the
-evaluator default to the card and raise without one.
+evaluation, data, training-runtime and parallel modules among them) and
+`chip_smoke` loads neither JAX nor the JAX package, needs neither `nvcc`
+nor `triton`, and a CPU rollout (block path, op by op with qk_norm and the
+int8 cache, and decode="full"), policy scores, the evaluator (cached and
+rows), a CPU train step (pre-LN and qk_norm) and two updates of the train
+CLI through the port launch no kernel; the train step, the evaluator and
+the train CLI default to the card and raise without one.
 
 Runs in a fresh interpreter, because this test process has JAX loaded.
 """
@@ -36,7 +37,11 @@ for name in ("jax", "jaxlib", "flax", "tpu1x", "triton"):
 assert not kernels._libs, "a kernel library was loaded at import"
 for name in ("tpu1x_torch.eval.evaluate", "tpu1x_torch.eval.generate",
              "tpu1x_torch.eval.metrics", "tpu1x_torch.data.token_store",
-             "tpu1x_torch.data.native", "tpu1x_torch.train.checkpoint"):
+             "tpu1x_torch.data.native", "tpu1x_torch.train.checkpoint",
+             "tpu1x_torch.train.train", "tpu1x_torch.train.prefetch",
+             "tpu1x_torch.train._msgpack", "tpu1x_torch.parallel.mesh",
+             "tpu1x_torch.parallel.sharding", "tpu1x_torch.ops.remat",
+             "tpu1x_torch.utils.profiling"):
     assert name in sys.modules, name
 
 from tpu1x_torch.model_zoo import genie_tiny
@@ -107,9 +112,37 @@ out = make_train_step(qk_model, TrainOptimizer(qk_model, qk_cfg,
                       qk_cfg, device="cpu")(tokens)
 assert torch.isfinite(out["loss"]) and torch.isfinite(out["grad_norm"])
 
+import tempfile
+import numpy as np
+from pathlib import Path
+from tpu1x_torch.data.token_store import write_token_dataset
+from tpu1x_torch.train import train
+root = Path(tempfile.mkdtemp())
+write_token_dataset(root / "data", np.random.RandomState(0).randint(
+    0, 64, (40, 4, 4)).astype(np.uint32), vocab_size=64,
+    segment_ids=np.zeros(40, np.int32))
+genie_tiny(num_layers=1, d_model=16, num_prompt_frames=2).save_pretrained(
+    root / "config.json")
+argv = ["--train_data_dir", str(root / "data"), "--val_data_dir",
+        str(root / "data"), "--genie_config", str(root / "config.json"),
+        "--output_dir", str(root / "out"), "--window_size", "4", "--stride",
+        "1", "--per_device_train_batch_size", "2", "--max_train_steps", "2",
+        "--vis_every_n_steps", "2", "--eval_every_n_steps", "2",
+        "--max_eval_steps", "1"]
+try:
+    train.main(argv)  # the card is the default, and there is none here
+except RuntimeError as e:
+    assert "cuda" in str(e), e
+else:
+    raise AssertionError("the train CLI's default device did not raise "
+                         "without a card")
+train.main(argv + ["--device", "cpu"])
+assert (root / "out" / "final_checkpt_hf" / "model.safetensors").exists()
+assert (root / "out" / "vis_step_2" / "video.bin").exists()
+
 assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
 assert not kernels._libs
-for name in ("jax", "tpu1x", "triton"):
+for name in ("jax", "tpu1x", "triton", "msgpack"):
     assert not loaded(name), (name, loaded(name))
 print("isolated")
 """

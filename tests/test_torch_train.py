@@ -332,15 +332,3 @@ def test_train_step_defaults_to_the_card():
             make_train_step(model, opt, cfg)
         with pytest.raises(RuntimeError, match="cuda"):
             make_eval_step(model, cfg)
-
-
-def test_unported_training_paths_raise():
-    """Dropout is not ported: a rate above 0 raises in training mode and is
-    ignored in eval mode, as dropout is."""
-    cfg = genie_tiny(**SIZE, mlp_drop=0.1)
-    model = STMaskGIT(cfg).init_weights(torch.Generator().manual_seed(0))
-    ids, labels, _ = batch(cfg, 0)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        model.train()(tensor(ids), tensor(labels))
-    out = model.eval()(tensor(ids), tensor(labels))
-    assert np.isfinite(float(out["loss"].detach()))

@@ -2,10 +2,11 @@
 JAX package (`configs/*.json`).
 
 The port keeps its own copy of the dataclass so that it never imports the
-JAX package, without the JAX package's TPU knobs (kernel choice, remat,
-layer scan). Unknown JSON keys are ignored and missing keys take their
-defaults, so the reference's config files and the JAX package's files both
-load.
+JAX package, without the JAX package's kernel choice (`attn_impl`: the card
+always takes the port's kernels). Unknown JSON keys are ignored and missing
+keys take their defaults, so the reference's config files and the JAX
+package's files both load, and `save_pretrained` writes a file that both
+packages read.
 """
 
 from __future__ import annotations
@@ -65,6 +66,16 @@ class GenieConfig:
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
 
+    # per-block recompute in training (models/st_transformer.py); the policy
+    # names what a block keeps for its backward: "none", "attn_outs" (the
+    # attention outputs), "dots" (every product's output) or
+    # "dots_no_batch" (the weight products' outputs), as in the JAX package
+    remat: bool = True
+    remat_policy: str = "attn_outs"
+    # the layer layout of an exported params.msgpack: stacked under
+    # decoder/layers (the JAX package's lax.scan) or decoder/layers_{i}
+    scan_layers: bool = True
+
     # muP base width (the reference's base model has d_model 256)
     mup_base_d_model: int = 256
 
@@ -88,6 +99,16 @@ class GenieConfig:
     def width_mult(self) -> float:
         """muP width multiplier against the base model."""
         return self.d_model / self.mup_base_d_model
+
+    def save_pretrained(self, json_path) -> None:
+        """Write the config as JSON, to `json_path` or to
+        `json_path/config.json` for a directory."""
+        json_path = Path(json_path)
+        if json_path.is_dir() or json_path.suffix != ".json":
+            json_path.mkdir(parents=True, exist_ok=True)
+            json_path = json_path / "config.json"
+        with open(json_path, "w") as f:
+            json.dump(dataclasses.asdict(self), f, indent=2)
 
     @classmethod
     def from_pretrained(cls, json_path) -> "GenieConfig":

@@ -25,6 +25,7 @@ from tpu1x_torch.models.factorization import (FactorizedEmbedding,
                                               factorize_token_ids)
 from tpu1x_torch.models.st_transformer import STTransformerDecoder
 from tpu1x_torch.ops.decode_attention import quantize_kv
+from tpu1x_torch.utils.profiling import training_flops
 
 
 def cosine_schedule(u: float) -> float:
@@ -44,6 +45,7 @@ class STMaskGIT(nn.Module):
             mlp_bias=cfg.mlp_bias, use_mup=cfg.use_mup,
             attn_drop=cfg.attn_drop, mlp_drop=cfg.mlp_drop,
             gelu_approx=cfg.gelu_approx, dtype=getattr(torch, cfg.dtype),
+            remat_policy=cfg.remat_policy if cfg.remat else None,
             device=device)
         self.pos_embed_TSC = nn.Parameter(
             torch.zeros(1, cfg.T, cfg.S, cfg.d_model, device=device))
@@ -72,13 +74,14 @@ class STMaskGIT(nn.Module):
         return self
 
     def compute_logits(self, x_BTHW: torch.Tensor,
-                       actions_BT: Optional[torch.Tensor] = None
+                       actions_BT: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None
                        ) -> torch.Tensor:
         """Token ids (B, T, H, W) -> logits (B, T, S, V, F) fp32: factored
         embedding in the compute dtype, + position (+ per-frame action)
         embedding, the decoder, the muP readout division, the fp32 head.
         The head's columns are factor-major: logits[..., v, f] is column
-        f V + v."""
+        f V + v. `generator` draws the dropout masks in training."""
         cfg = self.config
         cd = getattr(torch, cfg.dtype)
         B, T, H, W = x_BTHW.shape
@@ -89,7 +92,7 @@ class STMaskGIT(nn.Module):
         x = x + self.pos_embed_TSC.to(cd)
         if cfg.action_vocab_size > 0 and actions_BT is not None:
             x = x + self.action_embed.weight.to(cd)[actions_BT][:, :, None, :]
-        x = self.decoder(x)
+        x = self.decoder(x, generator=generator)
         if cfg.use_mup:
             x = x / cfg.width_mult
         logits = self.out_x_proj(x.float())
@@ -97,35 +100,60 @@ class STMaskGIT(nn.Module):
                               cfg.factored_vocab_size).transpose(-1, -2)
 
     def forward(self, input_ids: torch.Tensor, labels: torch.Tensor,
-                actions: Optional[torch.Tensor] = None
+                actions: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                num_masked: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """Training forward: input_ids (corrupted and masked) and labels
         (clean), both (B, T H W); optional actions (B, T). Returns loss,
         acc and logits; the loss covers the masked tokens of frames 1
-        onward only."""
+        onward only. `generator` draws the dropout masks; `num_masked`
+        replaces the count of masked tokens that loss and accuracy are
+        divided by (the global batch's, under data parallelism)."""
         cfg = self.config
         B = input_ids.shape[0]
         side = cfg.latent_side_len
         x_BTHW = input_ids.reshape(B, cfg.T, side, side)
-        logits = self.compute_logits(x_BTHW, actions)
-        relevant = (x_BTHW[:, 1:] == cfg.mask_token_id).reshape(
-            B, cfg.T - 1, cfg.S)
+        logits = self.compute_logits(x_BTHW, actions, generator)
         loss, acc = compute_loss_and_acc(
-            logits, labels.reshape(B, cfg.T, side, side), relevant, cfg)
+            logits, labels.reshape(B, cfg.T, side, side),
+            relevant_mask(input_ids, cfg), cfg, num_masked)
         return {"loss": loss, "acc": acc, "logits": logits}
+
+
+def relevant_mask(input_ids: torch.Tensor, cfg: GenieConfig) -> torch.Tensor:
+    """(B, T H W) ids -> (B, T-1, S) bool: the masked tokens of frames 1
+    onward, the ones the loss covers."""
+    B = input_ids.shape[0]
+    return (input_ids.reshape(B, cfg.T, cfg.S)[:, 1:] == cfg.mask_token_id)
+
+
+def count_params(model) -> int:
+    """The number of parameter values of an `STMaskGIT` (or of a state
+    dict): the JAX package's count over its parameter tree."""
+    tensors = (model.values() if isinstance(model, dict)
+               else model.parameters())
+    return sum(int(t.numel()) for t in tensors)
+
+
+def flops_per_update_step(num_params: int, tokens_per_batch: int) -> int:
+    """Analytic 6 N D training FLOPs of one update."""
+    return training_flops(num_params, tokens_per_batch)
 
 
 def compute_loss_and_acc(logits_BTSVF: torch.Tensor,
                          targets_BTHW: torch.Tensor,
-                         relevant_mask_BTS: torch.Tensor, cfg: GenieConfig
+                         relevant_mask_BTS: torch.Tensor, cfg: GenieConfig,
+                         num_masked: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked factored cross-entropy and exact-token accuracy.
 
     logits (B, T, S, V, F) fp32 with frame 0 included (dropped here);
     targets (B, T, H, W) clean ids; relevant_mask (B, T-1, S) bool, the
     masked positions of frames 1 onward. The cross-entropy is summed over
-    the factors and averaged over the masked positions; a token counts as
-    correct only when every factor's argmax is."""
+    the factors and averaged over the masked positions (over `num_masked`
+    when given); a token counts as correct only when every factor's argmax
+    is."""
     B, T = targets_BTHW.shape[:2]
     logits = logits_BTSVF[:, 1:]
     targets = factorize_token_ids(
@@ -136,7 +164,8 @@ def compute_loss_and_acc(logits_BTSVF: torch.Tensor,
     loss_BTS = -token_logp.sum(-1)
     correct = (logits.argmax(-2) == targets).all(-1)
     mask = relevant_mask_BTS.float()
-    num_masked = mask.sum()
+    if num_masked is None:
+        num_masked = mask.sum()
     return ((loss_BTS * mask).sum() / num_masked,
             (correct.float() * mask).sum() / num_masked)
 

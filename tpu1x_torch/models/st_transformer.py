@@ -20,18 +20,37 @@ JAX package: each attention is the qkv product, the fp32 qk-LayerNorm, `mha`
 and the proj product under ordinary autograd, where `mha` is the fused
 attention kernel pair (forward and backward) for the S = 256 spatial axis on
 the card and the plain attention for the T = 16 frame axis; the MLP is the
-MLP train block without its LayerNorm. Dropout is not ported: a rate above 0
-raises in training mode.
+MLP train block without its LayerNorm.
+
+Dropout, in training only, follows the JAX package's formula and routing
+(tpu1x/models/st_transformer.py, tpu1x/ops/attention.py): on each
+attention's output before its proj (`attn_drop`), and after fc1's GELU and
+after fc2 (`mlp_drop`). With `attn_drop` above 0 both attention sub-layers
+run op by op as under qk_norm (LN1 in fp32 before the spatial one on the
+pre-LN models); with `mlp_drop` above 0 the MLP is plain torch. The masks
+keep each value with probability 1 - p and scale it by 1 / (1 - p), drawn
+from the `generator` passed to `forward`. In eval mode dropout is the
+identity. (The JAX package's STMaskGIT leaves its blocks deterministic, so
+its trainer never draws a mask; these are its blocks' training formula.)
+
+With `remat` (the JAX package's default) each block is recomputed in the
+backward under `remat_policy` (tpu1x_torch/ops/remat.py), except where the
+policy keeps all the block keeps without it: "attn_outs" on the fused path,
+whose train blocks already keep only their inputs (the block input and the
+two attention sub-layers' outputs), runs as without remat and launches
+nothing more.
 """
 
 from __future__ import annotations
 
 from types import SimpleNamespace
+from typing import Optional
 
 import torch
 from torch import nn
 
-from tpu1x_torch.ops._util import dense
+from tpu1x_torch.ops import remat
+from tpu1x_torch.ops._util import gelu
 from tpu1x_torch.ops.attention import mha
 from tpu1x_torch.ops.layernorm import layer_norm_plain
 from tpu1x_torch.ops.mlp_train_block import mlp_train_block
@@ -53,12 +72,14 @@ class SelfAttention(nn.Module):
         if qk_norm:
             self.norm = nn.LayerNorm(head_dim, eps=1e-5, device=device)
 
-    def forward(self, x: torch.Tensor, causal: bool, mha=mha) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, causal: bool, mha=mha,
+                drop: float = 0.0, generator=None) -> torch.Tensor:
         """Attention over axis -2 of x (..., N, C) by `mha`, between the
         qkv and proj products, with the fp32 qk-LayerNorm shared by q and k
-        when the module has one."""
+        when the module has one, and dropout at rate `drop` on the
+        attention's output."""
         H = self.num_heads
-        qkv = dense(x, self.qkv.weight.t(), self.qkv.bias)
+        qkv = remat.dense(x, self.qkv.weight.t(), self.qkv.bias)
         q, k, v = qkv.reshape(*x.shape[:-1], 3, H, -1).unbind(-3)
         if hasattr(self, "norm"):
             q = layer_norm_plain(q.float(), self.norm.weight,
@@ -66,8 +87,23 @@ class SelfAttention(nn.Module):
             k = layer_norm_plain(k.float(), self.norm.weight,
                                  self.norm.bias).to(v.dtype)
         out = mha(q, k, v, scale=self.scale, causal=causal)
-        return dense(out.reshape(x.shape), self.proj.weight.t(),
-                     self.proj.bias)
+        out = dropout(out, drop, generator)
+        return remat.dense(out.reshape(x.shape), self.proj.weight.t(),
+                           self.proj.bias)
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: torch.Generator = None) -> torch.Tensor:
+    """flax's `nn.Dropout` in training: keep with probability 1 - p, scale
+    the kept values by 1 / (1 - p) in x's dtype, mask from `generator`."""
+    if p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training draws its masks from a "
+                         "torch.Generator: pass generator=")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1 - p
+    return torch.where(keep, x / (1 - p), torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
 
 
 class Mlp(nn.Module):
@@ -80,10 +116,10 @@ class Mlp(nn.Module):
 
 
 class STBlock(nn.Module):
-    # The three train blocks, and the attention of the qk_norm models. Each
-    # takes its kernels for a CUDA tensor and its plain version for a CPU
-    # tensor; a measuring script that needs the plain path on the card as
-    # its oracle swaps this namespace.
+    # The three train blocks, and the attention of the op-by-op sub-layers.
+    # Each takes its kernels for a CUDA tensor and its plain version for a
+    # CPU tensor; a measuring script that needs the plain path on the card
+    # as its oracle swaps this namespace.
     ops = SimpleNamespace(spatial=spatial_train_block,
                           temporal=temporal_train_block,
                           mlp=mlp_train_block, mha=mha)
@@ -93,7 +129,8 @@ class STBlock(nn.Module):
                  mlp_ratio: float = 4.0, mlp_bias: bool = True,
                  use_mup: bool = False, attn_drop: float = 0.0,
                  mlp_drop: float = 0.0, gelu_approx: bool = False,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16,
+                 remat_policy: Optional[str] = None, device=None):
         super().__init__()
         attn = dict(num_heads=num_heads, d_model=d_model, qkv_bias=qkv_bias,
                     proj_bias=proj_bias, qk_norm=qk_norm, use_mup=use_mup,
@@ -102,43 +139,81 @@ class STBlock(nn.Module):
         self.temporal_attn = SelfAttention(**attn)
         self.mlp = Mlp(d_model, mlp_ratio, mlp_bias, device=device)
         self.qk_norm = qk_norm
-        self.dropout = max(attn_drop, mlp_drop)
+        self.attn_drop, self.mlp_drop = attn_drop, mlp_drop
         self.gelu_approx = gelu_approx
         self.dtype = dtype
+        if remat_policy is not None and remat_policy not in remat.KEEPS:
+            raise ValueError(f"remat_policy must be one of "
+                             f"{sorted(remat.KEEPS)}, got {remat_policy!r}")
+        self.remat_policy = remat_policy  # None: no recompute
         if not qk_norm:
             self.norm1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
             self.norm2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
 
-    def _mlp(self, x_NSC, norm):
-        m = self.mlp
-        return self.ops.mlp(
-            x_NSC, m.fc1.weight.t(), m.fc2.weight.t(), bfc1=m.fc1.bias,
-            bfc2=m.fc2.bias, ln_scale=None if norm is None else norm.weight,
-            ln_bias=None if norm is None else norm.bias,
-            gelu_approx=self.gelu_approx)
+    def _rates(self):
+        return ((self.attn_drop, self.mlp_drop) if self.training
+                else (0.0, 0.0))
 
-    def forward(self, x_BTSC: torch.Tensor) -> torch.Tensor:
-        if self.training and self.dropout > 0.0:
-            raise NotImplementedError("dropout is not ported: train with "
-                                      "attn_drop = mlp_drop = 0")
-        B, T, S, C = x_BTSC.shape
+    def _recomputes(self) -> bool:
+        """Whether the backward reruns the block: under remat, unless the
+        policy is "attn_outs" and all three sub-layers are train blocks."""
+        if (self.remat_policy is None or not self.training
+                or not torch.is_grad_enabled()):
+            return False
+        fused = not self.qk_norm and self._rates() == (0.0, 0.0)
+        return not (fused and self.remat_policy == "attn_outs")
+
+    def forward(self, x_BTSC: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The block over (B, T, S, C) in the compute dtype. `generator`
+        draws the dropout masks (needed in training with a rate above 0)."""
         x = x_BTSC.to(self.dtype)
+        if not self._recomputes():
+            return self._forward(x, generator)
+        return remat.recompute(lambda h: self._forward(h, generator), x,
+                               tuple(self.parameters()), self.remat_policy,
+                               generator)
+
+    def _forward(self, x, generator):
+        B, T, S, C = x.shape
         sa, ta = self.spatial_attn, self.temporal_attn
-        if self.qk_norm:
-            x = x + sa(x, causal=False, mha=self.ops.mha)
+        attn_drop, mlp_drop = self._rates()
+        if self.qk_norm or attn_drop > 0.0:
+            # op by op: the fused attention pair for the S axis, the plain
+            # attention for the T axis, the products in plain torch
+            h = x if self.qk_norm else layer_norm_plain(
+                x, self.norm1.weight, self.norm1.bias)
+            x = x + sa(h, causal=False, mha=self.ops.mha, drop=attn_drop,
+                       generator=generator)
             x = x.transpose(1, 2)
-            x = (x + ta(x, causal=True, mha=self.ops.mha)).transpose(1, 2)
-            return self._mlp(x.reshape(B * T, S, C), None).reshape(B, T, S, C)
-        x = self.ops.spatial(
-            x.reshape(B * T, S, C), sa.qkv.weight.t(), sa.proj.weight.t(),
-            num_heads=sa.num_heads, scale=sa.scale, bqkv=sa.qkv.bias,
-            bproj=sa.proj.bias, ln_scale=self.norm1.weight,
-            ln_bias=self.norm1.bias).reshape(B, T, S, C)
-        x = self.ops.temporal(
-            x, ta.qkv.weight.t(), ta.proj.weight.t(), num_heads=ta.num_heads,
-            scale=ta.scale, bqkv=ta.qkv.bias, bproj=ta.proj.bias)
-        return self._mlp(x.reshape(B * T, S, C), self.norm2).reshape(
-            B, T, S, C)
+            x = (x + ta(x, causal=True, mha=self.ops.mha, drop=attn_drop,
+                        generator=generator)).transpose(1, 2)
+        else:
+            x = self.ops.spatial(
+                x.reshape(B * T, S, C), sa.qkv.weight.t(), sa.proj.weight.t(),
+                num_heads=sa.num_heads, scale=sa.scale, bqkv=sa.qkv.bias,
+                bproj=sa.proj.bias, ln_scale=self.norm1.weight,
+                ln_bias=self.norm1.bias).reshape(B, T, S, C)
+            x = self.ops.temporal(
+                x, ta.qkv.weight.t(), ta.proj.weight.t(),
+                num_heads=ta.num_heads, scale=ta.scale, bqkv=ta.qkv.bias,
+                bproj=ta.proj.bias)
+        norm = None if self.qk_norm else self.norm2
+        m = self.mlp
+        if mlp_drop > 0.0:
+            h = x if norm is None else layer_norm_plain(x, norm.weight,
+                                                        norm.bias)
+            h = gelu(remat.dense(h, m.fc1.weight.t(), m.fc1.bias),
+                     self.gelu_approx)
+            h = remat.dense(dropout(h, mlp_drop, generator), m.fc2.weight.t(),
+                            m.fc2.bias)
+            return x + dropout(h, mlp_drop, generator)
+        return self.ops.mlp(
+            x.reshape(B * T, S, C), m.fc1.weight.t(), m.fc2.weight.t(),
+            bfc1=m.fc1.bias, bfc2=m.fc2.bias,
+            ln_scale=None if norm is None else norm.weight,
+            ln_bias=None if norm is None else norm.bias,
+            gelu_approx=self.gelu_approx).reshape(B, T, S, C)
 
 
 class STTransformerDecoder(nn.Module):
@@ -147,9 +222,10 @@ class STTransformerDecoder(nn.Module):
         self.layers = nn.ModuleList(STBlock(**block_kwargs)
                                     for _ in range(num_layers))
 
-    def forward(self, x_BTSC: torch.Tensor) -> torch.Tensor:
-        """A plain loop over the layers; every sub-layer keeps its input for
-        the backward, which recomputes the rest inside the kernels."""
+    def forward(self, x_BTSC: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """A plain loop over the layers; `generator` draws the dropout
+        masks."""
         for layer in self.layers:
-            x_BTSC = layer(x_BTSC)
+            x_BTSC = layer(x_BTSC, generator=generator)
         return x_BTSC

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from tpu1x_torch import kernels
+from tpu1x_torch.ops import remat
 from tpu1x_torch.ops._util import require
 
 NEG_INF = torch.finfo(torch.float32).min
@@ -184,7 +185,10 @@ class _FlashMha(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale, causal):
         ctx.args = dict(scale=scale, causal=causal)
-        out, lse = flash_mha_fwd(q, k, v, **ctx.args)
+        # under remat "attn_outs" the rerun takes both residuals from the
+        # first run, so K10 runs without K9 (the kernel is no dot to JAX)
+        out, lse = remat.keep(frozenset({"attn_out"}),
+                              lambda: flash_mha_fwd(q, k, v, **ctx.args))
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
@@ -230,7 +234,8 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     floors and against SDPA.
     """
     if not q.is_cuda:
-        return mha_reference(q, k, v, scale=scale, causal=causal)
+        return remat.attention(mha_reference, q, k, v, scale=scale,
+                               causal=causal)
     return _FlashMha.apply(q, k, v, scale, causal)
 
 
@@ -242,4 +247,5 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
     work), as the JAX package chooses."""
     if q.shape[-3] >= FLASH_MIN_TOKENS:
         return flash_mha(q, k, v, scale=scale, causal=causal)
-    return mha_reference(q, k, v, scale=scale, causal=causal)
+    return remat.attention(mha_reference, q, k, v, scale=scale,
+                           causal=causal)

@@ -12,6 +12,7 @@ from tpu1x_torch import kernels
 from tpu1x_torch.ops import _train_kernels as tk
 from tpu1x_torch.ops.attention import flash_mha_bwd, flash_mha_fwd
 from tpu1x_torch.ops._util import require
+from tpu1x_torch.ops.remat import keep
 from tpu1x_torch.ops.spatial_block import (gemm_sm90, spatial_block,
                                            spatial_block_plain)
 
@@ -76,8 +77,9 @@ class _SpatialTrainBlock(torch.autograd.Function):
         ctx.dtypes = tk.dtypes_of(wqkv, wproj, bqkv, bproj, ln_scale,
                                   ln_bias)
         ctx.args = dict(num_heads=num_heads, scale=scale)
-        return spatial_block(x, w[0], w[1], bqkv=w[2], bproj=tk.as_bf16(bproj),
-                             ln_scale=w[3], ln_bias=w[4], **ctx.args)
+        return keep(frozenset({"attn_out"}), lambda: spatial_block(
+            x, w[0], w[1], bqkv=w[2], bproj=tk.as_bf16(bproj), ln_scale=w[3],
+            ln_bias=w[4], **ctx.args))
 
     @staticmethod
     def backward(ctx, dout):

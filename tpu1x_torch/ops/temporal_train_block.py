@@ -12,6 +12,7 @@ from tpu1x_torch import kernels
 from tpu1x_torch.ops import _train_kernels as tk
 from tpu1x_torch.ops import temporal_attention as ta
 from tpu1x_torch.ops._util import dense
+from tpu1x_torch.ops.remat import keep
 
 
 def temporal_train_block_plain(x, wqkv, wproj, *, num_heads: int,
@@ -89,7 +90,8 @@ class _TemporalTrainBlock(torch.autograd.Function):
         ctx.save_for_backward(x, *w)
         ctx.dtypes = tk.dtypes_of(wqkv, wproj, bqkv, bproj)
         ctx.args = dict(num_heads=num_heads, scale=scale)
-        return temporal_train_block_fwd(x, *w, tk.as_bf16(bproj), **ctx.args)
+        return keep(frozenset({"attn_out"}), lambda: temporal_train_block_fwd(
+            x, *w, tk.as_bf16(bproj), **ctx.args))
 
     @staticmethod
     def backward(ctx, dout):

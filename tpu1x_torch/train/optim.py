@@ -84,7 +84,8 @@ class TrainOptimizer:
     package's `build_optimizer`, with its arguments.
 
     `step()` consumes the `.grad`s of one micro-batch: it returns their
-    global norm (before clipping, a 0-d tensor on the parameters' device),
+    global norm (before clipping, a 0-d tensor on the parameters' device;
+    summed over the ranks when the parameters are FSDP2 shards),
     adds them to the running mean, and on every
     `gradient_accumulation_steps`-th call clips the mean, sets the learning
     rate from the schedule and updates the parameters. The gradients are
@@ -99,6 +100,14 @@ class TrainOptimizer:
                  num_warmup_steps: int = 0, num_training_steps: int = 1,
                  gradient_accumulation_steps: int = 1,
                  mu_transfer: bool = False):
+        self._args = dict(
+            config=config, learning_rate=learning_rate,
+            weight_decay=weight_decay, beta1=beta1, beta2=beta2, eps=eps,
+            max_grad_norm=max_grad_norm, lr_scheduler_type=lr_scheduler_type,
+            num_warmup_steps=num_warmup_steps,
+            num_training_steps=num_training_steps,
+            gradient_accumulation_steps=gradient_accumulation_steps,
+            mu_transfer=mu_transfer)
         self.schedule = build_lr_schedule(lr_scheduler_type, learning_rate,
                                           num_warmup_steps, num_training_steps)
         self.max_grad_norm = max_grad_norm
@@ -120,28 +129,41 @@ class TrainOptimizer:
              for (wd, scale), ps in groups.items()],
             lr=learning_rate, betas=(beta1, beta2), eps=eps)
         self._mean = None  # running mean of micro-batch gradients
+        # the group whose ranks hold shards of the parameters (FSDP2)
+        mesh = getattr(self.params[0], "device_mesh", None)
+        self._group = None if mesh is None else mesh.get_group()
+
+    def rebuild(self, model: nn.Module) -> "TrainOptimizer":
+        """A fresh optimizer with this one's arguments over `model`'s
+        parameters (those of a DDP or FSDP2 model; before any update)."""
+        if self.updates or self.micro:
+            raise ValueError("rebuild an optimizer before its first step")
+        return TrainOptimizer(model, **self._args)
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+        # under FSDP2 the parameters and gradients are DTensors, each rank
+        # holding a shard: the arithmetic runs on the local shards, and the
+        # norm sums its squares over the ranks
+        local = [_local(g) for g in grads]
+        grad_norm = self._norm(local)
         self.micro += 1
         if self.accumulate > 1:
             if self._mean is None:
                 self._mean = [g.clone() for g in grads]
             else:  # mean_k = mean_{k-1} + (g - mean_{k-1}) / k
-                torch._foreach_sub_(grads, self._mean)
-                torch._foreach_add_(self._mean, grads, alpha=1.0 / self.micro)
+                mean = [_local(m) for m in self._mean]
+                torch._foreach_sub_(local, mean)
+                torch._foreach_add_(mean, local, alpha=1.0 / self.micro)
             grads = self._mean
+            local = [_local(g) for g in grads]
         if self.micro == self.accumulate:
             if self.max_grad_norm is not None:
-                norm = (grad_norm if self.accumulate == 1 else
-                        torch.linalg.vector_norm(
-                            torch.stack(torch._foreach_norm(grads))))
+                norm = grad_norm if self.accumulate == 1 else self._norm(local)
                 scale = self.max_grad_norm / norm.clamp(min=self.max_grad_norm)
-                torch._foreach_mul_(grads, scale)
+                torch._foreach_mul_(local, scale)
             lr = self.schedule(self.updates)
             for group in self.adamw.param_groups:
                 group["lr"] = lr * group["lr_scale"]
@@ -155,3 +177,15 @@ class TrainOptimizer:
             p.grad = None
         return grad_norm
 
+    def _norm(self, local) -> torch.Tensor:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(local)))
+        if self._group is None:
+            return norm
+        sq = norm * norm
+        torch.distributed.all_reduce(sq, group=self._group)
+        return sq.sqrt()
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view of it); any other tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t

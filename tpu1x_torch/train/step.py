@@ -3,8 +3,21 @@ factored cross-entropy, backward, clip, AdamW.
 
 On a CUDA device every STBlock runs its hand-written kernels forward and
 backward; with `device="cpu"` the same code takes the plain versions under
-ordinary autograd. Gradient checkpointing is not ported: every sub-layer
-keeps its input and the kernels recompute the rest.
+ordinary autograd. Remat follows the config (models/st_transformer.py).
+
+Under data parallelism (`shard_train_state`: DDP or FSDP2 over the process
+group) each rank takes its slice of the global batch, and the step gives
+what one process gives on the global batch, as the JAX package's one SPMD
+program does: the corruption draws are the global batch's, each rank
+taking its rows (`local_rows`); loss and accuracy are divided by the
+masked tokens of the global batch (one all-reduce of the count per
+micro-batch), and the rank's loss is scaled by the world size for the
+backward, since DDP and FSDP2 average the ranks' gradients; the reported
+loss and accuracy are summed over the ranks. Every backward reduces the
+gradients (no `no_sync` under accumulation), so the reported gradient norm
+is the global micro-batch gradient's, as in the JAX package. Each rank
+draws its dropout masks from a generator of its own, seeded from the
+corruption generator's seed and the rank, so ranks drop different values.
 """
 
 from __future__ import annotations
@@ -13,28 +26,73 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from tpu1x_torch.config import GenieConfig
 from tpu1x_torch.data.corruption import draw_noise, maskgit_corrupt
-from tpu1x_torch.models.st_maskgit import STMaskGIT
+from tpu1x_torch.models.st_maskgit import STMaskGIT, relevant_mask
+from tpu1x_torch.parallel import mesh, sharding
 from tpu1x_torch.serving import resolve_device
 from tpu1x_torch.train.optim import TrainOptimizer
+
+# the draws with a batch axis; a rank takes its rows of each
+PER_EXAMPLE_NOISE = ("r_corrupt", "random_values", "r_non_mlm", "u_mask",
+                     "r_mask")
 
 
 @dataclass
 class TrainState:
     """What a train step carries: the number of steps taken, the model and
-    optimizer it updates in place, and the generator of the corruption."""
+    optimizer it updates in place, the generator of the corruption (the
+    same on every rank), and the generator of this rank's dropout masks
+    (None: the corruption's, as in one process)."""
     step: int
     model: STMaskGIT
     optimizer: TrainOptimizer
     generator: torch.Generator
+    dropout_generator: Optional[torch.Generator] = None
 
 
 def _corrupt(tokens, noise, config, generator):
+    """Corrupt this rank's rows with its rows of the global batch's draws
+    (`noise` given, or drawn from `generator`)."""
+    world = mesh.process_count()
     if noise is None:
-        noise = draw_noise(tokens.shape, config, generator, tokens.device)
+        shape = (tokens.shape[0] * world, *tokens.shape[1:])
+        noise = draw_noise(shape, config, generator, tokens.device)
+    if world > 1:
+        rows = mesh.local_rows(noise["u_mask"].shape[0])
+        noise = {k: v[rows] if k in PER_EXAMPLE_NOISE else v
+                 for k, v in noise.items()}
     return maskgit_corrupt(tokens, noise, config)
+
+
+def _global_count(batch, config, world):
+    """The masked tokens of the global batch (None in one process, where
+    the model counts its own)."""
+    if world == 1:
+        return None
+    count = relevant_mask(batch["input_ids"], config).sum().float()
+    dist.all_reduce(count)
+    return count
+
+
+def _summed(metrics, world):
+    if world > 1:
+        for v in metrics.values():
+            dist.all_reduce(v)
+    return metrics
+
+
+def shard_train_state(state: TrainState, device, fsdp: bool = False,
+                      tp: int = 1) -> TrainState:
+    """`state` for training across the process group: the model wrapped in
+    DDP or sharded by FSDP2 (`sharding.data_parallel`), and an optimizer
+    with the same arguments over the wrapped parameters (FSDP2 replaces the
+    parameters with their shards). Call before any update."""
+    model = sharding.data_parallel(state.model, device, fsdp=fsdp, tp=tp)
+    return TrainState(state.step, model, state.optimizer.rebuild(model),
+                      state.generator)
 
 
 def make_train_step(model: STMaskGIT, optimizer: TrainOptimizer,
@@ -44,15 +102,25 @@ def make_train_step(model: STMaskGIT, optimizer: TrainOptimizer,
     "acc", "grad_norm"}` (0-d tensors on the device; nothing is read back).
 
     The model is moved to `device` (the card by default; raises without
-    one) and updated in place. `noise` replaces the generator's draws with
-    given ones (see `draw_noise`), so that two packages can corrupt alike.
-    `step.state` is the `TrainState`.
+    one) and updated in place; it may be the DDP or FSDP2 model of
+    `shard_train_state`, with `optimizer` over its parameters, and
+    `tokens_BTHW` this rank's rows. `noise` replaces the generator's draws
+    with given ones for the global batch (see `draw_noise`), so that two
+    packages can corrupt alike. In one process the generator also draws the
+    dropout masks. `step.state` is the `TrainState`.
     """
     dev = resolve_device(device)
     model.to(dev).train()
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     state = TrainState(0, model, optimizer, generator)
+    world = mesh.process_count()
+    if world > 1:
+        if not sharding.is_data_parallel(model):
+            raise ValueError(f"{world} processes train one model only "
+                             f"through shard_train_state (DDP or FSDP2)")
+        state.dropout_generator = torch.Generator(device=dev).manual_seed(
+            generator.initial_seed() + 1 + mesh.process_index())
 
     def step(tokens_BTHW: torch.Tensor,
              actions_BT: Optional[torch.Tensor] = None,
@@ -61,11 +129,14 @@ def make_train_step(model: STMaskGIT, optimizer: TrainOptimizer,
         if actions_BT is not None:
             actions_BT = actions_BT.to(dev)
         batch = _corrupt(tokens, noise, config, state.generator)
-        out = model(batch["input_ids"], batch["labels"], actions_BT)
-        out["loss"].backward()
-        grad_norm = optimizer.step()
+        out = state.model(batch["input_ids"], batch["labels"], actions_BT,
+                          generator=state.dropout_generator or state.generator,
+                          num_masked=_global_count(batch, config, world))
+        (out["loss"] * world if world > 1 else out["loss"]).backward()
+        grad_norm = state.optimizer.step()
         state.step += 1
-        return {"loss": out["loss"].detach(), "acc": out["acc"].detach(),
+        return {**_summed({"loss": out["loss"].detach(),
+                           "acc": out["acc"].detach()}, world),
                 "grad_norm": grad_norm}
 
     step.state = state
@@ -75,9 +146,11 @@ def make_train_step(model: STMaskGIT, optimizer: TrainOptimizer,
 def make_eval_step(model: STMaskGIT, config: GenieConfig,
                    device="cuda") -> Callable:
     """Build `eval_step(tokens_BTHW, generator=None, noise=None) -> {"loss",
-    "acc"}`: the training corruption, then a forward without gradients."""
+    "acc"}`: the training corruption, then a forward without gradients;
+    over the global batch under data parallelism, as `make_train_step`."""
     dev = resolve_device(device)
     model.to(dev)
+    world = mesh.process_count()
 
     @torch.no_grad()
     def eval_step(tokens_BTHW: torch.Tensor,
@@ -85,8 +158,9 @@ def make_eval_step(model: STMaskGIT, config: GenieConfig,
                   noise: Optional[Dict[str, torch.Tensor]] = None):
         batch = _corrupt(tokens_BTHW.to(dev), noise, config, generator)
         was_training = model.training
-        out = model.eval()(batch["input_ids"], batch["labels"])
+        out = model.eval()(batch["input_ids"], batch["labels"],
+                           num_masked=_global_count(batch, config, world))
         model.train(was_training)
-        return {"loss": out["loss"], "acc": out["acc"]}
+        return _summed({"loss": out["loss"], "acc": out["acc"]}, world)
 
     return eval_step
