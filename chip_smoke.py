@@ -99,14 +99,34 @@
    layers: exact launch counts, each against the plain path (see
    `check_evaluation`), `gen_time` (the reference's s/frame), policies
    per second and the evaluator's device time by kernel.
+   Inside it, the MAGVIT2 tokenizer's inference path (`check_tokenizer`)
+   at `VQConfig()` (256 px, base 128, ch_mult (1, 1, 2, 2, 4), z 18, bf16;
+   seeded random weights): `save_tokenizer` / `load_tokenizer` bitwise; the
+   card's fp32 path with TF32 off against the CPU's on 2 frames (latents
+   and decoded images within 1e-4 relative L2); at 16 synthetic frames the
+   bf16 path against the fp32 oracle (latents and decoded images within
+   3e-2 relative L2, LFQ bits equal where |z32| > 0.05 rms and on 99% of
+   all, decode_tokens(ids) == decode(quantized) in each dtype); encode and
+   decode ms a frame (events and device time), TFLOP/s, the decode's peak
+   memory, LPIPS (alex) pairs a second with TF32 off and on; the tokenize
+   CLI on two segments of 24 frames (ids equal to `encode_frames`', vocab
+   2^18, the segments; no kernel launched); the evaluate CLI with
+   `--tokenizer_ckpt` and `--lpips_ckpt random` on those windows (exact
+   launches of one evaluator batch, `dec_time` and `pred_lpips`, the latter
+   within 1e-4 relative of the CPU's fp32 LPIPS on its saved frames);
+   `evaluate_dataset` with decode and LPIPS over a batch of 16 windows (its
+   wall, gen_time, dec_time, busy share); `decode_latents_wrapper` over the
+   generate CLI's video.bin equal to `decode_tokens` + `rescale_magvit_output`.
 10. The training runtime (`check_training_runtime`), in a temporary
    directory it removes: the train CLI (`tpu1x_torch.train.train.main`) on
    configs/genie_138m.json at full depth over a synthetic dataset
    (`--overfit_first_batch`, B=8, accumulation 2, 6 updates, a checkpoint
-   and an eval at 3, visualize at 6) with exact launch counts per
-   micro-batch, eval and visualize call, a falling loss, metrics.jsonl
-   and vis_step_6 read back, its s/update beside the bare step's and the
-   busy share over two updates; `Checkpointer.restore` of step_3 bit for
+   and an eval at 3, visualize at 6 with `--tokenizer_ckpt` and
+   `--lpips_ckpt random`) with exact launch counts per micro-batch, eval
+   and visualize call, a falling loss, metrics.jsonl and vis_step_6 read
+   back (its decoded `pred_vs_gtruth` figure, (4 x 2 x 256, 8 x 256, 3),
+   and the printed train-time lpips), its s/update beside the bare step's
+   and the busy share over two updates; `Checkpointer.restore` of step_3 bit for
    bit and a resumed run to step 6 whose update from step 3 is within 2e-2
    relative L2 of the uninterrupted run's; both exports of
    final_checkpt_hf read back bit for bit, and the evaluate CLI on them;
@@ -116,8 +136,9 @@
    pre-LN off / "attn_outs") with launch counts, peak memory, step time
    and gradients against remat off; dropout at 8 layers through the
    kernels and the plain path with one seed.
-11. Prints the `kernels` JSON line (with each kernel's `eval_launches` and
-   `train_cli_launches`), the card line, and last the result line.
+11. Prints the `kernels` JSON line (with each kernel's `eval_launches`,
+   `evaluate_cli_decoded` among them, and `train_cli_launches`), the card
+   line, and last the result line.
 
 K1 (both modes), K2, K3, K5, K9, K10 and K13 carry a profiler device time
 (`device_ms`; their library calls `library_device_ms`) beside the event
@@ -176,7 +197,9 @@ from tpu1x_torch.ops.temporal_mlp_block import (
     temporal_mlp_block_pair_plain, temporal_mlp_block_plain)
 from tpu1x_torch.rollout.engine import RolloutEngine
 from tpu1x_torch.serving import DecodeEngine, prepare_serving_params
-from tpu1x_torch.config import GenieConfig
+from tpu1x_torch.config import GenieConfig, VQConfig
+from tpu1x_torch.eval.metrics import make_lpips_fn
+from tpu1x_torch.eval.visualize import decode_latents_wrapper
 from tpu1x_torch.parallel.mesh import init_distributed
 from tpu1x_torch.parallel.sharding import full_state_dict
 from tpu1x_torch.train import train as train_cli
@@ -186,6 +209,11 @@ from tpu1x_torch.train.checkpoint import (Checkpointer, _state_tensors,
 from tpu1x_torch.train.optim import TrainOptimizer
 from tpu1x_torch.train.step import (TrainState, make_train_step,
                                     shard_train_state)
+from tpu1x_torch.tokenizer import tokenize as tok_cli
+from tpu1x_torch.tokenizer.checkpoint import load_tokenizer, save_tokenizer
+from tpu1x_torch.tokenizer.lpips import LPIPS
+from tpu1x_torch.tokenizer.tokenize import encode_frames
+from tpu1x_torch.tokenizer.vqmodel import VQModel, rescale_magvit_output
 from tpu1x_torch.utils.profiling import H100_PEAKS
 
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
@@ -1019,6 +1047,17 @@ def check_rollout(cfg, device, cache_dtype="bf16", per_layer=PER_LAYER,
                                            actions))
 
 
+# device kernels by kind, by what their names hold (first match wins)
+KERNEL_KINDS = (("port", ("tpu1x::", "temporal_fwd_kernel",
+                          "temporal_bwd_kernel")),
+                ("convolution", ("fprop", "implicit_gemm", "cudnn", "conv",
+                                 "nchwToNhwc", "nhwcToNchw")),
+                ("gemm", ("gemm", "xmma", "cutlass", "nvjet")),
+                ("reduction", ("reduce_kernel",)),
+                ("elementwise", ("elementwise", "CatArrayBatched",
+                                 "index", "copy")))
+
+
 def profile_device(run, top: int = 12, must=(), must_not=()):
     """Device time by kernel over one call of `run` (one more rollout, one
     more train step), from torch.profiler: the total, its share of that
@@ -1054,7 +1093,12 @@ def device_summary(prof, wall, top=12, must=(), must_not=()):
                              f"did not run {missing}")
     total = sum(a.self_device_time_total for a in on_device) / 1e3
     ranked = sorted(on_device, key=lambda a: -a.self_device_time_total)
-    return {"wall_ms": wall * 1e3, "device_ms": total,
+    by_kind = {}
+    for a in on_device:
+        kind = next((k for k, marks in KERNEL_KINDS if any(
+            m in a.key for m in marks)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + a.self_device_time_total / 1e3
+    return {"wall_ms": wall * 1e3, "device_ms": total, "by_kind": by_kind,
             "busy_share": total / (wall * 1e3),
             "top": [[a.key[:60], a.count, a.self_device_time_total / 1e3]
                     for a in ranked[:top]],
@@ -2056,9 +2100,294 @@ def check_qk_norm_evaluator(device, layers=8):
                 against_plain=against_plain_engine(ev, cfg, tokens, device))
 
 
+# --------------------------------------------------------------- tokenizer
+
+VQ_CONFIG = VQConfig()  # full width: 256 px, base 128, z 18, bf16
+VQ_B, VQ_SEGMENTS, VQ_SEG_FRAMES, LPIPS_B = 16, 2, 24, 32
+
+
+def synthetic_frames(n, side, seed):
+    """uint8 (n, side, side, 3) from `seed`: per channel a smooth sinusoid
+    over the image whose phase drifts from frame to frame, plus noise, so
+    that the latents do not all sit near 0."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:side, 0:side].astype(np.float32) / side
+    freq, phase = rng.uniform(1, 4, (3, 2)), rng.uniform(0, 2 * np.pi, 3)
+    t = np.arange(n, dtype=np.float32)[:, None, None, None]
+    img = 0.5 + 0.4 * np.sin(2 * np.pi * (freq[:, 0] * xx[..., None]
+                                          + freq[:, 1] * yy[..., None])
+                             + phase + 0.2 * t)
+    img = img * 255 + rng.normal(0, 12, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def vq_flops(vq_cfg):
+    """(encoder, decoder) FLOPs of one frame: torch's count of the
+    convolutions (2 x multiply-adds) on the meta device."""
+    from torch.utils.flop_counter import FlopCounterMode
+    side = vq_cfg.resolution
+    with torch.device("meta"):
+        model = VQModel(dataclasses.replace(vq_cfg, dtype="float32"))
+        x = torch.zeros(1, side, side, 3)
+        with FlopCounterMode(display=False) as enc:
+            quant = model.encode(x).quantized
+        with FlopCounterMode(display=False) as dec:
+            model.decode(quant)
+    return enc.get_total_flops(), dec.get_total_flops()
+
+
+def lpips_flops(net, side):
+    """One image's trunk FLOPs (the distance runs it on both images)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with torch.device("meta"):
+        trunk = getattr(LPIPS(net), net)
+        with FlopCounterMode(display=False) as fc:
+            trunk(torch.zeros(1, 3, side, side))
+    return fc.get_total_flops()
+
+
+def vq_model(vq_cfg, state, device, dtype):
+    model = VQModel(dataclasses.replace(vq_cfg, dtype=dtype), device=device)
+    model.load_state_dict(state)
+    return model.eval()
+
+
+def check_tokenizer_parity(vq_cfg, state, frames, device):
+    """The card against the CPU in fp32 (TF32 off) on 2 frames: latents and
+    decoded images within 1e-4 relative L2 (cuDNN and the CPU sum in other
+    orders). The bf16 path against the fp32 oracle on the card at VQ_B
+    frames: latents and decoded images (of the oracle's ids) within 3e-2
+    relative L2, the gate of the kernels' bf16 outputs; the LFQ bits equal
+    wherever |z32| > 0.05 rms(z32) and on at least 99% of all bits; and
+    `decode_tokens(encode(x).indices)` equal to `decode(encode(x).quantized)`
+    in each dtype."""
+    out = {}
+    m32_cpu = vq_model(vq_cfg, state, "cpu", "float32")
+    m32 = vq_model(vq_cfg, state, device, "float32")
+    m16 = vq_model(vq_cfg, state, device, "bfloat16")
+    x = torch.from_numpy(frames).to(device).float() / 127.5 - 1.0
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        z_cpu = m32_cpu.encoder(x[:2].cpu().permute(0, 3, 1, 2))
+        res_cpu = m32_cpu.quantizer(z_cpu.permute(0, 2, 3, 1), training=False)
+        dec_cpu = m32_cpu.decode_tokens(res_cpu.indices)
+        z_card = m32.encoder(x[:2].permute(0, 3, 1, 2))
+        dec_card = m32.decode_tokens(res_cpu.indices.to(device))
+        out["card_vs_cpu_fp32"] = {
+            "z_rel_l2": rel_l2(z_card.cpu(), z_cpu),
+            "decoded_rel_l2": rel_l2(dec_card.cpu(), dec_cpu)}
+        del m32_cpu
+        res32 = m32.encode(x)
+        z32 = m32.encoder(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        dec32 = m32.decode_tokens(res32.indices)
+        same32 = torch.equal(m32.decode(res32.quantized), dec32)
+    z16 = m16.encoder(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    res16 = m16.encode(x)
+    dec16 = m16.decode_tokens(res32.indices)
+    same16 = torch.equal(m16.decode(res16.quantized),
+                         m16.decode_tokens(res16.indices))
+    bits_equal = (z16 > 0) == (z32 > 0)
+    confident = z32.abs() > 0.05 * z32.square().mean().sqrt()
+    out["bf16_vs_fp32"] = {
+        "z_rel_l2": rel_l2(z16, z32), "decoded_rel_l2": rel_l2(dec16, dec32),
+        "bits_equal_share": float(bits_equal.float().mean()),
+        "confident_bits": int(confident.sum()),
+        "confident_bits_apart": int((~bits_equal & confident).sum()),
+        "decode_tokens_equals_decode": {"float32": same32, "bfloat16": same16},
+        "z32_rms": float(z32.square().mean().sqrt()),
+        "ids_distinct": int(res32.indices.unique().numel())}
+    c, b = out["card_vs_cpu_fp32"], out["bf16_vs_fp32"]
+    if not (c["z_rel_l2"] <= 1e-4 and c["decoded_rel_l2"] <= 1e-4
+            and b["z_rel_l2"] <= 3e-2 and b["decoded_rel_l2"] <= 3e-2
+            and b["confident_bits_apart"] == 0
+            and b["bits_equal_share"] >= 0.99 and same32 and same16):
+        raise AssertionError(f"tokenizer parity: {out}")
+    return out, m16
+
+
+def check_tokenizer_speed(vq_cfg, m16, frames, device):
+    """Encode and decode at VQ_B frames: ms a frame by CUDA events and by
+    the profiler's device time, TFLOP/s and the share of the bf16 peak, the
+    busy share and the largest kernels of one more call;
+    the peak memory of a decode; LPIPS (alex) pairs a second at LPIPS_B
+    pairs in fp32 with TF32 off and on."""
+    x = torch.from_numpy(frames[:VQ_B]).to(device).float() / 127.5 - 1.0
+    ids = m16.encode(x).indices
+    enc_f, dec_f = vq_flops(vq_cfg)
+    out = {"flops_per_frame": {"encode": enc_f, "decode": dec_f}}
+    for name, fn, flops in (("encode", lambda: m16.encode(x), enc_f),
+                            ("decode", lambda: m16.decode_tokens(ids), dec_f)):
+        ms = time_ms(fn, iters=5, warmup=2) / VQ_B
+        dev = device_ms(fn, iters=3)
+        dev = dev / VQ_B if dev else None
+        rate = tflops(flops, ms)
+        prof = profile_device(fn, top=8)
+        out[name] = {"ms_per_frame": ms, "device_ms_per_frame": dev,
+                     "tflops": rate, "device_tflops": tflops(flops, dev),
+                     "bf16_peak_share": rate / (PEAK_BF16_TENSOR / 1e12),
+                     "busy_share": prof["busy_share"],
+                     "device_ms_by_kind": prof["by_kind"], "top": prof["top"]}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    m16.decode_tokens(ids)
+    torch.cuda.synchronize()
+    out["decode_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["decode_peak_above_resident_bytes"] = (
+        torch.cuda.max_memory_allocated() - before)
+    lp = LPIPS("alex", device=device).init_weights(
+        torch.Generator(device=device).manual_seed(5)).eval()
+    side = vq_cfg.resolution
+    a = torch.from_numpy(synthetic_frames(LPIPS_B, side, 8)).to(device)
+    b = torch.from_numpy(synthetic_frames(LPIPS_B, side, 9)).to(device)
+    xa, xb = a.float() / 127.5 - 1.0, b.float() / 127.5 - 1.0
+    out["lpips_alex"] = {"flops_per_pair": 2 * lpips_flops("alex", side)}
+    for tag, tf32 in (("fp32", False), ("tf32", True)):
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
+            ms = time_ms(lambda: lp(xa, xb), iters=10, warmup=2)
+        out["lpips_alex"][f"{tag}_pairs_per_s"] = LPIPS_B / ms * 1e3
+        out["lpips_alex"][f"{tag}_ms_per_batch"] = ms
+    return out
+
+
+def check_tokenizer(vq_cfg, cfg, device, root):
+    """The tokenizer's inference path at `vq_cfg` (seeded random weights),
+    in `root`, which holds the evaluation phase's GENIE checkpoint (`ckpt`),
+    generate CLI output (`gen`) and synthetic token windows (`data`):
+    `save_tokenizer` / `load_tokenizer` bitwise; `check_tokenizer_parity`;
+    `check_tokenizer_speed`; the tokenize CLI over VQ_SEGMENTS segments of
+    VQ_SEG_FRAMES synthetic frames (ids equal to `encode_frames`' on each
+    segment, batched as the CLI batches; vocab
+    2^z, the segments); the evaluate CLI on those windows at B = 16 with
+    the tokenizer and random LPIPS (exact launches, one evaluator batch;
+    `dec_time` and `pred_lpips` in its line; `pred_lpips` within 1e-4
+    relative of the port's LPIPS on the CPU in fp32 on its saved frames);
+    `evaluate_dataset` with decode and LPIPS over a full batch of B windows
+    (its wall, gen_time, dec_time, busy share); `decode_latents_wrapper`
+    over the generate CLI's video.bin against `decode_tokens` +
+    `rescale_magvit_output`. Decode launches no kernel of the port."""
+    t0 = time.perf_counter()
+    side = vq_cfg.resolution
+    g = torch.Generator(device=device).manual_seed(11)
+    model = VQModel(vq_cfg, device=device).init_weights(g)
+    save_tokenizer(root / "tok", model, vq_cfg)
+    state, got_cfg = load_tokenizer(root / "tok")
+    want = {k: v.cpu() for k, v in model.state_dict().items()}
+    if got_cfg != vq_cfg or set(state) != set(want) or not all(
+            torch.equal(state[k], v) for k, v in want.items()):
+        raise AssertionError("load_tokenizer is not save_tokenizer's model "
+                             "bit for bit")
+    del model
+    n = VQ_SEGMENTS * VQ_SEG_FRAMES
+    frames = synthetic_frames(n, side, 7)
+    (root / "frames").mkdir()
+    for s in range(VQ_SEGMENTS):
+        np.save(root / "frames" / f"clip_{s}.npy",
+                frames[s * VQ_SEG_FRAMES:(s + 1) * VQ_SEG_FRAMES])
+    with torch.no_grad():
+        out, m16 = check_tokenizer_parity(vq_cfg, state, frames[:VQ_B],
+                                          device)
+        print("tokenizer parity: " + json.dumps(out), flush=True)
+        out["speed"] = check_tokenizer_speed(vq_cfg, m16, frames, device)
+        print("tokenizer speed: " + json.dumps(out["speed"]), flush=True)
+
+        tok = ["--tokenizer_ckpt", str(root / "tok")]
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            launches_of(lambda: tok_cli.main(tok + [
+                "--frames", str(root / "frames"), "--output_dir",
+                str(root / "tokens"), "--device", str(device)]), {}, 1,
+                "tokenize CLI")
+        wall = time.perf_counter() - t1
+        video = RawTokenDataset(root / "tokens", window_size=1,
+                                filter_interrupts=False)
+        # segment by segment, as the CLI batches: a frame's ids can change
+        # with its place in a batch (cuDNN's split of a product's sums)
+        direct = np.concatenate([
+            encode_frames(m16, frames[lo:lo + VQ_SEG_FRAMES], device=device)
+            for lo in range(0, n, VQ_SEG_FRAMES)])
+        rebatched = encode_frames(m16, frames, device=device)
+        segments = np.asarray(video.segment_ids)
+        if not (np.array_equal(np.asarray(video.data), direct)
+                and video.metadata["vocab_size"] == vq_cfg.codebook_size
+                and np.array_equal(np.bincount(segments),
+                                   [VQ_SEG_FRAMES] * VQ_SEGMENTS)):
+            raise AssertionError("tokenize CLI: video.bin, vocab_size or "
+                                 "segments differ from encode_frames'")
+        out["tokenize_cli"] = {
+            "wall_s": wall, "frames_per_s": n / wall,
+            "ids_apart_when_batched_whole": int((rebatched != direct).sum()),
+            "log": buf.getvalue().splitlines()}
+
+        buf = io.StringIO()
+        saved = root / "eval_outputs"
+        with contextlib.redirect_stdout(buf):
+            _, launches = launches_of(lambda: ev_cli.main(tok + [
+                "--val_data_dir", str(root / "tokens"), "--checkpoint_dir",
+                str(root / "ckpt"), "--stride", "1", "--batch_size", str(B),
+                "--lpips_ckpt", "random", "--save_outputs_dir", str(saved),
+                "--device", str(device)]), EVAL_PER_LAYER, cfg.num_layers,
+                "evaluate CLI with frame decode")
+        result = json.loads(buf.getvalue().strip().splitlines()[-1])
+        windows = VQ_SEGMENTS * (VQ_SEG_FRAMES // cfg.T)
+        pred = np.load(saved / "pred_frames.npy")
+        gtruth = np.load(saved / "gtruth_frames.npy")
+        cpu_lpips = float(make_lpips_fn("random", device="cpu")(
+            gtruth, pred).mean())
+        lp_err = abs(result.get("pred_lpips", math.nan) - cpu_lpips
+                     ) / cpu_lpips
+        if not ({"loss", "acc", "gen_time", "dec_time", "pred_lpips",
+                 "count"} <= result.keys() and result["count"] == windows
+                and pred.shape == (windows, cfg.T - 1, side, side, 3)
+                and lp_err <= 1e-4):
+            raise AssertionError(f"evaluate CLI with frame decode printed "
+                                 f"{result}; the CPU LPIPS {cpu_lpips}")
+        out["evaluate_cli"] = dict(result=result, launches=launches,
+                                   cpu_fp32_lpips=cpu_lpips,
+                                   pred_lpips_rel_err=lp_err)
+
+        ds = RawTokenDataset(root / "data", window_size=cfg.T, stride=1,
+                             filter_overlaps=True)
+        ev = GenieEvaluator(load_torch_checkpoint(root / "ckpt", cfg), cfg,
+                            device=device, maskgit_steps=STEPS)
+        decode = decode_latents_wrapper(str(root / "tok"), device=device)
+        lpips_fn = make_lpips_fn("random", device=device)
+
+        def batch():
+            return evaluate_dataset(ev, ds, batch_size=B, max_examples=B,
+                                    decode_latents=decode, lpips_fn=lpips_fn,
+                                    verbose=False)
+        res, launches = launches_of(batch, EVAL_PER_LAYER, cfg.num_layers,
+                                    "evaluate_dataset with frame decode")
+        s, walls = median_s(batch)
+        busy = profile_device(batch)
+        out["evaluator_batch"] = dict(
+            wall_s=s, wall_s_runs=walls, results=res, launches=launches,
+            decoded_frames=2 * B * (cfg.T - 1), lpips_pairs=B * (cfg.T - 1),
+            busy={k: busy[k] for k in ("wall_ms", "device_ms", "busy_share",
+                                       "top")})
+        del ev
+
+        gen = RawTokenDataset(root / "gen", window_size=1,
+                              filter_interrupts=False)
+        ids = np.asarray(gen.data).astype(np.int32)
+        got = decode(ids)
+        want = np.concatenate([rescale_magvit_output(m16.decode_tokens(
+            torch.from_numpy(ids[lo:lo + B]).to(device))).cpu().numpy()
+            for lo in range(0, len(ids), B)])
+        if len(ids) % B or got.dtype != np.uint8 or got.shape != (
+                len(ids), side, side, 3) or not np.array_equal(got, want):
+            raise AssertionError(f"decode_latents_wrapper: {got.shape} "
+                                 f"{got.dtype}, or not decode_tokens'")
+        out["visualize"] = {"frames": len(ids)}
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def check_evaluation(cfg, device):
     """The evaluation phase: scoring, the evaluator, the uncached paths and
-    the CLIs at GENIE_138M (random weights from seed 0), then the qk_norm
+    the CLIs at GENIE_138M (random weights from seed 0), the tokenizer's
+    inference path at `VQ_CONFIG` (`check_tokenizer`), then the qk_norm
     evaluator at 8 layers."""
     g = torch.Generator(device=device).manual_seed(0)
     model = STMaskGIT(cfg, device=device).init_weights(g)
@@ -2078,6 +2407,11 @@ def check_evaluation(cfg, device):
               flush=True)
         out["cli"] = check_clis(model, cfg, device, root)
         print("evaluation CLIs: " + json.dumps(out["cli"]), flush=True)
+        out["tokenizer"] = check_tokenizer(VQ_CONFIG, cfg, device, root)
+        print("tokenizer: " + json.dumps(
+            {k: v for k, v in out["tokenizer"].items()
+             if k not in ("bf16_vs_fp32", "card_vs_cpu_fp32", "speed")}),
+            flush=True)
     del model
     torch.cuda.empty_cache()
     out["qk_norm_evaluator"] = check_qk_norm_evaluator(device)
@@ -2220,7 +2554,11 @@ def check_cli_run(cfg, device, root):
               "3", "--eval_every_n_steps", "3", "--max_eval_steps",
               str(RT_EVAL_BATCHES), "--vis_every_n_steps", str(RT_UPDATES),
               "--learning_rate", str(RT_LR), "--lr_scheduler_type",
-              "constant", "--seed", "0", "--report_to", "jsonl"]
+              "constant", "--seed", "0", "--report_to", "jsonl",
+              "--tokenizer_ckpt", str(root / "tok"), "--lpips_ckpt", "random"]
+    g = torch.Generator(device=device).manual_seed(11)
+    save_tokenizer(root / "tok", VQModel(VQ_CONFIG, device=device)
+                   .init_weights(g), VQ_CONFIG)
     out1, out2 = root / "run", root / "resumed"
     rec = instrumented_cli(common + ["--output_dir", str(out1)])
     per_update = cli_launch_gates(rec, cfg, "train CLI")
@@ -2253,6 +2591,22 @@ def check_cli_run(cfg, device, root):
             and int(stream.max()) < cfg.image_vocab_size):
         raise AssertionError("vis_step_6/video.bin does not hold [prompt | "
                              "predicted | ground truth]")
+    # the decoded figure: each window's generated row above its ground truth
+    figures = sorted((out1 / f"vis_step_{RT_UPDATES}").glob(
+        "pred_vs_gtruth.*"))
+    if not figures:
+        raise AssertionError("visualize wrote no pred_vs_gtruth figure")
+    figure = figures[0]
+    if figure.suffix == ".png":
+        from PIL import Image
+        grid = np.asarray(Image.open(figure))
+    else:
+        grid = np.load(figure)
+    px = VQ_CONFIG.resolution
+    lpips_lines = [x for x in rec["stdout"] if "train-time lpips" in x]
+    if grid.shape != (n * 2 * px, half * px, 3) or not lpips_lines:
+        raise AssertionError(f"visualize: {figure.name} of {grid.shape}, "
+                             f"lpips lines {lpips_lines}")
     starts = rec["starts"]
     # updates 2, 4 and 5 run with no checkpoint, eval or visualize inside
     walls = [starts[k + 1] - starts[k] for k in (2, 4, 5)]
@@ -2329,6 +2683,8 @@ def check_cli_run(cfg, device, root):
                                                "busy_share", "top")},
         resumed_update_rel_l2=delta, resumed_worst_params=worst,
         metrics_logged=logged[1:], evaluate_cli=evaluated,
+        decoded_figure=[figure.name, list(grid.shape)],
+        train_time_lpips=lpips_lines,
         evaluate_cli_launches=eval_launches)
 
 
@@ -2668,7 +3024,31 @@ def main() -> int:
             "full_rollout": evaluation["uncached"]["full_launches"],
             "evaluate_cli": evaluation["cli"]["evaluate_launches"],
             "generate_cli": evaluation["cli"]["generate_launches"],
-            "qk_norm_evaluator": evaluation["qk_norm_evaluator"]["launches"]}
+            "qk_norm_evaluator": evaluation["qk_norm_evaluator"]["launches"],
+            "evaluate_cli_decoded":
+                evaluation["tokenizer"]["evaluate_cli"]["launches"],
+            "evaluate_dataset_decoded":
+                evaluation["tokenizer"]["evaluator_batch"]["launches"]}
+        tok = evaluation["tokenizer"]
+        sp, eb = tok["speed"], tok["evaluator_batch"]
+        print(f"tokenizer phase: {tok['phase_s']:.1f} s; at B={VQ_B} encode "
+              f"{sp['encode']['ms_per_frame']:.4f} ms/frame (device "
+              f"{sp['encode']['device_ms_per_frame']}), "
+              f"{sp['encode']['tflops']:.1f} TFLOP/s "
+              f"({sp['encode']['bf16_peak_share']:.3f} of the bf16 peak); "
+              f"decode {sp['decode']['ms_per_frame']:.4f} ms/frame (device "
+              f"{sp['decode']['device_ms_per_frame']}), "
+              f"{sp['decode']['tflops']:.1f} TFLOP/s "
+              f"({sp['decode']['bf16_peak_share']:.3f}); decode peak "
+              f"{sp['decode_peak_memory_bytes']} B; LPIPS alex "
+              f"{sp['lpips_alex']['fp32_pairs_per_s']:.1f} pairs/s fp32, "
+              f"{sp['lpips_alex']['tf32_pairs_per_s']:.1f} with TF32; "
+              f"evaluator batch with decode {eb['wall_s']:.4f} s, gen_time "
+              f"{eb['results']['gen_time']:.6f}, dec_time "
+              f"{eb['results']['dec_time']:.6f} s/frame, busy "
+              f"{eb['busy']['busy_share']:.3f}; tokenize CLI "
+              f"{tok['tokenize_cli']['frames_per_s']:.1f} frames/s on {card}",
+              flush=True)
 
         t0 = time.perf_counter()
         runtime = check_training_runtime(cfg, device, train["step_s"])

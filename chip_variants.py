@@ -14,6 +14,8 @@
     python3 chip_variants.py rollout
     python3 chip_variants.py fresh
     python3 chip_variants.py k2gate
+    python3 chip_variants.py cli
+    python3 chip_variants.py cli_bare
 
 Each LIB is a shared library built from a variant of a source in
 `tpu1x_torch/csrc` (nvcc with `kernels.NVCC_FLAGS`, `-I` its own copy of the
@@ -125,6 +127,11 @@ in one process on one card; every time is the profiler's device time
   outside the same gate and their relative L2: whether the kernel or the
   gate is at fault (ROADMAP C4); and what `chip_smoke.held_to_plain`, the
   gate that replaced the elementwise one, gives there. No builds.
+- `cli` and `cli_bare`: `chip_smoke.check_evaluation` with its tokenizer
+  phase (`cli`) or without it (`cli_bare`), then `check_cli_run`, the
+  train CLI at GENIE_138M; prints the CLI's update walls, s/update, busy
+  share and device time over two updates. Run in turns, one process each,
+  they show whether the tokenizer phase moves the CLI's walls. No builds.
 
 Prints one line per build and case, and the card.
 """
@@ -132,8 +139,10 @@ Prints one line per build and case, and the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -751,9 +760,30 @@ def k2gate(dev):
                    "elements": got.numel()}}), flush=True)
 
 
+def cli_after_evaluation(dev, tokenizer=True):
+    """`chip_smoke.check_cli_run` (the train CLI at GENIE_138M) after
+    `check_evaluation`, with its tokenizer phase (`cli`) or without it
+    (`cli_bare`), as chip_smoke.py orders them; prints the CLI's update
+    walls and its busy share over two updates. Run the two in turns, one
+    process each, to see whether the tokenizer phase moves the walls."""
+    if not tokenizer:
+        cs.check_tokenizer = lambda *a, **k: {}
+    cfg = cs.genie_138m()
+    cs.check_evaluation(cfg, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = cs.check_cli_run(cfg, dev, Path(tmp))
+    busy = out["busy_updates_4_5"]
+    print(json.dumps(dict(
+        kernel="cli", tokenizer_phase=tokenizer, walls=out["update_walls_s"],
+        s_per_update=out["s_per_update"], busy_share=busy["busy_share"],
+        device_ms=busy["device_ms"])), flush=True)
+
+
 MODES = {"block": block, "mlp": mlp, "train": train, "temporal": temporal,
          "l2": l2, "decode": decode, "rollout": rollout, "fresh": fresh,
-         "k2gate": k2gate}
+         "k2gate": k2gate, "cli": cli_after_evaluation,
+         "cli_bare": functools.partial(cli_after_evaluation,
+                                       tokenizer=False)}
 # mode: (the source its builds are variants of, the timing)
 VARIANTS = {"flash": ("flash_attention", flash),
             "gemm": ("spatial_block", gemm), "tn": ("train_block", tn),

@@ -1,11 +1,13 @@
 """The port stands alone: importing `tpu1x_torch` (every module, the
-evaluation, data, training-runtime and parallel modules among them) and
-`chip_smoke` loads neither JAX nor the JAX package, needs neither `nvcc`
-nor `triton`, and a CPU rollout (block path, op by op with qk_norm and the
-int8 cache, and decode="full"), policy scores, the evaluator (cached and
-rows), a CPU train step (pre-LN and qk_norm) and two updates of the train
-CLI through the port launch no kernel; the train step, the evaluator and
-the train CLI default to the card and raise without one.
+evaluation, data, training-runtime, parallel and tokenizer modules among
+them) and `chip_smoke` loads neither JAX nor the JAX package, needs neither
+`nvcc` nor `triton`, and a CPU rollout (block path, op by op with qk_norm
+and the int8 cache, and decode="full"), policy scores, the evaluator
+(cached and rows), a CPU train step (pre-LN and qk_norm), two updates of
+the train CLI and the tokenizer's encode and decode through the port
+launch no kernel; the train step, the evaluator, the train CLI, the
+tokenizer's `encode_frames`, `decode_latents_wrapper`, `make_lpips_fn` and
+the tokenize and visualize CLIs default to the card and raise without one.
 
 Runs in a fresh interpreter, because this test process has JAX loaded.
 """
@@ -41,7 +43,11 @@ for name in ("tpu1x_torch.eval.evaluate", "tpu1x_torch.eval.generate",
              "tpu1x_torch.train.train", "tpu1x_torch.train.prefetch",
              "tpu1x_torch.train._msgpack", "tpu1x_torch.parallel.mesh",
              "tpu1x_torch.parallel.sharding", "tpu1x_torch.ops.remat",
-             "tpu1x_torch.utils.profiling"):
+             "tpu1x_torch.utils.profiling", "tpu1x_torch.utils.misc",
+             "tpu1x_torch.eval.visualize", "tpu1x_torch.tokenizer.cnn",
+             "tpu1x_torch.tokenizer.lfq", "tpu1x_torch.tokenizer.vqmodel",
+             "tpu1x_torch.tokenizer.lpips", "tpu1x_torch.tokenizer.checkpoint",
+             "tpu1x_torch.tokenizer.tokenize"):
     assert name in sys.modules, name
 
 from tpu1x_torch.model_zoo import genie_tiny
@@ -139,6 +145,42 @@ else:
 train.main(argv + ["--device", "cpu"])
 assert (root / "out" / "final_checkpt_hf" / "model.safetensors").exists()
 assert (root / "out" / "vis_step_2" / "video.bin").exists()
+
+from tpu1x_torch.config import VQConfig
+from tpu1x_torch.eval import visualize
+from tpu1x_torch.eval.metrics import make_lpips_fn
+from tpu1x_torch.tokenizer import tokenize
+from tpu1x_torch.tokenizer.checkpoint import save_tokenizer
+from tpu1x_torch.tokenizer.vqmodel import VQModel
+vq_cfg = VQConfig(resolution=32, base_channels=32, ch_mult=(1, 2),
+                  num_res_blocks=1, z_channels=6, codebook_size=64)
+vq = VQModel(vq_cfg).init_weights(torch.Generator().manual_seed(0))
+save_tokenizer(root / "tok", vq, vq_cfg)
+frames = np.zeros((2, 32, 32, 3), np.uint8)
+ids = tokenize.encode_frames(vq, frames, device="cpu")
+assert ids.shape == (2, 16, 16)
+with torch.no_grad():
+    assert vq.decode_tokens(torch.from_numpy(ids)).shape == (2, 32, 32, 3)
+np.save(root / "frames.npy", frames)
+write_token_dataset(root / "tokens", ids, vocab_size=64)
+for what, call in (
+        ("encode_frames", lambda: tokenize.encode_frames(vq, frames)),
+        ("decode_latents_wrapper", lambda: visualize.decode_latents_wrapper(
+            str(root / "tok"))),
+        ("make_lpips_fn", lambda: make_lpips_fn("random")),
+        ("tokenize CLI", lambda: tokenize.main([
+            "--frames", str(root / "frames.npy"), "--tokenizer_ckpt",
+            str(root / "tok"), "--output_dir", str(root / "tokenized")])),
+        ("visualize CLI", lambda: visualize.main([
+            "--token_dir", str(root / "tokens"), "--tokenizer_ckpt",
+            str(root / "tok")]))):
+    try:
+        call()  # the card is the default, and there is none here
+    except RuntimeError as e:
+        assert "cuda" in str(e), (what, e)
+    else:
+        raise AssertionError(f"{what}'s default device did not raise without "
+                             f"a card")
 
 assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
 assert not kernels._libs

@@ -1,5 +1,5 @@
-"""GENIE world-model configuration, read from the same JSON files as the
-JAX package (`configs/*.json`).
+"""GENIE world-model and MAGVIT2 tokenizer configurations, read from the
+same JSON files as the JAX package (`configs/*.json`, `vq_config.json`).
 
 The port keeps its own copy of the dataclass so that it never imports the
 JAX package, without the JAX package's kernel choice (`attn_impl`: the card
@@ -15,7 +15,7 @@ import dataclasses
 import json
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 
 def nth_root(x: int, n: int) -> int:
@@ -115,6 +115,75 @@ class GenieConfig:
         json_path = Path(json_path)
         if json_path.is_dir():
             json_path = json_path / "config.json"
+        with open(json_path) as f:
+            raw = json.load(f)
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in raw.items() if k in known})
+
+
+@dataclass
+class VQConfig:
+    """Open-MAGVIT2 LFQ tokenizer configuration: the JAX package's fields and
+    defaults (the reference's `magvit2/config.py:9-55`). The port serves
+    the tokenizer (encode, decode, LPIPS); the loss and EMA fields are kept
+    so that a `vq_config.json` round-trips between the packages."""
+
+    # architecture
+    resolution: int = 256
+    in_channels: int = 3
+    out_channels: int = 3
+    base_channels: int = 128
+    ch_mult: Tuple[int, ...] = (1, 1, 2, 2, 4)  # 16x downsample: 256 -> 16
+    num_res_blocks: int = 2
+    z_channels: int = 18  # log2(codebook_size)
+    codebook_size: int = 262144
+
+    # quantizer / losses
+    entropy_loss_weight: float = 0.1
+    commit_loss_weight: float = 0.25
+    entropy_temperature: float = 0.01
+    token_factorization: bool = False
+
+    # GAN loss
+    disc_start: int = 0
+    disc_weight: float = 0.8
+    disc_num_layers: int = 3
+    disc_in_channels: int = 3
+    disc_loss: str = "hinge"  # "hinge" | "vanilla" | "non_saturate"
+    use_actnorm: bool = False
+    gen_loss_weight: Optional[float] = None  # None -> adaptive weight
+    lecam_weight: float = 0.005
+    perceptual_weight: float = 1.0
+    recon_loss: str = "l1"
+
+    # EMA
+    use_ema: bool = True
+    ema_decay: float = 0.999
+
+    # compute and parameter dtypes, by their numpy/torch names
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+
+    def __post_init__(self):
+        self.ch_mult = tuple(self.ch_mult)
+        if 2 ** self.z_channels != self.codebook_size:
+            raise ValueError(f"codebook_size {self.codebook_size} is not "
+                             f"2 ** z_channels ({self.z_channels})")
+
+    def save_pretrained(self, json_path) -> None:
+        """Write the config as JSON, to `json_path` or to
+        `json_path/vq_config.json` for a directory."""
+        json_path = Path(json_path)
+        if json_path.is_dir():
+            json_path = json_path / "vq_config.json"
+        with open(json_path, "w") as f:
+            json.dump(dataclasses.asdict(self), f, indent=2)
+
+    @classmethod
+    def from_pretrained(cls, json_path) -> "VQConfig":
+        json_path = Path(json_path)
+        if json_path.is_dir():
+            json_path = json_path / "vq_config.json"
         with open(json_path) as f:
             raw = json.load(f)
         known = {f.name for f in dataclasses.fields(cls)}

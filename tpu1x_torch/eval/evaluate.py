@@ -18,8 +18,10 @@ Two paths:
   a whole-sequence forward per step.
 
 The step-0 logits depend on the ground truth alone, so both paths give the
-same CE. On the card every op launches the port's kernels; on the CPU each
-takes its plain version.
+same CE. With the MAGVIT2 tokenizer (`--tokenizer_ckpt`) `evaluate_dataset`
+also decodes the predicted and ground-truth frames (`dec_time`) and, with
+LPIPS weights (`--lpips_ckpt`), reports `pred_lpips`. On the card every op
+launches the port's kernels; on the CPU each takes its plain version.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import functools
 import json
 import time
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,7 +39,8 @@ import torch
 from tpu1x_torch.config import GenieConfig
 from tpu1x_torch.data.token_store import RawTokenDataset
 from tpu1x_torch.eval.metrics import (AvgMetric, compute_loss, factored_ce,
-                                      token_accuracy)
+                                      make_lpips_fn, token_accuracy)
+from tpu1x_torch.eval.visualize import decode_latents_wrapper
 from tpu1x_torch.models.sampler import (maskgit_generate,
                                         maskgit_generate_cached)
 from tpu1x_torch.rollout.engine import model_on
@@ -182,6 +185,8 @@ class GenieEvaluator:
 
 def evaluate_dataset(evaluator: GenieEvaluator, dataset: RawTokenDataset,
                      batch_size: int = 16, max_examples: Optional[int] = None,
+                     decode_latents: Optional[Callable] = None,
+                     lpips_fn: Optional[Callable] = None,
                      save_outputs_dir: Optional[str] = None, seed: int = 42,
                      verbose: bool = True) -> dict:
     """The challenge metrics over a token dataset.
@@ -193,14 +198,24 @@ def evaluate_dataset(evaluator: GenieEvaluator, dataset: RawTokenDataset,
     the samples as .npy). Returns the means of `loss`, `acc` and `gen_time`
     (s per generated frame: the batch's wall time, read after the device
     has finished, over (T-1) x its real examples), and `count`, the
-    examples evaluated. Frame decode and LPIPS wait for the tokenizer.
+    examples evaluated.
+
+    With `decode_latents` (ids (N, h, w) -> uint8 frames, e.g.
+    `eval/visualize.py:decode_latents_wrapper`) the predicted frames are
+    decoded and timed, `dec_time` (s per frame, over the same frames; the
+    decoder returns host arrays, so the device has finished), then the
+    ground truth; with `lpips_fn` too (`eval/metrics.py:make_lpips_fn`),
+    `pred_lpips`, the mean distance of each predicted frame from its ground
+    truth. The frames are saved beside the tokens under `save_outputs_dir`.
+    A metric with no count is left out of the results.
     """
     cfg = evaluator.config
     dev = evaluator.device
     generator = torch.Generator(device=dev).manual_seed(seed)
-    metrics = {k: AvgMetric() for k in ("loss", "acc", "gen_time")}
-    outputs = {k: [] for k in ("pred_logits", "gtruth_tokens",
-                               "pred_tokens")}
+    metrics = {k: AvgMetric() for k in ("loss", "acc", "gen_time",
+                                        "dec_time", "pred_lpips")}
+    outputs = {k: [] for k in ("pred_logits", "gtruth_tokens", "pred_tokens",
+                               "pred_frames", "gtruth_frames")}
     device_metrics = evaluator.use_cache and save_outputs_dir is None
 
     n = len(dataset) if max_examples is None else min(len(dataset),
@@ -239,21 +254,41 @@ def evaluate_dataset(evaluator: GenieEvaluator, dataset: RawTokenDataset,
                 cfg.factored_vocab_size), real)
             metrics["acc"].update(token_accuracy(tokens_BTHW, samples), real)
 
+        if decode_latents is not None:
+            frame_shape = samples.shape[2:]
+            start = time.perf_counter()
+            pred_frames = decode_latents(samples.reshape(-1, *frame_shape))
+            metrics["dec_time"].update(
+                (time.perf_counter() - start) / ((cfg.T - 1) * real), real)
+            pred_frames = pred_frames.reshape(real, cfg.T - 1,
+                                              *pred_frames.shape[1:])
+            gtruth_frames = decode_latents(
+                tokens_BTHW[:, 1:].reshape(-1, *frame_shape)).reshape(
+                    pred_frames.shape)
+            if lpips_fn is not None:
+                metrics["pred_lpips"].update_list(
+                    lpips_fn(gtruth_frames, pred_frames))
+            if save_outputs_dir is not None:
+                outputs["pred_frames"].append(pred_frames)
+                outputs["gtruth_frames"].append(gtruth_frames)
+
         if save_outputs_dir is not None:
             outputs["pred_logits"].append(factored_logits)
             outputs["gtruth_tokens"].append(tokens_BTHW)
             outputs["pred_tokens"].append(samples)
 
         if verbose:
-            print({k: round(v.mean(), 4) for k, v in metrics.items()})
+            print({k: round(v.mean(), 4) for k, v in metrics.items()
+                   if v.count > 0})
 
     if save_outputs_dir is not None:
         out = Path(save_outputs_dir)
         out.mkdir(parents=True, exist_ok=True)
         for key, vals in outputs.items():
-            np.save(out / f"{key}.npy", np.concatenate(vals, axis=0))
+            if vals:
+                np.save(out / f"{key}.npy", np.concatenate(vals, axis=0))
 
-    results = {k: v.mean() for k, v in metrics.items()}
+    results = {k: v.mean() for k, v in metrics.items() if v.count > 0}
     results["count"] = metrics["loss"].count
     return results
 
@@ -277,10 +312,13 @@ def parse_args(argv=None):
                    help="decode all frame tasks as batch rows of full "
                         "forwards instead of against the KV cache")
     p.add_argument("--tokenizer_ckpt", type=str, default=None,
-                   help="MAGVIT2 tokenizer checkpoint for frame decode; "
-                        "not ported yet")
+                   help="MAGVIT2 tokenizer checkpoint: decodes the "
+                        "predicted and ground-truth frames and reports "
+                        "dec_time")
     p.add_argument("--lpips_ckpt", type=str, default=None,
-                   help="LPIPS weights; not ported yet")
+                   help="LPIPS (AlexNet) weights, with --tokenizer_ckpt: "
+                        "reports pred_lpips; 'random' runs with random "
+                        "weights (smoke only)")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (the default) or 'cpu'")
     return p.parse_args(argv)
@@ -302,10 +340,6 @@ def load_model_checkpoint(checkpoint_dir
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.tokenizer_ckpt or args.lpips_ckpt:
-        raise NotImplementedError(
-            "frame decode and LPIPS need the tokenizer, which the port does "
-            "not have yet (ROADMAP queue A5)")
     dataset = RawTokenDataset(args.val_data_dir, window_size=args.window_size,
                               stride=args.stride, filter_overlaps=True)
     state, config = load_model_checkpoint(args.checkpoint_dir)
@@ -314,10 +348,16 @@ def main(argv=None):
                                temperature=args.temperature,
                                rows_per_chunk=args.rows_per_chunk,
                                use_cache=not args.no_kv_cache)
+    decode_latents = lpips_fn = None
+    if args.tokenizer_ckpt:
+        decode_latents = decode_latents_wrapper(
+            ckpt_path=args.tokenizer_ckpt, device=args.device)
+        if args.lpips_ckpt:
+            lpips_fn = make_lpips_fn(args.lpips_ckpt, device=args.device)
     results = evaluate_dataset(
         evaluator, dataset, batch_size=args.batch_size,
-        max_examples=args.max_examples,
-        save_outputs_dir=args.save_outputs_dir)
+        max_examples=args.max_examples, decode_latents=decode_latents,
+        lpips_fn=lpips_fn, save_outputs_dir=args.save_outputs_dir)
     print(json.dumps(results))
 
 

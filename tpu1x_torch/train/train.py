@@ -9,7 +9,9 @@ batches already consumed on resume), the background prefetcher, gradient
 accumulation through `TrainOptimizer`, logging at update 1 and every 10th
 (device metrics read on the host only there), `step_N` full-state
 checkpoints beside `step_N_hf` model exports, eval every n updates,
-`visualize`'s KV-cached rollout written as a token dataset (`vis_step_N`),
+`visualize`'s KV-cached rollout written as a token dataset (`vis_step_N`;
+with `--tokenizer_ckpt` also decoded to `pred_vs_gtruth.png`, and with
+`--lpips_ckpt` the train-time LPIPS logged),
 a collective preemption flag checked at every update, and at the end
 `final_checkpt` and `final_checkpt_hf` in both model layouts (the JAX
 package's `params.msgpack` and the reference's `model.safetensors`).
@@ -17,9 +19,8 @@ Metrics go to `{output_dir}/metrics.jsonl`, and to wandb where it imports.
 
 Beside the JAX flags: `--device` (`cuda`, the default, or `cpu`, which runs
 the plain versions). `--no_compile` is accepted and does nothing, as in JAX.
-`--tp` above 1 raises (tensor parallelism is not ported), as do
-`--tokenizer_ckpt` and `--lpips_ckpt` until the tokenizer is (ROADMAP
-queue A). With several processes (torchrun, or the JAX trainer's
+`--tp` above 1 raises (tensor parallelism is not ported; ROADMAP queue
+A). With several processes (torchrun, or the JAX trainer's
 `TPU1X_MULTIHOST` variables; see `parallel/mesh.py`) the model trains under
 DDP, or FSDP2 with `--fsdp`; in one process `--fsdp` changes nothing, as
 a one-device mesh does in JAX.
@@ -52,6 +53,8 @@ from tpu1x_torch.models.st_maskgit import (STMaskGIT, count_params,
 from tpu1x_torch.parallel import mesh, sharding
 from tpu1x_torch.serving import resolve_device
 from tpu1x_torch.eval.evaluate import load_model_checkpoint
+from tpu1x_torch.eval.metrics import make_lpips_fn
+from tpu1x_torch.eval.visualize import decode_latents_wrapper
 from tpu1x_torch.train.checkpoint import (Checkpointer, save_pretrained,
                                           save_pretrained_torch)
 from tpu1x_torch.train.optim import TrainOptimizer
@@ -111,9 +114,13 @@ def parse_args(argv=None):
     p.add_argument("--no_compile", action="store_true",
                    help="accepted for the reference CLI's sake; no-op")
     p.add_argument("--tokenizer_ckpt", type=str, default=None,
-                   help="not ported yet (ROADMAP queue A): raises")
+                   help="MAGVIT2 tokenizer checkpoint: visualize decodes "
+                        "the generated and ground-truth frames to "
+                        "pred_vs_gtruth.png")
     p.add_argument("--lpips_ckpt", type=str, default=None,
-                   help="not ported yet (ROADMAP queue A): raises")
+                   help="LPIPS (AlexNet) weights, with --tokenizer_ckpt: "
+                        "visualize logs the train-time lpips; 'random' for "
+                        "random weights (smoke only)")
     # parallelism
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel degree; only 1 is ported")
@@ -162,10 +169,6 @@ def _any_rank(flag: bool, device) -> bool:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.tokenizer_ckpt or args.lpips_ckpt:
-        raise NotImplementedError(
-            "frame decode and train-time LPIPS need the tokenizer, which the "
-            "port does not have yet (ROADMAP queue A)")
     if args.tp != 1:
         raise NotImplementedError(
             f"--tp {args.tp}: tensor parallelism is not ported (ROADMAP "
@@ -383,7 +386,7 @@ def _train(args):
                     sd = sharding.full_state_dict(state.model)
                     if process_index == 0:
                         visualize(sd, config, eval_dataset, args,
-                                  completed_steps, device)
+                                  completed_steps, device, logger)
 
                 # agree on preemption collectively: a rank that stops to
                 # checkpoint while another enters the next step deadlocks
@@ -406,11 +409,13 @@ def _train(args):
     print("training done")
 
 
-def visualize(state_dict, config, eval_dataset, args, step, device):
+def visualize(state_dict, config, eval_dataset, args, step, device,
+              logger=None):
     """Autoregressive rollouts of up to 4 eval windows from half a window
     of prompt (KV-cached, 2 MaskGIT steps, on `DecodeEngine`), written as
-    a token dataset [prediction | ground truth] under `vis_step_{step}`.
-    A failure is printed and training goes on, as in the JAX trainer."""
+    a token dataset [prediction | ground truth] under `vis_step_{step}`;
+    with `--tokenizer_ckpt`, `decode_figures` too. A failure is printed
+    and training goes on, as in the JAX trainer."""
     import functools
 
     from tpu1x_torch.models.sampler import generate_cached
@@ -442,14 +447,50 @@ def visualize(state_dict, config, eval_dataset, args, step, device):
         pred = out.cpu().numpy().reshape(n, args.window_size, h, h)
         stream = np.concatenate([pred, tokens[:, num_prompt:]],
                                 axis=1).reshape(-1, h, h)
+        vis_dir = Path(args.output_dir) / f"vis_step_{step}"
         write_token_dataset(
-            Path(args.output_dir) / f"vis_step_{step}", stream,
-            vocab_size=config.image_vocab_size,
+            vis_dir, stream, vocab_size=config.image_vocab_size,
             extra_metadata={"num_prompt_frames": num_prompt,
                             "window_size": args.window_size})
+        if args.tokenizer_ckpt:
+            decode_figures(pred[:, num_prompt:], tokens[:, num_prompt:],
+                           vis_dir, args, step, device, logger)
     except Exception:  # visualization must never kill training
         print(f"visualization failed at step {step}:")
         traceback.print_exc()
+
+
+def decode_figures(pred_tokens, gtruth_tokens, vis_dir, args, step, device,
+                   logger=None):
+    """The generated frames (n, t, h, w) and their ground truth decoded
+    with `--tokenizer_ckpt`, written as one grid, each example's generated
+    row above its ground-truth row, (n 2 H, t W, 3), to `pred_vs_gtruth.png`
+    (`.npy` without PIL); with `--lpips_ckpt`, the mean LPIPS of the
+    generated frames from the ground truth, printed and logged as `lpips`."""
+    decode = decode_latents_wrapper(ckpt_path=args.tokenizer_ckpt,
+                                    device=device)
+    n, t = pred_tokens.shape[:2]
+    pred_frames = decode(pred_tokens.reshape(-1, *pred_tokens.shape[2:]))
+    gtruth_frames = decode(gtruth_tokens.reshape(-1, *gtruth_tokens.shape[2:]))
+    fh, fw = pred_frames.shape[1:3]
+
+    def rows(frames):  # (n t, H, W, 3) -> (n, H, t W, 3)
+        return frames.reshape(n, t, fh, fw, 3).transpose(
+            0, 2, 1, 3, 4).reshape(n, fh, t * fw, 3)
+    grid = np.concatenate([rows(pred_frames), rows(gtruth_frames)],
+                          axis=1).reshape(n * 2 * fh, t * fw, 3)
+    try:
+        from PIL import Image
+        Image.fromarray(grid).save(vis_dir / "pred_vs_gtruth.png")
+    except ImportError:
+        np.save(vis_dir / "pred_vs_gtruth.npy", grid)
+
+    if args.lpips_ckpt:
+        lpips_fn = make_lpips_fn(args.lpips_ckpt, device=device)
+        lpips_val = float(np.mean(lpips_fn(gtruth_frames, pred_frames)))
+        if logger is not None:
+            logger.log({"lpips": lpips_val}, step=step)
+        print(f"step {step} train-time lpips {lpips_val:.4f}")
 
 
 def run_eval(eval_step, eval_loader, device, max_eval_steps, seed):

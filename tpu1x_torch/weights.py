@@ -8,6 +8,8 @@ the reference's names that `STMaskGIT.load_state_dict` takes.
 The mapping is linear (transposes and unstacking), so it also carries a tree
 shaped like the params (gradients, Adam moments) to the names of
 `STMaskGIT.named_parameters()`. `params_to_jax` is its inverse.
+`vq_params_from_jax` / `vq_params_to_jax` do the same for the MAGVIT2
+tokenizer's `VQModel`.
 """
 
 from __future__ import annotations
@@ -136,3 +138,86 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor],
     else:
         params["decoder"] = {f"layers_{i}": lp for i, lp in enumerate(layers)}
     return params
+
+
+# ---------------------------------------------------------------------------
+# the MAGVIT2 tokenizer
+# ---------------------------------------------------------------------------
+
+def _vq_layout(config) -> Dict[str, str]:
+    """flax module path of the JAX `VQModel` ('encoder/down_0_block_0') ->
+    the reference-named module of the port ('encoder.down.0.block.0'), for
+    every conv and norm holder of `config`."""
+    n_levels, n_res = len(config.ch_mult), config.num_res_blocks
+    names = {}
+    for side in ("encoder", "decoder"):
+        for leaf in ("conv_in", "norm_out", "conv_out"):
+            names[f"{side}/{leaf}"] = f"{side}.{leaf}"
+        for j in range(n_res):
+            names[f"{side}/mid_block_{j}"] = f"{side}.mid_block.{j}"
+        for i in range(n_levels):
+            level = "down" if side == "encoder" else "up"
+            for j in range(n_res):
+                names[f"{side}/{level}_{i}_block_{j}"] = (
+                    f"{side}.{level}.{i}.block.{j}")
+    for i in range(n_levels - 1):
+        names[f"encoder/down_{i}_downsample"] = f"encoder.down.{i}.downsample"
+    for i in range(1, n_levels):
+        names[f"decoder/up_{i}_upsample_conv"] = f"decoder.up.{i}.upsample.conv1"
+    return names
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, Mapping):
+            yield from _flat(v, path)
+        else:
+            yield path, v
+
+
+def vq_params_from_jax(params: Mapping[str, Any],
+                       config) -> Dict[str, torch.Tensor]:
+    """The JAX `VQModel`'s flax params ({'encoder': ..., 'decoder': ...})
+    -> the port's reference-named fp32 state dict: conv kernels HWIO ->
+    OIHW, GroupNorm `scale` -> `weight`."""
+    layout = _vq_layout(config)
+    sd = {}
+    for path, leaf in _flat(params):
+        holder, name = path.rsplit("/", 1)
+        if holder in layout:
+            module = layout[holder]
+        else:  # a ResBlock's conv or norm
+            parent, sub = holder.rsplit("/", 1)
+            module = f"{layout[parent]}.{sub}"
+        arr = _np(leaf)
+        if name == "kernel":
+            arr = arr.transpose(3, 2, 0, 1)
+        sd[f"{module}.{'weight' if name in ('kernel', 'scale') else name}"] = (
+            torch.from_numpy(np.ascontiguousarray(arr)))
+    return sd
+
+
+def vq_params_to_jax(state_dict: Mapping[str, torch.Tensor],
+                     config) -> Dict[str, Any]:
+    """The inverse of `vq_params_from_jax`: nested dicts of fp32 numpy
+    arrays in the JAX `VQModel`'s layout."""
+    back = {v: k for k, v in _vq_layout(config).items()}
+    tree: Dict[str, Any] = {}
+    for key, t in state_dict.items():
+        module, name = key.rsplit(".", 1)
+        arr = np.ascontiguousarray(t.detach().cpu().float().numpy())
+        if module in back:
+            path = back[module].split("/")
+        else:  # a ResBlock's conv or norm
+            holder, sub = module.rsplit(".", 1)
+            path = back[holder].split("/") + [sub]
+        if arr.ndim == 4:
+            name, arr = "kernel", np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+        elif name == "weight":
+            name = "scale"
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[name] = arr
+    return tree
