@@ -117,7 +117,23 @@
    `evaluate_dataset` with decode and LPIPS over a batch of 16 windows (its
    wall, gen_time, dec_time, busy share); `decode_latents_wrapper` over the
    generate CLI's video.bin equal to `decode_tokens` + `rescale_magvit_output`.
-10. The training runtime (`check_training_runtime`), in a temporary
+10. The tokenizer's GAN training (`check_tokenizer_training`; the launch
+   counters set to 0 at its start must read 0 at its end): the card's fp32
+   step (TF32 off) against the CPU's at 64 px (base 32, ch_mult (1, 2, 2,
+   4), z 18, B = 4, `disc_start` 1, three micro-steps, seeded weights and
+   random VGG-LPIPS): the card's first step as it is (metrics within 1e-4,
+   the latents' cotangent within 1e-3), LPIPS's gradient (2e-3), then
+   three micro-steps without LPIPS from the CPU's latent cotangents (the
+   first step's metrics and every gradient within 1e-4, then metrics 1e-3,
+   updates 1e-2, statistics, LeCam and EMA 1e-4); bf16 against fp32 at
+   `VQ_CONFIG`, B = 2, one step (losses within 3e-2, each parameter
+   group's gradient within 5e-2 relative L2); at `VQ_CONFIG` and B = 8
+   s/step (median of 8 after 2), images/s, peak memory, device time by
+   kind and busy share over two profiled steps, LPIPS's forward and
+   backward, the same step with `gen_loss_weight` 0.8; the train_tokenizer
+   CLI on 16 frames (B 8, 4 micro-steps, accumulation 2), its output loaded
+   and decoded.
+11. The training runtime (`check_training_runtime`), in a temporary
    directory it removes: the train CLI (`tpu1x_torch.train.train.main`) on
    configs/genie_138m.json at full depth over a synthetic dataset
    (`--overfit_first_batch`, B=8, accumulation 2, 6 updates, a checkpoint
@@ -136,7 +152,7 @@
    pre-LN off / "attn_outs") with launch counts, peak memory, step time
    and gradients against remat off; dropout at 8 layers through the
    kernels and the plain path with one seed.
-11. Prints the `kernels` JSON line (with each kernel's `eval_launches`,
+12. Prints the `kernels` JSON line (with each kernel's `eval_launches`,
    `evaluate_cli_decoded` among them, and `train_cli_launches`), the card
    line, and last the result line.
 
@@ -210,8 +226,10 @@ from tpu1x_torch.train.optim import TrainOptimizer
 from tpu1x_torch.train.step import (TrainState, make_train_step,
                                     shard_train_state)
 from tpu1x_torch.tokenizer import tokenize as tok_cli
+from tpu1x_torch.tokenizer import train_tokenizer as tt
 from tpu1x_torch.tokenizer.checkpoint import load_tokenizer, save_tokenizer
 from tpu1x_torch.tokenizer.lpips import LPIPS
+from tpu1x_torch.tokenizer.schedulers import build_tokenizer_optimizer
 from tpu1x_torch.tokenizer.tokenize import encode_frames
 from tpu1x_torch.tokenizer.vqmodel import VQModel, rescale_magvit_output
 from tpu1x_torch.utils.profiling import H100_PEAKS
@@ -1058,7 +1076,8 @@ KERNEL_KINDS = (("port", ("tpu1x::", "temporal_fwd_kernel",
                                  "index", "copy")))
 
 
-def profile_device(run, top: int = 12, must=(), must_not=()):
+def profile_device(run, top: int = 12, must=(), must_not=(),
+                   kinds=KERNEL_KINDS):
     """Device time by kernel over one call of `run` (one more rollout, one
     more train step), from torch.profiler: the total, its share of that
     call's wall time (the device's busy share; the profiler's own host cost
@@ -1074,12 +1093,14 @@ def profile_device(run, top: int = 12, must=(), must_not=()):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return device_summary(prof, wall, top, must, must_not)
+    return device_summary(prof, wall, top, must, must_not, kinds)
 
 
-def device_summary(prof, wall, top=12, must=(), must_not=()):
+def device_summary(prof, wall, top=12, must=(), must_not=(),
+                   kinds=KERNEL_KINDS):
     """`profile_device`'s summary of a finished profile over `wall`
-    seconds."""
+    seconds, device time summed by `kinds` (the first whose mark a kernel's
+    name holds)."""
     on_device = [a for a in prof.key_averages()
                  if a.device_type == torch.autograd.DeviceType.CUDA]
     names = [a.key for a in on_device]
@@ -1095,7 +1116,7 @@ def device_summary(prof, wall, top=12, must=(), must_not=()):
     ranked = sorted(on_device, key=lambda a: -a.self_device_time_total)
     by_kind = {}
     for a in on_device:
-        kind = next((k for k, marks in KERNEL_KINDS if any(
+        kind = next((k for k, marks in kinds if any(
             m in a.key for m in marks)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + a.self_device_time_total / 1e3
     return {"wall_ms": wall * 1e3, "device_ms": total, "by_kind": by_kind,
@@ -2420,6 +2441,365 @@ def check_evaluation(cfg, device):
     return out
 
 
+# ------------------------------------------------------- tokenizer training
+
+# the card's fp32 step against the CPU's: 64 px, latents 8 x 8 x 18
+TT_SMALL = VQConfig(resolution=64, base_channels=32, ch_mult=(1, 2, 2, 4),
+                    z_channels=18, dtype="float32", disc_start=1)
+TT_SMALL_B, TT_STEPS, TT_B, TT_TIMED = 4, 3, 8, 8
+# cuDNN runs LPIPS's fp32 convolutions (TF32 off) as FFTs: `DSE::` kernels
+# and complex (cf32) products
+TT_KINDS = (("convolution", ("conv", "implicit_gemm", "fprop", "dgrad",
+                             "wgrad", "cudnn", "nchwToNhwc", "nhwcToNchw",
+                             "fft", "DSE::", "cf32cf32")),
+            ("gemm", ("gemm", "xmma", "cutlass", "nvjet")),
+            ("optimizer", ("multi_tensor_apply",)),
+            ("reduction", ("reduce_kernel", "norm")),
+            ("elementwise", ("elementwise", "CatArrayBatched", "index",
+                             "copy")))
+
+
+class _Cotangent(torch.autograd.Function):
+    """z in the forward; `g` in place of z's gradient in the backward."""
+
+    @staticmethod
+    def forward(ctx, z, g):
+        ctx.save_for_backward(g)
+        return z.view_as(z)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.saved_tensors[0], None
+
+
+class Latents:
+    """A quantizer that records the cotangent each step's backward sends to
+    the latents; with `grads`, the latents take those (another run's) in
+    its place, so that the encoder's backward starts from the same
+    cotangent in both runs. The forward and the metrics stay this run's."""
+
+    def __init__(self, quantizer, grads=None):
+        self.quantizer, self.grads, self.seen = quantizer, grads, []
+
+    def __call__(self, z, training=True):
+        if self.grads is not None:
+            z = _Cotangent.apply(z, self.grads[len(self.seen)].to(z.device))
+        z.register_hook(lambda g: self.seen.append(g.detach().clone()))
+        return self.quantizer(z, training=training)
+
+
+def tokenizer_run(cfg, device, batches, lpips, cotangents=None, seed=3):
+    """One micro-step a batch of a fresh state from `seed` (the same
+    weights on every device) at lr 1e-4: metrics, every call's gradients,
+    the latents' cotangents, the parameters before and the state after."""
+    opt = functools.partial(build_tokenizer_optimizer, learning_rate=1e-4)
+    state = tt.create_tokenizer_state(cfg, opt, opt, seed=seed, device=device)
+    latents = Latents(state.model.quantizer, cotangents)
+    state.model.quantizer = latents
+    p0 = {}
+    grads = {"gen": [], "disc": []}
+    for which, module, opt_ in (("gen", state.model, state.gen_opt),
+                                ("disc", state.disc, state.disc_opt)):
+        names = [n for n, _ in module.named_parameters()]
+        p0[which] = {n: p.detach().clone()
+                     for n, p in module.named_parameters()}
+        real = opt_.step
+
+        def record(g, which=which, names=names, real=real):
+            grads[which].append({n: t.clone() for n, t in zip(names, g)})
+            real(g)
+        opt_.step = record
+    step = tt.make_tokenizer_train_step(cfg, lpips)
+    metrics = []
+    for b in batches:
+        state, m = step(state, b.to(device))
+        metrics.append(m)
+    return dict(state=state, grads=grads, p0=p0, dz=latents.seen,
+                metrics=[{k: float(v) for k, v in m.items()}
+                         for m in metrics])
+
+
+def undecided(got, want, which):
+    """The elements whose first update's direction is a rounding's: at the
+    first call whose gradients in `want` are not all 0 (the
+    discriminator's is at `disc_start`), `want`'s gradient is below 1e-5 of
+    its tensor's rms, or the two runs' gradients differ in sign. Adam's
+    first update is lr g / (|g| + 1e-8), the sign of g, so there the two
+    updates part by up to 2 lr whatever the rest does."""
+    i, first = next((i, c) for i, c in enumerate(want["grads"][which])
+                    if any(g.any() for g in c.values()))
+    return {k: (w.abs() < 1e-5 * w.square().mean().sqrt())
+            | (torch.sign(got["grads"][which][i][k].cpu()) != torch.sign(w))
+            for k, w in first.items()}
+
+
+def tokenizer_held(got, want):
+    """`got` (the card, from `want`'s latent cotangents) against `want`
+    (the CPU): the first step's metrics within 1e-4 relative (1e-6
+    absolute) and its gradient of every parameter within 1e-4 relative
+    L2, as the CPU tests hold the port to JAX; after the first update,
+    looser than those tests: the metrics within 1e-3, p - p0 after the
+    steps within 1e-2 relative L2 (less `undecided`, at most 1e-3 of the
+    elements), BatchNorm's running statistics, the LeCam EMAs and the EMA
+    parameters within 1e-4. Adam's first update, lr g / |g|, moves the
+    elements whose gradient is near 0 by a rounding's sign, and the
+    per-sample entropy counts the latents near 0: on an H100 (700 W) the first
+    gradients were 4.9e-6 apart, then the metrics up to 2.7e-4, the updates
+    1.1e-3 (less 71 `undecided` elements), the EMA up to 7.8e-5. Returns
+    the largest error of each kind (metrics relative to max(|want|,
+    1e-2)); raises after all are taken if one is out."""
+    worst = {"metric": 0.0, "grad": 0.0, "update": 0.0, "state": 0.0,
+             "undecided": 0, "where": {}}
+    bad = []
+
+    def note(kind, err, where, limit):
+        if err > worst[kind]:
+            worst[kind], worst["where"][kind] = err, where
+        if err > limit:
+            bad.append((kind, where, err))
+
+    for i, (g, w) in enumerate(zip(got["metrics"], want["metrics"])):
+        for k in w:
+            note("metric", abs(g[k] - w[k]) / max(abs(w[k]), 1e-2),
+                 f"step {i} {k}", 1e-4 if i == 0 else 1e-3)
+    gs, ws = got["state"], want["state"]
+    modules = {"gen": (gs.model, ws.model), "disc": (gs.disc, ws.disc)}
+    for which, (gm, wm) in modules.items():
+        for k, g in got["grads"][which][0].items():
+            w = want["grads"][which][0][k]
+            if not w.any():
+                note("grad", float(g.abs().max()), f"{which} {k}", 0.0)
+                continue
+            note("grad", rel_l2(g.cpu(), w), f"{which} {k}", 1e-4)
+        skip = undecided(got, want, which)
+        worst["undecided"] += sum(int(m.sum()) for m in skip.values())
+        wp = dict(wm.named_parameters())
+        for k, p in gm.named_parameters():
+            keep = ~skip[k]
+            d_got = (p.detach().cpu() - got["p0"][which][k].cpu())[keep]
+            d_want = (wp[k].detach() - want["p0"][which][k])[keep]
+            note("update", rel_l2(d_got, d_want), f"{which} {k}", 1e-2)
+    total = sum(p.numel() for m in modules.values()
+                for p in m[1].parameters())
+    if worst["undecided"] > 1e-3 * total:
+        bad.append(("undecided", total, worst["undecided"]))
+    wb = dict(ws.disc.named_buffers())
+    pairs = [(k, b.cpu(), wb[k]) for k, b in gs.disc.named_buffers()
+             if "running" in k]
+    pairs += [("lecam real", gs.lecam.logits_real_ema.cpu(),
+               ws.lecam.logits_real_ema),
+              ("lecam fake", gs.lecam.logits_fake_ema.cpu(),
+               ws.lecam.logits_fake_ema)]
+    skip = undecided(got, want, "gen")
+    pairs += [("ema " + k, v.cpu()[~skip[k]], ws.ema_params[k][~skip[k]])
+              for k, v in gs.ema_params.items()]
+    for k, g, w in pairs:
+        note("state", float((g - w).abs().max()), k, 1e-4)
+    if bad:
+        raise AssertionError(f"the card against the CPU: {bad}; {worst}")
+    return worst
+
+
+def group_rel_l2(got, want):
+    """Relative L2 of the gradients of each parameter group (encoder,
+    decoder, discriminator), each group's tensors taken as one vector."""
+    out = {}
+    for group, which, prefix in (("encoder", "gen", "encoder."),
+                                 ("decoder", "gen", "decoder."),
+                                 ("discriminator", "disc", "")):
+        keys = [k for k in want[which][0] if k.startswith(prefix)]
+        g = torch.cat([got[which][0][k].double().flatten() for k in keys])
+        w = torch.cat([want[which][0][k].double().flatten() for k in keys])
+        out[group] = float((g - w).norm() / w.norm())
+    return out
+
+
+def check_tokenizer_step_parity(device):
+    """The card's fp32 step (TF32 off: the step turns cuDNN's off, and
+    nothing turns the matmuls' on) against the CPU's at TT_SMALL, B =
+    TT_SMALL_B, `disc_start` 1, random VGG-LPIPS:
+    - the card's first step as it is: its metrics within 1e-4, its
+      latents' cotangent within 1e-3 relative L2 (the LFQ entropy's
+      gradient at temperature 0.01 cancels two ~1 terms per latent, times
+      a = 2 z / T in the hundreds, so an ulp of tanh moves it; 5.7e-4 on
+      an H100);
+    - LPIPS's gradient alone (at the first two batches): within 2e-3
+      relative L2. cuDNN's fp32 convolutions (FFTs with TF32 off) sum
+      otherwise than the CPU's, 1e-4 to 8e-4 apart on an H100, and the
+      decoder's gradients sum that coherently into ~3e-3;
+    - three micro-steps with the perceptual term off (LPIPS being held on
+      its own above), from the CPU's latent cotangents, by
+      `tokenizer_held`."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for fp32 matmuls")
+    frames = synthetic_frames(TT_STEPS * TT_SMALL_B, TT_SMALL.resolution, 21)
+    batches = list((torch.from_numpy(frames).float() / 127.5 - 1.0).split(
+        TT_SMALL_B))
+    lp_cpu = tt.build_lpips_apply("random", device="cpu")
+    lp = tt.build_lpips_apply("random", device=device)
+    cpu = tokenizer_run(TT_SMALL, "cpu", batches[:1], lp_cpu)
+    own = tokenizer_run(TT_SMALL, device, batches[:1], lp)
+    first = max(abs(own["metrics"][0][k] - v) / max(abs(v), 1e-2)
+                for k, v in cpu["metrics"][0].items())
+    dz = rel_l2(own["dz"][0].cpu(), cpu["dz"][0])
+    grads = []
+    for fn, dev in ((lp_cpu, "cpu"), (lp, device)):
+        y = batches[1].to(dev).requires_grad_()
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            grads.append(torch.autograd.grad(
+                fn(batches[0].to(dev), y).mean(), y)[0].cpu())
+    lpips_grad = rel_l2(grads[1], grads[0])
+    if first > 1e-4 or dz > 1e-3 or lpips_grad > 2e-3:
+        raise AssertionError(f"the card's first step: metrics {first}, "
+                             f"latent cotangent {dz}, LPIPS's gradient "
+                             f"{lpips_grad}")
+    cfg = dataclasses.replace(TT_SMALL, perceptual_weight=0.0)
+    cpu = tokenizer_run(cfg, "cpu", batches, None)
+    held = tokenizer_held(tokenizer_run(cfg, device, batches, None,
+                                        cotangents=cpu["dz"]), cpu)
+    return {"first_step_metric_rel_err": first, "latent_cotangent_rel_l2": dz,
+            "lpips_grad_rel_l2": lpips_grad, "from_cpu_cotangents": held}
+
+
+def check_tokenizer_bf16(device, lpips):
+    """bf16 against fp32 on the card at full width, B = 2, one step from
+    the same weights: every loss within 3e-2 relative; the encoder's
+    gradient, from the fp32 run's latent cotangent (so that it is the
+    encoder's backward's), within 5e-2 relative L2; the decoder's and the
+    discriminator's within 0.3. Those two pass through the model's kinks:
+    a latent near 0 takes the other code in bf16, and L1's sign and the
+    hinge flip where a difference or a logit sits at its kink; the JAX
+    package's bf16 gradients are as far from its fp32 ones (16% for the
+    decoder at the CPU tests' tiny config,
+    `tests/test_torch_tokenizer_train.py`). The bf16 run as it is, the
+    encoder's gradient from its own cotangent, is reported beside."""
+    x = torch.from_numpy(synthetic_frames(2, VQ_CONFIG.resolution, 22))
+    x = x.float() / 127.5 - 1.0
+    fp32 = tokenizer_run(dataclasses.replace(VQ_CONFIG, dtype="float32"),
+                         device, [x], lpips)
+    bf16 = tokenizer_run(VQ_CONFIG, device, [x], lpips, cotangents=fp32["dz"])
+    own = tokenizer_run(VQ_CONFIG, device, [x], lpips)
+    w, g = fp32["metrics"][0], bf16["metrics"][0]
+    losses = {k: abs(g[k] - w[k]) / abs(w[k]) for k in w
+              if k.endswith("_loss") or k == "lecam"}
+    out = {"loss_rel_err": losses,
+           "metrics": {"float32": w, "bfloat16": g},
+           "grad_rel_l2": group_rel_l2(bf16["grads"], fp32["grads"]),
+           "own_grad_rel_l2": group_rel_l2(own["grads"], fp32["grads"]),
+           "own_latent_cotangent_rel_l2": rel_l2(own["dz"][0], fp32["dz"][0])}
+    grads = out["grad_rel_l2"]
+    if (max(losses.values()) > 3e-2 or grads["encoder"] > 5e-2
+            or grads["decoder"] > 0.3 or grads["discriminator"] > 0.3):
+        raise AssertionError(f"bf16 against fp32: {out}")
+    return out
+
+
+def tokenizer_step_speed(cfg, device, x, lpips):
+    """s/step (median of TT_TIMED synchronized steps after 2 untimed) and
+    the peak memory over them, of a fresh state at `cfg` on batch `x`."""
+    opt = functools.partial(build_tokenizer_optimizer, learning_rate=1e-4)
+    state = tt.create_tokenizer_state(cfg, opt, opt, seed=4, device=device)
+    step = tt.make_tokenizer_train_step(cfg, lpips)
+    for _ in range(2):
+        state, m = step(state, x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(TT_TIMED):
+        t0 = time.perf_counter()
+        state, m = step(state, x)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if not all(math.isfinite(float(v)) for v in m.values()):
+        raise AssertionError(f"non-finite metrics at full width: {m}")
+    return state, step, {"step_s": sorted(walls)[TT_TIMED // 2],
+                         "step_s_runs": walls,
+                         "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def check_tokenizer_speed_and_cli(device, lpips, root):
+    """At `VQ_CONFIG` (bf16) and B = TT_B: s/step, images/s, peak memory,
+    device time by kind and the busy share over two profiled steps, the
+    LPIPS term's forward and backward alone, and the same step with
+    `gen_loss_weight` 0.8 (the adaptive weight's cost). Then the CLI on 16
+    synthetic frames (B 8, 4 micro-steps, accumulation 2, linear warm-up
+    of 1 update, random LPIPS): its output loads and decodes to finite
+    frames."""
+    side = VQ_CONFIG.resolution
+    frames = synthetic_frames(16, side, 23)
+    x = torch.from_numpy(frames[:TT_B]).to(device).float() / 127.5 - 1.0
+    state, step, out = tokenizer_step_speed(VQ_CONFIG, device, x, lpips)
+    out["images_per_s"] = TT_B / out["step_s"]
+
+    def two():
+        for _ in range(2):
+            step(state, x)
+    prof = profile_device(two, top=10, kinds=TT_KINDS)
+    out["profile_two_steps"] = {k: prof[k] for k in (
+        "wall_ms", "device_ms", "busy_share", "by_kind", "top")}
+    del state, step
+    torch.cuda.empty_cache()
+    y = x.clone().requires_grad_()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        out["lpips_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            lpips(x, y).mean(), y), iters=5, warmup=1)
+    _, _, fixed = tokenizer_step_speed(
+        dataclasses.replace(VQ_CONFIG, gen_loss_weight=0.8), device, x, lpips)
+    out["fixed_weight"] = fixed
+    out["adaptive_weight_s"] = out["step_s"] - fixed["step_s"]
+    torch.cuda.empty_cache()
+
+    np.save(root / "tt_frames.npy", frames)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        tt.main(["--images_npy", str(root / "tt_frames.npy"), "--output_dir",
+                 str(root / "tt_tok"), "--batch_size", str(TT_B),
+                 "--max_train_steps", "4", "--accumulate_grad_batches", "2",
+                 "--scheduler_type", "linear-warmup", "--warmup_steps", "1",
+                 "--lpips_ckpt", "random", "--device", str(device)])
+    wall = time.perf_counter() - t0
+    log = buf.getvalue().splitlines()
+    sd, cfg = load_tokenizer(root / "tt_tok")
+    model = vq_model(cfg, sd, device, cfg.dtype)
+    with torch.no_grad():
+        ids = model.encode(x).indices
+        dec = model.decode_tokens(ids)
+    if not (cfg.resolution == side and log[0].startswith("step 0 gen ")
+            and log[-1] == f"saved tokenizer to {root / 'tt_tok'}"
+            and dec.shape == x.shape and torch.isfinite(dec).all()):
+        raise AssertionError(f"train_tokenizer CLI: {log}, {dec.shape}")
+    out["cli"] = {"wall_s": wall, "log": log}
+    return out
+
+
+def check_tokenizer_training(device):
+    """The tokenizer's GAN training: `check_tokenizer_step_parity`,
+    `check_tokenizer_bf16`, `check_tokenizer_speed_and_cli`. The counters
+    are set to 0 at its start and must read 0 at its end: this path
+    launches no kernel of the port."""
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    out = {"parity": check_tokenizer_step_parity(device)}
+    print("tokenizer training parity: " + json.dumps(out["parity"]),
+          flush=True)
+    lpips = tt.build_lpips_apply("random", device=device)
+    out["bf16_vs_fp32"] = check_tokenizer_bf16(device, lpips)
+    print("tokenizer training bf16 against fp32: " + json.dumps(
+        out["bf16_vs_fp32"]), flush=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["speed"] = check_tokenizer_speed_and_cli(device, lpips, Path(tmp))
+    print("tokenizer training speed: " + json.dumps(out["speed"]),
+          flush=True)
+    torch.cuda.synchronize()
+    if any(kernels.LAUNCHES.values()):
+        raise AssertionError(f"tokenizer training launched {kernels.LAUNCHES}")
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 # -------------------------------------------------------- training runtime
 
 # one visualize call: the prefill of 8 frames, then 8 new frames of 2
@@ -3048,6 +3428,19 @@ def main() -> int:
               f"{eb['results']['dec_time']:.6f} s/frame, busy "
               f"{eb['busy']['busy_share']:.3f}; tokenize CLI "
               f"{tok['tokenize_cli']['frames_per_s']:.1f} frames/s on {card}",
+              flush=True)
+
+        tok_train = check_tokenizer_training(device)
+        ts = tok_train["speed"]
+        print(f"tokenizer training phase: {tok_train['phase_s']:.1f} s; at "
+              f"B={TT_B} ({VQ_CONFIG.resolution} px, base "
+              f"{VQ_CONFIG.base_channels}, {VQ_CONFIG.dtype}) "
+              f"{ts['step_s']:.4f} s/step, {ts['images_per_s']:.1f} "
+              f"images/s, peak {ts['peak_memory_bytes'] / 2**30:.2f} GiB, "
+              f"busy {ts['profile_two_steps']['busy_share']:.3f}; "
+              f"gen_loss_weight 0.8 {ts['fixed_weight']['step_s']:.4f} "
+              f"s/step (the adaptive weight {ts['adaptive_weight_s']:.4f} "
+              f"s); the CLI {ts['cli']['wall_s']:.1f} s on {card}",
               flush=True)
 
         t0 = time.perf_counter()

@@ -4,10 +4,12 @@ them) and `chip_smoke` loads neither JAX nor the JAX package, needs neither
 `nvcc` nor `triton`, and a CPU rollout (block path, op by op with qk_norm
 and the int8 cache, and decode="full"), policy scores, the evaluator
 (cached and rows), a CPU train step (pre-LN and qk_norm), two updates of
-the train CLI and the tokenizer's encode and decode through the port
-launch no kernel; the train step, the evaluator, the train CLI, the
-tokenizer's `encode_frames`, `decode_latents_wrapper`, `make_lpips_fn` and
-the tokenize and visualize CLIs default to the card and raise without one.
+the train CLI and the tokenizer's encode, decode and GAN train step
+through the port launch no kernel; the train step, the evaluator, the
+train CLI, the tokenizer's `encode_frames`, `decode_latents_wrapper`,
+`make_lpips_fn`, the tokenize and visualize CLIs, and the tokenizer's
+training (`create_tokenizer_state`, `build_lpips_apply`, the
+train_tokenizer CLI) default to the card and raise without one.
 
 Runs in a fresh interpreter, because this test process has JAX loaded.
 """
@@ -47,7 +49,10 @@ for name in ("tpu1x_torch.eval.evaluate", "tpu1x_torch.eval.generate",
              "tpu1x_torch.eval.visualize", "tpu1x_torch.tokenizer.cnn",
              "tpu1x_torch.tokenizer.lfq", "tpu1x_torch.tokenizer.vqmodel",
              "tpu1x_torch.tokenizer.lpips", "tpu1x_torch.tokenizer.checkpoint",
-             "tpu1x_torch.tokenizer.tokenize"):
+             "tpu1x_torch.tokenizer.tokenize", "tpu1x_torch.tokenizer.losses",
+             "tpu1x_torch.tokenizer.schedulers",
+             "tpu1x_torch.tokenizer.discriminator",
+             "tpu1x_torch.tokenizer.train_tokenizer"):
     assert name in sys.modules, name
 
 from tpu1x_torch.model_zoo import genie_tiny
@@ -181,6 +186,30 @@ for what, call in (
     else:
         raise AssertionError(f"{what}'s default device did not raise without "
                              f"a card")
+
+import functools
+from tpu1x_torch.tokenizer import train_tokenizer as tt
+from tpu1x_torch.tokenizer.schedulers import build_tokenizer_optimizer
+opt = functools.partial(build_tokenizer_optimizer, learning_rate=1e-4)
+tok_state = tt.create_tokenizer_state(vq_cfg, opt, opt, device="cpu")
+step = tt.make_tokenizer_train_step(vq_cfg, tt.build_lpips_apply(
+    "random", device="cpu"))
+tok_state, metrics = step(tok_state, torch.zeros(2, 32, 32, 3))
+assert all(torch.isfinite(v) for v in metrics.values()), metrics
+for what, call in (
+        ("create_tokenizer_state", lambda: tt.create_tokenizer_state(
+            vq_cfg, opt, opt)),
+        ("build_lpips_apply", lambda: tt.build_lpips_apply("random")),
+        ("train_tokenizer CLI", lambda: tt.main([
+            "--images_npy", str(root / "frames.npy"), "--output_dir",
+            str(root / "tok_trained"), "--max_train_steps", "1"]))):
+    try:
+        call()  # the card is the default, and there is none here
+    except RuntimeError as e:
+        assert "cuda" in str(e), (what, e)
+    else:
+        raise AssertionError(f"{what}'s default device did not raise "
+                             f"without a card")
 
 assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
 assert not kernels._libs

@@ -124,9 +124,10 @@ class GenieConfig:
 @dataclass
 class VQConfig:
     """Open-MAGVIT2 LFQ tokenizer configuration: the JAX package's fields and
-    defaults (the reference's `magvit2/config.py:9-55`). The port serves
-    the tokenizer (encode, decode, LPIPS); the loss and EMA fields are kept
-    so that a `vq_config.json` round-trips between the packages."""
+    defaults (the reference's `magvit2/config.py:9-55`). The architecture
+    fields shape `VQModel`; the quantizer, GAN, LeCam, perceptual and EMA
+    fields drive its training (`tokenizer/train_tokenizer.py`); a
+    `vq_config.json` round-trips between the packages."""
 
     # architecture
     resolution: int = 256

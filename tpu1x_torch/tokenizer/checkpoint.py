@@ -9,6 +9,9 @@ MAGVIT2 Lightning checkpoint.
   which has the reference's names, so the conversion only selects the
   model's keys (the quantizer's buffers and anything else are dropped) and
   widens them to fp32.
+- `convert_discriminator_state_dict`: the reference's discriminator
+  (`main.{i}`, an optional `discriminator.` prefix) -> the port's
+  `NLayerDiscriminator`, which has the reference's names.
 - `load_magvit2_checkpoint`: prefers the EMA weights where the checkpoint
   has them (`model_ema.<name without dots>`, LitEma's naming; the
   reference evaluates under `ema_scope`), drops the `loss.` and `lpips.`
@@ -24,6 +27,7 @@ import torch
 import torch.nn as nn
 
 from tpu1x_torch.config import VQConfig
+from tpu1x_torch.tokenizer.discriminator import NLayerDiscriminator
 from tpu1x_torch.tokenizer.vqmodel import VQModel
 from tpu1x_torch.train.checkpoint import read_flax_msgpack, write_flax_msgpack
 from tpu1x_torch.weights import vq_params_from_jax, vq_params_to_jax
@@ -64,6 +68,25 @@ def convert_magvit2_state_dict(state_dict, config: VQConfig
         names = list(VQModel(config).state_dict())
     return {k: torch.as_tensor(state_dict[k]).detach().cpu().float()
             for k in names}
+
+
+def convert_discriminator_state_dict(state_dict, n_layers: int = 3
+                                     ) -> Dict[str, torch.Tensor]:
+    """The reference NLayerDiscriminator's state dict (a leading
+    `discriminator.` stripped from its names) -> the port's, on the CPU, its
+    floating tensors fp32, with BatchNorm or ActNorm as the dict has. Raises
+    KeyError on a missing entry."""
+    prefix = "discriminator."
+    sd = {k[len(prefix):] if k.startswith(prefix) else k: v
+          for k, v in state_dict.items()}
+    with torch.device("meta"):
+        names = list(NLayerDiscriminator(
+            n_layers=n_layers, use_actnorm="main.3.loc" in sd).state_dict())
+    out = {}
+    for k in names:
+        t = torch.as_tensor(sd[k]).detach().cpu()
+        out[k] = t.float() if t.is_floating_point() else t
+    return out
 
 
 def load_magvit2_checkpoint(path, config: VQConfig,

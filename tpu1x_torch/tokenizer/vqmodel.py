@@ -4,7 +4,10 @@ package's `tpu1x/tokenizer/vqmodel.py` in PyTorch.
 - encode: Encoder -> LFQ -> (quantized, indices, and with training=True the
   auxiliary losses);
 - decode: ±1 codes -> Decoder -> images in [-1, 1];
-- decode_tokens: ids (dataset bit order) -> codebook entries -> decode.
+- decode_tokens: ids (dataset bit order) -> codebook entries -> decode;
+- `ema_init` / `ema_update`: the EMA of the generator's parameters (the
+  reference's LitEma, `magvit2/modules/ema.py:11-86`), fp32 tensors under
+  the port's state-dict names.
 
 The public methods take and return the JAX package's layout: images
 (B, H, W, 3), ids (B, h, w), codes (B, h, w, D); NCHW inside.
@@ -13,6 +16,7 @@ The public methods take and return the JAX package's layout: images
 from __future__ import annotations
 
 import math
+from typing import Dict, Mapping, Union
 
 import torch
 import torch.nn as nn
@@ -72,3 +76,33 @@ def rescale_magvit_output(x: torch.Tensor) -> torch.Tensor:
     """[-1, 1] float -> uint8: (x + 1) 127.5 clipped to [0, 255], then
     truncated (not rounded), as the reference's visualizer does."""
     return ((x + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
+
+
+def _named(params: Union[nn.Module, Mapping[str, torch.Tensor]]):
+    return (dict(params.named_parameters()) if isinstance(params, nn.Module)
+            else params)
+
+
+@torch.no_grad()
+def ema_init(params: Union[nn.Module, Mapping[str, torch.Tensor]]
+             ) -> Dict[str, torch.Tensor]:
+    """fp32 copies of a model's parameters (or of a name -> tensor map)."""
+    return {k: v.detach().float().clone() for k, v in _named(params).items()}
+
+
+@torch.no_grad()
+def ema_update(ema_params: Dict[str, torch.Tensor],
+               params: Union[nn.Module, Mapping[str, torch.Tensor]],
+               decay: float = 0.999, num_updates=None
+               ) -> Dict[str, torch.Tensor]:
+    """One EMA step, in place: e = e d + p (1 - d); with `num_updates` n the
+    reference's warm-up d = min(decay, (1 + n) / (10 + n))."""
+    if num_updates is not None:
+        decay = min(decay, (1.0 + num_updates) / (10.0 + num_updates))
+    named = _named(params)
+    keys = list(ema_params)
+    ema = [ema_params[k] for k in keys]
+    torch._foreach_mul_(ema, decay)
+    torch._foreach_add_(ema, [named[k].detach().float() for k in keys],
+                        alpha=1.0 - decay)
+    return ema_params

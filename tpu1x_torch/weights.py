@@ -9,7 +9,8 @@ The mapping is linear (transposes and unstacking), so it also carries a tree
 shaped like the params (gradients, Adam moments) to the names of
 `STMaskGIT.named_parameters()`. `params_to_jax` is its inverse.
 `vq_params_from_jax` / `vq_params_to_jax` do the same for the MAGVIT2
-tokenizer's `VQModel`.
+tokenizer's `VQModel`, and `disc_params_from_jax` / `disc_params_to_jax`
+for its discriminator (params and batch_stats).
 """
 
 from __future__ import annotations
@@ -221,3 +222,84 @@ def vq_params_to_jax(state_dict: Mapping[str, torch.Tensor],
             node = node.setdefault(p, {})
         node[name] = arr
     return tree
+
+
+# ---------------------------------------------------------------------------
+# the tokenizer's discriminator
+# ---------------------------------------------------------------------------
+
+def disc_params_from_jax(params: Mapping[str, Any],
+                         batch_stats: Mapping[str, Any]
+                         ) -> Dict[str, torch.Tensor]:
+    """The JAX `NLayerDiscriminator`'s flax params and batch_stats -> the
+    port's (the reference's) `main.{i}` state dict: conv kernels HWIO ->
+    OIHW; `bn_n.{scale,bias}` -> `main.{3n}.{weight,bias}` and
+    `batch_stats` -> its running mean and var (`num_batches_tracked` 0:
+    flax keeps no count); `an_n.{loc,scale}` -> (1, C, 1, 1), initialized.
+    """
+    n_layers = sum(1 for k in params if k.startswith("conv_")
+                   and k not in ("conv_0", "conv_out"))
+    sd = {}
+
+    def put(key, arr):
+        sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
+
+    def conv(name, idx):
+        put(f"main.{idx}.weight", _np(params[name]["kernel"]).transpose(
+            3, 2, 0, 1))
+        if "bias" in params[name]:
+            put(f"main.{idx}.bias", _np(params[name]["bias"]))
+
+    conv("conv_0", 0)
+    for n in range(1, n_layers + 1):
+        conv(f"conv_{n}", 3 * n - 1)
+        norm = f"main.{3 * n}"
+        if f"an_{n}" in params:
+            for k in ("loc", "scale"):
+                put(f"{norm}.{k}", _np(params[f"an_{n}"][k]).reshape(
+                    1, -1, 1, 1))
+            sd[f"{norm}.initialized"] = torch.tensor(1, dtype=torch.uint8)
+        else:
+            put(f"{norm}.weight", _np(params[f"bn_{n}"]["scale"]))
+            put(f"{norm}.bias", _np(params[f"bn_{n}"]["bias"]))
+            put(f"{norm}.running_mean", _np(batch_stats[f"bn_{n}"]["mean"]))
+            put(f"{norm}.running_var", _np(batch_stats[f"bn_{n}"]["var"]))
+            sd[f"{norm}.num_batches_tracked"] = torch.tensor(0)
+    conv("conv_out", 3 * n_layers + 2)
+    return sd
+
+
+def disc_params_to_jax(state_dict: Mapping[str, torch.Tensor]):
+    """The inverse of `disc_params_from_jax`: (params, batch_stats) as
+    nested dicts of fp32 numpy arrays in the JAX layout."""
+    sd = {k: v.detach().cpu() for k, v in state_dict.items()}
+    n_layers = sum(1 for k in sd if k.startswith("main.")
+                   and k.endswith(".weight") and sd[k].dim() == 4) - 2
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+
+    def arr(key, shape=None):
+        a = sd[key].float().numpy()
+        return np.ascontiguousarray(a if shape is None else a.reshape(shape))
+
+    def conv(idx):
+        out = {"kernel": np.ascontiguousarray(
+            arr(f"main.{idx}.weight").transpose(2, 3, 1, 0))}
+        if f"main.{idx}.bias" in sd:
+            out["bias"] = arr(f"main.{idx}.bias")
+        return out
+
+    params["conv_0"] = conv(0)
+    for n in range(1, n_layers + 1):
+        params[f"conv_{n}"] = conv(3 * n - 1)
+        norm = f"main.{3 * n}"
+        if f"{norm}.loc" in sd:
+            params[f"an_{n}"] = {"loc": arr(f"{norm}.loc", -1),
+                                 "scale": arr(f"{norm}.scale", -1)}
+        else:
+            params[f"bn_{n}"] = {"scale": arr(f"{norm}.weight"),
+                                 "bias": arr(f"{norm}.bias")}
+            stats[f"bn_{n}"] = {"mean": arr(f"{norm}.running_mean"),
+                                "var": arr(f"{norm}.running_var")}
+    params["conv_out"] = conv(3 * n_layers + 2)
+    return params, stats
