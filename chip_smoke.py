@@ -152,8 +152,28 @@
    pre-LN off / "attn_outs") with launch counts, peak memory, step time
    and gradients against remat off; dropout at 8 layers through the
    kernels and the plain path with one seed.
-12. Prints the `kernels` JSON line (with each kernel's `eval_launches`,
-   `evaluate_cli_decoded` among them, and `train_cli_launches`), the card
+12. Tensor parallelism (`check_tensor_parallel`): K4 and K6 at C = 128
+   (4 heads, the kernels' head groups of 4) against their plain versions
+   with their device times and bounds; then two child processes of this
+   script (`--tp-rank`), both on this card, joined over gloo as one model
+   group (tp = 2): each splits GENIE_138M at 8 layers, pre-LN and
+   qk_norm, and takes one update (exact launch counts per rank), held to
+   this process's update from the same weights, batch and draws and to
+   the plain path's in bf16 and fp32 (`tp_update_gates`: the loss within
+   2e-2, the gradient norm within 5e-2 relative; all parameters' updates
+   together within 3e-2 relative L2 of one process and no farther from
+   fp32 than one process (1.25x + 1e-3); each parameter's no farther from
+   fp32 than 1.25x the farthest of its kind's one-process updates (the
+   kernel and the plain bf16 path; a kind is a name but for the layer's
+   number) + 1e-3); every rank's parameters equal to rank
+   0's bit for bit; each TP sub-layer alone against the whole plain
+   layer (`both_paths`' gates); the 16-row rollout over both ranks token
+   for token this process's, at temperature 0 and 1. Its wall is two
+   ranks sharing one card with the all-reduces through the host: no TP
+   speed.
+13. Prints the `kernels` JSON line (with each kernel's `eval_launches`,
+   `evaluate_cli_decoded` among them, `train_cli_launches`, the TP step's
+   per-rank `tp_launches`, and K4's and K6's C = 128 entries), the card
    line, and last the result line.
 
 K1 (both modes), K2, K3, K5, K9, K10 and K13 carry a profiler device time
@@ -172,6 +192,7 @@ import functools
 import io
 import json
 import math
+import re
 import socket
 import subprocess
 import sys
@@ -216,8 +237,8 @@ from tpu1x_torch.serving import DecodeEngine, prepare_serving_params
 from tpu1x_torch.config import GenieConfig, VQConfig
 from tpu1x_torch.eval.metrics import make_lpips_fn
 from tpu1x_torch.eval.visualize import decode_latents_wrapper
-from tpu1x_torch.parallel.mesh import init_distributed
-from tpu1x_torch.parallel.sharding import full_state_dict
+from tpu1x_torch.parallel.mesh import data_rows, init_distributed
+from tpu1x_torch.parallel.sharding import full_state_dict, mesh_of
 from tpu1x_torch.train import train as train_cli
 from tpu1x_torch.train.checkpoint import (Checkpointer, _state_tensors,
                                           load_pretrained,
@@ -3272,6 +3293,440 @@ def check_training_runtime(cfg, device, bare_step_s):
     return out
 
 
+# ---- tensor parallelism: two ranks on the one card, joined over gloo
+TP_LAYERS, TP_ROWS_ROLLOUT, TP_NEW = 8, 16, 2
+# AdamW's eps at 1, above every element of the clipped gradient (its norm
+# is at most 1), so that the first update is a smooth function of the
+# gradient: with 1e-8 it is the sign of each element, and an element near 0
+# that two bf16 paths round apart flips (a LayerNorm weight's update then
+# parts by 0.29 relative L2 at a loss equal to 1e-7, measured on one H100)
+TP_OPT = dict(learning_rate=TRAIN_LR, max_grad_norm=1.0, eps=1.0)
+# launches per layer and rank in one TP step: the spatial sub-layer
+# launches K9 forward and again in its backward (the recompute), with K10;
+# the temporal one K4 forward and K6 backward. Under qk_norm (remat
+# "attn_outs") the MLP sub-layer's forward runs again in the recompute, and
+# so do the two attentions' row-parallel proj products (op by op).
+TP_PER_LAYER = {"tp_spatial_train_block": 1, "tp_spatial_train_block_bwd": 1,
+                "tp_temporal_train_block": 1,
+                "tp_temporal_train_block_bwd": 1, "tp_mlp_train_block": 1,
+                "tp_mlp_train_block_bwd": 1, "flash_mha": 2,
+                "flash_mha_bwd": 1, "temporal_attention": 1,
+                "temporal_attention_bwd": 1}
+TP_PER_LAYER_QK = {"flash_mha": 1, "flash_mha_bwd": 1,
+                   "tp_mlp_train_block": 2, "tp_mlp_train_block_bwd": 1,
+                   "tp_row_parallel": 4, "tp_row_parallel_bwd": 2,
+                   "tp_column_parallel_bwd": 2}
+# the kernels line's rows and the counter of the TP path that launches each
+# row's launch sequence at a rank's shapes (K1 has none: a rank runs its
+# parts, `tp_spatial_train_block`)
+TP_COUNTERS = {"spatial_train_block_bwd": "tp_spatial_train_block_bwd",
+               "temporal_train_block": "tp_temporal_train_block",
+               "temporal_train_block_bwd": "tp_temporal_train_block_bwd",
+               "mlp_train_block": "tp_mlp_train_block",
+               "mlp_train_block_bwd": "tp_mlp_train_block_bwd",
+               "flash_mha": "flash_mha", "flash_mha_bwd": "flash_mha_bwd",
+               "temporal_attention": "temporal_attention",
+               "temporal_attention_bwd": "temporal_attention_bwd"}
+TP_ARCHS = ("pre_ln", "qk_norm")
+
+
+def tp_inputs(device):
+    """What both ranks and the one-process run start from: per model (8
+    layers of GENIE_138M, pre-LN and qk_norm) its config, seeded weights, a
+    batch of TB and its corruption draws; and a rollout prompt."""
+    out = {}
+    for i, arch in enumerate(TP_ARCHS):
+        cfg = genie_138m(num_layers=TP_LAYERS, qk_norm=arch == "qk_norm")
+        g = torch.Generator(device=device).manual_seed(20 + i)
+        model = STMaskGIT(cfg, device=device).init_weights(g)
+        side = cfg.latent_side_len
+        tokens = torch.randint(0, cfg.image_vocab_size,
+                               (TB, cfg.T, side, side), generator=g,
+                               device=device)
+        noise = draw_noise(tokens.shape, cfg, g, device)
+        out[arch] = dict(cfg=cfg, tokens=tokens.cpu(),
+                         init={k: v.cpu() for k, v in
+                               model.state_dict().items()},
+                         noise={k: v.cpu() for k, v in noise.items()})
+        del model
+    cfg = out["pre_ln"]["cfg"]
+    side = cfg.latent_side_len
+    out["prompt"] = torch.randint(
+        0, cfg.image_vocab_size, (TP_ROWS_ROLLOUT // 2, cfg.T - TP_NEW, side,
+                                  side), generator=g, device=device).cpu()
+    return out
+
+
+def tp_per_layer(arch, split):
+    if split:
+        return TP_PER_LAYER if arch == "pre_ln" else TP_PER_LAYER_QK
+    return TRAIN_PER_LAYER if arch == "pre_ln" else REMAT_QK["attn_outs"]
+
+
+def tp_update(arch, inp, device, tp=1, oracle=None, fsdp=False):
+    """One update of `arch` from its initial weights through
+    `make_train_step` (split over the group's model axis where tp > 1,
+    with FSDP2 over its data axis where `fsdp`), with exact launch counts
+    on the card; with `oracle` "fp32" or "bf16", the plain path's in that
+    dtype without remat, which launches nothing. Returns (metrics,
+    launches, whole parameters after, the step's state)."""
+    cfg = inp["cfg"]
+    if oracle is not None:
+        cfg = dataclasses.replace(cfg, remat=False, dtype="float32"
+                                  if oracle == "fp32" else cfg.dtype)
+    m = STMaskGIT(cfg, device=device)
+    m.load_state_dict(inp["init"])
+    state = TrainState(0, m, TrainOptimizer(m, cfg, **TP_OPT),
+                       torch.Generator(device=device).manual_seed(5))
+    if tp > 1:
+        state = shard_train_state(state, device, fsdp=fsdp, tp=tp)
+    step = make_train_step(state.model, state.optimizer, cfg, device=device,
+                           generator=state.generator)
+    # this data rank's rows of the batch; the draws are the global batch's
+    rows = data_rows(inp["tokens"].shape[0], mesh_of(state.model))
+    tokens = inp["tokens"][rows].to(device)
+    noise = {k: v.to(device) for k, v in inp["noise"].items()}
+    run = functools.partial(step, tokens, noise=noise)
+    if oracle is not None:
+        with plain_blocks():
+            r, launches = run(), {}
+    elif device.type == "cuda":
+        r, launches = launches_of(run, tp_per_layer(arch, tp > 1),
+                                  cfg.num_layers, f"tp={tp} {arch} step")
+    else:
+        r, launches = run(), {}
+    whole = {k: v.detach().float().cpu()
+             for k, v in full_state_dict(step.state.model).items()}
+    return {k: float(v) for k, v in r.items()}, launches, whole, step.state
+
+
+def tp_rollouts(init, cfg, prompt, device, mesh=None):
+    """The rollout of TP_ROWS_ROLLOUT rows (two futures a prompt), TP_NEW
+    new frames, at temperature 0 and 1, over `mesh`'s ranks or one
+    process."""
+    out = {}
+    for temperature in (0.0, 1.0):
+        engine = RolloutEngine(init, cfg, device=device,
+                               temperature=temperature, mesh=mesh)
+        out[temperature] = engine.rollout(
+            prompt.to(device), TP_NEW,
+            torch.Generator(device=device).manual_seed(7),
+            num_futures=2).cpu()
+    return out
+
+
+def tp_sub_layer(name, m, heads, run_tp, run_plain, whole, params, dout):
+    """A TP sub-layer alone on this rank's shares, forward and backward:
+    its output (summed over the model group inside) and every gradient,
+    the split ones gathered whole, against the whole layer's plain version
+    on the same whole tensors, by `both_paths`' gates. `params` names the
+    parameter each weight argument is (for the split rule)."""
+    from tpu1x_torch.parallel import tensor as tpl
+    from tpu1x_torch.parallel.sharding import gather_split
+
+    def split(k):
+        return k in params and tpl.is_split(params[k])
+    local = {k: (tpl.shard_tensor(params[k], v, m.model_index, m.tp, heads)
+                 if split(k) else v).detach().clone().requires_grad_(True)
+             for k, v in whole.items()}
+    out = run_tp(**local)
+    grads = dict(zip(local, torch.autograd.grad(out, list(local.values()),
+                                                dout)))
+    grads = {k: gather_split(params[k], g, m, heads) if split(k) else g
+             for k, g in grads.items()}
+    leaves = leaves_of(whole)
+    want = run_plain(**leaves)
+    wgrads = dict(zip(leaves, torch.autograd.grad(
+        want, list(leaves.values()), dout)))
+    try:
+        return {"out": compare(name, out, want, 3e-2, 3e-2),
+                "grads": {k: grad_errors(f"{name} d{k}", grads[k], wgrads[k])
+                          for k in whole}}
+    except AssertionError as e:  # the parent reports it with the rest
+        return {"failed": str(e)}
+
+
+def tp_sub_layers(cfg, m, device):
+    """The three TP sub-layers (the MLP with and without LN) at the train
+    step's shapes, each on this rank's share, against the whole plain
+    layer; the same draws on every rank."""
+    from tpu1x_torch.parallel import tensor as tpl
+    inp = Inputs(31, device)
+    C, H, S, T = cfg.d_model, cfg.num_heads, cfg.S, cfg.T
+    N, F4 = TB * T, 4 * cfg.d_model
+    kw = dict(scale=(C // H) ** -0.5)
+
+    def w(*shape, std=0.05):
+        return inp.normal(*shape, std=std, dtype=torch.float32)
+    out = {}
+    x = inp.normal(N, S, C)
+    whole = dict(x=x, wqkv=w(3 * C, C), wproj=w(C, C), bproj=w(C, std=0.1),
+                 ln_scale=w(C, std=0.1) + 1, ln_bias=w(C, std=0.1))
+    out["tp_spatial_train_block"] = tp_sub_layer(
+        "tp_spatial_train_block", m, H,
+        lambda x, wqkv, wproj, bproj, ln_scale, ln_bias:
+            tpl.tp_spatial_train_block(
+                x, wqkv.t(), wproj.t(), num_heads=H // m.tp, mesh=m,
+                bproj=bproj, ln_scale=ln_scale, ln_bias=ln_bias, **kw),
+        lambda x, wqkv, wproj, bproj, ln_scale, ln_bias:
+            stb.spatial_train_block_plain(
+                x, wqkv.t(), wproj.t(), num_heads=H, bproj=bproj,
+                ln_scale=ln_scale, ln_bias=ln_bias, **kw),
+        whole, {"wqkv": "spatial_attn.qkv.weight",
+                "wproj": "spatial_attn.proj.weight"}, inp.normal(N, S, C))
+    whole = dict(x=inp.normal(TB, T, S, C), wqkv=w(3 * C, C), wproj=w(C, C),
+                 bproj=w(C, std=0.1))
+    out["tp_temporal_train_block"] = tp_sub_layer(
+        "tp_temporal_train_block", m, H,
+        lambda x, wqkv, wproj, bproj: tpl.tp_temporal_train_block(
+            x, wqkv.t(), wproj.t(), num_heads=H // m.tp, mesh=m,
+            bproj=bproj, **kw),
+        lambda x, wqkv, wproj, bproj: ttb.temporal_train_block_plain(
+            x, wqkv.t(), wproj.t(), num_heads=H, bproj=bproj, **kw),
+        whole, {"wqkv": "temporal_attn.qkv.weight",
+                "wproj": "temporal_attn.proj.weight"},
+        inp.normal(TB, T, S, C))
+    for ln in (True, False):
+        whole = dict(x=inp.normal(N, S, C), wfc1=w(F4, C), wfc2=w(C, F4),
+                     bfc1=w(F4, std=0.1), bfc2=w(C, std=0.1))
+        if ln:
+            whole.update(ln_scale=w(C, std=0.1) + 1, ln_bias=w(C, std=0.1))
+        out["tp_mlp_train_block" + ("" if ln else "[no LN]")] = tp_sub_layer(
+            "tp_mlp_train_block", m, H,
+            lambda x, wfc1, wfc2, **rest: tpl.tp_mlp_train_block(
+                x, wfc1.t(), wfc2.t(), mesh=m, **rest),
+            lambda x, wfc1, wfc2, **rest: mtb.mlp_train_block_plain(
+                x, wfc1.t(), wfc2.t(), **rest),
+            whole, {"wfc1": "mlp.fc1.weight", "bfc1": "mlp.fc1.bias",
+                    "wfc2": "mlp.fc2.weight"}, inp.normal(N, S, C))
+    return out
+
+
+def tp_rank(rank: int, port: int, tmp: str, device: str) -> int:
+    """One of the TP phase's two ranks (`chip_smoke.py --tp-rank R PORT DIR
+    DEVICE`): the update of each model split over both, the sub-layers and
+    the rollout; writes its results to DIR/rank{R}.pt."""
+    device = torch.device(device)
+    init_distributed(str(device), f"tcp://localhost:{port}", 2, rank,
+                     backend="gloo")
+    try:
+        inputs = torch.load(Path(tmp) / "inputs.pt", weights_only=False)
+        res = {}
+        for arch in TP_ARCHS:
+            metrics, launches, whole, state = tp_update(
+                arch, inputs[arch], device, tp=2)
+            res[arch] = dict(metrics=metrics, launches=launches,
+                             params=whole)
+            mesh = mesh_of(state.model)
+            del state
+        res["sub_layers"] = tp_sub_layers(inputs["pre_ln"]["cfg"], mesh,
+                                          device)
+        res["rollouts"] = tp_rollouts(inputs["pre_ln"]["init"],
+                                      inputs["pre_ln"]["cfg"],
+                                      inputs["prompt"], device, mesh)
+        torch.save(res, Path(tmp) / f"rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def check_tensor_parallel(device):
+    """Tensor parallelism (`parallel/tensor.py`) on the one card: K4 and K6
+    at C = 128 (4 heads, their head groups of 4) against their plain
+    versions; then two child processes, both on this card, joined over
+    gloo as one model group (tp = 2, dp = 1; NCCL refuses two ranks on one
+    device): each splits GENIE_138M at 8 layers, pre-LN and qk_norm, and
+    takes one update with exact launch counts per rank, held by
+    `tp_compare` to this process's update from the same weights, batch and
+    draws and to the oracles; runs each TP sub-layer alone against the
+    whole plain layer (`both_paths`' gates); and the rollout of 16 rows over
+    both ranks, token for token this process's. The wall is two ranks
+    sharing one card with the all-reduces through the host: no TP
+    speed."""
+    out = {"c128": {
+        **check_temporal_attention(Inputs(40, device), 128, 4),
+        **check_temporal_attention_bwd(Inputs(41, device), 128, 4)}}
+    inputs = tp_inputs(device)
+    refs, rollouts = tp_references(inputs, device)
+    ranks, out["ranks_wall_s"] = tp_children(
+        inputs, 2, lambda r, port, tmp: [
+            str(Path(__file__).resolve()), "--tp-rank", str(r), str(port),
+            tmp, str(device)])
+    out.update(tp_compare(inputs, refs, ranks, rollouts))
+    return out
+
+
+def tp_references(inputs, device):
+    """This process's references for each model: the update at tp = 1
+    ("one", on the kernels), the plain path's in bf16 ("bf16") and in fp32
+    ("fp32"), each without remat; and the one-process rollouts."""
+    refs = {}
+    for arch in TP_ARCHS:
+        for name, oracle in (("one", None), ("bf16", "bf16"),
+                             ("fp32", "fp32")):
+            metrics, _, whole, state = tp_update(arch, inputs[arch], device,
+                                                 oracle=oracle)
+            refs.setdefault(arch, {})[name] = dict(metrics=metrics,
+                                                   params=whole)
+            del state
+    rollouts = tp_rollouts(inputs["pre_ln"]["init"], inputs["pre_ln"]["cfg"],
+                           inputs["prompt"], device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return refs, rollouts
+
+
+def tp_children(inputs, n, argv, env=None):
+    """Start `n` rank processes (`argv(rank, port, dir)`, the arguments
+    after the interpreter; `env(rank)` their environment) on `inputs`
+    saved in a temporary directory, wait for them (600 s) and return
+    (each rank's results, the wall)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(inputs, Path(tmp) / "inputs.pt")
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, *argv(r, port, tmp)],
+            env=None if env is None else env(r), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(n)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"TP rank {r} failed:\n{log[-6000:]}")
+        return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                for r in range(n)], wall
+
+
+def tp_distance(a, b) -> float:
+    """rel_l2, with an update that stays 0 (a parameter that does not
+    train) 0 from another 0 and infinitely far from anything else."""
+    if not b.any():
+        return 0.0 if not a.any() else math.inf
+    return rel_l2(a, b)
+
+
+def tp_update_gates(init, got, ref):
+    """The update of a TP run (`got`, whole parameters) against this
+    process's references `ref` ("one", "bf16", "fp32"), each an update
+    from the whole initial parameters `init`. Returns (results, failures).
+
+    - All parameters' updates as one vector: within 3e-2 relative L2 of one
+      process's, and no farther from fp32 than 1.25x one process + 1e-3.
+    - Each parameter's update: no farther from fp32 than its kind's
+      envelope (a kind: the parameters that share a name but for the
+      layer's number), 1.25x the farthest of the kind's one-process
+      updates, kernel or plain bf16 path, from fp32, + 1e-3. At this
+      initialisation single weights' gradients cancel over the batch, and
+      two bf16 paths that round at other points part there by up to 20%;
+      a tensor's own one-process distance is one draw of that, and TP's
+      can be 2.8x it on a correct run (qk_norm's spatial attention weights,
+      on one H100), so each tensor is held to its kind's widest draw.
+    - The loss within 2e-2, the gradient norm within 5e-2 relative."""
+    def update(res, k=None):
+        if k is None:  # every parameter's, as one vector
+            return torch.cat([update(res, n).reshape(-1) for n in init])
+        return res["params"][k] - init[k].float()
+
+    def kind(k):
+        return re.sub(r"\.\d+\.", ".#.", k)
+    one, bf16, fp32 = ref["one"], ref["bf16"], ref["fp32"]
+    per, widest = {}, {}
+    for k in init:
+        u, o, b, f = (update(r, k) for r in (got, one, bf16, fp32))
+        per[k] = dict(tp_one=tp_distance(u, o), tp_fp32=tp_distance(u, f),
+                      one_fp32=tp_distance(o, f),
+                      bf16_fp32=tp_distance(b, f))
+        widest[kind(k)] = max(widest.get(kind(k), 0.0), per[k]["one_fp32"],
+                              per[k]["bf16_fp32"])
+    for k, d in per.items():
+        d["envelope"] = 1.25 * widest[kind(k)] + 1e-3
+    flat = (rel_l2(update(got), update(one)), rel_l2(update(got),
+                                                     update(fp32)),
+            rel_l2(update(one), update(fp32)))
+    over = {k: d for k, d in per.items() if not d["tp_fp32"] <= d["envelope"]}
+    gm, wm = got["metrics"], one["metrics"]
+    res = dict(metrics=gm, one_process=wm, bf16=bf16["metrics"],
+               fp32=fp32["metrics"], update_rel_l2=flat,
+               per_parameter_over=over,
+               nearest_envelope=sorted(
+                   per.items(), key=lambda kv: -kv[1]["tp_fp32"]
+                   / kv[1]["envelope"])[:5],
+               tightest_envelope=min(per.items(),
+                                     key=lambda kv: kv[1]["envelope"]),
+               per_parameter=per)
+    failed = []
+    if not (flat[0] <= 3e-2 and flat[1] <= 1.25 * flat[2] + 1e-3):
+        failed.append(f"all parameters' update {flat}")
+    if over:
+        failed.append(f"parameters past their envelopes {over}")
+    if not (abs(gm["loss"] - wm["loss"]) <= 2e-2
+            and abs(gm["grad_norm"] / wm["grad_norm"] - 1) <= 5e-2):
+        failed.append(f"loss or gradient norm {gm} against {wm}")
+    return res, failed
+
+
+def tp_compare(inputs, refs, ranks, rollouts):
+    """The TP runs' results (`ranks`, each rank's: one entry per run,
+    named by its model, "+fsdp" where FSDP2 shards the data axis too)
+    against this process's (`refs`, `rollouts`; `tp_references`): each
+    update by `tp_update_gates` (rank 0's parameters), every rank's
+    parameters equal to rank 0's bit for bit (the split ones are gathered,
+    so this holds the replicated ones: LayerNorms, biases after a
+    row-parallel product, embeddings, head), the ranks' metrics equal, the
+    sub-layers' gates, the rollout token for token. Raises listing every
+    failure."""
+    out, failed = {}, []
+    runs = [k for k in ranks[0] if k.split("+")[0] in TP_ARCHS]
+    for run in runs:
+        arch = run.split("+")[0]
+        res, bad = tp_update_gates(inputs[arch]["init"], ranks[0][run],
+                                   refs[arch])
+        failed += [f"TP {run}: {b}" for b in bad]
+        res["launches"] = [r[run]["launches"] for r in ranks]
+        apart = sorted({k for r in ranks[1:]
+                        for k, v in r[run]["params"].items()
+                        if not torch.equal(v, ranks[0][run]["params"][k])})
+        res["ranks_apart"] = apart
+        if apart:
+            failed.append(f"TP {run}: the ranks' parameters differ: {apart}")
+        if any(r[run]["metrics"] != res["metrics"] for r in ranks):
+            failed.append(f"TP {run}: the ranks' metrics differ")
+        out[run] = res
+    if "sub_layers" in ranks[0]:
+        out["sub_layers"] = ranks[0]["sub_layers"]
+        failed += [f"rank {r} {k}: {v['failed']}"
+                   for r, rank in enumerate(ranks)
+                   for k, v in rank["sub_layers"].items() if "failed" in v]
+    differ = {f"temperature {t}, rank {r}": int(
+        (rank["rollouts"][t] != want).sum())
+        for t, want in rollouts.items() for r, rank in enumerate(ranks)}
+    out["rollout"] = dict(rows=TP_ROWS_ROLLOUT, new_frames=TP_NEW,
+                          tokens_apart=differ)
+    if any(differ.values()):
+        failed.append(f"TP rollout not the one-process tokens: {differ}")
+    if failed:
+        raise AssertionError("; ".join(failed) + f"; {tp_summary(out)}")
+    return out
+
+
+def tp_summary(out):
+    """`tp_compare`'s results without the per-parameter tables (for a
+    line of output)."""
+    return {k: {kk: vv for kk, vv in v.items() if kk != "per_parameter"}
+            if isinstance(v, dict) else v for k, v in out.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3458,6 +3913,20 @@ def main() -> int:
                   for k, v in runtime["remat"].items()
                   if isinstance(v, dict)) + f" on {card}", flush=True)
 
+        t0 = time.perf_counter()
+        tp = check_tensor_parallel(device)
+        print("tensor parallelism: " + json.dumps(tp_summary(tp)),
+              flush=True)
+        print(f"tensor parallelism phase: {time.perf_counter() - t0:.1f} s; "
+              f"the two ranks' processes {tp['ranks_wall_s']:.1f} s (two "
+              f"ranks sharing one card over gloo, not a TP speed); GENIE_138M "
+              f"at {TP_LAYERS} layers, tp=2, B={TB}: update against one "
+              f"process, all parameters' rel L2 pre-LN "
+              f"{tp['pre_ln']['update_rel_l2'][0]:.3e}, qk_norm "
+              f"{tp['qk_norm']['update_rel_l2'][0]:.3e}; rollout of "
+              f"{TP_ROWS_ROLLOUT} rows token-equal; K4/K6 at C=128 held on "
+              f"{card}", flush=True)
+
         line = []
         for name in SOURCES:
             # spatial_block is reported at the single-frame decode shape,
@@ -3492,6 +3961,25 @@ def main() -> int:
             # K7-K10), and K10's floor with its residuals
             item.update({k: r[k] for k in ("device_ms", "library_device_ms",
                                            "own_floor_ms") if k in r})
+            if name in TP_COUNTERS:  # each rank's, in the TP step
+                item["tp_launches"] = {
+                    arch: [n[TP_COUNTERS[name]] for n in tp[arch]["launches"]]
+                    for arch in TP_ARCHS}
+            elif name == "spatial_block":
+                item["tp_note"] = (
+                    "not launched under tensor parallelism: a rank runs "
+                    "K1's parts at its shapes (the LN row pass, gemm_sm90, "
+                    "K9, a training-form nt product with an fp32 store), "
+                    "counted as tp_spatial_train_block")
+                item["tp_spatial_train_block_launches"] = {
+                    arch: [n["tp_spatial_train_block"]
+                           for n in tp[arch]["launches"]]
+                    for arch in TP_ARCHS}
+            if name in ("temporal_attention", "temporal_attention_bwd"):
+                c = tp["c128"][name + "[C=128]"]  # its head groups of 4
+                item["c128"] = {k: c[k] for k in (
+                    "shape", "ms", "device_ms", "bound_ms", "bound_by",
+                    "plain_ms", "library_ms", "max_abs_err")}
             if name + "[int8]" in results:  # the decode attention kernels
                 q8 = results[name + "[int8]"]
                 item.update(int8_ms=q8["ms"], int8_device_ms=q8["device_ms"],
@@ -3513,4 +4001,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                         sys.argv[5]))
     sys.exit(main())

@@ -16,6 +16,8 @@
     python3 chip_variants.py k2gate
     python3 chip_variants.py cli
     python3 chip_variants.py cli_bare
+    python3 chip_variants.py tp_cards   (needs four cards on one host)
+    python3 chip_variants.py tp_faults
 
 Each LIB is a shared library built from a variant of a source in
 `tpu1x_torch/csrc` (nvcc with `kernels.NVCC_FLAGS`, `-I` its own copy of the
@@ -81,7 +83,9 @@ in one process on one card; every time is the profiler's device time
   512), causal and not, and at the rollout prefill's (16, 8, 256, 512); K6
   at the train step's shape, causal and not, and causal with `o` (the
   forward's output written beside the gradients, where the wrapper takes
-  `o`: K12's backward then launches no K4). Timed as `mlp`. No builds.
+  `o`: K12's backward then launches no K4); then the same at C = 128, 4
+  heads (the kernels' head groups of 4, a rank's share of the heads under
+  tensor parallelism), labels tagged [C=128]. Timed as `mlp`. No builds.
 - `l2`: three of K12's products at the pre-LN train step's shape (the
   forward's proj with bias and residual, d_ao = dout Wproj^T, dWproj =
   ao^T dout) through this checkout's wrappers, each after one of: nothing
@@ -132,6 +136,21 @@ in one process on one card; every time is the profiler's device time
   train CLI at GENIE_138M; prints the CLI's update walls, s/update, busy
   share and device time over two updates. Run in turns, one process each,
   they show whether the tokenizer phase moves the CLI's walls. No builds.
+- `tp_cards`: tensor parallelism across four cards over NCCL, one rank a
+  card (dp 2 x tp 2; four cards on one host): GENIE_138M at 8 layers,
+  pre-LN and qk_norm, under DDP and under FSDP2, one update each against
+  one process and the oracles by `chip_smoke.tp_compare`'s gates (every
+  rank's parameters bit for bit rank 0's among them), exact launch counts
+  per rank, the 16-row rollout over the four ranks token for token. No
+  builds; no TP speed.
+- `tp_faults`: what the TP phase's update gates (`chip_smoke.tp_update_gates`
+  and the ranks' parameters bit for bit) catch. Two ranks on this card
+  over gloo, as the TP phase, take the update of each model once as the
+  port is and once under each planted fault of a reduction over the model
+  group (`TP_FAULTS`); prints, per run and model, the gates that fail and
+  the parameters past their envelopes (the distance beside the limit),
+  and last a line with every parameter's distances and envelope. No
+  builds.
 
 Prints one line per build and case, and the card.
 """
@@ -391,32 +410,45 @@ def train(dev):
 
 
 def temporal(dev):
+    """K4 and K6 at GENIE_138M's C = 512 (head groups of 8) and at C = 128
+    (4 heads, head groups of 4: a rank's share under tensor parallelism),
+    their labels tagged [C=128] there."""
+    calls = []
+    for C in (512, 128):
+        calls += temporal_calls(dev, C)
+    timed_calls(calls)
+
+
+def temporal_calls(dev, C):
     import inspect
     from tpu1x_torch.ops import temporal_attention as ta
     inp = cs.Inputs(0, dev)
-    C, H = 512, 16
+    H = C // 32
     kw = dict(scale=(C // H) ** -0.5, num_heads=H)
+    width = "" if C == 512 else f"[C={C}]"
     calls = []
     for tag, (Bt, T) in (("train", (cs.TB, 16)), ("prefill", (cs.B, cs.P))):
         q, k, v = inp.normal(Bt, T, 256, 3 * C).split(C, dim=-1)
         for causal in ((True, False) if tag == "train" else (True,)):
-            calls.append((f"temporal_attention[{tag},causal={causal}]",
+            calls.append((f"temporal_attention[{tag},causal={causal}]"
+                          + width,
                           lambda q=q, k=k, v=v, causal=causal:
                           ta.launch_forward(q, k, v, causal=causal, **kw)))
         if tag != "train":
             continue
         dout = inp.normal(Bt, T, 256, C)
         for causal in (True, False):
-            calls.append((f"temporal_attention_bwd[causal={causal}]",
+            calls.append((f"temporal_attention_bwd[causal={causal}]"
+                          + width,
                           lambda q=q, k=k, v=v, causal=causal:
                           ta.launch_backward(q, k, v, dout, causal=causal,
                                              **kw)))
         if "o" in inspect.signature(ta.launch_backward).parameters:
             o = torch.empty_like(dout)
-            calls.append(("temporal_attention_bwd[causal=True,o]",
+            calls.append(("temporal_attention_bwd[causal=True,o]" + width,
                           lambda q=q, k=k, v=v: ta.launch_backward(
                               q, k, v, dout, causal=True, o=o, **kw)))
-    timed_calls(calls)
+    return calls
 
 
 def ta_builds(libs, dev):
@@ -779,11 +811,178 @@ def cli_after_evaluation(dev, tokenizer=True):
         device_ms=busy["device_ms"])), flush=True)
 
 
+def tp_cards(dev, cards: int = 4):
+    """Tensor parallelism across `cards` cards over NCCL, one rank a card
+    (dp 2 x tp 2 on four): GENIE_138M at 8 layers, pre-LN and qk_norm,
+    with DDP and with FSDP2 over the data axis, one update each against
+    this process's references (the gates of `chip_smoke.tp_compare`),
+    exact launch counts per rank, and the 16-row rollout over every rank,
+    token for token this process's. Prints one line with the results and
+    the ranks' wall (no TP speed: the wall holds start-up, the build's load
+    and the references)."""
+    if dev.type == "cuda" and torch.cuda.device_count() < cards:
+        raise RuntimeError(f"tp_cards needs {cards} cards, found "
+                           f"{torch.cuda.device_count()}")
+    inputs = cs.tp_inputs(dev)
+    refs, rollouts = cs.tp_references(inputs, dev)
+    ranks, wall = cs.tp_children(
+        inputs, cards, lambda r, port, tmp: [
+            str(Path(__file__).resolve()), "tp_cards_rank", str(r),
+            str(cards), str(port), tmp, dev.type])
+    out = cs.tp_compare(inputs, refs, ranks, rollouts)
+    print(json.dumps(dict(kernel="tp_cards", cards=cards, ranks_wall_s=wall,
+                          results=cs.tp_summary(out))), flush=True)
+
+
+def tp_cards_rank(rank: int, cards: int, port: int, tmp: str,
+                  device: str) -> int:
+    """One rank of `tp_cards`: its own card, NCCL between the cards (gloo
+    on the CPU); writes its results to DIR/rank{R}.pt."""
+    from tpu1x_torch.parallel.mesh import init_distributed
+    dev = torch.device(device, rank) if device == "cuda" else \
+        torch.device(device)
+    init_distributed(device, f"tcp://localhost:{port}", cards, rank)
+    try:
+        inputs = torch.load(Path(tmp) / "inputs.pt", weights_only=False)
+        res = {}
+        for fsdp in (False, True):
+            for arch in cs.TP_ARCHS:
+                metrics, launches, whole, state = cs.tp_update(
+                    arch, inputs[arch], dev, tp=2, fsdp=fsdp)
+                res[arch + ("+fsdp" if fsdp else "")] = dict(
+                    metrics=metrics, launches=launches, params=whole)
+                mesh = cs.mesh_of(state.model)
+                del state
+        res["rollouts"] = cs.tp_rollouts(inputs["pre_ln"]["init"],
+                                         inputs["pre_ln"]["cfg"],
+                                         inputs["prompt"], dev, mesh)
+        torch.save(res, Path(tmp) / f"rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+# planted faults of a reduction over the model group, for `tp_faults`
+TP_FAULTS = {
+    "qk_ln": "each rank's qk-LN gradient from its own heads alone "
+             "(Megatron's f left off the qk-LN's parameters)",
+    "f": "Megatron's f left off the column-parallel products: their input "
+         "gets the rank's partial gradient",
+    "mlp_dxn": "the MLP sub-layer's backward leaves d_xn unsummed",
+    "norm": "the split parameters' squares not summed over the model group "
+            "in the gradient norm",
+    "agree": "the replicated parameters' gradients not made alike over the "
+             "model group",
+}
+
+
+def _plant(fault: str) -> None:
+    """Plant `fault` (a key of TP_FAULTS) in this process."""
+    from tpu1x_torch.parallel import tensor as tpl
+    from tpu1x_torch.train import optim
+    if fault == "qk_ln":
+        f = tpl.copy_to_model
+        tpl.copy_to_model = lambda t, m: t if t.dim() == 1 else f(t, m)
+    elif fault == "f":
+        def backward(ctx, dy):
+            x, wc = ctx.saved_tensors
+            dy = dy.contiguous()
+            dx = tk.gemm90(dy, wc.t().contiguous(), form="nt",
+                           fp32_out=True).to(x.dtype)  # not summed
+            dw = tpl._counted("tp_column_parallel_bwd", x,
+                              tk.gemm90(dy, x, form="tn"))
+            return dx, dw.to(ctx.wdtype), None
+        tpl._ColumnParallel.backward = staticmethod(backward)
+    elif fault == "mlp_dxn":
+        steps = tpl.mtb.mlp_train_block_steps
+
+        def unsummed(*args, **kw):
+            g = steps(*args, **kw)
+            part = next(g)
+            own = part.clone()  # the all-reduce sums in place
+            yield part  # the sum comes back, and is dropped
+            try:
+                g.send(own)
+            except StopIteration as done:
+                return done.value
+        tpl.mtb.mlp_train_block_steps = unsummed
+    elif fault == "norm":
+        optim.model_all_reduce = lambda t, m: t
+    elif fault == "agree":
+        optim.TrainOptimizer._agree = lambda self, local: None
+
+
+def tp_faults(dev):
+    """The TP phase's update gates against planted faults (`TP_FAULTS`):
+    two ranks on this card over gloo take each model's update as the port
+    is, then under each fault; each run is held to this process's
+    references by `chip_smoke.tp_update_gates` and the ranks' parameters
+    to rank 0's bit for bit. Prints a line per run and model, then one
+    with the per-parameter tables."""
+    inputs = cs.tp_inputs(dev)
+    refs, _ = cs.tp_references(inputs, dev)
+    out = {}
+    for fault in ("none", *TP_FAULTS):
+        ranks, wall = cs.tp_children(
+            inputs, 2, lambda r, port, tmp: [
+                str(Path(__file__).resolve()), "tp_fault_rank", str(r),
+                str(port), tmp, str(dev), fault])
+        for arch in cs.TP_ARCHS:
+            init = inputs[arch]["init"]
+            res, failed = cs.tp_update_gates(init, ranks[0][arch],
+                                             refs[arch])
+            apart = sorted(k for k, v in ranks[1][arch]["params"].items()
+                           if not torch.equal(v, ranks[0][arch]["params"][k]))
+            if apart:
+                failed.append(f"the ranks' parameters differ: {apart}")
+            out[f"{fault}/{arch}"] = res["per_parameter"]
+            print(json.dumps(dict(
+                kernel="tp_faults", fault=fault, arch=arch,
+                what=TP_FAULTS.get(fault, "the port as it is"),
+                fails=[f[:300] for f in failed],
+                update_rel_l2=res["update_rel_l2"],
+                grad_norm=[res["metrics"]["grad_norm"],
+                           res["one_process"]["grad_norm"]],
+                over={k: (d["tp_fp32"], d["envelope"])
+                      for k, d in res["per_parameter_over"].items()},
+                nearest_envelope=[(k, d["tp_fp32"], d["envelope"])
+                                  for k, d in res["nearest_envelope"]],
+                ranks_apart=len(apart), wall_s=wall)), flush=True)
+    print(json.dumps(dict(kernel="tp_faults_tables", tables=out)),
+          flush=True)
+
+
+def tp_fault_rank(rank: int, port: int, tmp: str, device: str,
+                  fault: str) -> int:
+    """One rank of `tp_faults`: the update of each model split over two
+    ranks with `fault` planted ("none": as the port is)."""
+    from tpu1x_torch.parallel.mesh import init_distributed
+    if fault != "none":
+        _plant(fault)
+    dev = torch.device(device)
+    init_distributed(str(dev), f"tcp://localhost:{port}", 2, rank,
+                     backend="gloo")
+    try:
+        inputs = torch.load(Path(tmp) / "inputs.pt", weights_only=False)
+        res = {}
+        for arch in cs.TP_ARCHS:
+            metrics, launches, whole, state = cs.tp_update(
+                arch, inputs[arch], dev, tp=2)
+            res[arch] = dict(metrics=metrics, launches=launches,
+                             params=whole)
+            del state
+        torch.save(res, Path(tmp) / f"rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
 MODES = {"block": block, "mlp": mlp, "train": train, "temporal": temporal,
          "l2": l2, "decode": decode, "rollout": rollout, "fresh": fresh,
          "k2gate": k2gate, "cli": cli_after_evaluation,
          "cli_bare": functools.partial(cli_after_evaluation,
-                                       tokenizer=False)}
+                                       tokenizer=False),
+         "tp_cards": tp_cards, "tp_faults": tp_faults}
 # mode: (the source its builds are variants of, the timing)
 VARIANTS = {"flash": ("flash_attention", flash),
             "gemm": ("spatial_block", gemm), "tn": ("train_block", tn),
@@ -792,6 +991,12 @@ VARIANTS = {"flash": ("flash_attention", flash),
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["tp_cards_rank"]:
+        return tp_cards_rank(int(sys.argv[2]), int(sys.argv[3]),
+                             int(sys.argv[4]), sys.argv[5], sys.argv[6])
+    if sys.argv[1:2] == ["tp_fault_rank"]:
+        return tp_fault_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                             sys.argv[5], sys.argv[6])
     mode = sys.argv[1] if len(sys.argv) > 1 else None
     if not torch.cuda.is_available() or mode not in (*VARIANTS, *MODES) \
             or (mode not in MODES) != (len(sys.argv) > 2):

@@ -26,7 +26,11 @@
 // in flight, so:
 //   - persistent blocks, one an SM (the ring fills most of shared memory),
 //     each walking tiles of TA_POSITIONS positions (twice that where T <=
-//     8) x TA_HEADS heads of one b;
+//     8) x TA_HEADS heads of one b, or, where the heads are not a multiple
+//     of TA_HEADS (C % 256 != 0: a rank's share of the heads under tensor
+//     parallelism), twice the positions x half the heads, the same bytes
+//     and problems a tile (the head group HG is a template parameter, 8 or
+//     4);
 //   - a producer warp loads a tile's q, k, v (and dout) for all frames with
 //     one TMA box a tensor into a ring of up to TA_MAX_STAGES tiles, as many
 //     as fit in shared memory (4 forward, 3 backward), completing on the
@@ -66,7 +70,7 @@
 // each other, 4 warps 2-4% slower; 4 x 8 and 2 x 16 leave the backward
 // one stage (the static_assert below).
 //
-// Requires T <= 16, head_dim 32, C % 256 == 0, strides that are multiples
+// Requires T <= 16, head_dim 32, C % 128 == 0, strides that are multiples
 // of 8 and 16-byte aligned bases.
 
 #include "sm90.cuh"
@@ -85,7 +89,8 @@ constexpr int TA_WARPS = 16;
 constexpr int TA_MAX_STAGES = 4;
 constexpr int TA_SMEM_MAX = 232448;  // shared memory a block may use
 // A stage holds one box a tensor: 32 channels, 16 frames (or 8 and twice
-// the positions), TA_HEADS heads, TA_POSITIONS positions.
+// the positions), TA_HEADS heads, TA_POSITIONS positions (or half the heads
+// and twice the positions: the same bytes).
 constexpr int TA_BOX = TA_POSITIONS * 16 * TA_HEADS * TA_ROW;
 // 1024 bytes of alignment, and three mbarriers a stage.
 __host__ __device__ constexpr int ta_stages(int tensors) {
@@ -106,7 +111,7 @@ struct TaMaps {
 struct TaArgs {
   int T, S, C;
   int tp;  // frames a box holds, 8 or 16; a problem is 16 / tp positions
-  int sg;  // positions a tile: TA_POSITIONS 16 / tp
+  int sg;  // positions a tile: TA_POSITIONS (TA_HEADS / HG) 16 / tp
   int s_tiles, h_groups, tiles;
   int with_o;  // the backward writes o
   float scale;
@@ -314,14 +319,15 @@ __device__ __forceinline__ void probabilities(float (&p)[2][4], const Rows& q,
 // The body of both kernels. grid: the tiles, or the blocks the card keeps
 // resident, whichever is fewer; (TA_WARPS + 2) 32 threads: the consumer
 // warps, the producer, the storer; dynamic shared memory ta_smem(NT). Tile
-// i is (b, positions sg (i / h_groups % s_tiles) .., heads TA_HEADS (i %
+// i is (b, positions sg (i / h_groups % s_tiles) .., heads HG (i %
 // h_groups) ..); its problems are (16 / tp positions, one head), one a warp
 // at a time.
-template <bool BWD, bool CAUSAL>
+template <bool BWD, bool CAUSAL, int HG>
 __device__ __forceinline__ void temporal_body(const TaMaps& maps,
                                               const TaArgs& a) {
+  static_assert(TA_HEADS % HG == 0, "a head group divides TA_HEADS");
   constexpr int NT = BWD ? 4 : 3;  // operands a tile
-  constexpr int HG = TA_HEADS, STAGES = ta_stages(NT);
+  constexpr int STAGES = ta_stages(NT);
   constexpr uint32_t box = TA_BOX, stage_bytes = NT * box;
   extern __shared__ unsigned char ta_raw[];
   const uint32_t ring = (smem_u32(ta_raw) + 1023) & ~1023u;
@@ -440,28 +446,32 @@ __device__ __forceinline__ void temporal_body(const TaMaps& maps,
   }
 }
 
-template <bool CAUSAL>
+template <bool CAUSAL, int HG>
 __global__ void __launch_bounds__((TA_WARPS + 2) * 32, 1)
     temporal_fwd_kernel(const __grid_constant__ TaMaps maps, const TaArgs a) {
-  temporal_body<false, CAUSAL>(maps, a);
+  temporal_body<false, CAUSAL, HG>(maps, a);
 }
 
-template <bool CAUSAL>
+template <bool CAUSAL, int HG>
 __global__ void __launch_bounds__((TA_WARPS + 2) * 32, 1)
     temporal_bwd_kernel(const __grid_constant__ TaMaps maps, const TaArgs a) {
-  temporal_body<true, CAUSAL>(maps, a);
+  temporal_body<true, CAUSAL, HG>(maps, a);
 }
 
+// The head group of a tile: TA_HEADS where the heads are a multiple of it,
+// else half of it.
+int head_group(int C) { return (C / TA_D) % TA_HEADS == 0 ? TA_HEADS : 4; }
+
 // The (d, t, h, s, b) view of a (B, T, S, C) bf16 tensor with row stride
-// ld (elements) in the 64-byte swizzle; a box is tp frames of TA_HEADS
-// heads of sg positions of one b.
+// ld (elements) in the 64-byte swizzle; a box is tp frames of hg heads of
+// sg positions of one b.
 cudaError_t frame_map(CUtensorMap* map, const void* base, int B, int T, int S,
                       int C, int ld, int tp, int sg) {
   const cuuint64_t dims[5] = {TA_D, (cuuint64_t)T, (cuuint64_t)(C / TA_D),
                               (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t row = (cuuint64_t)ld * 2;
   const cuuint64_t strides[4] = {row * S, TA_ROW, row, row * S * T};
-  const cuuint32_t box[5] = {TA_D, (cuuint32_t)tp, (cuuint32_t)TA_HEADS,
+  const cuuint32_t box[5] = {TA_D, (cuuint32_t)tp, (cuuint32_t)head_group(C),
                              (cuuint32_t)sg, 1};
   return encode_map(map, base, 5, dims, strides, box,
                     CU_TENSOR_MAP_SWIZZLE_64B);
@@ -469,29 +479,32 @@ cudaError_t frame_map(CUtensorMap* map, const void* base, int B, int T, int S,
 
 // The shapes the kernels take (the wrapper's `_check_qkv` raises first).
 bool ta_ok(int T, int C, int ld) {
-  return T >= 1 && T <= 16 && C % 256 == 0 && (C / TA_D) % TA_HEADS == 0 &&
-         ld % 8 == 0;
+  return T >= 1 && T <= 16 && C % 128 == 0 && ld % 8 == 0;
 }
 
 // The tile at T frames: a box spans 16 frames, or 8 and twice the
-// positions where T <= 8, so that a stage holds TA_BOX bytes a tensor
-// either way (frames t >= T come back from TMA as zeros and still count).
+// positions where T <= 8, and a head group of 4 takes twice the positions
+// of one of 8, so that a stage holds TA_BOX bytes a tensor either way
+// (frames t >= T come back from TMA as zeros and still count).
 TaArgs args_of(int B, int T, int S, int C, float scale) {
   TaArgs a = {};
+  const int hg = head_group(C);
   a.T = T, a.S = S, a.C = C, a.scale = scale;
   a.tp = T <= 8 ? 8 : 16;
-  a.sg = TA_POSITIONS * 16 / a.tp;
+  a.sg = TA_POSITIONS * (TA_HEADS / hg) * 16 / a.tp;
   a.s_tiles = (S + a.sg - 1) / a.sg;
-  a.h_groups = C / TA_D / TA_HEADS;
+  a.h_groups = C / TA_D / hg;
   a.tiles = B * a.s_tiles * a.h_groups;
   return a;
 }
 
-template <bool BWD, bool CAUSAL>
-cudaError_t launch(const TaMaps& maps, const TaArgs& a, cudaStream_t stream) {
+template <bool BWD, bool CAUSAL, int HG>
+cudaError_t launch_hg(const TaMaps& maps, const TaArgs& a,
+                      cudaStream_t stream) {
   if (a.tiles == 0) return cudaSuccess;
   constexpr int smem = ta_smem(BWD ? 4 : 3), threads = (TA_WARPS + 2) * 32;
-  auto kernel = BWD ? temporal_bwd_kernel<CAUSAL> : temporal_fwd_kernel<CAUSAL>;
+  auto kernel = BWD ? temporal_bwd_kernel<CAUSAL, HG>
+                    : temporal_fwd_kernel<CAUSAL, HG>;
   // the shared-memory limit and the resident blocks, set at the first call
   static int resident = 0;
   if (resident == 0)
@@ -499,6 +512,13 @@ cudaError_t launch(const TaMaps& maps, const TaArgs& a, cudaStream_t stream) {
   const int grid = a.tiles < resident ? a.tiles : resident;
   kernel<<<grid, threads, smem, stream>>>(maps, a);
   return cudaGetLastError();
+}
+
+template <bool BWD, bool CAUSAL>
+cudaError_t launch(const TaMaps& maps, const TaArgs& a, cudaStream_t stream) {
+  return head_group(a.C) == TA_HEADS
+             ? launch_hg<BWD, CAUSAL, TA_HEADS>(maps, a, stream)
+             : launch_hg<BWD, CAUSAL, 4>(maps, a, stream);
 }
 
 }  // namespace

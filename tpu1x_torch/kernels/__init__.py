@@ -12,7 +12,9 @@ module on a machine with no `nvcc` and no card.
 
 `LAUNCHES` counts, for each kernel, the wrapper calls that launched it on the
 card. The wrappers in `tpu1x_torch/ops/` add one where they launch and
-nowhere else; a CPU tensor takes the plain version and counts nothing.
+nowhere else; a CPU tensor takes the plain version and counts nothing. The
+tensor-parallel sub-layers (`tpu1x_torch/parallel/tensor.py`, the kernels of
+the train blocks at a rank's shapes) count under names of their own.
 """
 
 from __future__ import annotations
@@ -105,6 +107,15 @@ LAUNCHES: Dict[str, int] = {
     "temporal_decode2_attention": 0,
     "flash_mha": 0,
     "flash_mha_bwd": 0,
+    "tp_spatial_train_block": 0,
+    "tp_spatial_train_block_bwd": 0,
+    "tp_temporal_train_block": 0,
+    "tp_temporal_train_block_bwd": 0,
+    "tp_mlp_train_block": 0,
+    "tp_mlp_train_block_bwd": 0,
+    "tp_row_parallel": 0,
+    "tp_row_parallel_bwd": 0,
+    "tp_column_parallel_bwd": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -18,19 +18,44 @@ samplers decode one frame against the KV cache of `DecodeEngine`.
 
 Randomness comes from one explicit `torch.Generator`; it cannot reproduce
 `jax.random`, so only greedy sampling with greedy unmasking is comparable
-token for token between the two packages. Python loops take the place of
+token for token between the two packages. Every draw is a uniform per row
+(a digit by inverse transform of its cumulative probabilities), so that a
+rank decoding rows [a, b) of a batch spread over ranks (`RowShare`) draws
+each uniform for the whole batch and keeps its rows: the result is the
+one-process result, token for token. Python loops take the place of
 `lax.scan`.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
 from tpu1x_torch.config import GenieConfig
 from tpu1x_torch.models.st_maskgit import cosine_schedule, update_cache
+
+
+@dataclass
+class RowShare:
+    """A generator that draws for rows `rows` of a batch of `total` rows:
+    each draw is made for the whole batch and sliced to those rows. Pass it
+    wherever a sampler takes a generator."""
+    generator: Optional[torch.Generator]
+    rows: slice
+    total: int
+
+
+def _uniform(generator, shape, device) -> torch.Tensor:
+    """Uniform [0, 1) draws of `shape` (rows first) from `generator` (a
+    `torch.Generator`, a `RowShare` or None)."""
+    if isinstance(generator, RowShare):
+        whole = torch.rand((generator.total, *shape[1:]),
+                           generator=generator.generator, device=device)
+        return whole[generator.rows]
+    return torch.rand(shape, generator=generator, device=device)
 
 
 def n_per_step(config: GenieConfig, maskgit_steps: int):
@@ -54,9 +79,10 @@ def _sample_frame(frame_logits_BSVF: torch.Tensor,
     for f in range(F):
         if temperature <= 1e-8:
             digit = logits[..., f].argmax(-1)
-        else:
-            digit = torch.multinomial(probs[..., f].reshape(B * S, V), 1,
-                                      generator=generator).reshape(B, S)
+        else:  # the first digit whose cumulative probability passes u
+            u = _uniform(generator, (B, S), logits.device)
+            cdf = probs[..., f].cumsum(-1)
+            digit = (cdf <= u[..., None]).sum(-1).clamp(max=V - 1)
         samples = samples + digit * V ** f
         conf = conf * probs[..., f].gather(-1, digit[..., None])[..., 0]
     return samples, conf
@@ -72,7 +98,7 @@ def _frame_update(frame_BS, unmasked_BS, frame_logits_BSVF, step: int,
     prev_unmasked = unmasked_BS
     if step != maskgit_steps - 1:
         if unmask_mode == "random":
-            conf = torch.rand(B, S, generator=generator, device=conf.device)
+            conf = _uniform(generator, (B, S), conf.device)
         conf = torch.where(unmasked_BS, torch.full_like(conf, float("inf")),
                            conf)
         order = torch.argsort(conf, dim=1, stable=True)

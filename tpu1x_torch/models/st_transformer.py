@@ -33,6 +33,16 @@ from the `generator` passed to `forward`. In eval mode dropout is the
 identity. (The JAX package's STMaskGIT leaves its blocks deterministic, so
 its trainer never draws a mask; these are its blocks' training formula.)
 
+Under tensor parallelism (`parallel/tensor.py` `split_model`) each block
+holds its rank's share of the heads and MLP columns: the three fused
+sub-layers become the TP sub-layers (the same kernels at the rank's shapes,
+one all-reduce over the model group forward and one backward), and the
+op-by-op ones run their products column- and row-parallel with Megatron's
+f and g (`tensor.column_parallel`, `tensor.row_parallel`), rounding where
+one process rounds. A dropout mask over heads or hidden columns
+is drawn whole and sliced to the rank's share, so that the ranks of a model
+group draw alike and keep equal replicated activations.
+
 With `remat` (the JAX package's default) each block is recomputed in the
 backward under `remat_policy` (tpu1x_torch/ops/remat.py), except where the
 policy keeps all the block keeps without it: "attn_outs" on the fused path,
@@ -43,6 +53,7 @@ nothing more.
 
 from __future__ import annotations
 
+import functools
 from types import SimpleNamespace
 from typing import Optional
 
@@ -56,6 +67,7 @@ from tpu1x_torch.ops.layernorm import layer_norm_plain
 from tpu1x_torch.ops.mlp_train_block import mlp_train_block
 from tpu1x_torch.ops.spatial_train_block import spatial_train_block
 from tpu1x_torch.ops.temporal_train_block import temporal_train_block
+from tpu1x_torch.parallel import tensor as tensor_parallel
 
 
 class SelfAttention(nn.Module):
@@ -63,7 +75,8 @@ class SelfAttention(nn.Module):
                  proj_bias: bool = True, qk_norm: bool = True,
                  use_mup: bool = False, device=None):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads = num_heads  # this rank's, under tensor parallelism
+        self.heads, self.head0, self.mesh = num_heads, 0, None
         head_dim = d_model // num_heads
         self.scale = 8.0 / head_dim if use_mup else head_dim ** -0.5
         self.qkv = nn.Linear(d_model, 3 * d_model, bias=qkv_bias,
@@ -77,31 +90,56 @@ class SelfAttention(nn.Module):
         """Attention over axis -2 of x (..., N, C) by `mha`, between the
         qkv and proj products, with the fp32 qk-LayerNorm shared by q and k
         when the module has one, and dropout at rate `drop` on the
-        attention's output."""
-        H = self.num_heads
-        qkv = remat.dense(x, self.qkv.weight.t(), self.qkv.bias)
-        q, k, v = qkv.reshape(*x.shape[:-1], 3, H, -1).unbind(-3)
+        attention's output. Split over a model axis, x is whole and the
+        heads the rank's."""
+        H, m = self.num_heads, self.mesh
+        lead = x.shape[:-1]
+        if m is None:
+            qkv = remat.dense(x, self.qkv.weight.t(), self.qkv.bias)
+        else:
+            qkv = tensor_parallel.column_parallel(x, self.qkv.weight,
+                                                  self.qkv.bias, m)
+        q, k, v = qkv.reshape(*lead, 3, H, -1).unbind(-3)
         if hasattr(self, "norm"):
-            q = layer_norm_plain(q.float(), self.norm.weight,
-                                 self.norm.bias).to(v.dtype)
-            k = layer_norm_plain(k.float(), self.norm.weight,
-                                 self.norm.bias).to(v.dtype)
+            ln_w, ln_b = self.norm.weight, self.norm.bias
+            if m is not None:  # shared by every head: its gradient sums
+                # the heads of all ranks
+                ln_w, ln_b = (tensor_parallel.copy_to_model(t, m)
+                              for t in (ln_w, ln_b))
+            q = layer_norm_plain(q.float(), ln_w, ln_b).to(v.dtype)
+            k = layer_norm_plain(k.float(), ln_w, ln_b).to(v.dtype)
         out = mha(q, k, v, scale=self.scale, causal=causal)
-        out = dropout(out, drop, generator)
-        return remat.dense(out.reshape(x.shape), self.proj.weight.t(),
-                           self.proj.bias)
+        if m is None:
+            out = dropout(out, drop, generator)
+        else:  # the rank's heads of a whole mask
+            out = dropout(out, drop, generator,
+                          share=(-2, self.head0, self.heads))
+        out = out.reshape(*lead, -1)
+        if m is not None:
+            return tensor_parallel.row_parallel(out, self.proj.weight,
+                                                self.proj.bias, m)
+        return remat.dense(out, self.proj.weight.t(), self.proj.bias)
 
 
-def dropout(x: torch.Tensor, p: float,
-            generator: torch.Generator = None) -> torch.Tensor:
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator = None,
+            share=None) -> torch.Tensor:
     """flax's `nn.Dropout` in training: keep with probability 1 - p, scale
-    the kept values by 1 / (1 - p) in x's dtype, mask from `generator`."""
+    the kept values by 1 / (1 - p) in x's dtype, mask from `generator`.
+    `share` (dim, start, whole) says that x is the slice [start, start +
+    x.shape[dim]) of a tensor `whole` long along dim: the mask is drawn for
+    the whole tensor and sliced alike."""
     if p == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training draws its masks from a "
                          "torch.Generator: pass generator=")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1 - p
+    shape = list(x.shape)
+    if share is not None:
+        dim, start, whole = share
+        shape[dim] = whole
+    keep = torch.rand(shape, generator=generator, device=x.device) < 1 - p
+    if share is not None:
+        keep = keep.narrow(dim, start, x.shape[dim])
     return torch.where(keep, x / (1 - p), torch.zeros((), dtype=x.dtype,
                                                       device=x.device))
 
@@ -111,6 +149,9 @@ class Mlp(nn.Module):
                  mlp_bias: bool = True, device=None):
         super().__init__()
         hidden = int(d_model * mlp_ratio)
+        # the whole hidden width, this rank's first column, the mesh it is
+        # split over (tensor parallelism)
+        self.hidden, self.col0, self.mesh = hidden, 0, None
         self.fc1 = nn.Linear(d_model, hidden, bias=mlp_bias, device=device)
         self.fc2 = nn.Linear(hidden, d_model, bias=mlp_bias, device=device)
 
@@ -174,9 +215,22 @@ class STBlock(nn.Module):
                                tuple(self.parameters()), self.remat_policy,
                                generator)
 
+    def _train_blocks(self):
+        """The three fused sub-layers: the ops' train blocks, or on a model
+        split over a model axis the TP sub-layers on this rank's share."""
+        m = self.mlp.mesh
+        if m is None:
+            return self.ops.spatial, self.ops.temporal, self.ops.mlp
+        return (functools.partial(tensor_parallel.tp_spatial_train_block,
+                                  mesh=m),
+                functools.partial(tensor_parallel.tp_temporal_train_block,
+                                  mesh=m),
+                functools.partial(tensor_parallel.tp_mlp_train_block, mesh=m))
+
     def _forward(self, x, generator):
         B, T, S, C = x.shape
         sa, ta = self.spatial_attn, self.temporal_attn
+        spatial, temporal, mlp = self._train_blocks()
         attn_drop, mlp_drop = self._rates()
         if self.qk_norm or attn_drop > 0.0:
             # op by op: the fused attention pair for the S axis, the plain
@@ -189,31 +243,41 @@ class STBlock(nn.Module):
             x = (x + ta(x, causal=True, mha=self.ops.mha, drop=attn_drop,
                         generator=generator)).transpose(1, 2)
         else:
-            x = self.ops.spatial(
+            x = spatial(
                 x.reshape(B * T, S, C), sa.qkv.weight.t(), sa.proj.weight.t(),
                 num_heads=sa.num_heads, scale=sa.scale, bqkv=sa.qkv.bias,
                 bproj=sa.proj.bias, ln_scale=self.norm1.weight,
                 ln_bias=self.norm1.bias).reshape(B, T, S, C)
-            x = self.ops.temporal(
+            x = temporal(
                 x, ta.qkv.weight.t(), ta.proj.weight.t(),
                 num_heads=ta.num_heads, scale=ta.scale, bqkv=ta.qkv.bias,
                 bproj=ta.proj.bias)
         norm = None if self.qk_norm else self.norm2
         m = self.mlp
+        ln = {} if norm is None else dict(ln_scale=norm.weight,
+                                          ln_bias=norm.bias)
         if mlp_drop > 0.0:
             h = x if norm is None else layer_norm_plain(x, norm.weight,
                                                         norm.bias)
-            h = gelu(remat.dense(h, m.fc1.weight.t(), m.fc1.bias),
-                     self.gelu_approx)
-            h = remat.dense(dropout(h, mlp_drop, generator), m.fc2.weight.t(),
-                            m.fc2.bias)
+            if m.mesh is None:
+                h = remat.dense(h, m.fc1.weight.t(), m.fc1.bias)
+            else:
+                h = tensor_parallel.column_parallel(h, m.fc1.weight,
+                                                    m.fc1.bias, m.mesh)
+            h = gelu(h, self.gelu_approx)
+            if m.mesh is None:
+                h = remat.dense(dropout(h, mlp_drop, generator),
+                                m.fc2.weight.t(), m.fc2.bias)
+            else:  # the rank's columns of a whole mask
+                h = dropout(h, mlp_drop, generator,
+                            share=(-1, m.col0, m.hidden))
+                h = tensor_parallel.row_parallel(h, m.fc2.weight, m.fc2.bias,
+                                                 m.mesh)
             return x + dropout(h, mlp_drop, generator)
-        return self.ops.mlp(
+        return mlp(
             x.reshape(B * T, S, C), m.fc1.weight.t(), m.fc2.weight.t(),
-            bfc1=m.fc1.bias, bfc2=m.fc2.bias,
-            ln_scale=None if norm is None else norm.weight,
-            ln_bias=None if norm is None else norm.bias,
-            gelu_approx=self.gelu_approx).reshape(B, T, S, C)
+            bfc1=m.fc1.bias, bfc2=m.fc2.bias, gelu_approx=self.gelu_approx,
+            **ln).reshape(B, T, S, C)
 
 
 class STTransformerDecoder(nn.Module):

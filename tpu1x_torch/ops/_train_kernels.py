@@ -15,7 +15,7 @@ to the blocks.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Generator, Optional
 
 import torch
 
@@ -276,3 +276,31 @@ def like(grads, dtypes):
     parameter."""
     return tuple(None if d is None or g is None else g.to(d)
                  for g, d in zip(grads, dtypes))
+
+
+def epilogue(acc: torch.Tensor, bias: Optional[torch.Tensor],
+             resid: torch.Tensor) -> torch.Tensor:
+    """What `gemm90`'s epilogue does after its product, on an fp32 sum
+    `acc` given apart (a sum over the ranks of a model group): + bias in
+    fp32, one rounding to the residual's dtype, + the residual rounded."""
+    if bias is not None:
+        acc = acc + bias.float()
+    return (resid.float() + acc.to(resid.dtype).float()).to(resid.dtype)
+
+
+def through(steps: Generator,
+            reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
+    """Run a train block's launch sequence, written as a generator that
+    yields at most one fp32 partial sum (under tensor parallelism the part
+    of a product that the other ranks of a model group complete) and takes
+    back the whole sum: `reduce` (the all-reduce over the group; None, the
+    identity, in one process) makes it. Returns the sequence's result."""
+    try:
+        part = next(steps)
+    except StopIteration as done:  # nothing to reduce
+        return done.value
+    try:
+        steps.send(part if reduce is None else reduce(part))
+    except StopIteration as done:
+        return done.value
+    raise RuntimeError("a launch sequence yields one partial sum at most")

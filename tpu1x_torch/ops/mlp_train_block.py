@@ -58,22 +58,27 @@ def mlp_train_block_fwd(x, wfc1, wfc2, bfc1, bfc2, ln_scale, ln_bias, *,
     return out.view(x.shape)
 
 
-def mlp_train_block_bwd(x, dout, wfc1, wfc2, bfc1, ln_scale, ln_bias, *,
-                        gelu_approx: bool, bias: bool):
-    """The backward. Returns (dx in x's dtype, dwfc1, dwfc2, dbfc1, dbfc2,
-    dln_scale, dln_bias), all but dx in fp32.
+def mlp_train_block_steps(x, dout, wfc1, wfc2, bfc1, ln_scale, ln_bias, *,
+                          gelu_approx: bool, bias: bool, split: bool = False):
+    """The backward's launch sequence as a generator (run it with
+    `tk.through`): wfc1 (C, F) and wfc2 (F, C), F the hidden width in one
+    process and a rank's share of it under tensor parallelism (`split`,
+    parallel/tensor.py). Returns (dx in x's dtype, dwfc1, dwfc2, dbfc1,
+    dbfc2, dln_scale, dln_bias), all but dx in fp32.
 
     Launches: LN2 over rows, the forward's row pass; the fc1 product
     (recompute), which writes both GELU(h) and the rounded pre-activation h;
     dWfc2 = g^T dout; d_h = (dout Wfc2^T) GELU'(h), the derivative in the
     product's epilogue in fp32; dWfc1 = LN2(x)^T d_h; the bias column sums;
-    d_xn = d_h Wfc1^T in fp32; the LN backward with the residual's dout and
-    the LN gradients. Without LN params the two LN launches go, and dx =
-    dout + d_h Wfc1^T comes out of the last product's residual epilogue
-    (dln_scale and dln_bias are None). The products run on the training
-    forms of csrc/gemm_sm90.cuh (nn, tn, nt). The (rows, 4C) hidden goes
-    through device memory (the TPU kernel keeps it in VMEM). CPU tensors
-    run the same sequence on the plain versions and count nothing.
+    d_xn = d_h Wfc1^T in fp32, which the sequence yields and takes back
+    summed over the model group; the LN backward with the residual's dout
+    and the LN gradients. Without LN params the two LN launches go, and
+    dx = dout + d_h Wfc1^T: in one process from the last product's
+    residual epilogue (nothing yielded), when `split` from the summed fp32
+    store (`tk.epilogue`); dln_scale and dln_bias are None. The products
+    run on the training forms of csrc/gemm_sm90.cuh (nn, tn, nt). The
+    (rows, F) hidden goes through device memory (the TPU kernel keeps it in
+    VMEM). CPU tensors run the same sequence on the plain versions.
     """
     C = x.shape[-1]
     x2, do2 = x.reshape(-1, C), dout.reshape(-1, C)
@@ -85,15 +90,28 @@ def mlp_train_block_bwd(x, dout, wfc1, wfc2, bfc1, ln_scale, ln_bias, *,
     dwfc1 = tk.gemm90(xn, d_h, form="tn")
     dbfc1 = tk.col_sum(d_h) if bias else None
     dbfc2 = tk.col_sum(do2) if bias else None
-    if has_ln:
-        d_xn = tk.gemm90(d_h, wfc1, form="nt", fp32_out=True)
-        dx, dln_s, dln_b = tk.ln_bwd(x2, stats, ln_scale, d_xn, do2)
+    dln_s = dln_b = None
+    if has_ln or split:
+        d_xn = yield tk.gemm90(d_h, wfc1, form="nt", fp32_out=True)
+        if has_ln:
+            dx, dln_s, dln_b = tk.ln_bwd(x2, stats, ln_scale, d_xn, do2)
+        else:
+            dx = tk.epilogue(d_xn, None, do2)
     else:
         dx = tk.gemm90(d_h, wfc1, form="nt", resid=do2)
-        dln_s = dln_b = None
+    return dx.view(x.shape), dwfc1, dwfc2, dbfc1, dbfc2, dln_s, dln_b
+
+
+def mlp_train_block_bwd(x, dout, wfc1, wfc2, bfc1, ln_scale, ln_bias, *,
+                        gelu_approx: bool, bias: bool):
+    """The backward in one process: `mlp_train_block_steps` with the whole
+    hidden width."""
+    grads = tk.through(mlp_train_block_steps(
+        x, dout, wfc1, wfc2, bfc1, ln_scale, ln_bias, gelu_approx=gelu_approx,
+        bias=bias))
     if x.is_cuda:
         kernels.count("mlp_train_block_bwd")
-    return dx.view(x.shape), dwfc1, dwfc2, dbfc1, dbfc2, dln_s, dln_b
+    return grads
 
 
 class _MlpTrainBlock(torch.autograd.Function):

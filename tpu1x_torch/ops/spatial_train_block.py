@@ -21,10 +21,16 @@ from tpu1x_torch.ops.spatial_block import (gemm_sm90, spatial_block,
 spatial_train_block_plain = spatial_block_plain
 
 
-def spatial_train_block_bwd(x, dout, wqkv, wproj, bqkv, ln_scale, ln_bias, *,
-                            num_heads: int, scale: float, proj_bias: bool):
-    """The backward: x, dout (N, S, C) and weights in x's dtype, fp32 LN
-    params. Returns (dx in x's dtype, dwqkv, dwproj, dbqkv, dbproj,
+def spatial_train_block_steps(x, dout, wqkv, wproj, bqkv, ln_scale, ln_bias,
+                              *, num_heads: int, scale: float,
+                              proj_bias: bool):
+    """The backward's launch sequence as a generator (run it with
+    `tk.through`): x, dout (N, S, C) and weights in x's dtype, fp32 LN
+    params; wqkv (C, 3C') and wproj (C', C) hold `num_heads` heads, C' = C
+    in one process and a rank's share of the heads under tensor parallelism
+    (parallel/tensor.py). It yields d_xn, the fp32 gradient of the LN's
+    output (a rank's partial), once, and takes back the sum over the model
+    group. Returns (dx in x's dtype, dwqkv, dwproj, dbqkv, dbproj,
     dln_scale, dln_bias), all but dx in fp32; a bias gradient is None
     without its bias.
 
@@ -35,35 +41,44 @@ def spatial_train_block_bwd(x, dout, wqkv, wproj, bqkv, ln_scale, ln_bias, *,
     (`flash_mha_fwd`) on the q, k and v thirds of qkv read in place, the
     forward's o exactly; d_o = dout Wproj^T; K10's backward
     (`flash_mha_bwd`), which writes dq, dk and dv into the thirds of one
-    (N, S, 3C) dqkv; dWproj = o^T dout and dWqkv = xn^T dqkv (split
+    (N, S, 3C') dqkv; dWproj = o^T dout and dWqkv = xn^T dqkv (split
     reductions with fp32 atomics); the bias column sums; d_xn = dqkv Wqkv^T
     in fp32; the LN backward, which adds the residual's dout and sums the
     LN gradients. Every product but the qkv recompute is a training form
     of the same GEMM (`tk.gemm90`). CPU tensors run the same sequence on
-    the launchers' plain versions, in x's dtype, and count nothing.
+    the launchers' plain versions, in x's dtype.
     """
     N, S, C = x.shape
-    H = num_heads
     rows = N * S
     x2, do2 = x.reshape(rows, C), dout.reshape(rows, C)
     xn, stats = tk.ln_fwd(x2, ln_scale, ln_bias)
-    qkv = gemm_sm90(xn, wqkv, bqkv).view(N, S, 3, H, C // H)
+    qkv = gemm_sm90(xn, wqkv, bqkv).view(N, S, 3, num_heads, -1)
     q, k, v = qkv.unbind(2)
     o, lse = flash_mha_fwd(q, k, v, scale=scale, causal=False)
     d_o = tk.gemm90(do2, wproj, form="nt")
     dqkv = torch.empty_like(qkv)
     flash_mha_bwd(q, k, v, o, lse, d_o.view(o.shape), scale=scale,
                   causal=False, out=dqkv.unbind(2))
-    dqkv2 = dqkv.view(rows, 3 * C)
-    dwproj = tk.gemm90(o.reshape(rows, C), do2, form="tn")
+    dqkv2 = dqkv.view(rows, -1)
+    dwproj = tk.gemm90(o.reshape(rows, -1), do2, form="tn")
     dbproj = tk.col_sum(do2) if proj_bias else None
     dwqkv = tk.gemm90(xn, dqkv2, form="tn")
     dbqkv = tk.col_sum(dqkv2) if bqkv is not None else None
-    d_xn = tk.gemm90(dqkv2, wqkv, form="nt", fp32_out=True)
+    d_xn = yield tk.gemm90(dqkv2, wqkv, form="nt", fp32_out=True)
     dx, dln_s, dln_b = tk.ln_bwd(x2, stats, ln_scale, d_xn, do2)
+    return dx.view(N, S, C), dwqkv, dwproj, dbqkv, dbproj, dln_s, dln_b
+
+
+def spatial_train_block_bwd(x, dout, wqkv, wproj, bqkv, ln_scale, ln_bias, *,
+                            num_heads: int, scale: float, proj_bias: bool):
+    """The backward in one process: `spatial_train_block_steps` with
+    wqkv (C, 3C) and wproj (C, C), its d_xn taken as it is."""
+    grads = tk.through(spatial_train_block_steps(
+        x, dout, wqkv, wproj, bqkv, ln_scale, ln_bias, num_heads=num_heads,
+        scale=scale, proj_bias=proj_bias))
     if x.is_cuda:
         kernels.count("spatial_train_block_bwd")
-    return dx.view(N, S, C), dwqkv, dwproj, dbqkv, dbproj, dln_s, dln_b
+    return grads
 
 
 class _SpatialTrainBlock(torch.autograd.Function):

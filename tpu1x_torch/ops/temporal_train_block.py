@@ -27,10 +27,11 @@ def temporal_train_block_plain(x, wqkv, wproj, *, num_heads: int,
 
 
 def _qkv(x, wqkv, bqkv):
-    """q, k, v: column views of one (B, T, S, 3C) product with bias."""
+    """q, k, v: column views of one (B, T, S, 3C') product with bias, wqkv
+    (C, 3C')."""
     B, T, S, C = x.shape
-    qkv = tk.gemm90(x.reshape(-1, C), wqkv, bias=bqkv).view(B, T, S, 3 * C)
-    return qkv.split(C, dim=-1)
+    qkv = tk.gemm90(x.reshape(-1, C), wqkv, bias=bqkv)
+    return qkv.view(B, T, S, -1).split(wqkv.shape[1] // 3, dim=-1)
 
 
 def temporal_train_block_fwd(x, wqkv, wproj, bqkv, bproj, *, num_heads: int,
@@ -51,36 +52,58 @@ def temporal_train_block_fwd(x, wqkv, wproj, bqkv, bproj, *, num_heads: int,
     return out.view(x.shape)
 
 
-def temporal_train_block_bwd(x, dout, wqkv, wproj, bqkv, *, num_heads: int,
-                             scale: float, proj_bias: bool):
-    """The backward. Returns (dx in x's dtype, dwqkv, dwproj, dbqkv,
-    dbproj) with the weight and bias gradients in fp32.
+def temporal_train_block_steps(x, dout, wqkv, wproj, bqkv, *, num_heads: int,
+                               scale: float, proj_bias: bool,
+                               split: bool = False):
+    """The backward's launch sequence as a generator (run it with
+    `tk.through`): wqkv (C, 3C') and wproj (C', C) hold `num_heads` heads,
+    C' = C in one process and a rank's share of the heads under tensor
+    parallelism (`split`, parallel/tensor.py). Returns (dx in x's dtype,
+    dwqkv, dwproj, dbqkv, dbproj) with the weight and bias gradients in
+    fp32.
 
     Launches: the qkv product (recompute); d_ao = dout Wproj^T; the
     temporal attention backward (K6), which writes dq, dk, dv into one
-    (B, T, S, 3C) tensor and the attention output ao (the forward's, bit
+    (B, T, S, 3C') tensor and the attention output ao (the forward's, bit
     for bit: it feeds dWproj) beside them; dWproj = ao^T dout and dWqkv =
     x^T dqkv (split reductions, fp32 atomics); the bias column sums; dx =
-    dout + dqkv Wqkv^T. The products are the training forms of
+    dout + dqkv Wqkv^T, in one process from the last product's residual
+    epilogue, when `split` from its fp32 store, which the sequence yields
+    and takes back summed over the model group before the residual is
+    added (`tk.epilogue`). The products are the training forms of
     csrc/gemm_sm90.cuh (nn, nt, tn). CPU tensors run the same sequence on
-    the plain versions and count nothing.
+    the plain versions.
     """
     C = x.shape[-1]
     x2, do2 = x.reshape(-1, C), dout.reshape(-1, C)
     q, k, v = _qkv(x, wqkv, bqkv)
-    d_ao = tk.gemm90(do2, wproj, form="nt").view(x.shape)
-    ao = torch.empty(x.shape, dtype=q.dtype, device=q.device)
+    d_ao = tk.gemm90(do2, wproj, form="nt").view(q.shape)
+    ao = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dqkv2 = ta.launch_backward(q, k, v, d_ao, scale=scale,
                                num_heads=num_heads, causal=True,
-                               o=ao).view(-1, 3 * C)
-    dwproj = tk.gemm90(ao.reshape(-1, C), do2, form="tn")
+                               o=ao).view(-1, wqkv.shape[1])
+    dwproj = tk.gemm90(ao.reshape(-1, wproj.shape[0]), do2, form="tn")
     dbproj = tk.col_sum(do2) if proj_bias else None
     dwqkv = tk.gemm90(x2, dqkv2, form="tn")
     dbqkv = tk.col_sum(dqkv2) if bqkv is not None else None
-    dx = tk.gemm90(dqkv2, wqkv, form="nt", resid=do2)
+    if split:
+        part = yield tk.gemm90(dqkv2, wqkv, form="nt", fp32_out=True)
+        dx = tk.epilogue(part, None, do2)
+    else:
+        dx = tk.gemm90(dqkv2, wqkv, form="nt", resid=do2)
+    return dx.view(x.shape), dwqkv, dwproj, dbqkv, dbproj
+
+
+def temporal_train_block_bwd(x, dout, wqkv, wproj, bqkv, *, num_heads: int,
+                             scale: float, proj_bias: bool):
+    """The backward in one process: `temporal_train_block_steps` with
+    wqkv (C, 3C) and wproj (C, C)."""
+    grads = tk.through(temporal_train_block_steps(
+        x, dout, wqkv, wproj, bqkv, num_heads=num_heads, scale=scale,
+        proj_bias=proj_bias))
     if x.is_cuda:
         kernels.count("temporal_train_block_bwd")
-    return dx.view(x.shape), dwqkv, dwproj, dbqkv, dbproj
+    return grads
 
 
 class _TemporalTrainBlock(torch.autograd.Function):
@@ -116,7 +139,7 @@ def temporal_train_block(x: torch.Tensor, wqkv: torch.Tensor,
     CUDA tensors launch `temporal_train_block_fwd` and, under autograd,
     `temporal_train_block_bwd`, which replace the Pallas kernels
     tpu1x/ops/temporal_train_block.py:_ttb_fwd and _ttb_bwd. They take bf16
-    contiguous x, T <= 16, head_dim 32 and C % 256 == 0; the products run on
+    contiguous x, T <= 16, head_dim 32 and C % 128 == 0; the products run on
     the training forms of csrc/gemm_sm90.cuh. Residuals are x and
     the weights only. The TPU kernels keep q, k, v and their gradients in
     VMEM; here they make one round trip through device memory as one

@@ -15,7 +15,10 @@ reference, and the port's full training state.
   (parameters, AdamW moments and steps, `TrainOptimizer`'s counters and
   running mean, the step, the generator), written by
   `torch.distributed.checkpoint`, each rank its own shards under FSDP2
-  (and its own dropout generator).
+  (and its own dropout generator). Under tensor parallelism the ranks of a
+  model group hold different tensors under one parameter name, so each
+  split tensor is saved under its name and its share, `.../tp{r}of{tp}`;
+  a checkpoint restores only into the layout it was saved from.
   This format is the port's own (Orbax's needs JAX); the model-only
   formats carry weights between the packages.
 """
@@ -209,9 +212,23 @@ _ADAMW_KEYS = ("exp_avg", "exp_avg_sq", "step")
 
 
 def _named_optimizer_params(state) -> Dict[str, torch.Tensor]:
-    from tpu1x_torch.parallel.sharding import unwrap
-    names = {id(p): n for n, p in unwrap(state.model).named_parameters()}
+    """The optimizer's parameters by the names they are saved under: the
+    model's, with the rank's share appended to a split one's."""
+    from tpu1x_torch.parallel.sharding import mesh_of, unwrap
+    from tpu1x_torch.parallel.tensor import is_split
+    m = mesh_of(state.model)
+    names = {id(p): n + (f"/tp{m.model_index}of{m.tp}"
+                         if m.tp > 1 and is_split(n) else "")
+             for n, p in unwrap(state.model).named_parameters()}
     return {names[id(p)]: p for p in state.optimizer.params}
+
+
+def _saved_tp(keys) -> int:
+    """The tensor parallelism a checkpoint's keys were saved at."""
+    for k in keys:
+        if (m := re.search(r"/tp\d+of(\d+)$", k)):
+            return int(m.group(1))
+    return 1
 
 
 def _state_tensors(state, keys: Optional[set] = None) -> Dict[str, Any]:
@@ -264,6 +281,12 @@ class Checkpointer:
         self.output_dir = Path(output_dir).resolve()
         self.output_dir.mkdir(parents=True, exist_ok=True)
         self._pending = None
+        # a group of its own, so that the background write's collectives
+        # never interleave with the training's on the same group (every
+        # rank makes its Checkpointer at the same point)
+        import torch.distributed as dist
+        self._group = (dist.new_group(backend="gloo")
+                       if dist.is_initialized() else None)
 
     def save(self, state, name: str, wait: bool = False) -> Path:
         import torch.distributed.checkpoint as dcp
@@ -271,29 +294,41 @@ class Checkpointer:
         self.wait_until_finished()
         path.mkdir(parents=True, exist_ok=True)
         self._pending = dcp.async_save(_state_tensors(state),
-                                       checkpoint_id=str(path))
+                                       checkpoint_id=str(path),
+                                       process_group=self._group)
         if wait:
             self.wait_until_finished()
         return path
 
     def restore(self, name: str, state):
         """Load `{output_dir}/{name}` into `state` (a `TrainState` whose
-        model and optimizer are built and, for FSDP2, sharded as when it was
-        saved, over as many ranks: `make_train_step`'s, which holds the
-        ranks' dropout generators) and return it with its step."""
+        model and optimizer are built and, for FSDP2 and tensor
+        parallelism, sharded as when it was saved, over as many ranks:
+        `make_train_step`'s, which holds the ranks' dropout generators) and
+        return it with its step. Raises, naming both layouts, where the
+        checkpoint was saved at another tensor parallelism."""
         import torch.distributed.checkpoint as dcp
         path = Path(name) if Path(name).is_absolute() else \
             self.output_dir / name
         self.wait_until_finished()
         keys = set(dcp.FileSystemReader(str(path)).read_metadata()
                    .state_dict_metadata)
+        from tpu1x_torch.parallel.sharding import mesh_of
+        saved, live = _saved_tp(keys), mesh_of(state.model).tp
+        if saved != live:
+            raise ValueError(
+                f"{path} holds a state split over a model axis of {saved} "
+                f"(--tp {saved}); this run splits it over {live} (--tp "
+                f"{live}). Restore at --tp {saved}, or export the whole "
+                f"weights and warm-start from them")
         target = _state_tensors(state, keys)
         missing = sorted(set(target) - keys)
         if missing:
             raise ValueError(f"{path} lacks {missing[:5]}: a checkpoint of "
                              f"another model or optimizer")
         with torch.no_grad():
-            dcp.load(target, checkpoint_id=str(path))
+            dcp.load(target, checkpoint_id=str(path),
+                     process_group=self._group)
         step, updates, micro = (int(v) for v in target["counters"])
         opt = state.optimizer
         opt.updates, opt.micro = updates, micro

@@ -23,6 +23,9 @@ import torch
 from torch import nn
 
 from tpu1x_torch.config import GenieConfig
+from tpu1x_torch.parallel.mesh import model_all_reduce, model_broadcast
+from tpu1x_torch.parallel.sharding import mesh_of
+from tpu1x_torch.parallel.tensor import is_split
 
 
 def build_lr_schedule(name: str, learning_rate: float, num_warmup_steps: int,
@@ -83,9 +86,13 @@ class TrainOptimizer:
     """Clip, AdamW and accumulation over `model`'s parameters: the JAX
     package's `build_optimizer`, with its arguments.
 
-    `step()` consumes the `.grad`s of one micro-batch: it returns their
+    `step()` consumes the `.grad`s of one micro-batch (under tensor
+    parallelism first making the replicated parameters' alike over the
+    model group, `_agree`): it returns their
     global norm (before clipping, a 0-d tensor on the parameters' device;
-    summed over the ranks when the parameters are FSDP2 shards),
+    its squares summed over the data ranks when the parameters are FSDP2
+    shards, and the split parameters' also over the model ranks under
+    tensor parallelism, each replicated parameter counted once),
     adds them to the running mean, and on every
     `gradient_accumulation_steps`-th call clips the mean, sets the learning
     rate from the schedule and updates the parameters. The gradients are
@@ -116,22 +123,28 @@ class TrainOptimizer:
         self.micro = 0     # micro-batches since the last update
         matrix_scale = (1.0 / config.width_mult
                         if mu_transfer and config.width_mult != 1.0 else 1.0)
-        groups = {}
+        groups, split = {}, set()
         for name, p in model.named_parameters():
             if not p.requires_grad:
                 continue
             wd = 0.0 if is_no_decay(name, p) else weight_decay
             scale = matrix_scale if is_mup_matrix(name, p) else 1.0
             groups.setdefault((wd, scale), []).append(p)
+            if is_split(name):
+                split.add(id(p))
         self.params = [p for ps in groups.values() for p in ps]
         self.adamw = torch.optim.AdamW(
             [dict(params=ps, weight_decay=wd, lr_scale=scale)
              for (wd, scale), ps in groups.items()],
             lr=learning_rate, betas=(beta1, beta2), eps=eps)
         self._mean = None  # running mean of micro-batch gradients
-        # the group whose ranks hold shards of the parameters (FSDP2)
-        mesh = getattr(self.params[0], "device_mesh", None)
-        self._group = None if mesh is None else mesh.get_group()
+        # the group whose ranks hold shards of the parameters (FSDP2), and
+        # the model group over which the split parameters are cut
+        m = mesh_of(model)
+        self._group = (m.data_group if hasattr(self.params[0], "device_mesh")
+                       else None)
+        self._model = m if m.tp > 1 else None
+        self._split = [id(p) in split for p in self.params]
 
     def rebuild(self, model: nn.Module) -> "TrainOptimizer":
         """A fresh optimizer with this one's arguments over `model`'s
@@ -148,6 +161,8 @@ class TrainOptimizer:
         # holding a shard: the arithmetic runs on the local shards, and the
         # norm sums its squares over the ranks
         local = [_local(g) for g in grads]
+        if self._model is not None:
+            self._agree(local)
         grad_norm = self._norm(local)
         self.micro += 1
         if self.accumulate > 1:
@@ -177,13 +192,32 @@ class TrainOptimizer:
             p.grad = None
         return grad_norm
 
+    def _agree(self, local) -> None:
+        """Give every rank of the model group its first rank's gradients
+        of the replicated parameters, in one broadcast. The ranks compute
+        them alike, but on the card the LayerNorm and bias column sums add
+        with fp32 atomics, whose order leaves their last bits apart from
+        rank to rank: left so, the ranks' copies of those parameters, and
+        the activations after them, would part."""
+        rep = [g for g, s in zip(local, self._split) if not s]
+        flat = model_broadcast(torch.cat([g.reshape(-1) for g in rep]),
+                               self._model)
+        torch._foreach_copy_(rep, [v.view_as(g) for g, v in zip(
+            rep, flat.split([g.numel() for g in rep]))])
+
     def _norm(self, local) -> torch.Tensor:
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(local)))
-        if self._group is None:
-            return norm
-        sq = norm * norm
-        torch.distributed.all_reduce(sq, group=self._group)
-        return sq.sqrt()
+        norms = torch.stack(torch._foreach_norm(local))
+        if self._group is None and self._model is None:
+            return torch.linalg.vector_norm(norms)
+        sq = norms * norms
+        split = torch.tensor(self._split, device=sq.device)
+        # (split, replicated) sums of squares
+        sq = torch.stack([sq[split].sum(), sq[~split].sum()])
+        if self._group is not None:
+            torch.distributed.all_reduce(sq, group=self._group)
+        if self._model is not None:
+            model_all_reduce(sq[0:1], self._model)
+        return sq.sum().sqrt()
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:

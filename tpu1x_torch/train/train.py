@@ -19,11 +19,19 @@ Metrics go to `{output_dir}/metrics.jsonl`, and to wandb where it imports.
 
 Beside the JAX flags: `--device` (`cuda`, the default, or `cpu`, which runs
 the plain versions). `--no_compile` is accepted and does nothing, as in JAX.
-`--tp` above 1 raises (tensor parallelism is not ported; ROADMAP queue
-A). With several processes (torchrun, or the JAX trainer's
-`TPU1X_MULTIHOST` variables; see `parallel/mesh.py`) the model trains under
-DDP, or FSDP2 with `--fsdp`; in one process `--fsdp` changes nothing, as
-a one-device mesh does in JAX.
+With several processes (torchrun, or the JAX trainer's `TPU1X_MULTIHOST`
+variables; see `parallel/mesh.py`) the ranks form a (data, model) mesh of
+world / tp x tp: with `--tp N` each layer's heads and MLP columns split over
+N consecutive ranks (`parallel/tensor.py`), which read the same rows of
+each batch, and the model trains under DDP over the data axis, or FSDP2
+with `--fsdp`; in one process `--fsdp` changes nothing, as a one-device
+mesh does in JAX. The JAX trainer keeps its tp inside a process (devices);
+here a rank is a process, so `--tp` must divide the world size and the
+heads. The global batch is per_device x world x accumulation, as the JAX
+CLI's per_device x devices.
+
+    torchrun --nproc_per_node 2 -m tpu1x_torch.train.train --device cpu \
+        --tp 2 ...
 
 Where the JAX trainer counts its step in micro-batches (its resume after
 accumulation skips `accumulation` times too many batches; ROADMAP queue C),
@@ -123,7 +131,8 @@ def parse_args(argv=None):
                         "random weights (smoke only)")
     # parallelism
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel degree; only 1 is ported")
+                   help="tensor-parallel degree: the ranks each layer's "
+                        "heads and MLP columns split over")
     p.add_argument("--fsdp", action="store_true",
                    help="shard parameters, gradients and moments over the "
                         "ranks (FSDP2)")
@@ -169,10 +178,6 @@ def _any_rank(flag: bool, device) -> bool:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.tp != 1:
-        raise NotImplementedError(
-            f"--tp {args.tp}: tensor parallelism is not ported (ROADMAP "
-            f"queue A)")
     np.random.seed(args.seed)
     resolve_device(args.device)
     owns_group = mesh.init_distributed(args.device)
@@ -185,6 +190,12 @@ def main(argv=None):
 
 def _train(args):
     process_index, process_count = mesh.process_index(), mesh.process_count()
+    if args.tp < 1 or process_count % args.tp:
+        raise ValueError(f"--tp {args.tp} must divide the {process_count} "
+                         f"processes")
+    # the loaders read by data rank: a model group's ranks share their rows
+    data_index, data_count = process_index // args.tp, \
+        process_count // args.tp
     device = mesh.local_device(args.device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -222,6 +233,9 @@ def _train(args):
     if args.remat_policy is not None:
         config.remat_policy = args.remat_policy
     config.__post_init__()
+    if config.num_heads % args.tp:
+        raise ValueError(f"--tp {args.tp} must divide the {config.num_heads} "
+                         f"heads")
 
     global_batch_size = args.per_device_train_batch_size * process_count
     effective_batch_size = global_batch_size * args.gradient_accumulation_steps
@@ -230,11 +244,11 @@ def _train(args):
     with_actions = (train_dataset.actions is not None
                     and config.action_vocab_size > 0)
     loader = ShardedBatchLoader(train_dataset, global_batch_size,
-                                process_index, process_count, seed=args.seed,
+                                data_index, data_count, seed=args.seed,
                                 with_actions=with_actions)
     eval_loader = ShardedBatchLoader(
         eval_dataset, args.per_device_eval_batch_size * process_count,
-        process_index, process_count, seed=0, shuffle=False)
+        data_index, data_count, seed=0, shuffle=False)
 
     if len(train_dataset) == 0:
         raise ValueError(
@@ -289,6 +303,7 @@ def _train(args):
         "effective_batch_size": effective_batch_size,
         "effective_batch_size_tokens": effective_batch_size * seq_len,
         "num_devices": process_count,
+        "mesh": str(sharding.mesh_of(state.model).shape),
         "device": torch.cuda.get_device_name(device)
         if device.type == "cuda" else "cpu",
     }
@@ -299,7 +314,8 @@ def _train(args):
                             experiment_config) if process_index == 0 else None)
     print(f"***** Running training ***** params={num_params/1e6:.1f}M "
           f"examples={len(train_dataset)} steps={args.max_train_steps} "
-          f"ranks={process_count} device={device}")
+          f"ranks={process_count} device={device} "
+          f"mesh={sharding.mesh_of(state.model).shape}")
 
     checkpointing_steps = (int(args.checkpointing_steps)
                            if args.checkpointing_steps.isdigit() else None)
