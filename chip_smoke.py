@@ -84,10 +84,14 @@
    `genie_138m(qk_norm=True)` as in 6, with its own launch counts, and holds
    the step's gradients against the plain path and an fp32 run.
 8. Action conditioning, at 8 layers of GENIE_138M with 16 action ids and
-   seeded actions: the rollout of 4 (launch counts, the prefill cache and
-   the step-0 logits against the plain path), one `make_train_step` step
-   through the kernels and through the plain train blocks (launch counts,
-   loss, gradient norm), and the step's gradients as in 6.
+   seeded actions, and muP (`check_mup`), at 8 layers of GENIE_138M with
+   use_mup (width_mult 2: the attention scale 8 / head_dim, the head's
+   input divided by 2; the step's optimizer with muP's learning rate for
+   the hidden matrices): each the rollout of 4 (launch counts, the prefill
+   cache and the step-0 logits against the plain path), one
+   `make_train_step` step through the kernels and through the plain train
+   blocks (launch counts, loss, gradient norm), and the step's gradients
+   as in 6 (`check_variant`).
 9. The evaluation path: K4 through the serving wrapper at the evaluator
    prefill's (16, 16, 256, 512) (on the thirds of one qkv tensor and on
    separate tensors), K1 at its N = 256 and K2 at t_B mixed 1..15 against
@@ -135,46 +139,60 @@
    and decoded.
 11. The training runtime (`check_training_runtime`), in a temporary
    directory it removes: the train CLI (`tpu1x_torch.train.train.main`) on
-   configs/genie_138m.json at full depth over a synthetic dataset
+   configs/genie_138m.json cut to 8 layers (GENIE_35M's phase runs it at
+   full depth) over a synthetic dataset
    (`--overfit_first_batch`, B=8, accumulation 2, 6 updates, a checkpoint
    and an eval at 3, visualize at 6 with `--tokenizer_ckpt` and
    `--lpips_ckpt random`) with exact launch counts per micro-batch, eval
    and visualize call, a falling loss, metrics.jsonl and vis_step_6 read
    back (its decoded `pred_vs_gtruth` figure, (4 x 2 x 256, 8 x 256, 3),
-   and the printed train-time lpips), its s/update beside the bare step's
-   and the busy share over two updates; `Checkpointer.restore` of step_3 bit for
+   and the printed train-time lpips), its s/update (GENIE_35M's beside two
+   bare steps) and the busy share over two updates; `Checkpointer.restore`
+   of step_3 bit for
    bit and a resumed run to step 6 whose update from step 3 is within 2e-2
    relative L2 of the uninterrupted run's; both exports of
    final_checkpt_hf read back bit for bit, and the evaluate CLI on them;
    one process group of world size 1 over NCCL, one update through DDP
-   and one through FSDP2 against the unwrapped step, and an FSDP2
-   checkpoint round trip; remat (qk_norm off / "attn_outs" / "none",
+   and one through FSDP2 against the unwrapped step (at 8 layers), and an
+   FSDP2 checkpoint round trip; remat (qk_norm off / "attn_outs" / "none",
    pre-LN off / "attn_outs") with launch counts, peak memory, step time
    and gradients against remat off; dropout at 8 layers through the
    kernels and the plain path with one seed.
-12. Tensor parallelism (`check_tensor_parallel`): K4 and K6 at C = 128
-   (4 heads, the kernels' head groups of 4) against their plain versions
-   with their device times and bounds; then two child processes of this
-   script (`--tp-rank`), both on this card, joined over gloo as one model
-   group (tp = 2): each splits GENIE_138M at 8 layers, pre-LN and
-   qk_norm, and takes one update (exact launch counts per rank), held to
-   this process's update from the same weights, batch and draws and to
-   the plain path's in bf16 and fp32 (`tp_update_gates`: the loss within
-   2e-2, the gradient norm within 5e-2 relative; all parameters' updates
-   together within 3e-2 relative L2 of one process and no farther from
-   fp32 than one process (1.25x + 1e-3); each parameter's no farther from
-   fp32 than 1.25x the farthest of its kind's one-process updates (the
-   kernel and the plain bf16 path; a kind is a name but for the layer's
-   number) + 1e-3); every rank's parameters equal to rank
-   0's bit for bit; each TP sub-layer alone against the whole plain
-   layer (`both_paths`' gates); the 16-row rollout over both ranks token
-   for token this process's, at temperature 0 and 1. Its wall is two
-   ranks sharing one card with the all-reduces through the host: no TP
-   speed.
-13. Prints the `kernels` JSON line (with each kernel's `eval_launches`,
-   `evaluate_cli_decoded` among them, `train_cli_launches`, the TP step's
-   per-rank `tp_launches`, and K4's and K6's C = 128 entries), the card
-   line, and last the result line.
+12. GENIE_35M, the reference's shipped config (`check_genie_35m`):
+   configs/genie_35m.json through `GenieConfig.from_pretrained` at full
+   depth and width (32 layers, C = 256, 8 heads, bf16), seeded random
+   weights: the rollout as in 4, ten train steps and the step against the
+   plain path as in 6, `score_policies` and `evaluate_dataset` at B = 16
+   as in 9, and the train CLI on the JSON with its resume and exports as
+   in 11; each with exact launch counts, its wall and its device time by
+   kernel.
+13. Tensor parallelism (`check_tensor_parallel`): K4 and K6 at C = 128
+   (4 heads, the kernels' head groups of 4) and C = 64 (2 heads, head
+   groups of 2) against their plain versions with their device times and
+   bounds; then for GENIE_138M over tp = 2 ranks and GENIE_35M over tp =
+   4 (`TP_SETUPS`) tp child processes of this script (`--tp-rank`), all
+   on this card, joined over gloo as one model group: each splits the
+   model at 8 layers, pre-LN and qk_norm, and takes one update (exact
+   launch counts per rank), held to this process's update from the same
+   weights, batch and draws and to the plain path's in bf16 and fp32
+   (`tp_update_gates`: the loss within 2e-2, the gradient norm within
+   5e-2 relative; the gradient norm each rank's optimizer read within
+   TP_NORM_RTOL of one process's norm of the same gradients, gathered
+   whole (`watch_norm`); all parameters' updates together within 3e-2
+   relative L2 of one process and no farther from fp32 than one process
+   (1.25x + 1e-3); each parameter's no farther from fp32 than 1.25x the
+   farthest of its kind's one-process updates (the kernel and the plain
+   bf16 path; a kind is a name but for the layer's number) + 1e-3); every
+   rank's parameters equal to rank 0's bit for bit; each TP sub-layer
+   alone against the whole plain layer (`both_paths`' gates); the 16-row
+   rollout over the ranks token for token this process's, at temperature
+   0 and 1. Its wall is ranks sharing one card with the all-reduces
+   through the host: no TP speed.
+14. Prints the `kernels` JSON line (with each kernel's `eval_launches`,
+   `evaluate_cli_decoded` among them, `train_cli_launches`,
+   `genie_35m_launches` and `mup_launches`, the TP steps' per-rank
+   `tp_launches` of both setups, and K4's and K6's C = 128 and C = 64
+   entries), the card line, and last the result line.
 
 K1 (both modes), K2, K3, K5, K9, K10 and K13 carry a profiler device time
 (`device_ms`; their library calls `library_device_ms`) beside the event
@@ -213,7 +231,7 @@ from tpu1x_torch.eval import evaluate as ev_cli
 from tpu1x_torch.eval import generate as gen_cli
 from tpu1x_torch.eval.evaluate import (GenieEvaluator, eval_all_frames,
                                        evaluate_dataset, frame_metrics)
-from tpu1x_torch.model_zoo import genie_138m
+from tpu1x_torch.model_zoo import genie_35m, genie_138m
 from tpu1x_torch.models.sampler import generate_cached_fused, maskgit_generate
 from tpu1x_torch.models.st_maskgit import STMaskGIT
 from tpu1x_torch.models.st_transformer import STBlock
@@ -335,6 +353,7 @@ EVAL_PER_LAYER = {"spatial_block": 1 + 30, "temporal_mlp_block": 30,
                   "temporal_attention": 1, "layer_norm": 1}
 EVAL_PER_LAYER_QK = {"spatial_block": 1 + 30, "temporal_decode_attention": 30}
 NP, CTX = 16, 8  # policies scored, frames of their shared context
+MUP_LAYERS = 8  # the muP phase's depth (GENIE_138M's width)
 WINDOWS = 20  # evaluator windows: a batch of B and a tail of 4, padded
 
 
@@ -1818,54 +1837,76 @@ def check_step_against_plain(model, cfg, device, per_layer=TRAIN_PER_LAYER,
     return out
 
 
-def check_action_conditioning(device, layers=8, actions=16):
-    """Action conditioning on the card: GENIE_138M at `layers` layers with
-    an action vocabulary of `actions` ids. The rollout under seeded actions
-    (`check_rollout`: exact launch counts, the prefill cache and the step-0
-    logits against `PlainDecodeEngine`); one `make_train_step` step with
-    actions_BT through the kernels (exact launch counts) and through the
-    plain train blocks, from the same weights, batch, corruption and
-    actions (loss and gradient norm); and every parameter's gradient under
-    the same actions against the plain path and an fp32 run
-    (`check_step_against_plain`). Actions enter through the embedding
-    alone, so every kernel sees what it sees without them."""
-    cfg = genie_138m(num_layers=layers, action_vocab_size=actions)
+def check_variant(cfg, device, seed, mu_transfer=False):
+    """A configuration beside the shipped ones at a cut depth: the rollout
+    of 4 (`check_rollout`: exact launch counts, the prefill cache and the
+    step-0 logits against `PlainDecodeEngine`; under seeded actions where
+    the config has an action vocabulary); one `make_train_step` step
+    through the kernels (exact launch counts) and through the plain train
+    blocks, from the same weights, batch, corruption and actions (loss and
+    gradient norm); and every parameter's gradient against the plain path
+    and an fp32 run (`check_step_against_plain`). `mu_transfer` gives the
+    step's optimizer muP's learning rate for the hidden matrices."""
     roll = check_rollout(cfg, device, full=False)
-    g = torch.Generator(device=device).manual_seed(3)
+    g = torch.Generator(device=device).manual_seed(seed)
     model = STMaskGIT(cfg, device=device).init_weights(g)
     side = cfg.latent_side_len
     tokens = torch.randint(0, cfg.image_vocab_size, (CB, cfg.T, side, side),
                            generator=g, device=device)
-    acts = torch.randint(0, actions, (CB, cfg.T), generator=g, device=device)
+    acts = (torch.randint(0, cfg.action_vocab_size, (CB, cfg.T),
+                          generator=g, device=device)
+            if cfg.action_vocab_size > 0 else None)
     noise = draw_noise(tokens.shape, cfg, g, device)
     steps = {}
     for path in ("kernel", "plain"):
         m = STMaskGIT(cfg, device=device)
         m.load_state_dict(model.state_dict())
-        step = make_train_step(m, TrainOptimizer(m, cfg,
-                                                 learning_rate=TRAIN_LR,
-                                                 max_grad_norm=1.0), cfg)
+        step = make_train_step(m, TrainOptimizer(
+            m, cfg, learning_rate=TRAIN_LR, max_grad_norm=1.0,
+            mu_transfer=mu_transfer), cfg)
         kernels.reset_launches()
         with plain_blocks() if path == "plain" else contextlib.nullcontext():
             r = step(tokens, actions_BT=acts, noise=noise)
         torch.cuda.synchronize()
         want = expected_launches(TRAIN_PER_LAYER if path == "kernel" else {},
-                                 layers)
+                                 cfg.num_layers)
         if kernels.LAUNCHES != want:
-            raise AssertionError(f"action train step, {path} path: launches "
+            raise AssertionError(f"train step, {path} path: launches "
                                  f"{kernels.LAUNCHES}, expected {want}")
         steps[path] = {k: float(v) for k, v in r.items()}
+        steps[path + "_launches"] = dict(kernels.LAUNCHES)
         del step, m
     # the gates of `check_step_against_plain` on the loss and the norm
     got, want = steps["kernel"], steps["plain"]
     if not (all(math.isfinite(v) for v in got.values())
             and abs(got["loss"] - want["loss"]) <= 2e-2
             and abs(got["grad_norm"] / want["grad_norm"] - 1) <= 5e-2):
-        raise AssertionError(f"action train step against the plain path: "
-                             f"{steps}")
+        raise AssertionError(f"train step against the plain path: {steps}")
     return dict(rollout=roll, train_step=steps,
                 train_step_against_plain=check_step_against_plain(
                     model, cfg, device))
+
+
+def check_action_conditioning(device, layers=8, actions=16):
+    """Action conditioning on the card: GENIE_138M at `layers` layers with
+    an action vocabulary of `actions` ids, by `check_variant`. Actions
+    enter through the embedding alone, so every kernel sees what it sees
+    without them."""
+    return check_variant(genie_138m(num_layers=layers,
+                                    action_vocab_size=actions), device, 3)
+
+
+def check_mup(device, layers=MUP_LAYERS):
+    """muP on the card: GENIE_138M at `layers` layers with use_mup
+    (width_mult 512 / 256 = 2: every attention's scale 8 / head_dim, which
+    the kernels take as an argument, and the head's input divided by 2),
+    by `check_variant`, the step with muP's learning rate for the hidden
+    matrices."""
+    cfg = genie_138m(num_layers=layers, use_mup=True)
+    if cfg.width_mult != 2.0:
+        raise AssertionError(f"muP: width_mult {cfg.width_mult}")
+    return dict(width_mult=cfg.width_mult, scale=8.0 / cfg.head_dim,
+                **check_variant(cfg, device, 8, mu_transfer=True))
 
 
 # -------------------------------------------------------------- evaluation
@@ -1943,7 +1984,10 @@ def check_scoring(model, cfg, device):
     if not (kp <= 3e-2 and k32 <= 1.25 * p32 + 1e-3):
         raise AssertionError(f"score_policies against the plain path: {out}")
     s, walls = median_s(lambda: engine.score_policies(ctx, conts))
-    out.update(score_s=s, score_s_runs=walls, policies_per_s=NP / s)
+    out.update(score_s=s, score_s_runs=walls, policies_per_s=NP / s,
+               device_time=profile_device(
+                   lambda: engine.score_policies(ctx, conts),
+                   must=("temporal_fwd_kernel",)))
     return engine, out
 
 
@@ -2462,6 +2506,61 @@ def check_evaluation(cfg, device):
     return out
 
 
+# ---------------------------------------------------------------- GENIE_35M
+
+GENIE_35M_CONFIG = Path(__file__).resolve().parent / "configs" / \
+    "genie_35m.json"
+
+
+def check_genie_35m(device):
+    """GENIE_35M, the reference's shipped config, end to end at full depth
+    and width: configs/genie_35m.json through `GenieConfig.from_pretrained`
+    (32 layers, C = 256, 8 heads, S = 256, T = 16, bf16, remat
+    "attn_outs"), seeded random weights. Each entry point by the gates, the
+    launch counts per layer and the device-time profile of its GENIE_138M
+    counterpart: the rollout (`check_rollout`), ten train steps
+    (`check_training`) and the step's gradients against the plain path and
+    fp32 (`check_step_against_plain`), `score_policies` (`check_scoring`),
+    `evaluate_dataset` at B = 16 (`check_evaluator`), and the train CLI on
+    the JSON with its resume and exports (`check_cli_run`)."""
+    cfg = GenieConfig.from_pretrained(GENIE_35M_CONFIG)
+    out, walls = {}, {}
+    t0 = time.perf_counter()
+    out["rollout"] = check_rollout(cfg, device)
+    walls["rollout"] = time.perf_counter() - t0
+    print("genie_35m rollout: " + json.dumps(out["rollout"]), flush=True)
+    t0 = time.perf_counter()
+    model, out["training"] = check_training(cfg, device)
+    out["step_against_plain"] = check_step_against_plain(model, cfg, device)
+    walls["training"] = time.perf_counter() - t0
+    print("genie_35m training: " + json.dumps(out["training"]), flush=True)
+    print("genie_35m train step against the plain path: " + json.dumps(
+        out["step_against_plain"]), flush=True)
+    t0 = time.perf_counter()
+    engine, out["scoring"] = check_scoring(model, cfg, device)
+    del engine
+    print("genie_35m scoring: " + json.dumps(out["scoring"]), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        ev, ds, out["evaluator"] = check_evaluator(model, cfg, device,
+                                                   Path(tmp) / "data")
+    del ev, ds, model
+    torch.cuda.empty_cache()
+    walls["evaluation"] = time.perf_counter() - t0
+    print("genie_35m evaluator: " + json.dumps(out["evaluator"]), flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["cli"] = check_cli_run(cfg, device, Path(tmp), GENIE_35M_CONFIG)
+    walls["cli"] = time.perf_counter() - t0
+    # the bare step at B = TB takes one micro-batch and one AdamW update
+    bare = out["training"]["step_s"]
+    out["cli"].update(bare_step_s=bare, overhead_s_per_update=(
+        out["cli"]["s_per_update"] - RT_ACCUMULATE * bare))
+    torch.cuda.empty_cache()
+    print("genie_35m train CLI: " + json.dumps(out["cli"]), flush=True)
+    out["phase_walls_s"] = walls
+    return out
+
+
 # ------------------------------------------------------- tokenizer training
 
 # the card's fp32 step against the CPU's: 64 px, latents 8 x 8 x 18
@@ -2839,6 +2938,8 @@ REMAT_QK = {"attn_outs": {"flash_mha": 1, "flash_mha_bwd": 1,
 DROPOUT_PER_LAYER = {"flash_mha": 1, "flash_mha_bwd": 1}
 RT_UPDATES, RT_ACCUMULATE, RT_EVAL_BATCHES, RT_LR = 6, 2, 2, 2e-5
 RT_CONFIG = Path(__file__).resolve().parent / "configs" / "genie_138m.json"
+DDP_LAYERS = 8  # the world-size-1 DDP / FSDP2 check's depth
+RT_LAYERS = 8  # the GENIE_138M train CLI's depth
 
 
 def instrumented_cli(argv, profile_updates=None):
@@ -2942,12 +3043,13 @@ def state_params(state):
             for k, v in full_state_dict(state.model).items()}
 
 
-def check_cli_run(cfg, device, root):
-    """Phases 1 to 3 of the runtime: the CLI at GENIE_138M, its resume and
-    its exports (see `check_training_runtime`)."""
+def check_cli_run(cfg, device, root, config=RT_CONFIG):
+    """Phases 1 to 3 of the runtime: the CLI on the config file `config`
+    (`cfg` is what it holds), its resume and its exports (see
+    `check_training_runtime`)."""
     ds = synthetic_dataset(cfg, root / "data")
     common = ["--train_data_dir", str(root / "data"), "--val_data_dir",
-              str(root / "data"), "--genie_config", str(RT_CONFIG),
+              str(root / "data"), "--genie_config", str(config),
               "--device", str(device), "--window_size", str(cfg.T), "--stride", "1",
               "--overfit_first_batch", "--per_device_train_batch_size",
               str(TB), "--gradient_accumulation_steps", str(RT_ACCUMULATE),
@@ -3089,9 +3191,10 @@ def check_cli_run(cfg, device, root):
         evaluate_cli_launches=eval_launches)
 
 
-def check_world_size_one(device):
+def check_world_size_one(device, layers=DDP_LAYERS):
     """One process group of world size 1 over NCCL: one update of
-    GENIE_138M (B = CB, full depth) through DDP and one through FSDP2,
+    GENIE_138M (B = CB, at `layers` layers: a check of the wrappers, no
+    metric) through DDP and one through FSDP2,
     each against the unwrapped step from the same weights, batch and
     draws: exact launch counts, the loss (within 2e-2), the gradient norm
     (5e-2 relative) and each parameter's update (within 3e-2 relative L2,
@@ -3100,7 +3203,7 @@ def check_world_size_one(device):
     `Checkpointer` save and restore into a fresh sharded state, bit for
     bit."""
     import warnings
-    cfg = genie_138m()
+    cfg = genie_138m(num_layers=layers)
     g = torch.Generator(device=device).manual_seed(4)
     model0 = STMaskGIT(cfg, device=device).init_weights(g)
     init = {k: v.clone() for k, v in model0.state_dict().items()}
@@ -3264,21 +3367,22 @@ def check_dropout(device, layers=8):
                                     dropout_seed=7)
 
 
-def check_training_runtime(cfg, device, bare_step_s):
+def check_training_runtime(device, layers=RT_LAYERS):
     """The training runtime (`tpu1x_torch.train`), in a temporary directory
-    that it removes: the CLI at GENIE_138M, its resume and exports
-    (`check_cli_run`), DDP and FSDP2 at world size 1
+    that it removes: the CLI on configs/genie_138m.json cut to `layers`
+    layers (written beside; GENIE_35M's phase runs the CLI at full depth),
+    its resume and exports (`check_cli_run`), DDP and FSDP2 at world size 1
     (`check_world_size_one`), remat (`check_remat`) and dropout
     (`check_dropout`)."""
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        out["cli"] = check_cli_run(cfg, device, Path(tmp))
+        cut = dataclasses.replace(GenieConfig.from_pretrained(RT_CONFIG),
+                                  num_layers=layers)
+        cut.save_pretrained(Path(tmp) / "genie_138m.json")
+        out["cli"] = check_cli_run(cut, device, Path(tmp),
+                                   Path(tmp) / "genie_138m.json")
         out["cli"]["phase_s"] = time.perf_counter() - t0
-    # the bare step at B = TB takes one micro-batch and one AdamW update
-    out["cli"]["bare_step_s"] = bare_step_s
-    out["cli"]["overhead_s_per_update"] = (
-        out["cli"]["s_per_update"] - RT_ACCUMULATE * bare_step_s)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     out["world_size_one"] = check_world_size_one(device)
@@ -3328,15 +3432,27 @@ TP_COUNTERS = {"spatial_train_block_bwd": "tp_spatial_train_block_bwd",
                "temporal_attention": "temporal_attention",
                "temporal_attention_bwd": "temporal_attention_bwd"}
 TP_ARCHS = ("pre_ln", "qk_norm")
+# the TP phase's model groups: GENIE_138M over 2 ranks (8 heads and 256
+# columns a rank), GENIE_35M over 4 (2 heads and 64 columns a rank: K4's
+# and K6's head groups of 2), each at TP_LAYERS layers
+TP_SETUPS = (("genie_138m", genie_138m, 2), ("genie_35m", genie_35m, 4))
+# the gradient norm a rank's optimizer reads against one process's norm of
+# the same gradients (`watch_norm`): the two sum the same squares in fp32
+# in another order (0 to 1e-7 apart on an H100). Leaving the split
+# parameters' squares unsummed over the model group takes (tp - 1) / tp of
+# their share of the squared norm away: 1.1e-5 to 2.1e-5 of the norm on
+# pre-LN at random init, where the embeddings and the head carry most of it
+TP_NORM_RTOL = 2e-6
 
 
-def tp_inputs(device):
-    """What both ranks and the one-process run start from: per model (8
-    layers of GENIE_138M, pre-LN and qk_norm) its config, seeded weights, a
-    batch of TB and its corruption draws; and a rollout prompt."""
-    out = {}
+def tp_inputs(device, make=genie_138m, tp=2):
+    """What every rank and the one-process run start from: the model
+    group's size `tp`; per model (TP_LAYERS layers of `make`'s config,
+    pre-LN and qk_norm) its config, seeded weights, a batch of TB and its
+    corruption draws; and a rollout prompt."""
+    out = {"tp": tp}
     for i, arch in enumerate(TP_ARCHS):
-        cfg = genie_138m(num_layers=TP_LAYERS, qk_norm=arch == "qk_norm")
+        cfg = make(num_layers=TP_LAYERS, qk_norm=arch == "qk_norm")
         g = torch.Generator(device=device).manual_seed(20 + i)
         model = STMaskGIT(cfg, device=device).init_weights(g)
         side = cfg.latent_side_len
@@ -3380,6 +3496,7 @@ def tp_update(arch, inp, device, tp=1, oracle=None, fsdp=False):
                        torch.Generator(device=device).manual_seed(5))
     if tp > 1:
         state = shard_train_state(state, device, fsdp=fsdp, tp=tp)
+        watch_norm(state)
     step = make_train_step(state.model, state.optimizer, cfg, device=device,
                            generator=state.generator)
     # this data rank's rows of the batch; the draws are the global batch's
@@ -3397,7 +3514,40 @@ def tp_update(arch, inp, device, tp=1, oracle=None, fsdp=False):
         r, launches = run(), {}
     whole = {k: v.detach().float().cpu()
              for k, v in full_state_dict(step.state.model).items()}
-    return {k: float(v) for k, v in r.items()}, launches, whole, step.state
+    metrics = {k: float(v) for k, v in r.items()}
+    if tp > 1:
+        metrics["grad_norm_whole"] = float(state.optimizer.norm_whole)
+    return metrics, launches, whole, step.state
+
+
+def watch_norm(state):
+    """Have `state.optimizer` record, at its first norm, what one process's
+    `TrainOptimizer` reads from the same gradients (`norm_whole`): the
+    split gradients gathered whole over the model group (and FSDP2's
+    shards over the data group), the norms of the whole tensors, their
+    norm, in fp32 as one process takes it. The norm the optimizer returns
+    under tensor parallelism sums the split parameters' squares over the
+    model group; without that sum it reads only its own shards'."""
+    from tpu1x_torch.parallel.sharding import gather_split, unwrap
+    from tpu1x_torch.parallel.tensor import is_split
+    opt, m = state.optimizer, mesh_of(state.model)
+    model = unwrap(state.model)
+    names = {id(p): n for n, p in model.named_parameters()}
+    heads, real = model.config.num_heads, opt._norm
+
+    def norm(local):
+        if not hasattr(opt, "norm_whole"):
+            whole = []
+            for p in opt.params:
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                g = g.full_tensor() if hasattr(g, "full_tensor") else g
+                n = names[id(p)]
+                whole.append(gather_split(n, g, m, heads) if is_split(n)
+                             else g)
+            opt.norm_whole = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(whole)))
+        return real(local)
+    opt._norm = norm
 
 
 def tp_rollouts(init, cfg, prompt, device, mesh=None):
@@ -3503,18 +3653,19 @@ def tp_sub_layers(cfg, m, device):
 
 
 def tp_rank(rank: int, port: int, tmp: str, device: str) -> int:
-    """One of the TP phase's two ranks (`chip_smoke.py --tp-rank R PORT DIR
-    DEVICE`): the update of each model split over both, the sub-layers and
-    the rollout; writes its results to DIR/rank{R}.pt."""
+    """One of the TP phase's ranks (`chip_smoke.py --tp-rank R PORT DIR
+    DEVICE`; the group's size is the inputs' `tp`): the update of each
+    model split over the group, the sub-layers and the rollout; writes its
+    results to DIR/rank{R}.pt."""
     device = torch.device(device)
-    init_distributed(str(device), f"tcp://localhost:{port}", 2, rank,
-                     backend="gloo")
+    inputs = torch.load(Path(tmp) / "inputs.pt", weights_only=False)
+    init_distributed(str(device), f"tcp://localhost:{port}", inputs["tp"],
+                     rank, backend="gloo")
     try:
-        inputs = torch.load(Path(tmp) / "inputs.pt", weights_only=False)
         res = {}
         for arch in TP_ARCHS:
             metrics, launches, whole, state = tp_update(
-                arch, inputs[arch], device, tp=2)
+                arch, inputs[arch], device, tp=inputs["tp"])
             res[arch] = dict(metrics=metrics, launches=launches,
                              params=whole)
             mesh = mesh_of(state.model)
@@ -3532,27 +3683,45 @@ def tp_rank(rank: int, port: int, tmp: str, device: str) -> int:
 
 def check_tensor_parallel(device):
     """Tensor parallelism (`parallel/tensor.py`) on the one card: K4 and K6
-    at C = 128 (4 heads, their head groups of 4) against their plain
-    versions; then two child processes, both on this card, joined over
-    gloo as one model group (tp = 2, dp = 1; NCCL refuses two ranks on one
-    device): each splits GENIE_138M at 8 layers, pre-LN and qk_norm, and
-    takes one update with exact launch counts per rank, held by
-    `tp_compare` to this process's update from the same weights, batch and
-    draws and to the oracles; runs each TP sub-layer alone against the
-    whole plain layer (`both_paths`' gates); and the rollout of 16 rows over
-    both ranks, token for token this process's. The wall is two ranks
-    sharing one card with the all-reduces through the host: no TP
-    speed."""
+    at C = 128 (4 heads, their head groups of 4) and C = 64 (2 heads, head
+    groups of 2) against their plain versions; then for each of TP_SETUPS
+    (GENIE_138M over tp = 2 ranks, GENIE_35M over tp = 4) tp child
+    processes, all on this card, joined over gloo as one model group (dp =
+    1; NCCL refuses two ranks on one device): each splits the model at
+    TP_LAYERS layers, pre-LN and qk_norm, and takes one update with exact
+    launch counts per rank, held by `tp_compare` to this process's update
+    from the same weights, batch and draws and to the oracles, its gradient
+    norm to one process's norm of the same gradients; runs each TP
+    sub-layer alone against the whole plain layer (`both_paths`' gates);
+    and the rollout of 16 rows over the ranks, token for token this
+    process's. The wall is ranks sharing one card with the all-reduces
+    through the host: no TP speed."""
     out = {"c128": {
         **check_temporal_attention(Inputs(40, device), 128, 4),
-        **check_temporal_attention_bwd(Inputs(41, device), 128, 4)}}
-    inputs = tp_inputs(device)
+        **check_temporal_attention_bwd(Inputs(41, device), 128, 4)},
+        "c64": {
+        **check_temporal_attention(Inputs(42, device), 64, 2),
+        **check_temporal_attention_bwd(Inputs(43, device), 64, 2)}}
+    for name, make, tp in TP_SETUPS:
+        out[name] = tp_setup(name, make, tp, device)
+    return out
+
+
+def tp_setup(name, make, tp, device):
+    """One of TP_SETUPS: `make`'s models split over `tp` child processes
+    (`--tp-rank`) on this card, held by `tp_compare`; prints its line."""
+    t0 = time.perf_counter()
+    inputs = tp_inputs(device, make, tp)
     refs, rollouts = tp_references(inputs, device)
-    ranks, out["ranks_wall_s"] = tp_children(
-        inputs, 2, lambda r, port, tmp: [
+    ranks, wall = tp_children(
+        inputs, tp, lambda r, port, tmp: [
             str(Path(__file__).resolve()), "--tp-rank", str(r), str(port),
             tmp, str(device)])
-    out.update(tp_compare(inputs, refs, ranks, rollouts))
+    out = dict(tp=tp, ranks_wall_s=wall,
+               **tp_compare(inputs, refs, ranks, rollouts))
+    out["setup_wall_s"] = time.perf_counter() - t0
+    print(f"tensor parallelism {name}, tp={tp}: " + json.dumps(
+        tp_summary(out)), flush=True)
     return out
 
 
@@ -3632,7 +3801,10 @@ def tp_update_gates(init, got, ref):
       a tensor's own one-process distance is one draw of that, and TP's
       can be 2.8x it on a correct run (qk_norm's spatial attention weights,
       on one H100), so each tensor is held to its kind's widest draw.
-    - The loss within 2e-2, the gradient norm within 5e-2 relative."""
+    - The loss within 2e-2, the gradient norm within 5e-2 relative of one
+      process's update (two bf16 paths' gradients).
+    - The gradient norm the optimizer read within TP_NORM_RTOL of one
+      process's norm of the same gradients (`watch_norm`)."""
     def update(res, k=None):
         if k is None:  # every parameter's, as one vector
             return torch.cat([update(res, n).reshape(-1) for n in init])
@@ -3673,6 +3845,12 @@ def tp_update_gates(init, got, ref):
     if not (abs(gm["loss"] - wm["loss"]) <= 2e-2
             and abs(gm["grad_norm"] / wm["grad_norm"] - 1) <= 5e-2):
         failed.append(f"loss or gradient norm {gm} against {wm}")
+    res["grad_norm_vs_whole"] = abs(gm["grad_norm"] / gm["grad_norm_whole"]
+                                    - 1)
+    if not res["grad_norm_vs_whole"] <= TP_NORM_RTOL:
+        failed.append(f"the gradient norm read {gm['grad_norm']!r} against "
+                      f"one process's norm of the same gradients "
+                      f"{gm['grad_norm_whole']!r}")
     return res, failed
 
 
@@ -3819,6 +3997,10 @@ def main() -> int:
             check_action_conditioning(device)), flush=True)
         print(f"action conditioning: {time.perf_counter() - t0:.1f} s",
               flush=True)
+        t0 = time.perf_counter()
+        mup = check_mup(device)
+        print(f"muP, {MUP_LAYERS} layers: " + json.dumps(mup), flush=True)
+        print(f"muP phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
         # the qk_norm step as it was before remat (check_remat has remat)
         cfg_qk_step = genie_138m(qk_norm=True, remat=False)
@@ -3899,14 +4081,14 @@ def main() -> int:
               flush=True)
 
         t0 = time.perf_counter()
-        runtime = check_training_runtime(cfg, device, train["step_s"])
+        runtime = check_training_runtime(device)
         rt_cli = runtime["cli"]
         print("training runtime: " + json.dumps(runtime), flush=True)
         print(f"training runtime phase: {time.perf_counter() - t0:.1f} s; "
-              f"the train CLI {rt_cli['s_per_update']:.4f} s/update "
+              f"the train CLI at {RT_LAYERS} layers "
+              f"{rt_cli['s_per_update']:.4f} s/update "
               f"({TB} x {RT_ACCUMULATE} examples, "
-              f"{rt_cli['examples_per_s']:.1f} examples/s; the bare step "
-              f"{rt_cli['bare_step_s']:.4f} s at B={TB}), busy "
+              f"{rt_cli['examples_per_s']:.1f} examples/s), busy "
               f"{rt_cli['busy_updates_4_5']['busy_share']:.3f} over two "
               f"updates; remat peaks " + ", ".join(
                   f"{k} {v['peak_memory_bytes']} B {v['step_s']:.4f} s"
@@ -3914,18 +4096,36 @@ def main() -> int:
                   if isinstance(v, dict)) + f" on {card}", flush=True)
 
         t0 = time.perf_counter()
-        tp = check_tensor_parallel(device)
-        print("tensor parallelism: " + json.dumps(tp_summary(tp)),
+        g35 = check_genie_35m(device)
+        w35 = g35["phase_walls_s"]
+        print(f"genie_35m phase: {time.perf_counter() - t0:.1f} s ("
+              + ", ".join(f"{k} {v:.1f} s" for k, v in w35.items())
+              + f"); rollout {g35['rollout']['s_per_frame']:.4f} s/frame at "
+              f"B={B}; train step {g35['training']['step_s']:.4f} s, peak "
+              f"{g35['training']['peak_memory_bytes']} B at B={TB}; gen_time "
+              f"{g35['evaluator']['gen_time']:.6f} s/frame; score_policies "
+              f"{g35['scoring']['policies_per_s']:.1f} policies/s; the train "
+              f"CLI {g35['cli']['s_per_update']:.4f} s/update (two bare "
+              f"steps {2 * g35['cli']['bare_step_s']:.4f} s) on {card}",
               flush=True)
+
+        t0 = time.perf_counter()
+        tp = check_tensor_parallel(device)
         print(f"tensor parallelism phase: {time.perf_counter() - t0:.1f} s; "
-              f"the two ranks' processes {tp['ranks_wall_s']:.1f} s (two "
-              f"ranks sharing one card over gloo, not a TP speed); GENIE_138M "
-              f"at {TP_LAYERS} layers, tp=2, B={TB}: update against one "
-              f"process, all parameters' rel L2 pre-LN "
-              f"{tp['pre_ln']['update_rel_l2'][0]:.3e}, qk_norm "
-              f"{tp['qk_norm']['update_rel_l2'][0]:.3e}; rollout of "
-              f"{TP_ROWS_ROLLOUT} rows token-equal; K4/K6 at C=128 held on "
-              f"{card}", flush=True)
+              + "; ".join(
+                  f"{name} at {TP_LAYERS} layers, tp={tp[name]['tp']}, "
+                  f"B={TB}: the ranks' processes "
+                  f"{tp[name]['ranks_wall_s']:.1f} s (ranks sharing one card "
+                  f"over gloo, not a TP speed), update against one process, "
+                  f"all parameters' rel L2 pre-LN "
+                  f"{tp[name]['pre_ln']['update_rel_l2'][0]:.3e}, qk_norm "
+                  f"{tp[name]['qk_norm']['update_rel_l2'][0]:.3e}, gradient "
+                  f"norm against one process's of the same gradients "
+                  f"{tp[name]['pre_ln']['grad_norm_vs_whole']:.2e} / "
+                  f"{tp[name]['qk_norm']['grad_norm_vs_whole']:.2e}"
+                  for name, _, _ in TP_SETUPS)
+              + f"; rollouts of {TP_ROWS_ROLLOUT} rows token-equal; K4/K6 "
+              f"at C=128 and C=64 held on {card}", flush=True)
 
         line = []
         for name in SOURCES:
@@ -3961,25 +4161,37 @@ def main() -> int:
             # K7-K10), and K10's floor with its residuals
             item.update({k: r[k] for k in ("device_ms", "library_device_ms",
                                            "own_floor_ms") if k in r})
-            if name in TP_COUNTERS:  # each rank's, in the TP step
+            item["genie_35m_launches"] = {
+                "rollout": g35["rollout"]["launches"][name],
+                "train": g35["training"]["launches"][name],
+                "score_policies": g35["scoring"]["launches"][name],
+                "evaluate_dataset": g35["evaluator"]["launches"][name],
+                "train_cli_update":
+                    g35["cli"]["launches_per_update"][name]}
+            item["mup_launches"] = {
+                "rollout": mup["rollout"]["launches"][name],
+                "train": mup["train_step"]["kernel_launches"][name]}
+            # each rank's, in the TP step of each setup
+            counter = (TP_COUNTERS.get(name) if name != "spatial_block"
+                       else "tp_spatial_train_block")
+            if counter is not None:
                 item["tp_launches"] = {
-                    arch: [n[TP_COUNTERS[name]] for n in tp[arch]["launches"]]
-                    for arch in TP_ARCHS}
-            elif name == "spatial_block":
+                    f"{setup}_tp{tp[setup]['tp']}": {
+                        arch: [n[counter] for n in tp[setup][arch]["launches"]]
+                        for arch in TP_ARCHS} for setup, _, _ in TP_SETUPS}
+            if name == "spatial_block":
                 item["tp_note"] = (
                     "not launched under tensor parallelism: a rank runs "
                     "K1's parts at its shapes (the LN row pass, gemm_sm90, "
                     "K9, a training-form nt product with an fp32 store), "
-                    "counted as tp_spatial_train_block")
-                item["tp_spatial_train_block_launches"] = {
-                    arch: [n["tp_spatial_train_block"]
-                           for n in tp[arch]["launches"]]
-                    for arch in TP_ARCHS}
+                    "counted as tp_spatial_train_block (tp_launches)")
             if name in ("temporal_attention", "temporal_attention_bwd"):
-                c = tp["c128"][name + "[C=128]"]  # its head groups of 4
-                item["c128"] = {k: c[k] for k in (
-                    "shape", "ms", "device_ms", "bound_ms", "bound_by",
-                    "plain_ms", "library_ms", "max_abs_err")}
+                # their head groups of 4 and of 2
+                for width in (128, 64):
+                    c = tp[f"c{width}"][f"{name}[C={width}]"]
+                    item[f"c{width}"] = {k: c[k] for k in (
+                        "shape", "ms", "device_ms", "bound_ms", "bound_by",
+                        "plain_ms", "library_ms", "max_abs_err")}
             if name + "[int8]" in results:  # the decode attention kernels
                 q8 = results[name + "[int8]"]
                 item.update(int8_ms=q8["ms"], int8_device_ms=q8["device_ms"],

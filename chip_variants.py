@@ -18,6 +18,9 @@
     python3 chip_variants.py cli_bare
     python3 chip_variants.py tp_cards   (needs four cards on one host)
     python3 chip_variants.py tp_faults
+    python3 chip_variants.py tp_c9
+    python3 chip_variants.py genie_35m
+    python3 chip_variants.py mup
 
 Each LIB is a shared library built from a variant of a source in
 `tpu1x_torch/csrc` (nvcc with `kernels.NVCC_FLAGS`, `-I` its own copy of the
@@ -83,9 +86,12 @@ in one process on one card; every time is the profiler's device time
   512), causal and not, and at the rollout prefill's (16, 8, 256, 512); K6
   at the train step's shape, causal and not, and causal with `o` (the
   forward's output written beside the gradients, where the wrapper takes
-  `o`: K12's backward then launches no K4); then the same at C = 128, 4
-  heads (the kernels' head groups of 4, a rank's share of the heads under
-  tensor parallelism), labels tagged [C=128]. Timed as `mlp`. No builds.
+  `o`: K12's backward then launches no K4); then the same at C = 256 (8
+  heads, GENIE_35M), C = 128 (4 heads, head groups of 4) and C = 64 (2
+  heads, head groups of 2; a rank's share of GENIE_35M's heads at tp = 2
+  and 4), labels tagged [C=...]; a width the checkout's wrapper refuses
+  prints a `refused` line (a parent's tree from before it). Timed as
+  `mlp`. No builds.
 - `l2`: three of K12's products at the pre-LN train step's shape (the
   forward's proj with bias and residual, d_ao = dout Wproj^T, dWproj =
   ao^T dout) through this checkout's wrappers, each after one of: nothing
@@ -144,22 +150,39 @@ in one process on one card; every time is the profiler's device time
   per rank, the 16-row rollout over the four ranks token for token. No
   builds; no TP speed.
 - `tp_faults`: what the TP phase's update gates (`chip_smoke.tp_update_gates`
-  and the ranks' parameters bit for bit) catch. Two ranks on this card
-  over gloo, as the TP phase, take the update of each model once as the
-  port is and once under each planted fault of a reduction over the model
-  group (`TP_FAULTS`); prints, per run and model, the gates that fail and
-  the parameters past their envelopes (the distance beside the limit),
-  and last a line with every parameter's distances and envelope. No
-  builds.
+  and the ranks' parameters bit for bit) catch. For each of the TP phase's
+  setups (GENIE_138M over two ranks, GENIE_35M over four), the ranks on
+  this card over gloo take the update of each model once as the port is
+  and once under each planted fault of a reduction over the model group
+  (`TP_FAULTS`); prints, per setup, run and model, the gates that fail,
+  each rank's gradient norm against one process's of the same gradients,
+  and the parameters past their envelopes (the distance beside the
+  limit), and last a line with every parameter's distances and envelope.
+  No builds.
+- `tp_c9`: ROADMAP C9, one candidate at a time (`C9_VARIANTS`): the
+  qk_norm model's TP update in each setup as the port is, with the
+  column-parallel or the row-parallel products on cuBLAS, and with the
+  spatial flash pair replaced by the plain attention (in the one-process
+  reference too); prints per setup and variant each kind's farthest
+  distance from fp32, TP's beside one process's, and every spatial qkv
+  weight's. No builds.
+- `genie_35m`: `chip_smoke.py`'s GENIE_35M phase alone (the rollout, the
+  train step against the plain path, `score_policies`, the evaluator
+  batch, the train CLI on configs/genie_35m.json and its resume, all at
+  full depth), then its TP setup (four ranks on this card), each printed
+  as chip_smoke.py prints it; `mup` the muP phase alone. The kernels
+  build at first use.
 
 Prints one line per build and case, and the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import json
+import re
 import sys
 import tempfile
 import time
@@ -410,13 +433,21 @@ def train(dev):
 
 
 def temporal(dev):
-    """K4 and K6 at GENIE_138M's C = 512 (head groups of 8) and at C = 128
-    (4 heads, head groups of 4: a rank's share under tensor parallelism),
-    their labels tagged [C=128] there."""
-    calls = []
-    for C in (512, 128):
-        calls += temporal_calls(dev, C)
-    timed_calls(calls)
+    """K4 and K6 at GENIE_138M's C = 512 and GENIE_35M's C = 256 (head
+    groups of 8), at C = 128 (4 heads, head groups of 4: a rank's share at
+    tp = 2 of GENIE_35M) and at C = 64 (2 heads, head groups of 2: a rank's
+    share at tp = 4), their labels tagged [C=...] but at C = 512. A width
+    that the checkout's wrapper refuses prints a `refused` line."""
+    from tpu1x_torch.ops import temporal_attention as ta
+    for C in (512, 256, 128, 64):
+        try:
+            ta._check_qkv(*cs.Inputs(0, dev).normal(1, 16, 256, 3 * C).split(
+                C, dim=-1), C // 32)
+        except ValueError as e:  # a tree from before this width
+            print(json.dumps(dict(kernel=f"temporal_attention[C={C}]",
+                                  refused=str(e))), flush=True)
+            continue
+        timed_calls(temporal_calls(dev, C))
 
 
 def temporal_calls(dev, C):
@@ -914,67 +945,212 @@ def _plant(fault: str) -> None:
 
 def tp_faults(dev):
     """The TP phase's update gates against planted faults (`TP_FAULTS`):
-    two ranks on this card over gloo take each model's update as the port
-    is, then under each fault; each run is held to this process's
-    references by `chip_smoke.tp_update_gates` and the ranks' parameters
-    to rank 0's bit for bit. Prints a line per run and model, then one
-    with the per-parameter tables."""
-    inputs = cs.tp_inputs(dev)
-    refs, _ = cs.tp_references(inputs, dev)
+    for each of `chip_smoke.TP_SETUPS` (GENIE_138M over two ranks, GENIE_35M
+    over four) the ranks, on this card over gloo, take each model's update
+    as the port is, then under each fault; each run is held to this
+    process's references by `chip_smoke.tp_update_gates` (the gradient norm
+    read against one process's of the same gradients among them) and the
+    ranks' parameters to rank 0's bit for bit. Prints a line per setup, run
+    and model, then one with the per-parameter tables."""
     out = {}
-    for fault in ("none", *TP_FAULTS):
-        ranks, wall = cs.tp_children(
-            inputs, 2, lambda r, port, tmp: [
-                str(Path(__file__).resolve()), "tp_fault_rank", str(r),
-                str(port), tmp, str(dev), fault])
-        for arch in cs.TP_ARCHS:
-            init = inputs[arch]["init"]
-            res, failed = cs.tp_update_gates(init, ranks[0][arch],
-                                             refs[arch])
-            apart = sorted(k for k, v in ranks[1][arch]["params"].items()
-                           if not torch.equal(v, ranks[0][arch]["params"][k]))
-            if apart:
-                failed.append(f"the ranks' parameters differ: {apart}")
-            out[f"{fault}/{arch}"] = res["per_parameter"]
-            print(json.dumps(dict(
-                kernel="tp_faults", fault=fault, arch=arch,
-                what=TP_FAULTS.get(fault, "the port as it is"),
-                fails=[f[:300] for f in failed],
-                update_rel_l2=res["update_rel_l2"],
-                grad_norm=[res["metrics"]["grad_norm"],
-                           res["one_process"]["grad_norm"]],
-                over={k: (d["tp_fp32"], d["envelope"])
-                      for k, d in res["per_parameter_over"].items()},
-                nearest_envelope=[(k, d["tp_fp32"], d["envelope"])
-                                  for k, d in res["nearest_envelope"]],
-                ranks_apart=len(apart), wall_s=wall)), flush=True)
+    for setup, make, tp in cs.TP_SETUPS:
+        inputs = cs.tp_inputs(dev, make, tp)
+        refs, _ = cs.tp_references(inputs, dev)
+        for fault in ("none", *TP_FAULTS):
+            ranks, wall = cs.tp_children(
+                inputs, tp, lambda r, port, tmp: [
+                    str(Path(__file__).resolve()), "tp_fault_rank", str(r),
+                    str(port), tmp, str(dev), fault])
+            for arch in cs.TP_ARCHS:
+                init = inputs[arch]["init"]
+                res, failed = cs.tp_update_gates(init, ranks[0][arch],
+                                                 refs[arch])
+                apart = sorted(
+                    k for r in ranks[1:] for k, v in r[arch]["params"].items()
+                    if not torch.equal(v, ranks[0][arch]["params"][k]))
+                if apart:
+                    failed.append(f"the ranks' parameters differ: {apart}")
+                out[f"{setup}/{fault}/{arch}"] = res["per_parameter"]
+                print(json.dumps(dict(
+                    kernel="tp_faults", setup=setup, tp=tp, fault=fault,
+                    arch=arch, what=TP_FAULTS.get(fault, "the port as it is"),
+                    fails=[f[:300] for f in failed],
+                    update_rel_l2=res["update_rel_l2"],
+                    grad_norm=[res["metrics"]["grad_norm"],
+                               res["one_process"]["grad_norm"]],
+                    grad_norm_vs_whole=[
+                        abs(r[arch]["metrics"]["grad_norm"]
+                            / r[arch]["metrics"]["grad_norm_whole"] - 1)
+                        for r in ranks],
+                    over={k: (d["tp_fp32"], d["envelope"])
+                          for k, d in res["per_parameter_over"].items()},
+                    nearest_envelope=[(k, d["tp_fp32"], d["envelope"])
+                                      for k, d in res["nearest_envelope"]],
+                    ranks_apart=len(apart), wall_s=wall)), flush=True)
     print(json.dumps(dict(kernel="tp_faults_tables", tables=out)),
           flush=True)
 
 
 def tp_fault_rank(rank: int, port: int, tmp: str, device: str,
                   fault: str) -> int:
-    """One rank of `tp_faults`: the update of each model split over two
-    ranks with `fault` planted ("none": as the port is)."""
+    """One rank of `tp_faults` and `tp_c9`: the update of each model of the
+    inputs (`archs`, else TP_ARCHS) split over their model group with
+    `fault` planted (a key of TP_FAULTS) or swapped in (a key of
+    C9_VARIANTS); "none" or "as_is": as the port is."""
     from tpu1x_torch.parallel.mesh import init_distributed
-    if fault != "none":
+    if fault in TP_FAULTS:
         _plant(fault)
     dev = torch.device(device)
-    init_distributed(str(dev), f"tcp://localhost:{port}", 2, rank,
+    inputs = torch.load(Path(tmp) / "inputs.pt", weights_only=False)
+    init_distributed(str(dev), f"tcp://localhost:{port}", inputs["tp"], rank,
                      backend="gloo")
     try:
-        inputs = torch.load(Path(tmp) / "inputs.pt", weights_only=False)
         res = {}
-        for arch in cs.TP_ARCHS:
-            metrics, launches, whole, state = cs.tp_update(
-                arch, inputs[arch], dev, tp=2)
-            res[arch] = dict(metrics=metrics, launches=launches,
-                             params=whole)
-            del state
+        with c9_swapped(fault):
+            for arch in inputs.get("archs", cs.TP_ARCHS):
+                metrics, launches, whole, state = cs.tp_update(
+                    arch, inputs[arch], dev, tp=inputs["tp"])
+                res[arch] = dict(metrics=metrics, launches=launches,
+                                 params=whole)
+                del state
         torch.save(res, Path(tmp) / f"rank{rank}.pt")
     finally:
         torch.distributed.destroy_process_group()
     return 0
+
+
+# one candidate at a time for the qk_norm TP update's distance from fp32
+# (ROADMAP C9), for `tp_c9`
+C9_VARIANTS = {
+    "as_is": "the port as it is",
+    "column": "column_parallel's backward products on cuBLAS (an fp32 "
+              "partial of dx from torch.matmul of fp32 copies, dw by "
+              "torch.matmul in bf16, as one process's autograd) instead "
+              "of gemm90",
+    "row": "row_parallel's products on cuBLAS (the partial by torch.matmul "
+           "of fp32 copies, the backward by torch.matmul in bf16) instead "
+           "of gemm90",
+    "plain_attn": "the spatial attention's flash pair (K9, K10) replaced "
+                  "by the plain attention under autograd, in the ranks and "
+                  "in the one-process reference",
+}
+
+
+@contextlib.contextmanager
+def c9_swapped(variant: str):
+    """`variant` of C9_VARIANTS in this process, with the launch counts
+    that `chip_smoke.tp_update` then expects."""
+    from types import SimpleNamespace
+    from tpu1x_torch.models.st_transformer import STBlock
+    from tpu1x_torch.ops import attention as attn
+    from tpu1x_torch.parallel import tensor as tpl
+    saved = (tpl._ColumnParallel.backward, tpl._RowParallel.forward,
+             tpl._RowParallel.backward, STBlock.ops, cs.tp_per_layer)
+    if variant == "column":
+        def column_bwd(ctx, dy):
+            x, wc = ctx.saved_tensors
+            dy = dy.contiguous()
+            part = torch.matmul(dy.float(), wc.float())
+            dx = tpl.model_all_reduce(part, ctx.mesh).to(x.dtype)
+            dw = tpl._counted("tp_column_parallel_bwd", x,
+                              torch.matmul(dy.t(), x))
+            return dx, dw.to(ctx.wdtype), None
+        tpl._ColumnParallel.backward = staticmethod(column_bwd)
+    elif variant == "row":
+        def row_fwd(ctx, h, w, m):
+            wc = tpl._cast(w, h.dtype)
+            ctx.save_for_backward(h, wc)
+            ctx.wdtype = w.dtype
+            part = tpl._counted("tp_row_parallel", h, torch.matmul(
+                h.float(), wc.float().t()))
+            return tpl.model_all_reduce(part, m).to(h.dtype)
+
+        def row_bwd(ctx, g):
+            h, wc = ctx.saved_tensors
+            g = g.contiguous()
+            dw = tpl._counted("tp_row_parallel_bwd", h,
+                              torch.matmul(g.t(), h))
+            return torch.matmul(g, wc), dw.to(ctx.wdtype), None
+        tpl._RowParallel.forward = staticmethod(row_fwd)
+        tpl._RowParallel.backward = staticmethod(row_bwd)
+    elif variant == "plain_attn":
+        STBlock.ops = SimpleNamespace(**{**vars(STBlock.ops),
+                                         "mha": attn.mha_reference})
+        counts = saved[4]
+        cs.tp_per_layer = lambda arch, split: {
+            k: v for k, v in counts(arch, split).items()
+            if not k.startswith("flash_mha")}
+    try:
+        yield
+    finally:
+        (tpl._ColumnParallel.backward, tpl._RowParallel.forward,
+         tpl._RowParallel.backward, STBlock.ops, cs.tp_per_layer) = saved
+
+
+def tp_c9(dev):
+    """ROADMAP C9: which candidate puts the qk_norm TP update farther from
+    fp32 than one process's. For each of `chip_smoke.TP_SETUPS` (GENIE_138M
+    at tp = 2: 8 heads a rank; GENIE_35M at tp = 4: 2 heads a rank), the
+    qk_norm model's one update over the ranks on this card (as
+    `chip_smoke.py`'s TP phase) under each of C9_VARIANTS, one swapped at a
+    time, held by `chip_smoke.tp_update_gates` to this process's updates
+    (one process on the kernels, with the same swap where it touches one
+    process; the plain path in bf16 and fp32). Prints per setup and
+    variant each kind's farthest distance from fp32 of the TP update and
+    of one process's, and every spatial qkv weight's."""
+    arch = "qk_norm"
+    for setup, make, tp in cs.TP_SETUPS:
+        inputs = dict(cs.tp_inputs(dev, make, tp), archs=(arch,))
+        base = {}
+        for name, oracle in (("one", None), ("bf16", "bf16"),
+                             ("fp32", "fp32")):
+            metrics, _, whole, state = cs.tp_update(arch, inputs[arch], dev,
+                                                    oracle=oracle)
+            base[name] = dict(metrics=metrics, params=whole)
+            del state
+        for variant in C9_VARIANTS:
+            refs = dict(base)
+            if variant == "plain_attn":
+                with c9_swapped(variant):
+                    metrics, _, whole, state = cs.tp_update(
+                        arch, inputs[arch], dev)
+                refs["one"] = dict(metrics=metrics, params=whole)
+                del state
+            ranks, wall = cs.tp_children(
+                inputs, tp, lambda r, port, tmp: [
+                    str(Path(__file__).resolve()), "tp_fault_rank", str(r),
+                    str(port), tmp, str(dev), variant])
+            res, failed = cs.tp_update_gates(inputs[arch]["init"],
+                                             ranks[0][arch], refs)
+            kinds = {}
+            for k, d in res["per_parameter"].items():
+                kind = re.sub(r"\.\d+\.", ".#.", k)
+                tp_d, one_d = kinds.get(kind, (0.0, 0.0))
+                kinds[kind] = (max(tp_d, d["tp_fp32"]),
+                               max(one_d, d["one_fp32"]))
+            print(json.dumps(dict(
+                kernel="tp_c9", setup=setup, tp=tp, variant=variant,
+                what=C9_VARIANTS[variant], fails=[f[:300] for f in failed],
+                update_rel_l2=res["update_rel_l2"],
+                kinds_tp_one_fp32=kinds,
+                spatial_qkv={k: (d["tp_fp32"], d["one_fp32"],
+                                 d["bf16_fp32"])
+                             for k, d in res["per_parameter"].items()
+                             if "spatial_attn.qkv.weight" in k},
+                wall_s=wall)), flush=True)
+
+
+def genie_35m(dev):
+    """chip_smoke.py's GENIE_35M phase, then its TP setup, alone."""
+    out = cs.check_genie_35m(dev)
+    print("genie_35m phase walls: " + json.dumps(out["phase_walls_s"]),
+          flush=True)
+    cs.tp_setup(*next(x for x in cs.TP_SETUPS if x[0] == "genie_35m"), dev)
+
+
+def mup(dev):
+    """chip_smoke.py's muP phase alone."""
+    print("mup: " + json.dumps(cs.check_mup(dev)), flush=True)
 
 
 MODES = {"block": block, "mlp": mlp, "train": train, "temporal": temporal,
@@ -982,7 +1158,8 @@ MODES = {"block": block, "mlp": mlp, "train": train, "temporal": temporal,
          "k2gate": k2gate, "cli": cli_after_evaluation,
          "cli_bare": functools.partial(cli_after_evaluation,
                                        tokenizer=False),
-         "tp_cards": tp_cards, "tp_faults": tp_faults}
+         "tp_cards": tp_cards, "tp_faults": tp_faults, "tp_c9": tp_c9,
+         "genie_35m": genie_35m, "mup": mup}
 # mode: (the source its builds are variants of, the timing)
 VARIANTS = {"flash": ("flash_attention", flash),
             "gemm": ("spatial_block", gemm), "tn": ("train_block", tn),

@@ -8,6 +8,8 @@ window starts, single examples, batches, action batches and the epochs of
 equal their numpy forms and the JAX binding's.
 """
 
+import time
+
 import numpy as np
 import pytest
 
@@ -105,6 +107,20 @@ def test_filter_interrupts_needs_segment_ids(tmp_path):
 
 
 def test_native_entry_points_equal_numpy_forms():
+    # The JAX package's loader runs `make -C native`, which links
+    # native/libtoken_store.so in place, when it finds no library: under
+    # xdist another worker's loader may have opened that file half-written
+    # ("file too short") and cached the failure. So both loaders' caches are
+    # cleared, and the JAX package's load is tried again while the build
+    # that another worker may be running finishes (the port's own library is
+    # built under another name and renamed into place whole).
+    native._lib, native._tried = None, False
+    ours = native.have_native()
+    for _ in range(120):
+        jax_native._lib, jax_native._tried = None, False
+        if jax_native.have_native() or not ours:
+            break
+        time.sleep(0.5)
     assert native.have_native() == jax_native.have_native()
     rng = np.random.default_rng(4)
     seg = np.repeat(np.arange(6), rng.integers(5, 40, 6)).astype(np.int32)

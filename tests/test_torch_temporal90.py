@@ -125,12 +125,16 @@ def test_train_block_backward_against_jax(T, qkv_bias, monkeypatch):
 
 
 @pytest.mark.parametrize("T,C_,thirds", [(8, 256, True), (16, 512, True),
-                                          (16, 256, False), (5, 512, False)])
+                                          (16, 256, False), (5, 512, False),
+                                          (16, 64, True), (8, 64, False),
+                                          (16, 192, True)])
 def test_check_qkv_takes_both_callers_layouts(T, C_, thirds):
     """The kernels' contract takes q, k, v as the thirds of one (B, T, S,
     3C) qkv tensor (row stride 3C, as both callers pass them) or as
     contiguous tensors (row stride C), at the prefill's T = 8 and the train
-    step's T = 16, at C = 256 and 512 (head_dim 32)."""
+    step's T = 16, at C = 256 and 512 (head_dim 32), and at C = 64 with 2
+    heads (a rank's share of GENIE_35M at tp = 4) and C = 192 with 6 (head
+    groups of 2)."""
     g = torch.Generator().manual_seed(T + C_)
     if thirds:
         q, k, v = torch.randn(2, T, 4, 3 * C_, generator=g).bfloat16().split(
@@ -158,6 +162,10 @@ def _refused(case):
         q, k, v = torch.zeros(3, 2, T, 4, 96,
                               dtype=torch.bfloat16).unbind(0)
         H_ = 3
+    elif case == "one head":  # an odd number of heads: no head group
+        q, k, v = torch.zeros(3, 2, T, 4, 32,
+                              dtype=torch.bfloat16).unbind(0)
+        H_ = 1
     elif case == "frame stride":  # frames and positions swapped
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     elif case == "row stride % 8":
@@ -174,6 +182,7 @@ def _refused(case):
 @pytest.mark.parametrize("case,message", [
     ("fp32", "bf16"), ("shapes", "one shape"), ("T > 16", "T <= 16"),
     ("head_dim 64", "head_dim 32"), ("C % 256", "C % 256"),
+    ("one head", "C % 64 == 0"),
     ("frame stride", "strides"), ("row stride % 8", "multiple of 8"),
     ("alignment", "16-byte aligned")])
 def test_check_qkv_refuses(case, message):

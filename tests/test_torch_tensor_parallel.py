@@ -11,7 +11,9 @@
   another order).
 - gloo process groups, each process its own interpreter with a timeout, all
   started at once by one module fixture: tp = 2 on two processes, dp = 2 x
-  tp = 2 on four, and dp = 2 x tp = 2 with FSDP2 on four. Each trains a
+  tp = 2 on four, dp = 2 x tp = 2 with FSDP2 on four, and tp = 4 on four
+  at d_model 64 with 8 heads (2 heads a rank, as GENIE_35M's 8 heads at
+  tp = 4). Each trains a
   pre-LN and a qk_norm tiny fp32 model for three updates of two
   micro-batches; every micro-batch's loss, accuracy and gradient norm and
   the gathered parameters after each update are held to one process here
@@ -54,7 +56,9 @@ ROOT = Path(__file__).resolve().parent.parent
 SIZE = dict(T=4, num_prompt_frames=2, num_heads=4, d_model=32)
 ARCHS = ("pre_ln", "qk_norm")
 LAYOUTS = {"tp2": (1, 2, False), "dp2tp2": (2, 2, False),
-           "dp2tp2_fsdp": (2, 2, True)}
+           "dp2tp2_fsdp": (2, 2, True), "tp4": (1, 4, False)}
+# a layout's widths where not SIZE's: 2 heads a rank at tp = 4
+WIDER = {"tp4": dict(num_heads=8, d_model=64)}
 GLOBAL_B, ACCUMULATE, UPDATES = 4, 2, 3
 OPT = dict(learning_rate=1e-3, weight_decay=0.1, eps=1e-3, max_grad_norm=0.5,
            lr_scheduler_type="cosine", num_warmup_steps=1,
@@ -284,9 +288,16 @@ def test_tp_mlp_sub_layer(tp, pre_ln):
 
 # ------------------------------------------------------------ gloo groups
 
-def config(arch, **kw):
+def config(arch, layout=None, **kw):
+    """The tiny config of `arch` at `layout`'s widths."""
     from tpu1x_torch.model_zoo import genie_tiny
-    return genie_tiny(**SIZE, qk_norm=arch == "qk_norm", **kw)
+    return genie_tiny(**{**SIZE, **WIDER.get(layout, {})},
+                      qk_norm=arch == "qk_norm", **kw)
+
+
+def key(arch, layout=None):
+    """The inputs' entry of `arch` at `layout`'s widths."""
+    return arch if layout not in WIDER else f"{arch}/{layout}"
 
 
 def train(state, cfg, batches, rows, noise, on_update=None):
@@ -360,9 +371,10 @@ def worker(layout: str, tmp: str):
     rank0 = mesh.process_index() == 0
     result = {}
     for arch in ARCHS:
-        cfg = config(arch)
-        state = shard_train_state(fresh_state(cfg, inputs[arch]["init"]),
-                                  "cpu", fsdp=fsdp, tp=tp)
+        cfg = config(arch, layout)
+        state = shard_train_state(
+            fresh_state(cfg, inputs[key(arch, layout)]["init"]), "cpu",
+            fsdp=fsdp, tp=tp)
         m = mesh_of(state.model)
         assert (m.dp, m.tp) == (dp, tp)
         if fsdp and arch == "pre_ln":
@@ -377,7 +389,7 @@ def worker(layout: str, tmp: str):
                 saved.update(local_tensors(s))
         metrics, params, state = train(
             state, cfg, inputs["batches"], mesh.data_rows(GLOBAL_B, m),
-            inputs[arch]["noise"], on_update)
+            inputs[key(arch, layout)]["noise"], on_update)
         result[arch] = {"metrics": metrics, "params": params}
         if fsdp and arch == "pre_ln":
             again = shard_train_state(fresh_state(cfg, inputs[arch]["init"]),
@@ -516,26 +528,28 @@ def make_inputs(tmp):
     inputs["batches"] = [torch.from_numpy(rng.integers(
         0, 64, (GLOBAL_B, SIZE["T"], 4, 4))) for _ in range(
             UPDATES * ACCUMULATE)]
-    for i, arch in enumerate(ARCHS):
-        jcfg = jax_tiny(**SIZE, qk_norm=arch == "qk_norm", remat=False,
-                        attn_impl="xla")
-        dummy = jnp.zeros((1, jcfg.T * jcfg.S), jnp.int32)
-        tree = jax.device_get(JaxModel(jcfg).init(jax.random.PRNGKey(0),
-                                                  dummy, dummy)["params"])
-        tree = random_tree(tree, i)
-        rngs = [jax.random.fold_in(jax.random.PRNGKey(7), k)
-                for k in range(ACCUMULATE)]
-        inputs[arch] = dict(
-            jcfg=jcfg, tree=tree,
-            init=params_from_jax(tree, config(arch)),
-            noise=[jax_noise(r, inputs["batches"][0].shape, config(arch))
-                   for r in rngs])
+    for layout in (None, *WIDER):
+        for i, arch in enumerate(ARCHS):
+            jcfg = jax_tiny(**{**SIZE, **WIDER.get(layout, {})},
+                            qk_norm=arch == "qk_norm", remat=False,
+                            attn_impl="xla")
+            dummy = jnp.zeros((1, jcfg.T * jcfg.S), jnp.int32)
+            tree = jax.device_get(JaxModel(jcfg).init(
+                jax.random.PRNGKey(0), dummy, dummy)["params"])
+            tree = random_tree(tree, i)
+            rngs = [jax.random.fold_in(jax.random.PRNGKey(7), k)
+                    for k in range(ACCUMULATE)]
+            cfg = config(arch, layout)
+            inputs[key(arch, layout)] = dict(
+                jcfg=jcfg, tree=tree, init=params_from_jax(tree, cfg),
+                noise=[jax_noise(r, inputs["batches"][0].shape, cfg)
+                       for r in rngs])
     inputs["prompt"] = torch.from_numpy(rng.integers(0, 64, (2, 2, 4, 4)))
     inputs["context"] = torch.from_numpy(rng.integers(0, 64, (2, 4, 4)))
     inputs["continuations"] = torch.from_numpy(
         rng.integers(0, 64, (4, SIZE["T"] - 2, 4, 4)))
     torch.save({k: {"init": v["init"], "noise": v["noise"]}
-                if k in ARCHS else v for k, v in inputs.items()},
+                if isinstance(v, dict) else v for k, v in inputs.items()},
                tmp / "inputs.pt")
     return inputs
 
@@ -603,20 +617,25 @@ def groups(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def one_process(groups):
-    """arch -> the same training in this process (metrics, parameters)."""
-    out = {}
-    for arch in ARCHS:
-        cfg = config(arch)
-        state = fresh_state(cfg, groups.inputs[arch]["init"])
-        out[arch] = train(state, cfg, groups.inputs["batches"], slice(None),
-                          groups.inputs[arch]["noise"])[:2]
-    return out
+    """(arch, layout) -> the same training in this process, at the layout's
+    widths (metrics, parameters)."""
+    done = {}
+
+    def run(arch, layout):
+        k = key(arch, layout)
+        if k not in done:
+            cfg = config(arch, layout)
+            state = fresh_state(cfg, groups.inputs[k]["init"])
+            done[k] = train(state, cfg, groups.inputs["batches"],
+                            slice(None), groups.inputs[k]["noise"])[:2]
+        return done[k]
+    return run
 
 
-def jax_first_update(inputs, arch, dp, tp):
-    """The JAX package's first update (two micro-steps) on a dp x tp mesh
-    of its virtual CPU devices: the micro-batches' metrics and the
-    parameters after, by the port's names."""
+def jax_first_update(inputs, arch, layout):
+    """The JAX package's first update (two micro-steps) on the layout's dp x
+    tp mesh of its virtual CPU devices, at its widths: the micro-batches'
+    metrics and the parameters after, by the port's names."""
     import jax
     import jax.numpy as jnp
     from tpu1x.models.st_maskgit import STMaskGIT as JaxModel
@@ -625,9 +644,11 @@ def jax_first_update(inputs, arch, dp, tp):
     from tpu1x.train.step import TrainState, make_train_step, \
         shard_train_state
     from tpu1x_torch.weights import params_from_jax
-    jcfg = inputs[arch]["jcfg"]
+    dp, tp, _ = LAYOUTS[layout]
+    jcfg = inputs[key(arch, layout)]["jcfg"]
     tx = build_optimizer(jcfg, **OPT)
-    params = jax.tree_util.tree_map(jnp.asarray, inputs[arch]["tree"])
+    params = jax.tree_util.tree_map(jnp.asarray,
+                                    inputs[key(arch, layout)]["tree"])
     state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
                        opt_state=tx.init(params), rng=jax.random.PRNGKey(7))
     mesh = make_mesh(dp=dp, tp=tp, devices=jax.devices()[:dp * tp])
@@ -640,17 +661,17 @@ def jax_first_update(inputs, arch, dp, tp):
         state, m = step(state, tokens)
         metrics.append({k: float(v) for k, v in m.items()})
     return metrics, params_from_jax(jax.device_get(state.params),
-                                    config(arch))
+                                    config(arch, layout))
 
 
 @pytest.fixture(scope="module")
 def jax_runs(groups):
     done = {}
 
-    def run(arch, dp, tp):
-        if (arch, dp, tp) not in done:
-            done[arch, dp, tp] = jax_first_update(groups.inputs, arch, dp, tp)
-        return done[arch, dp, tp]
+    def run(arch, layout):
+        if (arch, layout) not in done:
+            done[arch, layout] = jax_first_update(groups.inputs, arch, layout)
+        return done[arch, layout]
     return run
 
 
@@ -658,7 +679,7 @@ def jax_runs(groups):
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_tp_training_equals_one_process(groups, one_process, layout, arch):
     got = groups.result(layout)[arch]
-    want_metrics, want_params = one_process[arch]
+    want_metrics, want_params = one_process(arch, layout)
     assert len(got["metrics"]) == len(want_metrics) == UPDATES * ACCUMULATE
     for i, (a, b) in enumerate(zip(got["metrics"], want_metrics)):
         for key in ("loss", "acc", "grad_norm"):
@@ -675,8 +696,7 @@ def test_tp_training_equals_one_process(groups, one_process, layout, arch):
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_tp_first_update_equals_jax_mesh_step(groups, jax_runs, layout,
                                               arch):
-    dp, tp, _ = LAYOUTS[layout]
-    jm, jparams = jax_runs(arch, dp, tp)
+    jm, jparams = jax_runs(arch, layout)
     got = groups.result(layout)[arch]
     if arch == "pre_ln":
         assert jm[0]["grad_norm"] > 0.5  # the clip is active

@@ -28,9 +28,11 @@
 //     each walking tiles of TA_POSITIONS positions (twice that where T <=
 //     8) x TA_HEADS heads of one b, or, where the heads are not a multiple
 //     of TA_HEADS (C % 256 != 0: a rank's share of the heads under tensor
-//     parallelism), twice the positions x half the heads, the same bytes
-//     and problems a tile (the head group HG is a template parameter, 8 or
-//     4);
+//     parallelism), twice the positions x half the heads, and where they
+//     are not a multiple of 4 either (C % 128 != 0: GENIE_35M's 2 heads a
+//     rank at tp = 4), four times the positions x a quarter of the heads:
+//     the same bytes and problems a tile (the head group HG is a template
+//     parameter, 8, 4 or 2);
 //   - a producer warp loads a tile's q, k, v (and dout) for all frames with
 //     one TMA box a tensor into a ring of up to TA_MAX_STAGES tiles, as many
 //     as fit in shared memory (4 forward, 3 backward), completing on the
@@ -70,8 +72,8 @@
 // each other, 4 warps 2-4% slower; 4 x 8 and 2 x 16 leave the backward
 // one stage (the static_assert below).
 //
-// Requires T <= 16, head_dim 32, C % 128 == 0, strides that are multiples
-// of 8 and 16-byte aligned bases.
+// Requires T <= 16, head_dim 32, C % 64 == 0 (an even number of heads),
+// strides that are multiples of 8 and 16-byte aligned bases.
 
 #include "sm90.cuh"
 
@@ -89,8 +91,8 @@ constexpr int TA_WARPS = 16;
 constexpr int TA_MAX_STAGES = 4;
 constexpr int TA_SMEM_MAX = 232448;  // shared memory a block may use
 // A stage holds one box a tensor: 32 channels, 16 frames (or 8 and twice
-// the positions), TA_HEADS heads, TA_POSITIONS positions (or half the heads
-// and twice the positions: the same bytes).
+// the positions), TA_HEADS heads, TA_POSITIONS positions (or HG heads and
+// TA_HEADS / HG times the positions: the same bytes).
 constexpr int TA_BOX = TA_POSITIONS * 16 * TA_HEADS * TA_ROW;
 // 1024 bytes of alignment, and three mbarriers a stage.
 __host__ __device__ constexpr int ta_stages(int tensors) {
@@ -459,8 +461,12 @@ __global__ void __launch_bounds__((TA_WARPS + 2) * 32, 1)
 }
 
 // The head group of a tile: TA_HEADS where the heads are a multiple of it,
-// else half of it.
-int head_group(int C) { return (C / TA_D) % TA_HEADS == 0 ? TA_HEADS : 4; }
+// else 4 where they are a multiple of 4, else 2 (`ta_ok` takes an even
+// number of heads).
+int head_group(int C) {
+  const int heads = C / TA_D;
+  return heads % TA_HEADS == 0 ? TA_HEADS : heads % 4 == 0 ? 4 : 2;
+}
 
 // The (d, t, h, s, b) view of a (B, T, S, C) bf16 tensor with row stride
 // ld (elements) in the 64-byte swizzle; a box is tp frames of hg heads of
@@ -479,13 +485,15 @@ cudaError_t frame_map(CUtensorMap* map, const void* base, int B, int T, int S,
 
 // The shapes the kernels take (the wrapper's `_check_qkv` raises first).
 bool ta_ok(int T, int C, int ld) {
-  return T >= 1 && T <= 16 && C % 128 == 0 && ld % 8 == 0;
+  return T >= 1 && T <= 16 && C % 64 == 0 && ld % 8 == 0;
 }
 
 // The tile at T frames: a box spans 16 frames, or 8 and twice the
-// positions where T <= 8, and a head group of 4 takes twice the positions
-// of one of 8, so that a stage holds TA_BOX bytes a tensor either way
-// (frames t >= T come back from TMA as zeros and still count).
+// positions where T <= 8, and a head group of HG takes TA_HEADS / HG times
+// the positions of one of TA_HEADS (HG = 2: 8 positions at 16 frames, 16
+// at 8), so that a stage holds TA_BOX bytes a tensor and a tile TA_WARPS
+// problems either way (frames t >= T come back from TMA as zeros and still
+// count).
 TaArgs args_of(int B, int T, int S, int C, float scale) {
   TaArgs a = {};
   const int hg = head_group(C);
@@ -516,9 +524,14 @@ cudaError_t launch_hg(const TaMaps& maps, const TaArgs& a,
 
 template <bool BWD, bool CAUSAL>
 cudaError_t launch(const TaMaps& maps, const TaArgs& a, cudaStream_t stream) {
-  return head_group(a.C) == TA_HEADS
-             ? launch_hg<BWD, CAUSAL, TA_HEADS>(maps, a, stream)
-             : launch_hg<BWD, CAUSAL, 4>(maps, a, stream);
+  switch (head_group(a.C)) {
+    case TA_HEADS:
+      return launch_hg<BWD, CAUSAL, TA_HEADS>(maps, a, stream);
+    case 4:
+      return launch_hg<BWD, CAUSAL, 4>(maps, a, stream);
+    default:
+      return launch_hg<BWD, CAUSAL, 2>(maps, a, stream);
+  }
 }
 
 }  // namespace

@@ -1,9 +1,10 @@
 """ctypes binding to the native token-store runtime (native/token_store.cc).
 
-The port's own binding to the same shared library that the JAX package
-loads. `libtoken_store.so` is built with `make -C native` at first use if it
-is missing and a compiler is there. Every entry point has a numpy form with
-the same semantics, which runs when the library cannot be loaded or when
+The port's own binding to the runtime that the JAX package loads, built
+by the same native/Makefile into a library of its own, `build/native/
+libtoken_store.so`, at first use if it is missing or older than the source
+and a compiler is there. Every entry point has a numpy form with the same
+semantics, which runs when the library cannot be built or loaded or when
 `TPU1X_DISABLE_NATIVE=1`. These are host helpers: batches stay numpy, and
 callers move them to the device.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import shutil
 import subprocess
 from pathlib import Path
 from typing import Optional
@@ -19,9 +21,32 @@ from typing import Optional
 import numpy as np
 
 _NATIVE_DIR = Path(__file__).resolve().parent.parent.parent / "native"
-_LIB_PATH = _NATIVE_DIR / "libtoken_store.so"
+_LIB_PATH = _NATIVE_DIR.parent / "build" / "native" / "libtoken_store.so"
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+
+
+def _build() -> None:
+    """Build `_LIB_PATH` with native/Makefile where it is missing or older
+    than the source: `make` in a directory of this process's own (the
+    source found through `vpath`), the library then renamed into place
+    (`os.replace` is atomic). A loader in another process, as pytest's
+    workers are, finds no library or a whole one, never one that a linker
+    is still writing (which `ctypes.CDLL` refuses as "file too short")."""
+    source = _NATIVE_DIR / "token_store.cc"
+    if (_LIB_PATH.exists()
+            and _LIB_PATH.stat().st_mtime >= source.stat().st_mtime):
+        return
+    own = _LIB_PATH.parent / f"build.{os.getpid()}"
+    own.mkdir(parents=True, exist_ok=True)
+    try:
+        subprocess.run(["make", "-s", "-C", str(own), "-f",
+                        str(_NATIVE_DIR / "Makefile"),
+                        f"--eval=vpath %.cc {_NATIVE_DIR}"], check=True,
+                       capture_output=True)
+        os.replace(own / _LIB_PATH.name, _LIB_PATH)
+    finally:
+        shutil.rmtree(own, ignore_errors=True)
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -32,9 +57,7 @@ def _load() -> Optional[ctypes.CDLL]:
     if os.environ.get("TPU1X_DISABLE_NATIVE") == "1":
         return None
     try:
-        if not _LIB_PATH.exists():
-            subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True,
-                           capture_output=True)
+        _build()
         lib = ctypes.CDLL(str(_LIB_PATH))
     except (OSError, subprocess.CalledProcessError):
         return None

@@ -57,10 +57,11 @@ def _check_qkv(q, k, v, num_heads: int) -> int:
             "q, k, v must share one shape")
     require(q.device == k.device == v.device, "q, k, v on different devices")
     require(T <= 16, f"temporal_attention kernels need T <= 16, got {T}")
-    require(C == 32 * num_heads and C % 128 == 0,
-            f"temporal_attention kernels need head_dim 32 and C % 128 == 0 "
-            f"(heads in groups of 8 where C % 256 == 0, else of 4), got "
-            f"C={C}, heads={num_heads}")
+    require(C == 32 * num_heads and C % 64 == 0,
+            f"temporal_attention kernels need head_dim 32 and C % 64 == 0, "
+            f"an even number of heads (in groups of 8 where C % 256 == 0, "
+            f"else of 4 where C % 128 == 0, else of 2), got C={C}, "
+            f"heads={num_heads}")
     ld = q.stride(2)
     want = (T * S * ld, S * ld, ld, 1)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -147,7 +148,7 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _bwd_kernel), which recomputes the probabilities from q and k. Both take
     bf16 q, k, v that may be column slices of one (B, T, S, 3C) qkv tensor
     (last axis contiguous, the same strides for all three), T <= 16,
-    head_dim 32 and C % 128 == 0. The backward returns dq, dk, dv as column
+    head_dim 32 and C % 64 == 0. The backward returns dq, dk, dv as column
     slices of one (B, T, S, 3C) tensor.
 
     Bound on the H100: device memory (q, k, v, out read or written once:
@@ -155,7 +156,8 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tensors 0.070 ms). Persistent blocks, one an SM, walk tiles of 2
     positions (4 where T <= 8) x 8 heads (where C % 256 != 0, as at a
     rank's share of GENIE_35M's heads at tp = 2, twice the positions x 4
-    heads, the same bytes); a producer warp loads each tile's
+    heads; where C % 128 != 0, as at tp = 4, four times the positions x 2
+    heads: the same bytes); a producer warp loads each tile's
     frames by TMA into a ring of stages, one warp computes one (position,
     head) at a time with mma.sync (16 x 16 problems, too small for wgmma's
     64-row tiles) and writes the results over the operands, and a storer
