@@ -21,6 +21,11 @@
     python3 chip_variants.py tp_c9
     python3 chip_variants.py genie_35m
     python3 chip_variants.py mup
+    python3 chip_variants.py h64_debug
+    python3 chip_variants.py ab_times
+    python3 chip_variants.py h32_times
+    python3 chip_variants.py h64_times
+    python3 chip_variants.py c8
 
 Each LIB is a shared library built from a variant of a source in
 `tpu1x_torch/csrc` (nvcc with `kernels.NVCC_FLAGS`, `-I` its own copy of the
@@ -172,6 +177,25 @@ in one process on one card; every time is the profiler's device time
   full depth), then its TP setup (four ranks on this card), each printed
   as chip_smoke.py prints it; `mup` the muP phase alone. The kernels
   build at first use.
+- `h64_debug`: every library rebuilt with ptxas's register and spill
+  counts printed, then each attention check of `chip_smoke.py` (K1 both
+  modes, K4, K6, K9/K10, K2/K3/K7/K8 on a 4-layer cache, the decode batch
+  sizes, K11/K12) at C = 512 with 8 heads (head_dim 64) and with 16 (32),
+  each in a process of its own with a time limit (`H64_DEBUG`): the first
+  call after a kernel change, which reports every fault or hang and not
+  only the first.
+- `ab_times`: the device time of every attention kernel form at
+  GENIE_138M's main-path shapes (16 heads) through this checkout's
+  wrappers, one JSON line; run in a parent's copy and here in turns
+  (parent, change, change, parent) to hold the head_dim-32 forms' times.
+  No builds. `h32_times` and `h64_times` are the same at 16 and at 8
+  heads (head_dim 32 and 64, the same bytes and operations at C = 512),
+  with K11, K12 and the SDPA calls beside K4, K6, K7, K8, K9 and K10: run
+  each in a process of its own for the two widths side by side.
+- `c8`: the tokenizer phase's update gate (ROADMAP C8) run after run, with
+  cuDNN as the step sets it and with deterministic algorithms, unsteered
+  and steered: each run's errors, `undecided` count, gradient digests and
+  cuDNN kernels. No builds.
 
 Prints one line per build and case, and the card.
 """
@@ -507,12 +531,13 @@ def ta_builds(libs, dev):
 
             def fwd():
                 return lib.tpu1x_temporal_attention(
-                    *ptr[:3], ptr[4], Bt, T, 256, C, 3 * C, scale, 1, stream)
+                    *ptr[:3], ptr[4], Bt, T, 256, C, C // H, 3 * C, scale, 1,
+                    stream)
 
             def bwd(with_o):
                 return lib.tpu1x_temporal_attention_bwd(
                     *ptr[:4], ptr[4] if with_o else None, *ptr[5:], Bt, T,
-                    256, C, 3 * C, C, 3 * C, scale, 1, stream)
+                    256, C, C // H, 3 * C, C, 3 * C, scale, 1, stream)
             if fwd() != 0:
                 raise RuntimeError(f"{name}: the forward did not launch")
             row = dict(build=name, case=tag, shape=[Bt, T, 256, C],
@@ -681,7 +706,8 @@ def da_builds(libs, dev):
                 vcc.data_ptr(), None if ksc is None else ksc.data_ptr(),
                 None if vsc is None else vsc.data_ptr(), c["t_B"].data_ptr(),
                 out[0].data_ptr(), out[1].data_ptr() if frames == 2 else None,
-                S * C, C, None, None, B, frames, S, C, T, L, c["kw"]["layer"],
+                S * C, C, None, None, B, frames, S, C,
+                C // c["kw"]["num_heads"], T, L, c["kw"]["layer"],
                 c["kw"]["scale"], stream)
         for name in in_turns(libs):
             lib = libs[name]
@@ -1140,6 +1166,292 @@ def tp_c9(dev):
                 wall_s=wall)), flush=True)
 
 
+# the checks of `h64_debug`, each run in a process of its own: (head
+# count at C = 512, what it checks)
+H64_DEBUG = {
+    "spatial": lambda inp, H: {
+        f"qk_ln={qk},N={n}": cs.check_spatial_block(inp, 512, H, n, qk)
+        for qk in (False, True) for n in (cs.B, cs.B * cs.P)},
+    "temporal": lambda inp, H: cs.check_temporal_attention(inp, 512, H),
+    "temporal_bwd": lambda inp, H: cs.check_temporal_attention_bwd(
+        inp, 512, H),
+    "flash": lambda inp, H: cs.check_flash_mha(inp, H, D=512 // H),
+    "decode": lambda inp, H: decode_checks(inp, H),
+    "decode_batches": lambda inp, H: cs.check_decode_batches(512, H,
+                                                             inp.device),
+    "train_blocks": lambda inp, H: dict(
+        cs.check_spatial_train_block(inp, 512, H),
+        **cs.check_temporal_train_block(inp, 512, H)),
+}
+
+
+def decode_checks(inp, H, L=4):
+    """K2, K3, K7 and K8 (both caches) at C = 512 and H heads on an
+    L-layer cache, by `chip_smoke.py`'s gates."""
+    C, T = 512, 16
+    caches = (inp.normal(T, L, cs.B, 256, C), inp.normal(T, L, cs.B, 256, C))
+    out = {}
+    for name, pair in (("temporal_mlp_block", False),
+                       ("temporal_mlp_block_pair", True)):
+        out[name] = cs.check_temporal_mlp_block(inp, C, H, L, caches, pair)
+        out.update(cs.check_decode_attention(inp, C, H, L, caches, None,
+                                             pair))
+    (kq, ks), (vq, vs) = cs.quantize_cache(caches[0]), cs.quantize_cache(
+        caches[1])
+    for pair in (False, True):
+        out.update(cs.check_decode_attention(inp, C, H, L, (kq, vq), (ks, vs),
+                                             pair))
+    return out
+
+
+def h64_one(name: str, heads: int) -> int:
+    """One check of H64_DEBUG at `heads` heads, in this process."""
+    dev = torch.device("cuda")
+    out = H64_DEBUG[name](cs.Inputs(7, dev), heads)
+    torch.cuda.synchronize()
+    print(json.dumps({"check": name, "heads": heads, "result": out},
+                     default=str), flush=True)
+    return 0
+
+
+def h64_debug(dev):
+    """Every kernel library rebuilt with ptxas's counts (the flash,
+    temporal, decode and spatial sources' lines printed), then each check
+    of H64_DEBUG at head_dim 64 (8 heads) and 32 (16 heads), one process
+    each with a time limit, so that a fault or a hang in one leaves the
+    others' results."""
+    import subprocess
+    logs = kernels.build_all(verbose=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "spill", "error",
+                                       "warning", "Compiling entry")):
+                print(f"ptxas {name}: {line.strip()}", flush=True)
+    for heads in (8, 16):
+        for name in H64_DEBUG:
+            try:
+                res = subprocess.run(
+                    [sys.executable, __file__, "h64_one", name, str(heads)],
+                    capture_output=True, text=True, timeout=240)
+                text, rc = (res.stdout + res.stderr)[-3000:], res.returncode
+            except subprocess.TimeoutExpired:
+                text, rc = "timed out", "timeout"
+            print(f"== {name} heads={heads} rc={rc}\n{text}", flush=True)
+
+
+def ab_times(dev, heads: int = 16, extra: bool = False):
+    """Device ms (profiler) of every attention kernel form through this
+    checkout's wrappers at GENIE_138M's main-path shapes (C = 512, `heads`
+    heads: 16 of 32 channels, or 8 of 64 for `h64_times`): K1 both modes at
+    N = 16 / 32 / 128, K2, K3, K4 (train, causal and not; prefill), K6
+    (causal, with o, non-causal), K7 and K8 (bf16 and int8, chip_smoke.py's
+    t_B), K9 and K10 (causal and not); with `extra` also K11's backward,
+    K12's forward and backward and one PyTorch call beside K4, K6, K7, K8
+    (bf16), K9 and K10 (SDPA, `library_device_ms`). One JSON line; run in a
+    parent's copy and here in turns for an A/B. No builds."""
+    from tpu1x_torch.ops import attention as attn
+    from tpu1x_torch.ops import decode_attention as da
+    from tpu1x_torch.ops import temporal_attention as ta
+    C, H, L, T = 512, heads, 32, 16
+    inp = cs.Inputs(0, dev)
+    times, library = {}, {}
+    for qk in (False, True):
+        w = cs.spatial_weights(inp, C)
+        if qk:
+            w.update(ln_scale=None, ln_bias=None,
+                     qk_ln_scale=inp.normal(C // H, std=0.1, mean=1.0,
+                                            dtype=torch.float32),
+                     qk_ln_bias=inp.normal(C // H, std=0.1,
+                                           dtype=torch.float32))
+        for n in (cs.B, 2 * cs.B, cs.B * cs.P):
+            x = inp.normal(n, 256, C)
+            times[f"K1{'[qk_ln]' if qk else ''}[N={n}]"] = cs.device_ms(
+                lambda: sb.spatial_block(x, num_heads=H,
+                                         scale=(C // H) ** -0.5, **w))
+    caches = (inp.normal(T, L, cs.B, 256, C), inp.normal(T, L, cs.B, 256, C))
+    wb = cs.block_weights(inp, C)
+    from tpu1x_torch.ops.temporal_mlp_block import (temporal_mlp_block,
+                                                    temporal_mlp_block_pair)
+    for pair, fn in ((False, temporal_mlp_block),
+                     (True, temporal_mlp_block_pair)):
+        frames = 2 if pair else 1
+        x = (inp.normal(cs.B, 2, 256, C) if pair
+             else inp.normal(cs.B, 256, C))
+        t_B = (cs.P + torch.arange(cs.B, device=dev)
+               % (T - cs.P - frames + 1)).to(torch.int32)
+        times["K3" if pair else "K2"] = cs.device_ms(
+            lambda: fn(x, *caches, t_B, layer=L // 2, scale=(C // H) ** -0.5,
+                       num_heads=H, gelu_tanh=True, **wb))
+    (kq, ks), (vq, vs) = cs.quantize_cache(caches[0]), cs.quantize_cache(
+        caches[1])
+    for cache, kv, skw in (("bf16", caches, {}),
+                           ("int8", (kq, vq), dict(k_scale=ks, v_scale=vs))):
+        for frames in (1, 2):
+            qkv = inp.normal(frames * cs.B, 256, 3 * C)
+            q, k, v = qkv.split(C, dim=-1)
+            t_B = (torch.arange(cs.B, device=dev) * 7
+                   % (T - frames + 1)).to(torch.int32)
+            kw = dict(layer=L // 2, scale=(C // H) ** -0.5, num_heads=H,
+                      **skw)
+            if frames == 1:
+                run = functools.partial(da.temporal_decode_attention, q,
+                                        *kv, k, v, t_B, **kw)
+            else:
+                run = functools.partial(
+                    da.temporal_decode2_attention, q[:cs.B], q[cs.B:], *kv,
+                    k[:cs.B], v[:cs.B], k[cs.B:], v[cs.B:], t_B, **kw)
+            key = f"K{7 if frames == 1 else 8}[{cache}]"
+            times[key] = cs.device_ms(run)
+            if extra and cache == "bf16":
+                args = ((q[:cs.B], q[cs.B:], *kv, k[:cs.B], v[:cs.B],
+                         k[cs.B:], v[cs.B:], t_B) if frames == 2
+                        else (q, *kv, k, v, t_B))
+                library[key] = cs.device_ms(cs.decode_sdpa(
+                    args, frames == 2, L // 2, C // H, (C // H) ** -0.5))
+    del caches, kq, vq
+    torch.cuda.empty_cache()
+    for tag, Bt, Tt, causal in (("train", cs.TB, 16, True),
+                                ("train,non-causal", cs.TB, 16, False),
+                                ("prefill", cs.B, cs.P, True)):
+        qkv = inp.normal(Bt, Tt, 256, 3 * C)
+        q, k, v = qkv.split(C, dim=-1)
+        dout = inp.normal(Bt, Tt, 256, C)
+        kw = dict(scale=(C // H) ** -0.5, num_heads=H, causal=causal)
+        times[f"K4[{tag}]"] = cs.device_ms(
+            lambda: ta.launch_forward(q, k, v, **kw))
+        if extra and tag == "train":
+            def heads_of(x):  # (B, T, S, C) -> (B, S, H, T, D) view
+                return x.reshape(Bt, Tt, 256, H, C // H).permute(0, 2, 3, 1,
+                                                                4)
+            lq, lk, lv = (heads_of(x).detach().requires_grad_(True)
+                          for x in (q, k, v))
+            lout = torch.nn.functional.scaled_dot_product_attention(
+                lq, lk, lv, is_causal=True, scale=(C // H) ** -0.5)
+            library["K4[train]"] = cs.device_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    lq, lk, lv, is_causal=True, scale=(C // H) ** -0.5))
+            library["K6[train]"] = cs.device_ms(
+                lambda: torch.autograd.grad(lout, (lq, lk, lv),
+                                            heads_of(dout),
+                                            retain_graph=True))
+        if tag.startswith("train"):
+            times[f"K6[{tag}]"] = cs.device_ms(
+                lambda: ta.launch_backward(q, k, v, dout, **kw))
+            if causal:
+                o = torch.empty_like(dout)
+                times["K6[train,o]"] = cs.device_ms(
+                    lambda: ta.launch_backward(q, k, v, dout, o=o, **kw))
+    R, D = cs.TB * 16, C // H
+    qkv = inp.normal(R, 256, 3, H, D)
+    q, k, v = qkv.unbind(2)
+    dout = inp.normal(R, 256, H, D)
+    for causal in (False, True):
+        kw = dict(scale=D ** -0.5, causal=causal)
+        o, lse = attn.flash_mha_fwd(q, k, v, **kw)
+        tag = "[causal]" if causal else ""
+        times["K9" + tag] = cs.device_ms(lambda: attn.flash_mha_fwd(q, k, v,
+                                                                    **kw))
+        times["K10" + tag] = cs.device_ms(
+            lambda: attn.flash_mha_bwd(q, k, v, o, lse, dout, **kw))
+        if extra:
+            lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_(True)
+                          for x in (q, k, v))
+            lout = torch.nn.functional.scaled_dot_product_attention(
+                lq, lk, lv, is_causal=causal, scale=D ** -0.5)
+            library["K9" + tag] = cs.device_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    lq, lk, lv, is_causal=causal, scale=D ** -0.5))
+            library["K10" + tag] = cs.device_ms(
+                lambda: torch.autograd.grad(lout, (lq, lk, lv),
+                                            dout.transpose(1, 2),
+                                            retain_graph=True))
+    if extra:
+        from tpu1x_torch.ops import spatial_train_block as stb
+        from tpu1x_torch.ops import temporal_train_block as ttb
+        del qkv, q, k, v, dout
+        torch.cuda.empty_cache()
+        x = inp.normal(cs.TB * 16, 256, C)
+        dout = inp.normal(cs.TB * 16, 256, C)
+        w = cs.spatial_weights(inp, C)
+        kw = dict(num_heads=H, scale=(C // H) ** -0.5)
+        times["K11"] = cs.device_ms(lambda: stb.spatial_train_block_bwd(
+            x, dout, w["wqkv"], w["wproj"], None, w["ln_scale"],
+            w["ln_bias"], proj_bias=True, **kw))
+        x = inp.normal(cs.TB, 16, 256, C)
+        dout = inp.normal(cs.TB, 16, 256, C)
+        wqkv, wproj = w["wqkv"], w["wproj"]
+        times["K12"] = cs.device_ms(lambda: ttb.temporal_train_block_fwd(
+            x, wqkv, wproj, None, w["bproj"], **kw))
+        times["K12[bwd]"] = cs.device_ms(lambda: ttb.temporal_train_block_bwd(
+            x, dout, wqkv, wproj, None, proj_bias=True, **kw))
+        print(json.dumps({"library_device_ms": library}), flush=True)
+    print(json.dumps({"ab_device_ms": times}), flush=True)
+
+
+def c8(dev, runs: int = 10):
+    """ROADMAP C8: the tokenizer phase's update gate, run after run. The
+    CPU's three micro-steps once (`chip_smoke.check_tokenizer_step_parity`'s
+    last part: TT_SMALL, the perceptual term off), then the card's from the
+    CPU's latent cotangents `runs` times with cuDNN as the step sets it and
+    `runs` times with deterministic algorithms
+    (`torch.use_deterministic_algorithms`), first as the check ran before
+    its repair, then steered (`tokenizer_run`'s `steer`, the check's
+    form). Each run prints
+    `chip_smoke.tokenizer_errors` (the largest update error and where, the
+    `undecided` count, what is past its limit), a digest of each call's
+    discriminator and generator gradients (equal digests: bitwise equal
+    runs) and the cuDNN kernels the run launched (by the profiler's names;
+    the full list where it changes)."""
+    import dataclasses
+    import hashlib
+    from torch.profiler import ProfilerActivity, profile
+    frames = cs.synthetic_frames(cs.TT_STEPS * cs.TT_SMALL_B,
+                                 cs.TT_SMALL.resolution, 21)
+    batches = list((torch.from_numpy(frames).float() / 127.5 - 1.0).split(
+        cs.TT_SMALL_B))
+    cfg = dataclasses.replace(cs.TT_SMALL, perceptual_weight=0.0)
+    cpu = cs.tokenizer_run(cfg, "cpu", batches, None)
+
+    def digest(grads):
+        h = hashlib.sha256()
+        for call in grads:
+            for k in sorted(call):
+                h.update(call[k].detach().float().cpu().numpy().tobytes())
+        return h.hexdigest()[:12]
+    last = None
+    for steer, det in ((False, False), (False, True), (True, False),
+                       (True, True)):
+        torch.use_deterministic_algorithms(det, warn_only=True)
+        for i in range(runs):
+            with profile(activities=[ProfilerActivity.CUDA]
+                         if dev.type == "cuda" else
+                         [ProfilerActivity.CPU]) as prof:
+                got = cs.tokenizer_run(cfg, dev, batches, None,
+                                       cotangents=cpu["dz"],
+                                       steer=cpu if steer else None)
+                torch.cuda.synchronize()
+            names = sorted({a.key for a in prof.key_averages()
+                            if a.device_type == torch.autograd.DeviceType.CUDA
+                            and any(w in a.key.lower() for w in (
+                                "conv", "gemm", "wgrad", "dgrad", "fprop",
+                                "cudnn", "xmma", "fft", "winograd", "dse"))})
+            worst, bad = cs.tokenizer_errors(got, cpu)
+            row = dict(steer=steer, deterministic=det, run=i,
+                       update=worst["update"],
+                       where=worst["where"].get("update"),
+                       undecided=worst["undecided"], metric=worst["metric"],
+                       state=worst["state"], bad=bad,
+                       disc_grads=digest(got["grads"]["disc"]),
+                       gen_grads=digest(got["grads"]["gen"]),
+                       kernels=hashlib.sha256(
+                           "|".join(names).encode()).hexdigest()[:12])
+            if names != last:
+                row["kernel_names"] = names
+                last = names
+            print(json.dumps(row, default=str), flush=True)
+    torch.use_deterministic_algorithms(False)
+
+
 def genie_35m(dev):
     """chip_smoke.py's GENIE_35M phase, then its TP setup, alone."""
     out = cs.check_genie_35m(dev)
@@ -1159,7 +1471,10 @@ MODES = {"block": block, "mlp": mlp, "train": train, "temporal": temporal,
          "cli_bare": functools.partial(cli_after_evaluation,
                                        tokenizer=False),
          "tp_cards": tp_cards, "tp_faults": tp_faults, "tp_c9": tp_c9,
-         "genie_35m": genie_35m, "mup": mup}
+         "genie_35m": genie_35m, "mup": mup, "h64_debug": h64_debug,
+         "ab_times": ab_times, "c8": c8,
+         "h32_times": functools.partial(ab_times, heads=16, extra=True),
+         "h64_times": functools.partial(ab_times, heads=8, extra=True)}
 # mode: (the source its builds are variants of, the timing)
 VARIANTS = {"flash": ("flash_attention", flash),
             "gemm": ("spatial_block", gemm), "tn": ("train_block", tn),
@@ -1171,6 +1486,8 @@ def main() -> int:
     if sys.argv[1:2] == ["tp_cards_rank"]:
         return tp_cards_rank(int(sys.argv[2]), int(sys.argv[3]),
                              int(sys.argv[4]), sys.argv[5], sys.argv[6])
+    if sys.argv[1:2] == ["h64_one"]:
+        return h64_one(sys.argv[2], int(sys.argv[3]))
     if sys.argv[1:2] == ["tp_fault_rank"]:
         return tp_fault_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                              sys.argv[5], sys.argv[6])

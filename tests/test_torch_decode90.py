@@ -62,20 +62,23 @@ def caches(rng, int8, t_B):
     return tuple(out), scales
 
 
-@pytest.mark.parametrize("layer", [0, 1])
+@pytest.mark.parametrize("layer,H_", [pytest.param(0, H, id="0"),
+                                      pytest.param(1, H, id="1"),
+                                      pytest.param(1, 1, id="1-h64")])
 @pytest.mark.parametrize("int8", [False, True], ids=["plain-cache", "int8"])
 @pytest.mark.parametrize("pair", [False, True], ids=["K7", "K8"])
-def test_decode_attention_t16(pair, int8, layer):
+def test_decode_attention_t16(pair, int8, layer, H_):
     """K7's and K8's wrappers on the CPU against the JAX kernels in interpret
     mode, q, k, v read in place from one qkv tensor; the output written into
-    the caller's `out` and the k/v copies into `kv_out` are the same."""
+    the caller's `out` and the k/v copies into `kv_out` are the same. H_ = 1
+    at C = 64: head_dim 64, the kernel's other head width."""
     rng = np.random.default_rng(10 + 2 * pair + int8)
     frames = 2 if pair else 1
     t_B = np.array((T - frames, 0, 7, 3) if pair else (0, 5, 11, T - 1),
                    np.int32)
     (kc, vc), scales = caches(rng, int8, t_B)
     qkv = rand(rng, B, frames, S, 3 * C) if pair else rand(rng, B, S, 3 * C)
-    kw = dict(layer=layer, scale=0.25, num_heads=H)
+    kw = dict(layer=layer, scale=0.25, num_heads=H_)
     if pair:
         q, k, v = (qkv[:, :, :, i * C:(i + 1) * C] for i in range(3))
         args = (q[:, 0], q[:, 1], kc, vc, k[:, 0], v[:, 0], k[:, 1], v[:, 1],

@@ -190,14 +190,18 @@ def test_update_cache_int8():
                                       err_msg=key)
 
 
-@pytest.mark.parametrize("pre_ln,qkv_bias", [(False, False), (False, True),
-                                             (True, False)])
-def test_spatial_block_qk_ln(pre_ln, qkv_bias):
+@pytest.mark.parametrize("pre_ln,qkv_bias,H_", [
+    pytest.param(False, False, 2, id="False-False"),
+    pytest.param(False, True, 2, id="False-True"),
+    pytest.param(True, False, 2, id="True-False"),
+    pytest.param(False, False, 1, id="False-False-h64")])
+def test_spatial_block_qk_ln(pre_ln, qkv_bias, H_):
     """The spatial block with the per-head qk-LN (and, for completeness,
-    with both LayerNorms) against the JAX kernel in interpret mode."""
+    with both LayerNorms) against the JAX kernel in interpret mode; H_ = 1
+    at C = 64 is head_dim 64, the card kernels' other head width."""
     from tpu1x.ops.spatial_block import spatial_block as jax_spatial_block
     rng = np.random.default_rng(5)
-    N, S_, C_, H_ = 3, 32, 64, 2
+    N, S_, C_ = 3, 32, 64
     D = C_ // H_
     kw = dict(x=rand(rng, N, S_, C_, scale=0.5),
               wqkv=rand(rng, C_, 3 * C_, scale=0.05),

@@ -25,8 +25,13 @@ from tpu1x_torch.ops import spatial_block as tsb
 torch.set_num_threads(2)
 TOL = dict(atol=1e-4, rtol=1e-4)
 SCALE = 32 ** -0.5
-# (tokens, heads) at head_dim 32, 2 rows: the kernels' token counts
-SHAPES = [(64, 4), (128, 3), (256, 2)]
+# (tokens, heads, head_dim), 2 rows: the kernels' token counts at head_dim
+# 32, and 128 tokens at 64, the kernels' other head width (ids as before
+# the head_dim existed)
+SHAPES = [pytest.param(64, 4, 32, id="64-4"),
+          pytest.param(128, 3, 32, id="128-3"),
+          pytest.param(256, 2, 32, id="256-2"),
+          pytest.param(128, 2, 64, id="128-2-h64")]
 
 
 def rand(rng, *shape, scale=1.0):
@@ -59,17 +64,17 @@ def no_launches():
     assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
 
 
-def inputs(seed, N, H):
+def inputs(seed, N, H, D):
     rng = np.random.default_rng(seed)
-    return [rand(rng, 2, N, H, 32) for _ in range(4)]  # q, k, v, dout
+    return [rand(rng, 2, N, H, D) for _ in range(4)]  # q, k, v, dout
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("N,H", SHAPES)
-def test_lse_reference_output(causal, N, H):
+@pytest.mark.parametrize("N,H,D", SHAPES)
+def test_lse_reference_output(causal, N, H, D):
     """The o of `mha_lse_reference` against the JAX forward kernel in
     interpret mode; it is `mha_reference`'s exactly."""
-    q, k, v, _ = inputs(10, N, H)
+    q, k, v, _ = inputs(10, N, H, D)
     want = jpa.flash_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                          scale=SCALE, causal=causal, interpret=True)
     o, _ = tattn.mha_lse_reference(t(q), t(k), t(v), scale=SCALE,
@@ -80,11 +85,11 @@ def test_lse_reference_output(causal, N, H):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("N,H", SHAPES)
-def test_lse_reference_lse(causal, N, H):
+@pytest.mark.parametrize("N,H,D", SHAPES)
+def test_lse_reference_lse(causal, N, H, D):
     """lse (R, H, N) against jax.nn.logsumexp of the scaled logits over the
     keys in view."""
-    q, k, _, _ = inputs(11, N, H)
+    q, k, _, _ = inputs(11, N, H, D)
     logits = jnp.einsum("rqhd,rkhd->rhqk", jnp.asarray(q),
                         jnp.asarray(k)) * SCALE
     if causal:
@@ -104,11 +109,11 @@ def plain_grads(q, k, v, dout, causal):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("N,H", SHAPES)
-def test_bwd_plain_against_jnp_oracle(causal, N, H):
+@pytest.mark.parametrize("N,H,D", SHAPES)
+def test_bwd_plain_against_jnp_oracle(causal, N, H, D):
     """dq, dk, dv from (o, lse) against the JAX package's jnp oracle of the
     backward kernel, which recomputes the softmax."""
-    q, k, v, dout = inputs(12, N, H)
+    q, k, v, dout = inputs(12, N, H, D)
     want = jpa._flash_mha_bwd_jnp(SCALE, causal, (bhnd(q), bhnd(k), bhnd(v)),
                                   bhnd(dout))
     for name, g, w in zip("qkv", plain_grads(q, k, v, dout, causal), want):
@@ -117,11 +122,11 @@ def test_bwd_plain_against_jnp_oracle(causal, N, H):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("N,H", SHAPES)
-def test_bwd_plain_against_kernel(causal, N, H):
+@pytest.mark.parametrize("N,H,D", SHAPES)
+def test_bwd_plain_against_kernel(causal, N, H, D):
     """dq, dk, dv from (o, lse) against the JAX backward kernel
     (_flash_mha_bwd_bhnd) in interpret mode."""
-    q, k, v, dout = inputs(13, N, H)
+    q, k, v, dout = inputs(13, N, H, D)
     want = jpa._flash_mha_bwd_bhnd(bhnd(q), bhnd(k), bhnd(v), bhnd(dout),
                                    scale=SCALE, causal=causal, interpret=True)
     for name, g, w in zip("qkv", plain_grads(q, k, v, dout, causal), want):

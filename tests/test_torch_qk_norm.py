@@ -1,5 +1,6 @@
 """The port's op-by-op serving path against the JAX package on the CPU: the
-qk_norm=True model, the int8 KV cache, and both together.
+qk_norm=True model, the int8 KV cache, and both together; and both
+together at head_dim 64 (d_model 128, 2 heads).
 
 As tests/test_torch_serving.py: genie_tiny(T=4, num_prompt_frames=2,
 num_heads=2, d_model=32) in fp32, weights drawn with numpy from a seed, the
@@ -42,8 +43,11 @@ from tpu1x_torch.weights import params_from_jax
 torch.set_num_threads(2)
 SIZE = dict(T=4, num_prompt_frames=2, num_heads=2, d_model=32)
 B = 2
-COMBOS = {"qk_norm": (True, "bf16"), "int8": (False, "int8"),
-          "qk_norm-int8": (True, "int8")}
+# (qk_norm, cache dtype, widths other than SIZE's): the last at head_dim
+# 64, the card kernels' other head width
+COMBOS = {"qk_norm": (True, "bf16", {}), "int8": (False, "int8", {}),
+          "qk_norm-int8": (True, "int8", {}),
+          "qk_norm-int8-h64": (True, "int8", dict(d_model=128))}
 
 
 def random_tree(tree, seed):
@@ -71,9 +75,10 @@ def random_tree(tree, seed):
 
 @pytest.fixture(scope="module", params=list(COMBOS))
 def tiny(request):
-    qk_norm, cache_dtype = COMBOS[request.param]
-    jcfg = jax_tiny(**SIZE, qk_norm=qk_norm)
-    cfg = genie_tiny(**SIZE, qk_norm=qk_norm)
+    qk_norm, cache_dtype, widths = COMBOS[request.param]
+    size = dict(SIZE, **widths)
+    jcfg = jax_tiny(**size, qk_norm=qk_norm)
+    cfg = genie_tiny(**size, qk_norm=qk_norm)
     dummy = jnp.zeros((1, jcfg.T * jcfg.S), jnp.int32)
     tree = JaxModel(jcfg).init(jax.random.PRNGKey(0), dummy, dummy)["params"]
     np_params = random_tree(jax.device_get(tree), 0)

@@ -26,14 +26,14 @@ using namespace tpu1x;
 // bf16, or int8 when k_scale, v_scale (L, B, T, S) fp32 are given, 16-byte
 // aligned, with S % 4 == 0. t_B (B,) int32. out0 (out1):
 // bf16 views with strides (osb, old, 1). k_out, v_out: contiguous (B, S, C)
-// copies of k0, v0, or null.
+// copies of k0, v0, or null. D: head_dim, 32 or 64.
 extern "C" int tpu1x_decode_attention(
     const void* q0, const void* q1, const void* k0, const void* k1,
     const void* v0, const void* v1, long sbq, long ldq, long sbk, long ldk,
     long sbv, long ldv, const void* k_cache, const void* v_cache,
     const void* k_scale, const void* v_scale, const void* t_B, void* out0,
     void* out1, long osb, long old, void* k_out, void* v_out, int B,
-    int frames, int S, int C, int T, int L, int layer, float scale,
+    int frames, int S, int C, int D, int T, int L, int layer, float scale,
     void* stream) {
   if (sbq % 8 || ldq % 8 || sbk % 8 || ldk % 8 || sbv % 8 || ldv % 8 ||
       osb % 8 || old % 8 || (k_out == nullptr) != (v_out == nullptr) ||
@@ -60,7 +60,7 @@ extern "C" int tpu1x_decode_attention(
   d.old = old;
   d.k_out = static_cast<bf16*>(k_out);
   d.v_out = static_cast<bf16*>(v_out);
-  d.B = B, d.S = S, d.C = C, d.T = T, d.L = L, d.layer = layer;
+  d.B = B, d.S = S, d.C = C, d.T = T, d.L = L, d.layer = layer, d.D = D;
   d.scale = scale;
   return launch_decode_attention(d, frames, static_cast<cudaStream_t>(stream));
 }

@@ -35,11 +35,17 @@
 //     the qkv product's dirty lines for it to write back (K3's attention,
 //     0.061 ms with the policy on K and V alone, took 0.046 with all of it
 //     and its proj held: the two A/Bs of PERF.md section 6);
-//   - one consumer thread owns one (token, head) row: q and the output
-//     accumulator of each frame in registers (fp32), K and V of each slot
-//     read from shared memory in 16-byte chunks, in an order rotated by
-//     the thread's row so that eight neighbouring lanes hit 32 distinct
-//     banks; no shuffles, no reduction across lanes;
+//   - one consumer thread owns 32 channels of one token, a (token, head)
+//     row at head_dim 32: q and the output accumulator of each frame in
+//     registers (fp32), K and V of each slot read from shared memory in
+//     16-byte chunks, in an order rotated by the thread's row so that
+//     eight neighbouring lanes hit 32 distinct banks. At head_dim 64 a
+//     head row is two neighbouring lanes, each with its 32 channels: the
+//     halves of a logit are summed by one shuffle between the pair (both
+//     lanes then hold the same logit, bit for bit, and take the same
+//     softmax steps), so a thread keeps the registers, loads and stores of
+//     head_dim 32 (a whole 64-channel row, q and acc of both frames, would
+//     be 256 fp32 values a thread) and an item the same threads and bytes;
 //   - one pass over K and V: an online softmax in the log2 domain, a
 //     running maximum and sum per (token, head, frame), each slot's K and
 //     V tiles consumed together and freed. The maximum starts at the
@@ -70,10 +76,11 @@
 namespace tpu1x {
 
 constexpr int DA_MAXT = 16;
-// The tile: the (token, head) rows of a work item, and the shared memory a
-// block gives its item buffer and ring with a bf16 cache (three blocks an
-// SM) and with an int8 cache (four: its arithmetic a byte is the larger);
-// at least two stages. The tokens of an item are DA_ROWS / heads, a
+// The tile: the (token, 32-channel) rows of a work item (a consumer thread
+// each, whatever the head width), and the shared memory a block gives its
+// item buffer and ring with a bf16 cache (three blocks an SM) and with an
+// int8 cache (four: its arithmetic a byte is the larger); at least two
+// stages. The tokens of an item are DA_ROWS / (C / 32), a
 // multiple of 4 (so that an item's int8 scales are whole 16-byte runs), at
 // least 4. Measured with `chip_variants.py da` (PERF.md section 6).
 constexpr int DA_ROWS = 64;
@@ -112,6 +119,7 @@ struct DecodeAttnArgs {
   bf16* k_out;  // (B, S, C) contiguous copies of frame 0's k and v, or null
   bf16* v_out;
   int B, S, C, T, L, layer;
+  int D;   // head_dim, 32 or 64
   int nb;  // rows b of this launch (<= DA_MAX_B; B is the caches' own)
   float scale;
 };
@@ -119,7 +127,7 @@ struct DecodeAttnArgs {
 // The launch's shape, from S, C and the cache type (decode_plan).
 struct DecodePlan {
   int ts;        // tokens of an item
-  int rows;      // (token, head) rows of an item: the consumer threads
+  int rows;      // (token, 32 channels) rows of an item: the consumers
   int tiles;     // items of one row b
   int stages;    // stages of the ring
   uint32_t tile_bytes;   // one slot's K (or V) rows of a full item
@@ -128,7 +136,7 @@ struct DecodePlan {
 };
 
 // Channels of one 16-byte chunk of a cache row (8 bf16, 16 int8), and the
-// chunks of a 32-channel head row.
+// chunks of a thread's 32 channels.
 template <bool Q>
 struct DaRow {
   static constexpr int CPC = Q ? 16 : 8;
@@ -161,7 +169,8 @@ __device__ __forceinline__ void unpack(const uint4 u, float* f) {
   }
 }
 
-// One bf16 head row (32 channels) of shared memory, rows 64 bytes apart,
+// One bf16 row of a thread's 32 channels of shared memory, rows 64 bytes
+// apart,
 // as fp32 values in the thread's rotated order; `raw` keeps the bits.
 template <bool Q>
 __device__ __forceinline__ void load_row(const uint8_t* rows, int r, int rot,
@@ -212,15 +221,27 @@ __device__ __forceinline__ float dot32(const float* a, const float* b) {
   return (d[0] + d[1]) + (d[2] + d[3]);
 }
 
+// The logit of a head row from a thread's part: at head_dim 64 the sum of
+// the two lanes' halves (the pair of lanes 2i, 2i + 1 of a token; both are
+// live or neither), the same value in both.
+template <int D>
+__device__ __forceinline__ float head_sum(float x) {
+  if constexpr (D == 64) {
+    const unsigned pair = 3u << (threadIdx.x & 30);
+    x += __shfl_xor_sync(pair, x, 1);
+  }
+  return x;
+}
+
 // The item at step `step` of block j's walk over G blocks: the j-th of
 // that round of G items, counted back from its end when the step is odd.
 __device__ __forceinline__ long da_walk(int step, int j, int G) {
   return (long)step * G + ((step & 1) ? G - 1 - j : j);
 }
 
-// F frames per row (1, or 2 = [prev, cur]); Q: int8 cache. Threads: p.rows
-// consumers, then one producer warp.
-template <int F, bool Q>
+// F frames per row (1, or 2 = [prev, cur]); Q: int8 cache; D: head_dim.
+// Threads: p.rows consumers, then one producer warp.
+template <int F, bool Q, int D>
 __global__ void __launch_bounds__(DA_THREADS, 1)
     decode_ring_kernel(const DecodeAttnArgs a, const DecodePlan p) {
   using R = DaRow<Q>;
@@ -308,9 +329,10 @@ __global__ void __launch_bounds__(DA_THREADS, 1)
     return;
   }
 
-  // a consumer: row r = (token, head) of every item
-  const int r = threadIdx.x, H = C / 32;
-  const int tok = r / H, head = r % H;
+  // a consumer: row r = (token, 32 channels from hc) of every item
+  const int r = threadIdx.x, rw = C / 32;
+  const int tok = r / rw;
+  const long hc = (r % rw) * 32;
   const int rot = Q ? (r >> 2) & 1 : (r >> 1) & 3;
   const float sc2 = a.scale * 1.4426950408889634f;  // logits in log2 units
   int stage = 0;
@@ -326,7 +348,6 @@ __global__ void __launch_bounds__(DA_THREADS, 1)
     float q[F][32], acc[F][32], m[F], l[F];
     mbar_wait(io_full, step & 1);
     if (live) {
-      const long hc = head * 32;
       float kf[32];
       uint4 raw[4];
 #pragma unroll
@@ -335,8 +356,9 @@ __global__ void __launch_bounds__(DA_THREADS, 1)
       load_row<Q>(io + row_bytes, r, rot, kf, raw);
       if (a.k_out != nullptr)
         copy_row<Q>(a.k_out + ((long)b * S + s) * C + hc, rot, raw);
-      const float s00 = dot32(q[0], kf) * sc2;
-      const float s10 = F == 2 ? dot32(q[F - 1], kf) * sc2 : 0.f;
+      const float s00 = head_sum<D>(dot32(q[0], kf)) * sc2;
+      const float s10 =
+          F == 2 ? head_sum<D>(dot32(q[F - 1], kf)) * sc2 : 0.f;
       load_row<Q>(io + 2 * row_bytes, r, rot, acc[0], raw);
       if (a.v_out != nullptr)
         copy_row<Q>(a.v_out + ((long)b * S + s) * C + hc, rot, raw);
@@ -344,7 +366,7 @@ __global__ void __launch_bounds__(DA_THREADS, 1)
       l[0] = 1.f;
       if constexpr (F == 2) {
         load_row<Q>(io + 4 * row_bytes, r, rot, kf, raw);
-        const float s11 = dot32(q[1], kf) * sc2;
+        const float s11 = head_sum<D>(dot32(q[1], kf)) * sc2;
         m[1] = fmaxf(s10, s11);
         const float e10 = ex2(s10 - m[1]), e11 = ex2(s11 - m[1]);
         l[1] = e10 + e11;
@@ -395,7 +417,7 @@ __global__ void __launch_bounds__(DA_THREADS, 1)
           float x = d[f][0];
 #pragma unroll
           for (int c = 1; c < R::NCH; ++c) x += d[f][c];
-          x *= sk;
+          x = head_sum<D>(x) * sk;
           if (x > m[f] + DA_LAZY) {  // rare: move the maximum, rescale
             const float corr = ex2(m[f] - x);
             l[f] *= corr;
@@ -430,8 +452,7 @@ __global__ void __launch_bounds__(DA_THREADS, 1)
         const float inv = 1.f / l[f];
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc[f][i] *= inv;
-        store_row<Q>(a.out[f] + b * a.osb + s * a.old + head * 32, rot,
-                     acc[f]);
+        store_row<Q>(a.out[f] + b * a.osb + s * a.old + hc, rot, acc[f]);
       }
     }
   }
@@ -455,7 +476,7 @@ inline DecodePlan decode_plan(int frames, int S, int C, bool q8) {
   return p;
 }
 
-template <int F, bool Q>
+template <int F, bool Q, int D>
 static cudaError_t launch_ring(const DecodeAttnArgs& a, const DecodePlan& p,
                                cudaStream_t s) {
   const long items = (long)a.nb * p.tiles;
@@ -466,13 +487,24 @@ static cudaError_t launch_ring(const DecodeAttnArgs& a, const DecodePlan& p,
   // shape (C) changes
   static int key_threads = -1, key_smem = -1, resident = 0;
   if (threads != key_threads || smem != key_smem) {
-    TPU1X_TRY(resident_blocks(decode_ring_kernel<F, Q>, threads, smem,
+    TPU1X_TRY(resident_blocks(decode_ring_kernel<F, Q, D>, threads, smem,
                               &resident));
     key_threads = threads, key_smem = smem;
   }
   const int grid = items < resident ? (int)items : resident;
-  decode_ring_kernel<F, Q><<<grid, threads, smem, s>>>(a, p);
+  decode_ring_kernel<F, Q, D><<<grid, threads, smem, s>>>(a, p);
   return cudaGetLastError();
+}
+
+// The form of F frames and cache type for head_dim D.
+template <int D>
+static cudaError_t launch_forms(const DecodeAttnArgs& a, const DecodePlan& p,
+                                int frames, bool q8, cudaStream_t s) {
+  if (q8)
+    return frames == 1 ? launch_ring<1, true, D>(a, p, s)
+                       : launch_ring<2, true, D>(a, p, s);
+  return frames == 1 ? launch_ring<1, false, D>(a, p, s)
+                     : launch_ring<2, false, D>(a, p, s);
 }
 
 // Rows b0 .. b0 + nb of `a`: every per-row pointer moved to row b0, the
@@ -500,11 +532,11 @@ inline DecodeAttnArgs decode_rows(const DecodeAttnArgs& a, int frames, int b0,
   return r;
 }
 
-// Requires frames in {1, 2}, T <= 16, C % 256 == 0 and C <= 2048, 0 <=
-// layer < L, 16-byte aligned caches; an int8 cache (a.ksc not null) also
-// its v scales, S % 4 == 0 and 16-byte aligned scales (each item's scales
-// are bulk copies of whole 16-byte units). Any B: one launch per DA_MAX_B
-// rows.
+// Requires frames in {1, 2}, T <= 16, head_dim D in {32, 64}, C % 256 ==
+// 0 and C <= 2048, 0 <= layer < L, 16-byte aligned caches; an int8 cache
+// (a.ksc not null) also its v scales, S % 4 == 0 and 16-byte aligned
+// scales (each item's scales are bulk copies of whole 16-byte units). Any
+// B: one launch per DA_MAX_B rows.
 static inline cudaError_t launch_decode_attention(const DecodeAttnArgs& a,
                                                   int frames, cudaStream_t s) {
   const bool q8 = a.ksc != nullptr;
@@ -512,6 +544,7 @@ static inline cudaError_t launch_decode_attention(const DecodeAttnArgs& a,
     return reinterpret_cast<uintptr_t>(p) % 16 != 0;
   };
   if ((frames != 1 && frames != 2) || a.T > DA_MAXT || a.C % 256 ||
+      (a.D != 32 && a.D != 64) ||
       a.C > 8 * DA_MAX_ROWS || a.layer < 0 || a.layer >= a.L ||
       misaligned(a.kc) || misaligned(a.vc) ||
       (q8 && (a.vsc == nullptr || a.S % 4 || misaligned(a.ksc) ||
@@ -521,14 +554,8 @@ static inline cudaError_t launch_decode_attention(const DecodeAttnArgs& a,
   for (int b0 = 0; b0 < a.B; b0 += DA_MAX_B) {
     const DecodeAttnArgs r =
         decode_rows(a, frames, b0, a.B - b0 < DA_MAX_B ? a.B - b0 : DA_MAX_B);
-    cudaError_t e;
-    if (q8)
-      e = frames == 1 ? launch_ring<1, true>(r, p, s)
-                      : launch_ring<2, true>(r, p, s);
-    else
-      e = frames == 1 ? launch_ring<1, false>(r, p, s)
-                      : launch_ring<2, false>(r, p, s);
-    TPU1X_TRY(e);
+    TPU1X_TRY(a.D == 32 ? launch_forms<32>(r, p, frames, q8, s)
+                        : launch_forms<64>(r, p, frames, q8, s));
   }
   return cudaSuccess;
 }

@@ -1,6 +1,6 @@
 // Multi-head attention softmax(q k^T scale [causal]) v over the N tokens of
-// each (row, head), forward and backward, on q, k, v shaped (R, N, H, 32)
-// and read in place through their strides.
+// each (row, head), forward and backward, on q, k, v shaped (R, N, H, D),
+// head_dim D = 32 or 64, and read in place through their strides.
 //
 // Replaces the Pallas kernels tpu1x/ops/pallas_attention.py: _flash_mha_bhnd
 // (_attn_kernel) and _flash_mha_bwd_bhnd (_attn_bwd_kernel). The TPU wrapper
@@ -65,18 +65,22 @@
 // Each chunk loop's last iteration is code of its own, so that no wgmma
 // sits behind a branch (ptxas would serialise them all: 0.30 against 0.25
 // ms). ptxas (sm_90a): 235 registers a thread under the causal mask, 230
-// without, no spills.
+// without, no spills. This fused kernel is the head_dim-32 form; head_dim
+// 64 takes two passes of its own (below), which the same entry point
+// launches.
 // Shared memory a block: 1024 (alignment) + 2 stages x 66560 (4 operands
 // of 16 KB, lse 1 KB) + 2 x 8192 (dS^T) + 2 x 32768 (dQ) + 1024 (delta) +
 // 16 (mbarriers) = 217104 bytes, one block an SM.
 //
-// N <= 256, N % 64 == 0, head_dim 32, strides multiples of 8.
+// N <= 256, N % 64 == 0, head_dim 32 or 64, strides multiples of 8.
 
 #include "flash_attention.cuh"
 
 using namespace tpu1x;
 
 namespace {
+
+constexpr int FB_D = 32;  // the fused backward's head_dim
 
 // d (64 x 32, fp32) {=, +=} A (64 x 16) B (16 x 32), A and B from shared
 // memory, both MN-major (the transposed flags); acc 0 overwrites d.
@@ -94,7 +98,7 @@ __device__ __forceinline__ void wgmma_tt(float* d, uint64_t da, uint64_t db,
 // columns permuted by XOR with bits of n so that the adds of one
 // accumulator register (rows g, channels 8 j + 2 t4 + e) fall in 32 banks.
 __device__ __forceinline__ int dq_word(int n, int d) {
-  return n * FA_D + (d ^ ((n & 1) | ((n & 6) << 2)));
+  return n * FB_D + (d ^ ((n & 1) | ((n & 6) << 2)));
 }
 
 // o's row of 32 channels, 16 bytes at a time, past the compiler's
@@ -108,10 +112,10 @@ __device__ __forceinline__ uint4 ldg_nc(const bf16* p) {
 }
 
 constexpr int FB_THREADS = 256;                 // two warpgroups
-constexpr int FB_OP = FA_N * FA_D * 2;          // bytes of one operand
+constexpr int FB_OP = FA_N * FB_D * 2;          // bytes of one operand
 constexpr int FB_STAGE = 4 * FB_OP + FA_N * 4;  // q, k, v, d_o, lse
 constexpr int FB_STG = 64 * 128;                // a warpgroup's dS^T tile
-constexpr int FB_DQ = FA_N * FA_D * 4;          // a warpgroup's fp32 dQ
+constexpr int FB_DQ = FA_N * FB_D * 4;          // a warpgroup's fp32 dQ
 constexpr int FB_SMEM =
     1024 + 2 * FB_STAGE + 2 * FB_STG + 2 * FB_DQ + FA_N * 4 + 16;
 static_assert(FB_STAGE % 1024 == 0, "stages start on a 1024-byte boundary");
@@ -138,7 +142,7 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
   // delta and the mbarriers
   const uint32_t stg_s = ring + 2 * FB_STAGE;
   float* dq_p = reinterpret_cast<float*>(ring_p + 2 * FB_STAGE + 2 * FB_STG);
-  float* delta = dq_p + 2 * FA_N * FA_D;
+  float* delta = dq_p + 2 * FA_N * FB_D;
   const uint32_t bars = smem_u32(delta + FA_N);  // two 8-byte mbarriers
   const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
   const int warp = (tid >> 5) & 3, g = lane >> 2, t4 = lane & 3;
@@ -165,7 +169,7 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
   };
   // thread n < N: row n of o of an item, into registers, one item ahead
   auto load_o = [&](int item, uint4 (&dst)[4]) {
-    const bf16* row = o + (item / H) * rso + (long)tid * tso + item % H * FA_D;
+    const bf16* row = o + (item / H) * rso + (long)tid * tso + item % H * FB_D;
 #pragma unroll
     for (int c = 0; c < 4; ++c) dst[c] = ldg_nc(row + 8 * c);
   };
@@ -209,7 +213,7 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
     }
     // both dQ tiles zeroed, consecutive threads on consecutive 16 bytes
 #pragma unroll
-    for (int i = 0; i < 2 * FA_N * FA_D / 4 / FB_THREADS; ++i)
+    for (int i = 0; i < 2 * FA_N * FB_D / 4 / FB_THREADS; ++i)
       reinterpret_cast<float4*>(dq_p)[tid + i * FB_THREADS] =
           make_float4(0.f, 0.f, 0.f, 0.f);
     __syncthreads();
@@ -217,7 +221,7 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
     // this warpgroup's dS^T tile (64 keys x 64 queries bf16) and dQ tile
     const uint32_t stg = stg_s + wg * FB_STG;
     unsigned char* stg_p = ring_p + (stg - ring);
-    float* dqw = dq_p + wg * FA_N * FA_D;
+    float* dqw = dq_p + wg * FA_N * FB_D;
     for (int i = 0; i < my_tiles; ++i) {
       const int kt = my_kt[i];
       const uint32_t ktile = ks + kt * 4096, vtile = vs + kt * 4096;
@@ -387,8 +391,8 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
           const int w1 = dq_word(qq, 8 * n + 2 * t4 + 1);
           *reinterpret_cast<uint32_t*>(qtile + swz64(r0 + 8 * hh, n) +
                                        4 * t4) =
-              pack_bf16((dq_p[w0] + dq_p[FA_N * FA_D + w0]) * scale,
-                        (dq_p[w1] + dq_p[FA_N * FA_D + w1]) * scale);
+              pack_bf16((dq_p[w0] + dq_p[FA_N * FB_D + w0]) * scale,
+                        (dq_p[w1] + dq_p[FA_N * FB_D + w1]) * scale);
         }
     }
     if (tid < N) {
@@ -412,14 +416,406 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
   if ((tid & 127) == 0) bulk_wait();
 }
 
+
+// ---- head_dim 64: the backward in two passes ----
+//
+// At head_dim 64 the fused kernel above does not fit: its four operands
+// are 32 KB an item each (128 KB, a stage), each warpgroup's fp32 dQ tile
+// 64 KB, and dk, dv and dq 32 fp32 registers a thread each beside the
+// logits, over 255 registers. So the backward splits by what each output
+// sums over:
+//   dq pass   (row, head, 64-query tile) units, query-major: the tile's q
+//             and d_o and all of k and v in shared memory; for each key
+//             chunk in view S = Q K^T and dP = dO V^T (wgmma m64n64k16,
+//             four k16 steps), P and dS in fp32 registers, dQ += dS K
+//             (m64n64k16, dS from registers); delta of the tile's rows
+//             from o (global) and d_o, lse of its rows in registers;
+//   dkv pass  (row, head, 64-key tile) units, key-major as the fused
+//             kernel: the tile's k and v and all of q and d_o; for each
+//             query chunk that sees the keys S^T = K Q^T and dP^T = V
+//             dO^T, P^T and dS^T, dV += P^T dO and dK += dS^T Q, the
+//             accumulators in registers; delta and lse of all N queries in
+//             shared memory, delta from o and d_o as in the dq pass.
+// Each sum stays in its warpgroup's registers and is written once: no
+// shared fp32 tile, no atomics, no scratch in device memory. The price is
+// the logits and their exponentials twice (seven products a (row, head)
+// where the fused kernel makes five) and q, k, v, d_o read by both passes
+// (the second read of a unit's whole operands mostly from L2: the units of
+// one item are neighbours in the grid). A unit is one warpgroup and about
+// 83 KB of shared memory, two blocks an SM; the grid is every unit, so one
+// block's loads run under the other's compute. The next chunk's logits are
+// issued in the wgmma group of the current chunk's products, as in the
+// forward; the last chunk is code of its own (no wgmma behind a branch).
+// Numbers: as the fused kernel's (p and ds rounded to bf16 for their
+// products, delta from the bf16 o, dq and dk scaled after their sums).
+// ptxas (sm_90a), head_dim 64: the dq pass 138 registers a thread, the
+// dk/dv pass 186, no spills.
+constexpr int FB2_THREADS = 128;  // one warpgroup
+template <int D>
+struct Fb2Shape {
+  static constexpr int OP = FA_N * D * 2;  // all N rows of an operand
+  // two whole operands, two 64-row tiles, lse and delta of N queries and
+  // an mbarrier, after 1024 bytes of alignment
+  static constexpr int SMEM =
+      1024 + 2 * OP + 2 * FaRows<D>::TILE + 2 * FA_N * 4 + 16;
+};
+
+struct Fb2Maps {
+  CUtensorMap in[4];   // q, k, v, d_o: 64 tokens of one head a box
+  CUtensorMap out[3];  // dq, dk, dv: the same
+};
+
+// Row n of o (2 D bytes from `row`) times row n of d_o in shared memory
+// (FaRows<D> layout at `g`), chunks c0 .. c0 + nc - 1.
+template <int D>
+__device__ __forceinline__ float delta_part(const bf16* row,
+                                            const unsigned char* g, int n,
+                                            int c0, int nc) {
+  float dl = 0.f;
+  for (int c = c0; c < c0 + nc; ++c) {
+    float fo[8], fg[8];
+    load8(row + 8 * c, fo);
+    load8(reinterpret_cast<const bf16*>(g + FaRows<D>::at(n, c)), fg);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dl = fmaf(fo[i], fg[i], dl);
+  }
+  return dl;
+}
+
+// grid: R H N / 64 units, unit u = (item u / tiles, query tile u % tiles);
+// FB2_THREADS threads, dynamic shared memory Fb2Shape<D>::SMEM.
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(FB2_THREADS, 2)
+    flash_bwd_dq_kernel(const __grid_constant__ Fb2Maps maps,
+                        const float* __restrict__ lse,
+                        const bf16* __restrict__ o, long rso, long tso,
+                        int N, int H, float scale) {
+  using L = FaRows<D>;
+  using F = Fb2Shape<D>;
+  constexpr int KS = D / 16;
+  extern __shared__ unsigned char fq_raw[];
+  const uint32_t raw = smem_u32(fq_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* base_p = fq_raw + (base - raw);
+  // k and v (all N rows), the q and d_o tiles, the mbarrier
+  const uint32_t ks = base, vs = ks + F::OP, qtile = vs + F::OP,
+                 gtile = qtile + L::TILE;
+  const uint32_t bar = gtile + L::TILE + 2 * FA_N * 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int tiles = N / FA_QT;
+  const int item = blockIdx.x / tiles, qt = blockIdx.x % tiles;
+  const int r = item / H, h = item % H;
+  const int nc = CAUSAL ? qt + 1 : tiles;  // key chunks in view
+  const float sl2 = scale * 1.4426950408889634f;
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar, (2 * nc + 2) * L::TILE);
+    for (int c = 0; c < nc; ++c) {
+      tma_load_4d(ks + c * L::TILE, &maps.in[1], 0, h, c * FA_QT, r, bar);
+      tma_load_4d(vs + c * L::TILE, &maps.in[2], 0, h, c * FA_QT, r, bar);
+    }
+    tma_load_4d(qtile, &maps.in[0], 0, h, qt * FA_QT, r, bar);
+    tma_load_4d(gtile, &maps.in[3], 0, h, qt * FA_QT, r, bar);
+  }
+  // rows r0 and r0 + 8 of the tile: their lse (log2 units) and delta
+  const int r0 = warp * 16 + g;
+  const float* lrow = lse + (long)item * N + qt * FA_QT;
+  const float l0 = lrow[r0] * 1.4426950408889634f;
+  const float l1 = lrow[r0 + 8] * 1.4426950408889634f;
+  __syncthreads();  // the mbarrier's initialisation
+  mbar_wait(bar, 0);
+  const unsigned char* gp = base_p + (gtile - base);
+  const bf16* orow = o + r * rso + (long)(qt * FA_QT) * tso + h * D;
+  float d0 = delta_part<D>(orow + r0 * tso, gp, r0, t4 * D / 32, D / 32);
+  float d1 = delta_part<D>(orow + (r0 + 8) * tso, gp, r0 + 8, t4 * D / 32,
+                           D / 32);
+  d0 = quad_sum(d0);
+  d1 = quad_sum(d1);
+
+  // s[4 j + e], dp[4 j + e]: query warp 16 + g + 8 (e >> 1) of the tile,
+  // key 64 c + 8 j + 2 t4 + (e & 1); dq[4 j + e]: the same query, channel
+  // 8 j + 2 t4 + (e & 1)
+  float s[32], dp[32], dq[D / 2];
+  uint32_t da[16];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dq[e] = 0.f;
+  auto issue_logits = [&](int c) {
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      wgmma_qk(s, L::kmajor(qtile, k), L::kmajor(ks + c * L::TILE, k), k);
+      wgmma_qk(dp, L::kmajor(gtile, k), L::kmajor(vs + c * L::TILE, k), k);
+    }
+  };
+  wgmma_fence();
+  issue_logits(0);
+  wgmma_commit();
+  wgmma_wait_all();
+  hold(s);
+  hold(dp);
+  int c = 0;
+  auto step = [&](auto last) {
+    constexpr bool LAST = decltype(last)::value;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(fmaf(s[4 * j + e], sl2, (e >> 1) ? -l1 : -l0));
+        if (CAUSAL && c == qt &&
+            8 * j + 2 * t4 + (e & 1) > warp * 16 + g + 8 * (e >> 1))
+          p = 0.f;
+        dp[4 * j + e] = p * (dp[4 * j + e] - ((e >> 1) ? d1 : d0));
+      }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      da[4 * k] = pack_bf16(dp[8 * k], dp[8 * k + 1]);
+      da[4 * k + 1] = pack_bf16(dp[8 * k + 2], dp[8 * k + 3]);
+      da[4 * k + 2] = pack_bf16(dp[8 * k + 4], dp[8 * k + 5]);
+      da[4 * k + 3] = pack_bf16(dp[8 * k + 6], dp[8 * k + 7]);
+    }
+    hold(da);
+    hold(dq);
+    // dq += dS K of chunk c, and the logits of chunk c + 1
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      wgmma_pv_d<D>(dq, &da[4 * k], L::mnmajor(ks, c * 64 + k * 16));
+    if constexpr (!LAST) issue_logits(c + 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(dq);
+    hold(s);
+    hold(dp);
+  };
+  for (; c + 1 < nc; ++c) step(Flag<false>{});
+  step(Flag<true>{});
+
+  // dq times scale into the q tile (its last reader was the last logits)
+  // and out by one TMA store
+  unsigned char* qp = base_p + (qtile - base);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(qp + L::at(r0, j) + t4 * 4) =
+        pack_bf16(dq[4 * j] * scale, dq[4 * j + 1] * scale);
+    *reinterpret_cast<uint32_t*>(qp + L::at(r0 + 8, j) + t4 * 4) =
+        pack_bf16(dq[4 * j + 2] * scale, dq[4 * j + 3] * scale);
+  }
+  fence_proxy_async();
+  __syncthreads();
+  if (tid == 0) {
+    tma_store_4d(&maps.out[0], qtile, 0, h, qt * FA_QT, r);
+    bulk_commit();
+    bulk_wait();
+  }
+}
+
+// grid: R H N / 64 units, unit u = (item u / tiles, key tile u % tiles);
+// FB2_THREADS threads, dynamic shared memory Fb2Shape<D>::SMEM.
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(FB2_THREADS, 2)
+    flash_bwd_dkv_kernel(const __grid_constant__ Fb2Maps maps,
+                         const float* __restrict__ lse,
+                         const bf16* __restrict__ o, long rso, long tso,
+                         int N, int H, float scale) {
+  using L = FaRows<D>;
+  using F = Fb2Shape<D>;
+  constexpr int KS = D / 16;
+  extern __shared__ unsigned char fk_raw[];
+  const uint32_t raw = smem_u32(fk_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* base_p = fk_raw + (base - raw);
+  // q and d_o (all N rows), the k and v tiles, lse and delta of the N
+  // queries, the mbarrier
+  const uint32_t qs = base, gs = qs + F::OP, ktile = gs + F::OP,
+                 vtile = ktile + L::TILE;
+  float* lse2 = reinterpret_cast<float*>(base_p + 2 * F::OP + 2 * L::TILE);
+  float* delta = lse2 + FA_N;
+  const uint32_t bar = smem_u32(delta + FA_N);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int tiles = N / FA_QT;
+  const int item = blockIdx.x / tiles, kt = blockIdx.x % tiles;
+  const int r = item / H, h = item % H;
+  const int c0 = CAUSAL ? kt : 0;  // the first query chunk that sees the keys
+  const float sl2 = scale * 1.4426950408889634f;
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar, (2 * (tiles - c0) + 2) * L::TILE);
+    for (int c = c0; c < tiles; ++c) {
+      tma_load_4d(qs + c * L::TILE, &maps.in[0], 0, h, c * FA_QT, r, bar);
+      tma_load_4d(gs + c * L::TILE, &maps.in[3], 0, h, c * FA_QT, r, bar);
+    }
+    tma_load_4d(ktile, &maps.in[1], 0, h, kt * FA_QT, r, bar);
+    tma_load_4d(vtile, &maps.in[2], 0, h, kt * FA_QT, r, bar);
+  }
+  // the queries in view: lse (log2 units) by thread, a query a thread
+  const float* lrow = lse + (long)item * N;
+  for (int n = c0 * FA_QT + tid; n < N; n += FB2_THREADS)
+    lse2[n] = lrow[n] * 1.4426950408889634f;
+  __syncthreads();  // the mbarrier's initialisation
+  mbar_wait(bar, 0);
+  // delta of the queries in view: four lanes a query, D / 4 channels each
+  const unsigned char* gp = base_p + (gs - base);
+  const bf16* obase = o + r * rso + h * D;
+  for (int n = c0 * FA_QT + (tid >> 2); n < N; n += FB2_THREADS / 4) {
+    const float dl = quad_sum(
+        delta_part<D>(obase + n * tso, gp, n, t4 * D / 32, D / 32));
+    if (t4 == 0) delta[n] = dl;
+  }
+  __syncthreads();
+
+  // s[4 j + e], dp[4 j + e]: key warp 16 + g + 8 (e >> 1) of the tile,
+  // query 64 c + 8 j + 2 t4 + (e & 1); dk, dv[4 j + e]: the same key,
+  // channel 8 j + 2 t4 + (e & 1)
+  float s[32], dp[32], dk[D / 2], dv[D / 2];
+  uint32_t pa[16], da[16];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
+  auto issue_logits = [&](int c) {
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      wgmma_qk(s, L::kmajor(ktile, k), L::kmajor(qs + c * L::TILE, k), k);
+      wgmma_qk(dp, L::kmajor(vtile, k), L::kmajor(gs + c * L::TILE, k), k);
+    }
+  };
+  int c = c0;
+  wgmma_fence();
+  issue_logits(c);
+  wgmma_commit();
+  wgmma_wait_all();
+  hold(s);
+  hold(dp);
+  auto step = [&](auto last) {
+    constexpr bool LAST = decltype(last)::value;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int q = c * FA_QT + 8 * j + 2 * t4;
+      const float2 l2 = *reinterpret_cast<const float2*>(lse2 + q);
+      const float2 dl = *reinterpret_cast<const float2*>(delta + q);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(fmaf(s[4 * j + e], sl2, (e & 1) ? -l2.y : -l2.x));
+        if (CAUSAL && c == kt &&
+            8 * j + 2 * t4 + (e & 1) < warp * 16 + g + 8 * (e >> 1))
+          p = 0.f;
+        s[4 * j + e] = p;
+        dp[4 * j + e] = p * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+      }
+    }
+    // P^T and dS^T of 16 queries (step k) as register-A fragments: keys
+    // g | g + 8, queries 2 t4.. | 8 + 2 t4..
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      pa[4 * k] = pack_bf16(s[8 * k], s[8 * k + 1]);
+      pa[4 * k + 1] = pack_bf16(s[8 * k + 2], s[8 * k + 3]);
+      pa[4 * k + 2] = pack_bf16(s[8 * k + 4], s[8 * k + 5]);
+      pa[4 * k + 3] = pack_bf16(s[8 * k + 6], s[8 * k + 7]);
+      da[4 * k] = pack_bf16(dp[8 * k], dp[8 * k + 1]);
+      da[4 * k + 1] = pack_bf16(dp[8 * k + 2], dp[8 * k + 3]);
+      da[4 * k + 2] = pack_bf16(dp[8 * k + 4], dp[8 * k + 5]);
+      da[4 * k + 3] = pack_bf16(dp[8 * k + 6], dp[8 * k + 7]);
+    }
+    hold(pa);
+    hold(da);
+    hold(dk);
+    hold(dv);
+    // dv += P^T dO and dk += dS^T Q of chunk c, and the logits of c + 1
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      wgmma_pv_d<D>(dv, &pa[4 * k], L::mnmajor(gs, c * 64 + k * 16));
+      wgmma_pv_d<D>(dk, &da[4 * k], L::mnmajor(qs, c * 64 + k * 16));
+    }
+    if constexpr (!LAST) issue_logits(c + 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(dk);
+    hold(dv);
+    hold(s);
+    hold(dp);
+  };
+  for (; c + 1 < tiles; ++c) step(Flag<false>{});
+  step(Flag<true>{});
+
+  // dk (times scale) and dv into the tile's own K and V rows, and out
+  unsigned char* kp = base_p + (ktile - base);
+  unsigned char* vp = base_p + (vtile - base);
+  const int r0 = warp * 16 + g;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(kp + L::at(r0, j) + t4 * 4) =
+        pack_bf16(dk[4 * j] * scale, dk[4 * j + 1] * scale);
+    *reinterpret_cast<uint32_t*>(kp + L::at(r0 + 8, j) + t4 * 4) =
+        pack_bf16(dk[4 * j + 2] * scale, dk[4 * j + 3] * scale);
+    *reinterpret_cast<uint32_t*>(vp + L::at(r0, j) + t4 * 4) =
+        pack_bf16(dv[4 * j], dv[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(vp + L::at(r0 + 8, j) + t4 * 4) =
+        pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
+  }
+  fence_proxy_async();
+  __syncthreads();
+  if (tid == 0) {
+    tma_store_4d(&maps.out[1], ktile, 0, h, kt * FA_QT, r);
+    tma_store_4d(&maps.out[2], vtile, 0, h, kt * FA_QT, r);
+    bulk_commit();
+    bulk_wait();
+  }
+}
+
+typedef void (*Bwd2Kernel)(Fb2Maps, const float*, const bf16*, long, long,
+                           int, int, float);
+
+// The head_dim-D backward in two launches, the dq pass first (see above).
+template <int D>
+cudaError_t launch_bwd_two_pass(const void* const* in, const long* rs,
+                                const long* ts, void* const* out,
+                                const long* ors, const long* ots,
+                                const float* lse, const bf16* o, long rso,
+                                long tso, int R, int N, int H, float scale,
+                                bool causal, cudaStream_t stream) {
+  Fb2Maps maps;
+  for (int i = 0; i < 4; ++i)
+    TPU1X_TRY(tensor_map<D>(&maps.in[i], in[i], rs[i], ts[i], R, N, H,
+                            FA_QT));
+  for (int i = 0; i < 3; ++i)
+    TPU1X_TRY(tensor_map<D>(&maps.out[i], out[i], ors[i], ots[i], R, N, H,
+                            FA_QT));
+  static const Bwd2Kernel dq_forms[2] = {flash_bwd_dq_kernel<D, false>,
+                                         flash_bwd_dq_kernel<D, true>};
+  static const Bwd2Kernel dkv_forms[2] = {flash_bwd_dkv_kernel<D, false>,
+                                          flash_bwd_dkv_kernel<D, true>};
+  // the shared memory limit, set once a process for each form
+  static bool ready[2] = {false, false};
+  const int form = causal ? 1 : 0;
+  if (!ready[form]) {
+    int unused = 0;
+    TPU1X_TRY(resident_blocks(dq_forms[form], FB2_THREADS,
+                              Fb2Shape<D>::SMEM, &unused));
+    TPU1X_TRY(resident_blocks(dkv_forms[form], FB2_THREADS,
+                              Fb2Shape<D>::SMEM, &unused));
+    ready[form] = true;
+  }
+  const int units = R * H * (N / FA_QT);
+  dq_forms[form]<<<units, FB2_THREADS, Fb2Shape<D>::SMEM, stream>>>(
+      maps, lse, o, rso, tso, N, H, scale);
+  TPU1X_TRY(cudaGetLastError());
+  dkv_forms[form]<<<units, FB2_THREADS, Fb2Shape<D>::SMEM, stream>>>(
+      maps, lse, o, rso, tso, N, H, scale);
+  return cudaGetLastError();
+}
+
 typedef void (*BwdKernel)(BwdMaps, const float*, const bf16*, long, long, int,
                           int, float, int);
 
 }  // namespace
 
-// q, k, v: bf16 (R, N, H, 32) views, element (r, n, h, d) at
-// r * rs + n * ts + h * 32 + d with each tensor's own rs and ts (multiples
-// of 8, 16-byte aligned base); out bf16 (R, N, H, 32) contiguous; lse fp32
+// q, k, v: bf16 (R, N, H, D) views, D = 32 or 64, element (r, n, h, d) at
+// r * rs + n * ts + h * D + d with each tensor's own rs and ts (multiples
+// of 8, 16-byte aligned base); out bf16 (R, N, H, D) contiguous; lse fp32
 // (R, H, N), the log-sum-exp of each query's scaled logits.
 extern "C" int tpu1x_flash_mha(const void* q, const void* k, const void* v,
                                void* out, void* lse, long rsq, long tsq,
@@ -431,12 +827,13 @@ extern "C" int tpu1x_flash_mha(const void* q, const void* k, const void* v,
                           static_cast<cudaStream_t>(stream));
 }
 
-// q, k, v, o, d_o: bf16 (R, N, H, 32) views as above (o with strides
+// q, k, v, o, d_o: bf16 (R, N, H, D) views as above (o with strides
 // (rso, tso), d_o with (rsg, tsg)); lse fp32 (R, H, N) from the forward;
-// dq, dk, dv bf16 (R, N, H, 32) views with strides (rsdq, tsdq), (rsdk,
+// dq, dk, dv bf16 (R, N, H, D) views with strides (rsdq, tsdq), (rsdk,
 // tsdk), (rsdv, tsdv) (multiples of 8, 16-byte aligned bases): contiguous
 // tensors, or the three thirds of one (R, N, 3C) tensor, written by TMA
-// stores 64 tokens of one head at a time.
+// stores 64 tokens of one head at a time. Head_dim 32: one fused kernel;
+// 64: the dq pass, then the dk/dv pass.
 extern "C" int tpu1x_flash_mha_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* d_o,
                                    const void* lse, void* dq, void* dk,
@@ -451,16 +848,21 @@ extern "C" int tpu1x_flash_mha_bwd(const void* q, const void* k, const void* v,
   if (!flash_ok(N, D, strides, 16)) return cudaErrorInvalidValue;
   const int items = R * H;
   if (items == 0) return cudaSuccess;
-  BwdMaps maps;
   const void* in[4] = {q, k, v, d_o};
   const long rs[4] = {rsq, rsk, rsv, rsg}, ts[4] = {tsq, tsk, tsv, tsg};
-  for (int i = 0; i < 4; ++i)
-    TPU1X_TRY(tensor_map(&maps.in[i], in[i], rs[i], ts[i], R, N, H));
   void* out[3] = {dq, dk, dv};
   const long ors[3] = {rsdq, rsdk, rsdv}, ots[3] = {tsdq, tsdk, tsdv};
+  if (D == 64)
+    return launch_bwd_two_pass<64>(
+        in, rs, ts, out, ors, ots, static_cast<const float*>(lse),
+        static_cast<const bf16*>(o), rso, tso, R, N, H, scale, causal != 0,
+        static_cast<cudaStream_t>(stream));
+  BwdMaps maps;
+  for (int i = 0; i < 4; ++i)
+    TPU1X_TRY(tensor_map<32>(&maps.in[i], in[i], rs[i], ts[i], R, N, H));
   for (int i = 0; i < 3; ++i)
-    TPU1X_TRY(tensor_map(&maps.out[i], out[i], ors[i], ots[i], R, N, H,
-                         FA_QT));
+    TPU1X_TRY(tensor_map<32>(&maps.out[i], out[i], ors[i], ots[i], R, N, H,
+                             FA_QT));
   static const BwdKernel forms[2] = {flash_bwd_kernel<false>,
                                      flash_bwd_kernel<true>};
   static int resident[2] = {0, 0};

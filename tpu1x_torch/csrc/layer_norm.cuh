@@ -168,4 +168,101 @@ static inline cudaError_t launch_layer_norm(const void* x, const void* scale,
   return cudaGetLastError();
 }
 
+// ---- the qk-LayerNorm of the qk_norm models (K1's qk-LN form) ----
+//
+// The LN over head_dim D of every head row of q and of k, in place in a
+// (tokens, 3C) qkv product whose q and k thirds lie side by side: a
+// token's first 2C values are 2 C / D rows of D channels, one pair of (D,)
+// parameters shared by q, k and every head. The arithmetic of the row
+// kernel above (fp32 statistics, E[x^2] - E[x]^2, the result rounded to
+// bf16), at row length D: a lane holds one 16-byte chunk of 8 channels,
+// D / 8 neighbouring lanes a row, reduced by shuffles among them. Bound:
+// device memory, the q and k thirds read and written once (16.8 MB at N =
+// 16 frames of 256 tokens, C = 512: 5 us at 3.35 TB/s). A warp keeps
+// HN_UNROLL chunks a lane in flight, the grid is every resident block.
+constexpr int HN_UNROLL = 4;
+
+template <int D>
+__global__ void __launch_bounds__(LN_THREADS)
+    head_norm_kernel(bf16* __restrict__ qkv, const float* __restrict__ g,
+                     const float* __restrict__ b, long chunks, int C,
+                     float eps) {
+  constexpr int LANES = D / 8;  // lanes a head row
+  const int lane = threadIdx.x & 31, c8 = (lane % LANES) * 8;
+  const int per_token = 2 * C / 8;  // chunks of a token's q and k
+  float gf[8], bf[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    gf[i] = __ldg(g + c8 + i);
+    bf[i] = __ldg(b + c8 + i);
+  }
+  const long warp0 = ((long)blockIdx.x * LN_THREADS + threadIdx.x - lane);
+  const long stride = (long)gridDim.x * LN_THREADS * HN_UNROLL;
+  for (long base = warp0 * HN_UNROLL; base < chunks; base += stride) {
+    uint4 u[HN_UNROLL];
+    bf16* at[HN_UNROLL];
+#pragma unroll
+    for (int j = 0; j < HN_UNROLL; ++j) {
+      const long i = base + j * 32 + lane;
+      at[j] = qkv + (i / per_token) * 3 * C + (i % per_token) * 8;
+      if (i < chunks) u[j] = __ldcs(reinterpret_cast<const uint4*>(at[j]));
+      else u[j] = make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int j = 0; j < HN_UNROLL; ++j) {
+      float f[8], s = 0.f, ss = 0.f;
+      unpack8(u[j], f);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        s += f[i];
+        ss += f[i] * f[i];
+      }
+#pragma unroll
+      for (int x = 1; x < LANES; x <<= 1) {
+        s += __shfl_xor_sync(0xffffffffu, s, x);
+        ss += __shfl_xor_sync(0xffffffffu, ss, x);
+      }
+      const float mu = s / D;
+      const float rs = rsqrtf(ss / D - mu * mu + eps);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) f[i] = (f[i] - mu) * rs * gf[i] + bf[i];
+      if (base + j * 32 + lane < chunks) store8(at[j], f);
+    }
+  }
+}
+
+// qkv (tokens, 3C) bf16: its q and k thirds normalised in place over each
+// head row of D channels; scale, bias (D,) fp32. Requires D in {32, 64},
+// C % D == 0 and a 16-byte aligned qkv.
+static inline cudaError_t launch_head_norm(void* qkv, const void* scale,
+                                           const void* bias, int tokens,
+                                           int C, int D, float eps,
+                                           cudaStream_t stream) {
+  if ((D != 32 && D != 64) || C % D) return cudaErrorInvalidValue;
+  const long chunks = (long)tokens * 2 * C / 8;
+  if (chunks == 0) return cudaSuccess;
+  typedef void (*HnKernel)(bf16*, const float*, const float*, long, int,
+                           float);
+  const HnKernel kernel = D == 32 ? head_norm_kernel<32> : head_norm_kernel<64>;
+  // the resident blocks of the card, found once a process for each D
+  static int resident[2] = {0, 0};
+  int& res = resident[D == 32 ? 0 : 1];
+  if (res == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    TPU1X_TRY(cudaGetDevice(&dev));
+    TPU1X_TRY(
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+    TPU1X_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                            LN_THREADS, 0));
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    res = per_sm * sms;
+  }
+  const long per_block = (long)LN_THREADS * HN_UNROLL;
+  const long need = (chunks + per_block - 1) / per_block;
+  kernel<<<need < res ? (int)need : res, LN_THREADS, 0, stream>>>(
+      static_cast<bf16*>(qkv), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), chunks, C, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace tpu1x

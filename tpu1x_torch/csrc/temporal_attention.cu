@@ -1,5 +1,6 @@
 // Attention over the frame axis of q, k, v shaped (B, T, S, C), causal or
-// not, heads flat in C (head_dim 32), computed in that layout with no
+// not, heads flat in C (head_dim D = 32 or 64, a template parameter),
+// computed in that layout with no
 // transpose: the forward (K4), and the backward (K6), which writes dq, dk,
 // dv and, where asked, the forward's output o beside them.
 //
@@ -15,15 +16,15 @@
 // byte, against the card's 295); the backward moves q, k, v, dout, dq, dk,
 // dv (234.9 MB, 0.070 ms), and 268.4 MB (0.080 ms) with o.
 //
-// Design. Every (b, s, head) is its own attention of T <= 16 frames by 32
+// Design. Every (b, s, head) is its own attention of T <= 16 frames by D
 // channels, so a warp takes one problem of 16 rows at a time: one
 // position's 16 frames, or two positions' 8 frames where T <= 8 (keys of
-// the other position masked), with mma.sync m16n8k16: S = Q K^T is 4
-// products, P V 4, and the backward's dP = dO V^T, dQ = dS K, dK = dS^T Q,
-// dV = P^T dO 4 each. wgmma does not fit: its smallest product is a 64-row
-// tile, and these are many independent 16 x 16 problems, block-diagonal
-// rather than one product with 64 rows. What limits the kernels is bytes
-// in flight, so:
+// the other position masked), with mma.sync m16n8k16: S = Q K^T is D / 8
+// products, P V D / 8, and the backward's dP = dO V^T, dQ = dS K, dK =
+// dS^T Q, dV = P^T dO D / 8 each. wgmma does not fit: its smallest
+// product is a 64-row tile, and these are many independent 16 x 16
+// problems, block-diagonal rather than one product with 64 rows. What
+// limits the kernels is bytes in flight, so:
 //   - persistent blocks, one an SM (the ring fills most of shared memory),
 //     each walking tiles of TA_POSITIONS positions (twice that where T <=
 //     8) x TA_HEADS heads of one b, or, where the heads are not a multiple
@@ -33,6 +34,13 @@
 //     rank at tp = 4), four times the positions x a quarter of the heads:
 //     the same bytes and problems a tile (the head group HG is a template
 //     parameter, 8, 4 or 2);
+//   - head_dim 64 keeps a stage at TA_BOX bytes a tensor: a (position,
+//     head) is twice the bytes, so a tile holds half the heads (groups of
+//     4, or 2 where the heads are not a multiple of 4) and half the
+//     problems, each twice the work, and a block runs half the consumer
+//     warps (TaShape<D>::WARPS, 8), so the ring keeps its stages (4
+//     forward, 3 backward) and the bytes in flight, which are what the
+//     kernels wait for; a warp's products and registers double instead;
 //   - a producer warp loads a tile's q, k, v (and dout) for all frames with
 //     one TMA box a tensor into a ring of up to TA_MAX_STAGES tiles, as many
 //     as fit in shared memory (4 forward, 3 backward), completing on the
@@ -40,8 +48,9 @@
 //     one computes, and every input byte is read from device memory once;
 //   - the box is the (d, t, h, s, b) view of the (B, T, S, C) tensor (the
 //     frame axis before the head axis, whatever their strides), so one
-//     (position, head) is tp consecutive 64-byte rows in shared memory, in
-//     the 64-byte swizzle, and ldmatrix reads them without bank conflicts;
+//     (position, head) is tp consecutive rows of 2 D bytes in shared
+//     memory, in the swizzle of that width (64 or 128 bytes), and ldmatrix
+//     reads them without bank conflicts;
 //     a box reaches past T when T < tp, and TMA fills those frames with
 //     zeros (and still counts their bytes);
 //   - the softmax runs in fp32 in the accumulators' layout, reduced across
@@ -72,8 +81,9 @@
 // each other, 4 warps 2-4% slower; 4 x 8 and 2 x 16 leave the backward
 // one stage (the static_assert below).
 //
-// Requires T <= 16, head_dim 32, C % 64 == 0 (an even number of heads),
-// strides that are multiples of 8 and 16-byte aligned bases.
+// Requires T <= 16, head_dim 32 or 64, C % (2 head_dim) == 0 (an even
+// number of heads), strides that are multiples of 8 and 16-byte aligned
+// bases.
 
 #include "sm90.cuh"
 
@@ -81,10 +91,8 @@ using namespace tpu1x;
 
 namespace {
 
-constexpr int TA_D = 32;          // head_dim
-constexpr int TA_ROW = TA_D * 2;  // one frame of one head: 64 bytes
-// The tile: positions at 16 frames, heads, consumer warps (a producer and a
-// storer warp beside them), the most stages of the ring.
+// The tile at head_dim 32: positions at 16 frames, heads, consumer warps
+// (a producer and a storer warp beside them); the most stages of the ring.
 constexpr int TA_POSITIONS = 2;
 constexpr int TA_HEADS = 8;
 constexpr int TA_WARPS = 16;
@@ -92,8 +100,23 @@ constexpr int TA_MAX_STAGES = 4;
 constexpr int TA_SMEM_MAX = 232448;  // shared memory a block may use
 // A stage holds one box a tensor: 32 channels, 16 frames (or 8 and twice
 // the positions), TA_HEADS heads, TA_POSITIONS positions (or HG heads and
-// TA_HEADS / HG times the positions: the same bytes).
-constexpr int TA_BOX = TA_POSITIONS * 16 * TA_HEADS * TA_ROW;
+// TA_HEADS / HG times the positions: the same bytes); at head_dim 64 half
+// the heads of twice the bytes.
+constexpr int TA_BOX = TA_POSITIONS * 16 * TA_HEADS * 64;
+
+// What head_dim D changes: one frame of one head (ROW bytes), the heads of
+// a full tile (HEADS) and its consumer warps (WARPS): the problems of a
+// tile halve at 64 (twice the bytes each), and so do the warps.
+template <int D>
+struct TaShape {
+  static_assert(D == 32 || D == 64, "head_dim 32 or 64");
+  static constexpr int ROW = 2 * D;
+  static constexpr int HEADS = TA_HEADS * 32 / D;
+  static constexpr int WARPS = TA_WARPS * 32 / D;
+  static constexpr int THREADS = (WARPS + 2) * 32;
+  static constexpr CUtensorMapSwizzle SWIZZLE =
+      D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+};
 // 1024 bytes of alignment, and three mbarriers a stage.
 __host__ __device__ constexpr int ta_stages(int tensors) {
   return (TA_SMEM_MAX - 1024) / (tensors * TA_BOX + 24) < TA_MAX_STAGES
@@ -163,19 +186,22 @@ __device__ __forceinline__ uint32_t movt(uint32_t a) {
   return d;
 }
 
-// Byte offset of 16-byte chunk c of row r of 64-byte rows in the 64-byte
-// swizzle, from a 512-byte boundary.
+// Byte offset of 16-byte chunk c of row r (0-7) of rows of 2 D bytes in
+// the swizzle of that width, from a 512- or 1024-byte boundary.
+template <int D>
 __device__ __forceinline__ uint32_t chunk_at(int r, int c) {
-  return r * TA_ROW + ((c ^ ((r >> 1) & 3)) << 4);
+  return D == 32 ? r * 64 + ((c ^ ((r >> 1) & 3)) << 4)
+                 : r * 128 + ((c ^ r) << 4);
 }
 
-// One problem's 16 x 32 operand of one tensor in a stage: rows 0-7 from
+// One problem's 16 x D operand of one tensor in a stage: rows 0-7 from
 // `lo`, rows 8-15 from `hi` (tp = 16: the next 8 frames of the same
 // position; tp = 8: the 8 frames of the next position).
+template <int D>
 struct Rows {
   uint32_t lo, hi;
   __device__ __forceinline__ uint32_t at(int r, int c) const {
-    return (r & 8 ? hi : lo) + chunk_at(r & 7, c);
+    return (r & 8 ? hi : lo) + chunk_at<D>(r & 7, c);
   }
 };
 
@@ -183,12 +209,14 @@ struct Rows {
 // fragments, and B fragments of the transposed load (rows: the reduction
 // axis): matrices (rows 0-7, chunk 2j), (8-15, 2j), (0-7, 2j + 1), (8-15,
 // 2j + 1).
-__device__ __forceinline__ uint32_t a_lane(const Rows& x, int lane, int j) {
+template <int D>
+__device__ __forceinline__ uint32_t a_lane(const Rows<D>& x, int lane, int j) {
   return x.at((lane & 7) + (lane & 8), 2 * j + (lane >> 4));
 }
 // B fragments of the plain load (rows: the product's N axis): matrices
 // (rows 0-7, chunk 2j), (0-7, 2j + 1), (8-15, 2j), (8-15, 2j + 1).
-__device__ __forceinline__ uint32_t b_lane(const Rows& x, int lane, int j) {
+template <int D>
+__device__ __forceinline__ uint32_t b_lane(const Rows<D>& x, int lane, int j) {
   return x.at((lane & 7) + ((lane >> 4) << 3), 2 * j + ((lane >> 3) & 1));
 }
 
@@ -211,12 +239,14 @@ __device__ __forceinline__ void transpose_a(uint32_t (&t)[4],
   t[3] = movt(a[3]);
 }
 
-// s = X Y^T of two 16 x 32 operands (X's rows by Y's rows), fp32.
-__device__ __forceinline__ void rows_by_rows(float (&s)[2][4], const Rows& x,
-                                             const Rows& y, int lane) {
-  uint32_t xa[2][4], yb[2][4];
+// s = X Y^T of two 16 x D operands (X's rows by Y's rows), fp32.
+template <int D>
+__device__ __forceinline__ void rows_by_rows(float (&s)[2][4],
+                                             const Rows<D>& x,
+                                             const Rows<D>& y, int lane) {
+  uint32_t xa[D / 16][4], yb[D / 16][4];
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
+  for (int j = 0; j < D / 16; ++j) {
     ldsm_x4(xa[j], a_lane(x, lane, j));
     ldsm_x4(yb[j], b_lane(y, lane, j));
   }
@@ -225,22 +255,23 @@ __device__ __forceinline__ void rows_by_rows(float (&s)[2][4], const Rows& x,
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
+  for (int j = 0; j < D / 16; ++j) {
     mma_bf16(s[0], xa[j], &yb[j][0]);
     mma_bf16(s[1], xa[j], &yb[j][2]);
   }
 }
 
-// acc = A Y, A a 16 x 16 fragment (by rows of Y), Y a 16 x 32 operand.
-__device__ __forceinline__ void a_by_rows(float (&acc)[4][4],
-                                          const uint32_t (&a)[4], const Rows& y,
-                                          int lane) {
+// acc = A Y, A a 16 x 16 fragment (by rows of Y), Y a 16 x D operand.
+template <int D>
+__device__ __forceinline__ void a_by_rows(float (&acc)[D / 8][4],
+                                          const uint32_t (&a)[4],
+                                          const Rows<D>& y, int lane) {
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
+  for (int j = 0; j < D / 16; ++j) {
     uint32_t yb[4];
     ldsm_x4_t(yb, a_lane(y, lane, j));
     mma_bf16(acc[2 * j], a, &yb[0]);
@@ -248,16 +279,17 @@ __device__ __forceinline__ void a_by_rows(float (&acc)[4][4],
   }
 }
 
-// A 16 x 32 fp32 accumulator (acc[n][e]: row g + 8 (e >> 1), column 8 n +
+// A 16 x D fp32 accumulator (acc[n][e]: row g + 8 (e >> 1), column 8 n +
 // 2 q4 + (e & 1)), times mul where SCALED, in bf16 over the operand `dst`
 // (whose reads by this warp are done).
-template <bool SCALED>
-__device__ __forceinline__ void put_rows(const float (&acc)[4][4], float mul,
-                                         const Rows& dst, int lane) {
+template <bool SCALED, int D>
+__device__ __forceinline__ void put_rows(const float (&acc)[D / 8][4],
+                                         float mul, const Rows<D>& dst,
+                                         int lane) {
   const int g = lane >> 2, q4 = lane & 3;
   __syncwarp();
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float x0 = acc[n][2 * h], x1 = acc[n][2 * h + 1];
@@ -278,10 +310,11 @@ __device__ __forceinline__ void put_rows(const float (&acc)[4][4], float mul,
 // and j / tp; a key is masked where its position is another (tp = 8), where
 // it follows the query (causal), or where its frame is >= T (not causal:
 // zero-filled keys would otherwise take weight).
-template <bool CAUSAL>
-__device__ __forceinline__ void probabilities(float (&p)[2][4], const Rows& q,
-                                              const Rows& k, int lane, int T,
-                                              int tp, float scale) {
+template <bool CAUSAL, int D>
+__device__ __forceinline__ void probabilities(float (&p)[2][4],
+                                              const Rows<D>& q,
+                                              const Rows<D>& k, int lane,
+                                              int T, int tp, float scale) {
   const int g = lane >> 2, q4 = lane & 3;
   rows_by_rows(p, q, k, lane);
   float m[2] = {-INFINITY, -INFINITY};
@@ -319,15 +352,17 @@ __device__ __forceinline__ void probabilities(float (&p)[2][4], const Rows& q,
 }
 
 // The body of both kernels. grid: the tiles, or the blocks the card keeps
-// resident, whichever is fewer; (TA_WARPS + 2) 32 threads: the consumer
+// resident, whichever is fewer; TaShape<D>::THREADS threads: the consumer
 // warps, the producer, the storer; dynamic shared memory ta_smem(NT). Tile
 // i is (b, positions sg (i / h_groups % s_tiles) .., heads HG (i %
 // h_groups) ..); its problems are (16 / tp positions, one head), one a warp
 // at a time.
-template <bool BWD, bool CAUSAL, int HG>
+template <int D, bool BWD, bool CAUSAL, int HG>
 __device__ __forceinline__ void temporal_body(const TaMaps& maps,
                                               const TaArgs& a) {
-  static_assert(TA_HEADS % HG == 0, "a head group divides TA_HEADS");
+  using Sh = TaShape<D>;
+  constexpr int WARPS = Sh::WARPS;
+  static_assert(Sh::HEADS % HG == 0, "a head group divides a tile's heads");
   constexpr int NT = BWD ? 4 : 3;  // operands a tile
   constexpr int STAGES = ta_stages(NT);
   constexpr uint32_t box = TA_BOX, stage_bytes = NT * box;
@@ -335,7 +370,7 @@ __device__ __forceinline__ void temporal_body(const TaMaps& maps,
   const uint32_t ring = (smem_u32(ta_raw) + 1023) & ~1023u;
   const int span = 16 / a.tp;        // positions a problem
   const int per = a.sg / span * HG;  // problems a tile
-  const uint32_t slot = a.tp * TA_ROW;  // one (position, head)
+  const uint32_t slot = a.tp * Sh::ROW;  // one (position, head)
   // three mbarriers a stage: the loads landed, the consumers are done, the
   // stores have read the stage
   const uint32_t full = ring + STAGES * stage_bytes;
@@ -345,16 +380,16 @@ __device__ __forceinline__ void temporal_body(const TaMaps& maps,
   if (threadIdx.x == 0) {
     for (int st = 0; st < STAGES; ++st) {
       mbar_init(full + 8 * st, 1);
-      mbar_init(done + 8 * st, TA_WARPS);
+      mbar_init(done + 8 * st, WARPS);
       mbar_init(empty + 8 * st, 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp >= TA_WARPS) {  // the producer, then the storer
+  if (warp >= WARPS) {  // the producer, then the storer
     if (lane != 0) return;
-    const bool producer = warp == TA_WARPS;
+    const bool producer = warp == WARPS;
     int it = 0;
     for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x, ++it) {
       const int st = it % STAGES, use = it / STAGES;
@@ -391,25 +426,25 @@ __device__ __forceinline__ void temporal_body(const TaMaps& maps,
   for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x, ++it) {
     const int st = it % STAGES, use = it / STAGES;
     mbar_wait(full + 8 * st, use & 1);
-    for (int pi = warp; pi < per; pi += TA_WARPS) {
+    for (int pi = warp; pi < per; pi += WARPS) {
       const int sl = pi / HG * span, hl = pi % HG;
       // operand i: its box in stage st, the slot of (sl, hl), and rows 8-15
       // 8 frames on (tp = 16) or one position on (tp = 8); a slot past S
       // holds zeros, which TMA does not store
       const uint32_t lo = ring + st * stage_bytes + (sl * HG + hl) * slot;
-      const uint32_t hi = lo + (a.tp == 16 ? 8 * TA_ROW : HG * slot);
-      const Rows q{lo, hi}, k{lo + box, hi + box},
+      const uint32_t hi = lo + (a.tp == 16 ? 8 * Sh::ROW : HG * slot);
+      const Rows<D> q{lo, hi}, k{lo + box, hi + box},
           v{lo + 2 * box, hi + 2 * box};
-      float p[2][4], acc[4][4];
+      float p[2][4], acc[D / 8][4];
       uint32_t pa[4];
       probabilities<CAUSAL>(p, q, k, lane, a.T, a.tp, a.scale);
       to_a(pa, p);
       if (!BWD) {
         a_by_rows(acc, pa, v, lane);  // o = P V, over v
-        put_rows<false>(acc, 1.f, v, lane);
+        put_rows<false, D>(acc, 1.f, v, lane);
         continue;
       }
-      const Rows dout{lo + 3 * box, hi + 3 * box};
+      const Rows<D> dout{lo + 3 * box, hi + 3 * box};
       float dp[2][4];
       rows_by_rows(dp, dout, v, lane);  // dP = dO V^T
       float delta[2] = {0.f, 0.f};
@@ -429,16 +464,16 @@ __device__ __forceinline__ void temporal_body(const TaMaps& maps,
       to_a(dsa, dp);
       if (a.with_o) {
         a_by_rows(acc, pa, v, lane);  // o = P V, over v
-        put_rows<false>(acc, 1.f, v, lane);
+        put_rows<false, D>(acc, 1.f, v, lane);
       }
       a_by_rows(acc, dsa, k, lane);  // dQ = dS K, over k
-      put_rows<true>(acc, a.scale, k, lane);
+      put_rows<true, D>(acc, a.scale, k, lane);
       transpose_a(t, dsa);
       a_by_rows(acc, t, q, lane);  // dK = dS^T Q, over q
-      put_rows<true>(acc, a.scale, q, lane);
+      put_rows<true, D>(acc, a.scale, q, lane);
       transpose_a(t, pa);
       a_by_rows(acc, t, dout, lane);  // dV = P^T dO, over dout
-      put_rows<false>(acc, 1.f, dout, lane);
+      put_rows<false, D>(acc, 1.f, dout, lane);
     }
     // this warp's results, written through the generic proxy, are read by
     // the storer's TMA
@@ -448,44 +483,45 @@ __device__ __forceinline__ void temporal_body(const TaMaps& maps,
   }
 }
 
-template <bool CAUSAL, int HG>
-__global__ void __launch_bounds__((TA_WARPS + 2) * 32, 1)
+template <int D, bool CAUSAL, int HG>
+__global__ void __launch_bounds__(TaShape<D>::THREADS, 1)
     temporal_fwd_kernel(const __grid_constant__ TaMaps maps, const TaArgs a) {
-  temporal_body<false, CAUSAL, HG>(maps, a);
+  temporal_body<D, false, CAUSAL, HG>(maps, a);
 }
 
-template <bool CAUSAL, int HG>
-__global__ void __launch_bounds__((TA_WARPS + 2) * 32, 1)
+template <int D, bool CAUSAL, int HG>
+__global__ void __launch_bounds__(TaShape<D>::THREADS, 1)
     temporal_bwd_kernel(const __grid_constant__ TaMaps maps, const TaArgs a) {
-  temporal_body<true, CAUSAL, HG>(maps, a);
+  temporal_body<D, true, CAUSAL, HG>(maps, a);
 }
 
-// The head group of a tile: TA_HEADS where the heads are a multiple of it,
-// else 4 where they are a multiple of 4, else 2 (`ta_ok` takes an even
-// number of heads).
-int head_group(int C) {
-  const int heads = C / TA_D;
-  return heads % TA_HEADS == 0 ? TA_HEADS : heads % 4 == 0 ? 4 : 2;
+// The head group of a tile: a full tile's heads (8 at head_dim 32, 4 at
+// 64) where the heads are a multiple of it, else 4 where they are a
+// multiple of 4, else 2 (`ta_ok` takes an even number of heads).
+int head_group(int C, int D) {
+  const int heads = C / D, full = TA_HEADS * 32 / D;
+  return heads % full == 0 ? full : heads % 4 == 0 ? 4 : 2;
 }
 
 // The (d, t, h, s, b) view of a (B, T, S, C) bf16 tensor with row stride
-// ld (elements) in the 64-byte swizzle; a box is tp frames of hg heads of
-// sg positions of one b.
+// ld (elements) in the swizzle of its 2 D-byte rows; a box is tp frames of
+// hg heads of sg positions of one b.
+template <int D>
 cudaError_t frame_map(CUtensorMap* map, const void* base, int B, int T, int S,
                       int C, int ld, int tp, int sg) {
-  const cuuint64_t dims[5] = {TA_D, (cuuint64_t)T, (cuuint64_t)(C / TA_D),
+  const cuuint64_t dims[5] = {D, (cuuint64_t)T, (cuuint64_t)(C / D),
                               (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t row = (cuuint64_t)ld * 2;
-  const cuuint64_t strides[4] = {row * S, TA_ROW, row, row * S * T};
-  const cuuint32_t box[5] = {TA_D, (cuuint32_t)tp, (cuuint32_t)head_group(C),
-                             (cuuint32_t)sg, 1};
-  return encode_map(map, base, 5, dims, strides, box,
-                    CU_TENSOR_MAP_SWIZZLE_64B);
+  const cuuint64_t strides[4] = {row * S, TaShape<D>::ROW, row, row * S * T};
+  const cuuint32_t box[5] = {D, (cuuint32_t)tp,
+                             (cuuint32_t)head_group(C, D), (cuuint32_t)sg, 1};
+  return encode_map(map, base, 5, dims, strides, box, TaShape<D>::SWIZZLE);
 }
 
 // The shapes the kernels take (the wrapper's `_check_qkv` raises first).
-bool ta_ok(int T, int C, int ld) {
-  return T >= 1 && T <= 16 && C % 64 == 0 && ld % 8 == 0;
+bool ta_ok(int T, int C, int D, int ld) {
+  return T >= 1 && T <= 16 && (D == 32 || D == 64) && C % (2 * D) == 0 &&
+         ld % 8 == 0;
 }
 
 // The tile at T frames: a box spans 16 frames, or 8 and twice the
@@ -494,25 +530,25 @@ bool ta_ok(int T, int C, int ld) {
 // at 8), so that a stage holds TA_BOX bytes a tensor and a tile TA_WARPS
 // problems either way (frames t >= T come back from TMA as zeros and still
 // count).
-TaArgs args_of(int B, int T, int S, int C, float scale) {
+TaArgs args_of(int B, int T, int S, int C, int D, float scale) {
   TaArgs a = {};
-  const int hg = head_group(C);
+  const int hg = head_group(C, D);
   a.T = T, a.S = S, a.C = C, a.scale = scale;
   a.tp = T <= 8 ? 8 : 16;
-  a.sg = TA_POSITIONS * (TA_HEADS / hg) * 16 / a.tp;
+  a.sg = TA_POSITIONS * (TA_HEADS * 32 / D / hg) * 16 / a.tp;
   a.s_tiles = (S + a.sg - 1) / a.sg;
-  a.h_groups = C / TA_D / hg;
+  a.h_groups = C / D / hg;
   a.tiles = B * a.s_tiles * a.h_groups;
   return a;
 }
 
-template <bool BWD, bool CAUSAL, int HG>
+template <int D, bool BWD, bool CAUSAL, int HG>
 cudaError_t launch_hg(const TaMaps& maps, const TaArgs& a,
                       cudaStream_t stream) {
   if (a.tiles == 0) return cudaSuccess;
-  constexpr int smem = ta_smem(BWD ? 4 : 3), threads = (TA_WARPS + 2) * 32;
-  auto kernel = BWD ? temporal_bwd_kernel<CAUSAL, HG>
-                    : temporal_fwd_kernel<CAUSAL, HG>;
+  constexpr int smem = ta_smem(BWD ? 4 : 3), threads = TaShape<D>::THREADS;
+  auto kernel = BWD ? temporal_bwd_kernel<D, CAUSAL, HG>
+                    : temporal_fwd_kernel<D, CAUSAL, HG>;
   // the shared-memory limit and the resident blocks, set at the first call
   static int resident = 0;
   if (resident == 0)
@@ -523,34 +559,49 @@ cudaError_t launch_hg(const TaMaps& maps, const TaArgs& a,
 }
 
 template <bool BWD, bool CAUSAL>
-cudaError_t launch(const TaMaps& maps, const TaArgs& a, cudaStream_t stream) {
-  switch (head_group(a.C)) {
+cudaError_t launch(const TaMaps& maps, const TaArgs& a, int D,
+                   cudaStream_t stream) {
+  if (D == 64)
+    return head_group(a.C, 64) == 4
+               ? launch_hg<64, BWD, CAUSAL, 4>(maps, a, stream)
+               : launch_hg<64, BWD, CAUSAL, 2>(maps, a, stream);
+  switch (head_group(a.C, 32)) {
     case TA_HEADS:
-      return launch_hg<BWD, CAUSAL, TA_HEADS>(maps, a, stream);
+      return launch_hg<32, BWD, CAUSAL, TA_HEADS>(maps, a, stream);
     case 4:
-      return launch_hg<BWD, CAUSAL, 4>(maps, a, stream);
+      return launch_hg<32, BWD, CAUSAL, 4>(maps, a, stream);
     default:
-      return launch_hg<BWD, CAUSAL, 2>(maps, a, stream);
+      return launch_hg<32, BWD, CAUSAL, 2>(maps, a, stream);
   }
+}
+
+// The tensor map of D = 32 or 64.
+cudaError_t frame_map_d(int D, CUtensorMap* map, const void* base, int B,
+                        int T, int S, int C, int ld, int tp, int sg) {
+  return D == 64 ? frame_map<64>(map, base, B, T, S, C, ld, tp, sg)
+                 : frame_map<32>(map, base, B, T, S, C, ld, tp, sg);
 }
 
 }  // namespace
 
-// q, k, v: element (b, t, s, c) at ((b T + t) S + s) ld + c; out contiguous.
+// q, k, v: element (b, t, s, c) at ((b T + t) S + s) ld + c; out contiguous;
+// heads of D = 32 or 64 channels.
 extern "C" int tpu1x_temporal_attention(const void* q, const void* k,
                                         const void* v, void* out, int B, int T,
-                                        int S, int C, int ld, float scale,
-                                        int causal, void* stream) {
-  if (!ta_ok(T, C, ld)) return cudaErrorInvalidValue;
-  const TaArgs a = args_of(B, T, S, C, scale);
+                                        int S, int C, int D, int ld,
+                                        float scale, int causal,
+                                        void* stream) {
+  if (!ta_ok(T, C, D, ld)) return cudaErrorInvalidValue;
+  const TaArgs a = args_of(B, T, S, C, D, scale);
   TaMaps maps = {};
   const void* in[3] = {q, k, v};
   for (int i = 0; i < 3; ++i)
-    TPU1X_TRY(frame_map(&maps.in[i], in[i], B, T, S, C, ld, a.tp, a.sg));
-  TPU1X_TRY(frame_map(&maps.out[0], out, B, T, S, C, C, a.tp, a.sg));
+    TPU1X_TRY(
+        frame_map_d(D, &maps.in[i], in[i], B, T, S, C, ld, a.tp, a.sg));
+  TPU1X_TRY(frame_map_d(D, &maps.out[0], out, B, T, S, C, C, a.tp, a.sg));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return causal ? launch<false, true>(maps, a, st)
-                : launch<false, false>(maps, a, st);
+  return causal ? launch<false, true>(maps, a, D, st)
+                : launch<false, false>(maps, a, D, st);
 }
 
 // q, k, v at row stride ld, dout at ld_do, dq / dk / dv at ld_out (so that
@@ -559,23 +610,23 @@ extern "C" int tpu1x_temporal_attention(const void* q, const void* k,
 // writes it.
 extern "C" int tpu1x_temporal_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout, void* o,
-    void* dq, void* dk, void* dv, int B, int T, int S, int C, int ld,
+    void* dq, void* dk, void* dv, int B, int T, int S, int C, int D, int ld,
     int ld_do, int ld_out, float scale, int causal, void* stream) {
-  if (!ta_ok(T, C, ld) || ld_do % 8 || ld_out % 8)
+  if (!ta_ok(T, C, D, ld) || ld_do % 8 || ld_out % 8)
     return cudaErrorInvalidValue;
-  TaArgs a = args_of(B, T, S, C, scale);
+  TaArgs a = args_of(B, T, S, C, D, scale);
   a.with_o = o != nullptr;
   TaMaps maps = {};
   const void* in[4] = {q, k, v, dout};
   for (int i = 0; i < 4; ++i)
-    TPU1X_TRY(frame_map(&maps.in[i], in[i], B, T, S, C, i == 3 ? ld_do : ld,
-                        a.tp, a.sg));
+    TPU1X_TRY(frame_map_d(D, &maps.in[i], in[i], B, T, S, C,
+                          i == 3 ? ld_do : ld, a.tp, a.sg));
   void* out[4] = {o, dq, dk, dv};
   for (int i = 0; i < 4; ++i)
     if (out[i] != nullptr)
-      TPU1X_TRY(frame_map(&maps.out[i], out[i], B, T, S, C,
-                          i == 0 ? C : ld_out, a.tp, a.sg));
+      TPU1X_TRY(frame_map_d(D, &maps.out[i], out[i], B, T, S, C,
+                            i == 0 ? C : ld_out, a.tp, a.sg));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return causal ? launch<true, true>(maps, a, st)
-                : launch<true, false>(maps, a, st);
+  return causal ? launch<true, true>(maps, a, D, st)
+                : launch<true, false>(maps, a, D, st);
 }

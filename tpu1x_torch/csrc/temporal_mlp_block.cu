@@ -47,16 +47,16 @@ using namespace tpu1x;
 // weights bf16 (in, out); biases bf16 or null; ln_scale/ln_bias fp32 (C,);
 // scratch qkv_buf (B*frames*S, 3C), attn_buf, x1_buf and xn_buf
 // (B*frames*S, C), h_buf (B*frames*S, F4); k_out/v_out (B, S, C), both null
-// or neither. Requires frames in {1, 2}, T <= 16, C % 256 == 0,
-// F4 % 64 == 0.
+// or neither. Requires frames in {1, 2}, T <= 16, head_dim D in {32, 64},
+// C % 256 == 0, F4 % 64 == 0.
 extern "C" int tpu1x_temporal_mlp_block(
     const void* x, const void* k_cache, const void* v_cache, const void* t_B,
     const void* wqkv, const void* bqkv, const void* wproj, const void* bproj,
     const void* ln_scale, const void* ln_bias, const void* wfc1,
     const void* bfc1, const void* wfc2, const void* bfc2, void* qkv_buf,
     void* attn_buf, void* x1_buf, void* xn_buf, void* h_buf, void* out,
-    void* k_out, void* v_out, int B, int frames, int S, int C, int F4, int T,
-    int L, int layer, int gelu_tanh, float scale, void* stream) {
+    void* k_out, void* v_out, int B, int frames, int S, int C, int D, int F4,
+    int T, int L, int layer, int gelu_tanh, float scale, void* stream) {
   if ((frames != 1 && frames != 2) || T > DA_MAXT || C % 256 || F4 % G9_BN)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -84,7 +84,7 @@ extern "C" int tpu1x_temporal_mlp_block(
   d.t_B = static_cast<const int*>(t_B);
   d.k_out = static_cast<bf16*>(k_out);
   d.v_out = static_cast<bf16*>(v_out);
-  d.B = B, d.S = S, d.C = C, d.T = T, d.L = L, d.layer = layer;
+  d.B = B, d.S = S, d.C = C, d.T = T, d.L = L, d.layer = layer, d.D = D;
   d.scale = scale;
   TPU1X_TRY(launch_decode_attention(d, frames, s));
 

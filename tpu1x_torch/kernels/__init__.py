@@ -50,11 +50,11 @@ SIGNATURES = {
         ("tpu1x_gemm_sm90", [P] * 5 + [I] * 4 + [P]),
     ],
     "temporal_attention": [
-        # q, k, v, out, B, T, S, C, ld, scale, causal, stream
-        ("tpu1x_temporal_attention", [P] * 4 + [I] * 5 + [F, I, P]),
-        # q, k, v, dout, o, dq, dk, dv, B, T, S, C, ld, ld_do, ld_out,
+        # q, k, v, out, B, T, S, C, D, ld, scale, causal, stream
+        ("tpu1x_temporal_attention", [P] * 4 + [I] * 6 + [F, I, P]),
+        # q, k, v, dout, o, dq, dk, dv, B, T, S, C, D, ld, ld_do, ld_out,
         # scale, causal, stream
-        ("tpu1x_temporal_attention_bwd", [P] * 8 + [I] * 7 + [F, I, P]),
+        ("tpu1x_temporal_attention_bwd", [P] * 8 + [I] * 8 + [F, I, P]),
     ],
     "train_block": [
         # A, B, C, pre, Cf, bias, resid, aux, M, N, K, form, act, stream
@@ -69,16 +69,16 @@ SIGNATURES = {
     "temporal_mlp_block": [
         # x, k_cache, v_cache, t_B, wqkv, bqkv, wproj, bproj, ln_scale,
         # ln_bias, wfc1, bfc1, wfc2, bfc2, qkv_buf, attn_buf, x1_buf, xn_buf,
-        # h_buf, out, k_out, v_out, B, frames, S, C, F4, T, L, layer,
+        # h_buf, out, k_out, v_out, B, frames, S, C, D, F4, T, L, layer,
         # gelu_tanh, scale, stream
-        ("tpu1x_temporal_mlp_block", [P] * 22 + [I] * 9 + [F, P]),
+        ("tpu1x_temporal_mlp_block", [P] * 22 + [I] * 10 + [F, P]),
     ],
     "decode_attention": [
         # q0, q1, k0, k1, v0, v1, sbq, ldq, sbk, ldk, sbv, ldv, k_cache,
         # v_cache, k_scale, v_scale, t_B, out0, out1, osb, old, k_out, v_out,
-        # B, frames, S, C, T, L, layer, scale, stream
+        # B, frames, S, C, D, T, L, layer, scale, stream
         ("tpu1x_decode_attention", [P] * 6 + [L] * 6 + [P] * 7 + [L, L, P, P]
-         + [I] * 7 + [F, P]),
+         + [I] * 8 + [F, P]),
     ],
     "flash_attention": [
         # q, k, v, out, lse, rsq, tsq, rsk, tsk, rsv, tsv, R, N, H, D, scale,

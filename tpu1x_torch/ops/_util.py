@@ -53,5 +53,18 @@ def check_tensor(t: torch.Tensor, name: str, shape, dtype,
     require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
 
 
+# The head widths that every attention kernel of the port is built for.
+HEAD_DIMS = (32, 64)
+
+
+def head_dim_of(C: int, num_heads: int, what: str) -> int:
+    """C / num_heads where it is one of HEAD_DIMS; raises, naming them,
+    for any other head width (the kernels have no fallback)."""
+    D = C // num_heads if num_heads > 0 else 0
+    require(num_heads > 0 and D * num_heads == C and D in HEAD_DIMS,
+            f"{what} needs head_dim 32 or 64, got C={C}, heads={num_heads}")
+    return D
+
+
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()

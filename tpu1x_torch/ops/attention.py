@@ -8,7 +8,7 @@ import torch
 
 from tpu1x_torch import kernels
 from tpu1x_torch.ops import remat
-from tpu1x_torch.ops._util import require
+from tpu1x_torch.ops._util import HEAD_DIMS, require
 
 NEG_INF = torch.finfo(torch.float32).min
 # `mha` sends fewer tokens than this (the frame axis, T = 16) to the plain
@@ -101,9 +101,12 @@ def _check_shape(q, k, v):
     N, H, D = q.shape[-3:]
     require(k.shape == q.shape and v.shape == q.shape,
             "q, k, v must share one shape")
-    require(D == 32 and 64 <= N <= 256 and N % 64 == 0,
-            f"the flash attention kernels need head_dim 32, N % 64 == 0 and "
-            f"64 <= N <= 256, got N={N}, head_dim={D}")
+    require(D in HEAD_DIMS,
+            f"the flash attention kernels need head_dim 32 or 64, got "
+            f"head_dim={D}")
+    require(64 <= N <= 256 and N % 64 == 0,
+            f"the flash attention kernels need N % 64 == 0 and "
+            f"64 <= N <= 256, got N={N}")
 
 
 def _lse_shape(q):
@@ -112,10 +115,10 @@ def _lse_shape(q):
 
 
 def flash_mha_fwd(q, k, v, *, scale: float, causal: bool):
-    """Check, launch the forward kernel on CUDA q, k, v (..., N, H, 32) and
-    count it. Returns (o, lse): o contiguous of q's shape, lse fp32
-    (..., H, N) as `mha_lse_reference` gives it. CPU tensors take
-    `mha_lse_reference` and count nothing."""
+    """Check, launch the forward kernel on CUDA q, k, v (..., N, H, D),
+    head_dim D 32 or 64, and count it. Returns (o, lse): o contiguous of
+    q's shape, lse fp32 (..., H, N) as `mha_lse_reference` gives it. CPU
+    tensors take `mha_lse_reference` and count nothing."""
     if not q.is_cuda:
         return mha_lse_reference(q, k, v, scale=scale, causal=causal)
     _check_shape(q, k, v)
@@ -208,7 +211,8 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launch csrc/flash_attention.cu, which replaces the Pallas kernels
     tpu1x/ops/pallas_attention.py:_flash_mha_bhnd (forward) and, under
     autograd, _flash_mha_bwd_bhnd (backward). The card path takes bf16,
-    head_dim 32, N % 64 == 0 and 64 <= N <= 256; fp32 inputs are for the CPU.
+    head_dim 32 or 64, N % 64 == 0 and 64 <= N <= 256; fp32 inputs are for
+    the CPU.
     q, k and v are read where they lie, each with its own strides (the last
     two axes contiguous, the others multiples of 8 that fold into one row
     stride), so the v third of a (rows, N, 3, H, D) qkv product needs no
@@ -223,12 +227,15 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     by the row sum of the rounded p at the end, where the TPU kernel rounds
     the normalised p. On the H100 it is persistent blocks of two
     warpgroups, each (row, head) loaded once by TMA into a two-stage ring
-    while the one before computes, both products on wgmma, o stored by TMA;
+    (one stage at head_dim 64, two blocks an SM) while the one before
+    computes, both products on wgmma, o stored by TMA;
     its floors are the bytes (q, k, v, o once each) and the exponentials,
     about equal. The backward (`flash_mha_bwd_plain`'s arithmetic) takes p
     from lse with one exponential a logit and delta = sum d_o o, and makes
     the TPU kernel's five products on wgmma, key tiles outermost, with dq
-    summed in shared memory; it rounds p and ds to bf16 for its products,
+    summed in shared memory (head_dim 32), or two passes, one query-major
+    for dq and one key-major for dk and dv, each sum in registers (head_dim
+    64: seven products); it rounds p and ds to bf16 for its products,
     where the TPU kernel keeps them fp32. Nothing N x N reaches device
     memory either way; PERF.md has both kernels' times against their
     floors and against SDPA.

@@ -9,7 +9,7 @@ from typing import Optional, Tuple
 import torch
 
 from tpu1x_torch import kernels
-from tpu1x_torch.ops._util import check_tensor, ptr, require
+from tpu1x_torch.ops._util import check_tensor, head_dim_of, ptr, require
 from tpu1x_torch.ops.attention import NEG_INF
 
 
@@ -168,9 +168,10 @@ def _check(qs, ks, vs, k_cache, v_cache, t_B, layer, k_scale, v_scale, out,
     T, L = k_cache.shape[:2]
     dev = qs[0].device
     require(T <= 16, f"decode attention kernel needs T <= 16, got {T}")
-    require(C == 32 * num_heads and C % 256 == 0 and C <= 2048,
-            f"decode attention kernel needs head_dim 32, C % 256 == 0 and "
-            f"C <= 2048, got C={C}, heads={num_heads}")
+    head_dim_of(C, num_heads, "decode attention kernel")
+    require(C % 256 == 0 and C <= 2048,
+            f"decode attention kernel needs C % 256 == 0 and C <= 2048, got "
+            f"C={C}")
     require(isinstance(layer, int) and 0 <= layer < L,
             f"layer must be an int in [0, {L}), got {layer!r}")
     require((k_scale is None) == (v_scale is None),
@@ -213,8 +214,8 @@ def _launch(qs, ks, vs, k_cache, v_cache, t_B, layer, k_scale, v_scale, out,
         v_cache.data_ptr(), ptr(k_scale), ptr(v_scale), t_B.data_ptr(),
         out[0].data_ptr(), second(out), *so,
         None if kv_out is None else kv_out[0].data_ptr(),
-        None if kv_out is None else kv_out[1].data_ptr(), B, frames, S, C, T,
-        L, layer, scale, kernels.stream_of(qs[0]))
+        None if kv_out is None else kv_out[1].data_ptr(), B, frames, S, C,
+        C // num_heads, T, L, layer, scale, kernels.stream_of(qs[0]))
     kernels.check(err, "decode_attention")
     return tuple(out)
 
@@ -242,7 +243,7 @@ def temporal_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     CPU tensors take `temporal_decode_attention_plain`. CUDA tensors launch
     csrc/decode_attention.cu, which replaces the Pallas kernel
     tpu1x/ops/decode_attention.py:temporal_decode_attention (_kernel): bf16
-    q, k_cur, v_cur, int32 t_B, `layer` a plain int, head_dim 32,
+    q, k_cur, v_cur, int32 t_B, `layer` a plain int, head_dim 32 or 64,
     C % 256 == 0, C <= 2048, T <= 16, S % 4 == 0 for the int8 cache. q,
     k_cur, v_cur and `out` may each be strided views, as the column thirds
     of one qkv product are: last axis contiguous, the other two strides
@@ -253,9 +254,11 @@ def temporal_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     Bound on the H100: device memory, the read of the cache slots t < t_B[b]
     of one layer (the int8 cache halves it). Persistent blocks stream each
     slot's tile of a few tokens' K and V rows into a ring of shared-memory
-    stages by bulk copies, and a thread per (token, head) runs an online
-    softmax over them in one pass; an int8 slot's scales multiply the logit
-    and the probability, and no dequantized copy exists.
+    stages by bulk copies, and a thread per (token, 32 channels) runs an
+    online softmax over them in one pass (at head_dim 64 two lanes a head
+    row, their halves of each logit summed by a shuffle); an int8 slot's
+    scales multiply the logit and the probability, and no dequantized copy
+    exists.
     """
     kw = dict(layer=layer, scale=scale, num_heads=num_heads, k_scale=k_scale,
               v_scale=v_scale)

@@ -8,7 +8,8 @@ from typing import Optional
 import torch
 
 from tpu1x_torch import kernels
-from tpu1x_torch.ops._util import check_tensor, dense, gelu, ptr, require
+from tpu1x_torch.ops._util import (check_tensor, dense, gelu, head_dim_of,
+                                   ptr, require)
 from tpu1x_torch.ops.attention import mha_reference
 from tpu1x_torch.ops.layernorm import layer_norm_plain
 
@@ -94,18 +95,18 @@ def spatial_block(x: torch.Tensor, wqkv: torch.Tensor, wproj: torch.Tensor, *,
     csrc/spatial_block.cu, which replaces the Pallas kernel
     tpu1x/ops/spatial_block.py:spatial_block. It takes bf16 x and weights
     ((C, 3C), (C, C), biases (3C,), (C,) or None), fp32 LN params (C,) or
-    None, fp32 qk-LN params (32,) or None, S == 256, head_dim 32 and
-    C % 64 == 0.
+    None, fp32 qk-LN params (head_dim,) or None, S == 256, head_dim 32 or
+    64 and C % 64 == 0.
 
     Bound on the H100: tensor-core operations. One row is 256 KB in bf16,
     more than a block's shared memory, so the TPU's one-program-per-row
     design becomes launches whose intermediates stay in L2: the pre-LN as a
     row pass (K5's kernel), the qkv product on a TMA-fed wgmma GEMM
-    (csrc/gemm_sm90.cuh), the attention (with the pre-LN: K9's flash
-    forward on the q, k, v thirds of qkv; with the qk-LN: a kernel per
-    (frame, head, 64-query tile) that normalises the head's q and k rows in
-    shared memory), and the proj product + bias + residual on the same
-    GEMM; the (N, H, S, S) logits never leave the SM.
+    (csrc/gemm_sm90.cuh), with the qk-LN a row pass over each head row of
+    the q and k thirds of qkv in place (layer_norm.cuh's head_norm_kernel),
+    the attention (K9's flash forward on the q, k, v thirds of qkv), and
+    the proj product + bias + residual on the same GEMM; the (N, H, S, S)
+    logits never leave the SM.
     """
     if not x.is_cuda:
         return spatial_block_plain(x, wqkv, wproj, num_heads=num_heads,
@@ -116,9 +117,8 @@ def spatial_block(x: torch.Tensor, wqkv: torch.Tensor, wproj: torch.Tensor, *,
     N, S, C = x.shape
     dev, bf = x.device, torch.bfloat16
     require(S == 256, f"spatial_block kernel needs S == 256, got {S}")
-    require(C == 32 * num_heads and C % 64 == 0,
-            f"spatial_block kernel needs head_dim 32 and C % 64 == 0, got "
-            f"C={C}, heads={num_heads}")
+    D = head_dim_of(C, num_heads, "spatial_block kernel")
+    require(C % 64 == 0, f"spatial_block kernel needs C % 64 == 0, got {C}")
     require((ln_scale is None) == (ln_bias is None)
             and (qk_ln_scale is None) == (qk_ln_bias is None),
             "pass both params of a LayerNorm or neither")
@@ -133,18 +133,17 @@ def spatial_block(x: torch.Tensor, wqkv: torch.Tensor, wproj: torch.Tensor, *,
         check_tensor(ln_scale, "ln_scale", (C,), torch.float32, dev)
         check_tensor(ln_bias, "ln_bias", (C,), torch.float32, dev)
     if qk_ln_scale is not None:
-        check_tensor(qk_ln_scale, "qk_ln_scale", (32,), torch.float32, dev)
-        check_tensor(qk_ln_bias, "qk_ln_bias", (32,), torch.float32, dev)
-    # the pre-LN's output, then the flash attention's lse (no qk-LN)
-    xn = (torch.empty_like(x)
-          if ln_scale is not None or qk_ln_scale is None else None)
+        check_tensor(qk_ln_scale, "qk_ln_scale", (D,), torch.float32, dev)
+        check_tensor(qk_ln_bias, "qk_ln_bias", (D,), torch.float32, dev)
+    # the pre-LN's output, then the flash attention's lse
+    xn = torch.empty_like(x)
     qkv = torch.empty(N, S, 3 * C, dtype=bf, device=dev)
     attn = torch.empty_like(x)
     out = torch.empty_like(x)
     err = kernels.lib("spatial_block").tpu1x_spatial_block(
         x.data_ptr(), wqkv.data_ptr(), ptr(bqkv), wproj.data_ptr(), ptr(bproj),
         ptr(ln_scale), ptr(ln_bias), ptr(qk_ln_scale), ptr(qk_ln_bias),
-        ptr(xn), qkv.data_ptr(), attn.data_ptr(),
+        xn.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
         out.data_ptr(), N, S, C, num_heads, scale, kernels.stream_of(x))
     kernels.check(err, "spatial_block")
     kernels.count("spatial_block")

@@ -121,7 +121,7 @@ def spatial_train_block(x: torch.Tensor, wqkv: torch.Tensor,
     CUDA tensors launch the `spatial_block` kernel forward and, under
     autograd, `spatial_train_block_bwd`, which replaces the Pallas kernel
     tpu1x/ops/spatial_train_block.py:_spatial_bwd (_bwd_kernel, default
-    arithmetic). The card path takes bf16 x, S == 256, head_dim 32,
+    arithmetic). The card path takes bf16 x, S == 256, head_dim 32 or 64,
     C % 64 == 0, C <= 1024 and needs the LN params (the qk_norm configs,
     which have none, train through `flash_mha` instead). Residuals are x and
     the weights only; the backward recomputes LN1, qkv, the attention

@@ -10,7 +10,7 @@ from typing import Optional
 import torch
 
 from tpu1x_torch import kernels
-from tpu1x_torch.ops._util import require
+from tpu1x_torch.ops._util import head_dim_of, require
 from tpu1x_torch.ops.attention import mha_reference
 
 
@@ -57,10 +57,12 @@ def _check_qkv(q, k, v, num_heads: int) -> int:
             "q, k, v must share one shape")
     require(q.device == k.device == v.device, "q, k, v on different devices")
     require(T <= 16, f"temporal_attention kernels need T <= 16, got {T}")
-    require(C == 32 * num_heads and C % 64 == 0,
-            f"temporal_attention kernels need head_dim 32 and C % 64 == 0, "
-            f"an even number of heads (in groups of 8 where C % 256 == 0, "
-            f"else of 4 where C % 128 == 0, else of 2), got C={C}, "
+    D = head_dim_of(C, num_heads, "temporal_attention kernels")
+    full = 256 // D  # the heads of a full tile
+    require(num_heads % 2 == 0,
+            f"temporal_attention kernels need an even number of heads, "
+            f"C % {2 * D} == 0 (in groups of {full} where C % {full * D} "
+            f"== 0, else of 4 where C % {4 * D} == 0, else of 2), got C={C}, "
             f"heads={num_heads}")
     ld = q.stride(2)
     want = (T * S * ld, S * ld, ld, 1)
@@ -84,7 +86,7 @@ def launch_forward(q, k, v, *, scale: float, num_heads: int,
     out = torch.empty(B, T, S, C, dtype=q.dtype, device=q.device)
     err = kernels.lib("temporal_attention").tpu1x_temporal_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, S, C,
-        ld, scale, int(causal), kernels.stream_of(q))
+        C // num_heads, ld, scale, int(causal), kernels.stream_of(q))
     kernels.check(err, "temporal_attention")
     kernels.count("temporal_attention")
     return out
@@ -114,7 +116,8 @@ def launch_backward(q, k, v, dout, *, scale: float, num_heads: int,
     err = kernels.lib("temporal_attention").tpu1x_temporal_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         None if o is None else o.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, T, S, C, ld, C, 3 * C, scale, int(causal),
+        dv.data_ptr(), B, T, S, C, C // num_heads, ld, C, 3 * C, scale,
+        int(causal),
         kernels.stream_of(q))
     kernels.check(err, "temporal_attention_bwd")
     kernels.count("temporal_attention_bwd")
@@ -148,8 +151,8 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _bwd_kernel), which recomputes the probabilities from q and k. Both take
     bf16 q, k, v that may be column slices of one (B, T, S, 3C) qkv tensor
     (last axis contiguous, the same strides for all three), T <= 16,
-    head_dim 32 and C % 64 == 0. The backward returns dq, dk, dv as column
-    slices of one (B, T, S, 3C) tensor.
+    head_dim 32 or 64 and an even number of heads. The backward returns
+    dq, dk, dv as column slices of one (B, T, S, 3C) tensor.
 
     Bound on the H100: device memory (q, k, v, out read or written once:
     0.040 ms at the train step's (8, 16, 256, 512); the backward's seven

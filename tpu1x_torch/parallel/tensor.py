@@ -318,7 +318,8 @@ def tp_spatial_train_block(x: torch.Tensor, wqkv: torch.Tensor,
     forward's and the backward's one all-reduce each are over `mesh`'s
     model group. CUDA tensors launch LN1's row pass, `gemm_sm90`, K9 and
     the nt fp32 form of csrc/gemm_sm90.cuh forward, and K9, K10 and the
-    training forms backward (head_dim 32, S a multiple of 64 up to 256,
+    training forms backward (head_dim 32 or 64, S a multiple of 64 up to
+    256,
     C/tp a multiple of 64; each launcher raises at a shape its kernel does
     not take); CPU tensors the same launchers' plain versions."""
     require(ln_scale is not None and ln_bias is not None,
@@ -336,7 +337,8 @@ def tp_temporal_train_block(x: torch.Tensor, wqkv: torch.Tensor,
     qkv(x)) with this rank's share (the shards as in
     `tp_spatial_train_block`). CUDA tensors launch the training forms of
     csrc/gemm_sm90.cuh and K4 forward, K6 and the training forms backward
-    (T <= 16, head_dim 32, C/tp a multiple of 64); CPU tensors the plain
+    (T <= 16, head_dim 32 or 64, an even number of heads a rank); CPU
+    tensors the plain
     versions."""
     return _TpTemporal.apply(x.contiguous(), wqkv, wproj, bqkv, bproj,
                              num_heads, scale, mesh)
