@@ -162,8 +162,8 @@
    configs/genie_35m.json through `GenieConfig.from_pretrained` at full
    depth and width (32 layers, C = 256, 8 heads, bf16), seeded random
    weights: the rollout as in 4, ten train steps and the step against the
-   plain path as in 6, `score_policies` and `evaluate_dataset` at B = 16
-   as in 9, and the train CLI on the JSON cut to 8 layers with its resume
+   plain path as in 6; at 8 layers `score_policies` and `evaluate_dataset`
+   at B = 16 as in 9, and the train CLI on the JSON cut so with its resume
    and exports as in 11; each with exact launch counts, its wall and its
    device time by kernel.
 12b. Head_dim 64 (`check_head_dim_64`): every attention kernel form at
@@ -171,11 +171,25 @@
    gradients, with its times (`check_h64_kernels`: K1 both modes at N =
    16 / 32 / 128, K2, K3, K4, K6, K7 and K8 with both caches, K9, K10,
    K11, K12) and the decode batch sizes of 3; then GENIE_138M-h64
-   (configs/genie_138m.json at 8 heads of 64) at 32 layers: the rollout
-   as in 4, ten train steps and the step against the plain path as in 6;
-   at 8 layers `score_policies`, the evaluator batch, the train CLI with
-   its resume and exports, and the qk_norm int8 rollout and train step;
-   each with exact launch counts.
+   (configs/genie_138m.json at 8 heads of 64) at 8 layers: the rollout as
+   in 4, ten train steps and the step against the plain path as in 6,
+   `score_policies`, the evaluator batch, the train CLI with its resume
+   and exports, and the qk_norm int8 rollout and train step; each with
+   exact launch counts.
+12c. A 32-frame window (`check_window_32`): every frame-axis kernel form
+   at T = 32 against its plain version, values and gradients, with its
+   times (`check_w32_kernels`: K4 at the train step's (8, 32, 256, 512)
+   causal and not and the evaluator prefill's (16, 32, 256, 512), K6 at
+   the train step's, K2 and K3 at t_B 16..31 on a (32, 32, 16, 256, 512)
+   cache, K7 and K8 with both caches, K12, K4 and K6 at head_dim 64; K4
+   and K6 at T = 20, 24 and 32 for C = 512 / 256 / 128 / 64 and at
+   head_dim 64, untimed) and the decode batch sizes of 3 at T = 32; then
+   GENIE_138M-T32 (configs/genie_138m.json with T = 32 and 16 prompt
+   frames) at 32 layers: the rollout of 16 + 16 frames as in 4, ten train
+   steps and the step against the plain path as in 6; at 8 layers
+   `score_policies` (16 policies of 16 frames after 16 shared), the
+   evaluator batch, the train CLI with its resume and exports, and the
+   qk_norm int8 rollout and train step; each with exact launch counts.
 13. Tensor parallelism (`check_tensor_parallel`): K4 and K6 at C = 128
    (4 heads, the kernels' head groups of 4) and C = 64 (2 heads, head
    groups of 2) against their plain versions with their device times and
@@ -202,9 +216,10 @@
    `evaluate_cli_decoded` among them, `train_cli_launches`,
    `genie_35m_launches` and `mup_launches`, the TP steps' per-rank
    `tp_launches` of both setups, K4's and K6's C = 128 and C = 64
-   entries, and each attention kernel's head_dim-64 form, `h64`, with its
-   launches on GENIE_138M-h64's paths), the card line, and last the result
-   line.
+   entries, each attention kernel's head_dim-64 form, `h64`, with its
+   launches on GENIE_138M-h64's paths, and each frame-axis kernel's T = 32
+   form, `t32`, with its launches on GENIE_138M-T32's), the card line, and
+   last the result line.
 
 K1 (both modes), K2, K3, K5, K9, K10 and K13 carry a profiler device time
 (`device_ms`; their library calls `library_device_ms`) beside the event
@@ -327,17 +342,30 @@ SOURCES = {
     "flash_mha_bwd": ("tpu1x_torch/csrc/flash_attention.cu",
                       "tpu1x/ops/pallas_attention.py:132"),
 }
-# launches per layer in one rollout: the prefill, 9 single-frame decodes
-# (2 steps of the first new frame, then step 1 of the other 7), 7 pairs
-PER_LAYER = {"spatial_block": 1 + 9 + 7, "temporal_mlp_block": 9,
-             "temporal_mlp_block_pair": 7, "temporal_attention": 1,
-             "layer_norm": 1}
-# the same rollout op by op (qk_norm, or the int8 cache): the decode
-# attention kernels take the temporal+MLP block's place; without qk_norm
-# the prefill keeps its temporal attention and LN2, and each of the 16
-# decodes launches LN2 as well
-PER_LAYER_QK = {"spatial_block": 1 + 9 + 7, "temporal_decode_attention": 9,
-                "temporal_decode2_attention": 7}
+
+
+def rollout_per_layer(new):
+    """Launches per layer in one rollout of `new` frames: the prefill, new
+    + 1 single-frame decodes (2 steps of the first new frame, then step 1 of
+    each other), new - 1 pairs."""
+    return {"spatial_block": 1 + (new + 1) + (new - 1),
+            "temporal_mlp_block": new + 1,
+            "temporal_mlp_block_pair": new - 1, "temporal_attention": 1,
+            "layer_norm": 1}
+
+
+def rollout_per_layer_qk(new):
+    """The same rollout op by op (qk_norm, or the int8 cache): the decode
+    attention kernels take the temporal+MLP block's place."""
+    return {"spatial_block": 1 + (new + 1) + (new - 1),
+            "temporal_decode_attention": new + 1,
+            "temporal_decode2_attention": new - 1}
+
+
+PER_LAYER = rollout_per_layer(NEW)
+PER_LAYER_QK = rollout_per_layer_qk(NEW)
+# without qk_norm the prefill keeps its temporal attention and LN2, and
+# each of the 16 decodes launches LN2 as well
 PER_LAYER_INT8 = dict(PER_LAYER_QK, temporal_attention=1, layer_norm=1 + 16)
 # launches per layer in one train step; the temporal train block launches
 # the temporal attention forward in its forward and the backward in its
@@ -358,11 +386,18 @@ TRAIN_PER_LAYER_QK = {"flash_mha": 1, "flash_mha_bwd": 1,
 # forwards, the temporal one launching K4
 LOGITS_PER_LAYER = {"spatial_block": 1, "temporal_train_block": 1,
                     "temporal_attention": 1, "mlp_train_block": 1}
-# one evaluator batch: the prefill of all T = 16 frames, then 2 MaskGIT
-# steps of each of the 15 frame tasks; op by op under qk_norm (the prefill's
-# temporal attention plain, no LN2)
-EVAL_PER_LAYER = {"spatial_block": 1 + 30, "temporal_mlp_block": 30,
-                  "temporal_attention": 1, "layer_norm": 1}
+
+
+def eval_per_layer(T):
+    """One evaluator batch: the prefill of all T frames, then 2 MaskGIT
+    steps of each of the T - 1 frame tasks."""
+    return {"spatial_block": 1 + 2 * (T - 1),
+            "temporal_mlp_block": 2 * (T - 1), "temporal_attention": 1,
+            "layer_norm": 1}
+
+
+EVAL_PER_LAYER = eval_per_layer(16)
+# op by op under qk_norm (the prefill's temporal attention plain, no LN2)
 EVAL_PER_LAYER_QK = {"spatial_block": 1 + 30, "temporal_decode_attention": 30}
 NP, CTX = 16, 8  # policies scored, frames of their shared context
 MUP_LAYERS = 8  # the muP phase's depth (GENIE_138M's width)
@@ -526,7 +561,7 @@ def check_temporal_attention(inp, C, H, eval_shapes=False):
     heads, the rollout prefill's two); with `eval_shapes` instead at the
     evaluator prefill's (B, 16, 256, C), causal, on the thirds and on three
     separate tensors; each with its event and device times, the bound, the
-    plain version's and SDPA's."""
+    plain version's and SDPA's (`temporal_case`)."""
     out = {}
     cases = [("", B, P, True), ("[non-causal]", B, P, False),
              ("[train]", TB, 16, True), ("[train,non-causal]", TB, 16, False)]
@@ -535,42 +570,52 @@ def check_temporal_attention(inp, C, H, eval_shapes=False):
     if eval_shapes:
         cases = [("[eval prefill]", B, 16, True),
                  ("[eval prefill,separate]", B, 16, True)]
-    scale = (C // H) ** -0.5
     for tag, Bt, T, causal in cases:
-        qkv = inp.normal(Bt, T, 256, 3 * C)
-        q, k, v = qkv.split(C, dim=-1)  # strided views, as both callers
-        if "separate" in tag:  # three tensors of their own
-            q, k, v = (x.contiguous() for x in (q, k, v))
-        kw = dict(scale=scale, num_heads=H, causal=causal)
-        err = compare("temporal_attention" + tag,
-                      temporal_attention(q, k, v, **kw),
-                      temporal_attention_plain(q, k, v, **kw), 3e-2, 3e-2)
-        D = C // H
-
-        def heads(t):  # (B, T, S, C) -> (B, S, H, T, D) view
-            return t.reshape(Bt, T, 256, H, D).permute(0, 2, 3, 1, 4)
-        qh, kh, vh = heads(q), heads(k), heads(v)
-        pairs = T * (T + 1) // 2 if causal else T * T
-        # q.k and, with probabilities rounded to bf16, p.v
-        bms, by = temporal_bound(Bt, T, 256, C, 4, pairs, 2)
-
-        def kernel():
-            return ta.launch_forward(q, k, v, **kw)
-
-        def library():
-            return F.scaled_dot_product_attention(qh, kh, vh,
-                                                  is_causal=causal,
-                                                  scale=scale)
-        # the event time through the entry a caller uses, the device time
-        # of the launch alone
-        out["temporal_attention" + tag] = dict(
-            max_abs_err=err, shape=list(q.shape), causal=causal,
-            bound_ms=bms, bound_by=by,
-            ms=time_ms(lambda: temporal_attention(q, k, v, **kw)),
-            device_ms=device_ms(kernel),
-            plain_ms=time_ms(lambda: temporal_attention_plain(q, k, v, **kw)),
-            library_ms=time_ms(library), library_device_ms=device_ms(library))
+        out["temporal_attention" + tag] = temporal_case(inp, C, H, tag, Bt, T,
+                                                        causal)
     return out
+
+
+def temporal_case(inp, C, H, tag, Bt, T, causal, timed=True):
+    """K4 at (Bt, T, 256, C) against its plain version (atol = rtol =
+    3e-2), on the thirds of one qkv tensor, or on three tensors of their own
+    where `tag` says "separate"; with `timed` its event and device times,
+    the bound, the plain version's and SDPA's."""
+    scale = (C // H) ** -0.5
+    qkv = inp.normal(Bt, T, 256, 3 * C)
+    q, k, v = qkv.split(C, dim=-1)  # strided views, as both callers
+    if "separate" in tag:  # three tensors of their own
+        q, k, v = (x.contiguous() for x in (q, k, v))
+    kw = dict(scale=scale, num_heads=H, causal=causal)
+    err = compare("temporal_attention" + tag,
+                  temporal_attention(q, k, v, **kw),
+                  temporal_attention_plain(q, k, v, **kw), 3e-2, 3e-2)
+    if not timed:
+        return dict(max_abs_err=err, shape=list(q.shape), causal=causal)
+    D = C // H
+
+    def heads(t):  # (B, T, S, C) -> (B, S, H, T, D) view
+        return t.reshape(Bt, T, 256, H, D).permute(0, 2, 3, 1, 4)
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    pairs = T * (T + 1) // 2 if causal else T * T
+    # q.k and, with probabilities rounded to bf16, p.v
+    bms, by = temporal_bound(Bt, T, 256, C, 4, pairs, 2)
+
+    def kernel():
+        return ta.launch_forward(q, k, v, **kw)
+
+    def library():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal,
+                                              scale=scale)
+    # the event time through the entry a caller uses, the device time of
+    # the launch alone
+    return dict(
+        max_abs_err=err, shape=list(q.shape), causal=causal,
+        bound_ms=bms, bound_by=by,
+        ms=time_ms(lambda: temporal_attention(q, k, v, **kw)),
+        device_ms=device_ms(kernel),
+        plain_ms=time_ms(lambda: temporal_attention_plain(q, k, v, **kw)),
+        library_ms=time_ms(library), library_device_ms=device_ms(library))
 
 
 def spatial_weights(inp, C):
@@ -1404,18 +1449,18 @@ def check_spatial_train_block(inp, C, H, timed=True):
                  dout), bnd, device_ms=device_ms(run))}
 
 
-def check_temporal_train_block(inp, C, H, timed=True):
-    """K12's forward and backward, values and every gradient, against
-    `temporal_train_block_plain`'s autograd; with `timed` their event and
-    device times, the plain version's and the bounds."""
-    S, T = 256, 16
+def check_temporal_train_block(inp, C, H, timed=True, T=16):
+    """K12's forward and backward at (TB, T, 256, C), values and every
+    gradient, against `temporal_train_block_plain`'s autograd; with `timed`
+    their event and device times, the plain version's and the bounds."""
+    S = 256
     t = dict(x=inp.normal(TB, T, S, C),
              wqkv=inp.normal(C, 3 * C, std=0.05, dtype=torch.float32),
              wproj=inp.normal(C, C, std=0.05, dtype=torch.float32),
              bproj=inp.normal(C, std=0.1, dtype=torch.float32))
     dout = inp.normal(TB, T, S, C)
     kw = dict(num_heads=H, scale=(C // H) ** -0.5)
-    tag = "" if C == 512 else f"[C={C}]"
+    tag = ("" if C == 512 else f"[C={C}]") + ("" if T == 16 else f"[T={T}]")
     plain = functools.partial(ttb.temporal_train_block_plain, **kw)
     out_err, grads = both_paths(
         "temporal_train_block" + tag,
@@ -1441,10 +1486,10 @@ def check_temporal_train_block(inp, C, H, timed=True):
         return ttb.temporal_train_block_bwd(t["x"], dout, *w16, None,
                                             proj_bias=True, **kw)
     return {
-        "temporal_train_block": entry(
+        "temporal_train_block" + tag: entry(
             out_err, {}, t["x"].shape, time_ms(run_fwd), plain_ms(plain, t),
             fwd, device_ms=device_ms(run_fwd)),
-        "temporal_train_block_bwd": entry(
+        "temporal_train_block_bwd" + tag: entry(
             grads["x"]["max_abs_err"], grads, t["x"].shape, time_ms(run_bwd),
             plain_ms(plain, t, dout), bwd, device_ms=device_ms(run_bwd))}
 
@@ -1579,20 +1624,22 @@ def check_gemm90_train(inp, C):
     return {"gemm90_train": out}
 
 
-def check_temporal_attention_bwd(inp, C, H):
-    """K6 at the pre-LN train step's (TB, 16, 256, C), causal and not: the
-    output and dq, dk, dv of the kernels' autograd.Function against the
-    plain version's autograd, and the `o` that K6 writes beside them equal
-    to K4's output exactly; its event and device times without and with
-    `o`, the bounds, the plain backward's time and SDPA's backward's."""
-    S, T, D = 256, 16, C // H
-    t = dict(qkv=inp.normal(TB, T, S, 3 * C))
-    dout = inp.normal(TB, T, S, C)
+def check_temporal_attention_bwd(inp, C, H, T=16, Bt=TB, timed=True):
+    """K6 at the pre-LN train step's (TB, 16, 256, C) (or (Bt, T, 256, C)),
+    causal and not: the output and dq, dk, dv of the kernels'
+    autograd.Function against the plain version's autograd, and the `o`
+    that K6 writes beside them equal to K4's output exactly; with `timed`
+    its event and device times without and with `o`, the bounds, the plain
+    backward's time and SDPA's backward's."""
+    S, D = 256, C // H
+    t = dict(qkv=inp.normal(Bt, T, S, 3 * C))
+    dout = inp.normal(Bt, T, S, C)
     scale = D ** -0.5
     out = {}
     for causal in (True, False):
         name = ("temporal_attention_bwd" + ("" if causal else "[non-causal]")
-                + ("" if C == 512 else f"[C={C}]"))
+                + ("" if C == 512 else f"[C={C}]")
+                + ("" if T == 16 else f"[T={T}]"))
         kw = dict(scale=scale, num_heads=H, causal=causal)
 
         def kernel(qkv):
@@ -1609,9 +1656,14 @@ def check_temporal_attention_bwd(inp, C, H):
             raise AssertionError(f"{name}: o differs from K4's output")
         if not torch.equal(dqkv, ta.launch_backward(q, k, v, dout, **kw)):
             raise AssertionError(f"{name}: dq, dk, dv differ with o")
+        if not timed:
+            out[name] = dict(max_abs_err=grads["qkv"]["max_abs_err"],
+                             grads=dict(grads, out=out_err),
+                             shape=list(q.shape), o_equals_forward=True)
+            continue
 
         def heads(x):  # (B, T, S, C) -> (B, S, H, T, D) view
-            return x.reshape(TB, T, S, H, D).permute(0, 2, 3, 1, 4)
+            return x.reshape(Bt, T, S, H, D).permute(0, 2, 3, 1, 4)
         lq, lk, lv = (heads(x).detach().requires_grad_(True)
                       for x in (q, k, v))
         lib_out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal,
@@ -1619,8 +1671,8 @@ def check_temporal_attention_bwd(inp, C, H):
         pairs = T * (T + 1) // 2 if causal else T * T
         # logits, dp, dq, dk, dv: five products (and o six) of 2 D FLOP a
         # (query, key, head)
-        bnd = temporal_bound(TB, T, S, C, 7, pairs, 5)
-        bnd_o = temporal_bound(TB, T, S, C, 8, pairs, 6)
+        bnd = temporal_bound(Bt, T, S, C, 7, pairs, 5)
+        bnd_o = temporal_bound(Bt, T, S, C, 8, pairs, 6)
 
         def bwd():
             return ta.launch_backward(q, k, v, dout, **kw)
@@ -1655,7 +1707,7 @@ def check_fresh_thread(inp, C, H):
     return out
 
 
-def check_decode_batches(C, H, device):
+def check_decode_batches(C, H, device, T=16):
     """K7 and K8 (bf16 and int8 cache) at B = 16, 17, 16 + 256 (one
     launch per 256 rows) and 16 again, and K2 at B = 16 then 17, each
     against its plain version by the gates of 3 (K2's output by
@@ -1663,15 +1715,15 @@ def check_decode_batches(C, H, device):
     64 one element of 2097152 lay 0.0625 from the plain path, a rounding
     the MLP carries, ROADMAP C4): a launch's shared memory must not depend
     on the batches launched before it (S = 64 for K7 and K8, a 2-layer
-    cache, t_B mixed 0..15)."""
+    cache of T slots, t_B mixed 0..T - 1; K2's t_B from P)."""
     inp = Inputs(4, device)
-    T, L, S = 16, 2, 64
+    L, S = 2, 64
     kw = dict(layer=1, scale=(C // H) ** -0.5, num_heads=H)
     errs = {}
     for Bt in (16, 17, 16 + 256, 16):
         kc, vc = inp.normal(T, L, Bt, S, C), inp.normal(T, L, Bt, S, C)
         (kq, ks), (vq, vs) = quantize_cache(kc), quantize_cache(vc)
-        t_B = (torch.arange(Bt, device=device) * 7 % 16).to(torch.int32)
+        t_B = (torch.arange(Bt, device=device) * 7 % T).to(torch.int32)
         for cache, ckw, kcc, vcc in (
                 ("bf16", {}, kc, vc),
                 ("int8", dict(k_scale=ks, v_scale=vs), kq, vq)):
@@ -2601,7 +2653,9 @@ def check_evaluation(cfg, device):
 
 GENIE_35M_CONFIG = Path(__file__).resolve().parent / "configs" / \
     "genie_35m.json"
-G35_CLI_LAYERS = 8  # the GENIE_35M train CLI's depth (the script's time)
+# the depth of GENIE_35M's scores, evaluator batch and train CLI (the
+# script's time)
+G35_CUT_LAYERS = 8
 
 
 def check_genie_35m(device):
@@ -2612,10 +2666,10 @@ def check_genie_35m(device):
     launch counts per layer and the device-time profile of its GENIE_138M
     counterpart: the rollout (`check_rollout`), ten train steps
     (`check_training`) and the step's gradients against the plain path and
-    fp32 (`check_step_against_plain`), `score_policies` (`check_scoring`),
-    `evaluate_dataset` at B = 16 (`check_evaluator`), and the train CLI on
-    the JSON cut to G35_CLI_LAYERS layers, with its resume and exports
-    (`check_cli_run`)."""
+    fp32 (`check_step_against_plain`); at G35_CUT_LAYERS layers
+    `score_policies` (`check_scoring`), `evaluate_dataset` at B = 16
+    (`check_evaluator`), and the train CLI on the JSON cut so, with its
+    resume and exports (`check_cli_run`)."""
     cfg = GenieConfig.from_pretrained(GENIE_35M_CONFIG)
     out, walls = {}, {}
     t0 = time.perf_counter()
@@ -2629,12 +2683,17 @@ def check_genie_35m(device):
     print("genie_35m training: " + json.dumps(out["training"]), flush=True)
     print("genie_35m train step against the plain path: " + json.dumps(
         out["step_against_plain"]), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, num_layers=G35_CUT_LAYERS)
     t0 = time.perf_counter()
-    engine, out["scoring"] = check_scoring(model, cfg, device)
+    g = torch.Generator(device=device).manual_seed(0)
+    model = STMaskGIT(cut, device=device).init_weights(g)
+    engine, out["scoring"] = check_scoring(model, cut, device)
     del engine
     print("genie_35m scoring: " + json.dumps(out["scoring"]), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        ev, ds, out["evaluator"] = check_evaluator(model, cfg, device,
+        ev, ds, out["evaluator"] = check_evaluator(model, cut, device,
                                                    Path(tmp) / "data")
     del ev, ds, model
     torch.cuda.empty_cache()
@@ -2642,8 +2701,7 @@ def check_genie_35m(device):
     print("genie_35m evaluator: " + json.dumps(out["evaluator"]), flush=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        # the CLI at G35_CLI_LAYERS layers: the JSON rewritten beside
-        cut = dataclasses.replace(cfg, num_layers=G35_CLI_LAYERS)
+        # the CLI on the cut JSON, written beside
         cut.save_pretrained(Path(tmp) / "genie_35m.json")
         out["cli"] = check_cli_run(cut, device, Path(tmp),
                                    Path(tmp) / "genie_35m.json")
@@ -2715,73 +2773,66 @@ def check_h64_kernels(device):
     return out
 
 
-def check_head_dim_64(device):
-    """GENIE_138M-h64 end to end (`genie_138m_h64`, seeded random weights),
-    modelled on `check_genie_35m`: every head_dim-64 kernel form against its
-    plain version (`check_h64_kernels`) and the decode batch sizes
-    (`check_decode_batches`); at full depth (32 layers) the rollout (B 16,
-    8 + 8 frames, maskgit_steps 2) against the plain path (`check_rollout`),
-    ten train steps (`check_training`) and the step's gradients against the
-    plain path and fp32 (`check_step_against_plain`); at H64_LAYERS layers
+def check_config_paths(make, label, device, cut_layers, deep_layers=None):
+    """The entry points of the configuration `make(**overrides)` (seeded
+    random weights), each by its GENIE_138M counterpart's gates and exact
+    launch counts per layer: at `deep_layers` layers (the configuration's
+    own where None) the rollout (B 16, P + NEW frames, maskgit_steps 2)
+    against the plain path (`check_rollout`), ten train steps
+    (`check_training`) and the step's gradients against the plain path and
+    fp32 (`check_step_against_plain`); at `cut_layers` layers
     `score_policies`, an `evaluate_dataset` batch at B 16, the train CLI on
     the configuration written as JSON into a temporary directory, with its
     resume and exports (`check_cli_run`), and the qk_norm model's int8
-    op-by-op rollout and train step against the plain path. Every run by
-    its GENIE_138M counterpart's gates and exact launch counts per
-    layer."""
-    cfg = genie_138m_h64()
+    op-by-op rollout and train step against the plain path. Each result is
+    printed after `label`. Returns (results, walls in s)."""
+    deep = make() if deep_layers is None else make(num_layers=deep_layers)
+    cut = make(num_layers=cut_layers)
     out, walls = {}, {}
+
+    def show(what, key):
+        print(f"{label} {what}: " + json.dumps(out[key]), flush=True)
     t0 = time.perf_counter()
-    out["kernels"] = check_h64_kernels(device)
-    out["decode_batches"] = check_decode_batches(cfg.d_model, cfg.num_heads,
-                                                 device)
-    print("head_dim 64 decode attention across batch sizes: " + json.dumps(
-        out["decode_batches"]), flush=True)
-    walls["kernels"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out["rollout"] = check_rollout(cfg, device)
+    out["rollout"] = check_rollout(deep, device,
+                                   per_layer=rollout_per_layer(NEW))
     walls["rollout"] = time.perf_counter() - t0
-    print("head_dim 64 rollout: " + json.dumps(out["rollout"]), flush=True)
+    show("rollout", "rollout")
     t0 = time.perf_counter()
-    model, out["training"] = check_training(cfg, device)
-    out["step_against_plain"] = check_step_against_plain(model, cfg, device)
+    model, out["training"] = check_training(deep, device)
+    out["step_against_plain"] = check_step_against_plain(model, deep, device)
     del model
     torch.cuda.empty_cache()
     walls["training"] = time.perf_counter() - t0
-    print("head_dim 64 training: " + json.dumps(out["training"]), flush=True)
-    print("head_dim 64 train step against the plain path: " + json.dumps(
-        out["step_against_plain"]), flush=True)
+    show("training", "training")
+    show("train step against the plain path", "step_against_plain")
 
-    cut = genie_138m_h64(num_layers=H64_LAYERS)
     t0 = time.perf_counter()
     g = torch.Generator(device=device).manual_seed(0)
     model = STMaskGIT(cut, device=device).init_weights(g)
     engine, out["scoring"] = check_scoring(model, cut, device)
     del engine
-    print("head_dim 64 scoring: " + json.dumps(out["scoring"]), flush=True)
+    show("scoring", "scoring")
     with tempfile.TemporaryDirectory() as tmp:
         ev, ds, out["evaluator"] = check_evaluator(model, cut, device,
                                                    Path(tmp) / "data")
     del ev, ds, model
     torch.cuda.empty_cache()
     walls["evaluation"] = time.perf_counter() - t0
-    print("head_dim 64 evaluator: " + json.dumps(out["evaluator"]),
-          flush=True)
+    show("evaluator", "evaluator")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        config = Path(tmp) / "genie_138m_h64.json"
+        config = Path(tmp) / f"{make.__name__}.json"
         cut.save_pretrained(config)
         out["cli"] = check_cli_run(cut, device, Path(tmp), config)
     torch.cuda.empty_cache()
     walls["cli"] = time.perf_counter() - t0
-    print("head_dim 64 train CLI: " + json.dumps(out["cli"]), flush=True)
+    show("train CLI", "cli")
 
     t0 = time.perf_counter()
-    qk = genie_138m_h64(num_layers=H64_LAYERS, qk_norm=True, remat=False)
-    out["qk_norm_int8_rollout"] = check_rollout(qk, device, "int8",
-                                                PER_LAYER_QK, full=False)
-    print("head_dim 64 rollout qk_norm int8: " + json.dumps(
-        out["qk_norm_int8_rollout"]), flush=True)
+    qk = make(num_layers=cut_layers, qk_norm=True, remat=False)
+    out["qk_norm_int8_rollout"] = check_rollout(
+        qk, device, "int8", rollout_per_layer_qk(NEW), full=False)
+    show("rollout qk_norm int8", "qk_norm_int8_rollout")
     model, out["qk_norm_training"] = check_training(qk, device,
                                                     TRAIN_PER_LAYER_QK)
     out["qk_norm_step_against_plain"] = check_step_against_plain(
@@ -2789,11 +2840,169 @@ def check_head_dim_64(device):
     del model
     torch.cuda.empty_cache()
     walls["qk_norm"] = time.perf_counter() - t0
-    print("head_dim 64 training qk_norm: " + json.dumps(
-        out["qk_norm_training"]), flush=True)
-    print("head_dim 64 qk_norm train step against the plain path: "
-          + json.dumps(out["qk_norm_step_against_plain"]), flush=True)
-    out["phase_walls_s"] = walls
+    show("training qk_norm", "qk_norm_training")
+    show("qk_norm train step against the plain path",
+         "qk_norm_step_against_plain")
+    return out, walls
+
+
+def check_head_dim_64(device):
+    """GENIE_138M-h64 end to end (`genie_138m_h64`), modelled on
+    `check_genie_35m`: every head_dim-64 kernel form against its plain
+    version (`check_h64_kernels`) and the decode batch sizes
+    (`check_decode_batches`), then every entry point at H64_LAYERS layers
+    (`check_config_paths`; the rollout and the step since the T = 32 phase
+    came, for the script's time: `check_h64_kernels` keeps every form at
+    its full shapes)."""
+    cfg = genie_138m_h64()
+    walls = {}
+    t0 = time.perf_counter()
+    out = {"kernels": check_h64_kernels(device),
+           "decode_batches": check_decode_batches(cfg.d_model, cfg.num_heads,
+                                                  device)}
+    print("head_dim 64 decode attention across batch sizes: " + json.dumps(
+        out["decode_batches"]), flush=True)
+    walls["kernels"] = time.perf_counter() - t0
+    paths, path_walls = check_config_paths(genie_138m_h64, "head_dim 64",
+                                           device, H64_LAYERS, H64_LAYERS)
+    out.update(paths, phase_walls_s=dict(walls, **path_walls))
+    return out
+
+
+# ------------------------------------------------------- a 32-frame window
+
+W32_T, W32_PROMPT = 32, 16  # GENIE_138M-T32's window and prompt frames
+W32_LAYERS = 8  # the depth of the phase's secondary paths
+# the frame counts, head counts and C of the untimed K4 / K6 sweep: head
+# groups 8, 8, 4, 2 at head_dim 32, then head_dim 64
+W32_SWEEP_T = (20, 24, 32)
+W32_SWEEP_CH = ((512, 16), (256, 8), (128, 4), (64, 2), (512, 8))
+# the kernels line's T = 32 entry of each kernel: its key in
+# `check_w32_kernels`
+W32_KEYS = {"temporal_mlp_block": "temporal_mlp_block",
+            "temporal_mlp_block_pair": "temporal_mlp_block_pair",
+            "temporal_attention": "temporal_attention[train]",
+            "temporal_attention_bwd": "temporal_attention_bwd[T=32]",
+            "temporal_train_block": "temporal_train_block[T=32]",
+            "temporal_train_block_bwd": "temporal_train_block_bwd[T=32]",
+            "temporal_decode_attention": "temporal_decode_attention",
+            "temporal_decode2_attention": "temporal_decode2_attention"}
+W32_H64_KEYS = {"temporal_attention": "temporal_attention[train,h64]",
+                "temporal_attention_bwd": "temporal_attention_bwd[T=32][h64]"}
+
+
+def genie_138m_t32(**overrides) -> GenieConfig:
+    """GENIE_138M-T32: configs/genie_138m.json through
+    `GenieConfig.from_pretrained` with T = 32 and 16 prompt frames (32
+    layers, d_model 512, 16 heads of 32, S 256, bf16 compute, fp32 params):
+    a 16-s window at the dataset's 2 Hz. GENIE_138M's parameters but the
+    temporal position embedding's length; the same products and MLP."""
+    return dataclasses.replace(GenieConfig.from_pretrained(RT_CONFIG),
+                               T=W32_T, num_prompt_frames=W32_PROMPT,
+                               **overrides)
+
+
+@contextlib.contextmanager
+def window_of(cfg):
+    """This module's frame counts set to `cfg`'s window while the block
+    runs: the rollout's prompt P = num_prompt_frames and its NEW = T - P
+    frames, the scores' shared context CTX = P, and the evaluator's and
+    visualize's launches per layer; restored after."""
+    g = globals()
+    saved = {k: g[k] for k in ("P", "NEW", "CTX", "EVAL_PER_LAYER",
+                               "VIS_PER_LAYER")}
+    g.update(P=cfg.num_prompt_frames, NEW=cfg.T - cfg.num_prompt_frames,
+             CTX=cfg.num_prompt_frames, EVAL_PER_LAYER=eval_per_layer(cfg.T),
+             VIS_PER_LAYER=vis_per_layer(cfg.T))
+    try:
+        yield
+    finally:
+        g.update(saved)
+
+
+def check_w32_kernels(device):
+    """Every frame-axis kernel form at GENIE_138M-T32's window (C = 512, 16
+    heads), on the main path's shapes, held to its plain version by the
+    gates of its T = 16 form (values, and every gradient where the TPU
+    kernel has a backward), each with its times and bound; call it inside
+    `window_of`. K4 at the train step's (TB, 32, 256, C), causal and not,
+    and at the evaluator prefill's (B, 32, 256, C); K6 at the train step's;
+    K2 and K3 at t_B from P (16..31) on a (32, 32, B, 256, C) cache; K7 and
+    K8 with the bf16 and the int8 cache (t_B mixed 0..31, and the
+    rollout's from P); K12 forward and backward; K4 and K6 at head_dim 64
+    at the train step's shape. Untimed at B = 2, K4 and K6 causal and not
+    at T = 20, 24 and 32 (frames past T masked) for each (C, heads) of
+    W32_SWEEP_CH. Keys end in "[t32]"."""
+    C, H, L, T = 512, 16, 32, W32_T
+    inp = Inputs(8, device)
+    out = {}
+    for tag, Bt, causal in (("[train]", TB, True),
+                            ("[train,non-causal]", TB, False),
+                            ("[eval prefill]", B, True)):
+        out["temporal_attention" + tag] = temporal_case(inp, C, H, tag, Bt,
+                                                        T, causal)
+    out.update(check_temporal_attention_bwd(inp, C, H, T=T))
+    for T_ in W32_SWEEP_T:
+        for C_, H_ in W32_SWEEP_CH:
+            if (T_, C_, H_) == (T, C, H):
+                continue  # timed above at full shape
+            for causal in (True, False):
+                tag = (f"[T={T_},C={C_},H={H_}"
+                       + ("]" if causal else ",non-causal]"))
+                out["temporal_attention" + tag] = temporal_case(
+                    inp, C_, H_, tag, 2, T_, causal, timed=False)
+            for k, r in check_temporal_attention_bwd(
+                    inp, C_, H_, T=T_, Bt=2, timed=False).items():
+                out[f"{k}[H={H_}]"] = r
+    torch.cuda.empty_cache()
+    caches = (inp.normal(T, L, B, 256, C), inp.normal(T, L, B, 256, C))
+    for name, pair in (("temporal_mlp_block", False),
+                       ("temporal_mlp_block_pair", True)):
+        out[name] = check_temporal_mlp_block(inp, C, H, L, caches, pair,
+                                             first=P)
+    for pair in (False, True):
+        out.update(check_decode_attention(inp, C, H, L, caches, None, pair))
+    (kq, ks), (vq, vs) = quantize_cache(caches[0]), quantize_cache(caches[1])
+    del caches
+    for pair in (False, True):
+        out.update(check_decode_attention(inp, C, H, L, (kq, vq), (ks, vs),
+                                          pair))
+    del kq, vq, ks, vs
+    torch.cuda.empty_cache()
+    out.update(check_temporal_train_block(inp, C, H, T=T))
+    # K4 and K6 at head_dim 64 (8 heads) at the train step's shape, timed
+    out["temporal_attention[train,h64]"] = temporal_case(
+        inp, C, 8, "[train,h64]", TB, T, True)
+    for k, r in check_temporal_attention_bwd(inp, C, 8, T=T).items():
+        out[f"{k}[h64]"] = r
+    torch.cuda.empty_cache()
+    out = {f"{name}[t32]": r for name, r in out.items()}
+    for name, r in out.items():
+        print(f"kernel {name}: " + json.dumps(r), flush=True)
+    return out
+
+
+def check_window_32(device):
+    """GENIE_138M-T32 end to end (`genie_138m_t32`), modelled on
+    `check_head_dim_64`, inside `window_of`: every T = 32 kernel form
+    against its plain version (`check_w32_kernels`) and the decode batch
+    sizes at T = 32 (`check_decode_batches`), then every entry point
+    (`check_config_paths`): the rollout of 16 + 16 frames and the train
+    step at full depth (32 layers), the rest at W32_LAYERS layers (scores:
+    NP policies of 16 frames after 16 shared)."""
+    cfg = genie_138m_t32()
+    walls = {}
+    with window_of(cfg):
+        t0 = time.perf_counter()
+        out = {"kernels": check_w32_kernels(device),
+               "decode_batches": check_decode_batches(
+                   cfg.d_model, cfg.num_heads, device, T=cfg.T)}
+        print("T = 32 decode attention across batch sizes: " + json.dumps(
+            out["decode_batches"]), flush=True)
+        walls["kernels"] = time.perf_counter() - t0
+        paths, path_walls = check_config_paths(genie_138m_t32, "T = 32",
+                                               device, W32_LAYERS)
+    out.update(paths, phase_walls_s=dict(walls, **path_walls))
     return out
 
 
@@ -3211,10 +3420,18 @@ def check_tokenizer_training(device):
 
 # -------------------------------------------------------- training runtime
 
-# one visualize call: the prefill of 8 frames, then 8 new frames of 2
-# MaskGIT decodes and a commit each (generate_cached, unfused: no K3)
-VIS_PER_LAYER = {"spatial_block": 1 + 24, "temporal_mlp_block": 24,
-                 "temporal_attention": 1, "layer_norm": 1}
+
+
+def vis_per_layer(T):
+    """One visualize call: the prefill of T / 2 frames, then T / 2 new
+    frames of 2 MaskGIT decodes and a commit each (generate_cached,
+    unfused: no K3)."""
+    new = T - T // 2
+    return {"spatial_block": 1 + 3 * new, "temporal_mlp_block": 3 * new,
+            "temporal_attention": 1, "layer_norm": 1}
+
+
+VIS_PER_LAYER = vis_per_layer(16)
 # the qk_norm step under remat: "attn_outs" keeps K9's output and lse, so
 # the backward launches K10 alone; "none" runs K9 again; both run the MLP
 # train block's forward again in the recompute
@@ -3459,8 +3676,9 @@ def check_cli_run(cfg, device, root, config=RT_CONFIG):
         _, eval_launches = launches_of(
             lambda: ev_cli.main([
                 "--val_data_dir", str(root / "data"), "--checkpoint_dir",
-                str(final), "--stride", "1", "--batch_size", str(B),
-                "--max_examples", str(B), "--device", str(device)]),
+                str(final), "--window_size", str(cfg.T), "--stride", "1",
+                "--batch_size", str(B), "--max_examples", str(B), "--device",
+                str(device)]),
             EVAL_PER_LAYER, cfg.num_layers, "evaluate CLI on the export")
     evaluated = json.loads(buf.getvalue().strip().splitlines()[-1])
     if not evaluated.get("count") == B:
@@ -4404,14 +4622,28 @@ def main() -> int:
         print(f"head_dim 64 phase: {time.perf_counter() - t0:.1f} s ("
               + ", ".join(f"{k} {v:.1f} s" for k, v in w64.items())
               + f"); GENIE_138M-h64 ({H64_HEADS} heads of "
-              f"{cfg.d_model // H64_HEADS}) rollout "
+              f"{cfg.d_model // H64_HEADS}) at {H64_LAYERS} layers: rollout "
               f"{h64['rollout']['s_per_frame']:.4f} s/frame at B={B}; train "
               f"step {h64['training']['step_s']:.4f} s, peak "
-              f"{h64['training']['peak_memory_bytes']} B at B={TB}; at "
-              f"{H64_LAYERS} layers gen_time "
+              f"{h64['training']['peak_memory_bytes']} B at B={TB}; gen_time "
               f"{h64['evaluator']['gen_time']:.6f} s/frame, score_policies "
               f"{h64['scoring']['policies_per_s']:.1f} policies/s, the train "
               f"CLI {h64['cli']['s_per_update']:.4f} s/update on {card}",
+              flush=True)
+
+        t0 = time.perf_counter()
+        w32 = check_window_32(device)
+        ww = w32["phase_walls_s"]
+        print(f"T = 32 phase: {time.perf_counter() - t0:.1f} s ("
+              + ", ".join(f"{k} {v:.1f} s" for k, v in ww.items())
+              + f"); GENIE_138M-T32 ({W32_PROMPT} + {W32_T - W32_PROMPT} "
+              f"frames) rollout {w32['rollout']['s_per_frame']:.4f} s/frame "
+              f"at B={B}; train step {w32['training']['step_s']:.4f} s, peak "
+              f"{w32['training']['peak_memory_bytes']} B at B={TB}; at "
+              f"{W32_LAYERS} layers gen_time "
+              f"{w32['evaluator']['gen_time']:.6f} s/frame, score_policies "
+              f"{w32['scoring']['policies_per_s']:.1f} policies/s, the train "
+              f"CLI {w32['cli']['s_per_update']:.4f} s/update on {card}",
               flush=True)
 
         t0 = time.perf_counter()
@@ -4489,6 +4721,31 @@ def main() -> int:
                         h64["qk_norm_int8_rollout"]["launches"][name],
                     "qk_norm_train":
                         h64["qk_norm_training"]["launches"][name]}
+            # the T = 32 form: its check at GENIE_138M-T32's shapes and its
+            # launches on that configuration's paths
+            if name in W32_KEYS:
+                r32 = w32["kernels"][W32_KEYS[name] + "[t32]"]
+                item["t32"] = {k: r32.get(k) for k in (
+                    "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "library_device_ms", "shape")}
+                item["t32"]["launches"] = {
+                    "rollout": w32["rollout"]["launches"][name],
+                    "train": w32["training"]["launches"][name],
+                    "score_policies": w32["scoring"]["launches"][name],
+                    "evaluate_dataset": w32["evaluator"]["launches"][name],
+                    "qk_norm_int8_rollout":
+                        w32["qk_norm_int8_rollout"]["launches"][name],
+                    "qk_norm_train":
+                        w32["qk_norm_training"]["launches"][name]}
+                q8 = w32["kernels"].get(name + "[int8][t32]")
+                if q8 is not None:  # the decode attention kernels
+                    item["t32"].update(int8_device_ms=q8["device_ms"],
+                                       int8_bound_ms=q8["bound_ms"])
+                h = w32["kernels"].get(W32_H64_KEYS.get(name, "") + "[t32]")
+                if h is not None:  # K4 and K6 at head_dim 64
+                    item["t32"].update(h64_device_ms=h["device_ms"],
+                                       h64_library_device_ms=h[
+                                           "library_device_ms"])
             item["mup_launches"] = {
                 "rollout": mup["rollout"]["launches"][name],
                 "train": mup["train_step"]["kernel_launches"][name]}

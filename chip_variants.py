@@ -22,6 +22,9 @@
     python3 chip_variants.py genie_35m
     python3 chip_variants.py mup
     python3 chip_variants.py h64_debug
+    python3 chip_variants.py w32_debug
+    python3 chip_variants.py w32_times
+    python3 chip_variants.py k12gate
     python3 chip_variants.py ab_times
     python3 chip_variants.py h32_times
     python3 chip_variants.py h64_times
@@ -184,6 +187,16 @@ in one process on one card; every time is the profiler's device time
   each in a process of its own with a time limit (`H64_DEBUG`): the first
   call after a kernel change, which reports every fault or hang and not
   only the first.
+- `w32_debug`: the temporal, decode and temporal+MLP libraries' ptxas
+  lines, then each frame-axis check of `chip_smoke.py` at GENIE_138M-T32's
+  window (`W32_DEBUG`: K4 and K6 at T = 20 / 24 / 32 for every head group
+  and head_dim 64, then timed at the train step's shape; K2/K3/K7/K8 on a
+  4-layer cache of 32 slots; the decode batch sizes; K12; and the T <= 16
+  forms), each in a process of its own with a time limit. `w32_times` is
+  `ab_times` at T = 32 (caches of 32 slots, K4 and K6 at the train step's
+  32 frames, K4's "prefill" the evaluator's), SDPA beside. `k12gate`
+  holds K12's forward gate over many draws and splits the error of an
+  element past it by stage (ROADMAP C11).
 - `ab_times`: the device time of every attention kernel form at
   GENIE_138M's main-path shapes (16 heads) through this checkout's
   wrappers, one JSON line; run in a parent's copy and here in turns
@@ -1185,15 +1198,180 @@ H64_DEBUG = {
 }
 
 
-def decode_checks(inp, H, L=4):
+# the checks of `w32_debug` at T = 32 (and the K4 / K6 sweep's 20 and 24),
+# each run in a process of its own, then the T = 16 forms beside them
+W32_DEBUG = {
+    "temporal": lambda inp: {
+        **{tag: cs.temporal_case(inp, C, H, tag, 2, T, causal, timed=False)
+           for T in cs.W32_SWEEP_T for C, H in cs.W32_SWEEP_CH
+           for causal in (True, False)
+           for tag in [f"[T={T},C={C},H={H},causal={causal}]"]},
+        **{tag: cs.temporal_case(inp, 512, 16, tag, Bt, 32, causal)
+           for tag, Bt, causal in (("[train]", cs.TB, True),
+                                   ("[train,non-causal]", cs.TB, False),
+                                   ("[eval prefill]", cs.B, True))}},
+    "temporal_bwd": lambda inp: {
+        **{f"{k}[H={H}]": r for T in cs.W32_SWEEP_T
+           for C, H in cs.W32_SWEEP_CH
+           for k, r in cs.check_temporal_attention_bwd(
+               inp, C, H, T=T, Bt=2, timed=False).items()},
+        **cs.check_temporal_attention_bwd(inp, 512, 16, T=32)},
+    "decode": lambda inp: decode_checks(inp, 16, T=32),
+    "decode_batches": lambda inp: cs.check_decode_batches(512, 16,
+                                                          inp.device, T=32),
+    "train_blocks": lambda inp: dict(
+        cs.check_temporal_train_block(inp, 512, 16, T=32),
+        **{f"{k}[H=8]": r for k, r in cs.check_temporal_train_block(
+            inp, 512, 8, timed=False, T=32).items()}),
+    "t16": lambda inp: dict(
+        cs.check_temporal_attention(inp, 512, 16),
+        **cs.check_temporal_attention_bwd(inp, 512, 16),
+        **cs.check_temporal_attention(inp, 512, 8),
+        **cs.check_temporal_attention_bwd(inp, 128, 4),
+        **cs.check_temporal_train_block(inp, 512, 16),
+        **decode_checks(inp, 16)),
+}
+
+
+def w32_one(name: str) -> int:
+    """One check of W32_DEBUG, in this process, inside GENIE_138M-T32's
+    window (`chip_smoke.window_of`: P = 16), the T = 16 forms' outside."""
+    dev = torch.device("cuda")
+    with (contextlib.nullcontext() if name == "t16"
+          else cs.window_of(cs.genie_138m_t32())):
+        out = W32_DEBUG[name](cs.Inputs(9, dev))
+    torch.cuda.synchronize()
+    print(json.dumps({"check": name, "result": out}, default=str),
+          flush=True)
+    return 0
+
+
+def w32_debug(dev):
+    """The first call after a change of the frame-axis kernels: every
+    kernel library rebuilt with ptxas's counts (the temporal, decode and
+    temporal+MLP sources' lines printed), then each check of W32_DEBUG in a
+    process of its own with a time limit, so that a fault or a hang in one
+    leaves the others' results."""
+    import subprocess
+    logs = kernels.build_all(verbose=True)
+    for name, log in logs.items():
+        if name not in ("temporal_attention", "decode_attention",
+                        "temporal_mlp_block"):
+            continue
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "spill", "error",
+                                       "warning", "Compiling entry")):
+                print(f"ptxas {name}: {line.strip()}", flush=True)
+    for name in W32_DEBUG:
+        try:
+            res = subprocess.run([sys.executable, __file__, "w32_one", name],
+                                 capture_output=True, text=True, timeout=300)
+            text, rc = (res.stdout + res.stderr)[-40000:], res.returncode
+        except subprocess.TimeoutExpired:
+            text, rc = "timed out", "timeout"
+        print(f"== {name} rc={rc}\n{text}", flush=True)
+
+
+def k12gate(dev, seeds: int = 6):
+    """K12's forward gate (atol = rtol = 3e-2 against
+    `temporal_train_block_plain`; ROADMAP C11): first on the draw that
+    follows `chip_smoke.check_w32_kernels`'s K12 check at head_dim 64 (the
+    checks before it replayed, so that the generator reaches that state;
+    8 heads there failed the gate on one element), then over `seeds`
+    fresh draws at (TB, T, 256, 512) for T = 16 and 32 and 16 and 8 heads:
+    per case the elements past the gate and the largest error; for the
+    first element past it its place, x, the kernel's and the plain path's
+    output, and the error split by stage at that element: the qkv product
+    (gemm90 against the plain dense), the attention on the same q, k, v
+    (K4 against the plain attention), and the proj product with the
+    residual on the same attention output."""
+    real = cs.check_temporal_train_block
+
+    def replayed(inp, C, H, timed=True, T=16):
+        out = real(inp, C, H, timed=timed, T=T)
+        if T == 32:
+            k12_case(inp, C, 8, T, "replay")
+        return out
+    cs.check_temporal_train_block = replayed
+    try:
+        with cs.window_of(cs.genie_138m_t32()):
+            cs.check_w32_kernels(dev)
+    finally:
+        cs.check_temporal_train_block = real
+    for T in (16, 32):
+        for H in (16, 8):
+            for seed in range(seeds):
+                k12_case(cs.Inputs(100 + seed, dev), 512, H, T, seed)
+
+
+def k12_case(inp, C, H, T, seed):
+    """One draw of `k12gate`, in `chip_smoke.check_temporal_train_block`'s
+    order."""
+    from tpu1x_torch.ops import temporal_attention as ta
+    from tpu1x_torch.ops import temporal_train_block as ttb
+    from tpu1x_torch.ops._util import dense
+    S = 256
+    x = inp.normal(cs.TB, T, S, C)
+    wqkv = inp.normal(C, 3 * C, std=0.05, dtype=torch.float32)
+    wproj = inp.normal(C, C, std=0.05, dtype=torch.float32)
+    bproj = inp.normal(C, std=0.1, dtype=torch.float32)
+    kw = dict(num_heads=H, scale=(C // H) ** -0.5)
+    w16 = [tk.as_bf16(w) for w in (wqkv, wproj, bproj)]
+    got = ttb.temporal_train_block_fwd(x, w16[0], w16[1], None,
+                                       w16[2], **kw)
+    want = ttb.temporal_train_block_plain(x, wqkv, wproj,
+                                          bproj=bproj, **kw)
+    err = (got.float() - want.float()).abs()
+    past = err > 3e-2 + 3e-2 * want.float().abs()
+    row = dict(T=T, heads=H, seed=seed, past=int(past.sum()),
+               max_abs_err=float(err.max()))
+    if past.any():
+        i = int(torch.nonzero(past.flatten())[0])
+        at = [int(v) for v in torch.unravel_index(
+            torch.tensor(i), got.shape)]
+        b, t, s, c = at
+        qk = ttb._qkv(x, w16[0], None)  # gemm90
+        qp = dense(x, wqkv, None).split(C, dim=-1)  # plain
+        ak = ta.launch_forward(*qk, scale=kw["scale"],
+                               num_heads=H, causal=True)
+        ap = ta.temporal_attention_plain(
+            *qk, scale=kw["scale"], num_heads=H, causal=True)
+        yk = tk.gemm90(ap.reshape(-1, C), w16[1], bias=w16[2],
+                       resid=x.reshape(-1, C)).view(x.shape)
+        yp = x + dense(ap, wproj, bproj)
+        head = slice(c // (C // H) * (C // H),
+                     (c // (C // H) + 1) * (C // H))
+        row.update(
+            at=at, x=float(x[b, t, s, c]),
+            got=float(got[b, t, s, c]),
+            want=float(want[b, t, s, c]),
+            qkv_max_diff=max(float((a.float() - p.float()).abs()
+                                   .max()) for a, p in zip(
+                                       qk, qp)),
+            attn_row_max_diff=float(
+                (ak[b, t, s].float() - ap[b, t, s].float())
+                .abs().max()),
+            attn_max_diff=float((ak.float() - ap.float()).abs()
+                                .max()),
+            proj_diff_at=float(yk[b, t, s, c] - yp[b, t, s, c]),
+            plain_on_kernel_qkv_at=float(yp[b, t, s, c]),
+            attn_head_rows=[float((ak[b, t, s, head].float()
+                                   - ap[b, t, s, head].float())
+                                  .abs().max())])
+    print(json.dumps(row), flush=True)
+
+
+def decode_checks(inp, H, L=4, T=16):
     """K2, K3, K7 and K8 (both caches) at C = 512 and H heads on an
-    L-layer cache, by `chip_smoke.py`'s gates."""
-    C, T = 512, 16
+    L-layer cache of T slots, by `chip_smoke.py`'s gates (K2's and K3's t_B
+    from chip_smoke's P)."""
+    C = 512
     caches = (inp.normal(T, L, cs.B, 256, C), inp.normal(T, L, cs.B, 256, C))
     out = {}
     for name, pair in (("temporal_mlp_block", False),
                        ("temporal_mlp_block_pair", True)):
-        out[name] = cs.check_temporal_mlp_block(inp, C, H, L, caches, pair)
+        out[name] = cs.check_temporal_mlp_block(inp, C, H, L, caches, pair,
+                                                first=cs.P)
         out.update(cs.check_decode_attention(inp, C, H, L, caches, None,
                                              pair))
     (kq, ks), (vq, vs) = cs.quantize_cache(caches[0]), cs.quantize_cache(
@@ -1239,7 +1417,7 @@ def h64_debug(dev):
             print(f"== {name} heads={heads} rc={rc}\n{text}", flush=True)
 
 
-def ab_times(dev, heads: int = 16, extra: bool = False):
+def ab_times(dev, heads: int = 16, extra: bool = False, T: int = 16):
     """Device ms (profiler) of every attention kernel form through this
     checkout's wrappers at GENIE_138M's main-path shapes (C = 512, `heads`
     heads: 16 of 32 channels, or 8 of 64 for `h64_times`): K1 both modes at
@@ -1247,12 +1425,15 @@ def ab_times(dev, heads: int = 16, extra: bool = False):
     (causal, with o, non-causal), K7 and K8 (bf16 and int8, chip_smoke.py's
     t_B), K9 and K10 (causal and not); with `extra` also K11's backward,
     K12's forward and backward and one PyTorch call beside K4, K6, K7, K8
-    (bf16), K9 and K10 (SDPA, `library_device_ms`). One JSON line; run in a
+    (bf16), K9 and K10 (SDPA, `library_device_ms`). With T = 32
+    (`w32_times`, inside `chip_smoke.window_of`) the frame-axis forms take
+    a 32-frame window: caches of 32 slots, the train step's 32 frames and
+    the evaluator prefill's for K4's "prefill". One JSON line; run in a
     parent's copy and here in turns for an A/B. No builds."""
     from tpu1x_torch.ops import attention as attn
     from tpu1x_torch.ops import decode_attention as da
     from tpu1x_torch.ops import temporal_attention as ta
-    C, H, L, T = 512, heads, 32, 16
+    C, H, L = 512, heads, 32
     inp = cs.Inputs(0, dev)
     times, library = {}, {}
     for qk in (False, True):
@@ -1310,9 +1491,10 @@ def ab_times(dev, heads: int = 16, extra: bool = False):
                     args, frames == 2, L // 2, C // H, (C // H) ** -0.5))
     del caches, kq, vq
     torch.cuda.empty_cache()
-    for tag, Bt, Tt, causal in (("train", cs.TB, 16, True),
-                                ("train,non-causal", cs.TB, 16, False),
-                                ("prefill", cs.B, cs.P, True)):
+    for tag, Bt, Tt, causal in (("train", cs.TB, T, True),
+                                ("train,non-causal", cs.TB, T, False),
+                                ("prefill", cs.B, cs.P if T == 16 else T,
+                                 True)):
         qkv = inp.normal(Bt, Tt, 256, 3 * C)
         q, k, v = qkv.split(C, dim=-1)
         dout = inp.normal(Bt, Tt, 256, C)
@@ -1377,8 +1559,8 @@ def ab_times(dev, heads: int = 16, extra: bool = False):
         times["K11"] = cs.device_ms(lambda: stb.spatial_train_block_bwd(
             x, dout, w["wqkv"], w["wproj"], None, w["ln_scale"],
             w["ln_bias"], proj_bias=True, **kw))
-        x = inp.normal(cs.TB, 16, 256, C)
-        dout = inp.normal(cs.TB, 16, 256, C)
+        x = inp.normal(cs.TB, T, 256, C)
+        dout = inp.normal(cs.TB, T, 256, C)
         wqkv, wproj = w["wqkv"], w["wproj"]
         times["K12"] = cs.device_ms(lambda: ttb.temporal_train_block_fwd(
             x, wqkv, wproj, None, w["bproj"], **kw))
@@ -1386,6 +1568,13 @@ def ab_times(dev, heads: int = 16, extra: bool = False):
             x, dout, wqkv, wproj, None, proj_bias=True, **kw))
         print(json.dumps({"library_device_ms": library}), flush=True)
     print(json.dumps({"ab_device_ms": times}), flush=True)
+
+
+def w32_times(dev):
+    """`ab_times` of the frame-axis forms at GENIE_138M-T32's window, with
+    the SDPA calls beside them."""
+    with cs.window_of(cs.genie_138m_t32()):
+        ab_times(dev, extra=True, T=32)
 
 
 def c8(dev, runs: int = 10):
@@ -1472,7 +1661,8 @@ MODES = {"block": block, "mlp": mlp, "train": train, "temporal": temporal,
                                        tokenizer=False),
          "tp_cards": tp_cards, "tp_faults": tp_faults, "tp_c9": tp_c9,
          "genie_35m": genie_35m, "mup": mup, "h64_debug": h64_debug,
-         "ab_times": ab_times, "c8": c8,
+         "ab_times": ab_times, "c8": c8, "w32_debug": w32_debug,
+         "k12gate": k12gate, "w32_times": w32_times,
          "h32_times": functools.partial(ab_times, heads=16, extra=True),
          "h64_times": functools.partial(ab_times, heads=8, extra=True)}
 # mode: (the source its builds are variants of, the timing)
@@ -1488,6 +1678,8 @@ def main() -> int:
                              int(sys.argv[4]), sys.argv[5], sys.argv[6])
     if sys.argv[1:2] == ["h64_one"]:
         return h64_one(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["w32_one"]:
+        return w32_one(sys.argv[2])
     if sys.argv[1:2] == ["tp_fault_rank"]:
         return tp_fault_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                              sys.argv[5], sys.argv[6])

@@ -175,8 +175,8 @@ def misaligned(x, offset_bytes):
 
 
 def _refused(case):
-    if case == "T = 17":
-        return contract(T_=17)
+    if case == "T = 33":
+        return contract(T_=33)
     if case == "C = 320":
         return contract(C_=320)
     if case == "C > 2048":
@@ -210,7 +210,7 @@ def _refused(case):
 
 
 @pytest.mark.parametrize("case,message", [
-    ("T = 17", "T <= 16"),
+    ("T = 33", "T <= 32"),
     ("C = 320", "C % 256 == 0"),
     ("C > 2048", "C <= 2048"),
     ("one scale", "both cache scales or neither"),

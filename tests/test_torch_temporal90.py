@@ -157,8 +157,8 @@ def _refused(case):
         q = q.float()
     elif case == "shapes":
         k = k[:, :4]
-    elif case == "T > 16":
-        q, k, v = torch.zeros(3, 2, 17, 4, C_, dtype=torch.bfloat16).unbind(0)
+    elif case == "T > 32":
+        q, k, v = torch.zeros(3, 2, 33, 4, C_, dtype=torch.bfloat16).unbind(0)
     elif case == "head_dim 128":
         H_ = 2
     elif case == "C % 256":
@@ -183,7 +183,7 @@ def _refused(case):
 
 
 @pytest.mark.parametrize("case,message", [
-    ("fp32", "bf16"), ("shapes", "one shape"), ("T > 16", "T <= 16"),
+    ("fp32", "bf16"), ("shapes", "one shape"), ("T > 32", "T <= 32"),
     ("head_dim 128", "head_dim 32 or 64"), ("C % 256", "C % 256"),
     ("one head", "C % 64 == 0"),
     ("frame stride", "strides"), ("row stride % 8", "multiple of 8"),

@@ -75,7 +75,13 @@
 
 namespace tpu1x {
 
-constexpr int DA_MAXT = 16;
+// The most cache slots a launch takes. Nothing of the kernel's shape
+// depends on T: the ring streams one slot at a time, a row's slot count and
+// the walk's order are clamped to T, and every cache and int8-scale offset
+// is a slot index times its stride; the online softmax's lazy maximum
+// (DA_LAZY) bounds each of at most T + 2 terms by 2^DA_LAZY, so its sum
+// stays far below fp32's range.
+constexpr int DA_MAXT = 32;
 // The tile: the (token, 32-channel) rows of a work item (a consumer thread
 // each, whatever the head width), and the shared memory a block gives its
 // item buffer and ring with a bf16 cache (three blocks an SM) and with an
@@ -532,7 +538,7 @@ inline DecodeAttnArgs decode_rows(const DecodeAttnArgs& a, int frames, int b0,
   return r;
 }
 
-// Requires frames in {1, 2}, T <= 16, head_dim D in {32, 64}, C % 256 ==
+// Requires frames in {1, 2}, T <= DA_MAXT, head_dim D in {32, 64}, C % 256 ==
 // 0 and C <= 2048, 0 <= layer < L, 16-byte aligned caches; an int8 cache
 // (a.ksc not null) also its v scales, S % 4 == 0 and 16-byte aligned
 // scales (each item's scales are bulk copies of whole 16-byte units). Any

@@ -16,19 +16,30 @@
 // byte, against the card's 295); the backward moves q, k, v, dout, dq, dk,
 // dv (234.9 MB, 0.070 ms), and 268.4 MB (0.080 ms) with o.
 //
-// Design. Every (b, s, head) is its own attention of T <= 16 frames by D
+// Design. Every (b, s, head) is its own attention of T <= 32 frames by D
 // channels, so a warp takes one problem of 16 rows at a time: one
 // position's 16 frames, or two positions' 8 frames where T <= 8 (keys of
 // the other position masked), with mma.sync m16n8k16: S = Q K^T is D / 8
 // products, P V D / 8, and the backward's dP = dO V^T, dQ = dS K, dK =
-// dS^T Q, dV = P^T dO D / 8 each. wgmma does not fit: its smallest
-// product is a 64-row tile, and these are many independent 16 x 16
+// dS^T Q, dV = P^T dO D / 8 each. Where 16 < T <= 32 a problem is one
+// position's 32 frames, two 16-row blocks of queries and of keys, and two
+// warps share it (the wide form, W below): in the forward each takes one
+// query block over both key blocks and writes its output over its own
+// queries, which no other warp reads; in the backward both compute the
+// whole 32 x 32 P and dS (the logits and dP twice, the four products once)
+// and, after a barrier of the pair, each its half of the columns of o, dq,
+// dk and dv, 16 columns at a time over its own columns of the operands, so
+// no sum crosses warps and dq, dk, dv never live whole in registers (at D
+// = 64 each would be 64 fp32 a lane beside P and dS). Under `causal` the
+// first query block's second key block is skipped. wgmma does not fit: its
+// smallest product is a 64-row tile, and these are many independent 16 x 16
 // problems, block-diagonal rather than one product with 64 rows. What
 // limits the kernels is bytes in flight, so:
 //   - persistent blocks, one an SM (the ring fills most of shared memory),
 //     each walking tiles of TA_POSITIONS positions (twice that where T <=
-//     8) x TA_HEADS heads of one b, or, where the heads are not a multiple
-//     of TA_HEADS (C % 256 != 0: a rank's share of the heads under tensor
+//     8, half where T > 16) x TA_HEADS heads of one b, or, where the heads
+//     are not a multiple of TA_HEADS (C % 256 != 0: a rank's share of the
+//     heads under tensor
 //     parallelism), twice the positions x half the heads, and where they
 //     are not a multiple of 4 either (C % 128 != 0: GENIE_35M's 2 heads a
 //     rank at tp = 4), four times the positions x a quarter of the heads:
@@ -81,7 +92,7 @@
 // each other, 4 warps 2-4% slower; 4 x 8 and 2 x 16 leave the backward
 // one stage (the static_assert below).
 //
-// Requires T <= 16, head_dim 32 or 64, C % (2 head_dim) == 0 (an even
+// Requires T <= 32, head_dim 32 or 64, C % (2 head_dim) == 0 (an even
 // number of heads), strides that are multiples of 8 and 16-byte aligned
 // bases.
 
@@ -99,9 +110,9 @@ constexpr int TA_WARPS = 16;
 constexpr int TA_MAX_STAGES = 4;
 constexpr int TA_SMEM_MAX = 232448;  // shared memory a block may use
 // A stage holds one box a tensor: 32 channels, 16 frames (or 8 and twice
-// the positions), TA_HEADS heads, TA_POSITIONS positions (or HG heads and
-// TA_HEADS / HG times the positions: the same bytes); at head_dim 64 half
-// the heads of twice the bytes.
+// the positions, or 32 and half), TA_HEADS heads, TA_POSITIONS positions
+// (or HG heads and TA_HEADS / HG times the positions: the same bytes); at
+// head_dim 64 half the heads of twice the bytes.
 constexpr int TA_BOX = TA_POSITIONS * 16 * TA_HEADS * 64;
 
 // What head_dim D changes: one frame of one head (ROW bytes), the heads of
@@ -135,7 +146,8 @@ struct TaMaps {
 
 struct TaArgs {
   int T, S, C;
-  int tp;  // frames a box holds, 8 or 16; a problem is 16 / tp positions
+  int tp;  // frames a box holds, 8, 16 or 32; a problem is max(1, 16 / tp)
+           // positions
   int sg;  // positions a tile: TA_POSITIONS (TA_HEADS / HG) 16 / tp
   int s_tiles, h_groups, tiles;
   int with_o;  // the backward writes o
@@ -351,13 +363,259 @@ __device__ __forceinline__ void probabilities(float (&p)[2][4],
     for (int e = 0; e < 4; ++e) p[n][e] = __fmul_rn(p[n][e], sum[e >> 1]);
 }
 
+// ---- The wide form (16 < T <= 32): a problem is one position's 32 frames
+// of one head, rows 0-15 block 0 and rows 16-31 block 1 of each operand.
+
+// Block j of a 32-row operand whose first row is at `base`.
+template <int D>
+__device__ __forceinline__ Rows<D> block_rows(uint32_t base, int j) {
+  const uint32_t lo = base + 16 * j * TaShape<D>::ROW;
+  return Rows<D>{lo, lo + 8 * TaShape<D>::ROW};
+}
+
+// Whether (query block qb, key block jb) is masked whole: under `causal`
+// the first query block's second key block.
+template <bool CAUSAL>
+__device__ __forceinline__ bool skipped(int qb, int jb) {
+  return CAUSAL && qb == 0 && jb == 1;
+}
+
+// `probabilities` for query block qb of a 32-frame problem against both key
+// blocks (p[jb]: its 16 x 16 block with keys jb): query frame t = 16 qb +
+// row, key frame j = 16 jb + column; a key is masked where it follows the
+// query (causal) or where its frame is >= T (not causal: TMA's zero-filled
+// frames would otherwise take weight). A skipped block is not multiplied;
+// its logits are masked like the rest.
+template <bool CAUSAL, int D>
+__device__ __forceinline__ void probabilities_w(float (&p)[2][2][4],
+                                                const Rows<D>& q,
+                                                const Rows<D> (&k)[2],
+                                                int lane, int qb, int T,
+                                                float scale) {
+  const int g = lane >> 2, q4 = lane & 3;
+  float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int jb = 0; jb < 2; ++jb) {
+    if (skipped<CAUSAL>(qb, jb)) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[jb][n][e] = 0.f;
+    } else {
+      rows_by_rows(p[jb], q, k[jb], lane);
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 16 * jb + 8 * n + 2 * q4 + (e & 1);
+        const int t = 16 * qb + g + 8 * (e >> 1);
+        float x = __fmul_rn(p[jb][n][e], scale);
+        if (CAUSAL ? j > t : j >= T) x = -INFINITY;
+        p[jb][n][e] = x;
+        m[e >> 1] = fmaxf(m[e >> 1], x);
+      }
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+  }
+#pragma unroll
+  for (int jb = 0; jb < 2; ++jb)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[jb][n][e] = __expf(__fsub_rn(p[jb][n][e], m[e >> 1]));
+        sum[e >> 1] = __fadd_rn(sum[e >> 1], p[jb][n][e]);
+      }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) sum[r] = __frcp_rn(quad_sum(sum[r]));
+#pragma unroll
+  for (int jb = 0; jb < 2; ++jb)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[jb][n][e] = __fmul_rn(p[jb][n][e], sum[e >> 1]);
+}
+
+// The 16 columns of chunk c (n-tiles 2c, 2c + 1) of a 16 x D result, times
+// mul where SCALED, in bf16 over the same columns of `dst`.
+template <bool SCALED, int D>
+__device__ __forceinline__ void put_cols(const float (&acc)[2][4], float mul,
+                                         const Rows<D>& dst, int lane,
+                                         int c) {
+  const int g = lane >> 2, q4 = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float x0 = acc[n][2 * h], x1 = acc[n][2 * h + 1];
+      if (SCALED) {
+        x0 *= mul;
+        x1 *= mul;
+      }
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                       dst.at(g + 8 * h, 2 * c + n) + 4 * q4),
+                   "r"(pack_bf16(x0, x1))
+                   : "memory");
+    }
+}
+
+// The two warps of a pair (named barrier `id`, 64 threads).
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
+
+// Forward of query block qb of a 32-frame problem: o = P V over both key
+// blocks, written over the block's own queries (read by no other warp).
+template <bool CAUSAL, int D>
+__device__ __forceinline__ void forward_w(const Rows<D>& q,
+                                          const Rows<D> (&k)[2],
+                                          const Rows<D> (&v)[2], int lane,
+                                          int qb, int T, float scale) {
+  float p[2][2][4], acc[D / 8][4];
+  uint32_t pa[2][4];
+  probabilities_w<CAUSAL>(p, q, k, lane, qb, T, scale);
+  to_a(pa[0], p[0]);
+  to_a(pa[1], p[1]);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int jb = 0; jb < 2; ++jb) {
+    if (skipped<CAUSAL>(qb, jb)) continue;
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+      uint32_t yb[4];
+      ldsm_x4_t(yb, a_lane(v[jb], lane, j));
+      mma_bf16(acc[2 * j], pa[jb], &yb[0]);
+      mma_bf16(acc[2 * j + 1], pa[jb], &yb[2]);
+    }
+  }
+  put_rows<false, D>(acc, 1.f, q, lane);
+}
+
+// acc[r] = sum over s of A(r, s) Y_s[:, chunk c], r and s the two blocks,
+// where A(r, s) is a[r][s] (TRANS false: a sum over key blocks s, as P V and
+// dS K) or the transpose of a[s][r] (TRANS true: over query blocks, as
+// P^T dO and dS^T Q); a skipped (query, key) block adds nothing.
+template <bool CAUSAL, bool TRANS, int D>
+__device__ __forceinline__ void chunk_product(float (&acc)[2][2][4],
+                                              const uint32_t (&a)[2][2][4],
+                                              const Rows<D> (&y)[2],
+                                              int lane, int c) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][n][e] = 0.f;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    uint32_t yb[4];
+    ldsm_x4_t(yb, a_lane(y[s], lane, c));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (skipped<CAUSAL>(TRANS ? s : r, TRANS ? r : s)) continue;
+      uint32_t t[4];
+      if constexpr (TRANS) {
+        transpose_a(t, a[s][r]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) t[i] = a[r][s][i];
+      }
+      mma_bf16(acc[r][0], t, &yb[0]);
+      mma_bf16(acc[r][1], t, &yb[2]);
+    }
+  }
+}
+
+// Backward of a 32-frame problem by one warp of the pair that shares it:
+// the whole P and dS (both warps), then this warp's half of the columns of
+// o (where asked), dq, dk and dv, one 16-column chunk at a time, each over
+// the same columns of v, k, q and dout.
+template <bool CAUSAL, int D>
+__device__ __forceinline__ void backward_w(
+    const Rows<D> (&q)[2], const Rows<D> (&k)[2], const Rows<D> (&v)[2],
+    const Rows<D> (&dout)[2], int lane, int half, int pair, bool with_o,
+    int T, float scale) {
+  uint32_t pa[2][2][4], dsa[2][2][4];
+#pragma unroll
+  for (int qb = 0; qb < 2; ++qb) {
+    float p[2][2][4], dp[2][2][4];
+    probabilities_w<CAUSAL>(p, q[qb], k, lane, qb, T, scale);
+#pragma unroll
+    for (int jb = 0; jb < 2; ++jb) {
+      if (skipped<CAUSAL>(qb, jb)) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[jb][n][e] = 0.f;
+      } else {
+        rows_by_rows(dp[jb], dout[qb], v[jb], lane);  // dP = dO V^T
+      }
+    }
+    float delta[2] = {0.f, 0.f};
+#pragma unroll
+    for (int jb = 0; jb < 2; ++jb)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          delta[e >> 1] = fmaf(p[jb][n][e], dp[jb][n][e], delta[e >> 1]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) delta[r] = quad_sum(delta[r]);
+#pragma unroll
+    for (int jb = 0; jb < 2; ++jb) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[jb][n][e] = p[jb][n][e] * (dp[jb][n][e] - delta[e >> 1]);
+      to_a(pa[qb][jb], p[jb]);
+      to_a(dsa[qb][jb], dp[jb]);
+    }
+  }
+  // both warps have read every column of q, k, v and dout
+  pair_sync(1 + pair);
+#pragma unroll
+  for (int i = 0; i < D / 32; ++i) {
+    const int c = half * (D / 32) + i;
+    float acc[2][2][4];
+    if (with_o) {  // o = P V, over v
+      chunk_product<CAUSAL, false>(acc, pa, v, lane, c);
+      __syncwarp();
+      put_cols<false, D>(acc[0], 1.f, v[0], lane, c);
+      put_cols<false, D>(acc[1], 1.f, v[1], lane, c);
+    }
+    chunk_product<CAUSAL, false>(acc, dsa, k, lane, c);  // dQ = dS K
+    __syncwarp();
+    put_cols<true, D>(acc[0], scale, k[0], lane, c);
+    put_cols<true, D>(acc[1], scale, k[1], lane, c);
+    chunk_product<CAUSAL, true>(acc, dsa, q, lane, c);  // dK = dS^T Q
+    __syncwarp();
+    put_cols<true, D>(acc[0], scale, q[0], lane, c);
+    put_cols<true, D>(acc[1], scale, q[1], lane, c);
+    chunk_product<CAUSAL, true>(acc, pa, dout, lane, c);  // dV = P^T dO
+    __syncwarp();
+    put_cols<false, D>(acc[0], 1.f, dout[0], lane, c);
+    put_cols<false, D>(acc[1], 1.f, dout[1], lane, c);
+  }
+}
+
 // The body of both kernels. grid: the tiles, or the blocks the card keeps
 // resident, whichever is fewer; TaShape<D>::THREADS threads: the consumer
 // warps, the producer, the storer; dynamic shared memory ta_smem(NT). Tile
 // i is (b, positions sg (i / h_groups % s_tiles) .., heads HG (i %
 // h_groups) ..); its problems are (16 / tp positions, one head), one a warp
-// at a time.
-template <int D, bool BWD, bool CAUSAL, int HG>
+// at a time, or with W (tp = 32) (one position, one head), a pair of warps
+// each.
+template <int D, bool BWD, bool CAUSAL, int HG, bool W>
 __device__ __forceinline__ void temporal_body(const TaMaps& maps,
                                               const TaArgs& a) {
   using Sh = TaShape<D>;
@@ -368,8 +626,8 @@ __device__ __forceinline__ void temporal_body(const TaMaps& maps,
   constexpr uint32_t box = TA_BOX, stage_bytes = NT * box;
   extern __shared__ unsigned char ta_raw[];
   const uint32_t ring = (smem_u32(ta_raw) + 1023) & ~1023u;
-  const int span = 16 / a.tp;        // positions a problem
-  const int per = a.sg / span * HG;  // problems a tile
+  const int span = W ? 1 : 16 / a.tp;  // positions a problem
+  const int per = a.sg / span * HG;    // problems a tile
   const uint32_t slot = a.tp * Sh::ROW;  // one (position, head)
   // three mbarriers a stage: the loads landed, the consumers are done, the
   // stores have read the stage
@@ -405,9 +663,11 @@ __device__ __forceinline__ void temporal_body(const TaMaps& maps,
                       full + 8 * st);
       } else {
         mbar_wait(done + 8 * st, use & 1);
-        // o over v, dq over k, dk over q, dv over dout
+        // o over v (the wide forward's over q), dq over k, dk over q, dv
+        // over dout
         if (!BWD || a.with_o)
-          tma_store_5d(&maps.out[0], base + 2 * box, 0, 0, hgi * HG, s0, b);
+          tma_store_5d(&maps.out[0], base + (W && !BWD ? 0 : 2 * box), 0, 0,
+                       hgi * HG, s0, b);
         if (BWD) {
           tma_store_5d(&maps.out[1], base + box, 0, 0, hgi * HG, s0, b);
           tma_store_5d(&maps.out[2], base, 0, 0, hgi * HG, s0, b);
@@ -426,7 +686,30 @@ __device__ __forceinline__ void temporal_body(const TaMaps& maps,
   for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x, ++it) {
     const int st = it % STAGES, use = it / STAGES;
     mbar_wait(full + 8 * st, use & 1);
-    for (int pi = warp; pi < per; pi += WARPS) {
+    if constexpr (W) {
+      // unit u: problem u / 2, the query block (forward) or the half of
+      // the columns (backward) u % 2; the pair of warps u, u ^ 1 shares
+      // a problem, and both are in the same pass of this loop
+      for (int u = warp; u < 2 * per; u += WARPS) {
+        const int pi = u >> 1, sl = pi / HG, hl = pi % HG;
+        const uint32_t lo = ring + st * stage_bytes + (sl * HG + hl) * slot;
+        const Rows<D> k[2] = {block_rows<D>(lo + box, 0),
+                              block_rows<D>(lo + box, 1)};
+        const Rows<D> v[2] = {block_rows<D>(lo + 2 * box, 0),
+                              block_rows<D>(lo + 2 * box, 1)};
+        if constexpr (!BWD) {
+          forward_w<CAUSAL, D>(block_rows<D>(lo, u & 1), k, v, lane, u & 1,
+                               a.T, a.scale);
+        } else {
+          const Rows<D> q[2] = {block_rows<D>(lo, 0), block_rows<D>(lo, 1)};
+          const Rows<D> dout[2] = {block_rows<D>(lo + 3 * box, 0),
+                                   block_rows<D>(lo + 3 * box, 1)};
+          backward_w<CAUSAL, D>(q, k, v, dout, lane, u & 1, warp >> 1,
+                                a.with_o, a.T, a.scale);
+        }
+      }
+    }
+    for (int pi = warp; !W && pi < per; pi += WARPS) {
       const int sl = pi / HG * span, hl = pi % HG;
       // operand i: its box in stage st, the slot of (sl, hl), and rows 8-15
       // 8 frames on (tp = 16) or one position on (tp = 8); a slot past S
@@ -483,16 +766,16 @@ __device__ __forceinline__ void temporal_body(const TaMaps& maps,
   }
 }
 
-template <int D, bool CAUSAL, int HG>
+template <int D, bool CAUSAL, int HG, bool W>
 __global__ void __launch_bounds__(TaShape<D>::THREADS, 1)
     temporal_fwd_kernel(const __grid_constant__ TaMaps maps, const TaArgs a) {
-  temporal_body<D, false, CAUSAL, HG>(maps, a);
+  temporal_body<D, false, CAUSAL, HG, W>(maps, a);
 }
 
-template <int D, bool CAUSAL, int HG>
+template <int D, bool CAUSAL, int HG, bool W>
 __global__ void __launch_bounds__(TaShape<D>::THREADS, 1)
     temporal_bwd_kernel(const __grid_constant__ TaMaps maps, const TaArgs a) {
-  temporal_body<D, true, CAUSAL, HG>(maps, a);
+  temporal_body<D, true, CAUSAL, HG, W>(maps, a);
 }
 
 // The head group of a tile: a full tile's heads (8 at head_dim 32, 4 at
@@ -520,21 +803,22 @@ cudaError_t frame_map(CUtensorMap* map, const void* base, int B, int T, int S,
 
 // The shapes the kernels take (the wrapper's `_check_qkv` raises first).
 bool ta_ok(int T, int C, int D, int ld) {
-  return T >= 1 && T <= 16 && (D == 32 || D == 64) && C % (2 * D) == 0 &&
+  return T >= 1 && T <= 32 && (D == 32 || D == 64) && C % (2 * D) == 0 &&
          ld % 8 == 0;
 }
 
 // The tile at T frames: a box spans 16 frames, or 8 and twice the
-// positions where T <= 8, and a head group of HG takes TA_HEADS / HG times
-// the positions of one of TA_HEADS (HG = 2: 8 positions at 16 frames, 16
-// at 8), so that a stage holds TA_BOX bytes a tensor and a tile TA_WARPS
-// problems either way (frames t >= T come back from TMA as zeros and still
-// count).
+// positions where T <= 8, or 32 and half the positions where T > 16, and a
+// head group of HG takes TA_HEADS / HG times the positions of one of
+// TA_HEADS (HG = 2: 8 positions at 16 frames, 16 at 8, 4 at 32), so that a
+// stage holds TA_BOX bytes a tensor and a tile TA_WARPS 16-row problems, or
+// TA_WARPS / 2 of 32 rows, either way (frames t >= T come back from TMA as
+// zeros and still count). Every (D, HG) pair gives whole positions.
 TaArgs args_of(int B, int T, int S, int C, int D, float scale) {
   TaArgs a = {};
   const int hg = head_group(C, D);
   a.T = T, a.S = S, a.C = C, a.scale = scale;
-  a.tp = T <= 8 ? 8 : 16;
+  a.tp = T <= 8 ? 8 : T <= 16 ? 16 : 32;
   a.sg = TA_POSITIONS * (TA_HEADS * 32 / D / hg) * 16 / a.tp;
   a.s_tiles = (S + a.sg - 1) / a.sg;
   a.h_groups = C / D / hg;
@@ -542,13 +826,13 @@ TaArgs args_of(int B, int T, int S, int C, int D, float scale) {
   return a;
 }
 
-template <int D, bool BWD, bool CAUSAL, int HG>
-cudaError_t launch_hg(const TaMaps& maps, const TaArgs& a,
-                      cudaStream_t stream) {
+template <int D, bool BWD, bool CAUSAL, int HG, bool W>
+cudaError_t launch_form(const TaMaps& maps, const TaArgs& a,
+                        cudaStream_t stream) {
   if (a.tiles == 0) return cudaSuccess;
   constexpr int smem = ta_smem(BWD ? 4 : 3), threads = TaShape<D>::THREADS;
-  auto kernel = BWD ? temporal_bwd_kernel<D, CAUSAL, HG>
-                    : temporal_fwd_kernel<D, CAUSAL, HG>;
+  auto kernel = BWD ? temporal_bwd_kernel<D, CAUSAL, HG, W>
+                    : temporal_fwd_kernel<D, CAUSAL, HG, W>;
   // the shared-memory limit and the resident blocks, set at the first call
   static int resident = 0;
   if (resident == 0)
@@ -556,6 +840,14 @@ cudaError_t launch_hg(const TaMaps& maps, const TaArgs& a,
   const int grid = a.tiles < resident ? a.tiles : resident;
   kernel<<<grid, threads, smem, stream>>>(maps, a);
   return cudaGetLastError();
+}
+
+// The form of 8 or 16 frames a box, or with tp = 32 the wide one.
+template <int D, bool BWD, bool CAUSAL, int HG>
+cudaError_t launch_hg(const TaMaps& maps, const TaArgs& a,
+                      cudaStream_t stream) {
+  return a.tp == 32 ? launch_form<D, BWD, CAUSAL, HG, true>(maps, a, stream)
+                    : launch_form<D, BWD, CAUSAL, HG, false>(maps, a, stream);
 }
 
 template <bool BWD, bool CAUSAL>

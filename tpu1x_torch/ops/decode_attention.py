@@ -167,7 +167,7 @@ def _check(qs, ks, vs, k_cache, v_cache, t_B, layer, k_scale, v_scale, out,
     B, S, C = qs[0].shape
     T, L = k_cache.shape[:2]
     dev = qs[0].device
-    require(T <= 16, f"decode attention kernel needs T <= 16, got {T}")
+    require(T <= 32, f"decode attention kernel needs T <= 32, got {T}")
     head_dim_of(C, num_heads, "decode attention kernel")
     require(C % 256 == 0 and C <= 2048,
             f"decode attention kernel needs C % 256 == 0 and C <= 2048, got "
@@ -244,7 +244,7 @@ def temporal_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     csrc/decode_attention.cu, which replaces the Pallas kernel
     tpu1x/ops/decode_attention.py:temporal_decode_attention (_kernel): bf16
     q, k_cur, v_cur, int32 t_B, `layer` a plain int, head_dim 32 or 64,
-    C % 256 == 0, C <= 2048, T <= 16, S % 4 == 0 for the int8 cache. q,
+    C % 256 == 0, C <= 2048, T <= 32, S % 4 == 0 for the int8 cache. q,
     k_cur, v_cur and `out` may each be strided views, as the column thirds
     of one qkv product are: last axis contiguous, the other two strides
     multiples of 8, the data 16-byte aligned (`_check`).

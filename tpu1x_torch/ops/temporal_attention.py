@@ -56,7 +56,7 @@ def _check_qkv(q, k, v, num_heads: int) -> int:
     require(k.shape == q.shape and v.shape == q.shape,
             "q, k, v must share one shape")
     require(q.device == k.device == v.device, "q, k, v on different devices")
-    require(T <= 16, f"temporal_attention kernels need T <= 16, got {T}")
+    require(T <= 32, f"temporal_attention kernels need T <= 32, got {T}")
     D = head_dim_of(C, num_heads, "temporal_attention kernels")
     full = 256 // D  # the heads of a full tile
     require(num_heads % 2 == 0,
@@ -150,7 +150,7 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _fwd_kernel) and, under autograd, the backward (_temporal_bwd /
     _bwd_kernel), which recomputes the probabilities from q and k. Both take
     bf16 q, k, v that may be column slices of one (B, T, S, 3C) qkv tensor
-    (last axis contiguous, the same strides for all three), T <= 16,
+    (last axis contiguous, the same strides for all three), T <= 32,
     head_dim 32 or 64 and an even number of heads. The backward returns
     dq, dk, dv as column slices of one (B, T, S, 3C) tensor.
 
@@ -164,7 +164,11 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     frames by TMA into a ring of stages, one warp computes one (position,
     head) at a time with mma.sync (16 x 16 problems, too small for wgmma's
     64-row tiles) and writes the results over the operands, and a storer
-    warp stores them by TMA.
+    warp stores them by TMA. Where 16 < T <= 32 a tile holds half the
+    positions, each (position, head) one 32 x 32 problem that two warps
+    share: in the forward a query block each, in the backward half the
+    columns each after both computed P and dS; under `causal` the first
+    query block skips the second key block.
     """
     if not q.is_cuda:
         return temporal_attention_plain(q, k, v, scale=scale,

@@ -337,7 +337,7 @@ def tp_temporal_train_block(x: torch.Tensor, wqkv: torch.Tensor,
     qkv(x)) with this rank's share (the shards as in
     `tp_spatial_train_block`). CUDA tensors launch the training forms of
     csrc/gemm_sm90.cuh and K4 forward, K6 and the training forms backward
-    (T <= 16, head_dim 32 or 64, an even number of heads a rank); CPU
+    (T <= 32, head_dim 32 or 64, an even number of heads a rank); CPU
     tensors the plain
     versions."""
     return _TpTemporal.apply(x.contiguous(), wqkv, wproj, bqkv, bproj,
