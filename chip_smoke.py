@@ -39,7 +39,9 @@
    card at the GENIE_138M train shapes (B=8: 128 rows of (256, 512);
    (8, 16, 256, 512)): the spatial train block's backward, the temporal and
    MLP train blocks forward and backward, and the temporal attention's
-   backward, causal and not. Outputs within atol = rtol = 3e-2; every
+   backward, causal and not. Outputs within atol = rtol = 3e-2 (the
+   three train blocks' by `held_to_plain`, with an fp32 run beside them:
+   ROADMAP C11); every
    gradient elementwise within 3e-2 max|want| + 3e-2 |want| and within 2e-2
    in relative L2 (both paths round to bf16 at several places between the
    products, each rounding 2^-9 relative; the weight gradients sum 32768
@@ -185,11 +187,28 @@
    and K6 at T = 20, 24 and 32 for C = 512 / 256 / 128 / 64 and at
    head_dim 64, untimed) and the decode batch sizes of 3 at T = 32; then
    GENIE_138M-T32 (configs/genie_138m.json with T = 32 and 16 prompt
-   frames) at 32 layers: the rollout of 16 + 16 frames as in 4, ten train
-   steps and the step against the plain path as in 6; at 8 layers
-   `score_policies` (16 policies of 16 frames after 16 shared), the
-   evaluator batch, the train CLI with its resume and exports, and the
-   qk_norm int8 rollout and train step; each with exact launch counts.
+   frames) at 8 layers (the rollout and step at 32 until the S = 1024
+   phase came): the rollout of 16 + 16 frames as in 4, ten train steps
+   and the step against the plain path as in 6, `score_policies` (16
+   policies of 16 frames after 16 shared), the evaluator batch, the train
+   CLI with its resume and exports, and the qk_norm int8 rollout and train
+   step; each with exact launch counts.
+12d. A 32 x 32 token grid (`check_grid_1024`): every kernel form at
+   GENIE_138M-S1024's shapes (configs/genie_138m.json with S = 1024)
+   against its plain version, values and gradients, with its times
+   (`check_s1024_kernels`: K1 both modes at N = 16 / 32 / 128, K9 and K10
+   at (128, 1024, 16, 32) with SDPA and the exponentials' floor, K11, K12,
+   K13, K4, K6, K5, K2 and K3, K7 and K8 with both caches on a (16, 32,
+   16, 1024, 512) cache of 2^32 elements a tensor; untimed at R = 2, K9
+   and K10 causal and not and at a negative scale, K1 both modes and K11
+   at S = 64, 192, 320, 576, 1024 and 4096 and head_dim 32 and 64); then
+   GENIE_138M-S1024 at 32 layers: the rollout of 8 + 8 frames as in 4 and
+   ten train steps as in 6; the step against the plain path at 8 layers
+   (the plain path's probabilities are 2 GiB a layer at CB = 2); at 8
+   layers `score_policies`, the evaluator batch, the train CLI with its
+   resume and exports (the tokenizer at 512 px), and the qk_norm int8
+   rollout and train step; each with exact launch counts. The plain
+   oracle's spatial attention runs in slices of frames (`by_frames`).
 13. Tensor parallelism (`check_tensor_parallel`): K4 and K6 at C = 128
    (4 heads, the kernels' head groups of 4) and C = 64 (2 heads, head
    groups of 2) against their plain versions with their device times and
@@ -217,9 +236,10 @@
    `genie_35m_launches` and `mup_launches`, the TP steps' per-rank
    `tp_launches` of both setups, K4's and K6's C = 128 and C = 64
    entries, each attention kernel's head_dim-64 form, `h64`, with its
-   launches on GENIE_138M-h64's paths, and each frame-axis kernel's T = 32
-   form, `t32`, with its launches on GENIE_138M-T32's), the card line, and
-   last the result line.
+   launches on GENIE_138M-h64's paths, each frame-axis kernel's T = 32
+   form, `t32`, with its launches on GENIE_138M-T32's, and every kernel's
+   S = 1024 form, `s1024`, with its launches on GENIE_138M-S1024's), the
+   card line, and last the result line.
 
 K1 (both modes), K2, K3, K5, K9, K10 and K13 carry a profiler device time
 (`device_ms`; their library calls `library_device_ms`) beside the event
@@ -306,6 +326,7 @@ PEAK_FP32 = H100_PEAKS["sxm"]["float32"]
 PEAK_BYTES = 3.35e12
 
 B, P, NEW, STEPS = 16, 8, 8, 2
+GRID = 256  # tokens a frame in the kernel checks (`grid_of` sets it)
 # the training phase; at random init the gradient norm is above 1000, and
 # a learning rate of 1e-4 overshoots in the first steps
 TB, TRAIN_STEPS, TRAIN_LR = 8, 10, 1e-5
@@ -430,28 +451,75 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def device_ms(fn, iters: int = 20, windows: int = 3):
     """Device time of one call of `fn`, from torch.profiler: its kernels
-    alone, the median over `windows` profiler windows. `time_ms` includes
-    the wrapper's host time, which is the longer of the two for the
-    smallest kernels. The profiler now and then reports no device time for
-    a window, or only part of it (once a quarter of K10's, below its
-    event time): a window with none is dropped, and the median outvotes a
-    short one. None if every window came back empty (no number rather
-    than a wrong one)."""
+    alone, the median over the kept windows of `windows`. `time_ms`
+    includes the wrapper's host time, which is the longer of the two for
+    the smallest kernels. The profiler can lose part of a window's kernels,
+    more often late in a long process (K10 at S = 1024 read 0.43 of its
+    event time there and 1.0 in a fresh process): a window is kept only if
+    it has device time and, where the host enqueued its calls in less than
+    half its CUDA-event time (the device then ran them back to back), its
+    kernels fill at least 0.8 of that time. None if no window is kept (no
+    number rather than a wrong one); `vet` also drops a device time below
+    its bound."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     got = []
     for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            start.record()
             for _ in range(iters):
                 fn()
+            end.record()
+            host = (time.perf_counter() - t0) * 1e3
             torch.cuda.synchronize()
         total = sum(a.self_device_time_total for a in prof.key_averages()
-                    if a.device_type == torch.autograd.DeviceType.CUDA)
-        if total > 0:
-            got.append(total / 1e3 / iters)
+                    if a.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        event = start.elapsed_time(end)
+        if total > 0 and (host >= 0.5 * event or total >= 0.8 * event):
+            got.append(total / iters)
     # a lost event only shortens a window: of two, the longer
     return sorted(got)[len(got) // 2] if got else None
+
+
+# device times that `vet` dropped: (where, key, the reading, its floor)
+BELOW_BOUND = []
+
+
+def vet(r, where=""):
+    """`r` (a kernel's result, nested dicts walked) with every profiler
+    device time that lies below its floor set to None and listed in
+    BELOW_BOUND: no run can beat the bound, so such a reading lost events.
+    The floor of `device_ms` and `library_device_ms` is the larger of
+    `bound_ms` and `exp_bound_ms`; of another `X_device_ms`, `X_bound_ms`
+    where the dict has it."""
+    if not isinstance(r, dict):
+        return r
+    for k, v in r.items():
+        if isinstance(v, dict):
+            vet(v, f"{where}.{k}")
+    bound = r.get("bound_ms")
+    for k, v in list(r.items()):
+        if not (k.endswith("device_ms") and isinstance(v, float)):
+            continue
+        if k in ("device_ms", "library_device_ms"):
+            floor = max(bound or 0.0, r.get("exp_bound_ms") or 0.0)
+        else:
+            floor = r.get(k[:-len("device_ms")] + "bound_ms") or 0.0
+        if v < floor:
+            BELOW_BOUND.append([where, k, v, floor])
+            r[k] = None
+    return r
+
+
+def print_kernels(out):
+    """Each result of `out`, vetted, on a `kernel` line; `out` back."""
+    for name, r in out.items():
+        print(f"kernel {name}: " + json.dumps(vet(r, name)), flush=True)
+    return out
 
 
 def tflops(flops: float, ms):
@@ -486,8 +554,9 @@ def compare(name, got, want, atol, rtol):
 
 
 def held_to_plain(name, got, want, want32, tol):
-    """K2's and K3's outputs against the plain bf16 path (`want`) and an
-    fp32 run of the plain version (`want32`): elementwise (atol = rtol =
+    """K2's and K3's outputs (and, through `both_paths`, K11's, K12's and
+    K13's) against the plain bf16 path (`want`) and an fp32 run of the
+    plain version (`want32`): elementwise (atol = rtol =
     `tol`) where the two bf16 paths agree, which must be all but 1e-4 of
     the elements; and as a whole by relative L2, at most 3e-2 from the
     plain path and no farther from the fp32 run than the plain path is
@@ -524,7 +593,7 @@ class Inputs:
 
 
 def check_layer_norm(inp, C):
-    x = inp.normal(B, P, 256, C, std=1.0, mean=0.3)
+    x = inp.normal(B, P, GRID, C, std=1.0, mean=0.3)
     g = inp.normal(C, std=0.1, mean=1.0, dtype=torch.float32)
     b = inp.normal(C, std=0.1, dtype=torch.float32)
     err = compare("layer_norm", layer_norm(x, g, b), layer_norm_plain(x, g, b),
@@ -582,7 +651,7 @@ def temporal_case(inp, C, H, tag, Bt, T, causal, timed=True):
     where `tag` says "separate"; with `timed` its event and device times,
     the bound, the plain version's and SDPA's."""
     scale = (C // H) ** -0.5
-    qkv = inp.normal(Bt, T, 256, 3 * C)
+    qkv = inp.normal(Bt, T, GRID, 3 * C)
     q, k, v = qkv.split(C, dim=-1)  # strided views, as both callers
     if "separate" in tag:  # three tensors of their own
         q, k, v = (x.contiguous() for x in (q, k, v))
@@ -595,11 +664,11 @@ def temporal_case(inp, C, H, tag, Bt, T, causal, timed=True):
     D = C // H
 
     def heads(t):  # (B, T, S, C) -> (B, S, H, T, D) view
-        return t.reshape(Bt, T, 256, H, D).permute(0, 2, 3, 1, 4)
+        return t.reshape(Bt, T, GRID, H, D).permute(0, 2, 3, 1, 4)
     qh, kh, vh = heads(q), heads(k), heads(v)
     pairs = T * (T + 1) // 2 if causal else T * T
     # q.k and, with probabilities rounded to bf16, p.v
-    bms, by = temporal_bound(Bt, T, 256, C, 4, pairs, 2)
+    bms, by = temporal_bound(Bt, T, GRID, C, 4, pairs, 2)
 
     def kernel():
         return ta.launch_forward(q, k, v, **kw)
@@ -633,11 +702,11 @@ def check_spatial_block(inp, C, H, N, qk_ln=False):
                  qk_ln_scale=inp.normal(C // H, std=0.1, mean=1.0,
                                         dtype=torch.float32),
                  qk_ln_bias=inp.normal(C // H, std=0.1, dtype=torch.float32))
-    x = inp.normal(N, 256, C)
+    x = inp.normal(N, GRID, C)
     kw = dict(num_heads=H, scale=(C // H) ** -0.5, **w)
     err = compare(f"spatial_block N={N} qk_ln={qk_ln}", spatial_block(x, **kw),
                   spatial_block_plain(x, **kw), 3e-2, 3e-2)
-    S = 256
+    S = GRID
     bms, by = bound(nbytes(x, x, *w.values()),
                     tensor_flops=2 * N * S * C * (4 * C + 2 * S))
     return dict(max_abs_err=err, shape=list(x.shape), bound_ms=bms,
@@ -671,7 +740,7 @@ def check_temporal_mlp_block(inp, C, H, L, caches, pair, gelu_tanh=True,
     T = kc.shape[0]
     w = block_weights(inp, C)
     frames = 2 if pair else 1
-    x = inp.normal(B, frames, 256, C) if pair else inp.normal(B, 256, C)
+    x = inp.normal(B, frames, GRID, C) if pair else inp.normal(B, GRID, C)
     # a different frame index per row, and a layer other than 0
     t_B = (first + torch.arange(B, device=x.device)
            % (T - first - frames + 1)).to(torch.int32)
@@ -693,8 +762,8 @@ def check_temporal_mlp_block(inp, C, H, L, caches, pair, gelu_tanh=True,
     err = held["out"]["max_abs_err"]
     # the decode engine's forms: k/v written into one layer of a (L, B, S,
     # C) stack, or not kept; the same bits as above
-    kv = (torch.zeros(2, B, 256, C, dtype=x.dtype, device=x.device),
-          torch.zeros(2, B, 256, C, dtype=x.dtype, device=x.device))
+    kv = (torch.zeros(2, B, GRID, C, dtype=x.dtype, device=x.device),
+          torch.zeros(2, B, GRID, C, dtype=x.dtype, device=x.device))
     into = kernel(x, kc, vc, t_B, layer=layer, kv_out=(kv[0][1], kv[1][1]),
                   **kw)
     dropped = kernel(x, kc, vc, t_B, layer=layer, return_kv=False, **kw)
@@ -704,7 +773,7 @@ def check_temporal_mlp_block(inp, C, H, L, caches, pair, gelu_tanh=True,
         raise AssertionError(f"{name}: kv_out / return_kv change the output")
     if not timed:
         return dict(max_abs_err=err, shape=list(x.shape), held=held)
-    S = 256
+    S = GRID
     slots = int(t_B.sum())  # this run's data: slots t < t_B[b] per row
     cache_bytes = 2 * slots * S * C * 2
     io = nbytes(x, x, t_B, *w.values()) + 2 * B * S * C * 2
@@ -746,7 +815,7 @@ def check_decode_attention(inp, C, H, L, caches, scales, pair):
     the bf16 cache."""
     from chip_variants import decode_bound
     kc, vc = caches
-    T, S = kc.shape[0], 256
+    T, S = kc.shape[0], GRID
     frames = 2 if pair else 1
     qkv = inp.normal(frames * B, S, 3 * C)
     q, k, v = qkv.split(C, dim=-1)
@@ -849,9 +918,41 @@ def decode_sdpa(args, pair, layer, D, scale):
                                                   scale=scale)
 
 
+def flash_case(name, qkv, dout, scale, causal):
+    """K9 and K10 on the thirds of one (R, N, 3, H, D) `qkv`, untimed: o and
+    lse against `mha_lse_reference` (atol = rtol = 3e-2; lse atol 1e-2),
+    K10 on the forward's residuals against `flash_mha_bwd_plain` and through
+    `flash_mha`'s autograd against `mha_reference`'s, by the gradient gates.
+    Returns (o's max abs error, the gradients' errors)."""
+    q, k, v = qkv.unbind(-3)
+    (o, lse), (wo, wl) = (
+        f(q, k, v, scale=scale, causal=causal)
+        for f in (attn.flash_mha_fwd, attn.mha_lse_reference))
+    err = compare(name, o, wo, 3e-2, 3e-2)
+    compare(f"{name} lse", lse, wl, 1e-2, 0.0)
+    errs = {
+        f"d{c} (residuals)": grad_errors(f"{name} d{c} (residuals)", got,
+                                         want)
+        for c, got, want in zip(
+            "qkv",
+            attn.flash_mha_bwd(q, k, v, o, lse, dout, scale=scale,
+                               causal=causal),
+            attn.flash_mha_bwd_plain(q, k, v, o, lse, dout, scale=scale,
+                                     causal=causal))}
+    _, grads = both_paths(
+        name,
+        lambda qkv: attn.flash_mha(*qkv.unbind(-3), scale=scale,
+                                   causal=causal),
+        lambda qkv: attn.mha_reference(*qkv.unbind(-3), scale=scale,
+                                       causal=causal),
+        dict(qkv=qkv), dout)
+    return err, dict(errs, dqkv=grads["qkv"])
+
+
 def check_flash_mha(inp, H, D=32):
-    """K9 and K10 at the qk_norm train step's shape (128, 256, H, D): (128,
-    256, 16, 32) at GENIE_138M, (128, 256, 8, 64) at head_dim 64,
+    """K9 and K10 at the qk_norm train step's shape (128, GRID, H, D): (128,
+    256, 16, 32) at GENIE_138M, (128, 256, 8, 64) at head_dim 64, (128,
+    1024, 16, 32) at GENIE_138M-S1024,
     q, k, v as thirds of one qkv product, against `mha_reference` and its
     autograd; K9's lse against `mha_lse_reference` (atol 1e-2: the kernel
     sums the bf16-rounded p); K10 also against `flash_mha_bwd_plain` on the
@@ -864,7 +965,7 @@ def check_flash_mha(inp, H, D=32):
     kernel's work (q, k, v, d_o read and dq, dk, dv written once, 7
     tensors), as in the rows before; `own_floor_ms` adds the residuals o
     and lse that this design reads."""
-    R, N = TB * 16, 256
+    R, N = TB * 16, GRID
     t = dict(qkv=inp.normal(R, N, 3, H, D))
     dout = inp.normal(R, N, H, D)
     scale = D ** -0.5
@@ -878,31 +979,10 @@ def check_flash_mha(inp, H, D=32):
         # forward's row max is the min of the raw logits), on 4 rows
         other_n, other_n_grads = {}, {}
         for n, sc in ((64, scale), (128, scale), (192, scale), (128, -scale)):
-            q, k, v = t["qkv"][:4, :n].unbind(-3)
-            g = dout[:4, :n]
             key = f"N={n}, scale={sc:.4f}"
-            (o, lse), (wo, wl) = (
-                f(q, k, v, scale=sc, causal=causal)
-                for f in (attn.flash_mha_fwd, attn.mha_lse_reference))
-            other_n[key] = compare(f"flash_mha{tag} {key}", o, wo, 3e-2, 3e-2)
-            compare(f"flash_mha{tag} {key} lse", lse, wl, 1e-2, 0.0)
-            errs = {
-                f"d{c} (residuals)": grad_errors(
-                    f"flash_mha_bwd{tag} {key} d{c} (residuals)", got, want)
-                for c, got, want in zip(
-                    "qkv",
-                    attn.flash_mha_bwd(q, k, v, o, lse, g, scale=sc,
-                                       causal=causal),
-                    attn.flash_mha_bwd_plain(q, k, v, o, lse, g, scale=sc,
-                                             causal=causal))}
-            _, grads = both_paths(
-                f"flash_mha{tag} {key}",
-                lambda qkv: attn.flash_mha(*qkv.unbind(-3), scale=sc,
-                                           causal=causal),
-                lambda qkv: attn.mha_reference(*qkv.unbind(-3), scale=sc,
-                                               causal=causal),
-                dict(qkv=t["qkv"][:4, :n]), g)
-            other_n_grads[key] = dict(errs, dqkv=grads["qkv"])
+            other_n[key], other_n_grads[key] = flash_case(
+                f"flash_mha{tag} {key}", t["qkv"][:4, :n], dout[:4, :n], sc,
+                causal)
 
         def kernel(qkv):
             return attn.flash_mha(*qkv.unbind(-3), **kw)
@@ -1040,9 +1120,7 @@ def check_op_path_kernels(C, H, L, device):
     out.update(check_flash_mha(inp, H))
     out.update(check_mlp_train_block(inp, C, ln=False))
     torch.cuda.empty_cache()
-    for name, r in out.items():
-        print(f"kernel {name}: " + json.dumps(r), flush=True)
-    return out
+    return print_kernels(out)
 
 
 def check_kernels(C, H, L, device):
@@ -1073,9 +1151,7 @@ def check_kernels(C, H, L, device):
                 check_temporal_mlp_block(inp, 256, 8, 4, caches, pair,
                                          gelu_tanh=approx, timed=False))
     del caches
-    for name, r in out.items():
-        print(f"kernel {name}: " + json.dumps(r), flush=True)
-    return out
+    return print_kernels(out)
 
 
 def check_eval_kernels(C, H, L, device):
@@ -1091,9 +1167,35 @@ def check_eval_kernels(C, H, L, device):
     out["temporal_mlp_block[eval t_B]"] = check_temporal_mlp_block(
         inp, C, H, L, caches, False, first=1)
     del caches
-    for name, r in out.items():
-        print(f"kernel {name}: " + json.dumps(r), flush=True)
-    return out
+    return print_kernels(out)
+
+
+def by_frames(fn):
+    """`fn` of x (N, S, ...) (and of arguments shared by every frame) over
+    slices of at most 2^25 / S^2 frames, concatenated: each frame is its own
+    problem, and the plain attention's (N, H, S, S) fp32 logits stay at 2
+    GiB a slice (at S = 1024, 32 frames; at S = 256 up to 512 frames, one
+    slice on every path of GENIE_138M and GENIE_138M-T32)."""
+    def run(x, *args, **kw):
+        n = max(1, (1 << 25) // (x.shape[1] ** 2))
+        if x.shape[0] <= n:
+            return fn(x, *args, **kw)
+        return torch.cat([fn(x[i:i + n], *args, **kw)
+                          for i in range(0, x.shape[0], n)])
+    return run
+
+
+def mha_by_frames(q, k, v, **kw):
+    """`mha_reference` over q, k, v (..., N, H, D), the leading axes in
+    slices as `by_frames` takes them."""
+    lead, (N, H, D) = q.shape[:-3], q.shape[-3:]
+    q3, k3, v3 = (t.reshape(-1, N, H, D) for t in (q, k, v))
+    n = max(1, (1 << 25) // (N * N))
+    out = (attn.mha_reference(q3, k3, v3, **kw) if q3.shape[0] <= n
+           else torch.cat([attn.mha_reference(q3[i:i + n], k3[i:i + n],
+                                              v3[i:i + n], **kw)
+                           for i in range(0, q3.shape[0], n)]))
+    return out.reshape(*lead, N, H, D)
 
 
 class PlainDecodeEngine(DecodeEngine):
@@ -1102,7 +1204,7 @@ class PlainDecodeEngine(DecodeEngine):
     has no way to the plain versions on the card."""
 
     _ops = SimpleNamespace(
-        spatial_block=spatial_block_plain,
+        spatial_block=by_frames(spatial_block_plain),
         temporal_attention=temporal_attention_plain,
         layer_norm=layer_norm_plain,
         temporal_mlp_block=functools.partial(plain_on_cache,
@@ -1301,7 +1403,9 @@ def check_prefill_and_logits(model, cfg, prompt, engine, plain,
             return_kv=False)
         got[name] = {"logits": logits}
         for key in ("k", "v"):
-            got[name][key] = cache[key][:P]
+            # the prompt's slots alone, the cache freed before the next
+            # path's (GENIE_138M-S1024's fp32 cache is 32 GiB)
+            got[name][key] = cache[key][:P].clone()
             if key + "_scale" in cache:  # (L, B, T, S) -> (T, L, B, S)
                 got[name][key + "_step"] = cache[key + "_scale"].permute(
                     2, 0, 1, 3)[:P]
@@ -1372,11 +1476,16 @@ def leaves_of(tensors):
             for k, t in tensors.items()}
 
 
-def both_paths(name, kernel_fn, plain_fn, tensors, dout):
+def both_paths(name, kernel_fn, plain_fn, tensors, dout, held=False):
     """The output and the gradient of sum(out * dout) for every tensor of
     `tensors` through the kernels' autograd.Function and through the plain
     version's ordinary autograd. Returns (output max abs error, {tensor:
-    gradient errors})."""
+    gradient errors}). The output is held elementwise (atol = rtol =
+    3e-2), or with `held` by `held_to_plain` against the plain path and an
+    fp32 run of the plain version on the same values (the train blocks
+    K11, K12 and K13, whose bf16 paths round a product and the residual
+    that cancels it in another order; ROADMAP C11), its numbers then in
+    the gradients' dict under "out_held"."""
     res = []
     for fn in (kernel_fn, plain_fn):
         leaves = leaves_of(tensors)
@@ -1387,8 +1496,13 @@ def both_paths(name, kernel_fn, plain_fn, tensors, dout):
     for k in tensors:
         if g_k[k].dtype != tensors[k].dtype:
             raise AssertionError(f"{name} d{k}: dtype {g_k[k].dtype}")
-    return (compare(name, out_k, out_p, 3e-2, 3e-2),
-            {k: grad_errors(f"{name} d{k}", g_k[k], g_p[k]) for k in tensors})
+    grads = {k: grad_errors(f"{name} d{k}", g_k[k], g_p[k]) for k in tensors}
+    if not held:
+        return compare(name, out_k, out_p, 3e-2, 3e-2), grads
+    with torch.no_grad():
+        out_32 = plain_fn(**{k: t.float() for k, t in tensors.items()})
+    grads["out_held"] = held_to_plain(name, out_k, out_p, out_32, 3e-2)
+    return grads["out_held"]["max_abs_err"], grads
 
 
 def plain_ms(plain_fn, tensors, dout=None):
@@ -1415,7 +1529,7 @@ def check_spatial_train_block(inp, C, H, timed=True):
     """K11's backward (with K1's forward under autograd), values and every
     gradient, against `spatial_train_block_plain`'s autograd; with `timed`
     its event and device times, the plain backward's and the bound."""
-    S, N = 256, TB * 16
+    S, N = GRID, TB * 16
     t = dict(x=inp.normal(N, S, C), **{
         k: v.float() for k, v in spatial_weights(inp, C).items()})
     dout = inp.normal(N, S, C)
@@ -1424,7 +1538,8 @@ def check_spatial_train_block(inp, C, H, timed=True):
     out_err, grads = both_paths(
         "spatial_train_block" + tag,
         functools.partial(stb.spatial_train_block, **kw),
-        functools.partial(stb.spatial_train_block_plain, **kw), t, dout)
+        functools.partial(stb.spatial_train_block_plain, **kw), t, dout,
+        held=True)
     if not timed:
         return {"spatial_train_block_bwd" + tag: dict(
             max_abs_err=grads["x"]["max_abs_err"], grads=dict(grads,
@@ -1453,7 +1568,7 @@ def check_temporal_train_block(inp, C, H, timed=True, T=16):
     """K12's forward and backward at (TB, T, 256, C), values and every
     gradient, against `temporal_train_block_plain`'s autograd; with `timed`
     their event and device times, the plain version's and the bounds."""
-    S = 256
+    S = GRID
     t = dict(x=inp.normal(TB, T, S, C),
              wqkv=inp.normal(C, 3 * C, std=0.05, dtype=torch.float32),
              wproj=inp.normal(C, C, std=0.05, dtype=torch.float32),
@@ -1464,7 +1579,8 @@ def check_temporal_train_block(inp, C, H, timed=True, T=16):
     plain = functools.partial(ttb.temporal_train_block_plain, **kw)
     out_err, grads = both_paths(
         "temporal_train_block" + tag,
-        functools.partial(ttb.temporal_train_block, **kw), plain, t, dout)
+        functools.partial(ttb.temporal_train_block, **kw), plain, t, dout,
+        held=True)
     if not timed:
         return {"temporal_train_block" + tag: dict(
                     max_abs_err=out_err, shape=list(t["x"].shape)),
@@ -1501,7 +1617,7 @@ def check_mlp_train_block(inp, C, ln=True, timed=True):
     `timed`: the event and device times, the plain version's and the
     bounds, and a profile of one forward and backward, which must launch no
     GEMM of the port but csrc/gemm_sm90.cuh's (`profile_device`)."""
-    S, N, F4 = 256, TB * 16, 4 * C
+    S, N, F4 = GRID, TB * 16, 4 * C
     w = block_weights(inp, C)
     t = dict(x=inp.normal(N, S, C), **{
         k: w[k].float() for k in ("wfc1", "wfc2", "bfc1", "bfc2") + (
@@ -1515,7 +1631,7 @@ def check_mlp_train_block(inp, C, ln=True, timed=True):
                                   gelu_approx=approx)
         out_err, grads = both_paths(
             name, functools.partial(mtb.mlp_train_block, gelu_approx=approx),
-            plain, t, dout)
+            plain, t, dout, held=True)
         bwd_name = name.replace("block", "block_bwd", 1)
         if not timed:
             out[name] = dict(max_abs_err=out_err, shape=list(t["x"].shape))
@@ -1631,7 +1747,7 @@ def check_temporal_attention_bwd(inp, C, H, T=16, Bt=TB, timed=True):
     that K6 writes beside them equal to K4's output exactly; with `timed`
     its event and device times without and with `o`, the bounds, the plain
     backward's time and SDPA's backward's."""
-    S, D = 256, C // H
+    S, D = GRID, C // H
     t = dict(qkv=inp.normal(Bt, T, S, 3 * C))
     dout = inp.normal(Bt, T, S, C)
     scale = D ** -0.5
@@ -1781,9 +1897,7 @@ def check_train_kernels(C, H, device):
     torch.cuda.empty_cache()
     out.update(check_gemm90_train(inp, C))
     torch.cuda.empty_cache()
-    for name, r in out.items():
-        print(f"kernel {name}: " + json.dumps(r), flush=True)
-    return out
+    return print_kernels(out)
 
 
 @contextlib.contextmanager
@@ -1791,10 +1905,10 @@ def plain_blocks():
     """Every STBlock takes the plain train blocks, on any device: this
     script's oracle. The port itself has no way to them on the card."""
     kernel_ops = STBlock.ops
-    STBlock.ops = SimpleNamespace(spatial=stb.spatial_train_block_plain,
-                                  temporal=ttb.temporal_train_block_plain,
-                                  mlp=mtb.mlp_train_block_plain,
-                                  mha=attn.mha_reference)
+    STBlock.ops = SimpleNamespace(
+        spatial=by_frames(stb.spatial_train_block_plain),
+        temporal=ttb.temporal_train_block_plain,
+        mlp=mtb.mlp_train_block_plain, mha=mha_by_frames)
     try:
         yield
     finally:
@@ -1856,16 +1970,16 @@ def check_training(cfg, device, per_layer=TRAIN_PER_LAYER):
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
     step_s = sorted(walls[-5:])[2]
-    # the pre-LN step: K11's attention backward is K10's kernel (the fused
-    # one at head_dim 32, its two passes at 64), beside the recompute on
-    # K9's; of spatial_block.cu's own kernels none runs; K4 and K6 are
+    # the pre-LN step: K11's attention backward is K10's two passes, beside
+    # the recompute on K9's kernel (its streamed form past S = 256); of
+    # spatial_block.cu's own kernels none runs; K4 and K6 are
     # temporal_attention.cu's tiled kernels, and the names of the per-(b, s)
     # kernels they replaced must not appear
-    k10 = (("flash_bwd_kernel",) if cfg.head_dim == 32
-           else ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
+    k9 = ("flash_fwd_stream_kernel" if cfg.S > 256  # csrc FA_N
+          else "flash_fwd_kernel")
     pre_ln = {} if cfg.qk_norm else dict(
-        must=("flash_fwd_kernel", *k10, "temporal_fwd_kernel",
-              "temporal_bwd_kernel"),
+        must=(k9, "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+              "temporal_fwd_kernel", "temporal_bwd_kernel"),
         must_not=("spatial_attention", "temporal_attention_kernel",
                   "temporal_attention_bwd_kernel"))
     device_time = profile_device(lambda: step(tokens, noise=noise), **pre_ln)
@@ -2768,19 +2882,19 @@ def check_h64_kernels(device):
     out.update(check_temporal_train_block(inp, C, H))
     torch.cuda.empty_cache()
     out = {f"{name}[h64]": r for name, r in out.items()}
-    for name, r in out.items():
-        print(f"kernel {name}: " + json.dumps(r), flush=True)
-    return out
+    return print_kernels(out)
 
 
-def check_config_paths(make, label, device, cut_layers, deep_layers=None):
+def check_config_paths(make, label, device, cut_layers, deep_layers=None,
+                       plain_layers=None):
     """The entry points of the configuration `make(**overrides)` (seeded
     random weights), each by its GENIE_138M counterpart's gates and exact
     launch counts per layer: at `deep_layers` layers (the configuration's
     own where None) the rollout (B 16, P + NEW frames, maskgit_steps 2)
     against the plain path (`check_rollout`), ten train steps
     (`check_training`) and the step's gradients against the plain path and
-    fp32 (`check_step_against_plain`); at `cut_layers` layers
+    fp32 (`check_step_against_plain`; at `plain_layers` layers where given,
+    a model of its own from the same seed); at `cut_layers` layers
     `score_policies`, an `evaluate_dataset` batch at B 16, the train CLI on
     the configuration written as JSON into a temporary directory, with its
     resume and exports (`check_cli_run`), and the qk_norm model's int8
@@ -2799,6 +2913,12 @@ def check_config_paths(make, label, device, cut_layers, deep_layers=None):
     show("rollout", "rollout")
     t0 = time.perf_counter()
     model, out["training"] = check_training(deep, device)
+    if plain_layers is not None:  # a model that the plain path fits
+        del model
+        torch.cuda.empty_cache()
+        deep = make(num_layers=plain_layers)
+        g = torch.Generator(device=device).manual_seed(0)
+        model = STMaskGIT(deep, device=device).init_weights(g)
     out["step_against_plain"] = check_step_against_plain(model, deep, device)
     del model
     torch.cuda.empty_cache()
@@ -2977,9 +3097,7 @@ def check_w32_kernels(device):
         out[f"{k}[h64]"] = r
     torch.cuda.empty_cache()
     out = {f"{name}[t32]": r for name, r in out.items()}
-    for name, r in out.items():
-        print(f"kernel {name}: " + json.dumps(r), flush=True)
-    return out
+    return print_kernels(out)
 
 
 def check_window_32(device):
@@ -2987,9 +3105,11 @@ def check_window_32(device):
     `check_head_dim_64`, inside `window_of`: every T = 32 kernel form
     against its plain version (`check_w32_kernels`) and the decode batch
     sizes at T = 32 (`check_decode_batches`), then every entry point
-    (`check_config_paths`): the rollout of 16 + 16 frames and the train
-    step at full depth (32 layers), the rest at W32_LAYERS layers (scores:
-    NP policies of 16 frames after 16 shared)."""
+    (`check_config_paths`) at W32_LAYERS layers: the rollout of 16 + 16
+    frames and the train step (at 32 layers until the S = 1024 phase came,
+    for the script's time: `check_w32_kernels` keeps every form at its full
+    shapes), scores (NP policies of 16 frames after 16 shared), the
+    evaluator, the train CLI and the qk_norm int8 paths."""
     cfg = genie_138m_t32()
     walls = {}
     with window_of(cfg):
@@ -3001,7 +3121,196 @@ def check_window_32(device):
             out["decode_batches"]), flush=True)
         walls["kernels"] = time.perf_counter() - t0
         paths, path_walls = check_config_paths(genie_138m_t32, "T = 32",
-                                               device, W32_LAYERS)
+                                               device, W32_LAYERS,
+                                               W32_LAYERS)
+    out.update(paths, phase_walls_s=dict(walls, **path_walls))
+    return out
+
+
+# ------------------------------------------------------- a 32 x 32 grid
+
+S1024_S = 1024  # GENIE_138M-S1024's tokens a frame: a 32 x 32 grid
+S1024_LAYERS = 8  # the depth of the phase's secondary paths
+# the depth of the step against the plain path: the plain path's autograd
+# keeps every (N, H, S, S) fp32 probability tensor, 2 GiB a layer at CB = 2
+S1024_PLAIN_LAYERS = 8
+# the untimed sweep of the spatial kernels (R = 2 rows, head_dim 32 and 64)
+S1024_SWEEP_S = (64, 192, 320, 576, 1024, 4096)
+# the kernels line's S = 1024 entry of each kernel: its key in
+# `check_s1024_kernels`
+S1024_KEYS = {"spatial_block": f"spatial_block[N={B}]",
+              "layer_norm": "layer_norm",
+              "temporal_mlp_block": "temporal_mlp_block",
+              "temporal_mlp_block_pair": "temporal_mlp_block_pair",
+              "temporal_attention": "temporal_attention[train]",
+              "temporal_attention_bwd": "temporal_attention_bwd",
+              "spatial_train_block_bwd": "spatial_train_block_bwd",
+              "temporal_train_block": "temporal_train_block",
+              "temporal_train_block_bwd": "temporal_train_block_bwd",
+              "mlp_train_block": "mlp_train_block",
+              "mlp_train_block_bwd": "mlp_train_block_bwd",
+              "temporal_decode_attention": "temporal_decode_attention",
+              "temporal_decode2_attention": "temporal_decode2_attention",
+              "flash_mha": "flash_mha", "flash_mha_bwd": "flash_mha_bwd"}
+# H100 SXM: 132 SMs, 16 special-function results (ex2) a clock an SM, at
+# the 1.83 GHz that the 989 TFLOP/s bf16 peak assumes (132 SMs x 4096
+# dense bf16 operations a clock)
+PEAK_EX2 = 132 * 16 * 1.83e9
+
+
+def genie_138m_s1024(**overrides) -> GenieConfig:
+    """GENIE_138M-S1024: configs/genie_138m.json through
+    `GenieConfig.from_pretrained` with S = 1024, a 32 x 32 token grid (32
+    layers, d_model 512, 16 heads of 32, T 16 with 8 prompt frames, bf16
+    compute, fp32 params): the frames of the MAGVIT2 tokenizer at
+    resolution 512. GENIE_138M's parameters but the spatial position
+    embedding's length; the same products and MLP."""
+    return dataclasses.replace(GenieConfig.from_pretrained(RT_CONFIG),
+                               S=S1024_S, **overrides)
+
+
+@contextlib.contextmanager
+def grid_of(cfg):
+    """This module's token grid set to `cfg`'s while the block runs: GRID
+    = cfg.S for the kernel checks, and the tokenizer the CLI check decodes
+    with at the resolution whose latents are that grid (16x downsampling);
+    restored after."""
+    g = globals()
+    saved = {k: g[k] for k in ("GRID", "VQ_CONFIG")}
+    g.update(GRID=cfg.S, VQ_CONFIG=dataclasses.replace(
+        VQ_CONFIG, resolution=16 * cfg.latent_side_len))
+    try:
+        yield
+    finally:
+        g.update(saved)
+
+
+def exp_bound(ms_entry, R, H, pairs):
+    """`ms_entry` with the exponentials' floor beside its bound: one ex2 a
+    (query, key) pair and head, at PEAK_EX2. The function needs no more:
+    K10's second pass recomputes them, an overhead of its design."""
+    ms_entry["exp_bound_ms"] = R * H * pairs / PEAK_EX2 * 1e3
+    return ms_entry
+
+
+def check_s1024_kernels(device):
+    """Every kernel form at GENIE_138M-S1024's grid (C = 512, 16 heads),
+    on the main path's shapes, held to its plain version by the gates of
+    its S = 256 form (values, and every gradient where the TPU kernel has a
+    backward), each with its times and bound; call it inside `grid_of`. K1
+    in both modes at N = 16 / 32 / 128 frames; K9 and K10 at the qk_norm
+    train step's (128, 1024, 16, 32) with SDPA beside them and the
+    exponentials' floor (`exp_bound_ms`); K11, K12, K13 at the pre-LN train
+    step's 128 frames; K4 and K6 at the train step's and the prefill's;
+    K5; K2 and K3 at the rollout's t_B and K7 and K8 with the bf16 and the
+    int8 cache, on a (16, 32, 16, 1024, 512) cache (2^32 elements a
+    tensor). Untimed at R = 2 rows, for each S of S1024_SWEEP_S at head_dim
+    32 and 64: K9 and K10 causal and not and at a negative scale, K1 in
+    both modes and K11. Keys end in "[s1024]"."""
+    C, H, L, T = 512, 16, 32, 16
+    inp = Inputs(9, device)
+    out = {"layer_norm": check_layer_norm(inp, C)}
+    for qk_ln in (False, True):
+        for N in (B, 2 * B, B * P):
+            mode = "qk_ln," if qk_ln else ""
+            out[f"spatial_block[{mode}N={N}]"] = check_spatial_block(
+                inp, C, H, N, qk_ln=qk_ln)
+    out.update(check_flash_mha(inp, H))
+    R = TB * 16
+    for causal in (False, True):
+        tag = "[causal]" if causal else ""
+        pairs = GRID * (GRID + 1) // 2 if causal else GRID * GRID
+        exp_bound(out["flash_mha" + tag], R, H, pairs)
+        exp_bound(out["flash_mha_bwd" + tag], R, H, pairs)
+    torch.cuda.empty_cache()
+    out.update(check_spatial_train_block(inp, C, H))
+    torch.cuda.empty_cache()
+    out.update(check_temporal_train_block(inp, C, H))
+    out.update(check_mlp_train_block(inp, C))
+    torch.cuda.empty_cache()
+    out.update(check_temporal_attention(inp, C, H))
+    out.update(check_temporal_attention_bwd(inp, C, H))
+    torch.cuda.empty_cache()
+    caches = (inp.normal(T, L, B, GRID, C), inp.normal(T, L, B, GRID, C))
+    for name, pair in (("temporal_mlp_block", False),
+                       ("temporal_mlp_block_pair", True)):
+        out[name] = check_temporal_mlp_block(inp, C, H, L, caches, pair)
+    for pair in (False, True):
+        out.update(check_decode_attention(inp, C, H, L, caches, None, pair))
+    (kq, ks), (vq, vs) = quantize_cache(caches[0]), quantize_cache(caches[1])
+    del caches
+    for pair in (False, True):
+        out.update(check_decode_attention(inp, C, H, L, (kq, vq), (ks, vs),
+                                          pair))
+    del kq, vq, ks, vs
+    torch.cuda.empty_cache()
+    out.update(check_grid_sweep(inp))
+    out = {f"{name}[s1024]": r for name, r in out.items()}
+    return print_kernels(out)
+
+
+def check_grid_sweep(inp, sizes=S1024_SWEEP_S):
+    """The spatial kernels at every S of `sizes` and head_dim 32 (16 heads)
+    and 64 (8 heads), untimed, R = 2 rows (frames): K9 and K10
+    (`flash_case`) causal and not and non-causal at a negative scale, K1 in
+    both modes and K11 (`both_paths`)."""
+    out = {}
+    for S_ in sizes:
+        for H in (16, 8):
+            C, D = 512, 512 // H
+            tag = f"[S={S_},D={D}]"
+            qkv = inp.normal(2, S_, 3, H, D)
+            dout = inp.normal(2, S_, H, D)
+            for causal, sc in ((False, D ** -0.5), (True, D ** -0.5),
+                               (False, -D ** -0.5)):
+                key = (f"flash_mha{tag}" + ("[causal]" if causal else "")
+                       + ("[negative scale]" if sc < 0 else ""))
+                err, grads = flash_case(key, qkv, dout, sc, causal)
+                out[key] = dict(max_abs_err=err, grads=grads)
+            del qkv, dout
+            w = spatial_weights(inp, C)
+            x = inp.normal(2, S_, C)
+            kw = dict(num_heads=H, scale=D ** -0.5)
+            for qk_ln in (False, True):
+                wk = dict(w)
+                if qk_ln:
+                    wk.update(ln_scale=None, ln_bias=None,
+                              qk_ln_scale=inp.normal(
+                                  D, std=0.1, mean=1.0, dtype=torch.float32),
+                              qk_ln_bias=inp.normal(D, std=0.1,
+                                                    dtype=torch.float32))
+                key = f"spatial_block{tag}" + ("[qk_ln]" if qk_ln else "")
+                out[key] = dict(max_abs_err=compare(
+                    key, spatial_block(x, **kw, **wk),
+                    spatial_block_plain(x, **kw, **wk), 3e-2, 3e-2))
+            t = dict(x=x, **{k: v.float() for k, v in w.items()})
+            err, grads = both_paths(
+                f"spatial_train_block{tag}",
+                functools.partial(stb.spatial_train_block, **kw),
+                functools.partial(stb.spatial_train_block_plain, **kw), t,
+                inp.normal(2, S_, C), held=True)
+            out[f"spatial_train_block_bwd{tag}"] = dict(max_abs_err=err,
+                                                        grads=grads)
+    return out
+
+
+def check_grid_1024(device):
+    """GENIE_138M-S1024 end to end (`genie_138m_s1024`), modelled on
+    `check_window_32`, inside `grid_of`: every kernel form at S = 1024
+    against its plain version and the sweep of S (`check_s1024_kernels`),
+    then every entry point (`check_config_paths`): the rollout (B 16, 8 + 8
+    frames) and ten train steps at full depth (32 layers), the step against
+    the plain path at S1024_PLAIN_LAYERS, the rest at S1024_LAYERS."""
+    cfg = genie_138m_s1024()
+    walls = {}
+    with grid_of(cfg):
+        t0 = time.perf_counter()
+        out = {"kernels": check_s1024_kernels(device)}
+        walls["kernels"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        paths, path_walls = check_config_paths(
+            genie_138m_s1024, "S = 1024", device, S1024_LAYERS,
+            plain_layers=S1024_PLAIN_LAYERS)
     out.update(paths, phase_walls_s=dict(walls, **path_walls))
     return out
 
@@ -4637,13 +4946,28 @@ def main() -> int:
         print(f"T = 32 phase: {time.perf_counter() - t0:.1f} s ("
               + ", ".join(f"{k} {v:.1f} s" for k, v in ww.items())
               + f"); GENIE_138M-T32 ({W32_PROMPT} + {W32_T - W32_PROMPT} "
-              f"frames) rollout {w32['rollout']['s_per_frame']:.4f} s/frame "
-              f"at B={B}; train step {w32['training']['step_s']:.4f} s, peak "
-              f"{w32['training']['peak_memory_bytes']} B at B={TB}; at "
-              f"{W32_LAYERS} layers gen_time "
+              f"frames) at {W32_LAYERS} layers: rollout "
+              f"{w32['rollout']['s_per_frame']:.4f} s/frame at B={B}; train "
+              f"step {w32['training']['step_s']:.4f} s, peak "
+              f"{w32['training']['peak_memory_bytes']} B at B={TB}; gen_time "
               f"{w32['evaluator']['gen_time']:.6f} s/frame, score_policies "
               f"{w32['scoring']['policies_per_s']:.1f} policies/s, the train "
               f"CLI {w32['cli']['s_per_update']:.4f} s/update on {card}",
+              flush=True)
+
+        t0 = time.perf_counter()
+        s1k = check_grid_1024(device)
+        ws = s1k["phase_walls_s"]
+        print(f"S = 1024 phase: {time.perf_counter() - t0:.1f} s ("
+              + ", ".join(f"{k} {v:.1f} s" for k, v in ws.items())
+              + f"); GENIE_138M-S1024 rollout "
+              f"{s1k['rollout']['s_per_frame']:.4f} s/frame at B={B}; train "
+              f"step {s1k['training']['step_s']:.4f} s, peak "
+              f"{s1k['training']['peak_memory_bytes']} B at B={TB}; at "
+              f"{S1024_LAYERS} layers gen_time "
+              f"{s1k['evaluator']['gen_time']:.6f} s/frame, score_policies "
+              f"{s1k['scoring']['policies_per_s']:.1f} policies/s, the train "
+              f"CLI {s1k['cli']['s_per_update']:.4f} s/update on {card}",
               flush=True)
 
         t0 = time.perf_counter()
@@ -4746,6 +5070,23 @@ def main() -> int:
                     item["t32"].update(h64_device_ms=h["device_ms"],
                                        h64_library_device_ms=h[
                                            "library_device_ms"])
+            # the S = 1024 form: its check at GENIE_138M-S1024's shapes and
+            # its launches on that configuration's paths
+            r1k = s1k["kernels"][S1024_KEYS[name] + "[s1024]"]
+            item["s1024"] = {k: r1k.get(k) for k in (
+                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "exp_bound_ms", "library_ms",
+                "library_device_ms", "shape")}
+            item["s1024"]["launches"] = {
+                k: s1k[k]["launches"][name] for k in (
+                    "rollout", "training", "scoring", "evaluator",
+                    "qk_norm_int8_rollout", "qk_norm_training")}
+            item["s1024"]["launches"]["train_cli_update"] = (
+                s1k["cli"]["launches_per_update"][name])
+            q8 = s1k["kernels"].get(name + "[int8][s1024]")
+            if q8 is not None:  # the decode attention kernels
+                item["s1024"].update(int8_device_ms=q8["device_ms"],
+                                     int8_bound_ms=q8["bound_ms"])
             item["mup_launches"] = {
                 "rollout": mup["rollout"]["launches"][name],
                 "train": mup["train_step"]["kernel_launches"][name]}
@@ -4777,7 +5118,9 @@ def main() -> int:
                 for tag, res in (("", r), ("int8_", q8)):
                     item.update({f"{tag}rollout_{k}": res["rollout"][k]
                                  for k in ("device_ms", "bound_ms")})
-            line.append(item)
+            line.append(vet(item, name))
+        print("device times below their bound, dropped as lost events: "
+              + json.dumps(BELOW_BOUND), flush=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
         print(json.dumps({"kernels": line}), flush=True)
         print(card, flush=True)

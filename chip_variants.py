@@ -24,6 +24,9 @@
     python3 chip_variants.py h64_debug
     python3 chip_variants.py w32_debug
     python3 chip_variants.py w32_times
+    python3 chip_variants.py s1024_debug
+    python3 chip_variants.py s1024
+    python3 chip_variants.py s1024_times
     python3 chip_variants.py k12gate
     python3 chip_variants.py ab_times
     python3 chip_variants.py h32_times
@@ -39,9 +42,14 @@ in one process on one card; every time is the profiler's device time
 (`chip_smoke.device_ms`).
 
 - `flash`: K9 and K10 (`flash_attention.cu`) at the qk_norm train step's
-  (R, N, H, D) = (128, 256, 16, 32), q, k, v as thirds of one tensor,
-  causal and not; K10's dq, dk, dv contiguous, as the qk_norm step has
-  them.
+  (R, N, H, D) = (128, 256, 16, 32) and at FLASH_CASES' other token counts
+  (up to 1024) and head_dim 64, q, k, v as thirds of one tensor, causal
+  and not; K10's dq, dk, dv contiguous, as the qk_norm step has them, and its delta
+  scratch passed; each build's o, dq, dk, dv held against the first
+  build's by `chip_smoke.grad_errors`. A build whose launchers send N =
+  256 to the streamed forms (copies of `flash_attention.cu` and `.cuh`
+  with `N > FA_N` edited to `N > 192`) times those against the
+  whole-item forms at 256.
 - `gemm`: the blocks' GEMM (`spatial_block.cu`'s `tpu1x_gemm_sm90`) at
   K1's products (4096 / 8192 / 32768 rows; 512 -> 1536 with bias, 512 ->
   512 with bias and residual) and K2's and K3's MLP products (4096 / 8192
@@ -205,6 +213,16 @@ in one process on one card; every time is the profiler's device time
   heads (head_dim 32 and 64, the same bytes and operations at C = 512),
   with K11, K12 and the SDPA calls beside K4, K6, K7, K8, K9 and K10: run
   each in a process of its own for the two widths side by side.
+- `s1024_debug`: the flash and spatial libraries' ptxas lines, then
+  each spatial check of `chip_smoke.py` at GENIE_138M-S1024's grid
+  (`S1024_DEBUG`: the S sweep of K9, K10, K1 and K11 at S = 64 to 4096,
+  K9 / K10 at full shape at both head widths, K1 and K11, the train
+  blocks, the decode ring on a 2^32-element cache, K9 / K10 at S = 256 and
+  their other token counts at both widths, and the train blocks'
+  `held_to_plain` gates at S = 256), each in a process of its own with a
+  time limit. `s1024` runs `chip_smoke.check_grid_1024` alone;
+  `s1024_times` times K9, K10 (with SDPA beside them), K1 and K11 at
+  GENIE_138M-S1024's shapes in a fresh process.
 - `c8`: the tokenizer phase's update gate (ROADMAP C8) run after run, with
   cuDNN as the step sets it and with deterministic algorithms, unsteered
   and steered: each run's errors, `undecided` count, gradient digests and
@@ -268,44 +286,64 @@ def in_turns(names):
     return list(names) + list(names)[::-1]
 
 
+# (N, H, D) of `flash`: the qk_norm train step's 256 tokens first, then the
+# flash pair's other token counts and head_dim 64, and GENIE_138M-S1024's
+# 1024 (the streamed forward)
+FLASH_CASES = ((256, 16, 32), (64, 16, 32), (128, 16, 32), (192, 16, 32),
+               (256, 8, 64), (128, 8, 64), (1024, 16, 32), (1024, 8, 64))
+
+
 def flash(libs, dev):
-    g = torch.Generator(device=dev).manual_seed(0)
-    R, N, H, D = 128, 256, 16, 32
-    qkv = torch.randn(R, N, 3, H, D, generator=g, device=dev).bfloat16()
-    q, k, v = qkv.unbind(-3)
-    dout = torch.randn(R, N, H, D, generator=g, device=dev).bfloat16()
-    rs, ts, crs, cts = q.stride(0), q.stride(1), N * H * D, H * D
-    o = torch.empty(R, N, H, D, dtype=torch.bfloat16, device=dev)
-    lse = torch.empty(R, H, N, dtype=torch.float32, device=dev)
-    dq, dk, dv = (torch.empty_like(o) for _ in range(3))
-    stream = torch.cuda.current_stream().cuda_stream
-    ptr = [t.data_ptr() for t in (q, k, v, o, dout, lse, dq, dk, dv)]
-    for lib in libs.values():
-        lib.tpu1x_flash_mha.argtypes = [P] * 5 + [L] * 6 + [I] * 4 + [F, I, P]
-        lib.tpu1x_flash_mha_bwd.argtypes = (
-            [P] * 9 + [L] * 16 + [I] * 4 + [F, I, P])
-    for name in in_turns(libs):
-        lib = libs[name]
-        for causal in (0, 1):
-            shape = (R, N, H, D, D ** -0.5, causal, stream)
+    R = 128
+    for N, H, D in FLASH_CASES:
+        g = torch.Generator(device=dev).manual_seed(0)
+        qkv = torch.randn(R, N, 3, H, D, generator=g, device=dev).bfloat16()
+        q, k, v = qkv.unbind(-3)
+        dout = torch.randn(R, N, H, D, generator=g, device=dev).bfloat16()
+        rs, ts, crs, cts = q.stride(0), q.stride(1), N * H * D, H * D
+        o = torch.empty(R, N, H, D, dtype=torch.bfloat16, device=dev)
+        lse = torch.empty(R, H, N, dtype=torch.float32, device=dev)
+        dq, dk, dv = (torch.empty_like(o) for _ in range(3))
+        work = torch.empty_like(lse)  # the streamed backward's delta
+        stream = torch.cuda.current_stream().cuda_stream
+        ptr = [t.data_ptr() for t in (q, k, v, o, dout, lse, dq, dk, dv,
+                                      work)]
+        for lib in libs.values():
+            lib.tpu1x_flash_mha.argtypes = ([P] * 5 + [L] * 6 + [I] * 4
+                                            + [F, I, P])
+            lib.tpu1x_flash_mha_bwd.argtypes = (
+                [P] * 10 + [L] * 16 + [I] * 4 + [F, I, P])
+        first = {}  # the first build's o and gradients, by causal
+        for name in in_turns(libs):
+            lib = libs[name]
+            for causal in (0, 1):
+                shape = (R, N, H, D, D ** -0.5, causal, stream)
 
-            def fwd():
-                return lib.tpu1x_flash_mha(*ptr[:4], ptr[5], rs, ts, rs, ts,
-                                           rs, ts, *shape)
+                def fwd():
+                    return lib.tpu1x_flash_mha(*ptr[:4], ptr[5], rs, ts, rs,
+                                               ts, rs, ts, *shape)
 
-            def bwd():
-                return lib.tpu1x_flash_mha_bwd(
-                    *ptr, rs, ts, rs, ts, rs, ts, crs, cts, crs, cts,
-                    *(crs, cts) * 3, *shape)
-            if fwd() != 0:
-                raise RuntimeError(f"{name}: the forward did not launch")
-            f_ms = cs.device_ms(fwd)
-            fwd()  # the backward's o and lse
-            if bwd() != 0:
-                raise RuntimeError(f"{name}: the backward did not launch")
-            print(json.dumps(dict(build=name, causal=causal, fwd_device_ms=f_ms,
-                                  bwd_device_ms=cs.device_ms(bwd))),
-                  flush=True)
+                def bwd():
+                    return lib.tpu1x_flash_mha_bwd(
+                        *ptr, rs, ts, rs, ts, rs, ts, crs, cts, crs, cts,
+                        *(crs, cts) * 3, *shape)
+                if fwd() != 0 or bwd() != 0:
+                    raise RuntimeError(f"{name}: a launch failed")
+                got = [t.clone() for t in (o, dq, dk, dv)]
+                want = first.setdefault(causal, got)
+                errs = {n: cs.grad_errors(f"{name} {n} N={N} D={D}", a, b)
+                        for n, a, b in zip(("o", "dq", "dk", "dv"), got,
+                                           want)}
+                f_ms = cs.device_ms(fwd)
+                fwd()  # the backward's o and lse
+                print(json.dumps(dict(
+                    build=name, N=N, H=H, D=D, causal=causal,
+                    fwd_device_ms=f_ms, bwd_device_ms=cs.device_ms(bwd),
+                    rel_l2_to_first={n: e["rel_l2"]
+                                     for n, e in errs.items()})),
+                      flush=True)
+        del qkv, q, k, v, dout, o, lse, dq, dk, dv, work
+        torch.cuda.empty_cache()
 
 
 def gemm(libs, dev):
@@ -762,6 +800,7 @@ def fresh_thread_launches(inp, C, H):
     kw = dict(scale=32 ** -0.5, causal=False)
     o, lse = attn.flash_mha_fwd(q, k, v, **kw)
     dq, dk, dv = (torch.empty_like(dout) for _ in range(3))
+    work = torch.empty_like(lse)
     rs, ts, crs, cts = q.stride(0), q.stride(1), *dout.stride()[:2]
     stream = torch.cuda.current_stream().cuda_stream
     train, flash = kernels.lib("train_block"), kernels.lib("flash_attention")
@@ -771,7 +810,8 @@ def fresh_thread_launches(inp, C, H):
             bias.data_ptr(), None, None, 4096, 4 * C, C, tk.MODE["nn"],
             tk.ACT["gelu_erf"], stream),
         "flash_mha_bwd": lambda: flash.tpu1x_flash_mha_bwd(
-            *(t.data_ptr() for t in (q, k, v, o, dout, lse, dq, dk, dv)),
+            *(t.data_ptr() for t in (q, k, v, o, dout, lse, dq, dk, dv,
+                                     work)),
             rs, ts, rs, ts, rs, ts, *(crs, cts) * 5, 8, 256, H, 32,
             kw["scale"], 0, stream)}
     rc = {}
@@ -1272,6 +1312,148 @@ def w32_debug(dev):
         print(f"== {name} rc={rc}\n{text}", flush=True)
 
 
+# the checks of `s1024_debug`, each run in a process of its own: (inside
+# GENIE_138M-S1024's grid, what it checks)
+S1024_DEBUG = {
+    "sweep_small": (False, lambda inp: cs.check_grid_sweep(inp, (320, 576))),
+    "sweep": (False, lambda inp: cs.check_grid_sweep(inp, (64, 192, 1024,
+                                                          4096))),
+    "flash": (True, lambda inp: dict(cs.check_flash_mha(inp, 16),
+                                     **{f"{k}[h64]": r for k, r in
+                                        cs.check_flash_mha(
+                                            inp, 8, D=64).items()})),
+    "spatial": (True, lambda inp: dict(
+        {f"qk_ln={qk},N={n}": cs.check_spatial_block(inp, 512, 16, n, qk)
+         for qk in (False, True) for n in (cs.B, cs.B * cs.P)},
+        **cs.check_spatial_train_block(inp, 512, 16))),
+    "train_blocks": (True, lambda inp: dict(
+        cs.check_temporal_train_block(inp, 512, 16),
+        **cs.check_mlp_train_block(inp, 512, timed=False),
+        **cs.check_temporal_attention_bwd(inp, 512, 16))),
+    "decode": (True, lambda inp: decode_checks(inp, 16, L=32)),
+    "flash_256": (False, lambda inp: dict(cs.check_flash_mha(inp, 16),
+                                          **{f"{k}[h64]": r for k, r in
+                                             cs.check_flash_mha(
+                                                 inp, 8, D=64).items()})),
+    "c11_256": (False, lambda inp: dict(
+        cs.check_spatial_train_block(inp, 512, 16, timed=False),
+        **cs.check_temporal_train_block(inp, 512, 16, timed=False),
+        **cs.check_mlp_train_block(inp, 512, timed=False))),
+}
+
+
+def s1024_one(name: str) -> int:
+    """One check of S1024_DEBUG, in this process."""
+    dev = torch.device("cuda")
+    grid, fn = S1024_DEBUG[name]
+    with (cs.grid_of(cs.genie_138m_s1024()) if grid
+          else contextlib.nullcontext()):
+        out = fn(cs.Inputs(9, dev))
+    torch.cuda.synchronize()
+    print(json.dumps({"check": name, "result": out}, default=str),
+          flush=True)
+    return 0
+
+
+def s1024_debug(dev, names=None):
+    """The first call after a change of the spatial kernels: the flash and
+    spatial libraries rebuilt with ptxas's counts, then each check of
+    S1024_DEBUG (or of `names`) in a process of its own with a time limit,
+    so that a fault or a hang in one leaves the others' results."""
+    import subprocess
+    logs = kernels.build_all(verbose=True)
+    for name, log in logs.items():
+        if name not in ("flash_attention", "spatial_block"):
+            continue
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "spill", "error",
+                                       "warning", "Compiling entry")):
+                print(f"ptxas {name}: {line.strip()}", flush=True)
+    for name in names or S1024_DEBUG:
+        t0 = time.perf_counter()
+        try:
+            res = subprocess.run([sys.executable, __file__, "s1024_one",
+                                  name], capture_output=True, text=True,
+                                 timeout=300)
+            text, rc = (res.stdout + res.stderr)[-6000:], res.returncode
+        except subprocess.TimeoutExpired:
+            text, rc = "timed out", "timeout"
+        print(f"== {name} rc={rc} {time.perf_counter() - t0:.1f} s\n{text}",
+              flush=True)
+
+
+def s1024_times(dev):
+    """Device ms (profiler) and event ms of the spatial kernels at
+    GENIE_138M-S1024's shapes through this checkout's wrappers, in a fresh
+    process: K9 and K10 at (128, 1024, H, D), causal and not, 16 heads of
+    32 and 8 of 64, with SDPA's forward and backward beside them; K1 in
+    both modes at N = 16 / 32 / 128 frames; K11 at 128 frames. One JSON
+    line."""
+    from tpu1x_torch.ops import attention as attn
+    from tpu1x_torch.ops import spatial_train_block as stb
+    F_ = torch.nn.functional
+    C, S = 512, cs.S1024_S
+    inp = cs.Inputs(0, dev)
+    out = {}
+
+    def both(key, fn):
+        out[key] = {"device_ms": cs.device_ms(fn), "ms": cs.time_ms(fn)}
+    for H in (16, 8):
+        D = C // H
+        R = cs.TB * 16
+        qkv = inp.normal(R, S, 3, H, D)
+        q, k, v = qkv.unbind(2)
+        dout = inp.normal(R, S, H, D)
+        for causal in (False, True):
+            tag = ("" if D == 32 else "[h64]") + ("[causal]" if causal
+                                                  else "")
+            kw = dict(scale=D ** -0.5, causal=causal)
+            o, lse = attn.flash_mha_fwd(q, k, v, **kw)
+            both("K9" + tag, lambda: attn.flash_mha_fwd(q, k, v, **kw))
+            both("K10" + tag,
+                 lambda: attn.flash_mha_bwd(q, k, v, o, lse, dout, **kw))
+            lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_(True)
+                          for x in (q, k, v))
+            lout = F_.scaled_dot_product_attention(lq, lk, lv,
+                                                   is_causal=causal,
+                                                   scale=D ** -0.5)
+            both("SDPA" + tag, lambda: F_.scaled_dot_product_attention(
+                lq, lk, lv, is_causal=causal, scale=D ** -0.5))
+            both("SDPA_bwd" + tag, lambda: torch.autograd.grad(
+                lout, (lq, lk, lv), dout.transpose(1, 2),
+                retain_graph=True))
+            del lq, lk, lv, lout
+        del qkv, q, k, v, dout, o, lse
+        torch.cuda.empty_cache()
+    H = 16
+    for qk in (False, True):
+        w = cs.spatial_weights(inp, C)
+        if qk:
+            w.update(ln_scale=None, ln_bias=None,
+                     qk_ln_scale=inp.normal(C // H, std=0.1, mean=1.0,
+                                            dtype=torch.float32),
+                     qk_ln_bias=inp.normal(C // H, std=0.1,
+                                           dtype=torch.float32))
+        for n in (cs.B, 2 * cs.B, cs.B * cs.P):
+            x = inp.normal(n, S, C)
+            both(f"K1{'[qk_ln]' if qk else ''}[N={n}]",
+                 lambda: sb.spatial_block(x, num_heads=H,
+                                          scale=(C // H) ** -0.5, **w))
+    x, dout = inp.normal(cs.TB * 16, S, C), inp.normal(cs.TB * 16, S, C)
+    w = cs.spatial_weights(inp, C)
+    both("K11", lambda: stb.spatial_train_block_bwd(
+        x, dout, w["wqkv"], w["wproj"], None, w["ln_scale"], w["ln_bias"],
+        proj_bias=True, num_heads=H, scale=(C // H) ** -0.5))
+    print(json.dumps({"s1024_ms": out}), flush=True)
+
+
+def s1024(dev):
+    """chip_smoke.py's S = 1024 phase alone."""
+    out = cs.check_grid_1024(dev)
+    print("s1024 phase walls: " + json.dumps(out["phase_walls_s"]),
+          flush=True)
+
+
 def k12gate(dev, seeds: int = 6):
     """K12's forward gate (atol = rtol = 3e-2 against
     `temporal_train_block_plain`; ROADMAP C11): first on the draw that
@@ -1366,7 +1548,8 @@ def decode_checks(inp, H, L=4, T=16):
     L-layer cache of T slots, by `chip_smoke.py`'s gates (K2's and K3's t_B
     from chip_smoke's P)."""
     C = 512
-    caches = (inp.normal(T, L, cs.B, 256, C), inp.normal(T, L, cs.B, 256, C))
+    caches = (inp.normal(T, L, cs.B, cs.GRID, C),
+              inp.normal(T, L, cs.B, cs.GRID, C))
     out = {}
     for name, pair in (("temporal_mlp_block", False),
                        ("temporal_mlp_block_pair", True)):
@@ -1663,6 +1846,8 @@ MODES = {"block": block, "mlp": mlp, "train": train, "temporal": temporal,
          "genie_35m": genie_35m, "mup": mup, "h64_debug": h64_debug,
          "ab_times": ab_times, "c8": c8, "w32_debug": w32_debug,
          "k12gate": k12gate, "w32_times": w32_times,
+         "s1024_debug": s1024_debug, "s1024": s1024,
+         "s1024_times": s1024_times,
          "h32_times": functools.partial(ab_times, heads=16, extra=True),
          "h64_times": functools.partial(ab_times, heads=8, extra=True)}
 # mode: (the source its builds are variants of, the timing)
@@ -1680,6 +1865,8 @@ def main() -> int:
         return h64_one(sys.argv[2], int(sys.argv[3]))
     if sys.argv[1:2] == ["w32_one"]:
         return w32_one(sys.argv[2])
+    if sys.argv[1:2] == ["s1024_one"]:
+        return s1024_one(sys.argv[2])
     if sys.argv[1:2] == ["tp_fault_rank"]:
         return tp_fault_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                              sys.argv[5], sys.argv[6])

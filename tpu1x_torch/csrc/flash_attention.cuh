@@ -14,10 +14,11 @@
 // What bounds it on the H100, at the qk_norm train step's (R, N, H, D) =
 // (128, 256, 16, 32): it reads q, k, v and writes o once each, 134 MB,
 // 0.040 ms at 3.35 TB/s (lse adds 2 MB); its two products are 17.2 GFLOP,
-// 0.017 ms at 989 TFLOP/s; and its 134 M exponentials take 0.036 ms on the
-// special function units (16 a clock an SM at 1.755 GHz): two floors of
-// about the same height, so the loads, the products and the softmax have
-// to run side by side. The design: persistent blocks of two warpgroups,
+// 0.017 ms at 989 TFLOP/s; and its 134 M exponentials take 0.035 ms on the
+// special function units (16 a clock an SM at the 1.83 GHz that the 989
+// TFLOP/s assumes): two floors of about the same height, so the loads, the
+// products and the softmax have to run side by side. The design:
+// persistent blocks of two warpgroups,
 // two blocks an SM, each walking (row, head) items; each item's q, k and v
 // are loaded once, by TMA into a two-stage ring in the 64-byte swizzle of
 // wgmma's operands, the next item's loads in flight while the current one
@@ -31,10 +32,12 @@
 // work off the issuing threads (PERF.md).
 // A chunk loop's last iteration is code of its own: with the next chunk's
 // logits issued under a branch, ptxas serialises all of the kernel's wgmma
-// (its warning C7520), which cost 3-8% (PERF.md, chip_variants.py).
-// ptxas (sm_90a), head_dim 32: 96 registers a thread under the causal
-// mask, 100 without (either sign of the scale), no spills (an 8-byte stack
-// frame), 100368 bytes of dynamic shared memory a block (two 48 KB stages,
+// (its warning C7520), which cost 3-8% (PERF.md, chip_variants.py). Both
+// forward kernels run one softmax code, FaTile; they differ in where a
+// chunk comes from.
+// ptxas (sm_90a), head_dim 32: 95 registers a thread with the causal
+// mask or without (either sign of the scale), 96 in the NORM form, no
+// spills (an 8-byte stack frame), 100368 bytes of dynamic shared memory a block (two 48 KB stages,
 // the ones tile, two mbarriers, 1 KB for alignment): two blocks an SM.
 //
 // Head_dim 64. A row is 128 bytes, so the operands take the 128-byte
@@ -51,10 +54,17 @@
 // the last tile has passed it: the ring holds the item all the same.
 // The bytes, products and exponentials of a (row, C) are those of head_dim
 // 32 (the heads halve), so both widths share one bound. ptxas (sm_90a),
-// head_dim 64: 126 registers a thread without the causal mask, no spills;
-// 128 and a 12-byte spill under it (the causal form runs on no main path).
+// head_dim 64: 126 registers a thread without the causal mask (106 NORM),
+// no spills; 128 and a 12-byte spill under it (the causal form runs on no
+// main path).
 //
-// N <= 256, N % 64 == 0, head_dim 32 or 64, strides multiples of 8.
+// Past N = 256 (FA_N) a streamed form of its own (flash_fwd_stream_kernel,
+// below): 128 queries a block, the keys and values in 64-key chunks through
+// a four-stage TMA ring. ptxas (sm_90a): 95 registers at head_dim 32 (95
+// causal, 90 NORM), 112 at 64 (111 causal, 114 NORM), no spills.
+//
+// 64 <= N <= 4096 (FA_MAXN), N % 64 == 0, head_dim 32 or 64, strides
+// multiples of 8.
 
 #pragma once
 
@@ -174,6 +184,257 @@ __device__ __forceinline__ int fwd_tiles(int wg, int tiles, int* qt) {
   return tiles == 4 ? 2 : tiles >= 2 ? 1 : 0;
 }
 
+// The online softmax of one warpgroup's 64-query tile over its 64-key
+// chunks, shared by both forward kernels: its state (the logits, o, the
+// row sums and maxima) lives in registers across the chunks, wherever they
+// come from, a whole item in a stage or a ring. A kernel says where the
+// next chunk's keys are (`next`, called just before the wgmma group that
+// issues its logits: a ring's wait for them comes after the softmax math)
+// and what follows a chunk's group (`done`: nothing, or a ring's release).
+// A step's LAST form (no chunk follows, whose logits to issue) is separate
+// code, so that no wgmma sits behind a branch (ptxas serialises the wgmma
+// of a kernel that has one).
+template <int D, bool CAUSAL, bool POS>
+struct FaTile {
+  using L = FaRows<D>;
+  static constexpr int KS = D / 16;  // k16 steps of the logits
+  // s[4 j + e]: row warp 16 + g + 8 (e >> 1) of the tile, key
+  // 64 c + 8 j + 2 t4 + (e & 1) of chunk c; o[4 j + e]: the same rows,
+  // channel 8 j + 2 t4 + (e & 1); m: running max of the scaled logits
+  // (times log2(e)) of rows g and g + 8; l: their sums
+  float s[32], o[D / 2], l[4] = {0.f, 0.f, 0.f, 0.f};
+  uint32_t pa[16];
+  float m0 = -INFINITY, m1 = -INFINITY;
+  const int warp, g, t4;
+  const float sl2;  // scale log2(e)
+  const uint32_t qtile, ones;
+
+  __device__ __forceinline__ FaTile(int tid, float scale, uint32_t qtile_,
+                                    uint32_t ones_)
+      : warp((tid >> 5) & 3),
+        g((tid & 31) >> 2),
+        t4(tid & 3),
+        sl2(scale * 1.4426950408889634f),
+        qtile(qtile_),
+        ones(ones_) {
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+  }
+
+  // s = Q K^T of the chunk whose keys start at k, waited for
+  __device__ __forceinline__ void logits(uint32_t k) {
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < KS; ++i)
+      wgmma_qk(s, L::kmajor(qtile, i), L::kmajor(k, i), i);
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(s);
+  }
+  // DIAG (the diagonal chunk: under the causal mask a tile's last in
+  // view): the logits past each row's query masked. Then the rows' max of
+  // the raw logits (their min when scale < 0), across the quad, as the new
+  // running maxima n0, n1.
+  template <bool DIAG>
+  __device__ __forceinline__ void maxima(float& n0, float& n1) {
+    const float masked = POS ? -INFINITY : INFINITY;  // ex2 of it is 0
+    float c0 = masked, c1 = masked;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (DIAG && 8 * j + 2 * t4 + (e & 1) > warp * 16 + g + 8 * (e >> 1))
+          s[4 * j + e] = masked;
+      if (POS) {
+        c0 = fmaxf(c0, fmaxf(s[4 * j], s[4 * j + 1]));
+        c1 = fmaxf(c1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      } else {
+        c0 = fminf(c0, fminf(s[4 * j], s[4 * j + 1]));
+        c1 = fminf(c1, fminf(s[4 * j + 2], s[4 * j + 3]));
+      }
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      const float u0 = __shfl_xor_sync(0xffffffffu, c0, x);
+      const float u1 = __shfl_xor_sync(0xffffffffu, c1, x);
+      c0 = POS ? fmaxf(c0, u0) : fminf(c0, u0);
+      c1 = POS ? fmaxf(c1, u1) : fminf(c1, u1);
+    }
+    // key 0 of chunk 0 is in view of every query: the maxima are finite
+    n0 = fmaxf(m0, c0 * sl2), n1 = fmaxf(m1, c1 * sl2);
+  }
+  // p of 16 keys (step k) as wgmma's register-A fragment: rows g | g + 8,
+  // keys 2 t4.. | 8 + 2 t4..
+  __device__ __forceinline__ void pack() {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      pa[4 * k] = pack_bf16(s[8 * k], s[8 * k + 1]);
+      pa[4 * k + 1] = pack_bf16(s[8 * k + 2], s[8 * k + 3]);
+      pa[4 * k + 2] = pack_bf16(s[8 * k + 4], s[8 * k + 5]);
+      pa[4 * k + 3] = pack_bf16(s[8 * k + 6], s[8 * k + 7]);
+    }
+  }
+
+  // One key chunk, its values at v: the running max rescales o and l,
+  // p = ex2(s scale log2(e) - max) rounded unnormalised to bf16, then one
+  // wgmma group of o += p V, l += p 1 (against the ones tile) and the next
+  // chunk's logits. The last chunk in view is the diagonal one under the
+  // causal mask.
+  template <bool LAST, class Next, class Done>
+  __device__ __forceinline__ void chunk(uint32_t v, Next next, Done done) {
+    float n0, n1;
+    maxima<CAUSAL && LAST>(n0, n1);
+    const float a0 = ex2(m0 - n0), a1 = ex2(m1 - n1);
+    m0 = n0, m1 = n1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[4 * j] = ex2(fmaf(s[4 * j], sl2, -n0));
+      s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], sl2, -n0));
+      s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], sl2, -n1));
+      s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], sl2, -n1));
+    }
+    l[0] *= a0, l[1] *= a0, l[2] *= a1, l[3] *= a1;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= a0, o[4 * j + 1] *= a0;
+      o[4 * j + 2] *= a1, o[4 * j + 3] *= a1;
+    }
+    pack();
+    hold(pa);
+    hold(o);
+    hold(l);
+    uint32_t kn = 0;
+    if constexpr (!LAST) kn = next();
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      wgmma_pv_d<D>(o, &pa[4 * k], L::mnmajor(v, k * 16));
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      wgmma_rowsum(l, &pa[4 * k], gmma_desc(ones, 512, 16));
+    if constexpr (!LAST) {
+#pragma unroll
+      for (int k = 0; k < KS; ++k)
+        wgmma_qk(s, L::kmajor(qtile, k), L::kmajor(kn, k), k);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(o);
+    hold(l);
+    hold(s);
+    done();
+  }
+
+  // The NORM form (no causal mask). Pass 1, one chunk: the running max and
+  // this lane's share of the fp32 sums (e0, e1) of the exponentials, no
+  // product with V; then the logits of the chunk that `next` names (after
+  // the last chunk, the second pass's first).
+  template <class Next, class Done>
+  __device__ __forceinline__ void stats(float& e0, float& e1, Next next,
+                                        Done done) {
+    float n0, n1;
+    maxima<false>(n0, n1);
+    e0 *= ex2(m0 - n0), e1 *= ex2(m1 - n1);
+    m0 = n0, m1 = n1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      e0 += ex2(fmaf(s[4 * j], sl2, -n0)) + ex2(fmaf(s[4 * j + 1], sl2, -n0));
+      e1 += ex2(fmaf(s[4 * j + 2], sl2, -n1)) +
+            ex2(fmaf(s[4 * j + 3], sl2, -n1));
+    }
+    logits(next());
+    done();
+  }
+  // Pass 2, chunk c, its values at v, 1 / the row sums r0, r1:
+  // p = exp(...) / l rounded to bf16 (the normalised p, as the TPU kernel
+  // and `mha_reference` round it), o += p V and the next chunk's logits in
+  // one group.
+  template <bool LAST, class Next, class Done>
+  __device__ __forceinline__ void weigh(uint32_t v, float r0, float r1,
+                                        Next next, Done done) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[4 * j + e] = ex2(fmaf(s[4 * j + e], sl2, (e >> 1) ? -m1 : -m0)) *
+                       ((e >> 1) ? r1 : r0);
+    pack();
+    hold(pa);
+    hold(o);
+    uint32_t kn = 0;
+    if constexpr (!LAST) kn = next();
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      wgmma_pv_d<D>(o, &pa[4 * k], L::mnmajor(v, k * 16));
+    if constexpr (!LAST) {
+#pragma unroll
+      for (int k = 0; k < KS; ++k)
+        wgmma_qk(s, L::kmajor(qtile, k), L::kmajor(kn, k), k);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(o);
+    hold(s);
+    done();
+  }
+  // The tile over nc chunks (NORM: two passes, so no causal mask): keys(j)
+  // waits for load j of the kernel's sequence and names its keys, vals(j)
+  // names its values, done(j) follows load j's last wgmma group. The
+  // sequence is chunks 0 .. nc - 1, and in NORM's second pass chunk j - nc
+  // again.
+  template <bool NORM, class Keys, class Vals, class Done>
+  __device__ __forceinline__ void run(int nc, Keys keys, Vals vals,
+                                      Done done) {
+    logits(keys(0));
+    int c = 0;
+    if constexpr (NORM) {
+      float e0 = 0.f, e1 = 0.f;  // this lane's share of the sums
+      for (; c < nc; ++c)
+        stats(e0, e1, [&] { return keys(c + 1); }, [&] { done(c); });
+      l[0] = quad_sum(e0), l[2] = quad_sum(e1);
+      const float r0 = 1.f / l[0], r1 = 1.f / l[2];
+      auto step = [&](auto last) {
+        this->template weigh<decltype(last)::value>(
+            vals(nc + c), r0, r1, [&] { return keys(nc + c + 1); },
+            [&] { done(nc + c); });
+      };
+      for (c = 0; c + 1 < nc; ++c) step(Flag<false>{});
+      step(Flag<true>{});
+    } else {
+      auto step = [&](auto last) {
+        this->template chunk<decltype(last)::value>(
+            vals(c), [&] { return keys(c + 1); }, [&] { done(c); });
+      };
+      for (; c + 1 < nc; ++c) step(Flag<false>{});
+      step(Flag<true>{});
+    }
+  }
+
+  // o / l (NORM: o) into the tile's rows at ot in the swizzle that the TMA
+  // store reads, which also spreads the eight rows of a store over the
+  // banks
+  __device__ __forceinline__ void write_o(unsigned char* ot, bool norm) {
+    const float i0 = norm ? 1.f : 1.f / l[0], i1 = norm ? 1.f : 1.f / l[2];
+    const int r0 = warp * 16 + g;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(ot + L::at(r0, j) + t4 * 4) =
+          pack_bf16(o[4 * j] * i0, o[4 * j + 1] * i0);
+      *reinterpret_cast<uint32_t*>(ot + L::at(r0 + 8, j) + t4 * 4) =
+          pack_bf16(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
+    }
+  }
+  // lse of the tile's rows from the lane that holds their first column, by
+  // predicated stores (a branch on the lane between the wgmma groups would
+  // serialise them); lrow: the tile's first row of lse
+  __device__ __forceinline__ void write_lse(float* lrow) {
+    lrow += warp * 16 + g;
+    st_if(t4 == 0, lrow, (m0 + __log2f(l[0])) * 0.6931471805599453f);
+    st_if(t4 == 0, lrow + 8, (m1 + __log2f(l[2])) * 0.6931471805599453f);
+  }
+};
+
 // ---- forward ----
 //
 // A persistent block is two warpgroups (256 threads), two blocks an SM, and
@@ -245,18 +506,14 @@ __global__ void __launch_bounds__(FF_THREADS, 2)
   using L = FaRows<D>;
   using F = FfShape<D>;
   constexpr int STAGES = F::STAGES;
-  constexpr int KS = D / 16;  // k16 steps of the logits
   extern __shared__ unsigned char ff_raw[];
   const uint32_t raw = smem_u32(ff_raw);
   const uint32_t ring = (raw + 1023) & ~1023u;
   unsigned char* ring_p = ff_raw + (ring - raw);
   const uint32_t ones = ring + STAGES * F::STAGE;
   const uint32_t bars = ones + FF_ONES;  // an 8-byte mbarrier a stage
-  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
-  const int warp = (tid >> 5) & 3, g = lane >> 2, t4 = lane & 3;
+  const int tid = threadIdx.x, wg = tid >> 7;
   const int tiles = N / FA_QT;
-  const float sl2 = scale * 1.4426950408889634f;  // scale log2(e)
-  const float masked = POS ? -INFINITY : INFINITY;  // ex2 of it is 0
   int my_qt[2];
   const int my_tiles = fwd_tiles(wg, tiles, my_qt);
 
@@ -268,7 +525,7 @@ __global__ void __launch_bounds__(FF_THREADS, 2)
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   // the ones tile is written through the generic proxy, read by wgmma
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_proxy_async();
   __syncthreads();
 
   // thread 0: the item's q, k and v into stage st, completing on its
@@ -276,20 +533,11 @@ __global__ void __launch_bounds__(FF_THREADS, 2)
   auto load_item = [&](int item, int st) {
     const int r = item / H, h = item % H;
     const uint32_t dst = ring + st * F::STAGE, bar = bars + 8 * st;
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-        "r"(3 * N * L::ROW)
-        : "memory");
+    mbar_expect_tx(bar, 3 * N * L::ROW);
     const CUtensorMap* maps[3] = {&tq, &tk, &tv};
 #pragma unroll
     for (int op = 0; op < 3; ++op)
-      asm volatile(
-          "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
-          "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
-              dst + op * F::OP),
-          "l"(reinterpret_cast<uint64_t>(maps[op])), "r"(0), "r"(h), "r"(0),
-          "r"(r), "r"(bar)
-          : "memory");
+      tma_load_4d(dst + op * F::OP, maps[op], 0, h, 0, r, bar);
   };
 
   const int first = blockIdx.x, stride = gridDim.x;
@@ -310,258 +558,219 @@ __global__ void __launch_bounds__(FF_THREADS, 2)
       const int qt = my_qt[i];
       const int nc = CAUSAL ? qt + 1 : tiles;  // 64-key chunks in view
       const uint32_t qtile = qs + qt * L::TILE;
-      // s[4 j + e]: row warp 16 + g + 8 (e >> 1) of the tile, key
-      // 64 c + 8 j + 2 t4 + (e & 1) of chunk c; o[4 j + e]: the same rows,
-      // channel 8 j + 2 t4 + (e & 1); m: running max of the scaled logits
-      // (times log2(e)) of rows g and g + 8; l: their sums
-      float s[32], o[D / 2], l[4] = {0.f, 0.f, 0.f, 0.f};
-      uint32_t pa[16];
-      float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-      for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
-      wgmma_fence();
-#pragma unroll
-      for (int k = 0; k < KS; ++k)
-        wgmma_qk(s, L::kmajor(qtile, k), L::kmajor(ks, k), k);
-      wgmma_commit();
-      wgmma_wait_all();
-      hold(s);
-      int c = 0;
-      if constexpr (NORM) {
-        // pass 1: the row max and the fp32 sum of the exponentials of the
-        // scaled logits over every chunk in view (no product with V)
-        float e0 = 0.f, e1 = 0.f;  // this lane's share of the sums
-        auto stats = [&](auto last) {
-          constexpr bool LAST = decltype(last)::value;
-          float c0 = masked, c1 = masked;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              if (CAUSAL && c == qt &&
-                  8 * j + 2 * t4 + (e & 1) > warp * 16 + g + 8 * (e >> 1))
-                s[4 * j + e] = masked;
-            if (POS) {
-              c0 = fmaxf(c0, fmaxf(s[4 * j], s[4 * j + 1]));
-              c1 = fmaxf(c1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-            } else {
-              c0 = fminf(c0, fminf(s[4 * j], s[4 * j + 1]));
-              c1 = fminf(c1, fminf(s[4 * j + 2], s[4 * j + 3]));
-            }
-          }
-#pragma unroll
-          for (int x = 1; x <= 2; x <<= 1) {
-            const float u0 = __shfl_xor_sync(0xffffffffu, c0, x);
-            const float u1 = __shfl_xor_sync(0xffffffffu, c1, x);
-            c0 = POS ? fmaxf(c0, u0) : fminf(c0, u0);
-            c1 = POS ? fmaxf(c1, u1) : fminf(c1, u1);
-          }
-          const float n0 = fmaxf(m0, c0 * sl2), n1 = fmaxf(m1, c1 * sl2);
-          e0 *= ex2(m0 - n0), e1 *= ex2(m1 - n1);
-          m0 = n0, m1 = n1;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            e0 += ex2(fmaf(s[4 * j], sl2, -n0)) +
-                  ex2(fmaf(s[4 * j + 1], sl2, -n0));
-            e1 += ex2(fmaf(s[4 * j + 2], sl2, -n1)) +
-                  ex2(fmaf(s[4 * j + 3], sl2, -n1));
-          }
-          if constexpr (!LAST) {
-            const uint32_t kc = ks + (c + 1) * L::TILE;
-            wgmma_fence();
-#pragma unroll
-            for (int k = 0; k < KS; ++k)
-              wgmma_qk(s, L::kmajor(qtile, k), L::kmajor(kc, k), k);
-            wgmma_commit();
-            wgmma_wait_all();
-            hold(s);
-          }
-        };
-        for (; c + 1 < nc; ++c) stats(Flag<false>{});
-        stats(Flag<true>{});
-        l[0] = quad_sum(e0), l[2] = quad_sum(e1);
-        const float r0 = 1.f / l[0], r1 = 1.f / l[2];
-        // pass 2: the logits again, p = exp(...) / l rounded to bf16 (the
-        // normalised p, as the TPU kernel and `mha_reference` round it),
-        // o += p V; the next chunk's logits in the same group
-        wgmma_fence();
-#pragma unroll
-        for (int k = 0; k < KS; ++k)
-          wgmma_qk(s, L::kmajor(qtile, k), L::kmajor(ks, k), k);
-        wgmma_commit();
-        wgmma_wait_all();
-        hold(s);
-        c = 0;
-        auto weigh = [&](auto last) {
-          constexpr bool LAST = decltype(last)::value;
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              float p = ex2(fmaf(s[4 * j + e], sl2, (e >> 1) ? -m1 : -m0)) *
-                        ((e >> 1) ? r1 : r0);
-              if (CAUSAL && c == qt &&
-                  8 * j + 2 * t4 + (e & 1) > warp * 16 + g + 8 * (e >> 1))
-                p = 0.f;
-              s[4 * j + e] = p;
-            }
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            pa[4 * k] = pack_bf16(s[8 * k], s[8 * k + 1]);
-            pa[4 * k + 1] = pack_bf16(s[8 * k + 2], s[8 * k + 3]);
-            pa[4 * k + 2] = pack_bf16(s[8 * k + 4], s[8 * k + 5]);
-            pa[4 * k + 3] = pack_bf16(s[8 * k + 6], s[8 * k + 7]);
-          }
-          hold(pa);
-          hold(o);
-          wgmma_fence();
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            wgmma_pv_d<D>(o, &pa[4 * k], L::mnmajor(vs, c * 64 + k * 16));
-          if constexpr (!LAST) {
-            const uint32_t kc = ks + (c + 1) * L::TILE;
-#pragma unroll
-            for (int k = 0; k < KS; ++k)
-              wgmma_qk(s, L::kmajor(qtile, k), L::kmajor(kc, k), k);
-          }
-          wgmma_commit();
-          wgmma_wait_all();
-          hold(o);
-          hold(s);
-        };
-        for (; c + 1 < nc; ++c) weigh(Flag<false>{});
-        weigh(Flag<true>{});
-      } else {
-        // one key chunk; LAST: no chunk follows, whose logits to issue. The
-        // two forms are separate code, so that no wgmma sits behind a branch
-        // (ptxas serialises the wgmma of a kernel that has one)
-        auto chunk = [&](auto last) {
-          constexpr bool LAST = decltype(last)::value;
-          float c0 = masked, c1 = masked;
-  #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-  #pragma unroll
-            for (int e = 0; e < 4; ++e)
-              if (CAUSAL && c == qt &&
-                  8 * j + 2 * t4 + (e & 1) > warp * 16 + g + 8 * (e >> 1))
-                s[4 * j + e] = masked;
-            if (POS) {
-              c0 = fmaxf(c0, fmaxf(s[4 * j], s[4 * j + 1]));
-              c1 = fmaxf(c1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-            } else {
-              c0 = fminf(c0, fminf(s[4 * j], s[4 * j + 1]));
-              c1 = fminf(c1, fminf(s[4 * j + 2], s[4 * j + 3]));
-            }
-          }
-  #pragma unroll
-          for (int x = 1; x <= 2; x <<= 1) {
-            const float u0 = __shfl_xor_sync(0xffffffffu, c0, x);
-            const float u1 = __shfl_xor_sync(0xffffffffu, c1, x);
-            c0 = POS ? fmaxf(c0, u0) : fminf(c0, u0);
-            c1 = POS ? fmaxf(c1, u1) : fminf(c1, u1);
-          }
-          // key 0 of chunk 0 is in view of every query: the maxima are finite
-          const float n0 = fmaxf(m0, c0 * sl2), n1 = fmaxf(m1, c1 * sl2);
-          const float a0 = ex2(m0 - n0), a1 = ex2(m1 - n1);
-          m0 = n0, m1 = n1;
-  #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            s[4 * j] = ex2(fmaf(s[4 * j], sl2, -n0));
-            s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], sl2, -n0));
-            s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], sl2, -n1));
-            s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], sl2, -n1));
-          }
-          l[0] *= a0, l[1] *= a0, l[2] *= a1, l[3] *= a1;
-  #pragma unroll
-          for (int j = 0; j < D / 8; ++j) {
-            o[4 * j] *= a0, o[4 * j + 1] *= a0;
-            o[4 * j + 2] *= a1, o[4 * j + 3] *= a1;
-          }
-          // p of 16 keys (step k) as the register-A fragment: rows g | g + 8,
-          // keys 2 t4.. | 8 + 2 t4..
-  #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            pa[4 * k] = pack_bf16(s[8 * k], s[8 * k + 1]);
-            pa[4 * k + 1] = pack_bf16(s[8 * k + 2], s[8 * k + 3]);
-            pa[4 * k + 2] = pack_bf16(s[8 * k + 4], s[8 * k + 5]);
-            pa[4 * k + 3] = pack_bf16(s[8 * k + 6], s[8 * k + 7]);
-          }
-          hold(pa);
-          hold(o);
-          hold(l);
-          // o += p V and l += p 1 of chunk c, and the logits of chunk c + 1
-          wgmma_fence();
-  #pragma unroll
-          for (int k = 0; k < 4; ++k)
-            wgmma_pv_d<D>(o, &pa[4 * k], L::mnmajor(vs, c * 64 + k * 16));
-  #pragma unroll
-          for (int k = 0; k < 4; ++k)
-            wgmma_rowsum(l, &pa[4 * k], gmma_desc(ones, 512, 16));
-          if constexpr (!LAST) {
-            const uint32_t kc = ks + (c + 1) * L::TILE;
-  #pragma unroll
-            for (int k = 0; k < KS; ++k)
-              wgmma_qk(s, L::kmajor(qtile, k), L::kmajor(kc, k), k);
-          }
-          wgmma_commit();
-          wgmma_wait_all();
-          hold(o);
-          hold(l);
-          hold(s);
-        };
-        for (; c + 1 < nc; ++c) chunk(Flag<false>{});
-        chunk(Flag<true>{});
-      }
-
-      // o / l into the tile's own Q rows: rows in the swizzle that the TMA
-      // store reads, which also spreads the eight rows of a store over the
-      // banks
-      const float i0 = NORM ? 1.f : 1.f / l[0], i1 = NORM ? 1.f : 1.f / l[2];
-      const int r0 = warp * 16 + g;
-      unsigned char* ot = ring_p + (qtile - ring);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        *reinterpret_cast<uint32_t*>(ot + L::at(r0, j) + t4 * 4) =
-            pack_bf16(o[4 * j] * i0, o[4 * j + 1] * i0);
-        *reinterpret_cast<uint32_t*>(ot + L::at(r0 + 8, j) + t4 * 4) =
-            pack_bf16(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
-      }
-      // the tile out by one TMA store of the warpgroup's first thread
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      FaTile<D, CAUSAL, POS> t(tid, scale, qtile, ones);
+      // every chunk is in the stage: load j is chunk j (in NORM's second
+      // pass chunk j - nc), nothing to wait for or release
+      auto at = [&](int j) {
+        return (NORM && j >= nc ? j - nc : j) * L::TILE;
+      };
+      t.template run<NORM>(
+          nc, [&](int j) { return ks + at(j); },
+          [&](int j) { return vs + at(j); }, [](int) {});
+      // o into the tile's own Q rows (read for the last time by its last
+      // logit product), out by one TMA store of the warpgroup's first
+      // thread
+      t.write_o(ring_p + (qtile - ring), NORM);
+      fence_proxy_async();
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
       if ((tid & 127) == 0) {
-        asm volatile(
-            "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, "
-            "%2, %3, %4}], [%5];\n" ::"l"(reinterpret_cast<uint64_t>(&to)),
-            "r"(0), "r"(h), "r"(qt * FA_QT), "r"(r), "r"(qtile)
-            : "memory");
-        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        tma_store_4d(&to, qtile, 0, h, qt * FA_QT, r);
+        bulk_commit();
       }
-      // lse of rows r0 and r0 + 8 from the lane that holds their first
-      // column, by predicated stores: a branch on the lane between the
-      // wgmma groups would serialise them
-      float* lrow = lse + (long)item * N + qt * FA_QT + r0;
-      st_if(t4 == 0, lrow, (m0 + __log2f(l[0])) * 0.6931471805599453f);
-      st_if(t4 == 0, lrow + 8, (m1 + __log2f(l[2])) * 0.6931471805599453f);
+      t.write_lse(lse + (long)item * N + qt * FA_QT);
     }
     // the stores have read the stage before it is refilled
-    if ((tid & 127) == 0)
-      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    if ((tid & 127) == 0) bulk_wait_read();
     // the stage's generic reads and writes (the output tiles) are ordered
     // before the TMA writes that refill it
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     __syncthreads();
     // one stage: the next item's loads into the stage just released
     if constexpr (STAGES == 1)
       if (tid == 0 && item + stride < items) load_item(item + stride, 0);
   }
-  if ((tid & 127) == 0)
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  if ((tid & 127) == 0) bulk_wait();
+}
+
+// ---- forward, streamed: N > FA_N ----
+//
+// Past FA_N keys a (row, head) item no longer fits a stage: at N = 1024 its
+// q, k and v are 192 KB at head_dim 32 and 384 KB at 64. So an item
+// becomes a (row, head, 128-query block), a 64-query tile a warpgroup, and
+// its keys and values come in 64-key chunks through a ring of FS_STAGES
+// stages (k and v of one chunk a stage, by TMA in the operands' swizzle).
+// The online softmax of the whole-item form runs as it is: its running
+// max, sum and o stay in registers across chunks that now arrive over
+// time. Each stage has a `full` mbarrier (the chunk's bytes landed) and an
+// `empty` one (each warpgroup of the block has read it: one arrival a
+// warpgroup, from its first thread after the wgmma group that last read
+// the chunk). The first warpgroup refills: after it releases load j it
+// waits until load j - 1 is released by both and loads j - 1 + FS_STAGES
+// into that stage, so the ring runs FS_STAGES - 1 to FS_STAGES chunks
+// ahead of it; its threads wait together and its first thread issues the
+// copies by predicate (no branch on the thread between wgmma groups). The
+// two query tiles of a block read each chunk once from memory or L2: at N
+// = 1024 a chunk is read by 8 blocks, where 64-query items would read it 16
+// times. With N / 64 odd the last block has one tile, and its second
+// warpgroup leaves at once (the mbarriers count one consumer). The causal
+// form loads only the chunks in view of the block's last tile. The NORM
+// form reads the chunks twice, k alone in its first pass (the row max and
+// sum) and k and v in the second, one sequence of 2 N / 64 loads through
+// the ring.
+//
+// Bound at the qk_norm train shape of GENIE_138M-S1024, (R, N, H, D) =
+// (128, 1024, 16, 32): q, k, v read and o written once, 537 MB, 0.160 ms
+// at 3.35 TB/s; the two products 275 GFLOP, 0.278 ms at 989 TFLOP/s; the
+// 2.15e9 exponentials (one ex2.approx and one FFMA a logit), 0.556 ms on
+// the special function units (16 a clock an SM at 1.83 GHz): at head_dim
+// 32 the exponentials bound it. At head_dim 64 (8 heads) the bytes and the
+// products are the same and the exponentials half.
+constexpr int FS_STAGES = 4;   // key chunks in the ring
+constexpr int FA_MAXN = 4096;  // the most keys of a head the kernels take
+template <int D>
+struct FsShape {
+  static constexpr int TILE = FaRows<D>::TILE;
+  static constexpr int STAGE = 2 * TILE;  // a chunk's k and v
+  // after 1024 bytes of alignment: the two q tiles, the ring, the ones
+  // tile, then the q mbarrier and each stage's full and empty mbarriers
+  static constexpr int SMEM =
+      1024 + 2 * TILE + FS_STAGES * STAGE + FF_ONES + 8 * (1 + 2 * FS_STAGES);
+};
+
+// The predicated forms of a TMA load and of an mbarrier's arrivals: no
+// branch on the thread between wgmma groups.
+__device__ __forceinline__ void tma_load_4d_if(bool on, uint32_t dst,
+                                               const CUtensorMap* map, int c0,
+                                               int c1, int c2, int c3,
+                                               uint32_t bar) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %7, 0;\n"
+      "@p cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n}\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar), "r"((int)on)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx_if(bool on, uint32_t bar,
+                                                  uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(
+          bar),
+      "r"(bytes), "r"((int)on)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_if(bool on, uint32_t bar) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"((int)on)
+      : "memory");
+}
+
+// grid: R H ceil(N / 128) blocks, block b = (item b / blocks, query block
+// b % blocks); FF_THREADS threads, dynamic shared memory FsShape<D>::SMEM.
+// POS, NORM and lse as flash_fwd_kernel's.
+template <int D, bool CAUSAL, bool POS, bool NORM = false>
+__global__ void __launch_bounds__(FF_THREADS, 2)
+    flash_fwd_stream_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap to,
+                            float* lse, int N, int H, float scale,
+                            int /* items: the grid says them */) {
+  using L = FaRows<D>;
+  using F = FsShape<D>;
+  extern __shared__ unsigned char fs_raw[];
+  const uint32_t raw = smem_u32(fs_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* base_p = fs_raw + (base - raw);
+  const uint32_t ring = base + 2 * L::TILE;
+  const uint32_t ones = ring + FS_STAGES * F::STAGE;
+  const uint32_t qbar = ones + FF_ONES, full = qbar + 8,
+                 empty = full + 8 * FS_STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int tiles = N / FA_QT, blocks = (tiles + 1) / 2;
+  const int item = blockIdx.x / blocks, qb = blockIdx.x % blocks;
+  const int r = item / H, h = item % H;
+  const int qt = 2 * qb + wg;  // this warpgroup's query tile
+  const int users = 2 * qb + 1 < tiles ? 2 : 1;  // warpgroups with a tile
+  // the chunks in view of the block's last tile, and the loads of them
+  const int nc = CAUSAL ? 2 * qb + users : tiles;
+  const int loads = NORM ? 2 * nc : nc;
+
+  reinterpret_cast<uint32_t*>(base_p + (ones - base))[tid] = 0x3f803f80u;
+  // load j of the sequence (chunk j; in NORM's second pass chunk j - nc,
+  // with its v) into stage j % FS_STAGES, by the first thread where `on`
+  auto load = [&](bool on, int j) {
+    const int st = j % FS_STAGES, c = NORM && j >= nc ? j - nc : j;
+    const bool with_v = !NORM || j >= nc;
+    const uint32_t dst = ring + st * F::STAGE, bar = full + 8 * st;
+    mbar_expect_tx_if(on, bar, (with_v ? 2 : 1) * L::TILE);
+    tma_load_4d_if(on, dst, &tk, 0, h, c * FA_QT, r, bar);
+    tma_load_4d_if(on && with_v, dst + L::TILE, &tv, 0, h, c * FA_QT, r,
+                   bar);
+  };
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int st = 0; st < FS_STAGES; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, users);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the ones tile is written through the generic proxy, read by wgmma
+  fence_proxy_async();
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(qbar, users * L::TILE);
+    for (int w = 0; w < users; ++w)
+      tma_load_4d(base + w * L::TILE, &tq, 0, h, (2 * qb + w) * FA_QT, r,
+                  qbar);
+    for (int j = 0; j < FS_STAGES && j < loads; ++j) load(true, j);
+  }
+  if (qt >= tiles) return;  // the second warpgroup of a one-tile block
+
+  // the stage of load j, once its bytes have landed
+  auto stage_of = [&](int j) {
+    mbar_wait(full + 8 * (j % FS_STAGES), (j / FS_STAGES) & 1);
+    return ring + (j % FS_STAGES) * F::STAGE;
+  };
+  // load j read by this warpgroup for the last time: released; the first
+  // warpgroup then refills the stage of load j - 1 once both have read it
+  auto release = [&](int j) {
+    mbar_arrive_if((tid & 127) == 0, empty + 8 * (j % FS_STAGES));
+    const int p = j - 1;
+    if (wg == 0 && p >= 0 && p + FS_STAGES < loads) {
+      mbar_wait(empty + 8 * (p % FS_STAGES), (p / FS_STAGES) & 1);
+      load(tid == 0, p + FS_STAGES);
+    }
+  };
+
+  mbar_wait(qbar, 0);
+  const uint32_t qtile = base + wg * L::TILE;
+  FaTile<D, CAUSAL, POS> t(tid, scale, qtile, ones);
+  // the chunks in view of the tile (NORM: every chunk, twice)
+  t.template run<NORM>(
+      CAUSAL ? qt + 1 : tiles, stage_of,
+      [&](int j) { return ring + (j % FS_STAGES) * F::STAGE + L::TILE; },
+      release);
+  // o into the tile's own Q rows (their last reader was the last logits),
+  // and out by one TMA store of the warpgroup's first thread
+  t.write_o(base_p + (qtile - base), NORM);
+  fence_proxy_async();
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  if ((tid & 127) == 0) {
+    tma_store_4d(&to, qtile, 0, h, qt * FA_QT, r);
+    bulk_commit();
+  }
+  t.write_lse(lse + (long)item * N + qt * FA_QT);
+  if ((tid & 127) == 0) bulk_wait();
 }
 
 // What the flash kernels require of the shapes and strides.
 inline bool flash_ok(int N, int D, const long* strides, int count) {
-  if (N < 64 || N > FA_N || N % 64 || (D != 32 && D != 64)) return false;
+  if (N < 64 || N > FA_MAXN || N % 64 || (D != 32 && D != 64)) return false;
   for (int i = 0; i < count; ++i)
     if (strides[i] % 8) return false;
   return true;
@@ -590,12 +799,36 @@ static inline cudaError_t launch_flash_fwd_d(
     int H, float scale, bool causal, bool norm, cudaStream_t stream) {
   const int items = R * H;
   if (items == 0) return cudaSuccess;
+  if (norm && causal) return cudaErrorInvalidValue;  // no such form
+  const int form = (norm ? 4 : causal ? 2 : 0) + (scale > 0.f ? 1 : 0);
+  // the whole item in a stage up to FA_N keys, 64-key boxes past it
+  const int box = N > FA_N ? FA_QT : 0;
   CUtensorMap maps[4];
-  TPU1X_TRY(tensor_map<D>(&maps[0], q, rsq, tsq, R, N, H));
-  TPU1X_TRY(tensor_map<D>(&maps[1], k, rsk, tsk, R, N, H));
-  TPU1X_TRY(tensor_map<D>(&maps[2], v, rsv, tsv, R, N, H));
+  TPU1X_TRY(tensor_map<D>(&maps[0], q, rsq, tsq, R, N, H, box));
+  TPU1X_TRY(tensor_map<D>(&maps[1], k, rsk, tsk, R, N, H, box));
+  TPU1X_TRY(tensor_map<D>(&maps[2], v, rsv, tsv, R, N, H, box));
   TPU1X_TRY(tensor_map<D>(&maps[3], out, (long)N * H * D, (long)H * D, R, N,
                           H, FA_QT));
+  if (N > FA_N) {
+    static const FwdKernel streamed[6] = {
+        flash_fwd_stream_kernel<D, false, false>,
+        flash_fwd_stream_kernel<D, false, true>,
+        flash_fwd_stream_kernel<D, true, false>,
+        flash_fwd_stream_kernel<D, true, true>,
+        flash_fwd_stream_kernel<D, false, false, true>,
+        flash_fwd_stream_kernel<D, false, true, true>};
+    static bool ready[6] = {false, false, false, false, false, false};
+    if (!ready[form]) {  // the shared memory limit, once a process a form
+      TPU1X_TRY(cudaFuncSetAttribute(
+          streamed[form], cudaFuncAttributeMaxDynamicSharedMemorySize,
+          FsShape<D>::SMEM));
+      ready[form] = true;
+    }
+    const unsigned grid = (unsigned)items * ((N / FA_QT + 1) / 2);
+    streamed[form]<<<grid, FF_THREADS, FsShape<D>::SMEM, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], lse, N, H, scale, items);
+    return cudaGetLastError();
+  }
   // set once a process for each form: the shared memory limit and the
   // grid, every resident block of the card
   static const FwdKernel forms[6] = {
@@ -604,8 +837,6 @@ static inline cudaError_t launch_flash_fwd_d(
       flash_fwd_kernel<D, false, false, true>,
       flash_fwd_kernel<D, false, true, true>};
   static int resident[6] = {0, 0, 0, 0, 0, 0};
-  if (norm && causal) return cudaErrorInvalidValue;  // no such form
-  const int form = (norm ? 4 : causal ? 2 : 0) + (scale > 0.f ? 1 : 0);
   const FwdKernel kernel = forms[form];
   if (resident[form] == 0)
     TPU1X_TRY(resident_blocks(kernel, FF_THREADS, FfShape<D>::SMEM,

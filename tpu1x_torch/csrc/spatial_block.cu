@@ -27,7 +27,9 @@
 //       serving chain (round, + bias, round, + x, round).
 // The (N, H, S, S) logits never reach device memory. Bound: tensor-core
 // operations (2 N S C (4C + 2S) FLOP: 10.7 GFLOP at N=16 against 134 MB
-// moved at most); the transposed-qkv layout of the TPU kernel was a Mosaic
+// moved at most; at S = 1024, GENIE_138M-S1024's grid, 68.7 GFLOP, 0.0695
+// ms at 989 TFLOP/s, where K9's exponentials, N H S^2 = 2.7e8, take 0.072
+// ms); the transposed-qkv layout of the TPU kernel was a Mosaic
 // workaround and is not carried over.
 //
 // The spatial train block's backward (tpu1x_torch/ops/spatial_train_block.py)
@@ -41,18 +43,17 @@
 
 using namespace tpu1x;
 
-namespace {
-
-constexpr int SB_S = 256;  // tokens a frame: the flash forward's keys
-
-}  // namespace
-
 // x, out (N, S, C); wqkv (C, 3C); wproj (C, C); biases bf16 or null;
 // ln_scale/ln_bias fp32 (C,) or null (no pre-LN); qk_ln_scale/qk_ln_bias
 // fp32 (D,) or null (no qk-LN); qkv_buf (N, S, 3C) and attn_buf (N, S, C)
 // are scratch, and so is xn_buf (N, S, C), the pre-LN's output and then the
-// flash forward's lse. Requires S == 256, head_dim D = C / H of 32 or 64,
-// C % 64 == 0.
+// flash forward's lse. Requires what K9 takes of S (64 <= S <= FA_MAXN =
+// 4096, S % 64 == 0: whole frames in shared memory up to 256 tokens,
+// streamed key chunks past it), head_dim D = C / H of 32 or 64, C % 64 ==
+// 0. Every launch here indexes memory with 64-bit offsets (the GEMM's
+// epilogue, the row passes, the flash forward) or through TMA coordinates
+// of at most N S rows: at GENIE_138M-S1024's evaluator prefill (N = 256, S
+// = 1024) qkv is 4.0e8 elements.
 extern "C" int tpu1x_spatial_block(const void* x, const void* wqkv,
                                    const void* bqkv, const void* wproj,
                                    const void* bproj, const void* ln_scale,
@@ -63,7 +64,9 @@ extern "C" int tpu1x_spatial_block(const void* x, const void* wqkv,
                                    void* stream) {
   const bool pre_ln = ln_scale != nullptr, qk_ln = qk_ln_scale != nullptr;
   const int D = H > 0 ? C / H : 0;
-  if (S != SB_S || (D != 32 && D != 64) || C != H * D || C % 64 ||
+  const long rs = (long)S * 3 * C, ts = 3L * C;
+  const long strides[2] = {rs, ts};
+  if (!flash_ok(S, D, strides, 2) || C != H * D || C % 64 ||
       pre_ln != (ln_bias != nullptr) || qk_ln != (qk_ln_bias != nullptr) ||
       xn_buf == nullptr)
     return cudaErrorInvalidValue;
@@ -84,7 +87,6 @@ extern "C" int tpu1x_spatial_block(const void* x, const void* wqkv,
   // the lse that the forward writes (N H S floats, at most an eighth of
   // xn's bytes) goes to xn, which the qkv product has read
   const bf16* qkv = static_cast<const bf16*>(qkv_buf);
-  const long rs = (long)S * 3 * C, ts = 3L * C;
   TPU1X_TRY(launch_flash_fwd(qkv, qkv + C, qkv + 2 * C, attn_buf,
                              static_cast<float*>(xn_buf), rs, ts, rs, ts, rs,
                              ts, N, S, H, D, scale, false, s, qk_ln));

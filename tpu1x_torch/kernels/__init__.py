@@ -84,10 +84,10 @@ SIGNATURES = {
         # q, k, v, out, lse, rsq, tsq, rsk, tsk, rsv, tsv, R, N, H, D, scale,
         # causal, stream
         ("tpu1x_flash_mha", [P] * 5 + [L] * 6 + [I] * 4 + [F, I, P]),
-        # q, k, v, o, d_o, lse, dq, dk, dv, rsq, tsq, rsk, tsk, rsv, tsv,
-        # rso, tso, rsg, tsg, rsdq, tsdq, rsdk, tsdk, rsdv, tsdv, R, N, H, D,
-        # scale, causal, stream
-        ("tpu1x_flash_mha_bwd", [P] * 9 + [L] * 16 + [I] * 4 + [F, I, P]),
+        # q, k, v, o, d_o, lse, dq, dk, dv, work, rsq, tsq, rsk, tsk, rsv,
+        # tsv, rso, tso, rsg, tsg, rsdq, tsdq, rsdk, tsdk, rsdv, tsdv, R, N,
+        # H, D, scale, causal, stream
+        ("tpu1x_flash_mha_bwd", [P] * 10 + [L] * 16 + [I] * 4 + [F, I, P]),
     ],
 }
 

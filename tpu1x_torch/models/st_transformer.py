@@ -18,9 +18,9 @@ on the CPU each takes its plain version under ordinary autograd. With
 qk_norm on none of the fused spatial and temporal blocks applies, as in the
 JAX package: each attention is the qkv product, the fp32 qk-LayerNorm, `mha`
 and the proj product under ordinary autograd, where `mha` is the fused
-attention kernel pair (forward and backward) for the S = 256 spatial axis on
-the card and the plain attention for the T = 16 frame axis; the MLP is the
-MLP train block without its LayerNorm.
+attention kernel pair (forward and backward) for the spatial axis (S = 64
+to 4096, S % 64 == 0) on the card and the plain attention for the frame
+axis (T <= 32); the MLP is the MLP train block without its LayerNorm.
 
 Dropout, in training only, follows the JAX package's formula and routing
 (tpu1x/models/st_transformer.py, tpu1x/ops/attention.py): on each

@@ -14,6 +14,8 @@ NEG_INF = torch.finfo(torch.float32).min
 # `mha` sends fewer tokens than this (the frame axis, T = 16) to the plain
 # version
 FLASH_MIN_TOKENS = 64
+# the most tokens the flash kernels take (csrc/flash_attention.cuh FA_MAXN)
+FLASH_MAX_TOKENS = 4096
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -104,9 +106,9 @@ def _check_shape(q, k, v):
     require(D in HEAD_DIMS,
             f"the flash attention kernels need head_dim 32 or 64, got "
             f"head_dim={D}")
-    require(64 <= N <= 256 and N % 64 == 0,
+    require(FLASH_MIN_TOKENS <= N <= FLASH_MAX_TOKENS and N % 64 == 0,
             f"the flash attention kernels need N % 64 == 0 and "
-            f"64 <= N <= 256, got N={N}")
+            f"{FLASH_MIN_TOKENS} <= N <= {FLASH_MAX_TOKENS}, got N={N}")
 
 
 def _lse_shape(q):
@@ -173,12 +175,13 @@ def flash_mha_bwd(q, k, v, o, lse, dout, *, scale: float, causal: bool,
     (dq4, rsdq, tsdq), (dk4, rsdk, tsdk), (dv4, rsdv, tsdv) = (
         _rows(t, name, q.shape, writable=True)
         for name, t in zip(("dq", "dk", "dv"), out))
+    work = torch.empty_like(lse)  # delta, from the dq pass to the dk/dv pass
     err = kernels.lib("flash_attention").tpu1x_flash_mha_bwd(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
         g4.data_ptr(), lse.data_ptr(), dq4.data_ptr(), dk4.data_ptr(),
-        dv4.data_ptr(), rsq, tsq, rsk, tsk, rsv, tsv, rso, tso, rsg, tsg,
-        rsdq, tsdq, rsdk, tsdk, rsdv, tsdv, q4.shape[0], N, H, D, scale,
-        int(causal), kernels.stream_of(q))
+        dv4.data_ptr(), work.data_ptr(), rsq, tsq, rsk, tsk, rsv, tsv, rso,
+        tso, rsg, tsg, rsdq, tsdq, rsdk, tsdk, rsdv, tsdv, q4.shape[0], N, H,
+        D, scale, int(causal), kernels.stream_of(q))
     kernels.check(err, "flash_mha_bwd")
     kernels.count("flash_mha_bwd")
     return tuple(out)
@@ -211,8 +214,8 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launch csrc/flash_attention.cu, which replaces the Pallas kernels
     tpu1x/ops/pallas_attention.py:_flash_mha_bhnd (forward) and, under
     autograd, _flash_mha_bwd_bhnd (backward). The card path takes bf16,
-    head_dim 32 or 64, N % 64 == 0 and 64 <= N <= 256; fp32 inputs are for
-    the CPU.
+    head_dim 32 or 64, N % 64 == 0 and 64 <= N <= 4096 (FLASH_MAX_TOKENS);
+    fp32 inputs are for the CPU.
     q, k and v are read where they lie, each with its own strides (the last
     two axes contiguous, the others multiples of 8 that fold into one row
     stride), so the v third of a (rows, N, 3, H, D) qkv product needs no
@@ -225,20 +228,23 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     accumulation) and keeps the softmax in fp32 with a running max over
     64-key chunks; it rounds the unnormalised p to bf16 for p v and divides
     by the row sum of the rounded p at the end, where the TPU kernel rounds
-    the normalised p. On the H100 it is persistent blocks of two
-    warpgroups, each (row, head) loaded once by TMA into a two-stage ring
-    (one stage at head_dim 64, two blocks an SM) while the one before
-    computes, both products on wgmma, o stored by TMA;
-    its floors are the bytes (q, k, v, o once each) and the exponentials,
-    about equal. The backward (`flash_mha_bwd_plain`'s arithmetic) takes p
-    from lse with one exponential a logit and delta = sum d_o o, and makes
-    the TPU kernel's five products on wgmma, key tiles outermost, with dq
-    summed in shared memory (head_dim 32), or two passes, one query-major
-    for dq and one key-major for dk and dv, each sum in registers (head_dim
-    64: seven products); it rounds p and ds to bf16 for its products,
-    where the TPU kernel keeps them fp32. Nothing N x N reaches device
-    memory either way; PERF.md has both kernels' times against their
-    floors and against SDPA.
+    the normalised p. On the H100, up to N = 256, it is persistent blocks
+    of two warpgroups, each (row, head) loaded once by TMA into a two-stage
+    ring (one stage at head_dim 64, two blocks an SM) while the one before
+    computes, both products on wgmma, o stored by TMA; its floors are the
+    bytes (q, k, v, o once each) and the exponentials, about equal. Past
+    256 a block takes 128 queries of a (row, head) and streams the keys
+    and values in 64-token chunks through a four-stage TMA ring; the
+    exponentials bound it at head_dim 32. The backward
+    (`flash_mha_bwd_plain`'s arithmetic) takes p from lse with one
+    exponential a logit and delta = sum d_o o, in two passes on wgmma, one
+    query-major for dq (which also writes delta) and one key-major for dk
+    and dv, each keeping its 64-token tile's sums in registers and
+    streaming the other operands in 64-token chunks (seven products where
+    the TPU kernel makes five); it rounds p and ds to bf16 for its
+    products, where the TPU kernel keeps them fp32. Nothing N x N reaches
+    device memory either way; PERF.md has both kernels' times against
+    their floors and against SDPA.
     """
     if not q.is_cuda:
         return remat.attention(mha_reference, q, k, v, scale=scale,
@@ -249,9 +255,9 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
         causal: bool = False) -> torch.Tensor:
     """Attention over axis -3: `flash_mha` from FLASH_MIN_TOKENS tokens up
-    (the S = 256 spatial axis), `mha_reference` below (at T = 16 the
-    kernel's grid of one block per (row, head) would be all launch and no
-    work), as the JAX package chooses."""
+    (the spatial axis, S = 64 to 4096), `mha_reference` below (at T = 16
+    the kernel's grid of one block per (row, head) would be all launch and
+    no work), as the JAX package chooses."""
     if q.shape[-3] >= FLASH_MIN_TOKENS:
         return flash_mha(q, k, v, scale=scale, causal=causal)
     return remat.attention(mha_reference, q, k, v, scale=scale,

@@ -10,7 +10,8 @@ import torch
 from tpu1x_torch import kernels
 from tpu1x_torch.ops._util import (check_tensor, dense, gelu, head_dim_of,
                                    ptr, require)
-from tpu1x_torch.ops.attention import mha_reference
+from tpu1x_torch.ops.attention import (FLASH_MAX_TOKENS, FLASH_MIN_TOKENS,
+                                       mha_reference)
 from tpu1x_torch.ops.layernorm import layer_norm_plain
 
 
@@ -79,44 +80,16 @@ def gemm_sm90(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
-def spatial_block(x: torch.Tensor, wqkv: torch.Tensor, wproj: torch.Tensor, *,
-                  num_heads: int, scale: float,
-                  bqkv: Optional[torch.Tensor] = None,
-                  bproj: Optional[torch.Tensor] = None,
-                  ln_scale: Optional[torch.Tensor] = None,
-                  ln_bias: Optional[torch.Tensor] = None,
-                  qk_ln_scale: Optional[torch.Tensor] = None,
-                  qk_ln_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x (N, S, C) -> x + proj(mha(qkv(ln(x)))), with the optional
-    LayerNorm of q and k over head_dim (one pair of parameters shared by q,
-    k and all heads) that the qk_norm models have in place of the pre-LN.
-
-    CPU tensors take `spatial_block_plain`. CUDA tensors launch
-    csrc/spatial_block.cu, which replaces the Pallas kernel
-    tpu1x/ops/spatial_block.py:spatial_block. It takes bf16 x and weights
-    ((C, 3C), (C, C), biases (3C,), (C,) or None), fp32 LN params (C,) or
-    None, fp32 qk-LN params (head_dim,) or None, S == 256, head_dim 32 or
-    64 and C % 64 == 0.
-
-    Bound on the H100: tensor-core operations. One row is 256 KB in bf16,
-    more than a block's shared memory, so the TPU's one-program-per-row
-    design becomes launches whose intermediates stay in L2: the pre-LN as a
-    row pass (K5's kernel), the qkv product on a TMA-fed wgmma GEMM
-    (csrc/gemm_sm90.cuh), with the qk-LN a row pass over each head row of
-    the q and k thirds of qkv in place (layer_norm.cuh's head_norm_kernel),
-    the attention (K9's flash forward on the q, k, v thirds of qkv), and
-    the proj product + bias + residual on the same GEMM; the (N, H, S, S)
-    logits never leave the SM.
-    """
-    if not x.is_cuda:
-        return spatial_block_plain(x, wqkv, wproj, num_heads=num_heads,
-                                   scale=scale, bqkv=bqkv, bproj=bproj,
-                                   ln_scale=ln_scale, ln_bias=ln_bias,
-                                   qk_ln_scale=qk_ln_scale,
-                                   qk_ln_bias=qk_ln_bias)
+def _check(x, wqkv, wproj, num_heads: int, bqkv=None, bproj=None,
+           ln_scale=None, ln_bias=None, qk_ln_scale=None,
+           qk_ln_bias=None) -> int:
+    """What the kernel requires of its arguments (on any device: the card's
+    wrapper calls it before a launch); returns the head_dim."""
     N, S, C = x.shape
     dev, bf = x.device, torch.bfloat16
-    require(S == 256, f"spatial_block kernel needs S == 256, got {S}")
+    require(FLASH_MIN_TOKENS <= S <= FLASH_MAX_TOKENS and S % 64 == 0,
+            f"spatial_block kernel needs S % 64 == 0 and "
+            f"{FLASH_MIN_TOKENS} <= S <= {FLASH_MAX_TOKENS}, got S={S}")
     D = head_dim_of(C, num_heads, "spatial_block kernel")
     require(C % 64 == 0, f"spatial_block kernel needs C % 64 == 0, got {C}")
     require((ln_scale is None) == (ln_bias is None)
@@ -135,6 +108,50 @@ def spatial_block(x: torch.Tensor, wqkv: torch.Tensor, wproj: torch.Tensor, *,
     if qk_ln_scale is not None:
         check_tensor(qk_ln_scale, "qk_ln_scale", (D,), torch.float32, dev)
         check_tensor(qk_ln_bias, "qk_ln_bias", (D,), torch.float32, dev)
+    return D
+
+
+def spatial_block(x: torch.Tensor, wqkv: torch.Tensor, wproj: torch.Tensor, *,
+                  num_heads: int, scale: float,
+                  bqkv: Optional[torch.Tensor] = None,
+                  bproj: Optional[torch.Tensor] = None,
+                  ln_scale: Optional[torch.Tensor] = None,
+                  ln_bias: Optional[torch.Tensor] = None,
+                  qk_ln_scale: Optional[torch.Tensor] = None,
+                  qk_ln_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (N, S, C) -> x + proj(mha(qkv(ln(x)))), with the optional
+    LayerNorm of q and k over head_dim (one pair of parameters shared by q,
+    k and all heads) that the qk_norm models have in place of the pre-LN.
+
+    CPU tensors take `spatial_block_plain`. CUDA tensors launch
+    csrc/spatial_block.cu, which replaces the Pallas kernel
+    tpu1x/ops/spatial_block.py:spatial_block. It takes bf16 x and weights
+    ((C, 3C), (C, C), biases (3C,), (C,) or None), fp32 LN params (C,) or
+    None, fp32 qk-LN params (head_dim,) or None, S % 64 == 0 with 64 <= S
+    <= 4096 (K9's range: whole frames in shared memory up to 256 tokens,
+    key chunks streamed past it), head_dim 32 or 64 and C % 64 == 0
+    (`_check`).
+
+    Bound on the H100: tensor-core operations. One row is 256 KB in bf16
+    at S = 256 (1 MB at 1024), more than a block's shared memory, so the
+    TPU's one-program-per-row design becomes launches whose intermediates
+    stay in L2: the pre-LN as a row pass (K5's kernel), the qkv product on a TMA-fed wgmma GEMM
+    (csrc/gemm_sm90.cuh), with the qk-LN a row pass over each head row of
+    the q and k thirds of qkv in place (layer_norm.cuh's head_norm_kernel),
+    the attention (K9's flash forward on the q, k, v thirds of qkv), and
+    the proj product + bias + residual on the same GEMM; the (N, H, S, S)
+    logits never leave the SM.
+    """
+    if not x.is_cuda:
+        return spatial_block_plain(x, wqkv, wproj, num_heads=num_heads,
+                                   scale=scale, bqkv=bqkv, bproj=bproj,
+                                   ln_scale=ln_scale, ln_bias=ln_bias,
+                                   qk_ln_scale=qk_ln_scale,
+                                   qk_ln_bias=qk_ln_bias)
+    _check(x, wqkv, wproj, num_heads, bqkv, bproj, ln_scale, ln_bias,
+           qk_ln_scale, qk_ln_bias)
+    N, S, C = x.shape
+    dev, bf = x.device, torch.bfloat16
     # the pre-LN's output, then the flash attention's lse
     xn = torch.empty_like(x)
     qkv = torch.empty(N, S, 3 * C, dtype=bf, device=dev)
