@@ -209,11 +209,27 @@
    resume and exports (the tokenizer at 512 px), and the qk_norm int8
    rollout and train step; each with exact launch counts. The plain
    oracle's spatial attention runs in slices of frames (`by_frames`).
+12e. Head_dim 128 (`check_head_dim_128`): every attention kernel form at
+   head_dim 128 (C = 512, 4 heads) against its plain version, values and
+   gradients, with its times and SDPA's beside K4, K6, K7, K8, K9, K10
+   (`check_h128_kernels`: K1 both modes at N = 16 / 32 / 128 / 256, K2,
+   K3, K7 and K8 with both caches, K4 and K6 causal and not at T = 8, 16
+   and 32, K9 and K10 at (128, 256, 4, 128) and, untimed, at N = 64, 128,
+   192 and 1024, causal, not and at a negative scale, K11, K12) and the
+   decode batch sizes of 3 at 4 heads; then GENIE_138M-h128
+   (configs/genie_138m.json at 4 heads of 128) at 32 layers: the rollout
+   as in 4, ten train steps and the step against the plain path as in 6;
+   at 8 layers `score_policies`, the evaluator batch, the train CLI with
+   its resume and exports, the qk_norm int8 rollout and train step, and a
+   `use_mup` rollout and step as in 8 (the scale 8 / 128); each with exact
+   launch counts.
 13. Tensor parallelism (`check_tensor_parallel`): K4 and K6 at C = 128
    (4 heads, the kernels' head groups of 4) and C = 64 (2 heads, head
    groups of 2) against their plain versions with their device times and
-   bounds; then for GENIE_138M over tp = 2 ranks and GENIE_35M over tp =
-   4 (`TP_SETUPS`) tp child processes of this script (`--tp-rank`), all
+   bounds; then for GENIE_138M over tp = 2 ranks, GENIE_35M over tp = 4,
+   and GENIE_138M-h64 and -h128 over tp = 2 (4 heads of 64 and 2 of 128 a
+   rank: K4's and K6's head groups at those widths) (`TP_SETUPS`) tp child
+   processes of this script (`--tp-rank`), all
    on this card, joined over gloo as one model group: each splits the
    model at 8 layers, pre-LN and qk_norm, and takes one update (exact
    launch counts per rank), held to this process's update from the same
@@ -237,9 +253,10 @@
    `tp_launches` of both setups, K4's and K6's C = 128 and C = 64
    entries, each attention kernel's head_dim-64 form, `h64`, with its
    launches on GENIE_138M-h64's paths, each frame-axis kernel's T = 32
-   form, `t32`, with its launches on GENIE_138M-T32's, and every kernel's
-   S = 1024 form, `s1024`, with its launches on GENIE_138M-S1024's), the
-   card line, and last the result line.
+   form, `t32`, with its launches on GENIE_138M-T32's, every kernel's S =
+   1024 form, `s1024`, with its launches on GENIE_138M-S1024's, and each
+   attention kernel's head_dim-128 form, `h128`, with its launches on
+   GENIE_138M-h128's paths), the card line, and last the result line.
 
 K1 (both modes), K2, K3, K5, K9, K10 and K13 carry a profiler device time
 (`device_ms`; their library calls `library_device_ms`) beside the event
@@ -1971,11 +1988,12 @@ def check_training(cfg, device, per_layer=TRAIN_PER_LAYER):
         raise AssertionError(f"the loss did not fall: {losses}")
     step_s = sorted(walls[-5:])[2]
     # the pre-LN step: K11's attention backward is K10's two passes, beside
-    # the recompute on K9's kernel (its streamed form past S = 256); of
-    # spatial_block.cu's own kernels none runs; K4 and K6 are
-    # temporal_attention.cu's tiled kernels, and the names of the per-(b, s)
-    # kernels they replaced must not appear
-    k9 = ("flash_fwd_stream_kernel" if cfg.S > 256  # csrc FA_N
+    # the recompute on K9's kernel (its streamed form past S = 256, and at
+    # every S at head_dim 128); of spatial_block.cu's own kernels none runs;
+    # K4 and K6 are temporal_attention.cu's tiled kernels, and the names of
+    # the per-(b, s) kernels they replaced must not appear
+    k9 = ("flash_fwd_stream_kernel"
+          if cfg.S > 256 or cfg.head_dim == 128  # csrc FA_N
           else "flash_fwd_kernel")
     pre_ln = {} if cfg.qk_norm else dict(
         must=(k9, "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
@@ -3315,6 +3333,128 @@ def check_grid_1024(device):
     return out
 
 
+# -------------------------------------------------------- head_dim 128
+
+H128_HEADS = 4  # GENIE_138M's width at 4 heads: head_dim 128
+H128_LAYERS = 8  # the depth of the phase's secondary paths
+# the token counts of K9's and K10's untimed checks at head_dim 128 (R = 4
+# rows; 1024 at R = 2) besides the main path's 256
+H128_SWEEP_N = (64, 192, 1024)
+
+
+def genie_138m_h128(**overrides) -> GenieConfig:
+    """GENIE_138M-h128: configs/genie_138m.json through
+    `GenieConfig.from_pretrained` with 4 heads of 128 channels (32 layers,
+    d_model 512, S 256, T 16 with 8 prompt frames, bf16 compute, fp32
+    params): the head width of most public transformers at scale, and under
+    muP (base 8 heads at d_model 256) half the base head count at twice its
+    width, where the scale 8 / 128 differs from 128^-0.5. Same parameters,
+    products, MLP and caches as GENIE_138M; only the attention's head width
+    changes."""
+    return dataclasses.replace(GenieConfig.from_pretrained(RT_CONFIG),
+                               num_heads=H128_HEADS, **overrides)
+
+
+def check_h128_kernels(device):
+    """Every attention kernel form at head_dim 128 (C = 512, 4 heads), on
+    the main path's shapes, held to its plain version by the gates of its
+    head_dim-32 form (values, and every gradient where the TPU kernel has a
+    backward), each timed with its bound and SDPA's time where SDPA
+    computes the same function: K1 in both modes at N = 16 / 32 / 128 /
+    256, K2 and K3, K7 and K8 (bf16 and int8 cache), K4 and K6 (causal and
+    not; timed at the prefill's T = 8 and the train step's 16, untimed at
+    T = 8 (K6) and 32 at B = TB), K9 and K10 at the qk_norm train step's
+    (128, 256, 4, 128) (and at N = 64, 128, 192 and a negative scale), then
+    untimed at H128_SWEEP_N causal, not and at a negative scale, K11 and
+    K12. Keys end in "[h128]"."""
+    C, H, L = 512, H128_HEADS, 32
+    inp = Inputs(10, device)
+    out = {}
+    for qk_ln in (False, True):
+        for N in (B, 2 * B, B * P, B * 16):
+            mode = "qk_ln," if qk_ln else ""
+            out[f"spatial_block[{mode}N={N}]"] = check_spatial_block(
+                inp, C, H, N, qk_ln=qk_ln)
+    T = 16
+    caches = (inp.normal(T, L, B, 256, C), inp.normal(T, L, B, 256, C))
+    for name, pair in (("temporal_mlp_block", False),
+                       ("temporal_mlp_block_pair", True)):
+        out[name] = check_temporal_mlp_block(inp, C, H, L, caches, pair)
+    for pair in (False, True):
+        out.update(check_decode_attention(inp, C, H, L, caches, None, pair))
+    (kq, ks), (vq, vs) = quantize_cache(caches[0]), quantize_cache(caches[1])
+    del caches
+    for pair in (False, True):
+        out.update(check_decode_attention(inp, C, H, L, (kq, vq), (ks, vs),
+                                          pair))
+    del kq, vq, ks, vs
+    torch.cuda.empty_cache()
+    out.update(check_temporal_attention(inp, C, H))
+    out.update(check_temporal_attention_bwd(inp, C, H))
+    for T_ in (8, 32):
+        for causal in (True, False):
+            tag = f"[T={T_}" + ("]" if causal else ",non-causal]")
+            out["temporal_attention" + tag] = temporal_case(
+                inp, C, H, tag, TB, T_, causal, timed=False)
+        out.update(check_temporal_attention_bwd(inp, C, H, T=T_,
+                                                timed=False))
+    torch.cuda.empty_cache()
+    out.update(check_flash_mha(inp, H, D=C // H))
+    D = C // H
+    for n in H128_SWEEP_N:
+        rows = 2 if n > 256 else 4
+        qkv, dout = inp.normal(rows, n, 3, H, D), inp.normal(rows, n, H, D)
+        for causal, sc in ((False, D ** -0.5), (True, D ** -0.5),
+                           (False, -D ** -0.5)):
+            key = (f"flash_mha[N={n}]" + ("[causal]" if causal else "")
+                   + ("[negative scale]" if sc < 0 else ""))
+            err, grads = flash_case(key, qkv, dout, sc, causal)
+            out[key] = dict(max_abs_err=err, grads=grads)
+    torch.cuda.empty_cache()
+    out.update(check_spatial_train_block(inp, C, H))
+    out.update(check_temporal_train_block(inp, C, H))
+    torch.cuda.empty_cache()
+    out = {f"{name}[h128]": r for name, r in out.items()}
+    return print_kernels(out)
+
+
+def check_head_dim_128(device):
+    """GENIE_138M-h128 end to end (`genie_138m_h128`), modelled on
+    `check_head_dim_64`: every head_dim-128 kernel form against its plain
+    version (`check_h128_kernels`) and the decode batch sizes
+    (`check_decode_batches`, 4 heads), then every entry point
+    (`check_config_paths`): the rollout (B 16, 8 + 8 frames), ten train
+    steps and the step against the plain path at full depth (32 layers),
+    scores, the evaluator, the train CLI and the qk_norm int8 paths at
+    H128_LAYERS; last a `use_mup` rollout and step at H128_LAYERS
+    (`check_variant`: the attention scale 8 / 128 = 0.0625 where
+    128^-0.5 = 0.0884)."""
+    cfg = genie_138m_h128()
+    walls = {}
+    t0 = time.perf_counter()
+    out = {"kernels": check_h128_kernels(device),
+           "decode_batches": check_decode_batches(cfg.d_model, cfg.num_heads,
+                                                  device)}
+    print("head_dim 128 decode attention across batch sizes: " + json.dumps(
+        out["decode_batches"]), flush=True)
+    walls["kernels"] = time.perf_counter() - t0
+    paths, path_walls = check_config_paths(genie_138m_h128, "head_dim 128",
+                                           device, H128_LAYERS)
+    out.update(paths)
+    t0 = time.perf_counter()
+    mup_cfg = genie_138m_h128(num_layers=H128_LAYERS, use_mup=True)
+    if mup_cfg.width_mult != 2.0 or 8.0 / mup_cfg.head_dim != 0.0625:
+        raise AssertionError(f"muP at head_dim 128: {mup_cfg}")
+    out["mup"] = dict(width_mult=mup_cfg.width_mult,
+                      scale=8.0 / mup_cfg.head_dim,
+                      **check_variant(mup_cfg, device, 8, mu_transfer=True))
+    print(f"head_dim 128 muP, {H128_LAYERS} layers: "
+          + json.dumps(out["mup"]), flush=True)
+    walls["mup"] = time.perf_counter() - t0
+    out["phase_walls_s"] = dict(walls, **path_walls)
+    return out
+
+
 # ------------------------------------------------------- tokenizer training
 
 # the card's fp32 step against the CPU's: 64 px, latents 8 x 8 x 18
@@ -4250,8 +4390,11 @@ TP_COUNTERS = {"spatial_train_block_bwd": "tp_spatial_train_block_bwd",
 TP_ARCHS = ("pre_ln", "qk_norm")
 # the TP phase's model groups: GENIE_138M over 2 ranks (8 heads and 256
 # columns a rank), GENIE_35M over 4 (2 heads and 64 columns a rank: K4's
-# and K6's head groups of 2), each at TP_LAYERS layers
-TP_SETUPS = (("genie_138m", genie_138m, 2), ("genie_35m", genie_35m, 4))
+# and K6's head groups of 2), GENIE_138M-h64 and -h128 over 2 (4 heads of
+# 64 and 2 of 128 a rank), each at TP_LAYERS layers
+TP_SETUPS = (("genie_138m", genie_138m, 2), ("genie_35m", genie_35m, 4),
+             ("genie_138m_h64", genie_138m_h64, 2),
+             ("genie_138m_h128", genie_138m_h128, 2))
 # the gradient norm a rank's optimizer reads against one process's norm of
 # the same gradients (`watch_norm`): the two sum the same squares in fp32
 # in another order (0 to 1e-7 apart on an H100). Leaving the split
@@ -4971,6 +5114,22 @@ def main() -> int:
               flush=True)
 
         t0 = time.perf_counter()
+        h128 = check_head_dim_128(device)
+        w128 = h128["phase_walls_s"]
+        print(f"head_dim 128 phase: {time.perf_counter() - t0:.1f} s ("
+              + ", ".join(f"{k} {v:.1f} s" for k, v in w128.items())
+              + f"); GENIE_138M-h128 ({H128_HEADS} heads of "
+              f"{cfg.d_model // H128_HEADS}) rollout "
+              f"{h128['rollout']['s_per_frame']:.4f} s/frame at B={B}; "
+              f"train step {h128['training']['step_s']:.4f} s, peak "
+              f"{h128['training']['peak_memory_bytes']} B at B={TB}; at "
+              f"{H128_LAYERS} layers gen_time "
+              f"{h128['evaluator']['gen_time']:.6f} s/frame, score_policies "
+              f"{h128['scoring']['policies_per_s']:.1f} policies/s, the "
+              f"train CLI {h128['cli']['s_per_update']:.4f} s/update on "
+              f"{card}", flush=True)
+
+        t0 = time.perf_counter()
         tp = check_tensor_parallel(device)
         print(f"tensor parallelism phase: {time.perf_counter() - t0:.1f} s; "
               + "; ".join(
@@ -5045,6 +5204,29 @@ def main() -> int:
                         h64["qk_norm_int8_rollout"]["launches"][name],
                     "qk_norm_train":
                         h64["qk_norm_training"]["launches"][name]}
+            # the head_dim-128 form: its check at GENIE_138M-h128's shapes
+            # and its launches on that configuration's paths
+            h128_key = (f"{name}[N={B}][h128]" if name == "spatial_block"
+                        else f"{name}[h128]")
+            if h128_key in h128["kernels"]:
+                r128 = h128["kernels"][h128_key]
+                item["h128"] = {k: r128.get(k) for k in (
+                    "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "library_device_ms", "shape")}
+                item["h128"]["launches"] = {
+                    k: h128[k]["launches"][name] for k in (
+                        "rollout", "training", "scoring", "evaluator",
+                        "qk_norm_int8_rollout", "qk_norm_training")}
+                item["h128"]["launches"]["train_cli_update"] = (
+                    h128["cli"]["launches_per_update"][name])
+                item["h128"]["launches"]["mup"] = {
+                    "rollout": h128["mup"]["rollout"]["launches"][name],
+                    "train": h128["mup"]["train_step"]["kernel_launches"][
+                        name]}
+                q8 = h128["kernels"].get(name + "[int8][h128]")
+                if q8 is not None:  # the decode attention kernels
+                    item["h128"].update(int8_device_ms=q8["device_ms"],
+                                        int8_bound_ms=q8["bound_ms"])
             # the T = 32 form: its check at GENIE_138M-T32's shapes and its
             # launches on that configuration's paths
             if name in W32_KEYS:

@@ -22,6 +22,8 @@
     python3 chip_variants.py genie_35m
     python3 chip_variants.py mup
     python3 chip_variants.py h64_debug
+    python3 chip_variants.py h128_debug
+    python3 chip_variants.py h128
     python3 chip_variants.py w32_debug
     python3 chip_variants.py w32_times
     python3 chip_variants.py s1024_debug
@@ -31,6 +33,7 @@
     python3 chip_variants.py ab_times
     python3 chip_variants.py h32_times
     python3 chip_variants.py h64_times
+    python3 chip_variants.py h128_times
     python3 chip_variants.py c8
 
 Each LIB is a shared library built from a variant of a source in
@@ -43,13 +46,14 @@ in one process on one card; every time is the profiler's device time
 
 - `flash`: K9 and K10 (`flash_attention.cu`) at the qk_norm train step's
   (R, N, H, D) = (128, 256, 16, 32) and at FLASH_CASES' other token counts
-  (up to 1024) and head_dim 64, q, k, v as thirds of one tensor, causal
-  and not; K10's dq, dk, dv contiguous, as the qk_norm step has them, and its delta
+  (up to 1024) and head_dim 64 and 128, q, k, v as thirds of one tensor,
+  causal and not; K10's dq, dk, dv contiguous, as the qk_norm step has them, and its delta
   scratch passed; each build's o, dq, dk, dv held against the first
   build's by `chip_smoke.grad_errors`. A build whose launchers send N =
   256 to the streamed forms (copies of `flash_attention.cu` and `.cuh`
   with `N > FA_N` edited to `N > 192`) times those against the
-  whole-item forms at 256.
+  whole-item forms at 256; at head_dim 128 only the streamed form
+  exists.
 - `gemm`: the blocks' GEMM (`spatial_block.cu`'s `tpu1x_gemm_sm90`) at
   K1's products (4096 / 8192 / 32768 rows; 512 -> 1536 with bias, 512 ->
   512 with bias and residual) and K2's and K3's MLP products (4096 / 8192
@@ -194,7 +198,11 @@ in one process on one card; every time is the profiler's device time
   sizes, K11/K12) at C = 512 with 8 heads (head_dim 64) and with 16 (32),
   each in a process of its own with a time limit (`H64_DEBUG`): the first
   call after a kernel change, which reports every fault or hang and not
-  only the first.
+  only the first. `h128_debug` runs every such check at 4 heads (head_dim
+  128), with K9/K10 at N = 64 / 192 / 320 / 1024 (`flash_sweep`) and K4 /
+  K6 at T = 8 and 32 beside them, then the flash, spatial and frame-axis
+  ones at 8 and 16 heads (`H128_DEBUG_NARROW`). `h128` runs chip_smoke.py's
+  head_dim-128 phase alone, then the TP setups at head_dim 64 and 128.
 - `w32_debug`: the temporal, decode and temporal+MLP libraries' ptxas
   lines, then each frame-axis check of `chip_smoke.py` at GENIE_138M-T32's
   window (`W32_DEBUG`: K4 and K6 at T = 20 / 24 / 32 for every head group
@@ -212,7 +220,8 @@ in one process on one card; every time is the profiler's device time
   No builds. `h32_times` and `h64_times` are the same at 16 and at 8
   heads (head_dim 32 and 64, the same bytes and operations at C = 512),
   with K11, K12 and the SDPA calls beside K4, K6, K7, K8, K9 and K10: run
-  each in a process of its own for the two widths side by side.
+  each in a process of its own for the two widths side by side;
+  `h128_times` the same at 4 heads (head_dim 128).
 - `s1024_debug`: the flash and spatial libraries' ptxas lines, then
   each spatial check of `chip_smoke.py` at GENIE_138M-S1024's grid
   (`S1024_DEBUG`: the S sweep of K9, K10, K1 and K11 at S = 64 to 4096,
@@ -287,10 +296,11 @@ def in_turns(names):
 
 
 # (N, H, D) of `flash`: the qk_norm train step's 256 tokens first, then the
-# flash pair's other token counts and head_dim 64, and GENIE_138M-S1024's
-# 1024 (the streamed forward)
+# flash pair's other token counts and head_dim 64, GENIE_138M-S1024's
+# 1024 (the streamed forward), and head_dim 128 (GENIE_138M-h128's 4 heads)
 FLASH_CASES = ((256, 16, 32), (64, 16, 32), (128, 16, 32), (192, 16, 32),
-               (256, 8, 64), (128, 8, 64), (1024, 16, 32), (1024, 8, 64))
+               (256, 8, 64), (128, 8, 64), (1024, 16, 32), (1024, 8, 64),
+               (256, 4, 128), (64, 4, 128), (128, 4, 128), (1024, 4, 128))
 
 
 def flash(libs, dev):
@@ -1235,7 +1245,31 @@ H64_DEBUG = {
     "train_blocks": lambda inp, H: dict(
         cs.check_spatial_train_block(inp, 512, H),
         **cs.check_temporal_train_block(inp, 512, H)),
+    "flash_sweep": lambda inp, H: flash_sweep(inp, H),
+    "temporal_t": lambda inp, H: {
+        f"T={T},causal={causal}": cs.temporal_case(
+            inp, 512, H, f"[T={T}]", cs.TB, T, causal, timed=False)
+        for T in (8, 32) for causal in (True, False)},
+    "temporal_bwd_t": lambda inp, H: {
+        T: cs.check_temporal_attention_bwd(inp, 512, H, T=T, timed=False)
+        for T in (8, 32)},
 }
+# the checks of `h128_debug` at head_dim 32 and 64 beside head_dim 128's
+H128_DEBUG_NARROW = ("spatial", "temporal", "temporal_bwd", "flash",
+                     "flash_sweep", "temporal_bwd_t")
+
+
+def flash_sweep(inp, H, sizes=(64, 192, 320, 1024)):
+    """K9 and K10 (`chip_smoke.flash_case`) at each N of `sizes` (2 rows),
+    causal, not, and at a negative scale, at C = 512 and H heads."""
+    D, out = 512 // H, {}
+    for n in sizes:
+        qkv, dout = inp.normal(2, n, 3, H, D), inp.normal(2, n, H, D)
+        for causal, sc in ((False, D ** -0.5), (True, D ** -0.5),
+                           (False, -D ** -0.5)):
+            key = f"N={n},causal={causal},scale={sc:.4f}"
+            out[key] = cs.flash_case(key, qkv, dout, sc, causal)
+    return out
 
 
 # the checks of `w32_debug` at T = 32 (and the K4 / K6 sweep's 20 and 24),
@@ -1575,12 +1609,12 @@ def h64_one(name: str, heads: int) -> int:
     return 0
 
 
-def h64_debug(dev):
+def h64_debug(dev, runs=((8, tuple(H64_DEBUG)), (16, tuple(H64_DEBUG)))):
     """Every kernel library rebuilt with ptxas's counts (the flash,
     temporal, decode and spatial sources' lines printed), then each check
-    of H64_DEBUG at head_dim 64 (8 heads) and 32 (16 heads), one process
-    each with a time limit, so that a fault or a hang in one leaves the
-    others' results."""
+    of H64_DEBUG at head_dim 64 (8 heads) and 32 (16 heads) (`runs`: (head
+    count, check names) pairs), one process each with a time limit, so
+    that a fault or a hang in one leaves the others' results."""
     import subprocess
     logs = kernels.build_all(verbose=True)
     for name, log in logs.items():
@@ -1588,8 +1622,8 @@ def h64_debug(dev):
             if any(w in line for w in ("registers", "spill", "error",
                                        "warning", "Compiling entry")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
-    for heads in (8, 16):
-        for name in H64_DEBUG:
+    for heads, names in runs:
+        for name in names:
             try:
                 res = subprocess.run(
                     [sys.executable, __file__, "h64_one", name, str(heads)],
@@ -1837,6 +1871,17 @@ def mup(dev):
     print("mup: " + json.dumps(cs.check_mup(dev)), flush=True)
 
 
+def h128(dev):
+    """chip_smoke.py's head_dim-128 phase alone, then the TP setups of
+    GENIE_138M-h64 and -h128 (tp = 2, two ranks on this card)."""
+    out = cs.check_head_dim_128(dev)
+    print("h128 phase walls: " + json.dumps(out["phase_walls_s"]),
+          flush=True)
+    for setup in cs.TP_SETUPS:
+        if setup[0] in ("genie_138m_h64", "genie_138m_h128"):
+            cs.tp_setup(*setup, dev)
+
+
 MODES = {"block": block, "mlp": mlp, "train": train, "temporal": temporal,
          "l2": l2, "decode": decode, "rollout": rollout, "fresh": fresh,
          "k2gate": k2gate, "cli": cli_after_evaluation,
@@ -1844,12 +1889,17 @@ MODES = {"block": block, "mlp": mlp, "train": train, "temporal": temporal,
                                        tokenizer=False),
          "tp_cards": tp_cards, "tp_faults": tp_faults, "tp_c9": tp_c9,
          "genie_35m": genie_35m, "mup": mup, "h64_debug": h64_debug,
+         "h128": h128,
          "ab_times": ab_times, "c8": c8, "w32_debug": w32_debug,
          "k12gate": k12gate, "w32_times": w32_times,
          "s1024_debug": s1024_debug, "s1024": s1024,
          "s1024_times": s1024_times,
          "h32_times": functools.partial(ab_times, heads=16, extra=True),
-         "h64_times": functools.partial(ab_times, heads=8, extra=True)}
+         "h64_times": functools.partial(ab_times, heads=8, extra=True),
+         "h128_debug": functools.partial(
+             h64_debug, runs=((4, tuple(H64_DEBUG)), (8, H128_DEBUG_NARROW),
+                              (16, H128_DEBUG_NARROW))),
+         "h128_times": functools.partial(ab_times, heads=4, extra=True)}
 # mode: (the source its builds are variants of, the timing)
 VARIANTS = {"flash": ("flash_attention", flash),
             "gemm": ("spatial_block", gemm), "tn": ("train_block", tn),

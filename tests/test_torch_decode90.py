@@ -42,11 +42,11 @@ def no_launches():
     assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
 
 
-def caches(rng, int8, t_B):
+def caches(rng, int8, t_B, C_=C):
     """k and v caches (T, L, B, S, C) and, for int8, their (L, B, T, S)
     scales, quantized by the JAX package. One attended token of each cache
     is all zeros, so its amax is 0 and its scale 1."""
-    kc, vc = rand(rng, T, L, B, S, C), rand(rng, T, L, B, S, C)
+    kc, vc = rand(rng, T, L, B, S, C_), rand(rng, T, L, B, S, C_)
     b = int(np.argmax(t_B))
     kc[t_B[b] - 1, :, b, 3] = 0.0
     vc[0, :, b, 5] = 0.0
@@ -62,38 +62,41 @@ def caches(rng, int8, t_B):
     return tuple(out), scales
 
 
-@pytest.mark.parametrize("layer,H_", [pytest.param(0, H, id="0"),
-                                      pytest.param(1, H, id="1"),
-                                      pytest.param(1, 1, id="1-h64")])
+@pytest.mark.parametrize("layer,H_,C_", [pytest.param(0, H, C, id="0"),
+                                         pytest.param(1, H, C, id="1"),
+                                         pytest.param(1, 1, C, id="1-h64"),
+                                         pytest.param(1, 1, 2 * C,
+                                                      id="1-h128")])
 @pytest.mark.parametrize("int8", [False, True], ids=["plain-cache", "int8"])
 @pytest.mark.parametrize("pair", [False, True], ids=["K7", "K8"])
-def test_decode_attention_t16(pair, int8, layer, H_):
+def test_decode_attention_t16(pair, int8, layer, H_, C_):
     """K7's and K8's wrappers on the CPU against the JAX kernels in interpret
     mode, q, k, v read in place from one qkv tensor; the output written into
     the caller's `out` and the k/v copies into `kv_out` are the same. H_ = 1
-    at C = 64: head_dim 64, the kernel's other head width."""
+    at C = 64 and 128: head_dim 64 and 128, the kernel's other head
+    widths."""
     rng = np.random.default_rng(10 + 2 * pair + int8)
     frames = 2 if pair else 1
     t_B = np.array((T - frames, 0, 7, 3) if pair else (0, 5, 11, T - 1),
                    np.int32)
-    (kc, vc), scales = caches(rng, int8, t_B)
-    qkv = rand(rng, B, frames, S, 3 * C) if pair else rand(rng, B, S, 3 * C)
+    (kc, vc), scales = caches(rng, int8, t_B, C_)
+    qkv = rand(rng, B, frames, S, 3 * C_) if pair else rand(rng, B, S, 3 * C_)
     kw = dict(layer=layer, scale=0.25, num_heads=H_)
     if pair:
-        q, k, v = (qkv[:, :, :, i * C:(i + 1) * C] for i in range(3))
+        q, k, v = (qkv[:, :, :, i * C_:(i + 1) * C_] for i in range(3))
         args = (q[:, 0], q[:, 1], kc, vc, k[:, 0], v[:, 0], k[:, 1], v[:, 1],
                 t_B)
         jfn, tfn = (jdec.temporal_decode2_attention,
                     tdec.temporal_decode2_attention)
     else:
-        q, k, v = (qkv[..., i * C:(i + 1) * C] for i in range(3))
+        q, k, v = (qkv[..., i * C_:(i + 1) * C_] for i in range(3))
         args = (q, kc, vc, k, v, t_B)
         jfn, tfn = (jdec.temporal_decode_attention,
                     tdec.temporal_decode_attention)
     want = jfn(*map(jnp.asarray, args), tile_s=16, interpret=True, **kw,
                **{n: jnp.asarray(s) for n, s in scales.items()})
     tq = t(qkv)
-    thirds = tq.split(C, dim=-1)
+    thirds = tq.split(C_, dim=-1)
     views = ([x[:, f] for x in thirds for f in range(2)] if pair
              else list(thirds))
     assert not views[0].is_contiguous()
@@ -111,8 +114,8 @@ def test_decode_attention_t16(pair, int8, layer, H_):
     if not pair:  # a row with t = 0 attends its own key alone
         for b in np.nonzero(t_B == 0)[0]:
             np.testing.assert_allclose(got[0][b].numpy(), v[b], **TOL)
-    out = torch.zeros(frames, B, S, C)
-    kv = torch.zeros(2, B, S, C)
+    out = torch.zeros(frames, B, S, C_)
+    kv = torch.zeros(2, B, S, C_)
     into = tfn(*targs, out=tuple(out) if pair else out[0],
                kv_out=(kv[0], kv[1]), **tkw)
     into = into if pair else (into,)

@@ -26,12 +26,13 @@ torch.set_num_threads(2)
 TOL = dict(atol=1e-4, rtol=1e-4)
 SCALE = 32 ** -0.5
 # (tokens, heads, head_dim), 2 rows: the kernels' token counts at head_dim
-# 32, and 128 tokens at 64, the kernels' other head width (ids as before
-# the head_dim existed)
+# 32, and 128 tokens at 64 and 128, the kernels' other head widths (ids as
+# before the head_dim existed)
 SHAPES = [pytest.param(64, 4, 32, id="64-4"),
           pytest.param(128, 3, 32, id="128-3"),
           pytest.param(256, 2, 32, id="256-2"),
-          pytest.param(128, 2, 64, id="128-2-h64")]
+          pytest.param(128, 2, 64, id="128-2-h64"),
+          pytest.param(128, 2, 128, id="128-2-h128")]
 
 
 def rand(rng, *shape, scale=1.0):

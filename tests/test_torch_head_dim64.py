@@ -15,7 +15,8 @@ logits, and one train step's loss and every parameter's gradient (atol
 2e-5 + rtol 2e-3).
 
 Then the contract the card wrappers check before a launch: head_dim 32 or
-64, and any other head width refused, naming both. Each attention op at
+64 (and 128, tests/test_torch_head_dim128.py), and any other head width
+refused, naming the three. Each attention op at
 head_dim 64 against its JAX kernel is a case of its own ops test (the
 `h64` ids of tests/test_torch_ops.py, test_torch_decode_attention.py,
 test_torch_decode90.py, test_torch_temporal90.py,
@@ -232,16 +233,16 @@ def test_contract_takes_head_dim_64():
     assert strides == [(8 * 3 * 512, 3 * 512)] * 3
 
 
-@pytest.mark.parametrize("C_,heads", [(512, 4), (512, 32), (480, 5),
+@pytest.mark.parametrize("C_,heads", [(512, 2), (512, 32), (480, 5),
                                       (512, 0)])
 def test_contract_refuses_other_head_widths(C_, heads):
-    """Head_dim 128, 16, 96 and no heads: raised, naming both widths the
-    kernels take, with no fallback."""
-    with pytest.raises(ValueError, match="head_dim 32 or 64"):
+    """Head_dim 256, 16, 96 and no heads: raised, naming the three widths
+    the kernels take, with no fallback."""
+    with pytest.raises(ValueError, match="head_dim 32, 64 or 128"):
         _util.head_dim_of(C_, heads, "kernel")
     if heads and C_ % heads == 0:
         qkv = torch.zeros(2, 16, 4, 3 * C_, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="head_dim 32 or 64"):
+        with pytest.raises(ValueError, match="head_dim 32, 64 or 128"):
             ta._check_qkv(*qkv.split(C_, dim=-1), heads)
-        with pytest.raises(ValueError, match="head_dim 32 or 64"):
+        with pytest.raises(ValueError, match="head_dim 32, 64 or 128"):
             tattn._check_shape(*(torch.zeros(2, 64, heads, C_ // heads),) * 3)

@@ -131,16 +131,17 @@ def spatial_inputs(rng, N, S, C, qkv_bias, proj_bias):
     return kw
 
 
-@pytest.mark.parametrize("qkv_bias,proj_bias,H", [
-    pytest.param(False, True, 2, id="False-True"),
-    pytest.param(True, False, 2, id="True-False"),
-    pytest.param(False, True, 1, id="False-True-h64")])
-def test_spatial_block(qkv_bias, proj_bias, H):
-    """K1 with the pre-LN against the JAX kernel; H = 1 at C = 64 is
-    head_dim 64, the card kernel's other head width."""
+@pytest.mark.parametrize("qkv_bias,proj_bias,H,C", [
+    pytest.param(False, True, 2, 64, id="False-True"),
+    pytest.param(True, False, 2, 64, id="True-False"),
+    pytest.param(False, True, 1, 64, id="False-True-h64"),
+    pytest.param(False, True, 1, 128, id="False-True-h128")])
+def test_spatial_block(qkv_bias, proj_bias, H, C):
+    """K1 with the pre-LN against the JAX kernel; H = 1 at C = 64 and 128
+    is head_dim 64 and 128, the card kernel's other head widths."""
     from tpu1x.ops.spatial_block import spatial_block as jax_spatial_block
     rng = np.random.default_rng(3)
-    N, S, C = 3, 32, 64
+    N, S = 3, 32
     kw = spatial_inputs(rng, N, S, C, qkv_bias, proj_bias)
     scale = (C // H) ** -0.5
     want = jax_spatial_block(num_heads=H, scale=scale, interpret=True,
@@ -205,7 +206,8 @@ def block_weights(rng, C, F4, qkv_bias, mlp_bias):
     pytest.param(True, False, False, 64, 2, id="True-False-False"),
     pytest.param(False, True, True, 256, 8, id="C256-tanh"),
     pytest.param(True, True, False, 256, 8, id="C256-erf"),
-    pytest.param(False, True, True, 256, 4, id="h64-tanh")])
+    pytest.param(False, True, True, 256, 4, id="h64-tanh"),
+    pytest.param(False, True, True, 256, 2, id="h128-tanh")])
 def test_temporal_mlp_block_single(qkv_bias, mlp_bias, gelu_tanh, C, H):
     from tpu1x.ops.temporal_mlp_block import temporal_mlp_block as jax_tmb
     rng = np.random.default_rng(6)
@@ -231,7 +233,8 @@ def test_temporal_mlp_block_single(qkv_bias, mlp_bias, gelu_tanh, C, H):
     pytest.param(0, (0, 7), 64, 2, True, id="0-t_prev1"),
     pytest.param(1, (3, 6), 256, 8, True, id="C256-tanh"),
     pytest.param(2, (0, 5), 256, 8, False, id="C256-erf"),
-    pytest.param(1, (3, 6), 256, 4, False, id="h64-erf")])
+    pytest.param(1, (3, 6), 256, 4, False, id="h64-erf"),
+    pytest.param(1, (3, 6), 256, 2, False, id="h128-erf")])
 def test_temporal_mlp_block_pair(layer, t_prev, C, H, gelu_tanh):
     from tpu1x.ops.temporal_mlp_block import temporal_mlp_block_pair as jax_pair
     rng = np.random.default_rng(7)

@@ -43,11 +43,15 @@ from tpu1x_torch.weights import params_from_jax
 torch.set_num_threads(2)
 SIZE = dict(T=4, num_prompt_frames=2, num_heads=2, d_model=32)
 B = 2
-# (qk_norm, cache dtype, widths other than SIZE's): the last at head_dim
-# 64, the card kernels' other head width
+# (qk_norm, cache dtype, widths other than SIZE's): the last two at head_dim
+# 64 and 128, the card kernels' other head widths, both at d_model 128 (at
+# 256 this file's weight scales put the logits near 5e3, where fp32
+# summation order alone parts the packages by 1e-3)
 COMBOS = {"qk_norm": (True, "bf16", {}), "int8": (False, "int8", {}),
           "qk_norm-int8": (True, "int8", {}),
-          "qk_norm-int8-h64": (True, "int8", dict(d_model=128))}
+          "qk_norm-int8-h64": (True, "int8", dict(d_model=128)),
+          "qk_norm-int8-h128": (True, "int8", dict(d_model=128,
+                                                   num_heads=1))}
 
 
 def random_tree(tree, seed):

@@ -44,17 +44,19 @@ def close(got, want):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("T,H_", [pytest.param(8, H, id="8"),
-                                  pytest.param(16, H, id="16"),
-                                  pytest.param(16, 1, id="16-h64")])
-def test_backward_with_o_against_jax(T, H_, causal):
+@pytest.mark.parametrize("T,H_,C_", [pytest.param(8, H, C, id="8"),
+                                     pytest.param(16, H, C, id="16"),
+                                     pytest.param(16, 1, C, id="16-h64"),
+                                     pytest.param(16, 1, 2 * C,
+                                                  id="16-h128")])
+def test_backward_with_o_against_jax(T, H_, C_, causal):
     """dq, dk, dv against `jax.vjp` of the JAX kernel, and `o` against its
     value; `o` leaves the gradients as they are without it. H_ = 1 at C =
-    64: head_dim 64, the kernels' other head width."""
+    64 and 128: head_dim 64 and 128, the kernels' other head widths."""
     from tpu1x.ops.temporal_attention import temporal_attention as jax_fn
     rng = np.random.default_rng(T + causal)
-    q, k, v, dout = (rand(rng, B, T, S, C) for _ in range(4))
-    kw = dict(scale=(C // H_) ** -0.5, num_heads=H_, causal=causal)
+    q, k, v, dout = (rand(rng, B, T, S, C_) for _ in range(4))
+    kw = dict(scale=(C_ // H_) ** -0.5, num_heads=H_, causal=causal)
     want, vjp = jax.vjp(lambda *a: jax_fn(*a, interpret=True, **kw),
                         *(jnp.asarray(a) for a in (q, k, v)))
     want_grads = vjp(jnp.asarray(dout))
@@ -62,9 +64,9 @@ def test_backward_with_o_against_jax(T, H_, causal):
     tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, dout))
     o = torch.full_like(tdo, float("nan"))
     dqkv = ta.launch_backward(tq, tk, tv, tdo, o=o, **kw)
-    assert dqkv.shape == (B, T, S, 3 * C)
+    assert dqkv.shape == (B, T, S, 3 * C_)
     close(o, want)
-    for got, w in zip(dqkv.split(C, dim=-1), want_grads):
+    for got, w in zip(dqkv.split(C_, dim=-1), want_grads):
         close(got, w)
     assert torch.equal(dqkv, ta.launch_backward(tq, tk, tv, tdo, **kw))
 
@@ -159,8 +161,8 @@ def _refused(case):
         k = k[:, :4]
     elif case == "T > 32":
         q, k, v = torch.zeros(3, 2, 33, 4, C_, dtype=torch.bfloat16).unbind(0)
-    elif case == "head_dim 128":
-        H_ = 2
+    elif case == "head_dim 256":
+        H_ = 1
     elif case == "C % 256":
         q, k, v = torch.zeros(3, 2, T, 4, 96,
                               dtype=torch.bfloat16).unbind(0)
@@ -184,7 +186,7 @@ def _refused(case):
 
 @pytest.mark.parametrize("case,message", [
     ("fp32", "bf16"), ("shapes", "one shape"), ("T > 32", "T <= 32"),
-    ("head_dim 128", "head_dim 32 or 64"), ("C % 256", "C % 256"),
+    ("head_dim 256", "head_dim 32, 64 or 128"), ("C % 256", "C % 256"),
     ("one head", "C % 64 == 0"),
     ("frame stride", "strides"), ("row stride % 8", "multiple of 8"),
     ("alignment", "16-byte aligned")])

@@ -144,46 +144,57 @@ def held(name, got, want_torch, want_jax):
 C, H, S, N, TT = 128, 4, 64, 2, 4
 
 
-def shard(name, a, r, tp):
+# the sub-layers' (tp, C, heads) beyond C and H: 2 heads of 64 and 2 of
+# 128 a rank at tp = 2, the head widths of GENIE_138M-h64's and -h128's
+# ranks (ids as before those existed)
+SUB_LAYER_CASES = [pytest.param(2, C, H, id="2"),
+                   pytest.param(4, C, H, id="4"),
+                   pytest.param(2, 256, 4, id="2-h64"),
+                   pytest.param(2, 512, 4, id="2-h128")]
+
+
+def shard(name, a, r, tp, heads=H):
     """Rank r's share of the (in, out) numpy weight or bias `a` named by
     its torch parameter `name`, in the torch layout as a tensor."""
     t = torch.from_numpy(a)
     t = t.t() if t.dim() == 2 else t
-    return tp_lib.shard_tensor(name, t, r, tp, H).contiguous()
+    return tp_lib.shard_tensor(name, t, r, tp, heads).contiguous()
 
 
-def whole(name, parts):
+def whole(name, parts, heads=H):
     """The whole (in, out) gradient from its ranks' (in, out) shares."""
     t = tp_lib.unshard_tensor(name, [p.t() if p.dim() == 2 else p
-                                     for p in parts], H)
+                                     for p in parts], heads)
     return t.t() if t.dim() == 2 else t
 
 
-@pytest.mark.parametrize("tp", [2, 4])
-def test_tp_spatial_sub_layer(tp):
+@pytest.mark.parametrize("tp,C_,H_", SUB_LAYER_CASES)
+def test_tp_spatial_sub_layer(tp, C_, H_):
     from tpu1x.ops.spatial_train_block import spatial_train_block_reference
     from tpu1x_torch.ops.spatial_train_block import (
         spatial_train_block_plain, spatial_train_block_steps)
     rng = np.random.default_rng(tp)
-    args = dict(x=rand(rng, N, S, C), wqkv=rand(rng, C, 3 * C, scale=0.05),
-                wproj=rand(rng, C, C, scale=0.05),
-                bqkv=rand(rng, 3 * C, scale=0.02),
-                bproj=rand(rng, C, scale=0.02),
-                ln_scale=rand(rng, C, scale=0.1, mean=1.0),
-                ln_bias=rand(rng, C, scale=0.1))
-    kw = dict(num_heads=H, scale=(C // H) ** -0.5)
-    cot = rand(rng, N, S, C)
+    args = dict(x=rand(rng, N, S, C_),
+                wqkv=rand(rng, C_, 3 * C_, scale=0.05),
+                wproj=rand(rng, C_, C_, scale=0.05),
+                bqkv=rand(rng, 3 * C_, scale=0.02),
+                bproj=rand(rng, C_, scale=0.02),
+                ln_scale=rand(rng, C_, scale=0.1, mean=1.0),
+                ln_bias=rand(rng, C_, scale=0.1))
+    kw = dict(num_heads=H_, scale=(C_ // H_) ** -0.5)
+    cot = rand(rng, N, S, C_)
     (want, grads), (jwant, jgrads) = whole_grads(
         lambda **a: spatial_train_block_plain(**a, **kw),
         lambda **a: spatial_train_block_reference(**a, **kw), args, cot)
     t = {k: torch.from_numpy(v) for k, v in args.items()}
     ranks = [dict(wqkv_t=shard("spatial_attn.qkv.weight", args["wqkv"], r,
-                               tp).t().contiguous(),
+                               tp, H_).t().contiguous(),
                   wproj=shard("spatial_attn.proj.weight", args["wproj"], r,
-                              tp),
-                  bqkv=shard("spatial_attn.qkv.bias", args["bqkv"], r, tp))
+                              tp, H_),
+                  bqkv=shard("spatial_attn.qkv.bias", args["bqkv"], r, tp,
+                             H_))
              for r in range(tp)]
-    local = dict(num_heads=H // tp, scale=kw["scale"])
+    local = dict(num_heads=H_ // tp, scale=kw["scale"])
     outs = over_ranks([tp_lib.spatial_fwd(
         t["x"], w["wqkv_t"], w["wproj"], w["bqkv"], t["bproj"],
         t["ln_scale"], t["ln_bias"], **local) for w in ranks])
@@ -199,32 +210,34 @@ def test_tp_spatial_sub_layer(tp):
     for i, k, name in ((1, "wqkv", "spatial_attn.qkv.weight"),
                        (2, "wproj", "spatial_attn.proj.weight"),
                        (3, "bqkv", "spatial_attn.qkv.bias")):
-        held(k, whole(name, [g[i] for g in got]), grads[k], jgrads[k])
+        held(k, whole(name, [g[i] for g in got], H_), grads[k], jgrads[k])
 
 
-@pytest.mark.parametrize("tp", [2, 4])
-def test_tp_temporal_sub_layer(tp):
+@pytest.mark.parametrize("tp,C_,H_", SUB_LAYER_CASES)
+def test_tp_temporal_sub_layer(tp, C_, H_):
     from tpu1x.ops.temporal_train_block import temporal_train_block_reference
     from tpu1x_torch.ops.temporal_train_block import (
         temporal_train_block_plain, temporal_train_block_steps)
     rng = np.random.default_rng(10 + tp)
-    args = dict(x=rand(rng, N, TT, S, C), wqkv=rand(rng, C, 3 * C, scale=0.05),
-                wproj=rand(rng, C, C, scale=0.05),
-                bqkv=rand(rng, 3 * C, scale=0.02),
-                bproj=rand(rng, C, scale=0.02))
-    kw = dict(num_heads=H, scale=(C // H) ** -0.5)
-    cot = rand(rng, N, TT, S, C)
+    args = dict(x=rand(rng, N, TT, S, C_),
+                wqkv=rand(rng, C_, 3 * C_, scale=0.05),
+                wproj=rand(rng, C_, C_, scale=0.05),
+                bqkv=rand(rng, 3 * C_, scale=0.02),
+                bproj=rand(rng, C_, scale=0.02))
+    kw = dict(num_heads=H_, scale=(C_ // H_) ** -0.5)
+    cot = rand(rng, N, TT, S, C_)
     (want, grads), (jwant, jgrads) = whole_grads(
         lambda **a: temporal_train_block_plain(**a, **kw),
         lambda **a: temporal_train_block_reference(**a, **kw), args, cot)
     t = {k: torch.from_numpy(v) for k, v in args.items()}
     ranks = [dict(wqkv_t=shard("temporal_attn.qkv.weight", args["wqkv"], r,
-                               tp).t().contiguous(),
+                               tp, H_).t().contiguous(),
                   wproj=shard("temporal_attn.proj.weight", args["wproj"], r,
-                              tp),
-                  bqkv=shard("temporal_attn.qkv.bias", args["bqkv"], r, tp))
+                              tp, H_),
+                  bqkv=shard("temporal_attn.qkv.bias", args["bqkv"], r, tp,
+                             H_))
              for r in range(tp)]
-    local = dict(num_heads=H // tp, scale=kw["scale"])
+    local = dict(num_heads=H_ // tp, scale=kw["scale"])
     outs = over_ranks([tp_lib.temporal_fwd(
         t["x"], w["wqkv_t"], w["wproj"], w["bqkv"], t["bproj"], **local)
         for w in ranks])
@@ -239,7 +252,7 @@ def test_tp_temporal_sub_layer(tp):
     for i, k, name in ((1, "wqkv", "temporal_attn.qkv.weight"),
                        (2, "wproj", "temporal_attn.proj.weight"),
                        (3, "bqkv", "temporal_attn.qkv.bias")):
-        held(k, whole(name, [g[i] for g in got]), grads[k], jgrads[k])
+        held(k, whole(name, [g[i] for g in got], H_), grads[k], jgrads[k])
 
 
 @pytest.mark.parametrize("tp", [2, 4])

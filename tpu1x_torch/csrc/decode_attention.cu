@@ -26,7 +26,7 @@ using namespace tpu1x;
 // bf16, or int8 when k_scale, v_scale (L, B, T, S) fp32 are given, 16-byte
 // aligned, with S % 4 == 0. t_B (B,) int32. out0 (out1):
 // bf16 views with strides (osb, old, 1). k_out, v_out: contiguous (B, S, C)
-// copies of k0, v0, or null. D: head_dim, 32 or 64.
+// copies of k0, v0, or null. D: head_dim, 32, 64 or 128.
 extern "C" int tpu1x_decode_attention(
     const void* q0, const void* q1, const void* k0, const void* k1,
     const void* v0, const void* v1, long sbq, long ldq, long sbk, long ldk,

@@ -46,6 +46,9 @@
 //     softmax steps), so a thread keeps the registers, loads and stores of
 //     head_dim 32 (a whole 64-channel row, q and acc of both frames, would
 //     be 256 fp32 values a thread) and an item the same threads and bytes;
+//     at head_dim 128 a quad of lanes, its four parts summed by two
+//     shuffles (lanes 4i .. 4i + 3: (x0 + x1) + (x2 + x3) in every lane, the
+//     same bits, fp32 addition being commutative);
 //   - one pass over K and V: an online softmax in the log2 domain, a
 //     running maximum and sum per (token, head, frame), each slot's K and
 //     V tiles consumed together and freed. The maximum starts at the
@@ -125,7 +128,7 @@ struct DecodeAttnArgs {
   bf16* k_out;  // (B, S, C) contiguous copies of frame 0's k and v, or null
   bf16* v_out;
   int B, S, C, T, L, layer;
-  int D;   // head_dim, 32 or 64
+  int D;   // head_dim, 32, 64 or 128
   int nb;  // rows b of this launch (<= DA_MAX_B; B is the caches' own)
   float scale;
 };
@@ -229,12 +232,17 @@ __device__ __forceinline__ float dot32(const float* a, const float* b) {
 
 // The logit of a head row from a thread's part: at head_dim 64 the sum of
 // the two lanes' halves (the pair of lanes 2i, 2i + 1 of a token; both are
-// live or neither), the same value in both.
+// live or neither), at 128 of the quad's quarters (lanes 4i .. 4i + 3, all
+// live or none), the same value in each.
 template <int D>
 __device__ __forceinline__ float head_sum(float x) {
   if constexpr (D == 64) {
     const unsigned pair = 3u << (threadIdx.x & 30);
     x += __shfl_xor_sync(pair, x, 1);
+  } else if constexpr (D == 128) {
+    const unsigned quad = 15u << (threadIdx.x & 28);
+    x += __shfl_xor_sync(quad, x, 1);
+    x += __shfl_xor_sync(quad, x, 2);
   }
   return x;
 }
@@ -294,7 +302,10 @@ __global__ void __launch_bounds__(DA_THREADS, 1)
     for (int step = 0;; ++step) {
       const long n = da_walk(step, blockIdx.x, gridDim.x);
       if (n >= items) break;
-      const int b = order[n / p.tiles], s0 = (n % p.tiles) * p.ts;
+      // an item's index fits 32 bits (DA_MAX_B rows of at most S / 4
+      // tiles): the division in 32 bits
+      const int ni = (int)n;
+      const int b = order[ni / p.tiles], s0 = (ni % p.tiles) * p.ts;
       const int ntok = min(p.ts, S - s0), tb = slots[b];
       // the item's q, k, v rows, once the consumers have read the last ones
       if (step > 0) mbar_wait(io_empty, (step - 1) & 1);
@@ -346,7 +357,10 @@ __global__ void __launch_bounds__(DA_THREADS, 1)
   for (int step = 0;; ++step) {
     const long n = da_walk(step, blockIdx.x, gridDim.x);
     if (n >= items) break;
-    const int b = order[n / p.tiles], s = (n % p.tiles) * p.ts + tok;
+    // in 32 bits, as the producer's (the 64-bit division's temporaries
+    // cost the pair form a spill at 168 registers)
+    const int ni = (int)n;
+    const int b = order[ni / p.tiles], s = (ni % p.tiles) * p.ts + tok;
     const bool live = s < S;  // a last tile may be short
     const int tb = slots[b];
 
@@ -392,11 +406,19 @@ __global__ void __launch_bounds__(DA_THREADS, 1)
         const uint4* kr = reinterpret_cast<const uint4*>(st + r * 32 * ELT);
         const uint4* vr =
             reinterpret_cast<const uint4*>(st + p.tile_bytes + r * 32 * ELT);
+        // V's chunks: with the logits' K chunks at one frame, after the
+        // logits with two (both frames' q and acc are 128 fp32 a thread,
+        // and DA_THREADS' 9 warps put 3 on one SM sub-partition: a cap of
+        // 168 registers, which V's chunks beside K's would pass)
         uint4 ku[R::NCH], vu[R::NCH];
+        auto load_v = [&] {
+#pragma unroll
+          for (int c = 0; c < R::NCH; ++c)
+            vu[c] = vr[(c + rot) & (R::NCH - 1)];
+        };
 #pragma unroll
         for (int c = 0; c < R::NCH; ++c) ku[c] = kr[(c + rot) & (R::NCH - 1)];
-#pragma unroll
-        for (int c = 0; c < R::NCH; ++c) vu[c] = vr[(c + rot) & (R::NCH - 1)];
+        if constexpr (F == 1) load_v();
         float sk = sc2, sv = 1.f;
         if constexpr (Q) {
           const float* scl =
@@ -435,6 +457,7 @@ __global__ void __launch_bounds__(DA_THREADS, 1)
           l[f] += e;
           pv[f] = e * sv;
         }
+        if constexpr (F == 2) load_v();
 #pragma unroll
         for (int c = 0; c < R::NCH; ++c) {
           float vf[R::CPC];
@@ -538,8 +561,9 @@ inline DecodeAttnArgs decode_rows(const DecodeAttnArgs& a, int frames, int b0,
   return r;
 }
 
-// Requires frames in {1, 2}, T <= DA_MAXT, head_dim D in {32, 64}, C % 256 ==
-// 0 and C <= 2048, 0 <= layer < L, 16-byte aligned caches; an int8 cache
+// Requires frames in {1, 2}, T <= DA_MAXT, head_dim D in {32, 64, 128}, C
+// % 256 == 0 and C <= 2048, 0 <= layer < L, 16-byte aligned caches; an int8
+// cache
 // (a.ksc not null) also its v scales, S % 4 == 0 and 16-byte aligned
 // scales (each item's scales are bulk copies of whole 16-byte units). Any
 // B: one launch per DA_MAX_B rows.
@@ -550,7 +574,7 @@ static inline cudaError_t launch_decode_attention(const DecodeAttnArgs& a,
     return reinterpret_cast<uintptr_t>(p) % 16 != 0;
   };
   if ((frames != 1 && frames != 2) || a.T > DA_MAXT || a.C % 256 ||
-      (a.D != 32 && a.D != 64) ||
+      (a.D != 32 && a.D != 64 && a.D != 128) ||
       a.C > 8 * DA_MAX_ROWS || a.layer < 0 || a.layer >= a.L ||
       misaligned(a.kc) || misaligned(a.vc) ||
       (q8 && (a.vsc == nullptr || a.S % 4 || misaligned(a.ksc) ||
@@ -560,8 +584,9 @@ static inline cudaError_t launch_decode_attention(const DecodeAttnArgs& a,
   for (int b0 = 0; b0 < a.B; b0 += DA_MAX_B) {
     const DecodeAttnArgs r =
         decode_rows(a, frames, b0, a.B - b0 < DA_MAX_B ? a.B - b0 : DA_MAX_B);
-    TPU1X_TRY(a.D == 32 ? launch_forms<32>(r, p, frames, q8, s)
-                        : launch_forms<64>(r, p, frames, q8, s));
+    TPU1X_TRY(a.D == 32   ? launch_forms<32>(r, p, frames, q8, s)
+              : a.D == 64 ? launch_forms<64>(r, p, frames, q8, s)
+                          : launch_forms<128>(r, p, frames, q8, s));
   }
   return cudaSuccess;
 }

@@ -1,6 +1,6 @@
 // Multi-head attention softmax(q k^T scale [causal]) v over the N tokens of
 // each (row, head), forward and backward, on q, k, v shaped (R, N, H, D),
-// head_dim D = 32 or 64, and read in place through their strides.
+// head_dim D = 32, 64 or 128, and read in place through their strides.
 //
 // Replaces the Pallas kernels tpu1x/ops/pallas_attention.py: _flash_mha_bhnd
 // (_attn_kernel) and _flash_mha_bwd_bhnd (_attn_bwd_kernel). The TPU wrapper
@@ -70,7 +70,24 @@
 // ptxas (sm_90a): the dq pass 122 registers at head_dim 32 and 138 at 64,
 // the dk/dv pass 154 and 186, no spills.
 //
-// 64 <= N <= 4096 (FA_MAXN), N % 64 == 0, head_dim 32 or 64, strides
+// Head_dim 128 (tiles of two 64-channel half-tiles, FaRows<128>). The dq
+// pass holds dq whole (64 fp32 a thread beside S and dP). The dk/dv pass
+// would hold dK and dV whole, 128 fp32 a thread beside S, dP and their
+// bf16 fragments, past the 255-register cap: so a unit is (row, head, key
+// tile, channel half), each summing dK and dV over its own 64 channels
+// (the accumulators of head_dim 64) while S^T and dP^T run over all 128;
+// the two halves of a key tile are neighbours in the grid, so the second
+// read of each query chunk mostly comes from L2. The price: the logits and
+// their exponentials of that pass twice (1.8x the function's products).
+// Both passes keep two stages (TILE 16 KB; about 98 KB a block) so that two
+// blocks share an SM. Still no atomics and no shared fp32 sum: the result
+// is the same from run to run. Bound at GENIE_138M-h128's (128, 256, 4,
+// 128): head_dim 32's bytes (0.082 ms with o, lse and delta) and products
+// (43 GFLOP, 0.043 ms); a quarter of its exponentials. ptxas (sm_90a): the
+// dq pass 174 registers (180 causal), the dk/dv pass 198 (196 causal), no
+// spills.
+//
+// 64 <= N <= 4096 (FA_MAXN), N % 64 == 0, head_dim 32, 64 or 128, strides
 // multiples of 8.
 
 #include "flash_attention.cuh"
@@ -80,15 +97,21 @@ using namespace tpu1x;
 namespace {
 
 constexpr int FB_THREADS = 128;  // one warpgroup
-constexpr int FB_STAGES = 4;     // chunks in a pass's ring
 template <int D>
 struct FbShape {
   static constexpr int TILE = FaRows<D>::TILE;
+  // chunks in a pass's ring: two at head_dim 128, so that two blocks share
+  // an SM
+  static constexpr int STAGES = D == 128 ? 2 : 4;
+  // the dk/dv pass's units a key tile (channel halves), the channels each
+  // sums
+  static constexpr int HALVES = D == 128 ? 2 : 1;
+  static constexpr int DC = D / HALVES;
   // after 1024 bytes of alignment: the unit's two tiles, the ring of two
   // chunk tiles a stage, the lse and delta ring (512 bytes a stage), then
   // the tiles' mbarrier and each stage's
   static constexpr int SMEM =
-      1024 + 2 * TILE + FB_STAGES * (2 * TILE + 512) + 8 * (1 + FB_STAGES);
+      1024 + 2 * TILE + STAGES * (2 * TILE + 512) + 8 * (1 + STAGES);
 };
 
 struct BwdMaps {
@@ -125,7 +148,7 @@ __global__ void __launch_bounds__(FB_THREADS, 2)
                         float scale) {
   using L = FaRows<D>;
   using F = FbShape<D>;
-  constexpr int KS = D / 16;
+  constexpr int KS = D / 16, FB_STAGES = F::STAGES;
   extern __shared__ unsigned char fqs_raw[];
   const uint32_t raw = smem_u32(fqs_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -149,16 +172,16 @@ __global__ void __launch_bounds__(FB_THREADS, 2)
     const uint32_t dst = ring + (c % FB_STAGES) * 2 * L::TILE,
                    b = full + 8 * (c % FB_STAGES);
     mbar_expect_tx_if(on, b, 2 * L::TILE);
-    tma_load_4d_if(on, dst, &maps.in[1], 0, h, c * FA_QT, r, b);
-    tma_load_4d_if(on, dst + L::TILE, &maps.in[2], 0, h, c * FA_QT, r, b);
+    fa_load_if<D>(on, dst, &maps.in[1], h, c * FA_QT, r, b);
+    fa_load_if<D>(on, dst + L::TILE, &maps.in[2], h, c * FA_QT, r, b);
   };
   if (tid == 0) {
     mbar_init(bar, 1);
     for (int st = 0; st < FB_STAGES; ++st) mbar_init(full + 8 * st, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect_tx(bar, 2 * L::TILE);
-    tma_load_4d(qtile, &maps.in[0], 0, h, qt * FA_QT, r, bar);
-    tma_load_4d(gtile, &maps.in[3], 0, h, qt * FA_QT, r, bar);
+    L::load(qtile, &maps.in[0], h, qt * FA_QT, r, bar);
+    L::load(gtile, &maps.in[3], h, qt * FA_QT, r, bar);
     for (int c = 0; c < FB_STAGES && c < nc; ++c) load(true, c);
   }
   // rows r0 and r0 + 8 of the tile: their lse (log2 units) and delta
@@ -260,15 +283,16 @@ __global__ void __launch_bounds__(FB_THREADS, 2)
   fence_proxy_async();
   __syncthreads();
   if (tid == 0) {
-    tma_store_4d(&maps.out[0], qtile, 0, h, qt * FA_QT, r);
+    L::store(&maps.out[0], qtile, h, qt * FA_QT, r);
     bulk_commit();
     bulk_wait();
   }
 }
 
-// grid: R H N / 64 units, unit u = (item u / tiles, key tile u % tiles);
-// FB_THREADS threads, dynamic shared memory FbShape<D>::SMEM. delta:
-// (R, H, N) fp32 from the dq pass.
+// grid: R H (N / 64) HALVES units, unit u = (item u / (tiles HALVES), key
+// tile u / HALVES % tiles, channel half u % HALVES); FB_THREADS threads,
+// dynamic shared memory FbShape<D>::SMEM. delta: (R, H, N) fp32 from the
+// dq pass. maps.out[1], out[2]: boxes of one half at head_dim 128.
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(FB_THREADS, 2)
     flash_bwd_dkv_kernel(const __grid_constant__ BwdMaps maps,
@@ -277,7 +301,7 @@ __global__ void __launch_bounds__(FB_THREADS, 2)
                          float scale) {
   using L = FaRows<D>;
   using F = FbShape<D>;
-  constexpr int KS = D / 16;
+  constexpr int KS = D / 16, FB_STAGES = F::STAGES, DC = F::DC;
   extern __shared__ unsigned char fks_raw[];
   const uint32_t raw = smem_u32(fks_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -293,9 +317,12 @@ __global__ void __launch_bounds__(FB_THREADS, 2)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int tiles = N / FA_QT;
-  const int item = blockIdx.x / tiles, kt = blockIdx.x % tiles;
+  const int unit = blockIdx.x / F::HALVES, half = blockIdx.x % F::HALVES;
+  const int item = unit / tiles, kt = unit % tiles;
   const int r = item / H, h = item % H;
   const int c0 = CAUSAL ? kt : 0;  // the first query chunk that sees the keys
+  // the unit's channels in a tile: the half-tile `half` (head_dim 128)
+  const uint32_t hoff = half * L::HALF;
   const float sl2 = scale * 1.4426950408889634f;
   const float* lrow = lse + (long)item * N;
   const float* drow = delta + (long)item * N;
@@ -306,8 +333,8 @@ __global__ void __launch_bounds__(FB_THREADS, 2)
     const int st = (c - c0) % FB_STAGES;
     const uint32_t dst = ring + st * 2 * L::TILE, b = full + 8 * st;
     mbar_expect_tx_if(on, b, 2 * L::TILE + 512);
-    tma_load_4d_if(on, dst, &maps.in[0], 0, h, c * FA_QT, r, b);
-    tma_load_4d_if(on, dst + L::TILE, &maps.in[3], 0, h, c * FA_QT, r, b);
+    fa_load_if<D>(on, dst, &maps.in[0], h, c * FA_QT, r, b);
+    fa_load_if<D>(on, dst + L::TILE, &maps.in[3], h, c * FA_QT, r, b);
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
         "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
@@ -323,8 +350,8 @@ __global__ void __launch_bounds__(FB_THREADS, 2)
     for (int st = 0; st < FB_STAGES; ++st) mbar_init(full + 8 * st, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect_tx(bar, 2 * L::TILE);
-    tma_load_4d(ktile, &maps.in[1], 0, h, kt * FA_QT, r, bar);
-    tma_load_4d(vtile, &maps.in[2], 0, h, kt * FA_QT, r, bar);
+    L::load(ktile, &maps.in[1], h, kt * FA_QT, r, bar);
+    L::load(vtile, &maps.in[2], h, kt * FA_QT, r, bar);
     for (int c = c0; c < c0 + FB_STAGES && c < tiles; ++c) load(true, c);
   }
   __syncthreads();  // the mbarriers' initialisation
@@ -338,11 +365,11 @@ __global__ void __launch_bounds__(FB_THREADS, 2)
   };
   // s[4 j + e], dp[4 j + e]: key warp 16 + g + 8 (e >> 1) of the tile,
   // query 64 c + 8 j + 2 t4 + (e & 1); dk, dv[4 j + e]: the same key,
-  // channel 8 j + 2 t4 + (e & 1)
-  float s[32], dp[32], dk[D / 2], dv[D / 2];
+  // channel DC half + 8 j + 2 t4 + (e & 1)
+  float s[32], dp[32], dk[DC / 2], dv[DC / 2];
   uint32_t pa[16], da[16];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
+  for (int e = 0; e < DC / 2; ++e) dk[e] = dv[e] = 0.f;
   auto issue_logits = [&](int st) {
     const uint32_t qc = ring + st * 2 * L::TILE;
 #pragma unroll
@@ -396,13 +423,14 @@ __global__ void __launch_bounds__(FB_THREADS, 2)
     hold(dv);
     int sn = 0;
     if constexpr (!LAST) sn = stage_of(c + 1);
-    // dv += P^T dO and dk += dS^T Q of chunk c, and the logits of c + 1
-    const uint32_t qc = ring + sc * 2 * L::TILE;
+    // dv += P^T dO and dk += dS^T Q of chunk c over the unit's channels,
+    // and the logits of c + 1
+    const uint32_t qc = ring + sc * 2 * L::TILE + hoff;
     wgmma_fence();
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      wgmma_pv_d<D>(dv, &pa[4 * k], L::mnmajor(qc + L::TILE, k * 16));
-      wgmma_pv_d<D>(dk, &da[4 * k], L::mnmajor(qc, k * 16));
+      wgmma_pv_d<DC>(dv, &pa[4 * k], L::mnmajor(qc + L::TILE, k * 16));
+      wgmma_pv_d<DC>(dk, &da[4 * k], L::mnmajor(qc, k * 16));
     }
     if constexpr (!LAST) issue_logits(sn);
     wgmma_commit();
@@ -421,26 +449,27 @@ __global__ void __launch_bounds__(FB_THREADS, 2)
   for (; c + 1 < tiles; ++c) step(Flag<false>{});
   step(Flag<true>{});
 
-  // dk (times scale) and dv into the tile's own K and V rows, and out
+  // dk (times scale) and dv into the unit's channels of the tile's own K
+  // and V rows, and out
   unsigned char* kp = base_p + (ktile - base);
   unsigned char* vp = base_p + (vtile - base);
-  const int r0 = warp * 16 + g;
+  const int r0 = warp * 16 + g, j0 = half * (DC / 8);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    *reinterpret_cast<uint32_t*>(kp + L::at(r0, j) + t4 * 4) =
+  for (int j = 0; j < DC / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(kp + L::at(r0, j0 + j) + t4 * 4) =
         pack_bf16(dk[4 * j] * scale, dk[4 * j + 1] * scale);
-    *reinterpret_cast<uint32_t*>(kp + L::at(r0 + 8, j) + t4 * 4) =
+    *reinterpret_cast<uint32_t*>(kp + L::at(r0 + 8, j0 + j) + t4 * 4) =
         pack_bf16(dk[4 * j + 2] * scale, dk[4 * j + 3] * scale);
-    *reinterpret_cast<uint32_t*>(vp + L::at(r0, j) + t4 * 4) =
+    *reinterpret_cast<uint32_t*>(vp + L::at(r0, j0 + j) + t4 * 4) =
         pack_bf16(dv[4 * j], dv[4 * j + 1]);
-    *reinterpret_cast<uint32_t*>(vp + L::at(r0 + 8, j) + t4 * 4) =
+    *reinterpret_cast<uint32_t*>(vp + L::at(r0 + 8, j0 + j) + t4 * 4) =
         pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
   }
   fence_proxy_async();
   __syncthreads();
   if (tid == 0) {
-    tma_store_4d(&maps.out[1], ktile, 0, h, kt * FA_QT, r);
-    tma_store_4d(&maps.out[2], vtile, 0, h, kt * FA_QT, r);
+    L::store(&maps.out[1], ktile + hoff, h, kt * FA_QT, r, half);
+    L::store(&maps.out[2], vtile + hoff, h, kt * FA_QT, r, half);
     bulk_commit();
     bulk_wait();
   }
@@ -459,9 +488,10 @@ cudaError_t launch_bwd(const void* const* in, const long* rs, const long* ts,
   for (int i = 0; i < 4; ++i)
     TPU1X_TRY(tensor_map<D>(&maps.in[i], in[i], rs[i], ts[i], R, N, H,
                             FA_QT));
+  // at head_dim 128 dq leaves whole tiles, dk and dv a half a unit
   for (int i = 0; i < 3; ++i)
     TPU1X_TRY(tensor_map<D>(&maps.out[i], out[i], ors[i], ots[i], R, N, H,
-                            FA_QT));
+                            FA_QT, i == 0 ? 2 : 1));
   typedef void (*DqKernel)(BwdMaps, const float*, const bf16*, long, long,
                            float*, int, int, float);
   typedef void (*DkvKernel)(BwdMaps, const float*, const float*, int, int,
@@ -486,14 +516,14 @@ cudaError_t launch_bwd(const void* const* in, const long* rs, const long* ts,
   dq_forms[form]<<<units, FB_THREADS, FbShape<D>::SMEM, stream>>>(
       maps, lse, o, rso, tso, work, N, H, scale);
   TPU1X_TRY(cudaGetLastError());
-  dkv_forms[form]<<<units, FB_THREADS, FbShape<D>::SMEM, stream>>>(
-      maps, lse, work, N, H, scale);
+  dkv_forms[form]<<<units * FbShape<D>::HALVES, FB_THREADS, FbShape<D>::SMEM,
+                    stream>>>(maps, lse, work, N, H, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v: bf16 (R, N, H, D) views, D = 32 or 64, element (r, n, h, d) at
+// q, k, v: bf16 (R, N, H, D) views, D = 32, 64 or 128, element (r, n, h, d) at
 // r * rs + n * ts + h * D + d with each tensor's own rs and ts (multiples
 // of 8, 16-byte aligned base); out bf16 (R, N, H, D) contiguous; lse fp32
 // (R, H, N), the log-sum-exp of each query's scaled logits.
@@ -532,7 +562,7 @@ extern "C" int tpu1x_flash_mha_bwd(const void* q, const void* k, const void* v,
   const long rs[4] = {rsq, rsk, rsv, rsg}, ts[4] = {tsq, tsk, tsv, tsg};
   void* out[3] = {dq, dk, dv};
   const long ors[3] = {rsdq, rsdk, rsdv}, ots[3] = {tsdq, tsdk, tsdv};
-  return (D == 32 ? launch_bwd<32> : launch_bwd<64>)(
+  return (D == 32 ? launch_bwd<32> : D == 64 ? launch_bwd<64> : launch_bwd<128>)(
       in, rs, ts, out, ors, ots, static_cast<const float*>(lse),
       static_cast<const bf16*>(o), rso, tso, static_cast<float*>(work), R, N,
       H, scale, causal != 0, static_cast<cudaStream_t>(stream));

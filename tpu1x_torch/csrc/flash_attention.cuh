@@ -3,7 +3,7 @@
 // attention it is, so that both compile the same device code.
 //
 // softmax(q k^T scale [causal]) v over the N tokens of each (row, head), on
-// q, k, v shaped (R, N, H, D), head_dim D = 32 or 64 (a template
+// q, k, v shaped (R, N, H, D), head_dim D = 32, 64 or 128 (a template
 // parameter), and read in place through their strides (the thirds of a
 // (rows, N, 3C) qkv product need no copy); o contiguous (R, N, H, D); and
 // the per-query log-sum-exp of the scaled logits that the backward
@@ -63,7 +63,24 @@
 // a four-stage TMA ring. ptxas (sm_90a): 95 registers at head_dim 32 (95
 // causal, 90 NORM), 112 at 64 (111 causal, 114 NORM), no spills.
 //
-// 64 <= N <= 4096 (FA_MAXN), N % 64 == 0, head_dim 32 or 64, strides
+// Head_dim 128. A row is 256 bytes, and a swizzled TMA box spans at most
+// 128 bytes of it: each 64-row tile lies as two 64-channel half-tiles
+// (FaRows<128>::HALF apart), each rows of 128 bytes in the 128-byte
+// swizzle, loaded by one 5-D box (the half the outermost dimension) a
+// tile. The logits' k16 steps 4-7 read the second half-tile, and P V is
+// two m64n64k16 products a k16 step, one a half. o holds 64 fp32 values a
+// thread: the streamed form (below) runs at every N, one block an SM (a
+// 255-register cap). A whole-item form would hold one 192 KB stage a block,
+// its loads no longer hidden by another block's compute; timed against
+// the streamed form it was 5-12% slower at N = 128 and 256 and 7% faster
+// only at 64 (PERF.md, `chip_variants.py flash`), so it is not kept.
+// Bound at GENIE_138M-h128's qk_norm train shape (128, 256, 4, 128): the
+// bytes of head_dim 32's (134 MB, 0.040 ms), the same products (17.2
+// GFLOP, 0.017 ms) and a quarter of its exponentials (33.5 M, 0.009 ms):
+// the bytes bound it. ptxas (sm_90a), head_dim 128: 148 registers a thread
+// (150 causal, 150 NORM), no spills.
+//
+// 64 <= N <= 4096 (FA_MAXN), N % 64 == 0, head_dim 32, 64 or 128, strides
 // multiples of 8.
 
 #pragma once
@@ -83,29 +100,52 @@ __device__ __forceinline__ uint32_t swz64(int n, int c) {
 
 // The shared-memory layout of an operand of head_dim D: rows of 2 D bytes
 // (64 or 128) in the swizzle of that width, as TMA writes them and wgmma's
-// descriptors read them.
+// descriptors read them; at head_dim 128 each 64-row tile two half-tiles
+// of 64 channels, rows of 128 bytes each.
 template <int D>
 struct FaRows {
-  static_assert(D == 32 || D == 64, "head_dim 32 or 64");
-  static constexpr int ROW = 2 * D;         // bytes a row
-  static constexpr int TILE = FA_QT * ROW;  // a 64-row tile
-  static constexpr int SBO = 8 * ROW;       // bytes between 8-row groups
+  static_assert(D == 32 || D == 64 || D == 128, "head_dim 32, 64 or 128");
+  static constexpr int ROW = 2 * D;           // bytes a token row
+  static constexpr int SW = D == 32 ? 64 : 128;  // bytes a swizzled row
+  static constexpr int TILE = FA_QT * ROW;    // a 64-row tile
+  static constexpr int HALF = FA_QT * SW;     // a half-tile (head_dim 128)
+  static constexpr int SBO = 8 * SW;          // bytes between 8-row groups
   static constexpr int LAYOUT = D == 32 ? GMMA_SWIZZLE_64B : GMMA_SWIZZLE_128B;
   static constexpr CUtensorMapSwizzle MAP_SWIZZLE =
       D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
-  // byte offset of 16-byte chunk c (0 .. D / 8 - 1) of row n
+  // byte offset of 16-byte chunk c (0 .. D / 8 - 1) of row n of a tile
   static __device__ __forceinline__ uint32_t at(int n, int c) {
-    return D == 32 ? swz64(n, c) : n * 128 + ((c ^ (n & 7)) << 4);
+    if constexpr (D == 32) return swz64(n, c);
+    return (c >> 3) * HALF + n * 128 + (((c & 7) ^ (n & 7)) << 4);
   }
   // the k16 step k of a 64-row tile as a K-major operand (d contiguous)
   static __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int k) {
-    return gmma_desc(tile + 32 * k, SBO, 16, LAYOUT);
+    return gmma_desc(tile + (k >> 2) * HALF + 32 * (k & 3), SBO, 16, LAYOUT);
   }
   // 16 rows from row `row` as an MN-major B operand (the rows are the
-  // product's K axis, d its N axis: one swizzle atom spans d, so the
-  // leading byte offset is unused)
+  // product's K axis, d its N axis: one swizzle atom spans d, or a
+  // half-tile's 64 channels at head_dim 128, so the leading byte offset is
+  // unused)
   static __device__ __forceinline__ uint64_t mnmajor(uint32_t base, int row) {
-    return gmma_desc(base + row * ROW, SBO, D == 32 ? 512 : 8192, LAYOUT);
+    return gmma_desc(base + row * SW, SBO, D == 32 ? 512 : 8192, LAYOUT);
+  }
+  // TMA: a box of the map (tensor_map<D>) at head h, token n, row r into
+  // dst, on `bar` (where `on`); out of src
+  static __device__ __forceinline__ void load(uint32_t dst,
+                                              const CUtensorMap* map, int h,
+                                              int n, int r, uint32_t bar) {
+    if constexpr (D == 128)
+      tma_load_5d(dst, map, 0, h, n, r, 0, bar);
+    else
+      tma_load_4d(dst, map, 0, h, n, r, bar);
+  }
+  static __device__ __forceinline__ void store(const CUtensorMap* map,
+                                               uint32_t src, int h, int n,
+                                               int r, int half = 0) {
+    if constexpr (D == 128)
+      tma_store_5d(map, src, 0, h, n, r, half);
+    else
+      tma_store_4d(map, src, 0, h, n, r);
   }
 };
 
@@ -142,14 +182,20 @@ __device__ __forceinline__ void wgmma_pv64(float* d, const uint32_t* a,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
-// d (64 x D) += A (64 x 16, registers) B (16 x D), B MN-major.
+// d (64 x D) += A (64 x 16, registers) B (16 x D), B MN-major; at head_dim
+// 128 one product a half-tile (d's channels 64.. in d[32..], the B
+// descriptor's start address FaRows<128>::HALF on).
 template <int D>
 __device__ __forceinline__ void wgmma_pv_d(float* d, const uint32_t* a,
                                            uint64_t db) {
-  if constexpr (D == 32)
+  if constexpr (D == 32) {
     wgmma_pv(d, a, db);
-  else
+  } else if constexpr (D == 64) {
     wgmma_pv64(d, a, db);
+  } else {
+    wgmma_pv64(d, a, db);
+    wgmma_pv64(d + 32, a, db + (FaRows<128>::HALF >> 4));
+  }
 }
 // d (64 x 8, fp32) += A (64 x 16, bf16 registers) B (16 x 8), B from
 // shared memory: with B all ones, each column of d is the row sum of A.
@@ -503,6 +549,7 @@ __global__ void __launch_bounds__(FF_THREADS, 2)
                      const __grid_constant__ CUtensorMap tv,
                      const __grid_constant__ CUtensorMap to, float* lse,
                      int N, int H, float scale, int items) {
+  static_assert(D != 128, "head_dim 128 takes the streamed form");
   using L = FaRows<D>;
   using F = FfShape<D>;
   constexpr int STAGES = F::STAGES;
@@ -651,6 +698,29 @@ __device__ __forceinline__ void tma_load_4d_if(bool on, uint32_t dst,
       "r"(c3), "r"(bar), "r"((int)on)
       : "memory");
 }
+__device__ __forceinline__ void tma_load_5d_if(bool on, uint32_t dst,
+                                               const CUtensorMap* map, int c0,
+                                               int c1, int c2, int c3, int c4,
+                                               uint32_t bar) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %8, 0;\n"
+      "@p cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n}\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4), "r"(bar), "r"((int)on)
+      : "memory");
+}
+// FaRows<D>::load where `on`
+template <int D>
+__device__ __forceinline__ void fa_load_if(bool on, uint32_t dst,
+                                           const CUtensorMap* map, int h,
+                                           int n, int r, uint32_t bar) {
+  if constexpr (D == 128)
+    tma_load_5d_if(on, dst, map, 0, h, n, r, 0, bar);
+  else
+    tma_load_4d_if(on, dst, map, 0, h, n, r, bar);
+}
 __device__ __forceinline__ void mbar_expect_tx_if(bool on, uint32_t bar,
                                                   uint32_t bytes) {
   asm volatile(
@@ -672,7 +742,7 @@ __device__ __forceinline__ void mbar_arrive_if(bool on, uint32_t bar) {
 // b % blocks); FF_THREADS threads, dynamic shared memory FsShape<D>::SMEM.
 // POS, NORM and lse as flash_fwd_kernel's.
 template <int D, bool CAUSAL, bool POS, bool NORM = false>
-__global__ void __launch_bounds__(FF_THREADS, 2)
+__global__ void __launch_bounds__(FF_THREADS, D == 128 ? 1 : 2)
     flash_fwd_stream_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
@@ -707,9 +777,8 @@ __global__ void __launch_bounds__(FF_THREADS, 2)
     const bool with_v = !NORM || j >= nc;
     const uint32_t dst = ring + st * F::STAGE, bar = full + 8 * st;
     mbar_expect_tx_if(on, bar, (with_v ? 2 : 1) * L::TILE);
-    tma_load_4d_if(on, dst, &tk, 0, h, c * FA_QT, r, bar);
-    tma_load_4d_if(on && with_v, dst + L::TILE, &tv, 0, h, c * FA_QT, r,
-                   bar);
+    fa_load_if<D>(on, dst, &tk, h, c * FA_QT, r, bar);
+    fa_load_if<D>(on && with_v, dst + L::TILE, &tv, h, c * FA_QT, r, bar);
   };
   if (tid == 0) {
     mbar_init(qbar, 1);
@@ -725,8 +794,7 @@ __global__ void __launch_bounds__(FF_THREADS, 2)
   if (tid == 0) {
     mbar_expect_tx(qbar, users * L::TILE);
     for (int w = 0; w < users; ++w)
-      tma_load_4d(base + w * L::TILE, &tq, 0, h, (2 * qb + w) * FA_QT, r,
-                  qbar);
+      L::load(base + w * L::TILE, &tq, h, (2 * qb + w) * FA_QT, r, qbar);
     for (int j = 0; j < FS_STAGES && j < loads; ++j) load(true, j);
   }
   if (qt >= tiles) return;  // the second warpgroup of a one-tile block
@@ -761,7 +829,7 @@ __global__ void __launch_bounds__(FF_THREADS, 2)
   fence_proxy_async();
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
   if ((tid & 127) == 0) {
-    tma_store_4d(&to, qtile, 0, h, qt * FA_QT, r);
+    L::store(&to, qtile, h, qt * FA_QT, r);
     bulk_commit();
   }
   t.write_lse(lse + (long)item * N + qt * FA_QT);
@@ -770,7 +838,8 @@ __global__ void __launch_bounds__(FF_THREADS, 2)
 
 // What the flash kernels require of the shapes and strides.
 inline bool flash_ok(int N, int D, const long* strides, int count) {
-  if (N < 64 || N > FA_MAXN || N % 64 || (D != 32 && D != 64)) return false;
+  if (N < 64 || N > FA_MAXN || N % 64 || (D != 32 && D != 64 && D != 128))
+    return false;
   for (int i = 0; i < count; ++i)
     if (strides[i] % 8) return false;
   return true;
@@ -778,10 +847,24 @@ inline bool flash_ok(int N, int D, const long* strides, int count) {
 
 // The (d, h, n, row) view of a (R, N, H, D) operand with row stride rs and
 // token stride ts (elements) in the swizzle of its rows (FaRows<D>); a box
-// is `rows` tokens of one head of one row (0: all N, one item).
+// is `rows` tokens of one head of one row (0: all N, one item). At head_dim
+// 128 the (d, h, n, row, half) view of 64-channel halves, a box of `rows`
+// tokens (64) and `halves` halves, the half outermost: two half-tiles, or
+// one (a store of one half's columns).
 template <int D>
 inline cudaError_t tensor_map(CUtensorMap* map, const void* base, long rs,
-                              long ts, int R, int N, int H, int rows = 0) {
+                              long ts, int R, int N, int H, int rows = 0,
+                              int halves = 2) {
+  if constexpr (D == 128) {
+    const cuuint64_t dims[5] = {64, (cuuint64_t)H, (cuuint64_t)N,
+                                (cuuint64_t)R, 2};
+    const cuuint64_t strides[4] = {D * 2, (cuuint64_t)ts * 2,
+                                   (cuuint64_t)rs * 2, 128};
+    const cuuint32_t box[5] = {64, 1, (cuuint32_t)rows, 1,
+                               (cuuint32_t)halves};
+    return encode_map(map, base, 5, dims, strides, box,
+                      FaRows<D>::MAP_SWIZZLE);
+  }
   const cuuint64_t dims[4] = {D, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)R};
   const cuuint64_t strides[3] = {D * 2, (cuuint64_t)ts * 2,
                                  (cuuint64_t)rs * 2};
@@ -801,16 +884,18 @@ static inline cudaError_t launch_flash_fwd_d(
   if (items == 0) return cudaSuccess;
   if (norm && causal) return cudaErrorInvalidValue;  // no such form
   const int form = (norm ? 4 : causal ? 2 : 0) + (scale > 0.f ? 1 : 0);
-  // the whole item in a stage up to FA_N keys, 64-key boxes past it
-  const int box = N > FA_N ? FA_QT : 0;
+  // the whole item in a stage up to FA_N keys, 64-key boxes past it (and
+  // at head_dim 128, streamed at every N)
+  const bool streamed = D == 128 || N > FA_N;
+  const int box = streamed ? FA_QT : 0;
   CUtensorMap maps[4];
   TPU1X_TRY(tensor_map<D>(&maps[0], q, rsq, tsq, R, N, H, box));
   TPU1X_TRY(tensor_map<D>(&maps[1], k, rsk, tsk, R, N, H, box));
   TPU1X_TRY(tensor_map<D>(&maps[2], v, rsv, tsv, R, N, H, box));
   TPU1X_TRY(tensor_map<D>(&maps[3], out, (long)N * H * D, (long)H * D, R, N,
                           H, FA_QT));
-  if (N > FA_N) {
-    static const FwdKernel streamed[6] = {
+  if (streamed) {
+    static const FwdKernel streamed_forms[6] = {
         flash_fwd_stream_kernel<D, false, false>,
         flash_fwd_stream_kernel<D, false, true>,
         flash_fwd_stream_kernel<D, true, false>,
@@ -820,34 +905,36 @@ static inline cudaError_t launch_flash_fwd_d(
     static bool ready[6] = {false, false, false, false, false, false};
     if (!ready[form]) {  // the shared memory limit, once a process a form
       TPU1X_TRY(cudaFuncSetAttribute(
-          streamed[form], cudaFuncAttributeMaxDynamicSharedMemorySize,
+          streamed_forms[form], cudaFuncAttributeMaxDynamicSharedMemorySize,
           FsShape<D>::SMEM));
       ready[form] = true;
     }
     const unsigned grid = (unsigned)items * ((N / FA_QT + 1) / 2);
-    streamed[form]<<<grid, FF_THREADS, FsShape<D>::SMEM, stream>>>(
+    streamed_forms[form]<<<grid, FF_THREADS, FsShape<D>::SMEM, stream>>>(
         maps[0], maps[1], maps[2], maps[3], lse, N, H, scale, items);
     return cudaGetLastError();
   }
-  // set once a process for each form: the shared memory limit and the
-  // grid, every resident block of the card
-  static const FwdKernel forms[6] = {
-      flash_fwd_kernel<D, false, false>,      flash_fwd_kernel<D, false, true>,
-      flash_fwd_kernel<D, true, false>,       flash_fwd_kernel<D, true, true>,
-      flash_fwd_kernel<D, false, false, true>,
-      flash_fwd_kernel<D, false, true, true>};
-  static int resident[6] = {0, 0, 0, 0, 0, 0};
-  const FwdKernel kernel = forms[form];
-  if (resident[form] == 0)
-    TPU1X_TRY(resident_blocks(kernel, FF_THREADS, FfShape<D>::SMEM,
-                              &resident[form]));
-  const int grid = items < resident[form] ? items : resident[form];
-  kernel<<<grid, FF_THREADS, FfShape<D>::SMEM, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], lse, N, H, scale, items);
+  if constexpr (D != 128) {
+    // set once a process for each form: the shared memory limit and the
+    // grid, every resident block of the card
+    static const FwdKernel forms[6] = {
+        flash_fwd_kernel<D, false, false>, flash_fwd_kernel<D, false, true>,
+        flash_fwd_kernel<D, true, false>,  flash_fwd_kernel<D, true, true>,
+        flash_fwd_kernel<D, false, false, true>,
+        flash_fwd_kernel<D, false, true, true>};
+    static int resident[6] = {0, 0, 0, 0, 0, 0};
+    const FwdKernel kernel = forms[form];
+    if (resident[form] == 0)
+      TPU1X_TRY(resident_blocks(kernel, FF_THREADS, FfShape<D>::SMEM,
+                                &resident[form]));
+    const int grid = items < resident[form] ? items : resident[form];
+    kernel<<<grid, FF_THREADS, FfShape<D>::SMEM, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], lse, N, H, scale, items);
+  }
   return cudaGetLastError();
 }
 
-// q, k, v: bf16 (R, N, H, D) views, D = 32 or 64, element (r, n, h, d) at
+// q, k, v: bf16 (R, N, H, D) views, D = 32, 64 or 128, element (r, n, h, d) at
 // r * rs + n * ts + h * D + d with each tensor's own rs and ts (multiples
 // of 8, 16-byte aligned base); out bf16 (R, N, H, D) contiguous; lse fp32
 // (R, H, N). norm: the NORM form (not causal).
@@ -859,13 +946,11 @@ static inline cudaError_t launch_flash_fwd(const void* q, const void* k,
                                     cudaStream_t stream, bool norm = false) {
   const long strides[6] = {rsq, tsq, rsk, tsk, rsv, tsv};
   if (!flash_ok(N, D, strides, 6)) return cudaErrorInvalidValue;
-  return D == 32
-             ? launch_flash_fwd_d<32>(q, k, v, out, lse, rsq, tsq, rsk, tsk,
-                                      rsv, tsv, R, N, H, scale, causal, norm,
-                                      stream)
-             : launch_flash_fwd_d<64>(q, k, v, out, lse, rsq, tsq, rsk, tsk,
-                                      rsv, tsv, R, N, H, scale, causal, norm,
-                                      stream);
+  return (D == 32   ? launch_flash_fwd_d<32>
+          : D == 64 ? launch_flash_fwd_d<64>
+                    : launch_flash_fwd_d<128>)(q, k, v, out, lse, rsq, tsq,
+                                               rsk, tsk, rsv, tsv, R, N, H,
+                                               scale, causal, norm, stream);
 }
 
 }  // namespace tpu1x

@@ -178,8 +178,10 @@ static inline cudaError_t launch_layer_norm(const void* x, const void* scale,
 // bf16), at row length D: a lane holds one 16-byte chunk of 8 channels,
 // D / 8 neighbouring lanes a row, reduced by shuffles among them. Bound:
 // device memory, the q and k thirds read and written once (16.8 MB at N =
-// 16 frames of 256 tokens, C = 512: 5 us at 3.35 TB/s). A warp keeps
-// HN_UNROLL chunks a lane in flight, the grid is every resident block.
+// 16 frames of 256 tokens, C = 512: 5 us at 3.35 TB/s), whatever D. A warp
+// keeps HN_UNROLL chunks a lane in flight, the grid is every resident
+// block. D = 32, 64 or 128 (4, 8 or 16 lanes a row); ptxas (sm_90a): 64
+// registers at each, no spills.
 constexpr int HN_UNROLL = 4;
 
 template <int D>
@@ -232,21 +234,24 @@ __global__ void __launch_bounds__(LN_THREADS)
 }
 
 // qkv (tokens, 3C) bf16: its q and k thirds normalised in place over each
-// head row of D channels; scale, bias (D,) fp32. Requires D in {32, 64},
-// C % D == 0 and a 16-byte aligned qkv.
+// head row of D channels; scale, bias (D,) fp32. Requires D in {32, 64,
+// 128}, C % D == 0 and a 16-byte aligned qkv.
 static inline cudaError_t launch_head_norm(void* qkv, const void* scale,
                                            const void* bias, int tokens,
                                            int C, int D, float eps,
                                            cudaStream_t stream) {
-  if ((D != 32 && D != 64) || C % D) return cudaErrorInvalidValue;
+  if ((D != 32 && D != 64 && D != 128) || C % D)
+    return cudaErrorInvalidValue;
   const long chunks = (long)tokens * 2 * C / 8;
   if (chunks == 0) return cudaSuccess;
   typedef void (*HnKernel)(bf16*, const float*, const float*, long, int,
                            float);
-  const HnKernel kernel = D == 32 ? head_norm_kernel<32> : head_norm_kernel<64>;
+  const HnKernel kernel = D == 32   ? head_norm_kernel<32>
+                          : D == 64 ? head_norm_kernel<64>
+                                    : head_norm_kernel<128>;
   // the resident blocks of the card, found once a process for each D
-  static int resident[2] = {0, 0};
-  int& res = resident[D == 32 ? 0 : 1];
+  static int resident[3] = {0, 0, 0};
+  int& res = resident[D == 32 ? 0 : D == 64 ? 1 : 2];
   if (res == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     TPU1X_TRY(cudaGetDevice(&dev));

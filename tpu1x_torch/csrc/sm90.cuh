@@ -124,6 +124,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "r"(c3), "r"(bar)
       : "memory");
 }
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            int c4, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4), "r"(bar)
+      : "memory");
+}
 // A box of shared memory out to a tensor map, in the issuing thread's bulk
 // group (cp.async.bulk.commit_group / wait_group).
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src,
@@ -140,6 +150,15 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t sr
       "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, "
       "%3, %4}], [%5];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%1, %2, "
+      "%3, %4, %5}], [%6];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4), "r"(src)
       : "memory");
 }
 // `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned).

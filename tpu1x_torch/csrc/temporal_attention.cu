@@ -1,5 +1,5 @@
 // Attention over the frame axis of q, k, v shaped (B, T, S, C), causal or
-// not, heads flat in C (head_dim D = 32 or 64, a template parameter),
+// not, heads flat in C (head_dim D = 32, 64 or 128, a template parameter),
 // computed in that layout with no
 // transpose: the forward (K4), and the backward (K6), which writes dq, dk,
 // dv and, where asked, the forward's output o beside them.
@@ -86,15 +86,31 @@
 // keys would otherwise take weight). Padded query rows t >= T have zero q
 // and dout, so they add nothing to dk and dv.
 //
+//   - head_dim 128 keeps the stage's bytes again: a tile holds 2 heads and
+//     4 consumer warps. A 256-byte head row is wider than a swizzled TMA
+//     box may be (128 bytes), so each tensor comes as two boxes, its 64
+//     channels of each head and the next 64, through two tensor maps (the
+//     second's base 64 channels on), into the two halves of the tensor's
+//     stage (TA_BOX / 2 apart), each rows of 128 bytes in the 128-byte
+//     swizzle; a row's chunks 8-15 lie in the second half (chunk_at), so the
+//     problems' code is head_dim 64's with twice the k16 steps and output
+//     columns. A warp's accumulator of a 16 x 128 result is 64 fp32 a
+//     lane, one at a time (o, dq, dk, dv each leave before the next is
+//     summed), and the 32-frame form splits the columns as before. Bound at
+//     GENIE_138M-h128's shapes: head_dim 32's bytes, the products the same.
+//     ptxas (sm_90a), head_dim 128: the forward 124 registers (116 causal),
+//     157 in the 32-frame form (144 causal); the backward 139 (139), 179
+//     (158); no spills (192 threads a block: a 255-register cap).
+//
 // The tile is fixed. Measured with `chip_variants.py ta` on an H100 at
 // the train step's shape (PERF.md section 6), tiles of 1 x 8, 1 x 16 and
 // 2 x 8 (positions x heads) with 8 to 16 consumer warps are within 3% of
 // each other, 4 warps 2-4% slower; 4 x 8 and 2 x 16 leave the backward
 // one stage (the static_assert below).
 //
-// Requires T <= 32, head_dim 32 or 64, C % (2 head_dim) == 0 (an even
-// number of heads), strides that are multiples of 8 and 16-byte aligned
-// bases.
+// Requires T <= 32, head_dim 32, 64 or 128, C % (2 head_dim) == 0 (an
+// even number of heads), strides that are multiples of 8 and 16-byte
+// aligned bases.
 
 #include "sm90.cuh"
 
@@ -115,13 +131,16 @@ constexpr int TA_SMEM_MAX = 232448;  // shared memory a block may use
 // head_dim 64 half the heads of twice the bytes.
 constexpr int TA_BOX = TA_POSITIONS * 16 * TA_HEADS * 64;
 
-// What head_dim D changes: one frame of one head (ROW bytes), the heads of
-// a full tile (HEADS) and its consumer warps (WARPS): the problems of a
-// tile halve at 64 (twice the bytes each), and so do the warps.
+// What head_dim D changes: one frame of one head in shared memory (ROW
+// bytes a row, the swizzle's width; at 128 two such rows, one a half of
+// the stage), the tensor maps a tensor (HALVES), the heads of a full tile
+// (HEADS) and its consumer warps (WARPS): the problems of a tile halve
+// with each doubling of D (twice the bytes each), and so do the warps.
 template <int D>
 struct TaShape {
-  static_assert(D == 32 || D == 64, "head_dim 32 or 64");
-  static constexpr int ROW = 2 * D;
+  static_assert(D == 32 || D == 64 || D == 128, "head_dim 32, 64 or 128");
+  static constexpr int ROW = D == 32 ? 64 : 128;
+  static constexpr int HALVES = D == 128 ? 2 : 1;
   static constexpr int HEADS = TA_HEADS * 32 / D;
   static constexpr int WARPS = TA_WARPS * 32 / D;
   static constexpr int THREADS = (WARPS + 2) * 32;
@@ -139,9 +158,11 @@ __host__ __device__ constexpr int ta_smem(int tensors) {
 }
 static_assert(ta_stages(4) >= 2, "the backward's ring needs two stages");
 
+// HALVES maps a tensor, tensor i's half j at i HALVES + j.
+template <int D>
 struct TaMaps {
-  CUtensorMap in[4];   // q, k, v, dout (the backward's)
-  CUtensorMap out[4];  // o, dq, dk, dv (the backward's)
+  CUtensorMap in[4 * TaShape<D>::HALVES];   // q, k, v, dout (the backward's)
+  CUtensorMap out[4 * TaShape<D>::HALVES];  // o, dq, dk, dv (the backward's)
 };
 
 struct TaArgs {
@@ -153,27 +174,6 @@ struct TaArgs {
   int with_o;  // the backward writes o
   float scale;
 };
-
-__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map,
-                                            int c0, int c1, int c2, int c3,
-                                            int c4, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(c4), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map,
-                                             uint32_t src, int c0, int c1,
-                                             int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%1, %2, "
-      "%3, %4, %5}], [%6];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4), "r"(src)
-      : "memory");
-}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
@@ -199,11 +199,13 @@ __device__ __forceinline__ uint32_t movt(uint32_t a) {
 }
 
 // Byte offset of 16-byte chunk c of row r (0-7) of rows of 2 D bytes in
-// the swizzle of that width, from a 512- or 1024-byte boundary.
+// the swizzle of that width, from a 512- or 1024-byte boundary; at head_dim
+// 128 chunks 8-15 in the second half of the stage's box.
 template <int D>
 __device__ __forceinline__ uint32_t chunk_at(int r, int c) {
-  return D == 32 ? r * 64 + ((c ^ ((r >> 1) & 3)) << 4)
-                 : r * 128 + ((c ^ r) << 4);
+  if constexpr (D == 32) return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+  if constexpr (D == 64) return r * 128 + ((c ^ r) << 4);
+  return (c >> 3) * (TA_BOX / 2) + r * 128 + (((c & 7) ^ r) << 4);
 }
 
 // One problem's 16 x D operand of one tensor in a stage: rows 0-7 from
@@ -616,10 +618,10 @@ __device__ __forceinline__ void backward_w(
 // at a time, or with W (tp = 32) (one position, one head), a pair of warps
 // each.
 template <int D, bool BWD, bool CAUSAL, int HG, bool W>
-__device__ __forceinline__ void temporal_body(const TaMaps& maps,
+__device__ __forceinline__ void temporal_body(const TaMaps<D>& maps,
                                               const TaArgs& a) {
   using Sh = TaShape<D>;
-  constexpr int WARPS = Sh::WARPS;
+  constexpr int WARPS = Sh::WARPS, NH = Sh::HALVES;
   static_assert(Sh::HEADS % HG == 0, "a head group divides a tile's heads");
   constexpr int NT = BWD ? 4 : 3;  // operands a tile
   constexpr int STAGES = ta_stages(NT);
@@ -657,21 +659,26 @@ __device__ __forceinline__ void temporal_body(const TaMaps& maps,
       if (producer) {
         if (use > 0) mbar_wait(empty + 8 * st, (use - 1) & 1);
         mbar_expect_tx(full + 8 * st, stage_bytes);
+        // tensor i's box (NH boxes of its halves) at base + i box
 #pragma unroll
-        for (int i = 0; i < NT; ++i)
-          tma_load_5d(base + i * box, &maps.in[i], 0, 0, hgi * HG, s0, b,
-                      full + 8 * st);
+        for (int i = 0; i < NT * NH; ++i)
+          tma_load_5d(base + i / NH * box + i % NH * (box / NH), &maps.in[i],
+                      0, 0, hgi * HG, s0, b, full + 8 * st);
       } else {
         mbar_wait(done + 8 * st, use & 1);
         // o over v (the wide forward's over q), dq over k, dk over q, dv
         // over dout
-        if (!BWD || a.with_o)
-          tma_store_5d(&maps.out[0], base + (W && !BWD ? 0 : 2 * box), 0, 0,
-                       hgi * HG, s0, b);
+        auto put = [&](int i, uint32_t src) {
+#pragma unroll
+          for (int j = 0; j < NH; ++j)
+            tma_store_5d(&maps.out[i * NH + j], src + j * (box / NH), 0, 0,
+                         hgi * HG, s0, b);
+        };
+        if (!BWD || a.with_o) put(0, base + (W && !BWD ? 0 : 2 * box));
         if (BWD) {
-          tma_store_5d(&maps.out[1], base + box, 0, 0, hgi * HG, s0, b);
-          tma_store_5d(&maps.out[2], base, 0, 0, hgi * HG, s0, b);
-          tma_store_5d(&maps.out[3], base + 3 * box, 0, 0, hgi * HG, s0, b);
+          put(1, base + box);
+          put(2, base);
+          put(3, base + 3 * box);
         }
         bulk_commit();
         bulk_wait_read();
@@ -768,19 +775,21 @@ __device__ __forceinline__ void temporal_body(const TaMaps& maps,
 
 template <int D, bool CAUSAL, int HG, bool W>
 __global__ void __launch_bounds__(TaShape<D>::THREADS, 1)
-    temporal_fwd_kernel(const __grid_constant__ TaMaps maps, const TaArgs a) {
+    temporal_fwd_kernel(const __grid_constant__ TaMaps<D> maps,
+                        const TaArgs a) {
   temporal_body<D, false, CAUSAL, HG, W>(maps, a);
 }
 
 template <int D, bool CAUSAL, int HG, bool W>
 __global__ void __launch_bounds__(TaShape<D>::THREADS, 1)
-    temporal_bwd_kernel(const __grid_constant__ TaMaps maps, const TaArgs a) {
+    temporal_bwd_kernel(const __grid_constant__ TaMaps<D> maps,
+                        const TaArgs a) {
   temporal_body<D, true, CAUSAL, HG, W>(maps, a);
 }
 
 // The head group of a tile: a full tile's heads (8 at head_dim 32, 4 at
-// 64) where the heads are a multiple of it, else 4 where they are a
-// multiple of 4, else 2 (`ta_ok` takes an even number of heads).
+// 64, 2 at 128) where the heads are a multiple of it, else 4 where they are
+// a multiple of 4, else 2 (`ta_ok` takes an even number of heads).
 int head_group(int C, int D) {
   const int heads = C / D, full = TA_HEADS * 32 / D;
   return heads % full == 0 ? full : heads % 4 == 0 ? 4 : 2;
@@ -788,23 +797,28 @@ int head_group(int C, int D) {
 
 // The (d, t, h, s, b) view of a (B, T, S, C) bf16 tensor with row stride
 // ld (elements) in the swizzle of its 2 D-byte rows; a box is tp frames of
-// hg heads of sg positions of one b.
+// hg heads of sg positions of one b. At head_dim 128 HALVES maps, map j
+// the 64 channels of each head from channel 64 j.
 template <int D>
-cudaError_t frame_map(CUtensorMap* map, const void* base, int B, int T, int S,
-                      int C, int ld, int tp, int sg) {
-  const cuuint64_t dims[5] = {D, (cuuint64_t)T, (cuuint64_t)(C / D),
+cudaError_t frame_maps(CUtensorMap* maps, const void* base, int B, int T,
+                       int S, int C, int ld, int tp, int sg) {
+  constexpr int DH = D / TaShape<D>::HALVES;  // channels a box row
+  const cuuint64_t dims[5] = {DH, (cuuint64_t)T, (cuuint64_t)(C / D),
                               (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t row = (cuuint64_t)ld * 2;
-  const cuuint64_t strides[4] = {row * S, TaShape<D>::ROW, row, row * S * T};
-  const cuuint32_t box[5] = {D, (cuuint32_t)tp,
+  const cuuint64_t strides[4] = {row * S, 2 * D, row, row * S * T};
+  const cuuint32_t box[5] = {DH, (cuuint32_t)tp,
                              (cuuint32_t)head_group(C, D), (cuuint32_t)sg, 1};
-  return encode_map(map, base, 5, dims, strides, box, TaShape<D>::SWIZZLE);
+  for (int j = 0; j < TaShape<D>::HALVES; ++j)
+    TPU1X_TRY(encode_map(&maps[j], static_cast<const bf16*>(base) + j * DH,
+                         5, dims, strides, box, TaShape<D>::SWIZZLE));
+  return cudaSuccess;
 }
 
 // The shapes the kernels take (the wrapper's `_check_qkv` raises first).
 bool ta_ok(int T, int C, int D, int ld) {
-  return T >= 1 && T <= 32 && (D == 32 || D == 64) && C % (2 * D) == 0 &&
-         ld % 8 == 0;
+  return T >= 1 && T <= 32 && (D == 32 || D == 64 || D == 128) &&
+         C % (2 * D) == 0 && ld % 8 == 0;
 }
 
 // The tile at T frames: a box spans 16 frames, or 8 and twice the
@@ -827,7 +841,7 @@ TaArgs args_of(int B, int T, int S, int C, int D, float scale) {
 }
 
 template <int D, bool BWD, bool CAUSAL, int HG, bool W>
-cudaError_t launch_form(const TaMaps& maps, const TaArgs& a,
+cudaError_t launch_form(const TaMaps<D>& maps, const TaArgs& a,
                         cudaStream_t stream) {
   if (a.tiles == 0) return cudaSuccess;
   constexpr int smem = ta_smem(BWD ? 4 : 3), threads = TaShape<D>::THREADS;
@@ -844,56 +858,83 @@ cudaError_t launch_form(const TaMaps& maps, const TaArgs& a,
 
 // The form of 8 or 16 frames a box, or with tp = 32 the wide one.
 template <int D, bool BWD, bool CAUSAL, int HG>
-cudaError_t launch_hg(const TaMaps& maps, const TaArgs& a,
+cudaError_t launch_hg(const TaMaps<D>& maps, const TaArgs& a,
                       cudaStream_t stream) {
   return a.tp == 32 ? launch_form<D, BWD, CAUSAL, HG, true>(maps, a, stream)
                     : launch_form<D, BWD, CAUSAL, HG, false>(maps, a, stream);
 }
 
-template <bool BWD, bool CAUSAL>
-cudaError_t launch(const TaMaps& maps, const TaArgs& a, int D,
+template <int D, bool BWD, bool CAUSAL>
+cudaError_t launch(const TaMaps<D>& maps, const TaArgs& a,
                    cudaStream_t stream) {
-  if (D == 64)
+  if constexpr (D == 128) {
+    return launch_hg<128, BWD, CAUSAL, 2>(maps, a, stream);
+  } else if constexpr (D == 64) {
     return head_group(a.C, 64) == 4
                ? launch_hg<64, BWD, CAUSAL, 4>(maps, a, stream)
                : launch_hg<64, BWD, CAUSAL, 2>(maps, a, stream);
-  switch (head_group(a.C, 32)) {
-    case TA_HEADS:
-      return launch_hg<32, BWD, CAUSAL, TA_HEADS>(maps, a, stream);
-    case 4:
-      return launch_hg<32, BWD, CAUSAL, 4>(maps, a, stream);
-    default:
-      return launch_hg<32, BWD, CAUSAL, 2>(maps, a, stream);
+  } else {
+    switch (head_group(a.C, 32)) {
+      case TA_HEADS:
+        return launch_hg<32, BWD, CAUSAL, TA_HEADS>(maps, a, stream);
+      case 4:
+        return launch_hg<32, BWD, CAUSAL, 4>(maps, a, stream);
+      default:
+        return launch_hg<32, BWD, CAUSAL, 2>(maps, a, stream);
+    }
   }
 }
 
-// The tensor map of D = 32 or 64.
-cudaError_t frame_map_d(int D, CUtensorMap* map, const void* base, int B,
-                        int T, int S, int C, int ld, int tp, int sg) {
-  return D == 64 ? frame_map<64>(map, base, B, T, S, C, ld, tp, sg)
-                 : frame_map<32>(map, base, B, T, S, C, ld, tp, sg);
+template <int D>
+cudaError_t forward_d(const void* q, const void* k, const void* v, void* out,
+                      int B, int T, int S, int C, int ld, float scale,
+                      bool causal, cudaStream_t st) {
+  constexpr int NH = TaShape<D>::HALVES;
+  const TaArgs a = args_of(B, T, S, C, D, scale);
+  TaMaps<D> maps = {};
+  const void* in[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i)
+    TPU1X_TRY(frame_maps<D>(&maps.in[i * NH], in[i], B, T, S, C, ld, a.tp,
+                            a.sg));
+  TPU1X_TRY(frame_maps<D>(&maps.out[0], out, B, T, S, C, C, a.tp, a.sg));
+  return causal ? launch<D, false, true>(maps, a, st)
+                : launch<D, false, false>(maps, a, st);
+}
+
+template <int D>
+cudaError_t backward_d(const void* const* in, void* const* out, int B, int T,
+                       int S, int C, int ld, int ld_do, int ld_out,
+                       float scale, bool causal, cudaStream_t st) {
+  constexpr int NH = TaShape<D>::HALVES;
+  TaArgs a = args_of(B, T, S, C, D, scale);
+  a.with_o = out[0] != nullptr;
+  TaMaps<D> maps = {};
+  for (int i = 0; i < 4; ++i)
+    TPU1X_TRY(frame_maps<D>(&maps.in[i * NH], in[i], B, T, S, C,
+                            i == 3 ? ld_do : ld, a.tp, a.sg));
+  for (int i = 0; i < 4; ++i)
+    if (out[i] != nullptr)
+      TPU1X_TRY(frame_maps<D>(&maps.out[i * NH], out[i], B, T, S, C,
+                              i == 0 ? C : ld_out, a.tp, a.sg));
+  return causal ? launch<D, true, true>(maps, a, st)
+                : launch<D, true, false>(maps, a, st);
 }
 
 }  // namespace
 
 // q, k, v: element (b, t, s, c) at ((b T + t) S + s) ld + c; out contiguous;
-// heads of D = 32 or 64 channels.
+// heads of D = 32, 64 or 128 channels.
 extern "C" int tpu1x_temporal_attention(const void* q, const void* k,
                                         const void* v, void* out, int B, int T,
                                         int S, int C, int D, int ld,
                                         float scale, int causal,
                                         void* stream) {
   if (!ta_ok(T, C, D, ld)) return cudaErrorInvalidValue;
-  const TaArgs a = args_of(B, T, S, C, D, scale);
-  TaMaps maps = {};
-  const void* in[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i)
-    TPU1X_TRY(
-        frame_map_d(D, &maps.in[i], in[i], B, T, S, C, ld, a.tp, a.sg));
-  TPU1X_TRY(frame_map_d(D, &maps.out[0], out, B, T, S, C, C, a.tp, a.sg));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return causal ? launch<false, true>(maps, a, D, st)
-                : launch<false, false>(maps, a, D, st);
+  return (D == 32   ? forward_d<32>
+          : D == 64 ? forward_d<64>
+                    : forward_d<128>)(q, k, v, out, B, T, S, C, ld, scale,
+                                      causal != 0, st);
 }
 
 // q, k, v at row stride ld, dout at ld_do, dq / dk / dv at ld_out (so that
@@ -906,19 +947,11 @@ extern "C" int tpu1x_temporal_attention_bwd(
     int ld_do, int ld_out, float scale, int causal, void* stream) {
   if (!ta_ok(T, C, D, ld) || ld_do % 8 || ld_out % 8)
     return cudaErrorInvalidValue;
-  TaArgs a = args_of(B, T, S, C, D, scale);
-  a.with_o = o != nullptr;
-  TaMaps maps = {};
   const void* in[4] = {q, k, v, dout};
-  for (int i = 0; i < 4; ++i)
-    TPU1X_TRY(frame_map_d(D, &maps.in[i], in[i], B, T, S, C,
-                          i == 3 ? ld_do : ld, a.tp, a.sg));
   void* out[4] = {o, dq, dk, dv};
-  for (int i = 0; i < 4; ++i)
-    if (out[i] != nullptr)
-      TPU1X_TRY(frame_map_d(D, &maps.out[i], out[i], B, T, S, C,
-                            i == 0 ? C : ld_out, a.tp, a.sg));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return causal ? launch<true, true>(maps, a, D, st)
-                : launch<true, false>(maps, a, D, st);
+  return (D == 32   ? backward_d<32>
+          : D == 64 ? backward_d<64>
+                    : backward_d<128>)(in, out, B, T, S, C, ld, ld_do, ld_out,
+                                       scale, causal != 0, st);
 }

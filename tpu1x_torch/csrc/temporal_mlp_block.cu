@@ -47,7 +47,7 @@ using namespace tpu1x;
 // weights bf16 (in, out); biases bf16 or null; ln_scale/ln_bias fp32 (C,);
 // scratch qkv_buf (B*frames*S, 3C), attn_buf, x1_buf and xn_buf
 // (B*frames*S, C), h_buf (B*frames*S, F4); k_out/v_out (B, S, C), both null
-// or neither. Requires frames in {1, 2}, T <= 32, head_dim D in {32, 64},
+// or neither. Requires frames in {1, 2}, T <= 32, head_dim D in {32, 64, 128},
 // C % 256 == 0, F4 % 64 == 0.
 extern "C" int tpu1x_temporal_mlp_block(
     const void* x, const void* k_cache, const void* v_cache, const void* t_B,

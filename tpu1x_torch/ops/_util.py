@@ -54,7 +54,7 @@ def check_tensor(t: torch.Tensor, name: str, shape, dtype,
 
 
 # The head widths that every attention kernel of the port is built for.
-HEAD_DIMS = (32, 64)
+HEAD_DIMS = (32, 64, 128)
 
 
 def head_dim_of(C: int, num_heads: int, what: str) -> int:
@@ -62,7 +62,8 @@ def head_dim_of(C: int, num_heads: int, what: str) -> int:
     for any other head width (the kernels have no fallback)."""
     D = C // num_heads if num_heads > 0 else 0
     require(num_heads > 0 and D * num_heads == C and D in HEAD_DIMS,
-            f"{what} needs head_dim 32 or 64, got C={C}, heads={num_heads}")
+            f"{what} needs head_dim 32, 64 or 128, got C={C}, "
+            f"heads={num_heads}")
     return D
 
 

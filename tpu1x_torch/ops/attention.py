@@ -104,7 +104,7 @@ def _check_shape(q, k, v):
     require(k.shape == q.shape and v.shape == q.shape,
             "q, k, v must share one shape")
     require(D in HEAD_DIMS,
-            f"the flash attention kernels need head_dim 32 or 64, got "
+            f"the flash attention kernels need head_dim 32, 64 or 128, got "
             f"head_dim={D}")
     require(FLASH_MIN_TOKENS <= N <= FLASH_MAX_TOKENS and N % 64 == 0,
             f"the flash attention kernels need N % 64 == 0 and "
@@ -118,7 +118,7 @@ def _lse_shape(q):
 
 def flash_mha_fwd(q, k, v, *, scale: float, causal: bool):
     """Check, launch the forward kernel on CUDA q, k, v (..., N, H, D),
-    head_dim D 32 or 64, and count it. Returns (o, lse): o contiguous of
+    head_dim D 32, 64 or 128, and count it. Returns (o, lse): o contiguous of
     q's shape, lse fp32 (..., H, N) as `mha_lse_reference` gives it. CPU
     tensors take `mha_lse_reference` and count nothing."""
     if not q.is_cuda:
@@ -214,7 +214,8 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launch csrc/flash_attention.cu, which replaces the Pallas kernels
     tpu1x/ops/pallas_attention.py:_flash_mha_bhnd (forward) and, under
     autograd, _flash_mha_bwd_bhnd (backward). The card path takes bf16,
-    head_dim 32 or 64, N % 64 == 0 and 64 <= N <= 4096 (FLASH_MAX_TOKENS);
+    head_dim 32, 64 or 128, N % 64 == 0 and 64 <= N <= 4096
+    (FLASH_MAX_TOKENS);
     fp32 inputs are for the CPU.
     q, k and v are read where they lie, each with its own strides (the last
     two axes contiguous, the others multiples of 8 that fold into one row
@@ -233,7 +234,8 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ring (one stage at head_dim 64, two blocks an SM) while the one before
     computes, both products on wgmma, o stored by TMA; its floors are the
     bytes (q, k, v, o once each) and the exponentials, about equal. Past
-    256 a block takes 128 queries of a (row, head) and streams the keys
+    256 (and at every N at head_dim 128, whose tiles lie as two 64-channel
+    halves) a block takes 128 queries of a (row, head) and streams the keys
     and values in 64-token chunks through a four-stage TMA ring; the
     exponentials bound it at head_dim 32. The backward
     (`flash_mha_bwd_plain`'s arithmetic) takes p from lse with one

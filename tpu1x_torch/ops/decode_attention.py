@@ -243,7 +243,7 @@ def temporal_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     CPU tensors take `temporal_decode_attention_plain`. CUDA tensors launch
     csrc/decode_attention.cu, which replaces the Pallas kernel
     tpu1x/ops/decode_attention.py:temporal_decode_attention (_kernel): bf16
-    q, k_cur, v_cur, int32 t_B, `layer` a plain int, head_dim 32 or 64,
+    q, k_cur, v_cur, int32 t_B, `layer` a plain int, head_dim 32, 64 or 128,
     C % 256 == 0, C <= 2048, T <= 32, S % 4 == 0 for the int8 cache. q,
     k_cur, v_cur and `out` may each be strided views, as the column thirds
     of one qkv product are: last axis contiguous, the other two strides
@@ -256,7 +256,8 @@ def temporal_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     slot's tile of a few tokens' K and V rows into a ring of shared-memory
     stages by bulk copies, and a thread per (token, 32 channels) runs an
     online softmax over them in one pass (at head_dim 64 two lanes a head
-    row, their halves of each logit summed by a shuffle); an int8 slot's
+    row, their halves of each logit summed by a shuffle; at 128 four lanes,
+    two shuffles); an int8 slot's
     scales multiply the logit and the probability, and no dequantized copy
     exists.
     """

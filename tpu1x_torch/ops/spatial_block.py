@@ -129,7 +129,7 @@ def spatial_block(x: torch.Tensor, wqkv: torch.Tensor, wproj: torch.Tensor, *,
     ((C, 3C), (C, C), biases (3C,), (C,) or None), fp32 LN params (C,) or
     None, fp32 qk-LN params (head_dim,) or None, S % 64 == 0 with 64 <= S
     <= 4096 (K9's range: whole frames in shared memory up to 256 tokens,
-    key chunks streamed past it), head_dim 32 or 64 and C % 64 == 0
+    key chunks streamed past it), head_dim 32, 64 or 128 and C % 64 == 0
     (`_check`).
 
     Bound on the H100: tensor-core operations. One row is 256 KB in bf16

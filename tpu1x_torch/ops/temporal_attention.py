@@ -151,7 +151,7 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _bwd_kernel), which recomputes the probabilities from q and k. Both take
     bf16 q, k, v that may be column slices of one (B, T, S, 3C) qkv tensor
     (last axis contiguous, the same strides for all three), T <= 32,
-    head_dim 32 or 64 and an even number of heads. The backward returns
+    head_dim 32, 64 or 128 and an even number of heads. The backward returns
     dq, dk, dv as column slices of one (B, T, S, 3C) tensor.
 
     Bound on the H100: device memory (q, k, v, out read or written once:

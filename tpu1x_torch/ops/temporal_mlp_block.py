@@ -152,7 +152,7 @@ def temporal_mlp_block(x: torch.Tensor, k_cache: torch.Tensor,
     csrc/temporal_mlp_block.cu, which replaces the Pallas kernel
     tpu1x/ops/temporal_mlp_block.py:temporal_mlp_block (_kernel_single):
     bf16 activations, caches and weights, fp32 LN params, int32 t_B, head_dim
-    32 or 64, C % 256 == 0, F4 % 64 == 0, T <= 32. Six launches on one stream:
+    32, 64 or 128, C % 256 == 0, F4 % 64 == 0, T <= 32. Six launches on one stream:
     the four weight products on the TMA-fed wgmma GEMM of
     csrc/gemm_sm90.cuh (fc1 with its GELU epilogue), the cache attention
     between qkv and proj, LN2 as a row pass before fc1. Bound on the H100:
