@@ -226,11 +226,21 @@
 13. Tensor parallelism (`check_tensor_parallel`): K4 and K6 at C = 128
    (4 heads, the kernels' head groups of 4) and C = 64 (2 heads, head
    groups of 2) against their plain versions with their device times and
-   bounds; then for GENIE_138M over tp = 2 ranks, GENIE_35M over tp = 4,
-   and GENIE_138M-h64 and -h128 over tp = 2 (4 heads of 64 and 2 of 128 a
-   rank: K4's and K6's head groups at those widths) (`TP_SETUPS`) tp child
-   processes of this script (`--tp-rank`), all
-   on this card, joined over gloo as one model group: each splits the
+   bounds; K4 and K6 at their head groups of 1 (`check_head_groups_of_one`:
+   one head of 32, 64 and 128, three of 32 and of 128, at T = 8, 16 and
+   32, causal and not, values, dq / dk / dv and the o beside them; timed
+   at the train step of a GENIE_35M tp = 8 rank and a GENIE_138M-h128 tp =
+   4 rank); the GEMM's forms at a GENIE_35M tp = 8 rank's products, N and
+   K of 32 and 96 (`check_rank_gemms`, the serving chain with and without
+   bias, GELU and residual, and the nn, nt and tn training forms, by the
+   GEMM checks' gates); then for GENIE_138M over tp = 2 ranks, GENIE_35M
+   over tp = 4 and 8, and GENIE_138M-h64 and -h128 over tp = 2 (4 heads of
+   64 and 2 of 128 a rank: K4's and K6's head groups at those widths) and
+   -h128 over tp = 4 (one head of 128 a rank; GENIE_35M at tp = 8 one head
+   of 32) (`TP_SETUPS`) tp child processes of this script (`--tp-rank`;
+   the setups in waves of at most one rank a core, `tp_waves`), all on
+   this card, each setup's joined over gloo as one model group: each
+   splits the
    model at 8 layers, pre-LN and qk_norm, and takes one update (exact
    launch counts per rank), held to this process's update from the same
    weights, batch and draws and to the plain path's in bf16 and fp32
@@ -250,8 +260,10 @@
 14. Prints the `kernels` JSON line (with each kernel's `eval_launches`,
    `evaluate_cli_decoded` among them, `train_cli_launches`,
    `genie_35m_launches` and `mup_launches`, the TP steps' per-rank
-   `tp_launches` of both setups, K4's and K6's C = 128 and C = 64
-   entries, each attention kernel's head_dim-64 form, `h64`, with its
+   `tp_launches` of every setup, K4's and K6's C = 128 and C = 64
+   entries and their head groups of 1 (`one_head`: each form's largest
+   error, the timed forms' times and bounds), each attention kernel's
+   head_dim-64 form, `h64`, with its
    launches on GENIE_138M-h64's paths, each frame-axis kernel's T = 32
    form, `t32`, with its launches on GENIE_138M-T32's, every kernel's S =
    1024 form, `s1024`, with its launches on GENIE_138M-S1024's, and each
@@ -274,7 +286,9 @@ import functools
 import io
 import json
 import math
+import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -1075,30 +1089,31 @@ def check_flash_mha(inp, H, D=32):
     return out
 
 
-def check_gemm_sm90(inp, C):
+def check_gemm_sm90(inp, C, cases=None, timed=True):
     """The GEMM of csrc/gemm_sm90.cuh alone, against `gemm_sm90_plain` (the
     same rounding chain; atol = rtol = 3e-2), by device time beside
     torch.matmul of the same operands: K1's products at its row counts (N =
     16, 32, 128 frames of 256 tokens), qkv = a Wqkv + b (C -> 3C) and proj =
     a Wproj + b + x (C -> C); K2's and K3's MLP products at theirs (4096 and
     8192 rows), fc1 = GELU(a Wfc1 + b) (C -> 4C, tanh and exact erf) and
-    fc2 = h Wfc2 + b + x (4C -> C)."""
-    F4 = 4 * C
-    cases = []
-    for N in (B, 2 * B, B * P):
-        M = N * 256
-        a, x = inp.normal(M, C), inp.normal(M, C)
-        cases += [("qkv", a, inp.normal(C, 3 * C, std=0.05),
-                   inp.normal(3 * C, std=0.1), None, None),
-                  ("proj", a, inp.normal(C, C, std=0.05),
-                   inp.normal(C, std=0.1), x, None)]
-    for M in (B * 256, 2 * B * 256):
-        a, x, h = inp.normal(M, C), inp.normal(M, C), inp.normal(M, F4)
-        w1, b1 = inp.normal(C, F4, std=0.05), inp.normal(F4, std=0.1)
-        cases += [("fc1[tanh]", a, w1, b1, None, "tanh"),
-                  ("fc1[erf]", a, w1, b1, None, "erf"),
-                  ("fc2", h, inp.normal(F4, C, std=0.05),
-                   inp.normal(C, std=0.1), x, None)]
+    fc2 = h Wfc2 + b + x (4C -> C). Or `cases`, (name, a, w, bias, resid,
+    act) each, such as `rank_gemm_cases`'; `timed` False: no times."""
+    if cases is None:
+        F4, cases = 4 * C, []
+        for N in (B, 2 * B, B * P):
+            M = N * 256
+            a, x = inp.normal(M, C), inp.normal(M, C)
+            cases += [("qkv", a, inp.normal(C, 3 * C, std=0.05),
+                       inp.normal(3 * C, std=0.1), None, None),
+                      ("proj", a, inp.normal(C, C, std=0.05),
+                       inp.normal(C, std=0.1), x, None)]
+        for M in (B * 256, 2 * B * 256):
+            a, x, h = inp.normal(M, C), inp.normal(M, C), inp.normal(M, F4)
+            w1, b1 = inp.normal(C, F4, std=0.05), inp.normal(F4, std=0.1)
+            cases += [("fc1[tanh]", a, w1, b1, None, "tanh"),
+                      ("fc1[erf]", a, w1, b1, None, "erf"),
+                      ("fc2", h, inp.normal(F4, C, std=0.05),
+                       inp.normal(C, std=0.1), x, None)]
     out = {}
     for name, a, w, bias, resid, act in cases:
         M, K = a.shape
@@ -1106,6 +1121,10 @@ def check_gemm_sm90(inp, C):
         err = compare(f"gemm_sm90 {name} rows={M}",
                       sb.gemm_sm90(a, w, bias, resid, act),
                       sb.gemm_sm90_plain(a, w, bias, resid, act), 3e-2, 3e-2)
+        if not timed:
+            out[f"{name}[rows={M}]"] = dict(max_abs_err=err,
+                                            shape=[M, n_out, K])
+            continue
         flops = 2 * M * K * n_out
         bms, by = bound(nbytes(a, w, bias, resid) + M * n_out * 2,
                         tensor_flops=flops)
@@ -1685,7 +1704,7 @@ def check_mlp_train_block(inp, C, ln=True, timed=True):
     return out
 
 
-def check_gemm90_train(inp, C):
+def check_gemm90_train(inp, C, cases=None, timed=True):
     """The training forms of csrc/gemm_sm90.cuh alone, at the train blocks'
     products (the pre-LN train step's 32768 rows). K13's (C -> 4C and
     back): fc1 = GELU(xn Wfc1 + b) (nn, erf with and without the
@@ -1698,7 +1717,45 @@ def check_gemm90_train(inp, C):
     dout (nt), dWproj = o^T dout and dWqkv = xn^T dqkv (tn). Each against
     `gemm90_plain` (bf16 outputs atol = rtol = 3e-2; fp32 outputs by the
     gradient gates), by device time and TFLOP/s beside `torch.matmul` of
-    the same operands (timed only)."""
+    the same operands (timed only). Or `cases`, (name, a, b, keywords)
+    each, such as `rank_gemm_cases`'; `timed` False: no times."""
+    if cases is None:
+        cases = gemm90_train_cases(inp, C)
+    out = {}
+    for name, a, b, kw in cases:
+        form = kw.get("form", "nn")
+        got = tk.gemm90(a, b, **kw)
+        want = tk.gemm90_plain(a, b, **kw)
+        got, want = ((got, want) if kw.get("pre_out")
+                     else ((got,), (want,)))
+        err = 0.0
+        for i, (gv, wv) in enumerate(zip(got, want)):
+            tag = f"gemm90 {name}" + (" pre" if i else "")
+            err = max(err, grad_errors(tag, gv, wv)["max_abs_err"]
+                      if gv.dtype == torch.float32
+                      else compare(tag, gv, wv, 3e-2, 3e-2))
+        M, N = got[0].shape
+        K = a.shape[0] if form == "tn" else a.shape[1]
+        if not timed:
+            out[name] = dict(max_abs_err=err, shape=[M, N, K])
+            continue
+        flops = 2 * M * N * K
+        bms, by = bound(nbytes(a, b, *(v for v in kw.values()
+                                      if isinstance(v, torch.Tensor)),
+                               *got), tensor_flops=flops)
+        dev = device_ms(lambda: tk.gemm90(a, b, **kw))
+        lhs = a.t() if form == "tn" else a
+        rhs = b.t() if form == "nt" else b
+        r = dict(max_abs_err=err, shape=[M, N, K], bound_ms=bms, bound_by=by,
+                 device_ms=dev, tflops=tflops(flops, dev),
+                 library_device_ms=device_ms(lambda: torch.matmul(lhs, rhs)))
+        out[name] = r
+    return {"gemm90_train": out}
+
+
+def gemm90_train_cases(inp, C):
+    """The train blocks' products at the pre-LN train step's 32768 rows
+    (`check_gemm90_train`'s own cases): (name, a, b, keywords) each."""
     R, F4 = TB * 16 * 256, 4 * C
     xn, x, dout = inp.normal(R, C), inp.normal(R, C), inp.normal(R, C)
     h, g, d_h = inp.normal(R, F4), inp.normal(R, F4), inp.normal(R, F4)
@@ -1728,33 +1785,7 @@ def check_gemm90_train(inp, C):
         ("dWproj", o, dout, dict(form="tn")),
         ("dWqkv", xn, dqkv, dict(form="tn")),
     ]
-    out = {}
-    for name, a, b, kw in cases:
-        form = kw.get("form", "nn")
-        got = tk.gemm90(a, b, **kw)
-        want = tk.gemm90_plain(a, b, **kw)
-        got, want = ((got, want) if kw.get("pre_out")
-                     else ((got,), (want,)))
-        err = 0.0
-        for i, (gv, wv) in enumerate(zip(got, want)):
-            tag = f"gemm90 {name}" + (" pre" if i else "")
-            err = max(err, grad_errors(tag, gv, wv)["max_abs_err"]
-                      if gv.dtype == torch.float32
-                      else compare(tag, gv, wv, 3e-2, 3e-2))
-        M, N = got[0].shape
-        K = a.shape[0] if form == "tn" else a.shape[1]
-        flops = 2 * M * N * K
-        bms, by = bound(nbytes(a, b, *(v for v in kw.values()
-                                      if isinstance(v, torch.Tensor)),
-                               *got), tensor_flops=flops)
-        dev = device_ms(lambda: tk.gemm90(a, b, **kw))
-        lhs = a.t() if form == "tn" else a
-        rhs = b.t() if form == "nt" else b
-        r = dict(max_abs_err=err, shape=[M, N, K], bound_ms=bms, bound_by=by,
-                 device_ms=dev, tflops=tflops(flops, dev),
-                 library_device_ms=device_ms(lambda: torch.matmul(lhs, rhs)))
-        out[name] = r
-    return {"gemm90_train": out}
+    return cases
 
 
 def check_temporal_attention_bwd(inp, C, H, T=16, Bt=TB, timed=True):
@@ -4359,8 +4390,16 @@ TP_LAYERS, TP_ROWS_ROLLOUT, TP_NEW = 8, 16, 2
 # is at most 1), so that the first update is a smooth function of the
 # gradient: with 1e-8 it is the sign of each element, and an element near 0
 # that two bf16 paths round apart flips (a LayerNorm weight's update then
-# parts by 0.29 relative L2 at a loss equal to 1e-7, measured on one H100)
-TP_OPT = dict(learning_rate=TRAIN_LR, max_grad_norm=1.0, eps=1.0)
+# parts by 0.29 relative L2 at a loss equal to 1e-7, measured on one H100).
+# The step 0.1, so that the update (about lr g) is representable in the
+# fp32 weights it moves: at TRAIN_LR (1e-5) 88-94% of its elements lay
+# below half an ulp of their weight and rounded to exactly 0 (13.7 / 8.6 /
+# 11.0 / 2.5% at 0.1: GENIE_35M pre-LN / qk_norm, GENIE_138M pre-LN /
+# qk_norm; `chip_variants.py tp_steps` on one H100), and the per-parameter
+# gates compared which few elements crossed that threshold (ROADMAP C9).
+# Still a small step: the update's norm is at most 0.1.
+TP_LR = 0.1
+TP_OPT = dict(learning_rate=TP_LR, max_grad_norm=1.0, eps=1.0)
 # launches per layer and rank in one TP step: the spatial sub-layer
 # launches K9 forward and again in its backward (the recompute), with K10;
 # the temporal one K4 forward and K6 backward. Under qk_norm (remat
@@ -4391,10 +4430,22 @@ TP_ARCHS = ("pre_ln", "qk_norm")
 # the TP phase's model groups: GENIE_138M over 2 ranks (8 heads and 256
 # columns a rank), GENIE_35M over 4 (2 heads and 64 columns a rank: K4's
 # and K6's head groups of 2), GENIE_138M-h64 and -h128 over 2 (4 heads of
-# 64 and 2 of 128 a rank), each at TP_LAYERS layers
+# 64 and 2 of 128 a rank); one head a rank: GENIE_138M-h128 over 4 (one
+# head of 128, 384 qkv columns and 128 proj rows a rank) and GENIE_35M over
+# 8 (one head of 32, 96 qkv columns and 32 proj rows a rank: K4's and K6's
+# head groups of 1, the GEMM's tiles overhanging N and K); each at
+# TP_LAYERS layers
 TP_SETUPS = (("genie_138m", genie_138m, 2), ("genie_35m", genie_35m, 4),
              ("genie_138m_h64", genie_138m_h64, 2),
-             ("genie_138m_h128", genie_138m_h128, 2))
+             ("genie_138m_h128", genie_138m_h128, 2),
+             ("genie_138m_h128", genie_138m_h128, 4),
+             ("genie_35m", genie_35m, 8))
+# K4's and K6's head groups of 1: (C, heads) one head of each width and
+# three heads of 32 and of 128, each at T = 8, 16 and 32; timed at the
+# train step of a GENIE_35M tp = 8 rank and of a GENIE_138M-h128 tp = 4
+# rank
+ONE_HEAD_FORMS = ((32, 1), (128, 1), (64, 1), (96, 3), (384, 3))
+ONE_HEAD_TIMED = ((32, 1), (128, 1))
 # the gradient norm a rank's optimizer reads against one process's norm of
 # the same gradients (`watch_norm`): the two sum the same squares in fp32
 # in another order (0 to 1e-7 apart on an H100). Leaving the split
@@ -4408,7 +4459,10 @@ def tp_inputs(device, make=genie_138m, tp=2):
     """What every rank and the one-process run start from: the model
     group's size `tp`; per model (TP_LAYERS layers of `make`'s config,
     pre-LN and qk_norm) its config, seeded weights, a batch of TB and its
-    corruption draws; and a rollout prompt."""
+    corruption draws, the optimizer's settings (TP_OPT, carried in the
+    inputs because each rank is a process of its own that would otherwise
+    read its own module's: `chip_variants.py tp_steps` sets another step);
+    and a rollout prompt."""
     out = {"tp": tp}
     for i, arch in enumerate(TP_ARCHS):
         cfg = make(num_layers=TP_LAYERS, qk_norm=arch == "qk_norm")
@@ -4422,7 +4476,8 @@ def tp_inputs(device, make=genie_138m, tp=2):
         out[arch] = dict(cfg=cfg, tokens=tokens.cpu(),
                          init={k: v.cpu() for k, v in
                                model.state_dict().items()},
-                         noise={k: v.cpu() for k, v in noise.items()})
+                         noise={k: v.cpu() for k, v in noise.items()},
+                         opt=dict(TP_OPT))
         del model
     cfg = out["pre_ln"]["cfg"]
     side = cfg.latent_side_len
@@ -4451,7 +4506,7 @@ def tp_update(arch, inp, device, tp=1, oracle=None, fsdp=False):
                                   if oracle == "fp32" else cfg.dtype)
     m = STMaskGIT(cfg, device=device)
     m.load_state_dict(inp["init"])
-    state = TrainState(0, m, TrainOptimizer(m, cfg, **TP_OPT),
+    state = TrainState(0, m, TrainOptimizer(m, cfg, **inp["opt"]),
                        torch.Generator(device=device).manual_seed(5))
     if tp > 1:
         state = shard_train_state(state, device, fsdp=fsdp, tp=tp)
@@ -4621,31 +4676,132 @@ def tp_rank(rank: int, port: int, tmp: str, device: str) -> int:
     init_distributed(str(device), f"tcp://localhost:{port}", inputs["tp"],
                      rank, backend="gloo")
     try:
-        res = {}
+        res, walls = {}, {}
         for arch in TP_ARCHS:
+            t0 = time.perf_counter()
             metrics, launches, whole, state = tp_update(
                 arch, inputs[arch], device, tp=inputs["tp"])
             res[arch] = dict(metrics=metrics, launches=launches,
                              params=whole)
             mesh = mesh_of(state.model)
             del state
+            walls[arch] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         res["sub_layers"] = tp_sub_layers(inputs["pre_ln"]["cfg"], mesh,
                                           device)
+        walls["sub_layers"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         res["rollouts"] = tp_rollouts(inputs["pre_ln"]["init"],
                                       inputs["pre_ln"]["cfg"],
                                       inputs["prompt"], device, mesh)
+        walls["rollouts"] = time.perf_counter() - t0
+        res["walls_s"] = walls
         torch.save(res, Path(tmp) / f"rank{rank}.pt")
     finally:
         torch.distributed.destroy_process_group()
     return 0
 
 
+def setup_key(name, tp):
+    """The TP phase's key of one of TP_SETUPS."""
+    return f"{name}_tp{tp}"
+
+
+def check_head_groups_of_one(device):
+    """K4 and K6 at their head groups of 1 (an odd number of heads) against
+    their plain versions by the gates of their other forms: the output, dq,
+    dk and dv, causal and not, and the o that K6 writes equal to K4's output
+    bit for bit, at (TB, T, 256, C) for each (C, heads) of ONE_HEAD_FORMS
+    and T = 8, 16 and 32 (the 32-frame form too); the forms of
+    ONE_HEAD_TIMED at T = 16 with their event and device times, bounds and
+    the plain versions' and SDPA's times. Keyed "c{C}h{heads}", then as
+    `temporal_case` and `check_temporal_attention_bwd` key them."""
+    inp = Inputs(44, device)
+    out = {}
+    for C, H in ONE_HEAD_FORMS:
+        r = {}
+        for T in (8, 16, 32):
+            timed = T == 16 and (C, H) in ONE_HEAD_TIMED
+            for causal in (True, False):
+                tag = f"[T={T}" + ("]" if causal else ",non-causal]")
+                r["temporal_attention" + tag] = temporal_case(
+                    inp, C, H, tag, TB, T, causal, timed=timed)
+            r.update(check_temporal_attention_bwd(inp, C, H, T=T,
+                                                  timed=timed))
+        out[f"c{C}h{H}"] = r
+    return out
+
+
+def rank_gemm_cases(inp, C=256, tp=8):
+    """A GENIE_35M tp = 8 rank's products (one head of 32: qkv 96 columns,
+    proj 32 rows; N and K below 64) at the train step's 32768 rows:
+    (serving, training). The serving chain (`gemm_sm90`, the TP spatial
+    forward's qkv and K11's recompute), (name, a, w, bias, resid, act): qkv
+    with and without its bias, proj with bias and residual, a 32-column
+    product with bias and either GELU (and the residual). The training
+    forms (`gemm90`), (name, a, b, keywords): qkv (nn, bias; K12's), dh (nn:
+    the op-by-op row-parallel backward's), proj (nn, bias, residual), the
+    proj partial (nt, fp32: the TP forwards' and the row-parallel product),
+    d_o (nt), d_xn (nt, fp32) and dx (nt, residual) through qkv's 96
+    columns, a GELU with its pre-activation and the GELU' epilogue at 96
+    columns, and the weight gradients (tn): dWproj (32 x 256), dWqkv (256 x
+    96), the column-parallel dw (96 x 256) and the row-parallel one (256 x
+    32)."""
+    R, c = TB * 16 * 256, 3 * C // tp  # rows; a rank's qkv columns
+    h = C // tp  # its proj rows: one head
+    xn, x, dout = inp.normal(R, C), inp.normal(R, C), inp.normal(R, C)
+    o, dqkv = inp.normal(R, h), inp.normal(R, c)
+    wqkv, wproj = inp.normal(C, c, std=0.05), inp.normal(h, C, std=0.05)
+    bqkv, bproj = inp.normal(c, std=0.1), inp.normal(C, std=0.1)
+    w_small, b_small = inp.normal(c, h, std=0.05), inp.normal(h, std=0.1)
+    r_small = inp.normal(R, h)
+    serving = [("qkv", xn, wqkv, bqkv, None, None),
+               ("qkv[no bias]", xn, wqkv, None, None, None),
+               ("proj", o, wproj, bproj, x, None),
+               ("small[tanh]", dqkv, w_small, b_small, None, "tanh"),
+               ("small[erf,resid]", dqkv, w_small, b_small, r_small, "erf")]
+    training = [
+        ("qkv", xn, wqkv, dict(bias=bqkv)),
+        ("dh", dout, wproj.t().contiguous(), dict()),
+        ("proj", o, wproj, dict(bias=bproj, resid=x)),
+        ("proj partial", o, wproj.t().contiguous(),
+         dict(form="nt", fp32_out=True)),
+        ("d_o", dout, wproj, dict(form="nt")),
+        ("d_xn[qkv]", dqkv, wqkv, dict(form="nt", fp32_out=True)),
+        ("dx[qkv]", dqkv, wqkv, dict(form="nt", resid=dout)),
+        ("gelu[erf,pre]", x, wqkv, dict(bias=bqkv, act="gelu_erf",
+                                        pre_out=True)),
+        ("dgelu[tanh]", dout, wqkv.t().contiguous(),
+         dict(form="nt", aux=dqkv, act="dgelu_tanh")),
+        ("dWproj", o, dout, dict(form="tn")),
+        ("dWqkv", xn, dqkv, dict(form="tn")),
+        ("dw[column]", dqkv, xn, dict(form="tn")),
+        ("dw[row]", dout, o, dict(form="tn")),
+    ]
+    return serving, training
+
+
+def check_rank_gemms(inp, C=256, tp=8):
+    """The GEMM of csrc/gemm_sm90.cuh at a GENIE_35M tp = 8 rank's products
+    (`rank_gemm_cases`: N and K below 64, the last tile overhanging), through
+    `check_gemm_sm90` and `check_gemm90_train` (their gates: bf16 outputs
+    atol = rtol = 3e-2, fp32 outputs the gradient gates), untimed
+    (`chip_variants.py ab_times one_head` times them)."""
+    serving, training = rank_gemm_cases(inp, C, tp)
+    return {"gemm_sm90": check_gemm_sm90(inp, C, serving, timed=False),
+            **check_gemm90_train(inp, C, training, timed=False)}
+
+
 def check_tensor_parallel(device):
     """Tensor parallelism (`parallel/tensor.py`) on the one card: K4 and K6
     at C = 128 (4 heads, their head groups of 4) and C = 64 (2 heads, head
-    groups of 2) against their plain versions; then for each of TP_SETUPS
-    (GENIE_138M over tp = 2 ranks, GENIE_35M over tp = 4) tp child
-    processes, all on this card, joined over gloo as one model group (dp =
+    groups of 2) against their plain versions, and at their head groups of 1
+    (`check_head_groups_of_one`); the GEMM at a GENIE_35M tp = 8 rank's
+    products, N and K below 64 (`check_rank_gemms`); then for each of
+    TP_SETUPS (GENIE_138M over tp = 2 ranks, GENIE_35M over tp = 4 and 8,
+    GENIE_138M-h64 over 2, -h128 over 2 and 4) tp child
+    processes (the setups in waves, `tp_waves`), all on this card, each
+    setup's joined over gloo as one model group (dp =
     1; NCCL refuses two ranks on one device): each splits the model at
     TP_LAYERS layers, pre-LN and qk_norm, and takes one update with exact
     launch counts per rank, held by `tp_compare` to this process's update
@@ -4660,28 +4816,76 @@ def check_tensor_parallel(device):
         **check_temporal_attention_bwd(Inputs(41, device), 128, 4)},
         "c64": {
         **check_temporal_attention(Inputs(42, device), 64, 2),
-        **check_temporal_attention_bwd(Inputs(43, device), 64, 2)}}
-    for name, make, tp in TP_SETUPS:
-        out[name] = tp_setup(name, make, tp, device)
+        **check_temporal_attention_bwd(Inputs(43, device), 64, 2)},
+        "one_head": check_head_groups_of_one(device),
+        "rank_gemms": check_rank_gemms(Inputs(45, device))}
+    print("K4/K6 head groups of 1 and the GEMM at a tp = 8 rank's products: "
+          + json.dumps(vet({k: out[k] for k in ("one_head", "rank_gemms")})),
+          flush=True)
+    for wave in tp_waves():
+        started = []
+        try:
+            for setup in wave:
+                started.append(tp_start(*setup, device))
+            for one in started:
+                out[setup_key(one["name"], one["tp"])] = tp_finish(one)
+        finally:  # a failed setup leaves no process of its wave behind
+            for one in started:
+                stop_children(one["run"])
+    return out
+
+
+def tp_start(name, make, tp, device):
+    """One of TP_SETUPS begun: `make`'s inputs and this process's
+    references (`tp_references`), then its `tp` child processes
+    (`--tp-rank`) started on this card; `tp_finish` holds them."""
+    t0 = time.perf_counter()
+    inputs = tp_inputs(device, make, tp)
+    refs, rollouts = tp_references(inputs, device)
+    refs_wall = time.perf_counter() - t0
+    run = start_children(inputs, tp, lambda r, port, tmp: [
+        str(Path(__file__).resolve()), "--tp-rank", str(r), str(port), tmp,
+        str(device)])
+    return dict(name=name, tp=tp, inputs=inputs, refs=refs,
+                rollouts=rollouts, t0=t0, refs_wall=refs_wall, run=run)
+
+
+def tp_finish(started):
+    """The ranks of a `tp_start` waited for and held by `tp_compare`;
+    prints the setup's line."""
+    ranks, wall = finish_children(started["run"])
+    # the references' wall, each rank's walls of its parts
+    out = dict(tp=started["tp"], ranks_wall_s=wall,
+               references_wall_s=started["refs_wall"],
+               rank_walls_s=[r.get("walls_s") for r in ranks],
+               **tp_compare(started["inputs"], started["refs"], ranks,
+                            started["rollouts"]))
+    out["setup_wall_s"] = time.perf_counter() - started["t0"]
+    print(f"tensor parallelism {started['name']}, tp={started['tp']}: "
+          + json.dumps(tp_summary(out)), flush=True)
     return out
 
 
 def tp_setup(name, make, tp, device):
-    """One of TP_SETUPS: `make`'s models split over `tp` child processes
-    (`--tp-rank`) on this card, held by `tp_compare`; prints its line."""
-    t0 = time.perf_counter()
-    inputs = tp_inputs(device, make, tp)
-    refs, rollouts = tp_references(inputs, device)
-    ranks, wall = tp_children(
-        inputs, tp, lambda r, port, tmp: [
-            str(Path(__file__).resolve()), "--tp-rank", str(r), str(port),
-            tmp, str(device)])
-    out = dict(tp=tp, ranks_wall_s=wall,
-               **tp_compare(inputs, refs, ranks, rollouts))
-    out["setup_wall_s"] = time.perf_counter() - t0
-    print(f"tensor parallelism {name}, tp={tp}: " + json.dumps(
-        tp_summary(out)), flush=True)
-    return out
+    """One of TP_SETUPS alone: `make`'s models split over `tp` child
+    processes on this card, held by `tp_compare`; prints its line."""
+    return tp_finish(tp_start(name, make, tp, device))
+
+
+def tp_waves():
+    """TP_SETUPS in order, cut into waves whose rank processes run at the
+    same time, at most one a core of the host: the ranks wait mostly
+    on the host (gloo's all-reduces through it, their start), and one
+    setup alone leaves most cores idle."""
+    cores = len(os.sched_getaffinity(0))
+    waves, used = [], cores
+    for setup in TP_SETUPS:
+        if used + setup[2] > cores:
+            waves.append([])
+            used = 0
+        waves[-1].append(setup)
+        used += setup[2]
+    return waves
 
 
 def tp_references(inputs, device):
@@ -4704,36 +4908,52 @@ def tp_references(inputs, device):
     return refs, rollouts
 
 
-def tp_children(inputs, n, argv, env=None):
+def start_children(inputs, n, argv, env=None):
     """Start `n` rank processes (`argv(rank, port, dir)`, the arguments
     after the interpreter; `env(rank)` their environment) on `inputs`
-    saved in a temporary directory, wait for them (600 s) and return
-    (each rank's results, the wall)."""
-    with tempfile.TemporaryDirectory() as tmp:
-        torch.save(inputs, Path(tmp) / "inputs.pt")
-        with socket.socket() as sock:
-            sock.bind(("localhost", 0))
-            port = sock.getsockname()[1]
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, *argv(r, port, tmp)],
-            env=None if env is None else env(r), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(n)]
-        logs = []
-        try:
-            for p in procs:
-                logs.append(p.communicate(timeout=600)[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        wall = time.perf_counter() - t0
-        for r, (p, log) in enumerate(zip(procs, logs)):
+    saved in a new temporary directory. Returns the run, which
+    `finish_children` waits for and `stop_children` ends."""
+    tmp = tempfile.mkdtemp()
+    torch.save(inputs, Path(tmp) / "inputs.pt")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, *argv(r, port, tmp)],
+        env=None if env is None else env(r), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    return dict(procs=procs, tmp=tmp, t0=time.perf_counter())
+
+
+def stop_children(run):
+    """Kill what is left of `run`'s processes and remove its directory."""
+    for p in run["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    shutil.rmtree(run["tmp"], ignore_errors=True)
+
+
+def finish_children(run):
+    """Wait for `run`'s processes (600 s each) and return (each rank's
+    results, the wall since they started); their directory goes."""
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in run["procs"]]
+        wall = time.perf_counter() - run["t0"]
+        for r, (p, log) in enumerate(zip(run["procs"], logs)):
             if p.returncode != 0:
                 raise AssertionError(f"TP rank {r} failed:\n{log[-6000:]}")
-        return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
-                for r in range(n)], wall
+        return [torch.load(Path(run["tmp"]) / f"rank{r}.pt",
+                           weights_only=False)
+                for r in range(len(run["procs"]))], wall
+    finally:
+        stop_children(run)
+
+
+def tp_children(inputs, n, argv, env=None):
+    """`start_children`, then `finish_children`: (each rank's results, the
+    wall)."""
+    return finish_children(start_children(inputs, n, argv, env))
 
 
 def tp_distance(a, b) -> float:
@@ -4785,10 +5005,15 @@ def tp_update_gates(init, got, ref):
     flat = (rel_l2(update(got), update(one)), rel_l2(update(got),
                                                      update(fp32)),
             rel_l2(update(one), update(fp32)))
+    # the share of the update's elements that are exactly 0 (below half an
+    # ulp of their fp32 weight, or with no gradient): what TP_LR keeps low
+    zero_share = {name: float((update(r) == 0).float().mean())
+                  for name, r in (("tp", got), ("one", one), ("fp32", fp32))}
     over = {k: d for k, d in per.items() if not d["tp_fp32"] <= d["envelope"]}
     gm, wm = got["metrics"], one["metrics"]
     res = dict(metrics=gm, one_process=wm, bf16=bf16["metrics"],
                fp32=fp32["metrics"], update_rel_l2=flat,
+               zero_share=zero_share,
                per_parameter_over=over,
                nearest_envelope=sorted(
                    per.items(), key=lambda kv: -kv[1]["tp_fp32"]
@@ -5133,19 +5358,21 @@ def main() -> int:
         tp = check_tensor_parallel(device)
         print(f"tensor parallelism phase: {time.perf_counter() - t0:.1f} s; "
               + "; ".join(
-                  f"{name} at {TP_LAYERS} layers, tp={tp[name]['tp']}, "
+                  f"{key} at {TP_LAYERS} layers, tp={tp[key]['tp']}, "
                   f"B={TB}: the ranks' processes "
-                  f"{tp[name]['ranks_wall_s']:.1f} s (ranks sharing one card "
+                  f"{tp[key]['ranks_wall_s']:.1f} s, the setup "
+                  f"{tp[key]['setup_wall_s']:.1f} s (ranks sharing one card "
                   f"over gloo, not a TP speed), update against one process, "
                   f"all parameters' rel L2 pre-LN "
-                  f"{tp[name]['pre_ln']['update_rel_l2'][0]:.3e}, qk_norm "
-                  f"{tp[name]['qk_norm']['update_rel_l2'][0]:.3e}, gradient "
+                  f"{tp[key]['pre_ln']['update_rel_l2'][0]:.3e}, qk_norm "
+                  f"{tp[key]['qk_norm']['update_rel_l2'][0]:.3e}, gradient "
                   f"norm against one process's of the same gradients "
-                  f"{tp[name]['pre_ln']['grad_norm_vs_whole']:.2e} / "
-                  f"{tp[name]['qk_norm']['grad_norm_vs_whole']:.2e}"
-                  for name, _, _ in TP_SETUPS)
+                  f"{tp[key]['pre_ln']['grad_norm_vs_whole']:.2e} / "
+                  f"{tp[key]['qk_norm']['grad_norm_vs_whole']:.2e}"
+                  for key in (setup_key(n, t) for n, _, t in TP_SETUPS))
               + f"; rollouts of {TP_ROWS_ROLLOUT} rows token-equal; K4/K6 "
-              f"at C=128 and C=64 held on {card}", flush=True)
+              f"at C=128 and C=64 and at head groups of 1 held, the GEMM at "
+              f"a tp=8 rank's products held on {card}", flush=True)
 
         line = []
         for name in SOURCES:
@@ -5277,9 +5504,10 @@ def main() -> int:
                        else "tp_spatial_train_block")
             if counter is not None:
                 item["tp_launches"] = {
-                    f"{setup}_tp{tp[setup]['tp']}": {
-                        arch: [n[counter] for n in tp[setup][arch]["launches"]]
-                        for arch in TP_ARCHS} for setup, _, _ in TP_SETUPS}
+                    key: {arch: [n[counter]
+                                 for n in tp[key][arch]["launches"]]
+                          for arch in TP_ARCHS}
+                    for key in (setup_key(n, t) for n, _, t in TP_SETUPS)}
             if name == "spatial_block":
                 item["tp_note"] = (
                     "not launched under tensor parallelism: a rank runs "
@@ -5293,6 +5521,24 @@ def main() -> int:
                     item[f"c{width}"] = {k: c[k] for k in (
                         "shape", "ms", "device_ms", "bound_ms", "bound_by",
                         "plain_ms", "library_ms", "max_abs_err")}
+                # their head groups of 1: each (C, heads) form's largest
+                # error over its windows and modes, and the timed forms'
+                # numbers at the train step (T = 16, causal)
+                item["one_head"] = {}
+                for form, r in tp["one_head"].items():
+                    mine = [v for k, v in r.items()
+                            if k.startswith(name + "[")]
+                    e = {"max_abs_err": max(v["max_abs_err"] for v in mine),
+                         "cases": len(mine)}
+                    C = int(form[1:form.index("h")])
+                    key = (f"{name}[T=16]" if name == "temporal_attention"
+                           else f"{name}[C={C}]")
+                    if "ms" in r[key]:
+                        e.update({k: r[key][k] for k in (
+                            "shape", "ms", "device_ms", "bound_ms",
+                            "bound_by", "plain_ms", "library_ms",
+                            "library_device_ms")})
+                    item["one_head"][form] = e
             if name + "[int8]" in results:  # the decode attention kernels
                 q8 = results[name + "[int8]"]
                 item.update(int8_ms=q8["ms"], int8_device_ms=q8["device_ms"],

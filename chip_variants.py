@@ -17,8 +17,9 @@
     python3 chip_variants.py cli
     python3 chip_variants.py cli_bare
     python3 chip_variants.py tp_cards   (needs four cards on one host)
-    python3 chip_variants.py tp_faults
+    python3 chip_variants.py tp_faults [pre_ln | qk_norm]
     python3 chip_variants.py tp_c9
+    python3 chip_variants.py tp_steps [SETUP]
     python3 chip_variants.py genie_35m
     python3 chip_variants.py mup
     python3 chip_variants.py h64_debug
@@ -30,10 +31,7 @@
     python3 chip_variants.py s1024
     python3 chip_variants.py s1024_times
     python3 chip_variants.py k12gate
-    python3 chip_variants.py ab_times
-    python3 chip_variants.py h32_times
-    python3 chip_variants.py h64_times
-    python3 chip_variants.py h128_times
+    python3 chip_variants.py ab_times [h32 | h64 | h128 | groups | one_head]
     python3 chip_variants.py c8
 
 Each LIB is a shared library built from a variant of a source in
@@ -171,10 +169,12 @@ in one process on one card; every time is the profiler's device time
   builds; no TP speed.
 - `tp_faults`: what the TP phase's update gates (`chip_smoke.tp_update_gates`
   and the ranks' parameters bit for bit) catch. For each of the TP phase's
-  setups (GENIE_138M over two ranks, GENIE_35M over four), the ranks on
-  this card over gloo take the update of each model once as the port is
-  and once under each planted fault of a reduction over the model group
-  (`TP_FAULTS`); prints, per setup, run and model, the gates that fail,
+  setups (`chip_smoke.TP_SETUPS`), the ranks on this card over gloo take
+  the update of each model, at the phase's step (`TP_LR`), once as the
+  port is and once under each planted fault of a reduction over the model
+  group (`TP_FAULTS`); with an architecture named, that model alone and
+  only the planted runs (every fault acts on the qk_norm model; the run
+  as the port is stands in `chip_smoke.py`'s TP phase); prints, per setup, run and model, the gates that fail,
   each rank's gradient norm against one process's of the same gradients,
   and the parameters past their envelopes (the distance beside the
   limit), and last a line with every parameter's distances and envelope.
@@ -186,6 +186,15 @@ in one process on one card; every time is the profiler's device time
   reference too); prints per setup and variant each kind's farthest
   distance from fp32, TP's beside one process's, and every spatial qkv
   weight's. No builds.
+- `tp_steps`: ROADMAP C9's cause. The TP phase's update gates at the
+  train phase's step (1e-5) and at the phase's own (`TP_LR`, 0.1) for
+  GENIE_35M at tp = 8 and 4 and GENIE_138M at tp = 2 (or the one setup
+  named by its key, such as `genie_35m_tp8`): the gates that fail, the
+  largest distances over their envelopes, the share of each update's
+  elements that are exactly 0 (below half an ulp of their fp32 weight),
+  and for the three farthest parameters the same distances over only the
+  elements whose update is nonzero in all four runs (TP, one process, the
+  plain bf16 path, fp32). No builds.
 - `genie_35m`: `chip_smoke.py`'s GENIE_35M phase alone (the rollout, the
   train step against the plain path, `score_policies`, the evaluator
   batch, the train CLI on configs/genie_35m.json and its resume, all at
@@ -217,11 +226,17 @@ in one process on one card; every time is the profiler's device time
   GENIE_138M's main-path shapes (16 heads) through this checkout's
   wrappers, one JSON line; run in a parent's copy and here in turns
   (parent, change, change, parent) to hold the head_dim-32 forms' times.
-  No builds. `h32_times` and `h64_times` are the same at 16 and at 8
-  heads (head_dim 32 and 64, the same bytes and operations at C = 512),
-  with K11, K12 and the SDPA calls beside K4, K6, K7, K8, K9 and K10: run
-  each in a process of its own for the two widths side by side;
-  `h128_times` the same at 4 heads (head_dim 128).
+  No builds. `ab_times CONFIG` takes one of `AB_CONFIGS`: `h32`, `h64`
+  and `h128` the same at 16, 8 and 4 heads (head_dim 32, 64 and 128, the
+  same bytes and operations at C = 512), with K11, K12 and the SDPA calls
+  beside K4, K6, K7, K8, K9 and K10 (run each in a process of its own for
+  the widths side by side); `groups` the head_dim-32 forms with K4 / K6
+  at head groups of 4 and 2, the serving GEMM chain alone and K13 beside
+  them; `one_head` the forms
+  one head a rank takes, with their bounds: K4 / K6 at head groups of 1,
+  the GEMM at a GENIE_35M tp = 8 rank's products, and each TP sub-layer's
+  launch sequence at the rank's shapes of GENIE_35M at tp = 8 and
+  GENIE_138M-h128 at tp = 4.
 - `s1024_debug`: the flash and spatial libraries' ptxas lines, then
   each spatial check of `chip_smoke.py` at GENIE_138M-S1024's grid
   (`S1024_DEBUG`: the S sweep of K9, K10, K1 and K11 at S = 64 to 4096,
@@ -1032,25 +1047,30 @@ def _plant(fault: str) -> None:
         optim.TrainOptimizer._agree = lambda self, local: None
 
 
-def tp_faults(dev):
+def tp_faults(dev, arch=None):
     """The TP phase's update gates against planted faults (`TP_FAULTS`):
-    for each of `chip_smoke.TP_SETUPS` (GENIE_138M over two ranks, GENIE_35M
-    over four) the ranks, on this card over gloo, take each model's update
-    as the port is, then under each fault; each run is held to this
-    process's references by `chip_smoke.tp_update_gates` (the gradient norm
-    read against one process's of the same gradients among them) and the
-    ranks' parameters to rank 0's bit for bit. Prints a line per setup, run
-    and model, then one with the per-parameter tables."""
+    for each of `chip_smoke.TP_SETUPS` the ranks, on this card over gloo,
+    take each model's update (at `TP_LR`) as the port is, then under each
+    fault; with `arch` ("pre_ln" or "qk_norm") that model's alone and only
+    under the faults. Each run is held to this process's references by
+    `chip_smoke.tp_update_gates` (the gradient norm read against one
+    process's of the same gradients among them) and the ranks' parameters
+    to rank 0's bit for bit. Prints a line per setup, run and model, then
+    one with the per-parameter tables."""
+    archs = cs.TP_ARCHS if arch is None else (arch,)
+    runs = ("none", *TP_FAULTS) if arch is None else tuple(TP_FAULTS)
     out = {}
-    for setup, make, tp in cs.TP_SETUPS:
+    # the largest model groups first: the one-head-a-rank setups
+    for setup, make, tp in sorted(cs.TP_SETUPS, key=lambda s: -s[2]):
         inputs = cs.tp_inputs(dev, make, tp)
+        inputs["archs"] = archs
         refs, _ = cs.tp_references(inputs, dev)
-        for fault in ("none", *TP_FAULTS):
+        for fault in runs:
             ranks, wall = cs.tp_children(
                 inputs, tp, lambda r, port, tmp: [
                     str(Path(__file__).resolve()), "tp_fault_rank", str(r),
                     str(port), tmp, str(dev), fault])
-            for arch in cs.TP_ARCHS:
+            for arch in archs:
                 init = inputs[arch]["init"]
                 res, failed = cs.tp_update_gates(init, ranks[0][arch],
                                                  refs[arch])
@@ -1059,7 +1079,8 @@ def tp_faults(dev):
                     if not torch.equal(v, ranks[0][arch]["params"][k]))
                 if apart:
                     failed.append(f"the ranks' parameters differ: {apart}")
-                out[f"{setup}/{fault}/{arch}"] = res["per_parameter"]
+                out[f"{cs.setup_key(setup, tp)}/{fault}/{arch}"] = res[
+                    "per_parameter"]
                 print(json.dumps(dict(
                     kernel="tp_faults", setup=setup, tp=tp, fault=fault,
                     arch=arch, what=TP_FAULTS.get(fault, "the port as it is"),
@@ -1123,6 +1144,59 @@ C9_VARIANTS = {
                   "by the plain attention under autograd, in the ranks and "
                   "in the one-process reference",
 }
+
+
+def tp_steps(dev, only=None):
+    """ROADMAP C9's cause: the TP phase's update gates at the train phase's
+    step (TRAIN_LR, 1e-5) and at the phase's own (TP_LR), for GENIE_35M at
+    tp = 8 and 4 and GENIE_138M at tp = 2 (or the setup whose key is
+    `only`) on this card: per setup, step and model the gates that fail,
+    the largest distance from fp32 over its envelope (three parameters),
+    the share of each update's elements that are exactly 0 (an update
+    below half an ulp of its fp32 weight), and for those three parameters
+    each run's distance from fp32 over only the elements whose update is
+    nonzero in the TP run, one process's, the plain bf16 path's and fp32's
+    (`masked`, with that share of the elements): a fault of the TP update
+    parts it there as well, a rounding to 0 does not. No builds."""
+    from tpu1x_torch.model_zoo import genie_35m
+    setups = (("genie_35m", genie_35m, 8), ("genie_35m", genie_35m, 4),
+              ("genie_138m", cs.genie_138m, 2))
+    setups = [s for s in setups
+              if only is None or cs.setup_key(s[0], s[2]) == only]
+    for lr in (cs.TRAIN_LR, cs.TP_LR):
+        cs.TP_OPT = dict(cs.TP_OPT, learning_rate=lr)
+        for name, make, tp in setups:
+            inputs = cs.tp_inputs(dev, make, tp)
+            refs, _ = cs.tp_references(inputs, dev)
+            ranks, wall = cs.tp_children(inputs, tp, lambda r, port, tmp: [
+                str(Path(cs.__file__).resolve()), "--tp-rank", str(r),
+                str(port), tmp, str(dev)])
+            for arch in cs.TP_ARCHS:
+                init = inputs[arch]["init"]
+                res, failed = cs.tp_update_gates(init, ranks[0][arch],
+                                                 refs[arch])
+                worst = sorted(((d["tp_fp32"] / d["envelope"], k) for k, d
+                                in res["per_parameter"].items()),
+                               reverse=True)[:3]
+                runs = dict(tp=ranks[0][arch], **refs[arch])
+                masked = {}
+                for _, k in worst:
+                    u = {n: r["params"][k] - init[k].float()
+                         for n, r in runs.items()}
+                    keep = torch.stack([v != 0 for v in u.values()]).all(0)
+                    masked[k] = dict(
+                        share=float(keep.float().mean()),
+                        **{f"{n}_fp32": cs.tp_distance(u[n][keep],
+                                                       u["fp32"][keep])
+                           for n in ("tp", "one", "bf16")})
+                print(json.dumps(dict(
+                    kernel="tp_steps", lr=lr,
+                    setup=cs.setup_key(name, tp), arch=arch,
+                    failed=[f[:300] for f in failed],
+                    update_rel_l2=res["update_rel_l2"], worst=worst,
+                    masked=masked, zero_share=res["zero_share"],
+                    wall_s=wall)), flush=True)
+    cs.TP_OPT = dict(cs.TP_OPT, learning_rate=cs.TP_LR)
 
 
 @contextlib.contextmanager
@@ -1634,10 +1708,26 @@ def h64_debug(dev, runs=((8, tuple(H64_DEBUG)), (16, tuple(H64_DEBUG)))):
             print(f"== {name} heads={heads} rc={rc}\n{text}", flush=True)
 
 
-def ab_times(dev, heads: int = 16, extra: bool = False, T: int = 16):
+# `ab_times CONFIG`: each configuration's keyword arguments of `ab_times`.
+# "h32", "h64", "h128": every attention form at 16, 8 or 4 heads of C =
+# 512 with K11, K12 and SDPA beside them; "groups": the head_dim-32 forms
+# with K4 and K6 at their head groups of 4 and 2 too, the serving GEMM
+# chain alone and K13 (what the head groups of 1 and the GEMM's
+# overhanging tiles must leave as fast as they were); "one_head": the
+# forms one head a rank takes (`one_head_times`), which a tree from before
+# them refuses
+AB_CONFIGS = {"h32": dict(heads=16, extra=True),
+              "h64": dict(heads=8, extra=True),
+              "h128": dict(heads=4, extra=True),
+              "groups": dict(heads=16, extra=True, groups=True),
+              "one_head": dict(one_head=True)}
+
+
+def ab_times(dev, heads: int = 16, extra: bool = False, T: int = 16,
+             groups: bool = False, one_head: bool = False):
     """Device ms (profiler) of every attention kernel form through this
     checkout's wrappers at GENIE_138M's main-path shapes (C = 512, `heads`
-    heads: 16 of 32 channels, or 8 of 64 for `h64_times`): K1 both modes at
+    heads: 16 of 32 channels, or 8 of 64 for `ab_times h64`): K1 both modes at
     N = 16 / 32 / 128, K2, K3, K4 (train, causal and not; prefill), K6
     (causal, with o, non-causal), K7 and K8 (bf16 and int8, chip_smoke.py's
     t_B), K9 and K10 (causal and not); with `extra` also K11's backward,
@@ -1645,8 +1735,16 @@ def ab_times(dev, heads: int = 16, extra: bool = False, T: int = 16):
     (bf16), K9 and K10 (SDPA, `library_device_ms`). With T = 32
     (`w32_times`, inside `chip_smoke.window_of`) the frame-axis forms take
     a 32-frame window: caches of 32 slots, the train step's 32 frames and
-    the evaluator prefill's for K4's "prefill". One JSON line; run in a
-    parent's copy and here in turns for an A/B. No builds."""
+    the evaluator prefill's for K4's "prefill". With `groups` also K4 and
+    K6 (train, causal and not, with o) at C = 128 (4 heads: head groups of
+    4) and C = 64 (2 heads: of 2), the serving GEMM (`gemm_sm90`) alone at
+    K1's qkv and proj (N = 16 / 32 / 128 frames of 256 tokens) and K2's /
+    K3's fc1 (tanh and erf GELU) and fc2 (4096 / 8192 rows), and K13's
+    forward and backward (erf, with LN). `one_head` times only
+    `one_head_times`. One JSON line; run in a parent's copy and here in
+    turns for an A/B. No builds."""
+    if one_head:
+        return one_head_times(dev)
     from tpu1x_torch.ops import attention as attn
     from tpu1x_torch.ops import decode_attention as da
     from tpu1x_torch.ops import temporal_attention as ta
@@ -1784,6 +1882,197 @@ def ab_times(dev, heads: int = 16, extra: bool = False, T: int = 16):
         times["K12[bwd]"] = cs.device_ms(lambda: ttb.temporal_train_block_bwd(
             x, dout, wqkv, wproj, None, proj_bias=True, **kw))
         print(json.dumps({"library_device_ms": library}), flush=True)
+    if groups:
+        del x, dout
+        torch.cuda.empty_cache()
+        times.update(group_times(dev))
+    print(json.dumps({"ab_device_ms": times}), flush=True)
+
+
+def group_times(dev):
+    """`ab_times`' `groups` part: device ms of K4 and K6 at their head
+    groups of 4 and 2, the serving GEMM chain alone, and K13."""
+    from tpu1x_torch.ops import mlp_train_block as mtb
+    from tpu1x_torch.ops import temporal_attention as ta
+    inp = cs.Inputs(1, dev)
+    times = {}
+    for C in (128, 64):
+        kw = dict(scale=32 ** -0.5, num_heads=C // 32)
+        q, k, v = inp.normal(cs.TB, 16, 256, 3 * C).split(C, dim=-1)
+        dout = inp.normal(cs.TB, 16, 256, C)
+        o = torch.empty_like(dout)
+        for causal in (True, False):
+            tag = f"[C={C}" + ("]" if causal else ",non-causal]")
+            times["K4" + tag] = cs.device_ms(
+                lambda: ta.launch_forward(q, k, v, causal=causal, **kw))
+            times["K6" + tag] = cs.device_ms(
+                lambda: ta.launch_backward(q, k, v, dout, causal=causal,
+                                           **kw))
+        times[f"K6[C={C},o]"] = cs.device_ms(
+            lambda: ta.launch_backward(q, k, v, dout, causal=True, o=o, **kw))
+    C, F4 = 512, 2048
+    for n in (cs.B, 2 * cs.B, cs.B * cs.P):
+        a, x = inp.normal(n * 256, C), inp.normal(n * 256, C)
+        w, bias = inp.normal(C, 3 * C, std=0.05), inp.normal(3 * C, std=0.1)
+        times[f"gemm_sm90 qkv[rows={n * 256}]"] = cs.device_ms(
+            lambda: sb.gemm_sm90(a, w, bias))
+        w, bias = inp.normal(C, C, std=0.05), inp.normal(C, std=0.1)
+        times[f"gemm_sm90 proj[rows={n * 256}]"] = cs.device_ms(
+            lambda: sb.gemm_sm90(a, w, bias, x))
+    for M in (cs.B * 256, 2 * cs.B * 256):
+        a, x, h = inp.normal(M, C), inp.normal(M, C), inp.normal(M, F4)
+        w1, b1 = inp.normal(C, F4, std=0.05), inp.normal(F4, std=0.1)
+        w2, b2 = inp.normal(F4, C, std=0.05), inp.normal(C, std=0.1)
+        for act in ("tanh", "erf"):
+            times[f"gemm_sm90 fc1[{act},rows={M}]"] = cs.device_ms(
+                lambda: sb.gemm_sm90(a, w1, b1, None, act))
+        times[f"gemm_sm90 fc2[rows={M}]"] = cs.device_ms(
+            lambda: sb.gemm_sm90(h, w2, b2, x))
+    del a, x, h
+    w = cs.block_weights(inp, C)
+    x, dout = inp.normal(cs.TB * 16, 256, C), inp.normal(cs.TB * 16, 256, C)
+    times["K13"] = cs.device_ms(lambda: mtb.mlp_train_block_fwd(
+        x, w["wfc1"], w["wfc2"], w["bfc1"], w["bfc2"], w["ln_scale"],
+        w["ln_bias"], gelu_approx=False))
+    times["K13[bwd]"] = cs.device_ms(lambda: mtb.mlp_train_block_bwd(
+        x, dout, w["wfc1"], w["wfc2"], w["bfc1"], w["ln_scale"],
+        w["ln_bias"], gelu_approx=False, bias=True))
+    return times
+
+
+# one head a rank: (label, C, heads, tp) of GENIE_35M over 8 ranks and
+# GENIE_138M-h128 over 4
+ONE_HEAD_RANKS = (("genie_35m_tp8", 256, 8, 8),
+                  ("genie_138m_h128_tp4", 512, 4, 4))
+
+
+def one_head_times(dev):
+    """Device ms (profiler) and bound of the forms one head a rank takes, at
+    a rank's train step (B = 8, T = 16, S = 256) of GENIE_35M at tp = 8
+    (one head of 32) and of GENIE_138M-h128 at tp = 4 (one head of 128): K4
+    (causal and not) and K6 (causal, with o, non-causal) at head groups of
+    1, SDPA beside them; the GEMM at the tp = 8 rank's products
+    (`chip_smoke.rank_gemm_cases`, N and K below 64); and each TP
+    sub-layer's launch sequence at the rank's shapes, its one all-reduce
+    taken as the identity (`tk.through`): K11's backward
+    (`spatial_train_block_steps`) and the spatial forward's parts, K12's
+    forward and backward (`temporal_fwd`, `temporal_train_block_steps`)
+    and K13's (`mlp_fwd`, `mlp_train_block_steps`). One JSON line. No
+    builds."""
+    from tpu1x_torch.ops import mlp_train_block as mtb
+    from tpu1x_torch.ops import spatial_train_block as stb
+    from tpu1x_torch.ops import temporal_attention as ta
+    from tpu1x_torch.ops import temporal_train_block as ttb
+    from tpu1x_torch.parallel import tensor as tpl
+    inp = cs.Inputs(2, dev)
+    times, bounds, library = {}, {}, {}
+    S, T, Bt = 256, 16, cs.TB
+    R = Bt * T * S
+    pairs = T * (T + 1) // 2
+    for label, C, H, tp in ONE_HEAD_RANKS:
+        h, c, f = C // tp, 3 * C // tp, 4 * C // tp  # proj rows, qkv, MLP
+        D = C // H
+        q, k, v = inp.normal(Bt, T, S, 3 * h).split(h, dim=-1)
+        dout = inp.normal(Bt, T, S, h)
+        o = torch.empty_like(dout)
+        lq, lk, lv = (x.reshape(Bt, T, S, 1, D).permute(0, 2, 3, 1, 4)
+                      .detach().requires_grad_(True) for x in (q, k, v))
+        lout = torch.nn.functional.scaled_dot_product_attention(
+            lq, lk, lv, is_causal=True, scale=D ** -0.5)
+        for causal in (True, False):
+            kw = dict(scale=D ** -0.5, num_heads=1, causal=causal)
+            tag = f"[{label}" + ("]" if causal else ",non-causal]")
+            times["K4" + tag] = cs.device_ms(
+                lambda: ta.launch_forward(q, k, v, **kw))
+            bounds["K4" + tag] = cs.temporal_bound(
+                Bt, T, S, h, 4, pairs if causal else T * T, 2)[0]
+            times["K6" + tag] = cs.device_ms(
+                lambda: ta.launch_backward(q, k, v, dout, **kw))
+            bounds["K6" + tag] = cs.temporal_bound(
+                Bt, T, S, h, 7, pairs if causal else T * T, 5)[0]
+        kw = dict(scale=D ** -0.5, num_heads=1, causal=True)
+        times[f"K6[{label},o]"] = cs.device_ms(
+            lambda: ta.launch_backward(q, k, v, dout, o=o, **kw))
+        bounds[f"K6[{label},o]"] = cs.temporal_bound(Bt, T, S, h, 8, pairs,
+                                                     6)[0]
+        library[f"K4[{label}]"] = cs.device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                lq, lk, lv, is_causal=True, scale=D ** -0.5))
+        library[f"K6[{label}]"] = cs.device_ms(
+            lambda: torch.autograd.grad(
+                lout, (lq, lk, lv),
+                dout.reshape(Bt, T, S, 1, D).permute(0, 2, 3, 1, 4),
+                retain_graph=True))
+        del q, k, v, dout, o, lq, lk, lv, lout
+        # the sub-layers at the rank's shapes, weights in the (in, out)
+        # layout of the train blocks, proj's and fc2's as the TP forwards
+        # take them (out, in)
+        x, dx = inp.normal(Bt * T, S, C), inp.normal(Bt * T, S, C)
+        xt, dxt = x.view(Bt, T, S, C), dx.view(Bt, T, S, C)
+        wqkv, wproj = inp.normal(C, c, std=0.05), inp.normal(h, C, std=0.05)
+        wproj_nt = wproj.t().contiguous()
+        bqkv, bproj = inp.normal(c, std=0.1), inp.normal(C, std=0.1)
+        ln_s = inp.normal(C, std=0.1, mean=1.0, dtype=torch.float32)
+        ln_b = inp.normal(C, std=0.1, dtype=torch.float32)
+        wfc1, wfc2 = inp.normal(C, f, std=0.05), inp.normal(f, C, std=0.05)
+        wfc2_nt = wfc2.t().contiguous()
+        bfc1, bfc2 = inp.normal(f, std=0.1), inp.normal(C, std=0.1)
+        kw = dict(num_heads=1, scale=D ** -0.5)
+        calls = {
+            "K11[fwd parts]": lambda: tk.through(tpl.spatial_fwd(
+                x, wqkv, wproj_nt, bqkv, bproj, ln_s, ln_b, **kw)),
+            "K11": lambda: tk.through(stb.spatial_train_block_steps(
+                x, dx, wqkv, wproj, bqkv, ln_s, ln_b, proj_bias=True, **kw)),
+            "K12": lambda: tk.through(tpl.temporal_fwd(
+                xt, wqkv, wproj_nt, bqkv, bproj, **kw)),
+            "K12[bwd]": lambda: tk.through(ttb.temporal_train_block_steps(
+                xt, dxt, wqkv, wproj, bqkv, proj_bias=True, split=True,
+                **kw)),
+            "K13": lambda: tk.through(tpl.mlp_fwd(
+                x, wfc1, wfc2_nt, bfc1, bfc2, ln_s, ln_b, gelu_approx=False)),
+            "K13[bwd]": lambda: tk.through(mtb.mlp_train_block_steps(
+                x, dx, wfc1, wfc2, bfc1, ln_s, ln_b, gelu_approx=False,
+                bias=True, split=True))}
+        # tensor-core operations: the products of 2 R C x each (qkv c, proj
+        # or its gradients h, the MLP f) and the attentions' of 2 D a pair;
+        # bytes: x in and the fp32 partial out (forwards), or x, dout in and
+        # dx out (backwards), 6 R C either way, the weights not counted
+        attn_s, attn_t = 2 * R * h * S, 2 * Bt * S * h * pairs
+        flops = {"K11[fwd parts]": 2 * R * C * (c + h) + 2 * attn_s,
+                 "K11": 2 * R * C * (3 * c + 2 * h) + 6 * attn_s,
+                 "K12": 2 * R * C * (c + h) + 2 * attn_t,
+                 "K12[bwd]": 2 * R * C * (3 * c + 2 * h) + 6 * attn_t,
+                 "K13": 4 * R * C * f, "K13[bwd]": 10 * R * C * f}
+        for name, fn in calls.items():
+            key = f"{name}[{label}]"
+            times[key] = cs.device_ms(fn)
+            bounds[key] = cs.bound(6 * R * C, tensor_flops=flops[name])[0]
+        del x, dx, xt, dxt
+        torch.cuda.empty_cache()
+    serving, training = cs.rank_gemm_cases(inp)
+    for name, a, w, bias, resid, act in serving:
+        key = f"gemm_sm90 {name}[genie_35m_tp8]"
+        times[key] = cs.device_ms(lambda: sb.gemm_sm90(a, w, bias, resid,
+                                                       act))
+        M, K = a.shape
+        N = w.shape[1]
+        bounds[key] = cs.bound(cs.nbytes(a, w, bias, resid) + M * N * 2,
+                               tensor_flops=2 * M * N * K)[0]
+    for name, a, b, kw in training:
+        form = kw.get("form", "nn")
+        key = f"gemm90 {form} {name}[genie_35m_tp8]"
+        times[key] = cs.device_ms(lambda: tk.gemm90(a, b, **kw))
+        K = a.shape[0] if form == "tn" else a.shape[1]
+        M = a.shape[1] if form == "tn" else a.shape[0]
+        N = b.shape[0] if form == "nt" else b.shape[1]
+        out_bytes = M * N * (4 if form == "tn" or kw.get("fp32_out") else 2)
+        bounds[key] = cs.bound(
+            cs.nbytes(a, b, *(v for v in kw.values()
+                              if isinstance(v, torch.Tensor))) + out_bytes
+            * (2 if kw.get("pre_out") else 1),
+            tensor_flops=2 * M * N * K)[0]
+    print(json.dumps({"library_device_ms": library}), flush=True)
+    print(json.dumps({"bound_ms": bounds}), flush=True)
     print(json.dumps({"ab_device_ms": times}), flush=True)
 
 
@@ -1888,18 +2177,16 @@ MODES = {"block": block, "mlp": mlp, "train": train, "temporal": temporal,
          "cli_bare": functools.partial(cli_after_evaluation,
                                        tokenizer=False),
          "tp_cards": tp_cards, "tp_faults": tp_faults, "tp_c9": tp_c9,
+         "tp_steps": tp_steps,
          "genie_35m": genie_35m, "mup": mup, "h64_debug": h64_debug,
          "h128": h128,
          "ab_times": ab_times, "c8": c8, "w32_debug": w32_debug,
          "k12gate": k12gate, "w32_times": w32_times,
          "s1024_debug": s1024_debug, "s1024": s1024,
          "s1024_times": s1024_times,
-         "h32_times": functools.partial(ab_times, heads=16, extra=True),
-         "h64_times": functools.partial(ab_times, heads=8, extra=True),
          "h128_debug": functools.partial(
              h64_debug, runs=((4, tuple(H64_DEBUG)), (8, H128_DEBUG_NARROW),
-                              (16, H128_DEBUG_NARROW))),
-         "h128_times": functools.partial(ab_times, heads=4, extra=True)}
+                              (16, H128_DEBUG_NARROW)))}
 # mode: (the source its builds are variants of, the timing)
 VARIANTS = {"flash": ("flash_attention", flash),
             "gemm": ("spatial_block", gemm), "tn": ("train_block", tn),
@@ -1917,6 +2204,20 @@ def main() -> int:
         return w32_one(sys.argv[2])
     if sys.argv[1:2] == ["s1024_one"]:
         return s1024_one(sys.argv[2])
+    if sys.argv[1:2] == ["ab_times"] and len(sys.argv) == 3:
+        if not torch.cuda.is_available() or sys.argv[2] not in AB_CONFIGS:
+            print(__doc__, file=sys.stderr)
+            return 2
+        ab_times(torch.device("cuda"), **AB_CONFIGS[sys.argv[2]])
+        print(cs.card_line(), flush=True)
+        return 0
+    if sys.argv[1:2] in (["tp_faults"], ["tp_steps"]) and len(sys.argv) == 3:
+        if not torch.cuda.is_available():
+            print(__doc__, file=sys.stderr)
+            return 2
+        MODES[sys.argv[1]](torch.device("cuda"), sys.argv[2])
+        print(cs.card_line(), flush=True)
+        return 0
     if sys.argv[1:2] == ["tp_fault_rank"]:
         return tp_fault_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                              sys.argv[5], sys.argv[6])

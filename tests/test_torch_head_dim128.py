@@ -279,8 +279,12 @@ def test_contract_takes_head_dim_128():
 
 
 def test_contract_refuses_one_head_of_128():
-    """One head of 128 a rank (C = 128): no head group of K4/K6, refused
-    before a launch, naming the rule."""
+    """One head of 128 a rank (C = 128, GENIE_138M-h128 at tp = 4), which
+    K4/K6 refused before their head group of 1, is taken now; one head of a
+    width no kernel has (256) is still refused before a launch, naming the
+    widths there are."""
     qkv = torch.zeros(2, 16, 4, 3 * 128, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="even number of heads"):
-        ta._check_qkv(*qkv.split(128, dim=-1), 1)
+    assert ta._check_qkv(*qkv.split(128, dim=-1), 1) == 3 * 128
+    qkv = torch.zeros(2, 16, 4, 3 * 256, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 32, 64 or 128"):
+        ta._check_qkv(*qkv.split(256, dim=-1), 1)

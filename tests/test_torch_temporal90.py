@@ -129,17 +129,22 @@ def test_train_block_backward_against_jax(T, qkv_bias, monkeypatch):
         close(g, want[name])
 
 
-@pytest.mark.parametrize("T,C_,thirds", [(8, 256, True), (16, 512, True),
-                                          (16, 256, False), (5, 512, False),
-                                          (16, 64, True), (8, 64, False),
-                                          (16, 192, True)])
-def test_check_qkv_takes_both_callers_layouts(T, C_, thirds):
+@pytest.mark.parametrize("T,C_,thirds,D", [
+    pytest.param(T, C_, thirds, 32, id=f"{T}-{C_}-{thirds}")
+    for T, C_, thirds in [(8, 256, True), (16, 512, True), (16, 256, False),
+                          (5, 512, False), (16, 64, True), (8, 64, False),
+                          (16, 192, True), (16, 32, True), (8, 96, False)]
+] + [pytest.param(T, heads * D, True, D, id=f"{T}-{heads}x{D}")
+     for D in (32, 64, 128) for heads in (1, 3, 5) for T in (8, 16, 32)])
+def test_check_qkv_takes_both_callers_layouts(T, C_, thirds, D):
     """The kernels' contract takes q, k, v as the thirds of one (B, T, S,
     3C) qkv tensor (row stride 3C, as both callers pass them) or as
     contiguous tensors (row stride C), at the prefill's T = 8 and the train
-    step's T = 16, at C = 256 and 512 (head_dim 32), and at C = 64 with 2
+    step's T = 16, at C = 256 and 512 (head_dim 32), at C = 64 with 2
     heads (a rank's share of GENIE_35M at tp = 4) and C = 192 with 6 (head
-    groups of 2)."""
+    groups of 2), at C = 32 with one head (GENIE_35M at tp = 8) and C = 96
+    with 3 (head groups of 1); and at 1, 3 and 5 heads of 32, 64 and 128
+    at T = 8, 16 and 32 (any head count, every width and window)."""
     g = torch.Generator().manual_seed(T + C_)
     if thirds:
         q, k, v = torch.randn(2, T, 4, 3 * C_, generator=g).bfloat16().split(
@@ -147,7 +152,7 @@ def test_check_qkv_takes_both_callers_layouts(T, C_, thirds):
     else:
         q, k, v = (torch.randn(2, T, 4, C_, generator=g).bfloat16()
                    for _ in range(3))
-    assert ta._check_qkv(q, k, v, C_ // 32) == (3 * C_ if thirds else C_)
+    assert ta._check_qkv(q, k, v, C_ // D) == (3 * C_ if thirds else C_)
 
 
 def _refused(case):
@@ -163,12 +168,8 @@ def _refused(case):
         q, k, v = torch.zeros(3, 2, 33, 4, C_, dtype=torch.bfloat16).unbind(0)
     elif case == "head_dim 256":
         H_ = 1
-    elif case == "C % 256":
-        q, k, v = torch.zeros(3, 2, T, 4, 96,
-                              dtype=torch.bfloat16).unbind(0)
-        H_ = 3
-    elif case == "one head":  # an odd number of heads: no head group
-        q, k, v = torch.zeros(3, 2, T, 4, 32,
+    elif case == "head_dim 48":  # one head of a width no kernel has
+        q, k, v = torch.zeros(3, 2, T, 4, 48,
                               dtype=torch.bfloat16).unbind(0)
         H_ = 1
     elif case == "frame stride":  # frames and positions swapped
@@ -186,8 +187,8 @@ def _refused(case):
 
 @pytest.mark.parametrize("case,message", [
     ("fp32", "bf16"), ("shapes", "one shape"), ("T > 32", "T <= 32"),
-    ("head_dim 256", "head_dim 32, 64 or 128"), ("C % 256", "C % 256"),
-    ("one head", "C % 64 == 0"),
+    ("head_dim 256", "head_dim 32, 64 or 128"),
+    ("head_dim 48", "head_dim 32, 64 or 128"),
     ("frame stride", "strides"), ("row stride % 8", "multiple of 8"),
     ("alignment", "16-byte aligned")])
 def test_check_qkv_refuses(case, message):

@@ -2,8 +2,12 @@
 
 - `shard_state_dict` and `gather_state_dict` are inverse, and a rank's qkv
   shard is its heads of q, of k and of v.
+- The same at one head a rank: tp = 8 over 8 heads of 32 (GENIE_35M's)
+  and tp = 4 over 4 heads of 128 (GENIE_138M-h128's).
 - Each TP sub-layer (spatial, temporal, MLP with and without LN) at tp = 2
-  and 4 in one process: the ranks' launch sequences run side by side, their
+  and 4 in one process (spatial and temporal also at one head of 128 a rank
+  at tp = 4 and one head of 32 at tp = 8, the MLP also at tp = 8): the
+  ranks' launch sequences run side by side, their
   fp32 partials summed here, and the values and every gradient held to the
   whole layer's plain version (ordinary autograd) and to the JAX package's
   `*_train_block_reference` under `jax.vjp`, in fp32, within 1e-5 of each
@@ -146,11 +150,15 @@ C, H, S, N, TT = 128, 4, 64, 2, 4
 
 # the sub-layers' (tp, C, heads) beyond C and H: 2 heads of 64 and 2 of
 # 128 a rank at tp = 2, the head widths of GENIE_138M-h64's and -h128's
-# ranks (ids as before those existed)
+# ranks (ids as before those existed); one head a rank: of 128 at tp = 4
+# (GENIE_138M-h128's), of 32 at tp = 8 (GENIE_35M's, 96 qkv columns and 32
+# proj rows a rank)
 SUB_LAYER_CASES = [pytest.param(2, C, H, id="2"),
                    pytest.param(4, C, H, id="4"),
                    pytest.param(2, 256, 4, id="2-h64"),
-                   pytest.param(2, 512, 4, id="2-h128")]
+                   pytest.param(2, 512, 4, id="2-h128"),
+                   pytest.param(4, 512, 4, id="4-h128"),
+                   pytest.param(8, 256, 8, id="8-h32")]
 
 
 def shard(name, a, r, tp, heads=H):
@@ -255,7 +263,7 @@ def test_tp_temporal_sub_layer(tp, C_, H_):
         held(k, whole(name, [g[i] for g in got], H_), grads[k], jgrads[k])
 
 
-@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("tp", [2, 4, 8])
 @pytest.mark.parametrize("pre_ln", [True, False])
 def test_tp_mlp_sub_layer(tp, pre_ln):
     from tpu1x.ops.mlp_train_block import mlp_train_block_reference

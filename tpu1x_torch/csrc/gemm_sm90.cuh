@@ -81,9 +81,19 @@
 // 80GB HBM3 at 700 W, chip_smoke.py's gemm_sm90 phase) fc1 with the GELU
 // runs at 210-218 TFLOP/s, fc2 (K = 2048) at 381-383.
 //
-// Requires N % 64 == 0, K % 64 == 0, 16-byte aligned rows; any M (TMA fills
-// the rows past M with zeros, and the epilogue or the TMA store skips them;
-// TN: M % 8 == 0).
+// Requires N % 8 == 0, K % 8 == 0 (the 16-byte row strides of the tensor
+// maps), 16-byte aligned rows; any M (TMA fills the rows past M with zeros,
+// and the epilogue or the TMA store skips them; TN: M % 8 == 0). N and K
+// need not be multiples of the tile's 64: a rank's share of GENIE_35M's
+// heads at tp = 8 is N = 96 (qkv) and K = 32 (proj). The last tile of N and
+// the last step of K then overhang: TMA fills the overhang of the operands
+// with zeros (which add nothing to a product), the epilogues skip the
+// columns past N (a warp-uniform test of each 8-column group), and the
+// staged TMA store writes only the columns that exist. That form is an
+// instantiation of its own (RAGGED), launched only where N % 64 or K % 64
+// is not 0: the test in the epilogue, compiled into every form, cost the
+// serving chain's GELU forms 4-10% (fc1 at 4096 / 8192 rows; A/B on an
+// NVIDIA H100 80GB HBM3 at 700 W, `chip_variants.py ab_times groups`).
 
 #pragma once
 
@@ -92,6 +102,24 @@
 namespace tpu1x {
 
 constexpr int G9_BM = 128, G9_BN = 64, G9_BK = 64, G9_STAGES = 4;
+
+// The products the GEMM takes (any M >= 0): every row stride of its tensor
+// maps a multiple of 16 bytes. TN also needs M % 8 == 0 (A stored (K, M)).
+__host__ __device__ constexpr bool g9_shape_ok(int M, int N, int K) {
+  return M >= 0 && N > 0 && K > 0 && N % 8 == 0 && K % 8 == 0;
+}
+// Tiles of N and steps of K, the last of either overhanging where N or K is
+// not a multiple of 64.
+__host__ __device__ constexpr int g9_n_tiles(int N) {
+  return (N + G9_BN - 1) / G9_BN;
+}
+__host__ __device__ constexpr int g9_k_steps(int K) {
+  return (K + G9_BK - 1) / G9_BK;
+}
+// Whether a product needs the overhanging (RAGGED) form.
+__host__ __device__ constexpr bool g9_ragged(int N, int K) {
+  return N % G9_BN != 0 || K % G9_BK != 0;
+}
 // operand layouts, as stored: NN A (M, K) B (K, N); NT B (N, K); TN A (K, M)
 enum { G9_NN = 0, G9_NT = 1, G9_TN = 2 };
 // epilogues: the serving chain; the training chain (bf16); fp32 store;
@@ -149,14 +177,16 @@ struct Gemm90Args {
 };
 
 // The fp32 epilogues on one thread's accumulators, rows r0 and r0 + 8,
-// columns c0 + 8 j and + 1 (acc[4 j + 2 h + e]): stored (G9_F32) or added
-// atomically (G9_RED).
-template <int EPI>
+// columns c0 + 8 j and + 1 (acc[4 j + 2 h + e]), the tile's first column
+// n0: stored (G9_F32) or added atomically (G9_RED); RAGGED skips the
+// columns past N.
+template <int EPI, bool RAGGED>
 __device__ __forceinline__ void f32_epilogue(const Gemm90Args& p,
                                              const float* acc, int r0,
-                                             int c0) {
+                                             int n0, int c0) {
 #pragma unroll
   for (int j = 0; j < G9_BN / 8; ++j) {
+    if (RAGGED && n0 + 8 * j >= p.N) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = r0 + 8 * h;
@@ -180,8 +210,9 @@ __device__ __forceinline__ void f32_epilogue(const Gemm90Args& p,
 // is read from `second`. The tiles are 64 rows of 128 bytes in the
 // 128-byte swizzle of their TMA boxes (16-byte chunk j of row r at
 // j ^ (r & 7)): a warp's 32 pairs fall in 32 different banks. Rows past M
-// hold the zeros that TMA loaded, and TMA does not store them.
-template <int ACT>
+// and columns past N hold the zeros that TMA loaded (the bias is not read
+// there), and TMA does not store them.
+template <int ACT, bool RAGGED>
 __device__ __forceinline__ void fused_epilogue(const Gemm90Args& p,
                                                const float* acc, int n0,
                                                int r, int t4,
@@ -190,7 +221,7 @@ __device__ __forceinline__ void fused_epilogue(const Gemm90Args& p,
 #pragma unroll
   for (int j = 0; j < G9_BN / 8; ++j) {
     float2 bb = make_float2(0.f, 0.f);
-    if (p.bias)
+    if (p.bias && (!RAGGED || n0 + 8 * j < p.N))
       bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
           p.bias + n0 + 8 * j + 2 * t4));
 #pragma unroll
@@ -225,8 +256,8 @@ __device__ __forceinline__ void fused_epilogue(const Gemm90Args& p,
 // 64 N x 64 M; all 128-byte swizzle. grid:
 // the work units or the resident blocks, whichever are fewer. ACT:
 // ACT_NONE, ACT_GELU_TANH or ACT_GELU_ERF, or with G9_FUSED ACT_DGELU_TANH
-// or ACT_DGELU_ERF.
-template <int ACT, int FORM = G9_NN, int EPI = G9_SERVE>
+// or ACT_DGELU_ERF. RAGGED: N or K not a multiple of 64 (g9_ragged).
+template <int ACT, int FORM, int EPI, bool RAGGED>
 __global__ void __launch_bounds__(G9_THREADS)
     gemm90_kernel(const __grid_constant__ CUtensorMap ta,
                   const __grid_constant__ CUtensorMap tb, Gemm90Args p,
@@ -241,9 +272,9 @@ __global__ void __launch_bounds__(G9_THREADS)
   const uint32_t empty = full + 8 * ST;
   const uint32_t loaded = empty + 8 * ST;  // G9_FUSED: a warpgroup's t2 tile
   const int tid = threadIdx.x, wg = tid >> 7;  // 2: the producer warp
-  const int n_tiles = p.N / G9_BN;
+  const int n_tiles = RAGGED ? g9_n_tiles(p.N) : p.N / G9_BN;
   const int tiles = (p.M + G9_BM - 1) / G9_BM * n_tiles;
-  int units = tiles, steps = p.K / G9_BK;
+  int units = tiles, steps = RAGGED ? g9_k_steps(p.K) : p.K / G9_BK;
   if constexpr (EPI == G9_RED) units *= p.splits, steps /= p.splits;
 
   if (tid == 0) {
@@ -341,6 +372,7 @@ __global__ void __launch_bounds__(G9_THREADS)
     if constexpr (EPI == G9_SERVE) {
 #pragma unroll
       for (int j = 0; j < G9_BN / 8; ++j) {
+        if (RAGGED && n0 + 8 * j >= p.N) continue;  // past N (N % 8 == 0)
         const int col = n0 + 8 * j + 2 * t4;
         float2 bb = make_float2(0.f, 0.f);
         if (p.bias)
@@ -368,7 +400,8 @@ __global__ void __launch_bounds__(G9_THREADS)
       if (leader) bulk_wait_read();  // the last tile's stores have read them
       if (side_in) mbar_wait(loaded + 8 * wg, lph), lph ^= 1;
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-      fused_epilogue<ACT>(p, acc, n0, warp * 16 + g, t4, g9_raw + buf,
+      fused_epilogue<ACT, RAGGED>(p, acc, n0, warp * 16 + g, t4,
+                                  g9_raw + buf,
                           g9_raw + buf + Lay::out_tile);
       fence_proxy_async();
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
@@ -379,7 +412,8 @@ __global__ void __launch_bounds__(G9_THREADS)
         bulk_commit();
       }
     } else {
-      f32_epilogue<EPI>(p, acc, m0 + row_off + warp * 16 + g, n0 + 2 * t4);
+      f32_epilogue<EPI, RAGGED>(p, acc, m0 + row_off + warp * 16 + g, n0,
+                        n0 + 2 * t4);
     }
   }
   if constexpr (EPI == G9_FUSED)
@@ -391,35 +425,51 @@ __global__ void __launch_bounds__(G9_THREADS)
 // launcher's static would be shared by every library of the process that
 // includes this header.
 // tc and t2 are read by G9_FUSED only. `units`: the output tiles.
+template <int ACT, int FORM, int EPI, bool RAGGED>
+static cudaError_t launch_gemm90_form(const CUtensorMap& ta,
+                                      const CUtensorMap& tb,
+                                      const Gemm90Args& a, int units,
+                                      cudaStream_t stream,
+                                      const CUtensorMap& tc,
+                                      const CUtensorMap& t2) {
+  constexpr int smem = G9Layout<EPI>::smem;
+  // the blocks the card keeps resident, found once a process
+  static int resident = 0;
+  if (resident == 0)
+    TPU1X_TRY(resident_blocks(gemm90_kernel<ACT, FORM, EPI, RAGGED>,
+                              G9_THREADS, smem, &resident));
+  Gemm90Args p = a;
+  if constexpr (EPI == G9_RED) {
+    // chunks of the reduction over K: the most, up to 8 and dividing its
+    // steps of 64, that keep tiles x chunks within one wave of the resident
+    // blocks. On
+    // an H100 (chip_variants.py tn): 2 at K13's weight gradients (128 tiles
+    // for 264 blocks; 1 and 4 were slower) and at K11's and K12's dWqkv (96
+    // tiles); 8 at their dWproj (32 tiles), 13-15% less time than 4 (at
+    // 4, one block an SM had nothing to overlap with)
+    int s = 8;
+    while (s > 1 && (g9_k_steps(a.K) % s || units * s > resident)) --s;
+    p.splits = s;
+    units *= s;
+  }
+  gemm90_kernel<ACT, FORM, EPI, RAGGED>
+      <<<units < resident ? units : resident, G9_THREADS, smem, stream>>>(
+          ta, tb, p, tc, t2);
+  return cudaGetLastError();
+}
+
+// The form a product takes: RAGGED where N or K is not a multiple of 64.
 template <int ACT, int FORM = G9_NN, int EPI = G9_SERVE>
 static cudaError_t launch_gemm90_act(const CUtensorMap& ta,
                                      const CUtensorMap& tb, const Gemm90Args& a,
                                      int units, cudaStream_t stream,
                                      const CUtensorMap& tc,
                                      const CUtensorMap& t2) {
-  constexpr int smem = G9Layout<EPI>::smem;
-  // the blocks the card keeps resident, found once a process
-  static int resident = 0;
-  if (resident == 0)
-    TPU1X_TRY(resident_blocks(gemm90_kernel<ACT, FORM, EPI>, G9_THREADS, smem,
-                              &resident));
-  Gemm90Args p = a;
-  if constexpr (EPI == G9_RED) {
-    // chunks of the reduction over K: the most, up to 8 and dividing K / 64,
-    // that keep tiles x chunks within one wave of the resident blocks. On
-    // an H100 (chip_variants.py tn): 2 at K13's weight gradients (128 tiles
-    // for 264 blocks; 1 and 4 were slower) and at K11's and K12's dWqkv (96
-    // tiles); 8 at their dWproj (32 tiles), 13-15% less time than 4 (at
-    // 4, one block an SM had nothing to overlap with)
-    int s = 8;
-    while (s > 1 && ((a.K / G9_BK) % s || units * s > resident)) --s;
-    p.splits = s;
-    units *= s;
-  }
-  gemm90_kernel<ACT, FORM, EPI><<<units < resident ? units : resident,
-                                  G9_THREADS, smem, stream>>>(ta, tb, p, tc,
-                                                              t2);
-  return cudaGetLastError();
+  return g9_ragged(a.N, a.K)
+             ? launch_gemm90_form<ACT, FORM, EPI, true>(ta, tb, a, units,
+                                                        stream, tc, t2)
+             : launch_gemm90_form<ACT, FORM, EPI, false>(ta, tb, a, units,
+                                                         stream, tc, t2);
 }
 
 // C = epilogue(A B) with A (M, K), B (K, N), C and resid (M, N) contiguous
@@ -430,7 +480,7 @@ static inline cudaError_t launch_gemm90(const void* A, const void* B,
                                         const void* resid, int M, int N, int K,
                                         cudaStream_t stream,
                                         int act = ACT_NONE) {
-  if (N % G9_BN || K % G9_BK || M < 0 ||
+  if (!g9_shape_ok(M, N, K) ||
       (act != ACT_NONE && act != ACT_GELU_TANH && act != ACT_GELU_ERF))
     return cudaErrorInvalidValue;
   if (M == 0) return cudaSuccess;
@@ -448,7 +498,7 @@ static inline cudaError_t launch_gemm90(const void* A, const void* B,
   Gemm90Args a{static_cast<bf16*>(C), static_cast<const bf16*>(bias),
                static_cast<const bf16*>(resid), M, N, K, nullptr, nullptr,
                nullptr, 1};
-  const int tiles = (M + G9_BM - 1) / G9_BM * (N / G9_BN);
+  const int tiles = (M + G9_BM - 1) / G9_BM * g9_n_tiles(N);
   if (act == ACT_GELU_TANH)
     return launch_gemm90_act<ACT_GELU_TANH>(ta, tb, a, tiles, stream, ta, tb);
   if (act == ACT_GELU_ERF)

@@ -98,7 +98,7 @@ extern "C" int tpu1x_spatial_block(const void* x, const void* wqkv,
 // backward recomputes qkv with it), all bf16 and contiguous:
 // rounded, + bias (N,) if not null, rounded, GELU (act ACT_GELU_TANH or
 // ACT_GELU_ERF; ACT_NONE: none), rounded, + resid (M, N) if not null,
-// rounded.
+// rounded. N and K multiples of 8 (g9_shape_ok), a tile overhanging either.
 extern "C" int tpu1x_gemm_sm90(const void* A, const void* B, void* C,
                                const void* bias, const void* resid, int M,
                                int N, int K, int act, void* stream) {

@@ -42,9 +42,12 @@
 //     heads under tensor
 //     parallelism), twice the positions x half the heads, and where they
 //     are not a multiple of 4 either (C % 128 != 0: GENIE_35M's 2 heads a
-//     rank at tp = 4), four times the positions x a quarter of the heads:
-//     the same bytes and problems a tile (the head group HG is a template
-//     parameter, 8, 4 or 2);
+//     rank at tp = 4), four times the positions x a quarter of the heads,
+//     and where the heads are odd (one head a rank: GENIE_35M at tp = 8,
+//     GENIE_138M-h128 at tp = 4; or 3, 5, ...), TA_HEADS times the
+//     positions x one head: the same bytes and problems a tile (the head
+//     group HG is a template parameter, 8, 4, 2 or 1; with HG = 1 a box
+//     spans at most 32 positions, within TMA's 256 a dimension);
 //   - head_dim 64 keeps a stage at TA_BOX bytes a tensor: a (position,
 //     head) is twice the bytes, so a tile holds half the heads (groups of
 //     4, or 2 where the heads are not a multiple of 4) and half the
@@ -108,9 +111,9 @@
 // each other, 4 warps 2-4% slower; 4 x 8 and 2 x 16 leave the backward
 // one stage (the static_assert below).
 //
-// Requires T <= 32, head_dim 32, 64 or 128, C % (2 head_dim) == 0 (an
-// even number of heads), strides that are multiples of 8 and 16-byte
-// aligned bases.
+// Requires T <= 32, head_dim 32, 64 or 128, C a multiple of it (any
+// number of heads), strides that are multiples of 8 and 16-byte aligned
+// bases.
 
 #include "sm90.cuh"
 
@@ -787,12 +790,14 @@ __global__ void __launch_bounds__(TaShape<D>::THREADS, 1)
   temporal_body<D, true, CAUSAL, HG, W>(maps, a);
 }
 
-// The head group of a tile: a full tile's heads (8 at head_dim 32, 4 at
-// 64, 2 at 128) where the heads are a multiple of it, else 4 where they are
-// a multiple of 4, else 2 (`ta_ok` takes an even number of heads).
+// The head group of a tile: the largest of a full tile's heads (8 at
+// head_dim 32, 4 at 64, 2 at 128), 4, 2 and 1 that divides the heads.
 int head_group(int C, int D) {
   const int heads = C / D, full = TA_HEADS * 32 / D;
-  return heads % full == 0 ? full : heads % 4 == 0 ? 4 : 2;
+  return heads % full == 0 ? full
+         : heads % 4 == 0  ? 4
+         : heads % 2 == 0  ? 2
+                           : 1;
 }
 
 // The (d, t, h, s, b) view of a (B, T, S, C) bf16 tensor with row stride
@@ -817,14 +822,15 @@ cudaError_t frame_maps(CUtensorMap* maps, const void* base, int B, int T,
 
 // The shapes the kernels take (the wrapper's `_check_qkv` raises first).
 bool ta_ok(int T, int C, int D, int ld) {
-  return T >= 1 && T <= 32 && (D == 32 || D == 64 || D == 128) &&
-         C % (2 * D) == 0 && ld % 8 == 0;
+  return T >= 1 && T <= 32 && (D == 32 || D == 64 || D == 128) && C >= D &&
+         C % D == 0 && ld % 8 == 0;
 }
 
 // The tile at T frames: a box spans 16 frames, or 8 and twice the
 // positions where T <= 8, or 32 and half the positions where T > 16, and a
 // head group of HG takes TA_HEADS / HG times the positions of one of
-// TA_HEADS (HG = 2: 8 positions at 16 frames, 16 at 8, 4 at 32), so that a
+// TA_HEADS (HG = 2: 8 positions at 16 frames, 16 at 8, 4 at 32; HG = 1 at
+// head_dim 32: 16, 32 and 8), so that a
 // stage holds TA_BOX bytes a tensor and a tile TA_WARPS 16-row problems, or
 // TA_WARPS / 2 of 32 rows, either way (frames t >= T come back from TMA as
 // zeros and still count). Every (D, HG) pair gives whole positions.
@@ -867,20 +873,24 @@ cudaError_t launch_hg(const TaMaps<D>& maps, const TaArgs& a,
 template <int D, bool BWD, bool CAUSAL>
 cudaError_t launch(const TaMaps<D>& maps, const TaArgs& a,
                    cudaStream_t stream) {
+  const int hg = head_group(a.C, D);
   if constexpr (D == 128) {
-    return launch_hg<128, BWD, CAUSAL, 2>(maps, a, stream);
+    return hg == 2 ? launch_hg<128, BWD, CAUSAL, 2>(maps, a, stream)
+                   : launch_hg<128, BWD, CAUSAL, 1>(maps, a, stream);
   } else if constexpr (D == 64) {
-    return head_group(a.C, 64) == 4
-               ? launch_hg<64, BWD, CAUSAL, 4>(maps, a, stream)
-               : launch_hg<64, BWD, CAUSAL, 2>(maps, a, stream);
+    return hg == 4   ? launch_hg<64, BWD, CAUSAL, 4>(maps, a, stream)
+           : hg == 2 ? launch_hg<64, BWD, CAUSAL, 2>(maps, a, stream)
+                     : launch_hg<64, BWD, CAUSAL, 1>(maps, a, stream);
   } else {
-    switch (head_group(a.C, 32)) {
+    switch (hg) {
       case TA_HEADS:
         return launch_hg<32, BWD, CAUSAL, TA_HEADS>(maps, a, stream);
       case 4:
         return launch_hg<32, BWD, CAUSAL, 4>(maps, a, stream);
-      default:
+      case 2:
         return launch_hg<32, BWD, CAUSAL, 2>(maps, a, stream);
+      default:
+        return launch_hg<32, BWD, CAUSAL, 1>(maps, a, stream);
     }
   }
 }

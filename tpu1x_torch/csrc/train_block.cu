@@ -203,7 +203,8 @@ __global__ void __launch_bounds__(256)
 }  // namespace
 
 // The training forms of csrc/gemm_sm90.cuh, all operands contiguous: form G9_NN (A (M, K), B
-// (K, N)), G9_NT (B stored (N, K)) or G9_TN (A stored (K, M)). TN adds
+// (K, N)), G9_NT (B stored (N, K)) or G9_TN (A stored (K, M)); N and K
+// multiples of 8 (g9_shape_ok), a tile overhanging either. TN adds
 // A^T B into Cf (M, N) fp32, zeroed by the caller on the same stream, the
 // reduction over K in as many chunks as fill the card; act
 // ACT_NONE, C, pre, bias, resid and aux null. NT with Cf stores the fp32
@@ -219,7 +220,7 @@ extern "C" int tpu1x_gemm90_train(const void* A, const void* B, void* C,
                                   int N, int K, int form, int act,
                                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N % G9_BN || K % G9_BK || M < 0 || form < G9_NN || form > G9_TN ||
+  if (!g9_shape_ok(M, N, K) || form < G9_NN || form > G9_TN ||
       act < ACT_NONE || act > ACT_DGELU_ERF)
     return cudaErrorInvalidValue;
   // the combinations that have an instantiation
@@ -249,7 +250,7 @@ extern "C" int tpu1x_gemm90_train(const void* A, const void* B, void* C,
                static_cast<const bf16*>(resid), M, N, K,
                static_cast<bf16*>(pre), static_cast<const bf16*>(aux),
                static_cast<float*>(Cf), 1};
-  const int tiles = (M + G9_BM - 1) / G9_BM * (N / G9_BN);
+  const int tiles = (M + G9_BM - 1) / G9_BM * g9_n_tiles(N);
   if (form == G9_TN)
     return launch_gemm90_act<ACT_NONE, G9_TN, G9_RED>(ta, tb, a, tiles, s,
                                                       tc, t2);

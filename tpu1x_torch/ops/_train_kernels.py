@@ -20,7 +20,8 @@ from typing import Callable, Generator, Optional
 import torch
 
 from tpu1x_torch import kernels
-from tpu1x_torch.ops._util import dgelu, gelu, ptr, require
+from tpu1x_torch.ops._util import (check_gemm_shape, dgelu, gelu, ptr,
+                                   require)
 
 BF16 = torch.bfloat16
 ACT = {None: 0, "gelu_tanh": 1, "gelu_erf": 2, "dgelu_tanh": 3, "dgelu_erf": 4}
@@ -114,15 +115,15 @@ def gemm90(a: torch.Tensor, b: torch.Tensor, *, form: str = "nn",
     N); `pre_out` ("nn") also returns the rounded pre-activation; at most
     one of `pre_out`, `aux` and `resid`. Returns (M, N). CPU tensors take
     `gemm90_plain`; CUDA tensors must be contiguous, 16-byte aligned bf16
-    with N % 64 == 0 and K % 64 == 0.
+    with N % 8 == 0 and K % 8 == 0 (and M % 8 == 0 for "tn";
+    `_util.gemm_shape_ok`).
     """
     M, N, K = _gemm90_check(a, b, form, bias, resid, aux, act, fp32_out,
                             pre_out)
     if not a.is_cuda:
         return gemm90_plain(a, b, form=form, bias=bias, resid=resid, aux=aux,
                             act=act, fp32_out=fp32_out, pre_out=pre_out)
-    require(N % 64 == 0 and K % 64 == 0,
-            f"gemm90 needs N % 64 == 0 and K % 64 == 0, got N={N}, K={K}")
+    check_gemm_shape(M, N, K, f"gemm90 {form}", form)
     for name, t in (("a", a), ("b", b), ("bias", bias), ("resid", resid),
                     ("aux", aux)):
         if t is not None:
@@ -133,7 +134,6 @@ def gemm90(a: torch.Tensor, b: torch.Tensor, *, form: str = "nn",
     dev = a.device
     out = pre = outf = None
     if form == "tn":
-        require(M % 8 == 0, f"gemm90 tn needs M % 8 == 0, got {M}")
         outf = torch.zeros(M, N, dtype=torch.float32, device=dev)
     elif fp32_out:
         outf = torch.empty(M, N, dtype=torch.float32, device=dev)

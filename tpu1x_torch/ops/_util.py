@@ -67,5 +67,25 @@ def head_dim_of(C: int, num_heads: int, what: str) -> int:
     return D
 
 
+def gemm_shape_ok(M: int, N: int, K: int, form: str = "nn") -> bool:
+    """Whether csrc/gemm_sm90.cuh takes a product of M rows, N columns and
+    depth K in `form` ("nn", "nt", "tn"; the serving chain is "nn"), as its
+    `g9_shape_ok` decides: every row stride of its tensor maps a multiple of
+    16 bytes, so N and K multiples of 8, and M too where "tn" stores A as
+    (K, M). Any M otherwise; N and K need not be multiples of the tile's 64
+    (the last tile overhangs)."""
+    return (M >= 0 and N > 0 and K > 0 and N % 8 == 0 and K % 8 == 0
+            and (form != "tn" or M % 8 == 0))
+
+
+def check_gemm_shape(M: int, N: int, K: int, what: str,
+                     form: str = "nn") -> None:
+    """Raise, naming the limit, for a product `gemm_shape_ok` refuses."""
+    require(gemm_shape_ok(M, N, K, form),
+            f"{what} needs N % 8 == 0 and K % 8 == 0"
+            + (" and M % 8 == 0" if form == "tn" else "")
+            + f" (16-byte rows), got M={M}, N={N}, K={K}")
+
+
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()

@@ -152,8 +152,9 @@ def mlp_train_block(x: torch.Tensor, wfc1: torch.Tensor, wfc2: torch.Tensor,
     tensors launch `mlp_train_block_fwd` and, under autograd,
     `mlp_train_block_bwd`, which replace the Pallas kernels
     tpu1x/ops/mlp_train_block.py:_mlp_fwd and _mlp_bwd. The card path takes
-    bf16 contiguous x, C % 64 == 0, C <= 1024 and hidden % 64 == 0; the LN
-    params are optional there too (the qk_norm configs have none).
+    bf16 contiguous x, C % 8 == 0, C <= 1024 (the LN row kernels) and
+    hidden % 8 == 0 (the GEMM, `_util.gemm_shape_ok`); the LN params are
+    optional there too (the qk_norm configs have none).
     Residuals are x and the weights only. Bound on the H100:
     tensor-core operations (16 rows C hidden FLOP forward and recompute,
     8 more in each of the three backward products). The weight and LN

@@ -8,8 +8,8 @@ from typing import Optional
 import torch
 
 from tpu1x_torch import kernels
-from tpu1x_torch.ops._util import (check_tensor, dense, gelu, head_dim_of,
-                                   ptr, require)
+from tpu1x_torch.ops._util import (check_gemm_shape, check_tensor, dense,
+                                   gelu, head_dim_of, ptr, require)
 from tpu1x_torch.ops.attention import (FLASH_MAX_TOKENS, FLASH_MIN_TOKENS,
                                        mha_reference)
 from tpu1x_torch.ops.layernorm import layer_norm_plain
@@ -52,20 +52,21 @@ def gemm_sm90(a: torch.Tensor, b: torch.Tensor,
               bias: Optional[torch.Tensor] = None,
               resid: Optional[torch.Tensor] = None,
               act: Optional[str] = None) -> torch.Tensor:
-    """The products of K1 and of K2/K3 alone, for the card checks: a (M, K)
-    @ b (K, N) (+ bias (N,)) (GELU) (+ resid (M, N)), bf16, on the GEMM of
-    csrc/gemm_sm90.cuh (TMA, wgmma). CPU tensors take `gemm_sm90_plain`.
-    Not counted: the blocks' wrappers count the launches that carry these
-    products."""
+    """The products of K1 and of K2/K3 alone, for the card checks, and K11's
+    qkv recompute: a (M, K) @ b (K, N) (+ bias (N,)) (GELU) (+ resid (M,
+    N)), bf16, on the GEMM of csrc/gemm_sm90.cuh (TMA, wgmma), N and K
+    multiples of 8 (`_util.gemm_shape_ok`). CPU tensors take
+    `gemm_sm90_plain`. Not counted: the blocks' wrappers count the launches
+    that carry these products."""
     if not a.is_cuda:
         return gemm_sm90_plain(a, b, bias, resid, act)
     require(act in GEMM_ACTS, f"act must be one of {list(GEMM_ACTS)}, "
             f"got {act!r}")
     (M, K), (Kb, N) = a.shape, b.shape
     dev, bf = a.device, torch.bfloat16
-    require(K == Kb and N % 64 == 0 and K % 64 == 0,
-            f"gemm_sm90 needs a (M, K) @ b (K, N), N and K multiples of 64, "
-            f"got {tuple(a.shape)} @ {tuple(b.shape)}")
+    require(K == Kb, f"gemm_sm90 needs a (M, K) @ b (K, N), got "
+            f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    check_gemm_shape(M, N, K, "gemm_sm90")
     check_tensor(a, "a", (M, K), bf, dev)
     check_tensor(b, "b", (K, N), bf, dev)
     if bias is not None:

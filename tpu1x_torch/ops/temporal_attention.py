@@ -57,13 +57,9 @@ def _check_qkv(q, k, v, num_heads: int) -> int:
             "q, k, v must share one shape")
     require(q.device == k.device == v.device, "q, k, v on different devices")
     require(T <= 32, f"temporal_attention kernels need T <= 32, got {T}")
-    D = head_dim_of(C, num_heads, "temporal_attention kernels")
-    full = 256 // D  # the heads of a full tile
-    require(num_heads % 2 == 0,
-            f"temporal_attention kernels need an even number of heads, "
-            f"C % {2 * D} == 0 (in groups of {full} where C % {full * D} "
-            f"== 0, else of 4 where C % {4 * D} == 0, else of 2), got C={C}, "
-            f"heads={num_heads}")
+    # any number of heads: a tile takes the largest of 256 // D, 4, 2 and 1
+    # heads that divides them
+    head_dim_of(C, num_heads, "temporal_attention kernels")
     ld = q.stride(2)
     want = (T * S * ld, S * ld, ld, 1)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -151,8 +147,9 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _bwd_kernel), which recomputes the probabilities from q and k. Both take
     bf16 q, k, v that may be column slices of one (B, T, S, 3C) qkv tensor
     (last axis contiguous, the same strides for all three), T <= 32,
-    head_dim 32, 64 or 128 and an even number of heads. The backward returns
-    dq, dk, dv as column slices of one (B, T, S, 3C) tensor.
+    head_dim 32, 64 or 128 and any number of heads (`_check_qkv`). The
+    backward returns dq, dk, dv as column slices of one (B, T, S, 3C)
+    tensor.
 
     Bound on the H100: device memory (q, k, v, out read or written once:
     0.040 ms at the train step's (8, 16, 256, 512); the backward's seven
@@ -160,7 +157,9 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     positions (4 where T <= 8) x 8 heads (where C % 256 != 0, as at a
     rank's share of GENIE_35M's heads at tp = 2, twice the positions x 4
     heads; where C % 128 != 0, as at tp = 4, four times the positions x 2
-    heads: the same bytes); a producer warp loads each tile's
+    heads; with an odd number of heads, as one head a rank at tp = 8, eight
+    times the positions x 1 head: the same bytes); a producer warp loads
+    each tile's
     frames by TMA into a ring of stages, one warp computes one (position,
     head) at a time with mma.sync (16 x 16 problems, too small for wgmma's
     64-row tiles) and writes the results over the operands, and a storer

@@ -139,10 +139,9 @@ def temporal_train_block(x: torch.Tensor, wqkv: torch.Tensor,
     CUDA tensors launch `temporal_train_block_fwd` and, under autograd,
     `temporal_train_block_bwd`, which replace the Pallas kernels
     tpu1x/ops/temporal_train_block.py:_ttb_fwd and _ttb_bwd. They take bf16
-    contiguous x, T <= 32, head_dim 32, 64 or 128 and an even number of
-    heads;
-    the products run on
-    the training forms of csrc/gemm_sm90.cuh. Residuals are x and
+    contiguous x, T <= 32, head_dim 32, 64 or 128 and any number of heads
+    (`temporal_attention._check_qkv`); the products run on the training
+    forms of csrc/gemm_sm90.cuh (C % 8 == 0). Residuals are x and
     the weights only. The TPU kernels keep q, k, v and their gradients in
     VMEM; here they make one round trip through device memory as one
     (B, T, S, 3C) tensor each, whose column views the attention kernels

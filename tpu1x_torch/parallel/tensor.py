@@ -319,9 +319,9 @@ def tp_spatial_train_block(x: torch.Tensor, wqkv: torch.Tensor,
     model group. CUDA tensors launch LN1's row pass, `gemm_sm90`, K9 and
     the nt fp32 form of csrc/gemm_sm90.cuh forward, and K9, K10 and the
     training forms backward (head_dim 32, 64 or 128, S a multiple of 64 up
-    to 4096,
-    C/tp a multiple of 64; each launcher raises at a shape its kernel does
-    not take); CPU tensors the same launchers' plain versions."""
+    to 4096, any number of heads a rank, C/tp a multiple of 8; each launcher
+    raises at a shape its kernel does not take); CPU tensors the same
+    launchers' plain versions."""
     require(ln_scale is not None and ln_bias is not None,
             "the TP spatial sub-layer needs the LN1 parameters")
     return _TpSpatial.apply(x.contiguous(), wqkv, wproj, bqkv, bproj,
@@ -337,9 +337,8 @@ def tp_temporal_train_block(x: torch.Tensor, wqkv: torch.Tensor,
     qkv(x)) with this rank's share (the shards as in
     `tp_spatial_train_block`). CUDA tensors launch the training forms of
     csrc/gemm_sm90.cuh and K4 forward, K6 and the training forms backward
-    (T <= 32, head_dim 32, 64 or 128, an even number of heads a rank); CPU
-    tensors the plain
-    versions."""
+    (T <= 32, head_dim 32, 64 or 128, any number of heads a rank: one, as
+    GENIE_35M at tp = 8, included); CPU tensors the plain versions."""
     return _TpTemporal.apply(x.contiguous(), wqkv, wproj, bqkv, bproj,
                              num_heads, scale, mesh)
 
@@ -357,7 +356,7 @@ def tp_mlp_train_block(x: torch.Tensor, wfc1: torch.Tensor,
     wfc2 the (hidden/tp, C) shard; bfc2 and the LN params (both or neither)
     whole. CUDA tensors launch the training
     forms of csrc/gemm_sm90.cuh and the LN row passes (hidden/tp a multiple
-    of 64); CPU tensors the plain versions."""
+    of 8); CPU tensors the plain versions."""
     require((bfc1 is None) == (bfc2 is None), "pass both MLP biases or neither")
     require((ln_scale is None) == (ln_bias is None),
             "pass both LN params or neither")
@@ -413,7 +412,7 @@ def column_parallel(x: torch.Tensor, w: torch.Tensor,
     summed over the model group and rounded once, as one process's product
     rounds the whole sum; dw = dy^T x (`tk.gemm90` tn). CUDA tensors take
     cuBLAS forward, as the one-process path does, and the training forms of
-    csrc/gemm_sm90.cuh backward (in and out/tp multiples of 64); CPU tensors
+    csrc/gemm_sm90.cuh backward (in and out/tp multiples of 8); CPU tensors
     their plain versions."""
     lead = x.shape[:-1]
     y = _ColumnParallel.apply(x.reshape(-1, x.shape[-1]).contiguous(), w, m)
@@ -449,7 +448,7 @@ def row_parallel(h: torch.Tensor, w: torch.Tensor,
     and rounded once, + the whole bias in h's dtype, as `_util.dense`
     computes the whole product in one process. Backward: dh = dy w, dw =
     dy^T h, the gradient of the sum taken as it is. CUDA tensors launch the
-    training forms of csrc/gemm_sm90.cuh (out and in/tp multiples of 64),
+    training forms of csrc/gemm_sm90.cuh (out and in/tp multiples of 8),
     CPU tensors their plain versions."""
     lead = h.shape[:-1]
     y = _RowParallel.apply(h.reshape(-1, h.shape[-1]).contiguous(), w, m)
