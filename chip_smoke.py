@@ -217,12 +217,30 @@
    and 32, K9 and K10 at (128, 256, 4, 128) and, untimed, at N = 64, 128,
    192 and 1024, causal, not and at a negative scale, K11, K12) and the
    decode batch sizes of 3 at 4 heads; then GENIE_138M-h128
-   (configs/genie_138m.json at 4 heads of 128) at 32 layers: the rollout
-   as in 4, ten train steps and the step against the plain path as in 6;
-   at 8 layers `score_policies`, the evaluator batch, the train CLI with
-   its resume and exports, the qk_norm int8 rollout and train step, and a
-   `use_mup` rollout and step as in 8 (the scale 8 / 128); each with exact
-   launch counts.
+   (configs/genie_138m.json at 4 heads of 128) at 8 layers (since the
+   model widths phase came, for the script's time: the kernel checks keep
+   every head_dim-128 form at full shape): the rollout as in 4, ten train
+   steps and the step against the plain path as in 6, `score_policies`,
+   the evaluator batch, the train CLI with its resume and exports, the
+   qk_norm int8 rollout and train step, and a `use_mup` rollout and step
+   as in 8 (the scale 8 / 128); each with exact launch counts.
+12f. Model widths (`check_widths`, one row of `WIDTH_CONFIGS` after the
+   other): the decode ring (K7, K8, both caches, every head width that
+   divides C) and the training LN rows at C = 96, 320, 384, 640, 1152,
+   1600 and 2048, untimed, each row's last tile short
+   (`check_width_sweep`); then GENIE_138M-C384 (configs/genie_138m.json at
+   d_model 384, 6 heads of 64: DiT-S's width) and GENIE_138M-C1600 (1600,
+   25 heads of 64: GPT-2 XL's): each kernel form at the width against its
+   plain version, timed with its bound (`check_width_kernels`: K1 at N =
+   16, K5, K2, K3, K7 and K8 with both caches, K4 and K6 causal and not,
+   K11 and K13 with their LN rows, every gradient), the decode batch sizes
+   of 3, and the entry points as in 12e: the rollout (with its peak
+   memory), ten train steps and the step against the plain path at 32
+   layers, then at 8 layers `score_policies`, the evaluator batch, the
+   train CLI and the qk_norm int8 rollout and train step; each with exact
+   launch counts. GENIE_138M-C1600 is cut for the script's time (its row
+   of `WIDTH_CONFIGS`): the rollout at 16 layers, the step against the
+   plain path at 8 (`plain_layers`), the train CLI at 1.
 13. Tensor parallelism (`check_tensor_parallel`): K4 and K6 at C = 128
    (4 heads, the kernels' head groups of 4) and C = 64 (2 heads, head
    groups of 2) against their plain versions with their device times and
@@ -268,7 +286,9 @@
    form, `t32`, with its launches on GENIE_138M-T32's, every kernel's S =
    1024 form, `s1024`, with its launches on GENIE_138M-S1024's, and each
    attention kernel's head_dim-128 form, `h128`, with its launches on
-   GENIE_138M-h128's paths), the card line, and last the result line.
+   GENIE_138M-h128's paths, and every kernel's `c384` and `c1600` entries,
+   the width's form where the phase checks one and its launches on that
+   configuration's paths), the card line, and last the result line.
 
 K1 (both modes), K2, K3, K5, K9, K10 and K13 carry a profiler device time
 (`device_ms`; their library calls `library_device_ms`) beside the event
@@ -718,9 +738,43 @@ def temporal_case(inp, C, H, tag, Bt, T, causal, timed=True):
         library_ms=time_ms(library), library_device_ms=device_ms(library))
 
 
+def weight_std(C):
+    """The kernel checks' weight scale: 0.05 up to GENIE_138M's C = 512,
+    fan-in scaled past it (0.05 sqrt(512 / C)), so that a wider check's
+    activations keep GENIE_138M's magnitudes, as a model's initialisation
+    keeps them. At 0.05 the outputs of K1 at C = 1600 grow sqrt(1600 / 512)
+    = 1.8x, and where the residual cancels a projection of that size two
+    bf16 paths part by a rounding step of the larger terms (25 of 6553600
+    elements 0.125 apart on an H100 80GB HBM3)."""
+    return 0.05 * min(1.0, (512 / C) ** 0.5)
+
+
+def init_model(cfg, device, g) -> STMaskGIT:
+    """A model of `cfg` at the JAX package's initialisation (normal std 0.02
+    for every 2-D weight) drawn from `g`, its 2-D weights then scaled by
+    weight_std(C) / 0.05: up to GENIE_138M's C = 512 the initialisation
+    itself, past it fan-in scaled (std 0.02 sqrt(512 / C)). At a fixed 0.02
+    the residual stream of the pre-LN stack, which has no final LN, grows
+    with the width and the depth: at C = 1600 the first loss is 25.8 at 8
+    layers, 111.7 at 16 and 1751.6 at 32 (logits' spread 287), through
+    the kernel path, the plain path (1750.5) and fp32 (1748.5) alike
+    (`chip_variants.py width_loss`, an H100 80GB HBM3); fan-in scaled it
+    is 13.41 at 32 layers, GENIE_138M's 13.43, as the train step's and
+    the evaluator's loss gates assume."""
+    model = STMaskGIT(cfg, device=device).init_weights(g)
+    scale = weight_std(cfg.d_model) / 0.05
+    if scale != 1.0:
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("weight") and p.dim() == 2:
+                    p.mul_(scale)
+    return model
+
+
 def spatial_weights(inp, C):
-    return dict(wqkv=inp.normal(C, 3 * C, std=0.05),
-                wproj=inp.normal(C, C, std=0.05),
+    std = weight_std(C)
+    return dict(wqkv=inp.normal(C, 3 * C, std=std),
+                wproj=inp.normal(C, C, std=std),
                 bproj=inp.normal(C, std=0.1),
                 ln_scale=inp.normal(C, std=0.1, mean=1.0, dtype=torch.float32),
                 ln_bias=inp.normal(C, std=0.1, dtype=torch.float32))
@@ -748,14 +802,14 @@ def check_spatial_block(inp, C, H, N, qk_ln=False):
 
 
 def block_weights(inp, C):
-    F4 = 4 * C
-    return dict(wqkv=inp.normal(C, 3 * C, std=0.05),
-                wproj=inp.normal(C, C, std=0.05),
+    F4, std = 4 * C, weight_std(C)
+    return dict(wqkv=inp.normal(C, 3 * C, std=std),
+                wproj=inp.normal(C, C, std=std),
                 bproj=inp.normal(C, std=0.1),
                 ln_scale=inp.normal(C, std=0.1, mean=1.0, dtype=torch.float32),
                 ln_bias=inp.normal(C, std=0.1, dtype=torch.float32),
-                wfc1=inp.normal(C, F4, std=0.05), bfc1=inp.normal(F4, std=0.1),
-                wfc2=inp.normal(F4, C, std=0.05), bfc2=inp.normal(C, std=0.1))
+                wfc1=inp.normal(C, F4, std=std), bfc1=inp.normal(F4, std=0.1),
+                wfc2=inp.normal(F4, C, std=std), bfc2=inp.normal(C, std=0.1))
 
 
 def check_temporal_mlp_block(inp, C, H, L, caches, pair, gelu_tanh=True,
@@ -1265,12 +1319,13 @@ def plain_rollout(cfg, engine, params, prompt, generator, actions=None):
 
 def check_rollout(cfg, device, cache_dtype="bf16", per_layer=PER_LAYER,
                   full=True):
-    """One configuration's rollout: counts, output, times, and the cache
-    and logits against the plain path. `full` False (the combinations run
-    at a cut depth) times one run and skips the profile. A configuration
-    with an action vocabulary rolls out under seeded (B, P + NEW) actions."""
+    """One configuration's rollout: counts, output, times, peak memory, and
+    the cache and logits against the plain path. `full` False (the
+    combinations run at a cut depth) times one run and skips the profile.
+    A configuration with an action vocabulary rolls out under seeded (B, P
+    + NEW) actions."""
     g = torch.Generator(device=device).manual_seed(0)
-    model = STMaskGIT(cfg, device=device).init_weights(g)
+    model = init_model(cfg, device, g)
     engine = RolloutEngine(model, cfg, device=device, maskgit_steps=STEPS,
                            temperature=0.0, cache_dtype=cache_dtype)
     plain = PlainDecodeEngine(cfg, device=device, cache_dtype=cache_dtype)
@@ -1299,7 +1354,9 @@ def check_rollout(cfg, device, cache_dtype="bf16", per_layer=PER_LAYER,
     kernel_path(seeded())  # first-call set-up, not timed
     torch.cuda.synchronize()
     kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     out, wall = timed(kernel_path)
+    peak = torch.cuda.max_memory_allocated()
     launches = dict(kernels.LAUNCHES)
     want = expected_launches(per_layer, cfg.num_layers)
     if launches != want:
@@ -1328,8 +1385,8 @@ def check_rollout(cfg, device, cache_dtype="bf16", per_layer=PER_LAYER,
     return dict(launches=launches, rollout_s=wall, rollout_s_runs=walls,
                 plain_rollout_s=wall_plain, s_per_frame=wall / NEW,
                 s_per_frame_per_row=wall / (NEW * B), token_agreement=agree,
-                layers=cfg.num_layers, qk_norm=cfg.qk_norm,
-                cache_dtype=cache_dtype,
+                peak_memory_bytes=peak, layers=cfg.num_layers,
+                qk_norm=cfg.qk_norm, cache_dtype=cache_dtype,
                 action_vocab_size=cfg.action_vocab_size,
                 device_time=device_time,
                 **check_prefill_and_logits(model, cfg, prompt, engine, plain,
@@ -1882,34 +1939,11 @@ def check_decode_batches(C, H, device, T=16):
     cache of T slots, t_B mixed 0..T - 1; K2's t_B from P)."""
     inp = Inputs(4, device)
     L, S = 2, 64
-    kw = dict(layer=1, scale=(C // H) ** -0.5, num_heads=H)
     errs = {}
     for Bt in (16, 17, 16 + 256, 16):
         kc, vc = inp.normal(T, L, Bt, S, C), inp.normal(T, L, Bt, S, C)
-        (kq, ks), (vq, vs) = quantize_cache(kc), quantize_cache(vc)
-        t_B = (torch.arange(Bt, device=device) * 7 % T).to(torch.int32)
-        for cache, ckw, kcc, vcc in (
-                ("bf16", {}, kc, vc),
-                ("int8", dict(k_scale=ks, v_scale=vs), kq, vq)):
-            for frames in (1, 2):
-                q, k, v = (x.unbind(1) for x in inp.normal(
-                    Bt, frames, S, 3 * C).split(C, dim=-1))
-                tb = t_B.clamp(max=T - frames)
-                if frames == 1:
-                    args = (q[0], kcc, vcc, k[0], v[0], tb)
-                    kernel, plain = (da.temporal_decode_attention,
-                                     da.temporal_decode_attention_plain)
-                else:
-                    args = (q[0], q[1], kcc, vcc, k[0], v[0], k[1], v[1], tb)
-                    kernel, plain = (da.temporal_decode2_attention,
-                                     da.temporal_decode2_attention_plain)
-                got = kernel(*args, **kw, **ckw)
-                want = plain(*args, **kw, **ckw)
-                got, want = ((got,), (want,)) if frames == 1 else (got, want)
-                name = f"{kernel.__name__}[{cache},B={Bt}]"
-                errs[name] = max(compare(name, g, w, 3e-2, 3e-2)
-                                 for g, w in zip(got, want))
-    del kc, vc, kq, vq, ks, vs
+        errs.update(decode_forms(inp, kc, vc, H, f",B={Bt}"))
+    del kc, vc
     w = block_weights(inp, C)
     bkw = dict(scale=(C // H) ** -0.5, num_heads=H, gelu_tanh=True, **w)
     for Bt in (16, 17):
@@ -1926,6 +1960,42 @@ def check_decode_batches(C, H, device, T=16):
         errs[name] = held_to_plain(name, got[0], want[0], want32[0], 3e-2)
         compare(name + " k", got[1], want[1], 2e-2, 2e-2)
         compare(name + " v", got[2], want[2], 2e-2, 2e-2)
+    return errs
+
+
+def decode_forms(inp, kc, vc, H, tag, caches=("bf16", "int8")):
+    """K7 and K8 on layer 1 of the bf16 (T, L, B, S, C) caches `kc`, `vc`
+    and, for "int8" in `caches`, of their quantized copies, against the
+    plain version (atol = rtol = 3e-2), t_B mixed 0..T - 1, q, k, v the
+    thirds of a (B, frames, S, 3C) tensor drawn from `inp` for each form.
+    Returns {"K[cache`tag`]": max abs error}."""
+    T, _, Bt, S, C = kc.shape
+    t_B = (torch.arange(Bt, device=kc.device) * 7 % T).to(torch.int32)
+    kw = dict(layer=1, scale=(C // H) ** -0.5, num_heads=H)
+    errs = {}
+    for cache in caches:
+        ckw, kcc, vcc = {}, kc, vc
+        if cache == "int8":
+            (kcc, ks), (vcc, vs) = quantize_cache(kc), quantize_cache(vc)
+            ckw = dict(k_scale=ks, v_scale=vs)
+        for frames in (1, 2):
+            q, k, v = (x.unbind(1) for x in inp.normal(
+                Bt, frames, S, 3 * C).split(C, dim=-1))
+            tb = t_B.clamp(max=T - frames)
+            if frames == 1:
+                args = (q[0], kcc, vcc, k[0], v[0], tb)
+                kernel, plain = (da.temporal_decode_attention,
+                                 da.temporal_decode_attention_plain)
+            else:
+                args = (q[0], q[1], kcc, vcc, k[0], v[0], k[1], v[1], tb)
+                kernel, plain = (da.temporal_decode2_attention,
+                                 da.temporal_decode2_attention_plain)
+            got = kernel(*args, **kw, **ckw)
+            want = plain(*args, **kw, **ckw)
+            got, want = ((got,), (want,)) if frames == 1 else (got, want)
+            name = f"{kernel.__name__}[{cache}{tag}]"
+            errs[name] = max(compare(name, g, w, 3e-2, 3e-2)
+                             for g, w in zip(got, want))
     return errs
 
 
@@ -1980,7 +2050,7 @@ def without_remat(model):
 
 def check_training(cfg, device, per_layer=TRAIN_PER_LAYER):
     g = torch.Generator(device=device).manual_seed(0)
-    model = STMaskGIT(cfg, device=device).init_weights(g)
+    model = init_model(cfg, device, g)
     init = {k: v.clone() for k, v in model.state_dict().items()}
     side = cfg.latent_side_len
     tokens = torch.randint(0, cfg.image_vocab_size, (TB, cfg.T, side, side),
@@ -2935,7 +3005,8 @@ def check_h64_kernels(device):
 
 
 def check_config_paths(make, label, device, cut_layers, deep_layers=None,
-                       plain_layers=None):
+                       plain_layers=None, rollout_layers=None,
+                       cli_layers=None):
     """The entry points of the configuration `make(**overrides)` (seeded
     random weights), each by its GENIE_138M counterpart's gates and exact
     launch counts per layer: at `deep_layers` layers (the configuration's
@@ -2943,12 +3014,14 @@ def check_config_paths(make, label, device, cut_layers, deep_layers=None,
     against the plain path (`check_rollout`), ten train steps
     (`check_training`) and the step's gradients against the plain path and
     fp32 (`check_step_against_plain`; at `plain_layers` layers where given,
-    a model of its own from the same seed); at `cut_layers` layers
+    a model of its own from the same seed; the rollout at `rollout_layers`
+    where given); at `cut_layers` layers
     `score_policies`, an `evaluate_dataset` batch at B 16, the train CLI on
     the configuration written as JSON into a temporary directory, with its
-    resume and exports (`check_cli_run`), and the qk_norm model's int8
-    op-by-op rollout and train step against the plain path. Each result is
-    printed after `label`. Returns (results, walls in s)."""
+    resume and exports (`check_cli_run`; at `cli_layers` where given), and
+    the qk_norm model's int8 op-by-op rollout and train step against the
+    plain path. Each result is printed after `label`. Returns (results,
+    walls in s)."""
     deep = make() if deep_layers is None else make(num_layers=deep_layers)
     cut = make(num_layers=cut_layers)
     out, walls = {}, {}
@@ -2956,8 +3029,9 @@ def check_config_paths(make, label, device, cut_layers, deep_layers=None,
     def show(what, key):
         print(f"{label} {what}: " + json.dumps(out[key]), flush=True)
     t0 = time.perf_counter()
-    out["rollout"] = check_rollout(deep, device,
-                                   per_layer=rollout_per_layer(NEW))
+    out["rollout"] = check_rollout(
+        deep if rollout_layers is None else make(num_layers=rollout_layers),
+        device, per_layer=rollout_per_layer(NEW))
     walls["rollout"] = time.perf_counter() - t0
     show("rollout", "rollout")
     t0 = time.perf_counter()
@@ -2967,7 +3041,7 @@ def check_config_paths(make, label, device, cut_layers, deep_layers=None,
         torch.cuda.empty_cache()
         deep = make(num_layers=plain_layers)
         g = torch.Generator(device=device).manual_seed(0)
-        model = STMaskGIT(deep, device=device).init_weights(g)
+        model = init_model(deep, device, g)
     out["step_against_plain"] = check_step_against_plain(model, deep, device)
     del model
     torch.cuda.empty_cache()
@@ -2977,7 +3051,7 @@ def check_config_paths(make, label, device, cut_layers, deep_layers=None,
 
     t0 = time.perf_counter()
     g = torch.Generator(device=device).manual_seed(0)
-    model = STMaskGIT(cut, device=device).init_weights(g)
+    model = init_model(cut, device, g)
     engine, out["scoring"] = check_scoring(model, cut, device)
     del engine
     show("scoring", "scoring")
@@ -2991,8 +3065,9 @@ def check_config_paths(make, label, device, cut_layers, deep_layers=None,
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         config = Path(tmp) / f"{make.__name__}.json"
-        cut.save_pretrained(config)
-        out["cli"] = check_cli_run(cut, device, Path(tmp), config)
+        cli = cut if cli_layers is None else make(num_layers=cli_layers)
+        cli.save_pretrained(config)
+        out["cli"] = check_cli_run(cli, device, Path(tmp), config)
     torch.cuda.empty_cache()
     walls["cli"] = time.perf_counter() - t0
     show("train CLI", "cli")
@@ -3367,7 +3442,7 @@ def check_grid_1024(device):
 # -------------------------------------------------------- head_dim 128
 
 H128_HEADS = 4  # GENIE_138M's width at 4 heads: head_dim 128
-H128_LAYERS = 8  # the depth of the phase's secondary paths
+H128_LAYERS = 8  # the depth of the phase's paths
 # the token counts of K9's and K10's untimed checks at head_dim 128 (R = 4
 # rows; 1024 at R = 2) besides the main path's 256
 H128_SWEEP_N = (64, 192, 1024)
@@ -3455,9 +3530,11 @@ def check_head_dim_128(device):
     version (`check_h128_kernels`) and the decode batch sizes
     (`check_decode_batches`, 4 heads), then every entry point
     (`check_config_paths`): the rollout (B 16, 8 + 8 frames), ten train
-    steps and the step against the plain path at full depth (32 layers),
-    scores, the evaluator, the train CLI and the qk_norm int8 paths at
-    H128_LAYERS; last a `use_mup` rollout and step at H128_LAYERS
+    steps, the step against the plain path, scores, the evaluator, the
+    train CLI and the qk_norm int8 paths at H128_LAYERS (the rollout and
+    the steps at 32 layers until the model widths phase came, for the
+    script's time; `check_h128_kernels` keeps every head_dim-128 form at
+    full shape); last a `use_mup` rollout and step at H128_LAYERS
     (`check_variant`: the attention scale 8 / 128 = 0.0625 where
     128^-0.5 = 0.0884)."""
     cfg = genie_138m_h128()
@@ -3470,7 +3547,7 @@ def check_head_dim_128(device):
         out["decode_batches"]), flush=True)
     walls["kernels"] = time.perf_counter() - t0
     paths, path_walls = check_config_paths(genie_138m_h128, "head_dim 128",
-                                           device, H128_LAYERS)
+                                           device, H128_LAYERS, H128_LAYERS)
     out.update(paths)
     t0 = time.perf_counter()
     mup_cfg = genie_138m_h128(num_layers=H128_LAYERS, use_mup=True)
@@ -3483,6 +3560,164 @@ def check_head_dim_128(device):
           + json.dumps(out["mup"]), flush=True)
     walls["mup"] = time.perf_counter() - t0
     out["phase_walls_s"] = dict(walls, **path_walls)
+    return out
+
+
+# ------------------------------------------------------------ model widths
+
+WIDTH_LAYERS = 8  # the depth of the phase's secondary paths
+# the untimed widths of the decode ring's and the LN rows' sweep: C % 256
+# = 96, 64 (320, 1600), 128 (384, 640, 1152) and 0 (2048); items of more
+# tokens (96, 320, 384, 640) or of idle lanes (1152, 1600), and 2048, the
+# widest
+WIDTH_SWEEP_C = (96, 320, 384, 640, 1152, 1600, 2048)
+
+
+def genie_138m_c384(**overrides) -> GenieConfig:
+    """GENIE_138M-C384: configs/genie_138m.json through
+    `GenieConfig.from_pretrained` at d_model 384 in 6 heads of 64, the
+    width and head split of DiT-S (Peebles & Xie 2023, Table 1) and
+    ViT-S / DeiT-S (32 layers, S 256, T 16 with 8 prompt frames, bf16
+    compute, fp32 params, mlp_ratio 4; 16 C^2 weights a block, 75.5M)."""
+    return dataclasses.replace(GenieConfig.from_pretrained(RT_CONFIG),
+                               d_model=384, num_heads=6, **overrides)
+
+
+def genie_138m_c1600(**overrides) -> GenieConfig:
+    """GENIE_138M-C1600: the same JSON at d_model 1600 in 25 heads of 64,
+    GPT-2 XL's width and head split (Radford et al. 2019, Table 2;
+    `gpt2-xl`'s n_embd 1600, n_head 25): 1.31B block weights."""
+    return dataclasses.replace(GenieConfig.from_pretrained(RT_CONFIG),
+                               d_model=1600, num_heads=25, **overrides)
+
+
+# the phase's configurations: key, maker, and the depths that
+# `check_config_paths` takes other than the configuration's 32 layers and
+# WIDTH_LAYERS. GENIE_138M-C1600 (1.31B block weights) is cut for the
+# script's time: its rollout and the rollout's comparison with the plain
+# path at 16 layers, the step's at 8, and its train CLI at 1 layer (at 8
+# the CLI's CPU-side state copies, resume and exports of 331M parameters
+# took 126.9 of the phase's 254.9 s on an H100 80GB HBM3); its ten train
+# steps stay at 32.
+WIDTH_CONFIGS = (
+    ("c384", genie_138m_c384, {}),
+    ("c1600", genie_138m_c1600,
+     dict(rollout_layers=16, plain_layers=WIDTH_LAYERS, cli_layers=1)))
+
+
+def check_ln_rows(inp, C, rows=4099):
+    """The training LayerNorm row passes (`_train_kernels.ln_fwd`,
+    `ln_bwd`: K11's and K13's pre-LN) at (rows, C) against their plain
+    versions: xn (atol = rtol = 3e-2, as K5), the mean and rstd (1e-3
+    relative), dx on the kernel's statistics (3e-2) and the scale and bias
+    gradients, sums over the rows in another order, by the gradient gates.
+    4099 rows: the backward's last block and the forward's last warp
+    group are partial."""
+    x = inp.normal(rows, C, mean=0.3)
+    g = inp.normal(C, std=0.1, mean=1.0, dtype=torch.float32)
+    b = inp.normal(C, std=0.1, dtype=torch.float32)
+    d_xn = inp.normal(rows, C, dtype=torch.float32)
+    dout = inp.normal(rows, C)
+    name = f"ln_rows[C={C}]"
+    (xn, st), (wxn, wst) = tk.ln_fwd(x, g, b), tk.ln_fwd_plain(x, g, b)
+    err = compare(name, xn, wxn, 3e-2, 3e-2)
+    compare(name + " stats", st, wst, 1e-5, 1e-3)
+    got, want = (fn(x, st, g, d_xn, dout)
+                 for fn in (tk.ln_bwd, tk.ln_bwd_plain))
+    return dict(max_abs_err=err, shape=[rows, C],
+                dx=compare(name + " dx", got[0], want[0], 3e-2, 3e-2),
+                dscale=grad_errors(name + " dscale", got[1], want[1]),
+                dbias=grad_errors(name + " dbias", got[2], want[2]))
+
+
+def check_width_sweep(device, widths=WIDTH_SWEEP_C):
+    """The decode ring and the LN rows at each of `widths`, untimed, against
+    their plain versions: K7 and K8 at every head width that divides C
+    (`decode_forms`: B 4, a 2-layer cache of 16 slots), on the bf16 cache
+    at S = 250 and the int8 cache at S = 252, so that the last tile of each
+    row is short at every width (2 of 4 tokens at 1152 and 1600, 26 of 32
+    at 96; int8 takes S % 4 == 0 only); and the training LN rows
+    (`check_ln_rows`)."""
+    inp = Inputs(13, device)
+    out = {}
+    for C in widths:
+        for D in (d for d in (32, 64, 128) if C % d == 0):
+            for cache, S in (("bf16", 250), ("int8", 252)):
+                kc, vc = inp.normal(16, 2, 4, S, C), inp.normal(16, 2, 4, S, C)
+                out.update(decode_forms(inp, kc, vc, C // D,
+                                        f",C={C},D={D},S={S}", (cache,)))
+        out[f"ln_rows[C={C}]"] = check_ln_rows(inp, C)
+    return out
+
+
+def check_width_kernels(C, H, key, device):
+    """The kernel forms of a width at its main path's shapes (C channels,
+    H heads of 64), each against its plain version by the gates of its
+    GENIE_138M check and timed with its bound: K1 at N = 16, K5, K2 and K3,
+    K7 and K8 (bf16 and int8 cache), K4 at the rollout prefill (causal and
+    not) and K6 at the train step, K11 and K13 with their LN rows (output
+    and every gradient). Keys end in "[`key`]"."""
+    inp = Inputs(12, device)
+    L = 32
+    out = {f"spatial_block[N={B}]": check_spatial_block(inp, C, H, B),
+           "layer_norm": check_layer_norm(inp, C)}
+    T = 16
+    caches = (inp.normal(T, L, B, GRID, C), inp.normal(T, L, B, GRID, C))
+    for name, pair in (("temporal_mlp_block", False),
+                       ("temporal_mlp_block_pair", True)):
+        out[name] = check_temporal_mlp_block(inp, C, H, L, caches, pair)
+    for pair in (False, True):
+        out.update(check_decode_attention(inp, C, H, L, caches, None, pair))
+    (kq, ks), (vq, vs) = quantize_cache(caches[0]), quantize_cache(caches[1])
+    del caches
+    for pair in (False, True):
+        out.update(check_decode_attention(inp, C, H, L, (kq, vq), (ks, vs),
+                                          pair))
+    del kq, vq, ks, vs
+    torch.cuda.empty_cache()
+    out.update(check_temporal_attention(inp, C, H))
+    out.update(check_temporal_attention_bwd(inp, C, H))
+    out.update(check_spatial_train_block(inp, C, H))
+    out.update(check_mlp_train_block(inp, C))
+    torch.cuda.empty_cache()
+    out = {name.replace(f"[C={C}]", "").replace(f"C={C},", "") + f"[{key}]":
+           r for name, r in out.items()}
+    return print_kernels(out)
+
+
+def check_widths(device):
+    """GENIE_138M-C384 and -C1600 end to end, one row of WIDTH_CONFIGS
+    after the other, modelled on `check_head_dim_128`: first the decode
+    ring and the LN rows across widths (`check_width_sweep`); then for each
+    configuration its kernel forms at full size (`check_width_kernels`),
+    the decode batch sizes (`check_decode_batches`) and every entry point
+    (`check_config_paths`): the rollout (B 16, 8 + 8 frames), ten train
+    steps and the step against the plain path at 32 layers, then scores,
+    the evaluator, the train CLI and the qk_norm int8 paths at
+    WIDTH_LAYERS, each at the row's own depth where it gives one."""
+    walls = {}
+    t0 = time.perf_counter()
+    out = {"sweep": check_width_sweep(device)}
+    print("model widths, the decode ring and the LN rows: " + json.dumps(
+        out["sweep"]), flush=True)
+    walls["sweep"] = time.perf_counter() - t0
+    for key, make, depths in WIDTH_CONFIGS:
+        cfg = make()
+        label = f"GENIE_138M-{key.upper()}"
+        t0 = time.perf_counter()
+        res = {"kernels": check_width_kernels(cfg.d_model, cfg.num_heads, key,
+                                              device),
+               "decode_batches": check_decode_batches(cfg.d_model,
+                                                      cfg.num_heads, device)}
+        print(f"{label} decode attention across batch sizes: " + json.dumps(
+            res["decode_batches"]), flush=True)
+        walls[f"{key} kernels"] = time.perf_counter() - t0
+        paths, path_walls = check_config_paths(make, label, device,
+                                               WIDTH_LAYERS, **depths)
+        res.update(paths)
+        walls.update({f"{key} {k}": v for k, v in path_walls.items()})
+        out[key] = res
+    out["phase_walls_s"] = walls
     return out
 
 
@@ -5344,15 +5579,36 @@ def main() -> int:
         print(f"head_dim 128 phase: {time.perf_counter() - t0:.1f} s ("
               + ", ".join(f"{k} {v:.1f} s" for k, v in w128.items())
               + f"); GENIE_138M-h128 ({H128_HEADS} heads of "
-              f"{cfg.d_model // H128_HEADS}) rollout "
-              f"{h128['rollout']['s_per_frame']:.4f} s/frame at B={B}; "
-              f"train step {h128['training']['step_s']:.4f} s, peak "
-              f"{h128['training']['peak_memory_bytes']} B at B={TB}; at "
-              f"{H128_LAYERS} layers gen_time "
+              f"{cfg.d_model // H128_HEADS}) at {H128_LAYERS} layers: "
+              f"rollout {h128['rollout']['s_per_frame']:.4f} s/frame at "
+              f"B={B}; train step {h128['training']['step_s']:.4f} s, peak "
+              f"{h128['training']['peak_memory_bytes']} B at B={TB}; "
+              f"gen_time "
               f"{h128['evaluator']['gen_time']:.6f} s/frame, score_policies "
               f"{h128['scoring']['policies_per_s']:.1f} policies/s, the "
               f"train CLI {h128['cli']['s_per_update']:.4f} s/update on "
               f"{card}", flush=True)
+
+        t0 = time.perf_counter()
+        wid = check_widths(device)
+        print(f"model widths phase: {time.perf_counter() - t0:.1f} s ("
+              + ", ".join(f"{k} {v:.1f} s"
+                          for k, v in wid["phase_walls_s"].items())
+              + "); " + "; ".join(
+                  f"GENIE_138M-{key.upper()} rollout "
+                  f"{wid[key]['rollout']['s_per_frame']:.4f} s/frame at "
+                  f"B={B}, peak {wid[key]['rollout']['peak_memory_bytes']} "
+                  f"B ({wid[key]['rollout']['layers']} layers); train step "
+                  f"{wid[key]['training']['step_s']:.4f} s, "
+                  f"peak {wid[key]['training']['peak_memory_bytes']} B at "
+                  f"B={TB} ({wid[key]['training']['layers']} layers); at "
+                  f"{WIDTH_LAYERS} layers gen_time "
+                  f"{wid[key]['evaluator']['gen_time']:.6f} s/frame, "
+                  f"score_policies "
+                  f"{wid[key]['scoring']['policies_per_s']:.1f} policies/s, "
+                  f"the train CLI {wid[key]['cli']['s_per_update']:.4f} "
+                  f"s/update" for key, _, _ in WIDTH_CONFIGS)
+              + f" on {card}", flush=True)
 
         t0 = time.perf_counter()
         tp = check_tensor_parallel(device)
@@ -5454,6 +5710,27 @@ def main() -> int:
                 if q8 is not None:  # the decode attention kernels
                     item["h128"].update(int8_device_ms=q8["device_ms"],
                                         int8_bound_ms=q8["bound_ms"])
+            # the forms at GENIE_138M-C384's and -C1600's widths: their
+            # checks where the phase has one, and the launches on each
+            # configuration's paths
+            for key, _, _ in WIDTH_CONFIGS:
+                w = wid[key]
+                rw = w["kernels"].get(f"{name}[N={B}][{key}]"
+                                      if name == "spatial_block"
+                                      else f"{name}[{key}]")
+                e = {} if rw is None else {k: rw.get(k) for k in (
+                    "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "library_device_ms", "shape")}
+                e["launches"] = {k: w[k]["launches"][name] for k in (
+                    "rollout", "training", "scoring", "evaluator",
+                    "qk_norm_int8_rollout", "qk_norm_training")}
+                e["launches"]["train_cli_update"] = (
+                    w["cli"]["launches_per_update"][name])
+                q8 = w["kernels"].get(f"{name}[int8][{key}]")
+                if q8 is not None:  # the decode attention kernels
+                    e.update(int8_device_ms=q8["device_ms"],
+                             int8_bound_ms=q8["bound_ms"])
+                item[key] = e
             # the T = 32 form: its check at GENIE_138M-T32's shapes and its
             # launches on that configuration's paths
             if name in W32_KEYS:

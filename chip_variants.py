@@ -31,7 +31,9 @@
     python3 chip_variants.py s1024
     python3 chip_variants.py s1024_times
     python3 chip_variants.py k12gate
-    python3 chip_variants.py ab_times [h32 | h64 | h128 | groups | one_head]
+    python3 chip_variants.py widths_debug
+    python3 chip_variants.py ab_times [h32 | h64 | h128 | groups | one_head |
+                                      widths | ln_rows]
     python3 chip_variants.py c8
 
 Each LIB is a shared library built from a variant of a source in
@@ -236,7 +238,15 @@ in one process on one card; every time is the profiler's device time
   one head a rank takes, with their bounds: K4 / K6 at head groups of 1,
   the GEMM at a GENIE_35M tp = 8 rank's products, and each TP sub-layer's
   launch sequence at the rank's shapes of GENIE_35M at tp = 8 and
-  GENIE_138M-h128 at tp = 4.
+  GENIE_138M-h128 at tp = 4; `widths` the decode ring's (K7, K8, bf16 and
+  int8), K2's and K3's forms at C = 256 and 512, K11, K13 and the LN rows
+  at 512: what the model widths' kernels share with the parent's.
+- `widths_debug`: the decode, temporal+MLP block, train block and
+  layer-norm libraries' ptxas lines, then each check of the model widths
+  phase (`WIDTHS_DEBUG`: the decode ring and the LN rows at C = 96 to
+  2048 with short last tiles, every kernel form of GENIE_138M-C384 and
+  -C1600 at full size, timed with its bound, and the decode batch sizes
+  at both widths), each in a process of its own with a time limit.
 - `s1024_debug`: the flash and spatial libraries' ptxas lines, then
   each spatial check of `chip_smoke.py` at GENIE_138M-S1024's grid
   (`S1024_DEBUG`: the S sweep of K9, K10, K1 and K11 at S = 64 to 4096,
@@ -259,6 +269,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import json
 import re
@@ -1708,6 +1719,215 @@ def h64_debug(dev, runs=((8, tuple(H64_DEBUG)), (16, tuple(H64_DEBUG)))):
             print(f"== {name} heads={heads} rc={rc}\n{text}", flush=True)
 
 
+# the checks of `widths_debug`, each run in a process of its own: the
+# decode ring and the LN rows across widths, then each configuration's
+# kernel forms (timed, with their bounds) and decode batch sizes
+WIDTHS_DEBUG = {
+    "sweep": lambda dev: cs.check_width_sweep(dev),
+    "c384": lambda dev: cs.check_width_kernels(384, 6, "c384", dev),
+    "c1600": lambda dev: cs.check_width_kernels(1600, 25, "c1600", dev),
+    "c384_batches": lambda dev: cs.check_decode_batches(384, 6, dev),
+    "c1600_batches": lambda dev: cs.check_decode_batches(1600, 25, dev),
+}
+
+
+def widths_one(name: str) -> int:
+    """One check of WIDTHS_DEBUG, in this process."""
+    dev = torch.device("cuda")
+    out = WIDTHS_DEBUG[name](dev)
+    torch.cuda.synchronize()
+    print(json.dumps({"check": name, "result": out}, default=str),
+          flush=True)
+    return 0
+
+
+def widths_debug(dev):
+    """The first call after a change of the decode ring or the LN rows:
+    every kernel library rebuilt with ptxas's counts (the decode, temporal
+    +MLP block, train block and layer-norm sources' lines printed), then
+    each check of WIDTHS_DEBUG in a process of its own with a time limit,
+    so that a fault or a hang in one leaves the others' results; each
+    check's whole output goes to chiprun_out/widths_NAME.log."""
+    import subprocess
+    logs = kernels.build_all(verbose=True)
+    for name, log in logs.items():
+        if name not in ("decode_attention", "temporal_mlp_block",
+                        "train_block", "layer_norm"):
+            continue
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "spill", "error",
+                                       "warning", "Compiling entry")):
+                print(f"ptxas {name}: {line.strip()}", flush=True)
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    for name in WIDTHS_DEBUG:
+        try:
+            res = subprocess.run([sys.executable, __file__, "widths_one",
+                                  name], capture_output=True, text=True,
+                                 timeout=300)
+            text, rc = res.stdout + res.stderr, res.returncode
+        except subprocess.TimeoutExpired:
+            text, rc = "timed out", "timeout"
+        (out / f"widths_{name}.log").write_text(text)
+        print(f"== {name} rc={rc}\n{text[-3000:]}", flush=True)
+
+
+def width_loss(dev):
+    """The first loss of `chip_smoke.check_training`'s model (seed 0, the
+    JAX package's initialisation, normal std 0.02 at every width) on one
+    corrupted batch of CB rows, forward only, through the kernel path, the
+    plain train blocks in bf16 and an fp32 plain run, with the logits'
+    spread, for GENIE_138M (C = 512) and GENIE_138M-C384 and -C1600 at 8,
+    16 and 32 layers; then the same with every 2-D weight drawn at std
+    0.02 sqrt(512 / C) (`fan_in`). Whether a first loss far from the
+    uniform guess is the initialisation's or a kernel's."""
+    from tpu1x_torch.data.corruption import draw_noise, maskgit_corrupt
+    from tpu1x_torch.models.st_maskgit import STMaskGIT
+    for make in (cs.genie_138m, cs.genie_138m_c384, cs.genie_138m_c1600):
+        for layers in (8, 16, 32):
+            for fan_in in (False, True):
+                cfg = make(num_layers=layers)
+                g = torch.Generator(device=dev).manual_seed(0)
+                model = STMaskGIT(cfg, device=dev).init_weights(g)
+                if fan_in:
+                    with torch.no_grad():
+                        for n, p in model.named_parameters():
+                            if n.endswith("weight") and p.dim() == 2:
+                                p.mul_(min(1.0, (512 / cfg.d_model) ** 0.5))
+                side = cfg.latent_side_len
+                tokens = torch.randint(0, cfg.image_vocab_size,
+                                       (cs.CB, cfg.T, side, side),
+                                       generator=g, device=dev)
+                batch = maskgit_corrupt(
+                    tokens, draw_noise(tokens.shape, cfg, g, dev), cfg)
+                ref = STMaskGIT(dataclasses.replace(cfg, dtype="float32",
+                                                    remat=False), device=dev)
+                ref.load_state_dict(model.state_dict())
+                res = {}
+                with torch.no_grad():
+                    for name, m, plain in (("kernel", model, False),
+                                           ("plain", model, True),
+                                           ("fp32", ref, True)):
+                        with (cs.plain_blocks() if plain
+                              else contextlib.nullcontext()):
+                            out = m(batch["input_ids"], batch["labels"])
+                            logits = m.compute_logits(
+                                batch["input_ids"].reshape(tokens.shape))
+                        res[name] = dict(loss=float(out["loss"]),
+                                         logit_std=float(logits.std()))
+                print(json.dumps(dict(d_model=cfg.d_model, layers=layers,
+                                      fan_in=fan_in, **res)), flush=True)
+                del model, ref
+                torch.cuda.empty_cache()
+
+
+def width_times(dev):
+    """`ab_times widths`: device ms (profiler) of the forms that the model
+    widths' kernels share with GENIE_138M's, through this checkout's
+    wrappers: K2, K3, K7 and K8 (bf16 and int8 cache, chip_smoke.py's
+    t_B) at C = 256 (8 heads) and 512 (16 heads), the cache (16, 32, 16,
+    256, C); K11's backward and K13's forward and backward (erf, with LN)
+    at the pre-LN train step's (128, 256, 512); the LN row passes alone at
+    its 32768 rows of 512. Only names that a tree from before the widths
+    has, so that a parent's copy runs it too."""
+    from tpu1x_torch.ops import decode_attention as da
+    from tpu1x_torch.ops import mlp_train_block as mtb
+    from tpu1x_torch.ops import spatial_train_block as stb
+    from tpu1x_torch.ops._train_kernels import ln_bwd, ln_fwd
+    from tpu1x_torch.ops.temporal_mlp_block import (temporal_mlp_block,
+                                                    temporal_mlp_block_pair)
+    inp = cs.Inputs(0, dev)
+    times = {}
+    L, T = 32, 16
+    for C, H in ((256, 8), (512, 16)):
+        caches = (inp.normal(T, L, cs.B, 256, C),
+                  inp.normal(T, L, cs.B, 256, C))
+        wb = cs.block_weights(inp, C)
+        for pair, fn in ((False, temporal_mlp_block),
+                         (True, temporal_mlp_block_pair)):
+            frames = 2 if pair else 1
+            x = (inp.normal(cs.B, 2, 256, C) if pair
+                 else inp.normal(cs.B, 256, C))
+            t_B = (cs.P + torch.arange(cs.B, device=dev)
+                   % (T - cs.P - frames + 1)).to(torch.int32)
+            times[f"K{3 if pair else 2}[C={C}]"] = cs.device_ms(
+                lambda: fn(x, *caches, t_B, layer=L // 2,
+                           scale=(C // H) ** -0.5, num_heads=H,
+                           gelu_tanh=True, **wb))
+        (kq, ks), (vq, vs) = (cs.quantize_cache(caches[0]),
+                              cs.quantize_cache(caches[1]))
+        for cache, kv, skw in (("bf16", caches, {}),
+                               ("int8", (kq, vq),
+                                dict(k_scale=ks, v_scale=vs))):
+            for frames in (1, 2):
+                q, k, v = inp.normal(frames * cs.B, 256, 3 * C).split(
+                    C, dim=-1)
+                t_B = (torch.arange(cs.B, device=dev) * 7
+                       % (T - frames + 1)).to(torch.int32)
+                kw = dict(layer=L // 2, scale=(C // H) ** -0.5, num_heads=H,
+                          **skw)
+                run = (functools.partial(da.temporal_decode_attention, q,
+                                         *kv, k, v, t_B, **kw)
+                       if frames == 1 else functools.partial(
+                           da.temporal_decode2_attention, q[:cs.B],
+                           q[cs.B:], *kv, k[:cs.B], v[:cs.B], k[cs.B:],
+                           v[cs.B:], t_B, **kw))
+                times[f"K{7 if frames == 1 else 8}[{cache},C={C}]"] = (
+                    cs.device_ms(run))
+        del caches, kq, vq
+        torch.cuda.empty_cache()
+    C, H = 512, 16
+    x = inp.normal(cs.TB * 16, 256, C)
+    dout = inp.normal(cs.TB * 16, 256, C)
+    w = cs.spatial_weights(inp, C)
+    times["K11"] = cs.device_ms(lambda: stb.spatial_train_block_bwd(
+        x, dout, w["wqkv"], w["wproj"], None, w["ln_scale"], w["ln_bias"],
+        proj_bias=True, num_heads=H, scale=(C // H) ** -0.5))
+    wb = cs.block_weights(inp, C)
+    w16 = [wb[k] for k in ("wfc1", "wfc2", "bfc1", "bfc2")]
+    ln = (wb["ln_scale"], wb["ln_bias"])
+    times["K13"] = cs.device_ms(lambda: mtb.mlp_train_block_fwd(
+        x, *w16, *ln, gelu_approx=False))
+    times["K13[bwd]"] = cs.device_ms(lambda: mtb.mlp_train_block_bwd(
+        x, dout, *w16[:3], *ln, gelu_approx=False, bias=True))
+    rows = x.reshape(-1, C)
+    xn, stats = ln_fwd(rows, *ln)
+    d_xn = inp.normal(*rows.shape, dtype=torch.float32)
+    times["ln_fwd"] = cs.device_ms(lambda: ln_fwd(rows, *ln))
+    times["ln_bwd"] = cs.device_ms(lambda: ln_bwd(rows, stats, ln[0], d_xn,
+                                                  dout.reshape(-1, C)))
+    print(json.dumps({"ab_device_ms": times}), flush=True)
+
+
+def ln_row_times(dev, widths=(384, 1600, 2048), rows=32768):
+    """`ab_times ln_rows`: device ms (profiler) and byte bound of the
+    training LN row passes alone (`_train_kernels.ln_fwd`, `ln_bwd`) at
+    the train step's 32768 rows of GENIE_138M-C384's, -C1600's and the
+    widest C, forms that a tree from before the widths refuses past 1024
+    (so no A/B). One JSON line."""
+    inp = cs.Inputs(1, dev)
+    out = {}
+    for C in widths:
+        x = inp.normal(rows, C, mean=0.3)
+        g = inp.normal(C, std=0.1, mean=1.0, dtype=torch.float32)
+        b = inp.normal(C, std=0.1, dtype=torch.float32)
+        d_xn = inp.normal(rows, C, dtype=torch.float32)
+        dout = inp.normal(rows, C)
+        xn, stats = tk.ln_fwd(x, g, b)
+        # forward: x read, xn and the stats written; backward: x, the
+        # stats, d_xn and dout read, dx written, the C-wide sums
+        fwd = cs.bound(cs.nbytes(x, xn, stats, g, b))
+        bwd = cs.bound(cs.nbytes(x, stats, d_xn, dout, x, g) + 8 * C)
+        out[f"ln_fwd[C={C}]"] = dict(
+            device_ms=cs.device_ms(lambda: tk.ln_fwd(x, g, b)),
+            bound_ms=fwd[0], bound_by=fwd[1])
+        out[f"ln_bwd[C={C}]"] = dict(
+            device_ms=cs.device_ms(lambda: tk.ln_bwd(x, stats, g, d_xn,
+                                                     dout)),
+            bound_ms=bwd[0], bound_by=bwd[1])
+    print(json.dumps({"ln_rows": out}), flush=True)
+
+
 # `ab_times CONFIG`: each configuration's keyword arguments of `ab_times`.
 # "h32", "h64", "h128": every attention form at 16, 8 or 4 heads of C =
 # 512 with K11, K12 and SDPA beside them; "groups": the head_dim-32 forms
@@ -1715,16 +1935,21 @@ def h64_debug(dev, runs=((8, tuple(H64_DEBUG)), (16, tuple(H64_DEBUG)))):
 # chain alone and K13 (what the head groups of 1 and the GEMM's
 # overhanging tiles must leave as fast as they were); "one_head": the
 # forms one head a rank takes (`one_head_times`), which a tree from before
-# them refuses
+# them refuses; "widths": the decode ring's, K2's, K3's and the LN rows'
+# forms at GENIE_138M's widths (`width_times`); "ln_rows": the LN rows at
+# the model widths' C, with their bounds (`ln_row_times`, no A/B)
 AB_CONFIGS = {"h32": dict(heads=16, extra=True),
               "h64": dict(heads=8, extra=True),
               "h128": dict(heads=4, extra=True),
               "groups": dict(heads=16, extra=True, groups=True),
-              "one_head": dict(one_head=True)}
+              "one_head": dict(one_head=True),
+              "widths": dict(widths=True),
+              "ln_rows": dict(ln_rows=True)}
 
 
 def ab_times(dev, heads: int = 16, extra: bool = False, T: int = 16,
-             groups: bool = False, one_head: bool = False):
+             groups: bool = False, one_head: bool = False,
+             widths: bool = False, ln_rows: bool = False):
     """Device ms (profiler) of every attention kernel form through this
     checkout's wrappers at GENIE_138M's main-path shapes (C = 512, `heads`
     heads: 16 of 32 channels, or 8 of 64 for `ab_times h64`): K1 both modes at
@@ -1741,10 +1966,15 @@ def ab_times(dev, heads: int = 16, extra: bool = False, T: int = 16,
     K1's qkv and proj (N = 16 / 32 / 128 frames of 256 tokens) and K2's /
     K3's fc1 (tanh and erf GELU) and fc2 (4096 / 8192 rows), and K13's
     forward and backward (erf, with LN). `one_head` times only
-    `one_head_times`. One JSON line; run in a parent's copy and here in
-    turns for an A/B. No builds."""
+    `one_head_times`, `widths` only `width_times`, `ln_rows` only
+    `ln_row_times`. One JSON line; run in a
+    parent's copy and here in turns for an A/B. No builds."""
     if one_head:
         return one_head_times(dev)
+    if widths:
+        return width_times(dev)
+    if ln_rows:
+        return ln_row_times(dev)
     from tpu1x_torch.ops import attention as attn
     from tpu1x_torch.ops import decode_attention as da
     from tpu1x_torch.ops import temporal_attention as ta
@@ -2183,7 +2413,8 @@ MODES = {"block": block, "mlp": mlp, "train": train, "temporal": temporal,
          "ab_times": ab_times, "c8": c8, "w32_debug": w32_debug,
          "k12gate": k12gate, "w32_times": w32_times,
          "s1024_debug": s1024_debug, "s1024": s1024,
-         "s1024_times": s1024_times,
+         "s1024_times": s1024_times, "widths_debug": widths_debug,
+         "width_loss": width_loss,
          "h128_debug": functools.partial(
              h64_debug, runs=((4, tuple(H64_DEBUG)), (8, H128_DEBUG_NARROW),
                               (16, H128_DEBUG_NARROW)))}
@@ -2204,6 +2435,8 @@ def main() -> int:
         return w32_one(sys.argv[2])
     if sys.argv[1:2] == ["s1024_one"]:
         return s1024_one(sys.argv[2])
+    if sys.argv[1:2] == ["widths_one"]:
+        return widths_one(sys.argv[2])
     if sys.argv[1:2] == ["ab_times"] and len(sys.argv) == 3:
         if not torch.cuda.is_available() or sys.argv[2] not in AB_CONFIGS:
             print(__doc__, file=sys.stderr)

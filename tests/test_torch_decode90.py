@@ -66,7 +66,11 @@ def caches(rng, int8, t_B, C_=C):
                                          pytest.param(1, H, C, id="1"),
                                          pytest.param(1, 1, C, id="1-h64"),
                                          pytest.param(1, 1, 2 * C,
-                                                      id="1-h128")])
+                                                      id="1-h128"),
+                                         pytest.param(1, 6, 384,
+                                                      id="1-C384"),
+                                         pytest.param(1, 25, 1600,
+                                                      id="1-C1600")])
 @pytest.mark.parametrize("int8", [False, True], ids=["plain-cache", "int8"])
 @pytest.mark.parametrize("pair", [False, True], ids=["K7", "K8"])
 def test_decode_attention_t16(pair, int8, layer, H_, C_):
@@ -74,7 +78,8 @@ def test_decode_attention_t16(pair, int8, layer, H_, C_):
     mode, q, k, v read in place from one qkv tensor; the output written into
     the caller's `out` and the k/v copies into `kv_out` are the same. H_ = 1
     at C = 64 and 128: head_dim 64 and 128, the kernel's other head
-    widths."""
+    widths; 6 and 25 heads of 64 at C = 384 and 1600, GENIE_138M-C384's
+    and -C1600's widths (not multiples of 256)."""
     rng = np.random.default_rng(10 + 2 * pair + int8)
     frames = 2 if pair else 1
     t_B = np.array((T - frames, 0, 7, 3) if pair else (0, 5, 11, T - 1),
@@ -145,11 +150,12 @@ def contract(frames=1, int8=False, C_=256, S_=8, T_=16, B_=2):
 
 @pytest.mark.parametrize("frames", [1, 2])
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("C_", [256, 512])
+@pytest.mark.parametrize("C_", [256, 512, 384, 1600])
 def test_check_takes_the_qkv_thirds(frames, int8, C_):
     """The contract takes q, k, v as the column thirds of one qkv tensor
-    (K2's and K3's layout, each frame's view at the same strides), at both
-    shipped widths, with either cache; it returns their strides."""
+    (K2's and K3's layout, each frame's view at the same strides), at the
+    shipped widths and at GENIE_138M-C384's and -C1600's, with either
+    cache; it returns their strides."""
     kw = contract(frames, int8, C_)
     kw["out"] = tuple(torch.zeros(frames, 2, 8, C_,
                                   dtype=torch.bfloat16).unbind(0))
@@ -214,7 +220,7 @@ def _refused(case):
 
 @pytest.mark.parametrize("case,message", [
     ("T = 33", "T <= 32"),
-    ("C = 320", "C % 256 == 0"),
+    pytest.param("C = 320", None, id="C = 320-C % 256 == 0"),
     ("C > 2048", "C <= 2048"),
     ("one scale", "both cache scales or neither"),
     ("int8 S % 4", r"S % 4 == 0"),
@@ -230,6 +236,12 @@ def _refused(case):
 def test_check_refuses(case, message):
     """Every shape, dtype, stride and alignment the kernel's bulk copies
     and vector loads do not take raises before a launch, for that reason:
-    there is no fallback on the card."""
+    there is no fallback on the card. C = 320 (10 heads of 32), which the
+    ring refused while its items' rows had to be whole warps at 4 tokens
+    (C % 256 == 0, the case's id), is taken since the ring takes any
+    width up to 2048 (message None: the call returns its strides)."""
+    if message is None:
+        assert tdec._check(**_refused(case)) == [(8 * 3 * 320, 3 * 320)] * 3
+        return
     with pytest.raises(ValueError, match=message):
         tdec._check(**_refused(case))

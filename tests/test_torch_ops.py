@@ -102,13 +102,15 @@ def test_mha_reference(causal):
 
 @pytest.mark.parametrize(
     "rows,C", [(24, 128), (13, 128), (24, 256), (24, 512), (24, 2048),
-               (1, 512)],
-    ids=["24", "13", "24-C256", "24-C512", "24-C2048", "1-C512"])
+               (1, 512), (24, 384), (13, 1600)],
+    ids=["24", "13", "24-C256", "24-C512", "24-C2048", "1-C512", "24-C384",
+         "13-C1600"])
 def test_layer_norm(rows, C):
     """rows=13 and the single row take the JAX reference (rows % 8); the
     port has no such rule, the kernel takes any row count. C = 256, 512 and
     2048 are 1, 2 and 8 chunks of 8 channels a lane, the card kernel's
-    smallest, the GENIE widths' and its largest instantiation."""
+    smallest, the GENIE widths' and its largest instantiation; 384 and
+    1600 (GENIE_138M-C384's and -C1600's) end in a partial chunk."""
     from tpu1x.ops.layernorm import layer_norm as jax_layer_norm
     rng = np.random.default_rng(2)
     x = rand(rng, rows, C, scale=2.0) + 0.5
@@ -199,15 +201,18 @@ def block_weights(rng, C, F4, qkv_bias, mlp_bias):
 
 
 # (C, heads): the small width, and GENIE_35M's C=256 with 8 heads of 32
-# channels, the narrowest width the card's kernels take (ids of the small
-# width as before the wide cases existed)
+# channels (ids of the small width as before the wide cases existed);
+# GENIE_138M-C384's 6 heads of 64 and -C1600's 25, widths that are not a
+# multiple of 256
 @pytest.mark.parametrize("qkv_bias,mlp_bias,gelu_tanh,C,H", [
     pytest.param(False, True, True, 64, 2, id="False-True-True"),
     pytest.param(True, False, False, 64, 2, id="True-False-False"),
     pytest.param(False, True, True, 256, 8, id="C256-tanh"),
     pytest.param(True, True, False, 256, 8, id="C256-erf"),
     pytest.param(False, True, True, 256, 4, id="h64-tanh"),
-    pytest.param(False, True, True, 256, 2, id="h128-tanh")])
+    pytest.param(False, True, True, 256, 2, id="h128-tanh"),
+    pytest.param(False, True, True, 384, 6, id="C384-tanh"),
+    pytest.param(False, True, False, 1600, 25, id="C1600-erf")])
 def test_temporal_mlp_block_single(qkv_bias, mlp_bias, gelu_tanh, C, H):
     from tpu1x.ops.temporal_mlp_block import temporal_mlp_block as jax_tmb
     rng = np.random.default_rng(6)
@@ -234,7 +239,9 @@ def test_temporal_mlp_block_single(qkv_bias, mlp_bias, gelu_tanh, C, H):
     pytest.param(1, (3, 6), 256, 8, True, id="C256-tanh"),
     pytest.param(2, (0, 5), 256, 8, False, id="C256-erf"),
     pytest.param(1, (3, 6), 256, 4, False, id="h64-erf"),
-    pytest.param(1, (3, 6), 256, 2, False, id="h128-erf")])
+    pytest.param(1, (3, 6), 256, 2, False, id="h128-erf"),
+    pytest.param(1, (3, 6), 384, 6, True, id="C384-tanh"),
+    pytest.param(2, (0, 5), 1600, 25, False, id="C1600-erf")])
 def test_temporal_mlp_block_pair(layer, t_prev, C, H, gelu_tanh):
     from tpu1x.ops.temporal_mlp_block import temporal_mlp_block_pair as jax_pair
     rng = np.random.default_rng(7)

@@ -153,10 +153,17 @@ def test_gemm90_refuses_forms_without_an_instantiation(form, kw):
         tk.gemm90(a, b, form=form, **kw)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, BF16])
-def test_ln_row_passes_and_col_sum_against_float64(dtype):
+@pytest.mark.parametrize("dtype,C", [
+    pytest.param(torch.float32, 64, id="dtype0"),
+    pytest.param(BF16, 64, id="dtype1"),
+    pytest.param(torch.float32, 1600, id="float32-C1600"),
+    pytest.param(BF16, 2048, id="bfloat16-C2048")])
+def test_ln_row_passes_and_col_sum_against_float64(dtype, C):
+    """The LN row passes and the column sums at 64 channels, and at 1600
+    and 2048 (7 and 8 chunks of 8 channels a lane on the card, where the
+    backward takes gamma from shared memory and reads each row twice)."""
     rng = np.random.default_rng(1)
-    rows, C = 48, 64
+    rows = 48
     x = torch.from_numpy(rand(rng, rows, C, mean=0.3)).to(dtype)
     scale = torch.from_numpy(rand(rng, C, scale=0.1, mean=1.0))
     bias = torch.from_numpy(rand(rng, C, scale=0.1))

@@ -91,12 +91,15 @@ constexpr int DA_MAXT = 32;
 // int8 cache (four: its arithmetic a byte is the larger); at least two
 // stages. The tokens of an item are DA_ROWS / (C / 32), a
 // multiple of 4 (so that an item's int8 scales are whole 16-byte runs), at
-// least 4. Measured with `chip_variants.py da` (PERF.md section 6).
+// least 4, where that makes the rows whole warps (every C % 256 == 0);
+// other widths take more tokens or idle lanes (`decode_plan`). Measured
+// with `chip_variants.py da` (PERF.md section 6).
 constexpr int DA_ROWS = 64;
 constexpr int DA_SMEM = 64 * 1024;
 constexpr int DA_SMEM_Q8 = 52 * 1024;
 constexpr int DA_MAX_STAGES = 32;
-// Rows a block may hold (C = 2048 at 4 tokens), and its threads.
+// Rows a block may hold (C = 2048 at 4 tokens: the widest C a launch
+// takes, since an item holds at least 4 tokens), and its threads.
 constexpr int DA_MAX_ROWS = 256;
 constexpr int DA_THREADS = DA_MAX_ROWS + 32;
 // log2 of the largest term the online softmax lets build up before it
@@ -136,7 +139,8 @@ struct DecodeAttnArgs {
 // The launch's shape, from S, C and the cache type (decode_plan).
 struct DecodePlan {
   int ts;        // tokens of an item
-  int rows;      // (token, 32 channels) rows of an item: the consumers
+  int rows;      // (token, 32 channels) rows of an item
+  int lanes;     // the consumer threads: rows rounded up to a warp
   int tiles;     // items of one row b
   int stages;    // stages of the ring
   uint32_t tile_bytes;   // one slot's K (or V) rows of a full item
@@ -254,7 +258,9 @@ __device__ __forceinline__ long da_walk(int step, int j, int G) {
 }
 
 // F frames per row (1, or 2 = [prev, cur]); Q: int8 cache; D: head_dim.
-// Threads: p.rows consumers, then one producer warp.
+// Threads: p.lanes consumers (p.rows of them own a row; the rest, fewer
+// than a warp, wait and arrive on the barriers with their warp and compute
+// nothing), then one producer warp.
 template <int F, bool Q, int D>
 __global__ void __launch_bounds__(DA_THREADS, 1)
     decode_ring_kernel(const DecodeAttnArgs a, const DecodePlan p) {
@@ -276,10 +282,10 @@ __global__ void __launch_bounds__(DA_THREADS, 1)
   if (threadIdx.x == 0) {
     for (int i = 0; i < p.stages; ++i) {
       mbar_init(full0 + 8 * i, 1);
-      mbar_init(empty0 + 8 * i, p.rows / 32);
+      mbar_init(empty0 + 8 * i, p.lanes / 32);
     }
     mbar_init(io_full, 1);
-    mbar_init(io_empty, p.rows / 32);
+    mbar_init(io_empty, p.lanes / 32);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -293,8 +299,8 @@ __global__ void __launch_bounds__(DA_THREADS, 1)
   }
   __syncthreads();
 
-  if (threadIdx.x >= p.rows) {  // the producer
-    if (threadIdx.x != p.rows) return;
+  if (threadIdx.x >= p.lanes) {  // the producer
+    if (threadIdx.x != p.lanes) return;
     int stage = 0;
     uint32_t phase = 0;
     long used = 0;
@@ -346,7 +352,8 @@ __global__ void __launch_bounds__(DA_THREADS, 1)
     return;
   }
 
-  // a consumer: row r = (token, 32 channels from hc) of every item
+  // a consumer: row r = (token, 32 channels from hc) of every item, or an
+  // idle lane past p.rows
   const int r = threadIdx.x, rw = C / 32;
   const int tok = r / rw;
   const long hc = (r % rw) * 32;
@@ -361,7 +368,8 @@ __global__ void __launch_bounds__(DA_THREADS, 1)
     // cost the pair form a spill at 168 registers)
     const int ni = (int)n;
     const int b = order[ni / p.tiles], s = (ni % p.tiles) * p.ts + tok;
-    const bool live = s < S;  // a last tile may be short
+    // a last tile may be short; idle lanes hold no row
+    const bool live = r < p.rows && s < S;
     const int tb = slots[b];
 
     // the in-pass keys: frame 0's k and v are frame 0's own and cur's prev
@@ -487,13 +495,26 @@ __global__ void __launch_bounds__(DA_THREADS, 1)
   }
 }
 
-// The launch's shape: tokens of an item (DA_ROWS rows, rounded down to a
-// multiple of 4, at least 4), its stages from DA_SMEM or DA_SMEM_Q8.
+// The launch's shape: tokens of an item, its stages from DA_SMEM or
+// DA_SMEM_Q8. An item holds ts tokens of rw = C / 32 rows: DA_ROWS rows'
+// worth rounded down to a multiple of 4 tokens, at least 4, as at every C
+// % 256 == 0, whose rows are then whole warps. At another C % 32 == 0 the
+// consumers count whole warps on the barriers, so: the next multiple of 4
+// tokens whose rows are whole warps, where they fit DA_MAX_ROWS (C = 96:
+// 32 tokens, 96 rows; 320: 16, 160; 384: 8, 96; 640: 8, 160); else the
+// same ts, its rows rounded up to a warp of idle lanes (C = 1152: 4
+// tokens, 144 rows on 160 lanes; 1600: 4, 200 on 224). A head row of D
+// channels is D / 32 neighbouring rows of one token, never across a warp:
+// with D dividing C, a token's rows start at a multiple of D / 32.
 inline DecodePlan decode_plan(int frames, int S, int C, bool q8) {
   DecodePlan p{};
+  const int rw = C / 32;
   p.ts = (DA_ROWS * 32 / C) & ~3;
   if (p.ts < 4) p.ts = 4;
-  p.rows = p.ts * C / 32;
+  for (int ts = p.ts + 4; p.ts * rw % 32 && ts * rw <= DA_MAX_ROWS; ts += 4)
+    if (ts * rw % 32 == 0) p.ts = ts;
+  p.rows = p.ts * rw;
+  p.lanes = (p.rows + 31) & ~31;
   p.tiles = (S + p.ts - 1) / p.ts;
   p.tile_bytes = (uint32_t)p.ts * C * (q8 ? 1 : 2);
   p.stage_bytes = 2 * p.tile_bytes + (q8 ? 8 * p.ts : 0);
@@ -510,7 +531,7 @@ static cudaError_t launch_ring(const DecodeAttnArgs& a, const DecodePlan& p,
                                cudaStream_t s) {
   const long items = (long)a.nb * p.tiles;
   if (items == 0) return cudaSuccess;
-  const int threads = p.rows + 32;
+  const int threads = p.lanes + 32;
   const int smem = DA_IO + p.io_bytes + p.stages * (int)p.stage_bytes;
   // the shared-memory limit and the resident blocks, set again when the
   // shape (C) changes
@@ -561,9 +582,17 @@ inline DecodeAttnArgs decode_rows(const DecodeAttnArgs& a, int frames, int b0,
   return r;
 }
 
-// Requires frames in {1, 2}, T <= DA_MAXT, head_dim D in {32, 64, 128}, C
-// % 256 == 0 and C <= 2048, 0 <= layer < L, 16-byte aligned caches; an int8
-// cache
+// The widths the ring takes (`decode_plan`): head_dim D of 32, 64 or 128,
+// C a multiple of D (so of 32, and a head row never across a warp) and at
+// most 8 DA_MAX_ROWS = 2048 (an item holds at least 4 tokens of C / 32
+// rows). tpu1x_torch/ops/_util.py `decode_width_ok` states the same rule.
+inline bool decode_width_ok(int C, int D) {
+  return (D == 32 || D == 64 || D == 128) && C > 0 && C % D == 0 &&
+         C <= 8 * DA_MAX_ROWS;
+}
+
+// Requires frames in {1, 2}, T <= DA_MAXT, a width that decode_width_ok
+// takes, 0 <= layer < L, 16-byte aligned caches; an int8 cache
 // (a.ksc not null) also its v scales, S % 4 == 0 and 16-byte aligned
 // scales (each item's scales are bulk copies of whole 16-byte units). Any
 // B: one launch per DA_MAX_B rows.
@@ -573,9 +602,8 @@ static inline cudaError_t launch_decode_attention(const DecodeAttnArgs& a,
   const auto misaligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 != 0;
   };
-  if ((frames != 1 && frames != 2) || a.T > DA_MAXT || a.C % 256 ||
-      (a.D != 32 && a.D != 64 && a.D != 128) ||
-      a.C > 8 * DA_MAX_ROWS || a.layer < 0 || a.layer >= a.L ||
+  if ((frames != 1 && frames != 2) || a.T > DA_MAXT ||
+      !decode_width_ok(a.C, a.D) || a.layer < 0 || a.layer >= a.L ||
       misaligned(a.kc) || misaligned(a.vc) ||
       (q8 && (a.vsc == nullptr || a.S % 4 || misaligned(a.ksc) ||
               misaligned(a.vsc))))

@@ -47,8 +47,9 @@ using namespace tpu1x;
 // weights bf16 (in, out); biases bf16 or null; ln_scale/ln_bias fp32 (C,);
 // scratch qkv_buf (B*frames*S, 3C), attn_buf, x1_buf and xn_buf
 // (B*frames*S, C), h_buf (B*frames*S, F4); k_out/v_out (B, S, C), both null
-// or neither. Requires frames in {1, 2}, T <= 32, head_dim D in {32, 64, 128},
-// C % 256 == 0, F4 % 64 == 0.
+// or neither. Requires frames in {1, 2}, T <= 32, a width the decode ring
+// takes (decode_width_ok: head_dim D of 32, 64 or 128 dividing C, C <=
+// 2048), F4 % 64 == 0.
 extern "C" int tpu1x_temporal_mlp_block(
     const void* x, const void* k_cache, const void* v_cache, const void* t_B,
     const void* wqkv, const void* bqkv, const void* wproj, const void* bproj,
@@ -57,7 +58,8 @@ extern "C" int tpu1x_temporal_mlp_block(
     void* attn_buf, void* x1_buf, void* xn_buf, void* h_buf, void* out,
     void* k_out, void* v_out, int B, int frames, int S, int C, int D, int F4,
     int T, int L, int layer, int gelu_tanh, float scale, void* stream) {
-  if ((frames != 1 && frames != 2) || T > DA_MAXT || C % 256 || F4 % G9_BN)
+  if ((frames != 1 && frames != 2) || T > DA_MAXT ||
+      !decode_width_ok(C, D) || F4 % G9_BN)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * frames * S;

@@ -45,10 +45,11 @@ using namespace tpu1x;
 
 namespace {
 
-constexpr int LN_MAXC = 1024;  // 4 chunks of 8 channels per lane
+constexpr int LN_MAXV = 8;  // chunks of 8 channels a lane: C <= 2048
 
 // x (rows, C) bf16 -> xn (rows, C) bf16, stats (rows, 2) fp32 = mean, rstd.
-// One warp per row.
+// One warp per row, a lane holding V = ceil(C / 256) chunks of 8 channels.
+template <int V>
 __global__ void ln_fwd_kernel(const bf16* __restrict__ x,
                               const float* __restrict__ scale,
                               const float* __restrict__ bias,
@@ -58,10 +59,10 @@ __global__ void ln_fwd_kernel(const bf16* __restrict__ x,
   const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= rows) return;
   const bf16* xr = x + (long)row * C;
-  float f[LN_MAXC / 256][8];
+  float f[V][8];
   float s = 0.f, ss = 0.f;
 #pragma unroll
-  for (int i = 0; i < LN_MAXC / 256; ++i) {
+  for (int i = 0; i < V; ++i) {
     const int c = i * 256 + lane * 8;
     if (c < C) {
       load8(xr + c, f[i]);
@@ -81,7 +82,7 @@ __global__ void ln_fwd_kernel(const bf16* __restrict__ x,
     stats[2 * row + 1] = rs;
   }
 #pragma unroll
-  for (int i = 0; i < LN_MAXC / 256; ++i) {
+  for (int i = 0; i < V; ++i) {
     const int c = i * 256 + lane * 8;
     if (c < C) {
 #pragma unroll
@@ -94,83 +95,156 @@ __global__ void ln_fwd_kernel(const bf16* __restrict__ x,
 
 // x, dout, dx (rows, C) bf16; d_xn (rows, C) fp32; stats from ln_fwd;
 // dscale, dbias (C,) fp32, zeroed by the caller. Each warp walks
-// rows_per_block / 8 rows and keeps its column sums in registers.
+// rows_per_block / 8 rows, a lane holding V = ceil(C / 256) chunks of 8
+// channels, and keeps its column sums in registers; the block adds them
+// into `red` (2 C fp32 of dynamic shared memory), then into dscale and
+// dbias with atomics. Up to V = 4 (C <= 1024) a lane also holds gamma and
+// the row (x-hat and the scaled gradient) in registers, five V x 8 arrays.
+// Above, that is 320 fp32 a lane at V = 8, past the 255 registers: gamma
+// lies in shared memory (C fp32 after `red`, 24 KB in all at C = 2048) and
+// the row is read twice, once for the sums (the column sums and the row's
+// two means, which dx needs whole) and once for dx, the second read from L1
+// (a warp's row of x and d_xn is 12 KB at C = 2048); a lane holds the two
+// arrays of column sums.
+// ptxas (sm_90a), registers a thread for V = 1 .. 8: ln_fwd_kernel 32, 39,
+// 48, 54, 62, 70, 76, 85; ln_bwd_kernel 64, 112, 156, 192, 128, 144, 159,
+// 171 (V = 4 at the 54 and 192 of the single C <= 1024 forms it replaced);
+// no spills.
+template <int V>
 __global__ void __launch_bounds__(256)
     ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ stats,
                   const float* __restrict__ scale, const float* __restrict__ d_xn,
                   const bf16* __restrict__ dout, bf16* __restrict__ dx,
                   float* __restrict__ dscale, float* __restrict__ dbias, int rows,
                   int C, int rows_per_block) {
-  __shared__ float red[2][LN_MAXC];
+  constexpr bool kHold = V <= 4;  // gamma and the row in registers
+  extern __shared__ float red[];  // [2][C] column sums, then gamma (C)
+  float* const sg = red + 2 * C;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) red[0][c] = red[1][c] = 0.f;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    red[c] = red[C + c] = 0.f;
+    if constexpr (!kHold) sg[c] = scale[c];
+  }
   __syncthreads();
-  float gs[LN_MAXC / 256][8], gb[LN_MAXC / 256][8], sc[LN_MAXC / 256][8];
+  float gs[V][8], gb[V][8], sc[kHold ? V : 1][8];
 #pragma unroll
-  for (int i = 0; i < LN_MAXC / 256; ++i) {
+  for (int i = 0; i < V; ++i) {
     const int c = i * 256 + lane * 8;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       gs[i][e] = gb[i][e] = 0.f;
-      sc[i][e] = c < C ? scale[c + e] : 0.f;
+      if constexpr (kHold) sc[i][e] = c < C ? scale[c + e] : 0.f;
     }
   }
+  // x-hat and d_xn of the 8 channels from c of a row
+  auto load_row = [&](int row, int c, float mu, float rs, float* xh,
+                      float* d) {
+    load8(x + (long)row * C + c, xh);
+    const float4* d4 = reinterpret_cast<const float4*>(d_xn + (long)row * C + c);
+    const float4 a = d4[0], b = d4[1];
+    d[0] = a.x, d[1] = a.y, d[2] = a.z, d[3] = a.w;
+    d[4] = b.x, d[5] = b.y, d[6] = b.z, d[7] = b.w;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) xh[e] = (xh[e] - mu) * rs;
+  };
   const int r_end = min(rows, (blockIdx.x + 1) * rows_per_block);
   for (int row = blockIdx.x * rows_per_block + warp; row < r_end; row += 8) {
     const float mu = stats[2 * row], rs = stats[2 * row + 1];
-    float xh[LN_MAXC / 256][8], dh[LN_MAXC / 256][8];
     float m1 = 0.f, m2 = 0.f;
+    if constexpr (kHold) {
+      float xh[V][8], dh[V][8];
 #pragma unroll
-    for (int i = 0; i < LN_MAXC / 256; ++i) {
-      const int c = i * 256 + lane * 8;
-      if (c < C) {
-        load8(x + (long)row * C + c, xh[i]);
-        const float4* d4 = reinterpret_cast<const float4*>(d_xn + (long)row * C + c);
-        const float4 a = d4[0], b = d4[1];
-        const float d[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+      for (int i = 0; i < V; ++i) {
+        const int c = i * 256 + lane * 8;
+        if (c < C) {
+          float d[8];
+          load_row(row, c, mu, rs, xh[i], d);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          xh[i][e] = (xh[i][e] - mu) * rs;
-          gs[i][e] += d[e] * xh[i][e];
-          gb[i][e] += d[e];
-          dh[i][e] = d[e] * sc[i][e];
-          m1 += dh[i][e];
-          m2 += dh[i][e] * xh[i][e];
+          for (int e = 0; e < 8; ++e) {
+            gs[i][e] += d[e] * xh[i][e];
+            gb[i][e] += d[e];
+            dh[i][e] = d[e] * sc[i][e];
+            m1 += dh[i][e];
+            m2 += dh[i][e] * xh[i][e];
+          }
         }
       }
-    }
-    m1 = warp_sum(m1) / C;
-    m2 = warp_sum(m2) / C;
+      m1 = warp_sum(m1) / C;
+      m2 = warp_sum(m2) / C;
 #pragma unroll
-    for (int i = 0; i < LN_MAXC / 256; ++i) {
-      const int c = i * 256 + lane * 8;
-      if (c < C) {
-        float o[8];
-        load8(dout + (long)row * C + c, o);
+      for (int i = 0; i < V; ++i) {
+        const int c = i * 256 + lane * 8;
+        if (c < C) {
+          float o[8];
+          load8(dout + (long)row * C + c, o);
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          o[e] += rs * (dh[i][e] - m1 - xh[i][e] * m2);
-        store8(dx + (long)row * C + c, o);
+          for (int e = 0; e < 8; ++e)
+            o[e] += rs * (dh[i][e] - m1 - xh[i][e] * m2);
+          store8(dx + (long)row * C + c, o);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const int c = i * 256 + lane * 8;
+        if (c < C) {
+          float xh[8], d[8];
+          load_row(row, c, mu, rs, xh, d);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            gs[i][e] += d[e] * xh[e];
+            gb[i][e] += d[e];
+            const float dh = d[e] * sg[c + e];
+            m1 += dh;
+            m2 += dh * xh[e];
+          }
+        }
+      }
+      m1 = warp_sum(m1) / C;
+      m2 = warp_sum(m2) / C;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const int c = i * 256 + lane * 8;
+        if (c < C) {
+          float xh[8], d[8], o[8];
+          load_row(row, c, mu, rs, xh, d);
+          load8(dout + (long)row * C + c, o);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            o[e] += rs * (d[e] * sg[c + e] - m1 - xh[e] * m2);
+          store8(dx + (long)row * C + c, o);
+        }
       }
     }
   }
 #pragma unroll
-  for (int i = 0; i < LN_MAXC / 256; ++i) {
+  for (int i = 0; i < V; ++i) {
     const int c = i * 256 + lane * 8;
     if (c < C) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        atomicAdd(&red[0][c + e], gs[i][e]);
-        atomicAdd(&red[1][c + e], gb[i][e]);
+        atomicAdd(&red[c + e], gs[i][e]);
+        atomicAdd(&red[C + c + e], gb[i][e]);
       }
     }
   }
   __syncthreads();
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    atomicAdd(dscale + c, red[0][c]);
-    atomicAdd(dbias + c, red[1][c]);
+    atomicAdd(dscale + c, red[c]);
+    atomicAdd(dbias + c, red[C + c]);
   }
 }
+
+typedef void (*LnFwd)(const bf16*, const float*, const float*, bf16*, float*,
+                      int, int, float);
+typedef void (*LnBwd)(const bf16*, const float*, const float*, const float*,
+                      const bf16*, bf16*, float*, float*, int, int, int);
+const LnFwd kLnFwd[LN_MAXV] = {
+    ln_fwd_kernel<1>, ln_fwd_kernel<2>, ln_fwd_kernel<3>, ln_fwd_kernel<4>,
+    ln_fwd_kernel<5>, ln_fwd_kernel<6>, ln_fwd_kernel<7>, ln_fwd_kernel<8>};
+const LnBwd kLnBwd[LN_MAXV] = {
+    ln_bwd_kernel<1>, ln_bwd_kernel<2>, ln_bwd_kernel<3>, ln_bwd_kernel<4>,
+    ln_bwd_kernel<5>, ln_bwd_kernel<6>, ln_bwd_kernel<7>, ln_bwd_kernel<8>};
 
 // out (N,) fp32 += column sums of x (rows, N) bf16 at row stride ld.
 // grid (ceil(N / 256), row chunks), 256 threads: a warp covers 256 columns
@@ -291,12 +365,15 @@ extern "C" int tpu1x_col_sum(const void* x, void* out, int rows, int N, long ld,
   return cudaGetLastError();
 }
 
-// Requires C % 8 == 0, C <= 1024.
+// Requires C % 8 == 0, 0 < C <= 2048 (LN_MAXV chunks of 8 channels a
+// lane).
 extern "C" int tpu1x_ln_fwd(const void* x, const void* scale, const void* bias,
                             void* xn, void* stats, int rows, int C, float eps,
                             void* stream) {
-  if (C % 8 || C > LN_MAXC) return cudaErrorInvalidValue;
-  ln_fwd_kernel<<<(rows + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (C <= 0 || C % 8 || C > LN_MAXV * 256) return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  kLnFwd[(C + 255) / 256 - 1]<<<(rows + 7) / 8, 256, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(scale),
       static_cast<const float*>(bias), static_cast<bf16*>(xn),
       static_cast<float*>(stats), rows, C, eps);
@@ -307,9 +384,11 @@ extern "C" int tpu1x_ln_bwd(const void* x, const void* stats, const void* scale,
                             const void* d_xn, const void* dout, void* dx,
                             void* dscale, void* dbias, int rows, int C,
                             void* stream) {
-  if (C % 8 || C > LN_MAXC) return cudaErrorInvalidValue;
-  const int rows_per_block = 64;
-  ln_bwd_kernel<<<(rows + rows_per_block - 1) / rows_per_block, 256, 0,
+  if (C <= 0 || C % 8 || C > LN_MAXV * 256) return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  const int rows_per_block = 64, v = (C + 255) / 256;
+  const int smem = (v <= 4 ? 2 : 3) * C * (int)sizeof(float);
+  kLnBwd[v - 1]<<<(rows + rows_per_block - 1) / rows_per_block, 256, smem,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(stats),
       static_cast<const float*>(scale), static_cast<const float*>(d_xn),

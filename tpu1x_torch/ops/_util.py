@@ -67,6 +67,34 @@ def head_dim_of(C: int, num_heads: int, what: str) -> int:
     return D
 
 
+# The widest d_model of the decode ring (csrc/decode_attention.cuh: an item
+# holds at least 4 tokens of C / 32 rows, a consumer thread each, and a
+# block at most DA_MAX_ROWS = 256 of them).
+DECODE_MAX_C = 2048
+
+
+def decode_width_ok(C: int, num_heads: int) -> bool:
+    """Whether the decode ring of csrc/decode_attention.cuh (K7, K8 and the
+    cache attention of K2 and K3) takes d_model C in `num_heads` heads, as
+    its `decode_width_ok` decides: a head width of HEAD_DIMS (so C % 32 ==
+    0, and a head row never lies across a warp) and C <= DECODE_MAX_C. Any
+    such C: where an item's rows are not whole warps, the ring takes more
+    tokens an item or idle lanes (`decode_plan`)."""
+    D = C // num_heads if num_heads > 0 else 0
+    return (num_heads > 0 and D * num_heads == C and D in HEAD_DIMS
+            and 0 < C <= DECODE_MAX_C)
+
+
+def check_decode_width(C: int, num_heads: int, what: str) -> int:
+    """Raise, naming the limit, for a width `decode_width_ok` refuses;
+    returns the head width."""
+    D = head_dim_of(C, num_heads, what)
+    require(decode_width_ok(C, num_heads),
+            f"{what} needs C <= {DECODE_MAX_C} (the decode ring's rows of an "
+            f"item of 4 tokens), got C={C}")
+    return D
+
+
 def gemm_shape_ok(M: int, N: int, K: int, form: str = "nn") -> bool:
     """Whether csrc/gemm_sm90.cuh takes a product of M rows, N columns and
     depth K in `form` ("nn", "nt", "tn"; the serving chain is "nn"), as its

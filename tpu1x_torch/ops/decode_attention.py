@@ -9,7 +9,8 @@ from typing import Optional, Tuple
 import torch
 
 from tpu1x_torch import kernels
-from tpu1x_torch.ops._util import check_tensor, head_dim_of, ptr, require
+from tpu1x_torch.ops._util import (check_decode_width, check_tensor, ptr,
+                                   require)
 from tpu1x_torch.ops.attention import NEG_INF
 
 
@@ -168,10 +169,7 @@ def _check(qs, ks, vs, k_cache, v_cache, t_B, layer, k_scale, v_scale, out,
     T, L = k_cache.shape[:2]
     dev = qs[0].device
     require(T <= 32, f"decode attention kernel needs T <= 32, got {T}")
-    head_dim_of(C, num_heads, "decode attention kernel")
-    require(C % 256 == 0 and C <= 2048,
-            f"decode attention kernel needs C % 256 == 0 and C <= 2048, got "
-            f"C={C}")
+    check_decode_width(C, num_heads, "decode attention kernel")
     require(isinstance(layer, int) and 0 <= layer < L,
             f"layer must be an int in [0, {L}), got {layer!r}")
     require((k_scale is None) == (v_scale is None),
@@ -244,7 +242,8 @@ def temporal_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     csrc/decode_attention.cu, which replaces the Pallas kernel
     tpu1x/ops/decode_attention.py:temporal_decode_attention (_kernel): bf16
     q, k_cur, v_cur, int32 t_B, `layer` a plain int, head_dim 32, 64 or 128,
-    C % 256 == 0, C <= 2048, T <= 32, S % 4 == 0 for the int8 cache. q,
+    C <= 2048 (`_util.decode_width_ok`: an item of at least 4 tokens on at
+    most 256 consumer threads), T <= 32, S % 4 == 0 for the int8 cache. q,
     k_cur, v_cur and `out` may each be strided views, as the column thirds
     of one qkv product are: last axis contiguous, the other two strides
     multiples of 8, the data 16-byte aligned (`_check`).

@@ -9,8 +9,8 @@ from typing import Optional
 import torch
 
 from tpu1x_torch import kernels
-from tpu1x_torch.ops._util import (check_tensor, dense, gelu, head_dim_of,
-                                   ptr, require)
+from tpu1x_torch.ops._util import (check_decode_width, check_tensor, dense,
+                                   gelu, ptr, require)
 from tpu1x_torch.ops.decode_attention import (
     temporal_decode2_attention_reference, temporal_decode_attention_reference)
 from tpu1x_torch.ops.layernorm import layer_norm_plain
@@ -86,9 +86,7 @@ def _launch(x, k_cache, v_cache, t_B, layer, frames, kv_out, return_kv, *,
     F4 = wfc1.shape[1]
     dev, bf = x.device, torch.bfloat16
     require(T <= 32, f"temporal_mlp_block kernel needs T <= 32, got {T}")
-    D = head_dim_of(C, num_heads, "temporal_mlp_block kernel")
-    require(C % 256 == 0,
-            f"temporal_mlp_block kernel needs C % 256 == 0, got {C}")
+    D = check_decode_width(C, num_heads, "temporal_mlp_block kernel")
     require(F4 % 64 == 0, f"MLP width {F4} is not a multiple of 64")
     require(isinstance(layer, int) and 0 <= layer < L,
             f"layer must be an int in [0, {L}), got {layer!r}")
@@ -152,7 +150,9 @@ def temporal_mlp_block(x: torch.Tensor, k_cache: torch.Tensor,
     csrc/temporal_mlp_block.cu, which replaces the Pallas kernel
     tpu1x/ops/temporal_mlp_block.py:temporal_mlp_block (_kernel_single):
     bf16 activations, caches and weights, fp32 LN params, int32 t_B, head_dim
-    32, 64 or 128, C % 256 == 0, F4 % 64 == 0, T <= 32. Six launches on one stream:
+    32, 64 or 128, C <= 2048 (the decode ring's widths,
+    `_util.decode_width_ok`), F4 % 64 == 0, T <= 32. Six launches on one
+    stream:
     the four weight products on the TMA-fed wgmma GEMM of
     csrc/gemm_sm90.cuh (fc1 with its GELU epilogue), the cache attention
     between qkv and proj, LN2 as a row pass before fc1. Bound on the H100:
