@@ -341,6 +341,7 @@ from tpu1x_torch.ops import spatial_block as sb
 from tpu1x_torch.ops import spatial_train_block as stb
 from tpu1x_torch.ops import temporal_attention as ta
 from tpu1x_torch.ops import temporal_train_block as ttb
+from tpu1x_torch.ops._util import HEAD_DIMS
 from tpu1x_torch.ops.layernorm import layer_norm, layer_norm_plain
 from tpu1x_torch.ops.spatial_block import spatial_block, spatial_block_plain
 from tpu1x_torch.ops.temporal_attention import (temporal_attention,
@@ -2090,11 +2091,11 @@ def check_training(cfg, device, per_layer=TRAIN_PER_LAYER):
     step_s = sorted(walls[-5:])[2]
     # the pre-LN step: K11's attention backward is K10's two passes, beside
     # the recompute on K9's kernel (its streamed form past S = 256, and at
-    # every S at head_dim 128); of spatial_block.cu's own kernels none runs;
-    # K4 and K6 are temporal_attention.cu's tiled kernels, and the names of
-    # the per-(b, s) kernels they replaced must not appear
+    # every S at head_dim 72 and 128); of spatial_block.cu's own kernels
+    # none runs; K4 and K6 are temporal_attention.cu's tiled kernels, and
+    # the names of the per-(b, s) kernels they replaced must not appear
     k9 = ("flash_fwd_stream_kernel"
-          if cfg.S > 256 or cfg.head_dim == 128  # csrc FA_N
+          if cfg.S > 256 or cfg.head_dim in (72, 128)  # csrc FA_N
           else "flash_fwd_kernel")
     pre_ln = {} if cfg.qk_norm else dict(
         must=(k9, "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
@@ -3004,9 +3005,16 @@ def check_h64_kernels(device):
     return print_kernels(out)
 
 
+# The train CLI's depth in the configuration phases (-h64, -T32, -S1024,
+# -h128, -C384, -C1600, -h72), for the script's time: the -h64, -T32,
+# -S1024, -h128 and -C384 CLIs took 18.6-32.6 s at 8 layers and 10.6-22.5
+# s at 1 (`check_cli_run`'s walls, chip_smoke.py on an H100 80GB HBM3).
+# GENIE_35M's and GENIE_138M's CLIs keep their depths.
+CLI_LAYERS = 1
+
+
 def check_config_paths(make, label, device, cut_layers, deep_layers=None,
-                       plain_layers=None, rollout_layers=None,
-                       cli_layers=None):
+                       plain_layers=None, rollout_layers=None):
     """The entry points of the configuration `make(**overrides)` (seeded
     random weights), each by its GENIE_138M counterpart's gates and exact
     launch counts per layer: at `deep_layers` layers (the configuration's
@@ -3018,7 +3026,7 @@ def check_config_paths(make, label, device, cut_layers, deep_layers=None,
     where given); at `cut_layers` layers
     `score_policies`, an `evaluate_dataset` batch at B 16, the train CLI on
     the configuration written as JSON into a temporary directory, with its
-    resume and exports (`check_cli_run`; at `cli_layers` where given), and
+    resume and exports (`check_cli_run`; at CLI_LAYERS), and
     the qk_norm model's int8 op-by-op rollout and train step against the
     plain path. Each result is printed after `label`. Returns (results,
     walls in s)."""
@@ -3065,7 +3073,7 @@ def check_config_paths(make, label, device, cut_layers, deep_layers=None,
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         config = Path(tmp) / f"{make.__name__}.json"
-        cli = cut if cli_layers is None else make(num_layers=cli_layers)
+        cli = make(num_layers=CLI_LAYERS)
         cli.save_pretrained(config)
         out["cli"] = check_cli_run(cli, device, Path(tmp), config)
     torch.cuda.empty_cache()
@@ -3423,8 +3431,10 @@ def check_grid_1024(device):
     `check_window_32`, inside `grid_of`: every kernel form at S = 1024
     against its plain version and the sweep of S (`check_s1024_kernels`),
     then every entry point (`check_config_paths`): the rollout (B 16, 8 + 8
-    frames) and ten train steps at full depth (32 layers), the step against
-    the plain path at S1024_PLAIN_LAYERS, the rest at S1024_LAYERS."""
+    frames) and ten train steps at S1024_LAYERS (at 32 layers until the
+    head_dim-72 phase came, for the script's time: `check_s1024_kernels`
+    keeps every form at full shape), the step against the plain path at
+    S1024_PLAIN_LAYERS, the rest at S1024_LAYERS."""
     cfg = genie_138m_s1024()
     walls = {}
     with grid_of(cfg):
@@ -3434,7 +3444,7 @@ def check_grid_1024(device):
         torch.cuda.empty_cache()
         paths, path_walls = check_config_paths(
             genie_138m_s1024, "S = 1024", device, S1024_LAYERS,
-            plain_layers=S1024_PLAIN_LAYERS)
+            deep_layers=S1024_LAYERS, plain_layers=S1024_PLAIN_LAYERS)
     out.update(paths, phase_walls_s=dict(walls, **path_walls))
     return out
 
@@ -3461,19 +3471,29 @@ def genie_138m_h128(**overrides) -> GenieConfig:
                                num_heads=H128_HEADS, **overrides)
 
 
-def check_h128_kernels(device):
-    """Every attention kernel form at head_dim 128 (C = 512, 4 heads), on
-    the main path's shapes, held to its plain version by the gates of its
-    head_dim-32 form (values, and every gradient where the TPU kernel has a
-    backward), each timed with its bound and SDPA's time where SDPA
+def untagged(name):
+    """A kernel check's key without the width tags that a check at C != 512
+    adds ("[C=1152]", "C=1152,"): the phases' keys name the width in their
+    own suffix."""
+    return re.sub(r"\[C=\d+\]|C=\d+,", "", name)
+
+
+def check_head_width_kernels(C, H, key, device, rank_heads=None):
+    """Every attention kernel form at head_dim C / H (d_model C in H heads),
+    on the main path's shapes, held to its plain version by the gates of
+    its head_dim-32 form (values, and every gradient where the TPU kernel
+    has a backward), each timed with its bound and SDPA's time where SDPA
     computes the same function: K1 in both modes at N = 16 / 32 / 128 /
     256, K2 and K3, K7 and K8 (bf16 and int8 cache), K4 and K6 (causal and
     not; timed at the prefill's T = 8 and the train step's 16, untimed at
     T = 8 (K6) and 32 at B = TB), K9 and K10 at the qk_norm train step's
-    (128, 256, 4, 128) (and at N = 64, 128, 192 and a negative scale), then
-    untimed at H128_SWEEP_N causal, not and at a negative scale, K11 and
-    K12. Keys end in "[h128]"."""
-    C, H, L = 512, H128_HEADS, 32
+    (128, 256, H, C / H) (and at N = 64, 128, 192 and a negative scale),
+    then untimed at H128_SWEEP_N causal, not and at a negative scale, K11
+    and K12; with `rank_heads`, K4 and K6 also at a tensor-parallel rank's
+    share, d_model C rank_heads / H in rank_heads heads (timed at the train
+    step, untimed at T = 8 and 32, causal and not). Keys end in
+    "[`key`]"."""
+    L = 32
     inp = Inputs(10, device)
     out = {}
     for qk_ln in (False, True):
@@ -3495,16 +3515,28 @@ def check_h128_kernels(device):
                                           pair))
     del kq, vq, ks, vs
     torch.cuda.empty_cache()
-    out.update(check_temporal_attention(inp, C, H))
-    out.update(check_temporal_attention_bwd(inp, C, H))
-    for T_ in (8, 32):
-        for causal in (True, False):
-            tag = f"[T={T_}" + ("]" if causal else ",non-causal]")
-            out["temporal_attention" + tag] = temporal_case(
-                inp, C, H, tag, TB, T_, causal, timed=False)
-        out.update(check_temporal_attention_bwd(inp, C, H, T=T_,
-                                                timed=False))
-    torch.cuda.empty_cache()
+    shares = [(C, H, None)]
+    if rank_heads is not None:
+        shares.append((C * rank_heads // H, rank_heads, "rank"))
+    for Cs, Hs, share in shares:
+        got = dict(check_temporal_attention(inp, Cs, Hs),
+                   **check_temporal_attention_bwd(inp, Cs, Hs))
+        if Cs != 512:  # the train step's frames, which the above times at
+            # C = 512 alone
+            for causal in (True, False):
+                tag = "[train" + ("]" if causal else ",non-causal]")
+                got["temporal_attention" + tag] = temporal_case(
+                    inp, Cs, Hs, tag, TB, 16, causal)
+        for T_ in (8, 32):
+            for causal in (True, False):
+                tag = f"[T={T_}" + ("]" if causal else ",non-causal]")
+                got["temporal_attention" + tag] = temporal_case(
+                    inp, Cs, Hs, tag, TB, T_, causal, timed=False)
+            got.update(check_temporal_attention_bwd(inp, Cs, Hs, T=T_,
+                                                    timed=False))
+        out.update({untagged(name) + (f"[{share}]" if share else ""): r
+                    for name, r in got.items()})
+        torch.cuda.empty_cache()
     out.update(check_flash_mha(inp, H, D=C // H))
     D = C // H
     for n in H128_SWEEP_N:
@@ -3512,16 +3544,22 @@ def check_h128_kernels(device):
         qkv, dout = inp.normal(rows, n, 3, H, D), inp.normal(rows, n, H, D)
         for causal, sc in ((False, D ** -0.5), (True, D ** -0.5),
                            (False, -D ** -0.5)):
-            key = (f"flash_mha[N={n}]" + ("[causal]" if causal else "")
-                   + ("[negative scale]" if sc < 0 else ""))
-            err, grads = flash_case(key, qkv, dout, sc, causal)
-            out[key] = dict(max_abs_err=err, grads=grads)
+            key_n = (f"flash_mha[N={n}]" + ("[causal]" if causal else "")
+                     + ("[negative scale]" if sc < 0 else ""))
+            err, grads = flash_case(key_n, qkv, dout, sc, causal)
+            out[key_n] = dict(max_abs_err=err, grads=grads)
     torch.cuda.empty_cache()
     out.update(check_spatial_train_block(inp, C, H))
     out.update(check_temporal_train_block(inp, C, H))
     torch.cuda.empty_cache()
-    out = {f"{name}[h128]": r for name, r in out.items()}
+    out = {untagged(name) + f"[{key}]": r for name, r in out.items()}
     return print_kernels(out)
+
+
+def check_h128_kernels(device):
+    """`check_head_width_kernels` at head_dim 128 (C = 512, 4 heads); keys
+    end in "[h128]"."""
+    return check_head_width_kernels(512, H128_HEADS, "h128", device)
 
 
 def check_head_dim_128(device):
@@ -3569,8 +3607,10 @@ WIDTH_LAYERS = 8  # the depth of the phase's secondary paths
 # the untimed widths of the decode ring's and the LN rows' sweep: C % 256
 # = 96, 64 (320, 1600), 128 (384, 640, 1152) and 0 (2048); items of more
 # tokens (96, 320, 384, 640) or of idle lanes (1152, 1600), and 2048, the
-# widest
-WIDTH_SWEEP_C = (96, 320, 384, 640, 1152, 1600, 2048)
+# widest; head_dim 72's rows of three lanes at 576 (8 heads: 32 of an
+# item's rows on 40 lanes' worth), 1152 (64 on 70) and 2016 (112 on 120,
+# the widest at 72)
+WIDTH_SWEEP_C = (96, 320, 384, 576, 640, 1152, 1600, 2016, 2048)
 
 
 def genie_138m_c384(**overrides) -> GenieConfig:
@@ -3591,18 +3631,33 @@ def genie_138m_c1600(**overrides) -> GenieConfig:
                                d_model=1600, num_heads=25, **overrides)
 
 
+def genie_138m_h72(**overrides) -> GenieConfig:
+    """GENIE_138M-h72: the same JSON at d_model 1152 in 16 heads of 72 and
+    28 layers, the depth, width and head split of DiT-XL/2 (Peebles & Xie
+    2023, Table 1: depth 28, hidden 1152, 16 heads) and Latte-XL (Ma et al.
+    2024), a video transformer that alternates spatial and temporal
+    attention as GENIE's STBlock does (S 256, T 16 with 8 prompt frames,
+    bf16 compute, fp32 params, mlp_ratio 4; 16 C^2 28 = 594.5M block
+    weights)."""
+    return dataclasses.replace(GenieConfig.from_pretrained(RT_CONFIG),
+                               **dict(dict(d_model=1152, num_heads=16,
+                                           num_layers=28), **overrides))
+
+
 # the phase's configurations: key, maker, and the depths that
 # `check_config_paths` takes other than the configuration's 32 layers and
-# WIDTH_LAYERS. GENIE_138M-C1600 (1.31B block weights) is cut for the
-# script's time: its rollout and the rollout's comparison with the plain
-# path at 16 layers, the step's at 8, and its train CLI at 1 layer (at 8
-# the CLI's CPU-side state copies, resume and exports of 331M parameters
-# took 126.9 of the phase's 254.9 s on an H100 80GB HBM3); its ten train
-# steps stay at 32.
+# WIDTH_LAYERS, for the script's time. GENIE_138M-C384: its rollout, ten
+# steps and step against the plain path at WIDTH_LAYERS (at 32 until the
+# head_dim-72 phase came). GENIE_138M-C1600 (1.31B block weights): its
+# rollout and the rollout's comparison with the plain path at WIDTH_LAYERS
+# (16 until the head_dim-72 phase came) and the step's at 8 (its train
+# CLI, at CLI_LAYERS as every phase's: at 8 the CLI's CPU-side state
+# copies, resume and exports of 331M parameters took 126.9 of the phase's
+# 254.9 s on an H100 80GB HBM3); its ten train steps stay at 32.
 WIDTH_CONFIGS = (
-    ("c384", genie_138m_c384, {}),
+    ("c384", genie_138m_c384, dict(deep_layers=WIDTH_LAYERS)),
     ("c1600", genie_138m_c1600,
-     dict(rollout_layers=16, plain_layers=WIDTH_LAYERS, cli_layers=1)))
+     dict(rollout_layers=WIDTH_LAYERS, plain_layers=WIDTH_LAYERS)))
 
 
 def check_ln_rows(inp, C, rows=4099):
@@ -3641,7 +3696,7 @@ def check_width_sweep(device, widths=WIDTH_SWEEP_C):
     inp = Inputs(13, device)
     out = {}
     for C in widths:
-        for D in (d for d in (32, 64, 128) if C % d == 0):
+        for D in (d for d in HEAD_DIMS if C % d == 0):
             for cache, S in (("bf16", 250), ("int8", 252)):
                 kc, vc = inp.normal(16, 2, 4, S, C), inp.normal(16, 2, 4, S, C)
                 out.update(decode_forms(inp, kc, vc, C // D,
@@ -3680,8 +3735,7 @@ def check_width_kernels(C, H, key, device):
     out.update(check_spatial_train_block(inp, C, H))
     out.update(check_mlp_train_block(inp, C))
     torch.cuda.empty_cache()
-    out = {name.replace(f"[C={C}]", "").replace(f"C={C},", "") + f"[{key}]":
-           r for name, r in out.items()}
+    out = {untagged(name) + f"[{key}]": r for name, r in out.items()}
     return print_kernels(out)
 
 
@@ -3718,6 +3772,53 @@ def check_widths(device):
         walls.update({f"{key} {k}": v for k, v in path_walls.items()})
         out[key] = res
     out["phase_walls_s"] = walls
+    return out
+
+
+# ------------------------------------------------------------ head_dim 72
+
+H72_LAYERS = 8  # the depth of the phase's secondary paths
+H72_RANK_HEADS = 8  # a tp = 2 rank's heads of GENIE_138M-h72
+
+
+def check_head_dim_72(device):
+    """GENIE_138M-h72 end to end (`genie_138m_h72`), modelled on
+    `check_head_dim_128`: every head_dim-72 kernel form against its plain
+    version (`check_head_width_kernels` at C = 1152, 16 heads, and K4 / K6
+    at a tp = 2 rank's 8) and the decode batch sizes
+    (`check_decode_batches`), then every entry point
+    (`check_config_paths`): the rollout (B 16, 8 + 8 frames) and ten train
+    steps at 28 layers, the step against the plain path, scores, the
+    evaluator and the qk_norm int8 paths at H72_LAYERS, the train CLI at
+    CLI_LAYERS; last a `use_mup` rollout and step at H72_LAYERS
+    (`check_variant`: the attention scale 8 / 72 where 72^-0.5 = 0.1179,
+    and the width multiplier 1152 / 256 = 4.5)."""
+    cfg = genie_138m_h72()
+    walls = {}
+    t0 = time.perf_counter()
+    out = {"kernels": check_head_width_kernels(
+               cfg.d_model, cfg.num_heads, "h72", device,
+               rank_heads=H72_RANK_HEADS),
+           "decode_batches": check_decode_batches(cfg.d_model, cfg.num_heads,
+                                                  device)}
+    print("head_dim 72 decode attention across batch sizes: " + json.dumps(
+        out["decode_batches"]), flush=True)
+    walls["kernels"] = time.perf_counter() - t0
+    paths, path_walls = check_config_paths(genie_138m_h72, "head_dim 72",
+                                           device, H72_LAYERS,
+                                           plain_layers=H72_LAYERS)
+    out.update(paths)
+    t0 = time.perf_counter()
+    mup_cfg = genie_138m_h72(num_layers=H72_LAYERS, use_mup=True)
+    if mup_cfg.width_mult != 4.5 or mup_cfg.head_dim != 72:
+        raise AssertionError(f"muP at head_dim 72: {mup_cfg}")
+    out["mup"] = dict(width_mult=mup_cfg.width_mult,
+                      scale=8.0 / mup_cfg.head_dim,
+                      **check_variant(mup_cfg, device, 8, mu_transfer=True))
+    print(f"head_dim 72 muP, {H72_LAYERS} layers: "
+          + json.dumps(out["mup"]), flush=True)
+    walls["mup"] = time.perf_counter() - t0
+    out["phase_walls_s"] = dict(walls, **path_walls)
     return out
 
 
@@ -5611,6 +5712,23 @@ def main() -> int:
               + f" on {card}", flush=True)
 
         t0 = time.perf_counter()
+        h72 = check_head_dim_72(device)
+        w72 = h72["phase_walls_s"]
+        print(f"head_dim 72 phase: {time.perf_counter() - t0:.1f} s ("
+              + ", ".join(f"{k} {v:.1f} s" for k, v in w72.items())
+              + f"); GENIE_138M-h72 (16 heads of 72, 28 layers): rollout "
+              f"{h72['rollout']['s_per_frame']:.4f} s/frame at B={B}, peak "
+              f"{h72['rollout']['peak_memory_bytes']} B; train step "
+              f"{h72['training']['step_s']:.4f} s, peak "
+              f"{h72['training']['peak_memory_bytes']} B at B={TB}; at "
+              f"{H72_LAYERS} layers gen_time "
+              f"{h72['evaluator']['gen_time']:.6f} s/frame, score_policies "
+              f"{h72['scoring']['policies_per_s']:.1f} policies/s; the "
+              f"train CLI at {CLI_LAYERS} "
+              f"{h72['cli']['s_per_update']:.4f} s/update on {card}",
+              flush=True)
+
+        t0 = time.perf_counter()
         tp = check_tensor_parallel(device)
         print(f"tensor parallelism phase: {time.perf_counter() - t0:.1f} s; "
               + "; ".join(
@@ -5687,29 +5805,32 @@ def main() -> int:
                         h64["qk_norm_int8_rollout"]["launches"][name],
                     "qk_norm_train":
                         h64["qk_norm_training"]["launches"][name]}
-            # the head_dim-128 form: its check at GENIE_138M-h128's shapes
-            # and its launches on that configuration's paths
-            h128_key = (f"{name}[N={B}][h128]" if name == "spatial_block"
-                        else f"{name}[h128]")
-            if h128_key in h128["kernels"]:
-                r128 = h128["kernels"][h128_key]
-                item["h128"] = {k: r128.get(k) for k in (
+            # the head_dim-128 and -72 forms: their checks at
+            # GENIE_138M-h128's and -h72's shapes and their launches on
+            # those configurations' paths
+            for tag, hd in (("h128", h128), ("h72", h72)):
+                hd_key = (f"{name}[N={B}][{tag}]" if name == "spatial_block"
+                          else f"{name}[{tag}]")
+                if hd_key not in hd["kernels"]:
+                    continue
+                rh = hd["kernels"][hd_key]
+                e = {k: rh.get(k) for k in (
                     "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms", "library_device_ms", "shape")}
-                item["h128"]["launches"] = {
-                    k: h128[k]["launches"][name] for k in (
-                        "rollout", "training", "scoring", "evaluator",
-                        "qk_norm_int8_rollout", "qk_norm_training")}
-                item["h128"]["launches"]["train_cli_update"] = (
-                    h128["cli"]["launches_per_update"][name])
-                item["h128"]["launches"]["mup"] = {
-                    "rollout": h128["mup"]["rollout"]["launches"][name],
-                    "train": h128["mup"]["train_step"]["kernel_launches"][
+                e["launches"] = {k: hd[k]["launches"][name] for k in (
+                    "rollout", "training", "scoring", "evaluator",
+                    "qk_norm_int8_rollout", "qk_norm_training")}
+                e["launches"]["train_cli_update"] = (
+                    hd["cli"]["launches_per_update"][name])
+                e["launches"]["mup"] = {
+                    "rollout": hd["mup"]["rollout"]["launches"][name],
+                    "train": hd["mup"]["train_step"]["kernel_launches"][
                         name]}
-                q8 = h128["kernels"].get(name + "[int8][h128]")
+                q8 = hd["kernels"].get(f"{name}[int8][{tag}]")
                 if q8 is not None:  # the decode attention kernels
-                    item["h128"].update(int8_device_ms=q8["device_ms"],
-                                        int8_bound_ms=q8["bound_ms"])
+                    e.update(int8_device_ms=q8["device_ms"],
+                             int8_bound_ms=q8["bound_ms"])
+                item[tag] = e
             # the forms at GENIE_138M-C384's and -C1600's widths: their
             # checks where the phase has one, and the launches on each
             # configuration's paths

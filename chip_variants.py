@@ -22,9 +22,10 @@
     python3 chip_variants.py tp_steps [SETUP]
     python3 chip_variants.py genie_35m
     python3 chip_variants.py mup
-    python3 chip_variants.py h64_debug
+    python3 chip_variants.py h64_debug [h72]
     python3 chip_variants.py h128_debug
     python3 chip_variants.py h128
+    python3 chip_variants.py h72
     python3 chip_variants.py w32_debug
     python3 chip_variants.py w32_times
     python3 chip_variants.py s1024_debug
@@ -32,8 +33,8 @@
     python3 chip_variants.py s1024_times
     python3 chip_variants.py k12gate
     python3 chip_variants.py widths_debug
-    python3 chip_variants.py ab_times [h32 | h64 | h128 | groups | one_head |
-                                      widths | ln_rows]
+    python3 chip_variants.py ab_times [h32 | h64 | h72 | h128 | groups |
+                                      one_head | widths | ln_rows]
     python3 chip_variants.py c8
 
 Each LIB is a shared library built from a variant of a source in
@@ -212,8 +213,11 @@ in one process on one card; every time is the profiler's device time
   only the first. `h128_debug` runs every such check at 4 heads (head_dim
   128), with K9/K10 at N = 64 / 192 / 320 / 1024 (`flash_sweep`) and K4 /
   K6 at T = 8 and 32 beside them, then the flash, spatial and frame-axis
-  ones at 8 and 16 heads (`H128_DEBUG_NARROW`). `h128` runs chip_smoke.py's
-  head_dim-128 phase alone, then the TP setups at head_dim 64 and 128.
+  ones at 8 and 16 heads (`H128_DEBUG_NARROW`); `h64_debug h72` every
+  check at C = 1152 in 16 heads of 72, then those at C = 576 in 8 (a tp =
+  2 rank's width) (`HEAD_DEBUG`). `h128` runs chip_smoke.py's
+  head_dim-128 phase alone, then the TP setups at head_dim 64 and 128;
+  `h72` the head_dim-72 phase alone.
 - `w32_debug`: the temporal, decode and temporal+MLP libraries' ptxas
   lines, then each frame-axis check of `chip_smoke.py` at GENIE_138M-T32's
   window (`W32_DEBUG`: K4 and K6 at T = 20 / 24 / 32 for every head group
@@ -230,7 +234,8 @@ in one process on one card; every time is the profiler's device time
   (parent, change, change, parent) to hold the head_dim-32 forms' times.
   No builds. `ab_times CONFIG` takes one of `AB_CONFIGS`: `h32`, `h64`
   and `h128` the same at 16, 8 and 4 heads (head_dim 32, 64 and 128, the
-  same bytes and operations at C = 512), with K11, K12 and the SDPA calls
+  same bytes and operations at C = 512), `h72` at C = 1152 in 16 heads
+  (GENIE_138M-h72's), with K11, K12 and the SDPA calls
   beside K4, K6, K7, K8, K9 and K10 (run each in a process of its own for
   the widths side by side); `groups` the head_dim-32 forms with K4 / K6
   at head groups of 4 and 2, the serving GEMM chain alone and K13 beside
@@ -1314,40 +1319,49 @@ def tp_c9(dev):
                 wall_s=wall)), flush=True)
 
 
-# the checks of `h64_debug`, each run in a process of its own: (head
-# count at C = 512, what it checks)
+# the checks of `h64_debug`, each run in a process of its own: (d_model,
+# head count, what it checks)
 H64_DEBUG = {
-    "spatial": lambda inp, H: {
-        f"qk_ln={qk},N={n}": cs.check_spatial_block(inp, 512, H, n, qk)
+    "spatial": lambda inp, C, H: {
+        f"qk_ln={qk},N={n}": cs.check_spatial_block(inp, C, H, n, qk)
         for qk in (False, True) for n in (cs.B, cs.B * cs.P)},
-    "temporal": lambda inp, H: cs.check_temporal_attention(inp, 512, H),
-    "temporal_bwd": lambda inp, H: cs.check_temporal_attention_bwd(
-        inp, 512, H),
-    "flash": lambda inp, H: cs.check_flash_mha(inp, H, D=512 // H),
-    "decode": lambda inp, H: decode_checks(inp, H),
-    "decode_batches": lambda inp, H: cs.check_decode_batches(512, H,
-                                                             inp.device),
-    "train_blocks": lambda inp, H: dict(
-        cs.check_spatial_train_block(inp, 512, H),
-        **cs.check_temporal_train_block(inp, 512, H)),
-    "flash_sweep": lambda inp, H: flash_sweep(inp, H),
-    "temporal_t": lambda inp, H: {
+    "temporal": lambda inp, C, H: cs.check_temporal_attention(inp, C, H),
+    "temporal_bwd": lambda inp, C, H: cs.check_temporal_attention_bwd(
+        inp, C, H),
+    "flash": lambda inp, C, H: cs.check_flash_mha(inp, H, D=C // H),
+    "decode": lambda inp, C, H: decode_checks(inp, H, C=C),
+    "decode_batches": lambda inp, C, H: cs.check_decode_batches(C, H,
+                                                                inp.device),
+    "train_blocks": lambda inp, C, H: dict(
+        cs.check_spatial_train_block(inp, C, H),
+        **cs.check_temporal_train_block(inp, C, H)),
+    "flash_sweep": lambda inp, C, H: flash_sweep(inp, H, C=C),
+    "temporal_t": lambda inp, C, H: {
         f"T={T},causal={causal}": cs.temporal_case(
-            inp, 512, H, f"[T={T}]", cs.TB, T, causal, timed=False)
+            inp, C, H, f"[T={T}]", cs.TB, T, causal, timed=False)
         for T in (8, 32) for causal in (True, False)},
-    "temporal_bwd_t": lambda inp, H: {
-        T: cs.check_temporal_attention_bwd(inp, 512, H, T=T, timed=False)
+    "temporal_bwd_t": lambda inp, C, H: {
+        T: cs.check_temporal_attention_bwd(inp, C, H, T=T, timed=False)
         for T in (8, 32)},
 }
 # the checks of `h128_debug` at head_dim 32 and 64 beside head_dim 128's
 H128_DEBUG_NARROW = ("spatial", "temporal", "temporal_bwd", "flash",
                      "flash_sweep", "temporal_bwd_t")
+# `h64_debug`'s configurations: (d_model, head count, checks) runs. "h72":
+# head_dim 72 at GENIE_138M-h72's width (16 heads) and at a tp = 2 rank's
+# (8 heads of 72, C = 576: head groups of 4 and 8 heads a tile's problems)
+HEAD_DEBUG = {
+    "h64": ((512, 8, tuple(H64_DEBUG)), (512, 16, tuple(H64_DEBUG))),
+    "h128": ((512, 4, tuple(H64_DEBUG)), (512, 8, H128_DEBUG_NARROW),
+             (512, 16, H128_DEBUG_NARROW)),
+    "h72": ((1152, 16, tuple(H64_DEBUG)), (576, 8, H128_DEBUG_NARROW)),
+}
 
 
-def flash_sweep(inp, H, sizes=(64, 192, 320, 1024)):
+def flash_sweep(inp, H, sizes=(64, 192, 320, 1024), C=512):
     """K9 and K10 (`chip_smoke.flash_case`) at each N of `sizes` (2 rows),
-    causal, not, and at a negative scale, at C = 512 and H heads."""
-    D, out = 512 // H, {}
+    causal, not, and at a negative scale, at C and H heads."""
+    D, out = C // H, {}
     for n in sizes:
         qkv, dout = inp.normal(2, n, 3, H, D), inp.normal(2, n, H, D)
         for causal, sc in ((False, D ** -0.5), (True, D ** -0.5),
@@ -1662,11 +1676,10 @@ def k12_case(inp, C, H, T, seed):
     print(json.dumps(row), flush=True)
 
 
-def decode_checks(inp, H, L=4, T=16):
-    """K2, K3, K7 and K8 (both caches) at C = 512 and H heads on an
-    L-layer cache of T slots, by `chip_smoke.py`'s gates (K2's and K3's t_B
-    from chip_smoke's P)."""
-    C = 512
+def decode_checks(inp, H, L=4, T=16, C=512):
+    """K2, K3, K7 and K8 (both caches) at C and H heads on an L-layer cache
+    of T slots, by `chip_smoke.py`'s gates (K2's and K3's t_B from
+    chip_smoke's P)."""
     caches = (inp.normal(T, L, cs.B, cs.GRID, C),
               inp.normal(T, L, cs.B, cs.GRID, C))
     out = {}
@@ -1684,22 +1697,25 @@ def decode_checks(inp, H, L=4, T=16):
     return out
 
 
-def h64_one(name: str, heads: int) -> int:
-    """One check of H64_DEBUG at `heads` heads, in this process."""
+def h64_one(name: str, heads: int, C: int = 512) -> int:
+    """One check of H64_DEBUG at d_model C in `heads` heads, in this
+    process."""
     dev = torch.device("cuda")
-    out = H64_DEBUG[name](cs.Inputs(7, dev), heads)
+    out = H64_DEBUG[name](cs.Inputs(7, dev), C, heads)
     torch.cuda.synchronize()
-    print(json.dumps({"check": name, "heads": heads, "result": out},
+    print(json.dumps({"check": name, "C": C, "heads": heads, "result": out},
                      default=str), flush=True)
     return 0
 
 
-def h64_debug(dev, runs=((8, tuple(H64_DEBUG)), (16, tuple(H64_DEBUG)))):
+def h64_debug(dev, config: str = "h64"):
     """Every kernel library rebuilt with ptxas's counts (the flash,
     temporal, decode and spatial sources' lines printed), then each check
-    of H64_DEBUG at head_dim 64 (8 heads) and 32 (16 heads) (`runs`: (head
-    count, check names) pairs), one process each with a time limit, so
-    that a fault or a hang in one leaves the others' results."""
+    of H64_DEBUG in each run of HEAD_DEBUG[config] ((d_model, head count,
+    check names): by default head_dim 64 (8 heads) and 32 (16 heads) at C =
+    512), one process each with a time limit, so that a fault or a hang in
+    one leaves the others' results; a check's whole output goes to
+    chiprun_out/head_debug_NAME_C_H.log."""
     import subprocess
     logs = kernels.build_all(verbose=True)
     for name, log in logs.items():
@@ -1707,16 +1723,20 @@ def h64_debug(dev, runs=((8, tuple(H64_DEBUG)), (16, tuple(H64_DEBUG)))):
             if any(w in line for w in ("registers", "spill", "error",
                                        "warning", "Compiling entry")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
-    for heads, names in runs:
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    for C, heads, names in HEAD_DEBUG[config]:
         for name in names:
             try:
                 res = subprocess.run(
-                    [sys.executable, __file__, "h64_one", name, str(heads)],
-                    capture_output=True, text=True, timeout=240)
-                text, rc = (res.stdout + res.stderr)[-3000:], res.returncode
+                    [sys.executable, __file__, "h64_one", name, str(heads),
+                     str(C)], capture_output=True, text=True, timeout=240)
+                text, rc = res.stdout + res.stderr, res.returncode
             except subprocess.TimeoutExpired:
                 text, rc = "timed out", "timeout"
-            print(f"== {name} heads={heads} rc={rc}\n{text}", flush=True)
+            (out / f"head_debug_{name}_{C}_{heads}.log").write_text(text)
+            print(f"== {name} C={C} heads={heads} rc={rc}\n{text[-3000:]}",
+                  flush=True)
 
 
 # the checks of `widths_debug`, each run in a process of its own: the
@@ -1941,6 +1961,7 @@ def ln_row_times(dev, widths=(384, 1600, 2048), rows=32768):
 AB_CONFIGS = {"h32": dict(heads=16, extra=True),
               "h64": dict(heads=8, extra=True),
               "h128": dict(heads=4, extra=True),
+              "h72": dict(C=1152, heads=16, extra=True),
               "groups": dict(heads=16, extra=True, groups=True),
               "one_head": dict(one_head=True),
               "widths": dict(widths=True),
@@ -1949,10 +1970,11 @@ AB_CONFIGS = {"h32": dict(heads=16, extra=True),
 
 def ab_times(dev, heads: int = 16, extra: bool = False, T: int = 16,
              groups: bool = False, one_head: bool = False,
-             widths: bool = False, ln_rows: bool = False):
+             widths: bool = False, ln_rows: bool = False, C: int = 512):
     """Device ms (profiler) of every attention kernel form through this
     checkout's wrappers at GENIE_138M's main-path shapes (C = 512, `heads`
-    heads: 16 of 32 channels, or 8 of 64 for `ab_times h64`): K1 both modes at
+    heads: 16 of 32 channels, or 8 of 64 for `ab_times h64`; at C = 1152 in
+    16 heads of 72, GENIE_138M-h72's, for `ab_times h72`): K1 both modes at
     N = 16 / 32 / 128, K2, K3, K4 (train, causal and not; prefill), K6
     (causal, with o, non-causal), K7 and K8 (bf16 and int8, chip_smoke.py's
     t_B), K9 and K10 (causal and not); with `extra` also K11's backward,
@@ -1978,7 +2000,7 @@ def ab_times(dev, heads: int = 16, extra: bool = False, T: int = 16,
     from tpu1x_torch.ops import attention as attn
     from tpu1x_torch.ops import decode_attention as da
     from tpu1x_torch.ops import temporal_attention as ta
-    C, H, L = 512, heads, 32
+    H, L = heads, 32
     inp = cs.Inputs(0, dev)
     times, library = {}, {}
     for qk in (False, True):
@@ -2390,6 +2412,13 @@ def mup(dev):
     print("mup: " + json.dumps(cs.check_mup(dev)), flush=True)
 
 
+def h72(dev):
+    """chip_smoke.py's head_dim-72 phase alone."""
+    out = cs.check_head_dim_72(dev)
+    print("h72 phase walls: " + json.dumps(out["phase_walls_s"]),
+          flush=True)
+
+
 def h128(dev):
     """chip_smoke.py's head_dim-128 phase alone, then the TP setups of
     GENIE_138M-h64 and -h128 (tp = 2, two ranks on this card)."""
@@ -2409,15 +2438,13 @@ MODES = {"block": block, "mlp": mlp, "train": train, "temporal": temporal,
          "tp_cards": tp_cards, "tp_faults": tp_faults, "tp_c9": tp_c9,
          "tp_steps": tp_steps,
          "genie_35m": genie_35m, "mup": mup, "h64_debug": h64_debug,
-         "h128": h128,
+         "h128": h128, "h72": h72,
          "ab_times": ab_times, "c8": c8, "w32_debug": w32_debug,
          "k12gate": k12gate, "w32_times": w32_times,
          "s1024_debug": s1024_debug, "s1024": s1024,
          "s1024_times": s1024_times, "widths_debug": widths_debug,
          "width_loss": width_loss,
-         "h128_debug": functools.partial(
-             h64_debug, runs=((4, tuple(H64_DEBUG)), (8, H128_DEBUG_NARROW),
-                              (16, H128_DEBUG_NARROW)))}
+         "h128_debug": functools.partial(h64_debug, config="h128")}
 # mode: (the source its builds are variants of, the timing)
 VARIANTS = {"flash": ("flash_attention", flash),
             "gemm": ("spatial_block", gemm), "tn": ("train_block", tn),
@@ -2430,7 +2457,14 @@ def main() -> int:
         return tp_cards_rank(int(sys.argv[2]), int(sys.argv[3]),
                              int(sys.argv[4]), sys.argv[5], sys.argv[6])
     if sys.argv[1:2] == ["h64_one"]:
-        return h64_one(sys.argv[2], int(sys.argv[3]))
+        return h64_one(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
+    if sys.argv[1:2] == ["h64_debug"] and len(sys.argv) == 3:
+        if not torch.cuda.is_available() or sys.argv[2] not in HEAD_DEBUG:
+            print(__doc__, file=sys.stderr)
+            return 2
+        h64_debug(torch.device("cuda"), sys.argv[2])
+        print(cs.card_line(), flush=True)
+        return 0
     if sys.argv[1:2] == ["w32_one"]:
         return w32_one(sys.argv[2])
     if sys.argv[1:2] == ["s1024_one"]:

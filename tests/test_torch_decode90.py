@@ -70,7 +70,9 @@ def caches(rng, int8, t_B, C_=C):
                                          pytest.param(1, 6, 384,
                                                       id="1-C384"),
                                          pytest.param(1, 25, 1600,
-                                                      id="1-C1600")])
+                                                      id="1-C1600"),
+                                         pytest.param(1, 2, 144,
+                                                      id="1-h72")])
 @pytest.mark.parametrize("int8", [False, True], ids=["plain-cache", "int8"])
 @pytest.mark.parametrize("pair", [False, True], ids=["K7", "K8"])
 def test_decode_attention_t16(pair, int8, layer, H_, C_):
@@ -79,7 +81,8 @@ def test_decode_attention_t16(pair, int8, layer, H_, C_):
     the caller's `out` and the k/v copies into `kv_out` are the same. H_ = 1
     at C = 64 and 128: head_dim 64 and 128, the kernel's other head
     widths; 6 and 25 heads of 64 at C = 384 and 1600, GENIE_138M-C384's
-    and -C1600's widths (not multiples of 256)."""
+    and -C1600's widths (not multiples of 256); 2 heads of 72 at C = 144
+    (head_dim 72)."""
     rng = np.random.default_rng(10 + 2 * pair + int8)
     frames = 2 if pair else 1
     t_B = np.array((T - frames, 0, 7, 3) if pair else (0, 5, 11, T - 1),

@@ -195,7 +195,8 @@ def test_update_cache_int8():
     pytest.param(False, True, 2, 64, id="False-True"),
     pytest.param(True, False, 2, 64, id="True-False"),
     pytest.param(False, False, 1, 64, id="False-False-h64"),
-    pytest.param(False, False, 1, 128, id="False-False-h128")])
+    pytest.param(False, False, 1, 128, id="False-False-h128"),
+    pytest.param(False, False, 2, 144, id="False-False-h72")])
 def test_spatial_block_qk_ln(pre_ln, qkv_bias, H_, C_):
     """The spatial block with the per-head qk-LN (and, for completeness,
     with both LayerNorms) against the JAX kernel in interpret mode; H_ = 1

@@ -32,7 +32,8 @@ SHAPES = [pytest.param(64, 4, 32, id="64-4"),
           pytest.param(128, 3, 32, id="128-3"),
           pytest.param(256, 2, 32, id="256-2"),
           pytest.param(128, 2, 64, id="128-2-h64"),
-          pytest.param(128, 2, 128, id="128-2-h128")]
+          pytest.param(128, 2, 128, id="128-2-h128"),
+          pytest.param(128, 2, 72, id="128-2-h72")]
 
 
 def rand(rng, *shape, scale=1.0):

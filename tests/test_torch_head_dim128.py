@@ -286,5 +286,5 @@ def test_contract_refuses_one_head_of_128():
     qkv = torch.zeros(2, 16, 4, 3 * 128, dtype=torch.bfloat16)
     assert ta._check_qkv(*qkv.split(128, dim=-1), 1) == 3 * 128
     qkv = torch.zeros(2, 16, 4, 3 * 256, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 32, 64 or 128"):
+    with pytest.raises(ValueError, match="head_dim 32, 64, 72 or 128"):
         ta._check_qkv(*qkv.split(256, dim=-1), 1)

@@ -238,11 +238,11 @@ def test_contract_takes_head_dim_64():
 def test_contract_refuses_other_head_widths(C_, heads):
     """Head_dim 256, 16, 96 and no heads: raised, naming the three widths
     the kernels take, with no fallback."""
-    with pytest.raises(ValueError, match="head_dim 32, 64 or 128"):
+    with pytest.raises(ValueError, match="head_dim 32, 64, 72 or 128"):
         _util.head_dim_of(C_, heads, "kernel")
     if heads and C_ % heads == 0:
         qkv = torch.zeros(2, 16, 4, 3 * C_, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="head_dim 32, 64 or 128"):
+        with pytest.raises(ValueError, match="head_dim 32, 64, 72 or 128"):
             ta._check_qkv(*qkv.split(C_, dim=-1), heads)
-        with pytest.raises(ValueError, match="head_dim 32, 64 or 128"):
+        with pytest.raises(ValueError, match="head_dim 32, 64, 72 or 128"):
             tattn._check_shape(*(torch.zeros(2, 64, heads, C_ // heads),) * 3)

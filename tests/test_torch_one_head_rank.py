@@ -215,7 +215,7 @@ def test_check_qkv_refuses_other_head_widths(C, heads):
     """A head width no kernel has (48, 256, 24) is still refused, naming
     the widths there are."""
     qkv = torch.zeros(2, 8, 4, 3 * C, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 32, 64 or 128"):
+    with pytest.raises(ValueError, match="head_dim 32, 64, 72 or 128"):
         ta._check_qkv(*qkv.split(C, dim=-1), heads)
 
 

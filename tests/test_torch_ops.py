@@ -137,10 +137,12 @@ def spatial_inputs(rng, N, S, C, qkv_bias, proj_bias):
     pytest.param(False, True, 2, 64, id="False-True"),
     pytest.param(True, False, 2, 64, id="True-False"),
     pytest.param(False, True, 1, 64, id="False-True-h64"),
-    pytest.param(False, True, 1, 128, id="False-True-h128")])
+    pytest.param(False, True, 1, 128, id="False-True-h128"),
+    pytest.param(False, True, 2, 144, id="False-True-h72")])
 def test_spatial_block(qkv_bias, proj_bias, H, C):
     """K1 with the pre-LN against the JAX kernel; H = 1 at C = 64 and 128
-    is head_dim 64 and 128, the card kernel's other head widths."""
+    is head_dim 64 and 128, H = 2 at C = 144 head_dim 72, the card kernel's
+    other head widths."""
     from tpu1x.ops.spatial_block import spatial_block as jax_spatial_block
     rng = np.random.default_rng(3)
     N, S = 3, 32
@@ -211,6 +213,7 @@ def block_weights(rng, C, F4, qkv_bias, mlp_bias):
     pytest.param(True, True, False, 256, 8, id="C256-erf"),
     pytest.param(False, True, True, 256, 4, id="h64-tanh"),
     pytest.param(False, True, True, 256, 2, id="h128-tanh"),
+    pytest.param(False, True, True, 144, 2, id="h72-tanh"),
     pytest.param(False, True, True, 384, 6, id="C384-tanh"),
     pytest.param(False, True, False, 1600, 25, id="C1600-erf")])
 def test_temporal_mlp_block_single(qkv_bias, mlp_bias, gelu_tanh, C, H):
@@ -240,6 +243,7 @@ def test_temporal_mlp_block_single(qkv_bias, mlp_bias, gelu_tanh, C, H):
     pytest.param(2, (0, 5), 256, 8, False, id="C256-erf"),
     pytest.param(1, (3, 6), 256, 4, False, id="h64-erf"),
     pytest.param(1, (3, 6), 256, 2, False, id="h128-erf"),
+    pytest.param(1, (3, 6), 144, 2, False, id="h72-erf"),
     pytest.param(1, (3, 6), 384, 6, True, id="C384-tanh"),
     pytest.param(2, (0, 5), 1600, 25, False, id="C1600-erf")])
 def test_temporal_mlp_block_pair(layer, t_prev, C, H, gelu_tanh):

@@ -48,11 +48,15 @@ def close(got, want):
                                      pytest.param(16, H, C, id="16"),
                                      pytest.param(16, 1, C, id="16-h64"),
                                      pytest.param(16, 1, 2 * C,
-                                                  id="16-h128")])
+                                                  id="16-h128"),
+                                     pytest.param(16, 2, 144, id="16-h72"),
+                                     pytest.param(32, 2, 144,
+                                                  id="32-h72")])
 def test_backward_with_o_against_jax(T, H_, C_, causal):
     """dq, dk, dv against `jax.vjp` of the JAX kernel, and `o` against its
     value; `o` leaves the gradients as they are without it. H_ = 1 at C =
-    64 and 128: head_dim 64 and 128, the kernels' other head widths."""
+    64 and 128: head_dim 64 and 128, and 2 heads at C = 144: head_dim 72,
+    the kernels' other head widths (at T = 32 too)."""
     from tpu1x.ops.temporal_attention import temporal_attention as jax_fn
     rng = np.random.default_rng(T + causal)
     q, k, v, dout = (rand(rng, B, T, S, C_) for _ in range(4))
@@ -187,8 +191,8 @@ def _refused(case):
 
 @pytest.mark.parametrize("case,message", [
     ("fp32", "bf16"), ("shapes", "one shape"), ("T > 32", "T <= 32"),
-    ("head_dim 256", "head_dim 32, 64 or 128"),
-    ("head_dim 48", "head_dim 32, 64 or 128"),
+    ("head_dim 256", "head_dim 32, 64, 72 or 128"),
+    ("head_dim 48", "head_dim 32, 64, 72 or 128"),
     ("frame stride", "strides"), ("row stride % 8", "multiple of 8"),
     ("alignment", "16-byte aligned")])
 def test_check_qkv_refuses(case, message):

@@ -81,8 +81,10 @@ def to_torch(args, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
-@pytest.mark.parametrize("qkv_bias", [False, True])
-def test_spatial_launch_sequence_against_jax(qkv_bias, dtype):
+@pytest.mark.parametrize("qkv_bias,C,H", [
+    pytest.param(False, C, H, id="False"), pytest.param(True, C, H, id="True"),
+    pytest.param(False, 144, 2, id="False-h72")])
+def test_spatial_launch_sequence_against_jax(qkv_bias, C, H, dtype):
     """`spatial_train_block_bwd` (LN1, the serving qkv product, K9's
     forward and K10's backward into one dqkv, the training forms, the LN
     backward) against `jax.vjp` of the JAX package's `spatial_train_block`,
@@ -122,10 +124,14 @@ def test_spatial_launch_sequence_against_jax(qkv_bias, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
-@pytest.mark.parametrize("qkv_bias,proj_bias", [(False, True), (True, True),
-                                                (False, False),
-                                                (True, False)])
-def test_temporal_launch_sequence_against_jax(qkv_bias, proj_bias, dtype):
+@pytest.mark.parametrize("qkv_bias,proj_bias,C,H", [
+    pytest.param(False, True, C, H, id="False-True"),
+    pytest.param(True, True, C, H, id="True-True"),
+    pytest.param(False, False, C, H, id="False-False"),
+    pytest.param(True, False, C, H, id="True-False"),
+    pytest.param(False, True, 144, 2, id="False-True-h72")])
+def test_temporal_launch_sequence_against_jax(qkv_bias, proj_bias, C, H,
+                                              dtype):
     """`temporal_train_block_fwd` and `_bwd` (the training forms around the
     temporal attention and the plain VJP that stands for its backward
     kernel) against the JAX package's `temporal_train_block` value and

@@ -26,8 +26,8 @@ both packages on the CPU.
   (atol 2e-4 + rtol 1e-3).
 - The width rule of the decode ring (`_util.decode_width_ok`, shared by
   K7/K8's and K2/K3's wrappers) takes every C up to 2048 whose head width
-  is 32, 64 or 128, and refuses C = 2080, naming the limit; so does the LN
-  rows' limit.
+  is 32, 64, 72 or 128, and refuses C = 2080, naming the limit; so does the
+  LN rows' limit.
 
 The decode attention and the temporal+MLP block at C = 384 and 1600
 against their JAX kernels are cases of their own ops tests (the `C384` and
@@ -346,8 +346,9 @@ def test_spatial_train_block_ln_rows_at_c1600():
 # (C, head widths that divide it): the untimed widths of chip_smoke.py's
 # width phase and its two configurations
 WIDTHS = [(96, (32,)), (320, (32, 64)), (384, (32, 64, 128)),
-          (640, (32, 64, 128)), (1152, (32, 64, 128)),
-          (1600, (32, 64)), (2048, (32, 64, 128))]
+          (576, (32, 64, 72)), (640, (32, 64, 128)),
+          (1152, (32, 64, 72, 128)), (1600, (32, 64)), (2016, (32, 72)),
+          (2048, (32, 64, 128))]
 
 
 @pytest.mark.parametrize("C,dims", WIDTHS, ids=[str(c) for c, _ in WIDTHS])
@@ -365,6 +366,6 @@ def test_decode_width_rule_refuses():
     with pytest.raises(ValueError, match="C <= 2048"):
         _util.check_decode_width(2080, 65, "decode attention kernel")
     assert not _util.decode_width_ok(1600, 20)  # heads of 80
-    with pytest.raises(ValueError, match="head_dim 32, 64 or 128"):
+    with pytest.raises(ValueError, match="head_dim 32, 64, 72 or 128"):
         _util.check_decode_width(1600, 20, "decode attention kernel")
     assert _util.DECODE_MAX_C == tk.LN_MAX_C == 2048

@@ -48,7 +48,15 @@
 //     be 256 fp32 values a thread) and an item the same threads and bytes;
 //     at head_dim 128 a quad of lanes, its four parts summed by two
 //     shuffles (lanes 4i .. 4i + 3: (x0 + x1) + (x2 + x3) in every lane, the
-//     same bits, fp32 addition being commutative);
+//     same bits, fp32 addition being commutative). At head_dim 72 (2.25
+//     lanes of 32) a thread owns 24 channels, three 16-byte chunks of bf16
+//     (three 8-byte chunks of int8, whose rows are 24 bytes), a head row
+//     three neighbouring lanes, and a warp ten head rows on lanes 0-29
+//     (lanes 30 and 31 idle, as `p.lanes` idles a warp's tail), so that no
+//     head's lanes cross a warp; the three parts are summed by shuffles
+//     from the row's named lanes, (x0 + x1) + x2 in each (the same bits).
+//     A thread's 24 channels in 48- (or 24-) byte rows put eight (sixteen)
+//     neighbouring lanes on 32 distinct banks with no rotation;
 //   - one pass over K and V: an online softmax in the log2 domain, a
 //     running maximum and sum per (token, head, frame), each slot's K and
 //     V tiles consumed together and freed. The maximum starts at the
@@ -73,6 +81,8 @@
 // itself. Logits, softmax and the PV sums stay fp32, as the references'.
 
 #pragma once
+
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -99,9 +109,15 @@ constexpr int DA_SMEM = 64 * 1024;
 constexpr int DA_SMEM_Q8 = 52 * 1024;
 constexpr int DA_MAX_STAGES = 32;
 // Rows a block may hold (C = 2048 at 4 tokens: the widest C a launch
-// takes, since an item holds at least 4 tokens), and its threads.
+// takes, since an item holds at least 4 tokens), and its threads; at
+// head_dim 72 the consumer lanes of 4 tokens of C = 2016 (28 heads, 112
+// rows of three lanes, ten a warp: twelve warps), a form of its own (WIDE)
+// past DA_THREADS: its 13 warps put 4 on an SM sub-partition, a cap of 128
+// registers, under which the pair form spills (at 9 warps, 168).
 constexpr int DA_MAX_ROWS = 256;
 constexpr int DA_THREADS = DA_MAX_ROWS + 32;
+constexpr int DA_MAX_LANES_72 = 384;
+constexpr int DA_THREADS_72 = DA_MAX_LANES_72 + 32;
 // log2 of the largest term the online softmax lets build up before it
 // moves the maximum and rescales.
 constexpr float DA_LAZY = 8.f;
@@ -131,7 +147,7 @@ struct DecodeAttnArgs {
   bf16* k_out;  // (B, S, C) contiguous copies of frame 0's k and v, or null
   bf16* v_out;
   int B, S, C, T, L, layer;
-  int D;   // head_dim, 32, 64 or 128
+  int D;   // head_dim, 32, 64, 72 or 128
   int nb;  // rows b of this launch (<= DA_MAX_B; B is the caches' own)
   float scale;
 };
@@ -139,8 +155,9 @@ struct DecodeAttnArgs {
 // The launch's shape, from S, C and the cache type (decode_plan).
 struct DecodePlan {
   int ts;        // tokens of an item
-  int rows;      // (token, 32 channels) rows of an item
-  int lanes;     // the consumer threads: rows rounded up to a warp
+  int rows;      // (token, 32 channels) rows of an item (24 at head_dim 72)
+  int lanes;     // the consumer threads: rows rounded up to a warp (at 72
+                 // ten head rows of three lanes a warp)
   int tiles;     // items of one row b
   int stages;    // stages of the ring
   uint32_t tile_bytes;   // one slot's K (or V) rows of a full item
@@ -148,16 +165,24 @@ struct DecodePlan {
   uint32_t io_bytes;     // an item's q, k, v rows (bf16) of every frame
 };
 
-// Channels of one 16-byte chunk of a cache row (8 bf16, 16 int8), and the
-// chunks of a thread's 32 channels.
-template <bool Q>
+// A thread's W channels of a head row (32, or 24 at head_dim 72), the
+// channels of one chunk of a cache row (16 bytes: 8 bf16, 16 int8; at 72 an
+// int8 chunk is 8 bytes, 8 values), and the chunks of a thread.
+template <bool Q, int D = 32>
 struct DaRow {
-  static constexpr int CPC = Q ? 16 : 8;
-  static constexpr int NCH = 32 / CPC;
-  // the first channel of register group c of a thread whose chunks are
-  // rotated by `rot`
+  static constexpr int W = D == 72 ? 24 : 32;
+  static constexpr int CPC = Q && D != 72 ? 16 : 8;
+  static constexpr int NCH = W / CPC;
+  // the chunk of a cache row: 16 bytes, or 8 (int8 at head_dim 72)
+  using Chunk = typename std::conditional<Q && D == 72, uint2, uint4>::type;
+  // the chunk of register group c of a thread whose chunks are rotated by
+  // `rot` (at head_dim 72 not rotated), and its first channel
+  static __device__ __forceinline__ int idx(int c, int rot) {
+    if constexpr (D == 72) return c;
+    return (c + rot) & (NCH - 1);
+  }
   static __device__ __forceinline__ int chan(int c, int rot) {
-    return ((c + rot) & (NCH - 1)) * CPC;
+    return idx(c, rot) * CPC;
   }
 };
 
@@ -182,14 +207,31 @@ __device__ __forceinline__ void unpack(const uint4 u, float* f) {
   }
 }
 
-// One bf16 row of a thread's 32 channels of shared memory, rows 64 bytes
+// 8 int8 values of an 8-byte chunk (head_dim 72's int8 cache rows), as
+// unpack's.
+template <bool Q>
+__device__ __forceinline__ void unpack(const uint2 u, float* f) {
+  static_assert(Q, "8-byte chunks are int8");
+  const uint32_t w[2] = {u.x, u.y};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint32_t x = w[i] ^ 0x80808080u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[4 * i + j] =
+          __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540 | j)) -
+          8388736.f;
+  }
+}
+
+// One bf16 row of a thread's W channels of shared memory, rows 2 W bytes
 // apart,
 // as fp32 values in the thread's rotated order; `raw` keeps the bits.
-template <bool Q>
+template <bool Q, int D>
 __device__ __forceinline__ void load_row(const uint8_t* rows, int r, int rot,
                                          float* f, uint4* raw) {
-  using R = DaRow<Q>;
-  const uint4* row = reinterpret_cast<const uint4*>(rows + r * 64);
+  using R = DaRow<Q, D>;
+  const uint4* row = reinterpret_cast<const uint4*>(rows + r * 2 * R::W);
 #pragma unroll
   for (int c = 0; c < R::NCH; ++c)
 #pragma unroll
@@ -202,9 +244,9 @@ __device__ __forceinline__ void load_row(const uint8_t* rows, int r, int rot,
 
 // Rows back to global memory with streaming stores (st.global.cs): written
 // once and read at most once by the next launch, their lines go first.
-template <bool Q>
+template <bool Q, int D>
 __device__ __forceinline__ void copy_row(bf16* row, int rot, const uint4* raw) {
-  using R = DaRow<Q>;
+  using R = DaRow<Q, D>;
 #pragma unroll
   for (int c = 0; c < R::NCH; ++c)
 #pragma unroll
@@ -213,9 +255,9 @@ __device__ __forceinline__ void copy_row(bf16* row, int rot, const uint4* raw) {
              raw[c * R::CPC / 8 + h]);
 }
 
-template <bool Q>
+template <bool Q, int D>
 __device__ __forceinline__ void store_row(bf16* row, int rot, const float* f) {
-  using R = DaRow<Q>;
+  using R = DaRow<Q, D>;
 #pragma unroll
   for (int c = 0; c < R::NCH; ++c)
 #pragma unroll
@@ -227,22 +269,29 @@ __device__ __forceinline__ void store_row(bf16* row, int rot, const float* f) {
     }
 }
 
-__device__ __forceinline__ float dot32(const float* a, const float* b) {
+template <int W>
+__device__ __forceinline__ float dot(const float* a, const float* b) {
   float d[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) d[i & 3] = fmaf(a[i], b[i], d[i & 3]);
+  for (int i = 0; i < W; ++i) d[i & 3] = fmaf(a[i], b[i], d[i & 3]);
   return (d[0] + d[1]) + (d[2] + d[3]);
 }
 
 // The logit of a head row from a thread's part: at head_dim 64 the sum of
 // the two lanes' halves (the pair of lanes 2i, 2i + 1 of a token; both are
-// live or neither), at 128 of the quad's quarters (lanes 4i .. 4i + 3, all
-// live or none), the same value in each.
+// live or neither), at 72 of the three lanes' thirds (lanes 3i .. 3i + 2 of
+// lanes 0-29, all live or none), at 128 of the quad's quarters (lanes 4i
+// .. 4i + 3, all live or none), the same value in each.
 template <int D>
 __device__ __forceinline__ float head_sum(float x) {
   if constexpr (D == 64) {
     const unsigned pair = 3u << (threadIdx.x & 30);
     x += __shfl_xor_sync(pair, x, 1);
+  } else if constexpr (D == 72) {
+    const int r0 = (threadIdx.x & 31) / 3 * 3;  // the row's first lane
+    const unsigned three = 7u << r0;
+    x = (__shfl_sync(three, x, r0) + __shfl_sync(three, x, r0 + 1)) +
+        __shfl_sync(three, x, r0 + 2);
   } else if constexpr (D == 128) {
     const unsigned quad = 15u << (threadIdx.x & 28);
     x += __shfl_xor_sync(quad, x, 1);
@@ -260,11 +309,14 @@ __device__ __forceinline__ long da_walk(int step, int j, int G) {
 // F frames per row (1, or 2 = [prev, cur]); Q: int8 cache; D: head_dim.
 // Threads: p.lanes consumers (p.rows of them own a row; the rest, fewer
 // than a warp, wait and arrive on the barriers with their warp and compute
-// nothing), then one producer warp.
-template <int F, bool Q, int D>
-__global__ void __launch_bounds__(DA_THREADS, 1)
+// nothing), then one producer warp; WIDE: more than DA_THREADS of them
+// (head_dim 72 past C = 1440).
+template <int F, bool Q, int D, bool WIDE = false>
+__global__ void __launch_bounds__(WIDE ? DA_THREADS_72 : DA_THREADS, 1)
     decode_ring_kernel(const DecodeAttnArgs a, const DecodePlan p) {
-  using R = DaRow<Q>;
+  using R = DaRow<Q, D>;
+  using Chunk = typename R::Chunk;
+  constexpr int W = R::W;
   constexpr int ELT = Q ? 1 : 2;
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* io = smem + DA_IO;
@@ -352,11 +404,15 @@ __global__ void __launch_bounds__(DA_THREADS, 1)
     return;
   }
 
-  // a consumer: row r = (token, 32 channels from hc) of every item, or an
-  // idle lane past p.rows
-  const int r = threadIdx.x, rw = C / 32;
+  // a consumer: row r = (token, W channels from hc) of every item, or an
+  // idle lane past p.rows (at head_dim 72 also lanes 30 and 31 of a warp,
+  // whose rows are 30 a warp)
+  int r = threadIdx.x;
+  if constexpr (D == 72)
+    r = (r & 31) < 30 ? 30 * (r >> 5) + (r & 31) : p.rows;
+  const int rw = C / W;
   const int tok = r / rw;
-  const long hc = (r % rw) * 32;
+  const long hc = (r % rw) * W;
   const int rot = Q ? (r >> 2) & 1 : (r >> 1) & 3;
   const float sc2 = a.scale * 1.4426950408889634f;  // logits in log2 units
   int stage = 0;
@@ -373,34 +429,34 @@ __global__ void __launch_bounds__(DA_THREADS, 1)
     const int tb = slots[b];
 
     // the in-pass keys: frame 0's k and v are frame 0's own and cur's prev
-    float q[F][32], acc[F][32], m[F], l[F];
+    float q[F][W], acc[F][W], m[F], l[F];
     mbar_wait(io_full, step & 1);
     if (live) {
-      float kf[32];
-      uint4 raw[4];
+      float kf[W];
+      uint4 raw[W / 8];
 #pragma unroll
-      for (int f = 0; f < F; ++f) load_row<Q>(io + 3 * f * row_bytes, r, rot,
-                                              q[f], raw);
-      load_row<Q>(io + row_bytes, r, rot, kf, raw);
+      for (int f = 0; f < F; ++f)
+        load_row<Q, D>(io + 3 * f * row_bytes, r, rot, q[f], raw);
+      load_row<Q, D>(io + row_bytes, r, rot, kf, raw);
       if (a.k_out != nullptr)
-        copy_row<Q>(a.k_out + ((long)b * S + s) * C + hc, rot, raw);
-      const float s00 = head_sum<D>(dot32(q[0], kf)) * sc2;
+        copy_row<Q, D>(a.k_out + ((long)b * S + s) * C + hc, rot, raw);
+      const float s00 = head_sum<D>(dot<W>(q[0], kf)) * sc2;
       const float s10 =
-          F == 2 ? head_sum<D>(dot32(q[F - 1], kf)) * sc2 : 0.f;
-      load_row<Q>(io + 2 * row_bytes, r, rot, acc[0], raw);
+          F == 2 ? head_sum<D>(dot<W>(q[F - 1], kf)) * sc2 : 0.f;
+      load_row<Q, D>(io + 2 * row_bytes, r, rot, acc[0], raw);
       if (a.v_out != nullptr)
-        copy_row<Q>(a.v_out + ((long)b * S + s) * C + hc, rot, raw);
+        copy_row<Q, D>(a.v_out + ((long)b * S + s) * C + hc, rot, raw);
       m[0] = s00;
       l[0] = 1.f;
       if constexpr (F == 2) {
-        load_row<Q>(io + 4 * row_bytes, r, rot, kf, raw);
-        const float s11 = head_sum<D>(dot32(q[1], kf)) * sc2;
+        load_row<Q, D>(io + 4 * row_bytes, r, rot, kf, raw);
+        const float s11 = head_sum<D>(dot<W>(q[1], kf)) * sc2;
         m[1] = fmaxf(s10, s11);
         const float e10 = ex2(s10 - m[1]), e11 = ex2(s11 - m[1]);
         l[1] = e10 + e11;
-        load_row<Q>(io + 5 * row_bytes, r, rot, kf, raw);
+        load_row<Q, D>(io + 5 * row_bytes, r, rot, kf, raw);
 #pragma unroll
-        for (int i = 0; i < 32; ++i)
+        for (int i = 0; i < W; ++i)
           acc[1][i] = fmaf(e11, kf[i], acc[0][i] * e10);
       }
     }
@@ -411,21 +467,20 @@ __global__ void __launch_bounds__(DA_THREADS, 1)
       mbar_wait(full0 + 8 * stage, phase);
       if (live) {
         const uint8_t* st = ring + (size_t)stage * p.stage_bytes;
-        const uint4* kr = reinterpret_cast<const uint4*>(st + r * 32 * ELT);
-        const uint4* vr =
-            reinterpret_cast<const uint4*>(st + p.tile_bytes + r * 32 * ELT);
+        const Chunk* kr = reinterpret_cast<const Chunk*>(st + r * W * ELT);
+        const Chunk* vr =
+            reinterpret_cast<const Chunk*>(st + p.tile_bytes + r * W * ELT);
         // V's chunks: with the logits' K chunks at one frame, after the
         // logits with two (both frames' q and acc are 128 fp32 a thread,
         // and DA_THREADS' 9 warps put 3 on one SM sub-partition: a cap of
         // 168 registers, which V's chunks beside K's would pass)
-        uint4 ku[R::NCH], vu[R::NCH];
+        Chunk ku[R::NCH], vu[R::NCH];
         auto load_v = [&] {
 #pragma unroll
-          for (int c = 0; c < R::NCH; ++c)
-            vu[c] = vr[(c + rot) & (R::NCH - 1)];
+          for (int c = 0; c < R::NCH; ++c) vu[c] = vr[R::idx(c, rot)];
         };
 #pragma unroll
-        for (int c = 0; c < R::NCH; ++c) ku[c] = kr[(c + rot) & (R::NCH - 1)];
+        for (int c = 0; c < R::NCH; ++c) ku[c] = kr[R::idx(c, rot)];
         if constexpr (F == 1) load_v();
         float sk = sc2, sv = 1.f;
         if constexpr (Q) {
@@ -458,7 +513,7 @@ __global__ void __launch_bounds__(DA_THREADS, 1)
             const float corr = ex2(m[f] - x);
             l[f] *= corr;
 #pragma unroll
-            for (int i = 0; i < 32; ++i) acc[f][i] *= corr;
+            for (int i = 0; i < W; ++i) acc[f][i] *= corr;
             m[f] = x;
           }
           const float e = ex2(x - m[f]);
@@ -488,8 +543,8 @@ __global__ void __launch_bounds__(DA_THREADS, 1)
       for (int f = 0; f < F; ++f) {
         const float inv = 1.f / l[f];
 #pragma unroll
-        for (int i = 0; i < 32; ++i) acc[f][i] *= inv;
-        store_row<Q>(a.out[f] + b * a.osb + s * a.old + hc, rot, acc[f]);
+        for (int i = 0; i < W; ++i) acc[f][i] *= inv;
+        store_row<Q, D>(a.out[f] + b * a.osb + s * a.old + hc, rot, acc[f]);
       }
     }
   }
@@ -505,16 +560,32 @@ __global__ void __launch_bounds__(DA_THREADS, 1)
 // same ts, its rows rounded up to a warp of idle lanes (C = 1152: 4
 // tokens, 144 rows on 160 lanes; 1600: 4, 200 on 224). A head row of D
 // channels is D / 32 neighbouring rows of one token, never across a warp:
-// with D dividing C, a token's rows start at a multiple of D / 32.
-inline DecodePlan decode_plan(int frames, int S, int C, bool q8) {
+// with D dividing C, a token's rows start at a multiple of D / 32. At head
+// dim 72 rows of 24 channels, a head three of them, ten heads a warp: the
+// same rule counts heads by tens (C = 1152: 4 tokens, 64 heads on 7 warps,
+// 224 lanes; 2016: 4, 112 on 12, 384).
+inline DecodePlan decode_plan(int frames, int S, int C, bool q8, int D) {
   DecodePlan p{};
-  const int rw = C / 32;
-  p.ts = (DA_ROWS * 32 / C) & ~3;
-  if (p.ts < 4) p.ts = 4;
-  for (int ts = p.ts + 4; p.ts * rw % 32 && ts * rw <= DA_MAX_ROWS; ts += 4)
-    if (ts * rw % 32 == 0) p.ts = ts;
-  p.rows = p.ts * rw;
-  p.lanes = (p.rows + 31) & ~31;
+  if (D == 72) {
+    const int heads = C / 72;
+    p.ts = (DA_ROWS * 24 / C) & ~3;
+    if (p.ts < 4) p.ts = 4;
+    for (int ts = p.ts + 4;
+         p.ts * heads % 10 && (ts * heads + 9) / 10 * 32 <= DA_MAX_LANES_72;
+         ts += 4)
+      if (ts * heads % 10 == 0) p.ts = ts;
+    p.rows = p.ts * (C / 24);
+    p.lanes = (p.ts * heads + 9) / 10 * 32;
+  } else {
+    const int rw = C / 32;
+    p.ts = (DA_ROWS * 32 / C) & ~3;
+    if (p.ts < 4) p.ts = 4;
+    for (int ts = p.ts + 4; p.ts * rw % 32 && ts * rw <= DA_MAX_ROWS;
+         ts += 4)
+      if (ts * rw % 32 == 0) p.ts = ts;
+    p.rows = p.ts * rw;
+    p.lanes = (p.rows + 31) & ~31;
+  }
   p.tiles = (S + p.ts - 1) / p.ts;
   p.tile_bytes = (uint32_t)p.ts * C * (q8 ? 1 : 2);
   p.stage_bytes = 2 * p.tile_bytes + (q8 ? 8 * p.ts : 0);
@@ -526,7 +597,7 @@ inline DecodePlan decode_plan(int frames, int S, int C, bool q8) {
   return p;
 }
 
-template <int F, bool Q, int D>
+template <int F, bool Q, int D, bool WIDE>
 static cudaError_t launch_ring(const DecodeAttnArgs& a, const DecodePlan& p,
                                cudaStream_t s) {
   const long items = (long)a.nb * p.tiles;
@@ -537,24 +608,28 @@ static cudaError_t launch_ring(const DecodeAttnArgs& a, const DecodePlan& p,
   // shape (C) changes
   static int key_threads = -1, key_smem = -1, resident = 0;
   if (threads != key_threads || smem != key_smem) {
-    TPU1X_TRY(resident_blocks(decode_ring_kernel<F, Q, D>, threads, smem,
-                              &resident));
+    TPU1X_TRY(resident_blocks(decode_ring_kernel<F, Q, D, WIDE>, threads,
+                              smem, &resident));
     key_threads = threads, key_smem = smem;
   }
   const int grid = items < resident ? (int)items : resident;
-  decode_ring_kernel<F, Q, D><<<grid, threads, smem, s>>>(a, p);
+  decode_ring_kernel<F, Q, D, WIDE><<<grid, threads, smem, s>>>(a, p);
   return cudaGetLastError();
 }
 
-// The form of F frames and cache type for head_dim D.
-template <int D>
+// The form of F frames and cache type for head_dim D (and at head_dim 72
+// past DA_THREADS threads, the WIDE one).
+template <int D, bool WIDE = false>
 static cudaError_t launch_forms(const DecodeAttnArgs& a, const DecodePlan& p,
                                 int frames, bool q8, cudaStream_t s) {
+  if constexpr (D == 72 && !WIDE)
+    if (p.lanes + 32 > DA_THREADS)
+      return launch_forms<72, true>(a, p, frames, q8, s);
   if (q8)
-    return frames == 1 ? launch_ring<1, true, D>(a, p, s)
-                       : launch_ring<2, true, D>(a, p, s);
-  return frames == 1 ? launch_ring<1, false, D>(a, p, s)
-                     : launch_ring<2, false, D>(a, p, s);
+    return frames == 1 ? launch_ring<1, true, D, WIDE>(a, p, s)
+                       : launch_ring<2, true, D, WIDE>(a, p, s);
+  return frames == 1 ? launch_ring<1, false, D, WIDE>(a, p, s)
+                     : launch_ring<2, false, D, WIDE>(a, p, s);
 }
 
 // Rows b0 .. b0 + nb of `a`: every per-row pointer moved to row b0, the
@@ -582,13 +657,15 @@ inline DecodeAttnArgs decode_rows(const DecodeAttnArgs& a, int frames, int b0,
   return r;
 }
 
-// The widths the ring takes (`decode_plan`): head_dim D of 32, 64 or 128,
-// C a multiple of D (so of 32, and a head row never across a warp) and at
-// most 8 DA_MAX_ROWS = 2048 (an item holds at least 4 tokens of C / 32
-// rows). tpu1x_torch/ops/_util.py `decode_width_ok` states the same rule.
+// The widths the ring takes (`decode_plan`): head_dim D of 32, 64, 72 or
+// 128, C a multiple of D (so of 32, or of 24 at head_dim 72, and a head row
+// never across a warp) and at most 8 DA_MAX_ROWS = 2048 (an item holds at
+// least 4 tokens of C / 32 rows; at 72 of C / 24 rows on at most
+// DA_MAX_LANES_72 lanes, C <= 2016). tpu1x_torch/ops/_util.py
+// `decode_width_ok` states the same rule.
 inline bool decode_width_ok(int C, int D) {
-  return (D == 32 || D == 64 || D == 128) && C > 0 && C % D == 0 &&
-         C <= 8 * DA_MAX_ROWS;
+  return (D == 32 || D == 64 || D == 72 || D == 128) && C > 0 &&
+         C % D == 0 && C <= 8 * DA_MAX_ROWS;
 }
 
 // Requires frames in {1, 2}, T <= DA_MAXT, a width that decode_width_ok
@@ -608,12 +685,13 @@ static inline cudaError_t launch_decode_attention(const DecodeAttnArgs& a,
       (q8 && (a.vsc == nullptr || a.S % 4 || misaligned(a.ksc) ||
               misaligned(a.vsc))))
     return cudaErrorInvalidValue;
-  const DecodePlan p = decode_plan(frames, a.S, a.C, q8);
+  const DecodePlan p = decode_plan(frames, a.S, a.C, q8, a.D);
   for (int b0 = 0; b0 < a.B; b0 += DA_MAX_B) {
     const DecodeAttnArgs r =
         decode_rows(a, frames, b0, a.B - b0 < DA_MAX_B ? a.B - b0 : DA_MAX_B);
     TPU1X_TRY(a.D == 32   ? launch_forms<32>(r, p, frames, q8, s)
               : a.D == 64 ? launch_forms<64>(r, p, frames, q8, s)
+              : a.D == 72 ? launch_forms<72>(r, p, frames, q8, s)
                           : launch_forms<128>(r, p, frames, q8, s));
   }
   return cudaSuccess;

@@ -1,6 +1,6 @@
 // Multi-head attention softmax(q k^T scale [causal]) v over the N tokens of
 // each (row, head), forward and backward, on q, k, v shaped (R, N, H, D),
-// head_dim D = 32, 64 or 128, and read in place through their strides.
+// head_dim D = 32, 64, 72 or 128, and read in place through their strides.
 //
 // Replaces the Pallas kernels tpu1x/ops/pallas_attention.py: _flash_mha_bhnd
 // (_attn_kernel) and _flash_mha_bwd_bhnd (_attn_bwd_kernel). The TPU wrapper
@@ -87,8 +87,19 @@
 // dq pass 174 registers (180 causal), the dk/dv pass 198 (196 causal), no
 // spills.
 //
-// 64 <= N <= 4096 (FA_MAXN), N % 64 == 0, head_dim 32, 64 or 128, strides
-// multiples of 8.
+// Head_dim 72 (FaRows<72>: a tile's 64 channels in the 128-byte swizzle,
+// the last 8 unswizzled, then TMA's zeros). The logits and dP take a fifth
+// k16 step over channels 64-79, the last 8 of them zeros in both operands;
+// dQ += dS K, dV += P^T dO and dK += dS^T Q are an m64n64k16 and an m64n8k16
+// a k16 step. Both passes keep head_dim 64's four stages (TILE 10 KB, 103
+// KB a block: two blocks an SM); the dk/dv pass sums all 72 channels in one
+// unit (36 fp32 each of dK and dV a thread). delta takes a row's nine
+// chunks two a lane, the ninth on the quad's first lane. Bound at
+// GENIE_138M-h72's (128, 256, 16, 72): head_dim 32's bytes times 2.25 (0.181
+// ms with o, lse and delta), products 96.6 GFLOP (0.098 ms): the bytes.
+//
+// 64 <= N <= 4096 (FA_MAXN), N % 64 == 0, head_dim 32, 64, 72 or 128,
+// strides multiples of 8.
 
 #include "flash_attention.cuh"
 
@@ -114,9 +125,10 @@ struct FbShape {
       1024 + 2 * TILE + STAGES * (2 * TILE + 512) + 8 * (1 + STAGES);
 };
 
+template <int D>
 struct BwdMaps {
-  CUtensorMap in[4];   // q, k, v, d_o: 64 tokens of one head a box
-  CUtensorMap out[3];  // dq, dk, dv: the same
+  FaMap<D> in[4];   // q, k, v, d_o: 64 tokens of one head a box
+  FaMap<D> out[3];  // dq, dk, dv: the same
 };
 
 // Row n of o (2 D bytes from `row`) times row n of d_o in shared memory
@@ -141,14 +153,14 @@ __device__ __forceinline__ float delta_part(const bf16* row,
 // 64-token boxes; delta_out (R, H, N) fp32.
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(FB_THREADS, 2)
-    flash_bwd_dq_kernel(const __grid_constant__ BwdMaps maps,
+    flash_bwd_dq_kernel(const __grid_constant__ BwdMaps<D> maps,
                         const float* __restrict__ lse,
                         const bf16* __restrict__ o, long rso, long tso,
                         float* __restrict__ delta_out, int N, int H,
                         float scale) {
   using L = FaRows<D>;
   using F = FbShape<D>;
-  constexpr int KS = D / 16, FB_STAGES = F::STAGES;
+  constexpr int KS = (D + 15) / 16, FB_STAGES = F::STAGES;
   extern __shared__ unsigned char fqs_raw[];
   const uint32_t raw = smem_u32(fqs_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -193,9 +205,17 @@ __global__ void __launch_bounds__(FB_THREADS, 2)
   mbar_wait(bar, 0);
   const unsigned char* gp = base_p + (gtile - base);
   const bf16* orow = o + r * rso + (long)(qt * FA_QT) * tso + h * D;
-  float d0 = delta_part<D>(orow + r0 * tso, gp, r0, t4 * D / 32, D / 32);
-  float d1 = delta_part<D>(orow + (r0 + 8) * tso, gp, r0 + 8, t4 * D / 32,
-                           D / 32);
+  // a row's D / 8 chunks over the quad: D / 32 a lane, or at head_dim 72
+  // two a lane and the ninth on the first
+  constexpr int PER = D == 72 ? 2 : D / 32;
+  float d0 = delta_part<D>(orow + r0 * tso, gp, r0, t4 * PER, PER);
+  float d1 = delta_part<D>(orow + (r0 + 8) * tso, gp, r0 + 8, t4 * PER, PER);
+  if constexpr (D == 72) {
+    if (t4 == 0) {
+      d0 += delta_part<D>(orow + r0 * tso, gp, r0, 8, 1);
+      d1 += delta_part<D>(orow + (r0 + 8) * tso, gp, r0 + 8, 8, 1);
+    }
+  }
   d0 = quad_sum(d0);
   d1 = quad_sum(d1);
   float* drow = delta_out + (long)item * N + qt * FA_QT + r0;
@@ -255,8 +275,7 @@ __global__ void __launch_bounds__(FB_THREADS, 2)
     // dq += dS K of chunk c, and the logits of chunk c + 1
     wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      wgmma_pv_d<D>(dq, &da[4 * k], L::mnmajor(kc, k * 16));
+    for (int k = 0; k < 4; ++k) wgmma_pv_tile<D>(dq, &da[4 * k], kc, k * 16);
     if constexpr (!LAST) issue_logits(kn);
     wgmma_commit();
     wgmma_wait_all();
@@ -295,13 +314,13 @@ __global__ void __launch_bounds__(FB_THREADS, 2)
 // dq pass. maps.out[1], out[2]: boxes of one half at head_dim 128.
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(FB_THREADS, 2)
-    flash_bwd_dkv_kernel(const __grid_constant__ BwdMaps maps,
+    flash_bwd_dkv_kernel(const __grid_constant__ BwdMaps<D> maps,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, int N, int H,
                          float scale) {
   using L = FaRows<D>;
   using F = FbShape<D>;
-  constexpr int KS = D / 16, FB_STAGES = F::STAGES, DC = F::DC;
+  constexpr int KS = (D + 15) / 16, FB_STAGES = F::STAGES, DC = F::DC;
   extern __shared__ unsigned char fks_raw[];
   const uint32_t raw = smem_u32(fks_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -429,8 +448,8 @@ __global__ void __launch_bounds__(FB_THREADS, 2)
     wgmma_fence();
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      wgmma_pv_d<DC>(dv, &pa[4 * k], L::mnmajor(qc + L::TILE, k * 16));
-      wgmma_pv_d<DC>(dk, &da[4 * k], L::mnmajor(qc, k * 16));
+      wgmma_pv_tile<D, DC>(dv, &pa[4 * k], qc + L::TILE, k * 16);
+      wgmma_pv_tile<D, DC>(dk, &da[4 * k], qc, k * 16);
     }
     if constexpr (!LAST) issue_logits(sn);
     wgmma_commit();
@@ -484,17 +503,18 @@ cudaError_t launch_bwd(const void* const* in, const long* rs, const long* ts,
                        float* work, int R, int N, int H, float scale,
                        bool causal, cudaStream_t stream) {
   if (work == nullptr) return cudaErrorInvalidValue;
-  BwdMaps maps;
+  BwdMaps<D> maps;
   for (int i = 0; i < 4; ++i)
     TPU1X_TRY(tensor_map<D>(&maps.in[i], in[i], rs[i], ts[i], R, N, H,
                             FA_QT));
-  // at head_dim 128 dq leaves whole tiles, dk and dv a half a unit
+  // at head_dim 128 dq leaves whole tiles, dk and dv a half a unit; at 72
+  // every store leaves the tile without its zeros
   for (int i = 0; i < 3; ++i)
     TPU1X_TRY(tensor_map<D>(&maps.out[i], out[i], ors[i], ots[i], R, N, H,
-                            FA_QT, i == 0 ? 2 : 1));
-  typedef void (*DqKernel)(BwdMaps, const float*, const bf16*, long, long,
+                            FA_QT, i == 0 && D != 72 ? 2 : 1));
+  typedef void (*DqKernel)(BwdMaps<D>, const float*, const bf16*, long, long,
                            float*, int, int, float);
-  typedef void (*DkvKernel)(BwdMaps, const float*, const float*, int, int,
+  typedef void (*DkvKernel)(BwdMaps<D>, const float*, const float*, int, int,
                             float);
   static const DqKernel dq_forms[2] = {flash_bwd_dq_kernel<D, false>,
                                        flash_bwd_dq_kernel<D, true>};
@@ -523,10 +543,10 @@ cudaError_t launch_bwd(const void* const* in, const long* rs, const long* ts,
 
 }  // namespace
 
-// q, k, v: bf16 (R, N, H, D) views, D = 32, 64 or 128, element (r, n, h, d) at
-// r * rs + n * ts + h * D + d with each tensor's own rs and ts (multiples
-// of 8, 16-byte aligned base); out bf16 (R, N, H, D) contiguous; lse fp32
-// (R, H, N), the log-sum-exp of each query's scaled logits.
+// q, k, v: bf16 (R, N, H, D) views, D = 32, 64, 72 or 128, element (r, n,
+// h, d) at r * rs + n * ts + h * D + d with each tensor's own rs and ts
+// (multiples of 8, 16-byte aligned base); out bf16 (R, N, H, D)
+// contiguous; lse fp32 (R, H, N), the log-sum-exp of each query's scaled logits.
 extern "C" int tpu1x_flash_mha(const void* q, const void* k, const void* v,
                                void* out, void* lse, long rsq, long tsq,
                                long rsk, long tsk, long rsv, long tsv, int R,
@@ -562,7 +582,10 @@ extern "C" int tpu1x_flash_mha_bwd(const void* q, const void* k, const void* v,
   const long rs[4] = {rsq, rsk, rsv, rsg}, ts[4] = {tsq, tsk, tsv, tsg};
   void* out[3] = {dq, dk, dv};
   const long ors[3] = {rsdq, rsdk, rsdv}, ots[3] = {tsdq, tsdk, tsdv};
-  return (D == 32 ? launch_bwd<32> : D == 64 ? launch_bwd<64> : launch_bwd<128>)(
+  return (D == 32   ? launch_bwd<32>
+          : D == 64 ? launch_bwd<64>
+          : D == 72 ? launch_bwd<72>
+                    : launch_bwd<128>)(
       in, rs, ts, out, ors, ots, static_cast<const float*>(lse),
       static_cast<const bf16*>(o), rso, tso, static_cast<float*>(work), R, N,
       H, scale, causal != 0, static_cast<cudaStream_t>(stream));

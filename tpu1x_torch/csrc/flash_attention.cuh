@@ -3,7 +3,7 @@
 // attention it is, so that both compile the same device code.
 //
 // softmax(q k^T scale [causal]) v over the N tokens of each (row, head), on
-// q, k, v shaped (R, N, H, D), head_dim D = 32, 64 or 128 (a template
+// q, k, v shaped (R, N, H, D), head_dim D = 32, 64, 72 or 128 (a template
 // parameter), and read in place through their strides (the thirds of a
 // (rows, N, 3C) qkv product need no copy); o contiguous (R, N, H, D); and
 // the per-query log-sum-exp of the scaled logits that the backward
@@ -80,8 +80,26 @@
 // the bytes bound it. ptxas (sm_90a), head_dim 128: 148 registers a thread
 // (150 causal, 150 NORM), no spills.
 //
-// 64 <= N <= 4096 (FA_MAXN), N % 64 == 0, head_dim 32, 64 or 128, strides
-// multiples of 8.
+// Head_dim 72 (DiT-XL's 1152 channels in 16 heads). A row is 144 bytes:
+// each 64-row tile lies as a 64-channel part in the 128-byte swizzle (head_dim
+// 64's layout, 8 KB), then the last 8 channels as 64 rows of 16 bytes with no
+// swizzle (1 KB), then 1 KB that TMA fills with zeros (FaRows<72>): two
+// tensor maps an operand (FaMap<72>), the second a 5-D view whose outermost
+// dimension has extent 1 and a box of 2, so that the second half of each box
+// lies past the tensor and comes back as zeros, whatever lies beyond the
+// head's 72 channels in memory. The logits' fifth k16 step (channels 64-79)
+// reads the no-swizzle part as a K-major operand whose second 8 channels are
+// those zeros (the descriptor's leading byte offset, 1 KB); P V is an m64n64k16
+// over the swizzled part and an m64n8k16 over the last 8 channels (MN-major,
+// no swizzle) a k16 step, so o holds 36 fp32 values a thread and no product
+// but the logits' last half-step runs over padding. K9 runs the streamed form
+// at every N, as at 128: a whole-item stage would hold 120 KB, one block an
+// SM. Bound at GENIE_138M-h72's qk_norm train shape (128, 256, 16, 72): q, k,
+// v read and o written once, 302 MB (0.090 ms); products 38.7 GFLOP (0.039
+// ms); exponentials head_dim 32's 134 M (0.035 ms): the bytes bound it.
+//
+// 64 <= N <= 4096 (FA_MAXN), N % 64 == 0, head_dim 32, 64, 72 or 128,
+// strides multiples of 8.
 
 #pragma once
 
@@ -98,17 +116,31 @@ __device__ __forceinline__ uint32_t swz64(int n, int c) {
   return n * 64 + ((c ^ ((n >> 1) & 3)) << 4);
 }
 
+// The tensor maps of one operand (`tensor_map`): one, or at head_dim 72
+// two, its first 64 channels and its last 8 (`rest`).
+template <int D>
+struct FaMap {
+  CUtensorMap m;
+};
+template <>
+struct FaMap<72> {
+  CUtensorMap m, rest;
+};
+
 // The shared-memory layout of an operand of head_dim D: rows of 2 D bytes
 // (64 or 128) in the swizzle of that width, as TMA writes them and wgmma's
 // descriptors read them; at head_dim 128 each 64-row tile two half-tiles
-// of 64 channels, rows of 128 bytes each.
+// of 64 channels, rows of 128 bytes each; at 72 a tile's 64-channel part
+// (head_dim 64's), its last 8 channels (16-byte rows, no swizzle) HALF on,
+// and 1 KB of TMA's zeros after them.
 template <int D>
 struct FaRows {
-  static_assert(D == 32 || D == 64 || D == 128, "head_dim 32, 64 or 128");
+  static_assert(D == 32 || D == 64 || D == 72 || D == 128,
+                "head_dim 32, 64, 72 or 128");
   static constexpr int ROW = 2 * D;           // bytes a token row
   static constexpr int SW = D == 32 ? 64 : 128;  // bytes a swizzled row
-  static constexpr int TILE = FA_QT * ROW;    // a 64-row tile
-  static constexpr int HALF = FA_QT * SW;     // a half-tile (head_dim 128)
+  static constexpr int HALF = FA_QT * SW;  // a half-tile (128), a part (72)
+  static constexpr int TILE = D == 72 ? HALF + 2 * FA_QT * 16 : FA_QT * ROW;
   static constexpr int SBO = 8 * SW;          // bytes between 8-row groups
   static constexpr int LAYOUT = D == 32 ? GMMA_SWIZZLE_64B : GMMA_SWIZZLE_128B;
   static constexpr CUtensorMapSwizzle MAP_SWIZZLE =
@@ -116,10 +148,16 @@ struct FaRows {
   // byte offset of 16-byte chunk c (0 .. D / 8 - 1) of row n of a tile
   static __device__ __forceinline__ uint32_t at(int n, int c) {
     if constexpr (D == 32) return swz64(n, c);
+    if constexpr (D == 72)
+      if (c == 8) return HALF + n * 16;
     return (c >> 3) * HALF + n * 128 + (((c & 7) ^ (n & 7)) << 4);
   }
-  // the k16 step k of a 64-row tile as a K-major operand (d contiguous)
+  // the k16 step k of a 64-row tile as a K-major operand (d contiguous); at
+  // head_dim 72 step 4 is the last 8 channels, no swizzle (8-row groups 128
+  // bytes apart), and TMA's zeros 1 KB on (the leading byte offset)
   static __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int k) {
+    if constexpr (D == 72)
+      if (k == 4) return gmma_desc(tile + HALF, 128, 1024, GMMA_INTERLEAVE);
     return gmma_desc(tile + (k >> 2) * HALF + 32 * (k & 3), SBO, 16, LAYOUT);
   }
   // 16 rows from row `row` as an MN-major B operand (the rows are the
@@ -129,23 +167,38 @@ struct FaRows {
   static __device__ __forceinline__ uint64_t mnmajor(uint32_t base, int row) {
     return gmma_desc(base + row * SW, SBO, D == 32 ? 512 : 8192, LAYOUT);
   }
+  // head_dim 72: the same rows of the last 8 channels (one core matrix of 8
+  // channels across, groups of 8 rows 128 bytes apart: the leading byte
+  // offset)
+  static __device__ __forceinline__ uint64_t mnmajor_rest(uint32_t base,
+                                                          int row) {
+    return gmma_desc(base + HALF + row * 16, 128, 128, GMMA_INTERLEAVE);
+  }
   // TMA: a box of the map (tensor_map<D>) at head h, token n, row r into
   // dst, on `bar` (where `on`); out of src
   static __device__ __forceinline__ void load(uint32_t dst,
-                                              const CUtensorMap* map, int h,
+                                              const FaMap<D>* map, int h,
                                               int n, int r, uint32_t bar) {
-    if constexpr (D == 128)
-      tma_load_5d(dst, map, 0, h, n, r, 0, bar);
-    else
-      tma_load_4d(dst, map, 0, h, n, r, bar);
+    if constexpr (D == 128) {
+      tma_load_5d(dst, &map->m, 0, h, n, r, 0, bar);
+    } else if constexpr (D == 72) {
+      tma_load_4d(dst, &map->m, 0, h, n, r, bar);
+      tma_load_5d(dst + HALF, &map->rest, 0, h, n, r, 0, bar);
+    } else {
+      tma_load_4d(dst, &map->m, 0, h, n, r, bar);
+    }
   }
-  static __device__ __forceinline__ void store(const CUtensorMap* map,
+  static __device__ __forceinline__ void store(const FaMap<D>* map,
                                                uint32_t src, int h, int n,
                                                int r, int half = 0) {
-    if constexpr (D == 128)
-      tma_store_5d(map, src, 0, h, n, r, half);
-    else
-      tma_store_4d(map, src, 0, h, n, r);
+    if constexpr (D == 128) {
+      tma_store_5d(&map->m, src, 0, h, n, r, half);
+    } else if constexpr (D == 72) {
+      tma_store_4d(&map->m, src, 0, h, n, r);
+      tma_store_5d(&map->rest, src + HALF, 0, h, n, r, 0);
+    } else {
+      tma_store_4d(&map->m, src, 0, h, n, r);
+    }
   }
 };
 
@@ -182,19 +235,36 @@ __device__ __forceinline__ void wgmma_pv64(float* d, const uint32_t* a,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
-// d (64 x D) += A (64 x 16, registers) B (16 x D), B MN-major; at head_dim
-// 128 one product a half-tile (d's channels 64.. in d[32..], the B
-// descriptor's start address FaRows<128>::HALF on).
-template <int D>
-__device__ __forceinline__ void wgmma_pv_d(float* d, const uint32_t* a,
-                                           uint64_t db) {
+// d (64 x 8, fp32) += A (64 x 16, bf16 registers) B (16 x 8), B from
+// shared memory, MN-major.
+__device__ __forceinline__ void wgmma_pv8(float* d, const uint32_t* a,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// d (64 x DC) += A (64 x 16, registers) B (16 x DC), B the 16 rows from
+// `row` of an operand tile of head_dim D at `tile`, MN-major: DC = D, or a
+// half-tile's 64 channels (head_dim 128's dk/dv pass, `tile` at its half).
+// At head_dim 128 one product a half-tile (d's channels 64.. in d[32..],
+// the B descriptor's start address FaRows<128>::HALF on), at 72 the
+// 64-channel part and the last 8 (d[32..35]).
+template <int D, int DC = D>
+__device__ __forceinline__ void wgmma_pv_tile(float* d, const uint32_t* a,
+                                              uint32_t tile, int row) {
+  using L = FaRows<D>;
+  const uint64_t db = L::mnmajor(tile, row);
   if constexpr (D == 32) {
     wgmma_pv(d, a, db);
-  } else if constexpr (D == 64) {
+  } else if constexpr (D == 72) {
     wgmma_pv64(d, a, db);
+    wgmma_pv8(d + 32, a, L::mnmajor_rest(tile, row));
   } else {
     wgmma_pv64(d, a, db);
-    wgmma_pv64(d + 32, a, db + (FaRows<128>::HALF >> 4));
+    if constexpr (DC == 128) wgmma_pv64(d + 32, a, db + (L::HALF >> 4));
   }
 }
 // d (64 x 8, fp32) += A (64 x 16, bf16 registers) B (16 x 8), B from
@@ -243,7 +313,7 @@ __device__ __forceinline__ int fwd_tiles(int wg, int tiles, int* qt) {
 template <int D, bool CAUSAL, bool POS>
 struct FaTile {
   using L = FaRows<D>;
-  static constexpr int KS = D / 16;  // k16 steps of the logits
+  static constexpr int KS = (D + 15) / 16;  // k16 steps of the logits
   // s[4 j + e]: row warp 16 + g + 8 (e >> 1) of the tile, key
   // 64 c + 8 j + 2 t4 + (e & 1) of chunk c; o[4 j + e]: the same rows,
   // channel 8 j + 2 t4 + (e & 1); m: running max of the scaled logits
@@ -353,8 +423,7 @@ struct FaTile {
     if constexpr (!LAST) kn = next();
     wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      wgmma_pv_d<D>(o, &pa[4 * k], L::mnmajor(v, k * 16));
+    for (int k = 0; k < 4; ++k) wgmma_pv_tile<D>(o, &pa[4 * k], v, k * 16);
 #pragma unroll
     for (int k = 0; k < 4; ++k)
       wgmma_rowsum(l, &pa[4 * k], gmma_desc(ones, 512, 16));
@@ -411,8 +480,7 @@ struct FaTile {
     if constexpr (!LAST) kn = next();
     wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      wgmma_pv_d<D>(o, &pa[4 * k], L::mnmajor(v, k * 16));
+    for (int k = 0; k < 4; ++k) wgmma_pv_tile<D>(o, &pa[4 * k], v, k * 16);
     if constexpr (!LAST) {
 #pragma unroll
       for (int k = 0; k < KS; ++k)
@@ -544,12 +612,13 @@ static_assert(FfShape<32>::SMEM == FfShape<64>::SMEM, "two blocks an SM");
 // rounded unnormalised and o divided by the sum of the rounded p.
 template <int D, bool CAUSAL, bool POS, bool NORM = false>
 __global__ void __launch_bounds__(FF_THREADS, 2)
-    flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
-                     const __grid_constant__ CUtensorMap tk,
-                     const __grid_constant__ CUtensorMap tv,
-                     const __grid_constant__ CUtensorMap to, float* lse,
+    flash_fwd_kernel(const __grid_constant__ FaMap<D> tq,
+                     const __grid_constant__ FaMap<D> tk,
+                     const __grid_constant__ FaMap<D> tv,
+                     const __grid_constant__ FaMap<D> to, float* lse,
                      int N, int H, float scale, int items) {
-  static_assert(D != 128, "head_dim 128 takes the streamed form");
+  static_assert(D == 32 || D == 64,
+                "head_dim 72 and 128 take the streamed form");
   using L = FaRows<D>;
   using F = FfShape<D>;
   constexpr int STAGES = F::STAGES;
@@ -581,7 +650,7 @@ __global__ void __launch_bounds__(FF_THREADS, 2)
     const int r = item / H, h = item % H;
     const uint32_t dst = ring + st * F::STAGE, bar = bars + 8 * st;
     mbar_expect_tx(bar, 3 * N * L::ROW);
-    const CUtensorMap* maps[3] = {&tq, &tk, &tv};
+    const CUtensorMap* maps[3] = {&tq.m, &tk.m, &tv.m};
 #pragma unroll
     for (int op = 0; op < 3; ++op)
       tma_load_4d(dst + op * F::OP, maps[op], 0, h, 0, r, bar);
@@ -621,7 +690,7 @@ __global__ void __launch_bounds__(FF_THREADS, 2)
       fence_proxy_async();
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
       if ((tid & 127) == 0) {
-        tma_store_4d(&to, qtile, 0, h, qt * FA_QT, r);
+        tma_store_4d(&to.m, qtile, 0, h, qt * FA_QT, r);
         bulk_commit();
       }
       t.write_lse(lse + (long)item * N + qt * FA_QT);
@@ -714,12 +783,17 @@ __device__ __forceinline__ void tma_load_5d_if(bool on, uint32_t dst,
 // FaRows<D>::load where `on`
 template <int D>
 __device__ __forceinline__ void fa_load_if(bool on, uint32_t dst,
-                                           const CUtensorMap* map, int h,
+                                           const FaMap<D>* map, int h,
                                            int n, int r, uint32_t bar) {
-  if constexpr (D == 128)
-    tma_load_5d_if(on, dst, map, 0, h, n, r, 0, bar);
-  else
-    tma_load_4d_if(on, dst, map, 0, h, n, r, bar);
+  if constexpr (D == 128) {
+    tma_load_5d_if(on, dst, &map->m, 0, h, n, r, 0, bar);
+  } else if constexpr (D == 72) {
+    tma_load_4d_if(on, dst, &map->m, 0, h, n, r, bar);
+    tma_load_5d_if(on, dst + FaRows<72>::HALF, &map->rest, 0, h, n, r, 0,
+                   bar);
+  } else {
+    tma_load_4d_if(on, dst, &map->m, 0, h, n, r, bar);
+  }
 }
 __device__ __forceinline__ void mbar_expect_tx_if(bool on, uint32_t bar,
                                                   uint32_t bytes) {
@@ -743,10 +817,10 @@ __device__ __forceinline__ void mbar_arrive_if(bool on, uint32_t bar) {
 // POS, NORM and lse as flash_fwd_kernel's.
 template <int D, bool CAUSAL, bool POS, bool NORM = false>
 __global__ void __launch_bounds__(FF_THREADS, D == 128 ? 1 : 2)
-    flash_fwd_stream_kernel(const __grid_constant__ CUtensorMap tq,
-                            const __grid_constant__ CUtensorMap tk,
-                            const __grid_constant__ CUtensorMap tv,
-                            const __grid_constant__ CUtensorMap to,
+    flash_fwd_stream_kernel(const __grid_constant__ FaMap<D> tq,
+                            const __grid_constant__ FaMap<D> tk,
+                            const __grid_constant__ FaMap<D> tv,
+                            const __grid_constant__ FaMap<D> to,
                             float* lse, int N, int H, float scale,
                             int /* items: the grid says them */) {
   using L = FaRows<D>;
@@ -838,7 +912,8 @@ __global__ void __launch_bounds__(FF_THREADS, D == 128 ? 1 : 2)
 
 // What the flash kernels require of the shapes and strides.
 inline bool flash_ok(int N, int D, const long* strides, int count) {
-  if (N < 64 || N > FA_MAXN || N % 64 || (D != 32 && D != 64 && D != 128))
+  if (N < 64 || N > FA_MAXN || N % 64 ||
+      (D != 32 && D != 64 && D != 72 && D != 128))
     return false;
   for (int i = 0; i < count; ++i)
     if (strides[i] % 8) return false;
@@ -850,9 +925,13 @@ inline bool flash_ok(int N, int D, const long* strides, int count) {
 // is `rows` tokens of one head of one row (0: all N, one item). At head_dim
 // 128 the (d, h, n, row, half) view of 64-channel halves, a box of `rows`
 // tokens (64) and `halves` halves, the half outermost: two half-tiles, or
-// one (a store of one half's columns).
+// one (a store of one half's columns). At head_dim 72 the first 64
+// channels' view (64 rows a box), and `rest`, the (d, h, n, row, z) view of
+// the last 8 channels with no swizzle, z of extent 1, a box of `halves`
+// along it: 2 for a load (the second half past the tensor: TMA's zeros), 1
+// for a store.
 template <int D>
-inline cudaError_t tensor_map(CUtensorMap* map, const void* base, long rs,
+inline cudaError_t tensor_map(FaMap<D>* map, const void* base, long rs,
                               long ts, int R, int N, int H, int rows = 0,
                               int halves = 2) {
   if constexpr (D == 128) {
@@ -862,18 +941,32 @@ inline cudaError_t tensor_map(CUtensorMap* map, const void* base, long rs,
                                    (cuuint64_t)rs * 2, 128};
     const cuuint32_t box[5] = {64, 1, (cuuint32_t)rows, 1,
                                (cuuint32_t)halves};
-    return encode_map(map, base, 5, dims, strides, box,
+    return encode_map(&map->m, base, 5, dims, strides, box,
+                      FaRows<D>::MAP_SWIZZLE);
+  } else if constexpr (D == 72) {
+    const cuuint64_t dims[4] = {64, (cuuint64_t)H, (cuuint64_t)N,
+                                (cuuint64_t)R};
+    const cuuint64_t strides[4] = {D * 2, (cuuint64_t)ts * 2,
+                                   (cuuint64_t)rs * 2, 16};
+    const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+    TPU1X_TRY(encode_map(&map->m, base, 4, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_128B));
+    const cuuint64_t rdims[5] = {8, (cuuint64_t)H, (cuuint64_t)N,
+                                 (cuuint64_t)R, 1};
+    const cuuint32_t rbox[5] = {8, 1, (cuuint32_t)rows, 1,
+                                (cuuint32_t)halves};
+    return encode_map(&map->rest, static_cast<const bf16*>(base) + 64, 5,
+                      rdims, strides, rbox, CU_TENSOR_MAP_SWIZZLE_NONE);
+  } else {
+    const cuuint64_t dims[4] = {D, (cuuint64_t)H, (cuuint64_t)N,
+                                (cuuint64_t)R};
+    const cuuint64_t strides[3] = {D * 2, (cuuint64_t)ts * 2,
+                                   (cuuint64_t)rs * 2};
+    const cuuint32_t box[4] = {D, 1, (cuuint32_t)(rows ? rows : N), 1};
+    return encode_map(&map->m, base, 4, dims, strides, box,
                       FaRows<D>::MAP_SWIZZLE);
   }
-  const cuuint64_t dims[4] = {D, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)R};
-  const cuuint64_t strides[3] = {D * 2, (cuuint64_t)ts * 2,
-                                 (cuuint64_t)rs * 2};
-  const cuuint32_t box[4] = {D, 1, (cuuint32_t)(rows ? rows : N), 1};
-  return encode_map(map, base, 4, dims, strides, box, FaRows<D>::MAP_SWIZZLE);
 }
-
-typedef void (*FwdKernel)(CUtensorMap, CUtensorMap, CUtensorMap,
-                          CUtensorMap, float*, int, int, float, int);
 
 template <int D>
 static inline cudaError_t launch_flash_fwd_d(
@@ -885,15 +978,18 @@ static inline cudaError_t launch_flash_fwd_d(
   if (norm && causal) return cudaErrorInvalidValue;  // no such form
   const int form = (norm ? 4 : causal ? 2 : 0) + (scale > 0.f ? 1 : 0);
   // the whole item in a stage up to FA_N keys, 64-key boxes past it (and
-  // at head_dim 128, streamed at every N)
-  const bool streamed = D == 128 || N > FA_N;
+  // at head_dim 72 and 128, streamed at every N)
+  constexpr bool whole = D == 32 || D == 64;
+  const bool streamed = !whole || N > FA_N;
   const int box = streamed ? FA_QT : 0;
-  CUtensorMap maps[4];
+  typedef void (*FwdKernel)(FaMap<D>, FaMap<D>, FaMap<D>, FaMap<D>, float*,
+                            int, int, float, int);
+  FaMap<D> maps[4];
   TPU1X_TRY(tensor_map<D>(&maps[0], q, rsq, tsq, R, N, H, box));
   TPU1X_TRY(tensor_map<D>(&maps[1], k, rsk, tsk, R, N, H, box));
   TPU1X_TRY(tensor_map<D>(&maps[2], v, rsv, tsv, R, N, H, box));
   TPU1X_TRY(tensor_map<D>(&maps[3], out, (long)N * H * D, (long)H * D, R, N,
-                          H, FA_QT));
+                          H, FA_QT, D == 72 ? 1 : 2));
   if (streamed) {
     static const FwdKernel streamed_forms[6] = {
         flash_fwd_stream_kernel<D, false, false>,
@@ -914,7 +1010,7 @@ static inline cudaError_t launch_flash_fwd_d(
         maps[0], maps[1], maps[2], maps[3], lse, N, H, scale, items);
     return cudaGetLastError();
   }
-  if constexpr (D != 128) {
+  if constexpr (whole) {
     // set once a process for each form: the shared memory limit and the
     // grid, every resident block of the card
     static const FwdKernel forms[6] = {
@@ -934,10 +1030,10 @@ static inline cudaError_t launch_flash_fwd_d(
   return cudaGetLastError();
 }
 
-// q, k, v: bf16 (R, N, H, D) views, D = 32, 64 or 128, element (r, n, h, d) at
-// r * rs + n * ts + h * D + d with each tensor's own rs and ts (multiples
-// of 8, 16-byte aligned base); out bf16 (R, N, H, D) contiguous; lse fp32
-// (R, H, N). norm: the NORM form (not causal).
+// q, k, v: bf16 (R, N, H, D) views, D = 32, 64, 72 or 128, element (r, n,
+// h, d) at r * rs + n * ts + h * D + d with each tensor's own rs and ts
+// (multiples of 8, 16-byte aligned base); out bf16 (R, N, H, D)
+// contiguous; lse fp32 (R, H, N). norm: the NORM form (not causal).
 static inline cudaError_t launch_flash_fwd(const void* q, const void* k,
                                     const void* v, void* out, float* lse,
                                     long rsq, long tsq, long rsk, long tsk,
@@ -948,6 +1044,7 @@ static inline cudaError_t launch_flash_fwd(const void* q, const void* k,
   if (!flash_ok(N, D, strides, 6)) return cudaErrorInvalidValue;
   return (D == 32   ? launch_flash_fwd_d<32>
           : D == 64 ? launch_flash_fwd_d<64>
+          : D == 72 ? launch_flash_fwd_d<72>
                     : launch_flash_fwd_d<128>)(q, k, v, out, lse, rsq, tsq,
                                                rsk, tsk, rsv, tsv, R, N, H,
                                                scale, causal, norm, stream);

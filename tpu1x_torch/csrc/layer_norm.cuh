@@ -181,77 +181,117 @@ static inline cudaError_t launch_layer_norm(const void* x, const void* scale,
 // 16 frames of 256 tokens, C = 512: 5 us at 3.35 TB/s), whatever D. A warp
 // keeps HN_UNROLL chunks a lane in flight, the grid is every resident
 // block. D = 32, 64 or 128 (4, 8 or 16 lanes a row); ptxas (sm_90a): 64
-// registers at each, no spills.
+// registers at each, no spills. At D = 72 a row is nine chunks, which no
+// power of two of lanes holds: a lane holds three (24 channels), a row is
+// three neighbouring lanes, a warp ten rows on lanes 0-29 (30 and 31 idle),
+// and the three parts are summed by shuffles from named lanes, in the same
+// order in each lane of the row (the same bits in all three); two units
+// of three chunks a lane in flight.
 constexpr int HN_UNROLL = 4;
+
+template <int D>
+struct HnShape {
+  static constexpr int CH = D == 72 ? 3 : 1;        // 16-byte chunks a lane
+  static constexpr int LANES = D / (8 * CH);        // lanes a head row
+  static constexpr int USED = 32 / LANES * LANES;   // lanes of a warp with rows
+  static constexpr int UNROLL = D == 72 ? 2 : HN_UNROLL;  // units in flight
+};
 
 template <int D>
 __global__ void __launch_bounds__(LN_THREADS)
     head_norm_kernel(bf16* __restrict__ qkv, const float* __restrict__ g,
-                     const float* __restrict__ b, long chunks, int C,
+                     const float* __restrict__ b, long units, int C,
                      float eps) {
-  constexpr int LANES = D / 8;  // lanes a head row
-  const int lane = threadIdx.x & 31, c8 = (lane % LANES) * 8;
-  const int per_token = 2 * C / 8;  // chunks of a token's q and k
-  float gf[8], bf[8];
+  using Sh = HnShape<D>;
+  constexpr int CH = Sh::CH, LANES = Sh::LANES, USED = Sh::USED;
+  constexpr int U = Sh::UNROLL, W = 8 * CH;  // channels a unit
+  const int lane = threadIdx.x & 31, c8 = (lane % LANES) * W;
+  const int per_token = 2 * C / W;  // units of a token's q and k
+  float gf[W], bf[W];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < W; ++i) {
     gf[i] = __ldg(g + c8 + i);
     bf[i] = __ldg(b + c8 + i);
   }
-  const long warp0 = ((long)blockIdx.x * LN_THREADS + threadIdx.x - lane);
-  const long stride = (long)gridDim.x * LN_THREADS * HN_UNROLL;
-  for (long base = warp0 * HN_UNROLL; base < chunks; base += stride) {
-    uint4 u[HN_UNROLL];
-    bf16* at[HN_UNROLL];
+  const long warp = ((long)blockIdx.x * LN_THREADS + threadIdx.x) >> 5;
+  const long stride = (long)gridDim.x * (LN_THREADS / 32) * USED * U;
+  for (long base = warp * USED * U; base < units; base += stride) {
+    uint4 u[U][CH];
+    bf16* at[U];
 #pragma unroll
-    for (int j = 0; j < HN_UNROLL; ++j) {
-      const long i = base + j * 32 + lane;
-      at[j] = qkv + (i / per_token) * 3 * C + (i % per_token) * 8;
-      if (i < chunks) u[j] = __ldcs(reinterpret_cast<const uint4*>(at[j]));
-      else u[j] = make_uint4(0, 0, 0, 0);
+    for (int j = 0; j < U; ++j) {
+      const long i = base + j * USED + lane;
+      at[j] = qkv + (i / per_token) * 3 * C + (i % per_token) * W;
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        u[j][c] = lane < USED && i < units
+                      ? __ldcs(reinterpret_cast<const uint4*>(at[j]) + c)
+                      : make_uint4(0, 0, 0, 0);
     }
 #pragma unroll
-    for (int j = 0; j < HN_UNROLL; ++j) {
-      float f[8], s = 0.f, ss = 0.f;
-      unpack8(u[j], f);
+    for (int j = 0; j < U; ++j) {
+      float f[W], s = 0.f, ss = 0.f;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int c = 0; c < CH; ++c) unpack8(u[j][c], f + 8 * c);
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
         s += f[i];
         ss += f[i] * f[i];
       }
+      if constexpr (LANES == 3) {
+        const int r0 = lane - lane % 3;  // the row's first lane
+        s = (__shfl_sync(0xffffffffu, s, r0) +
+             __shfl_sync(0xffffffffu, s, r0 + 1)) +
+            __shfl_sync(0xffffffffu, s, r0 + 2);
+        ss = (__shfl_sync(0xffffffffu, ss, r0) +
+              __shfl_sync(0xffffffffu, ss, r0 + 1)) +
+             __shfl_sync(0xffffffffu, ss, r0 + 2);
+      } else {
 #pragma unroll
-      for (int x = 1; x < LANES; x <<= 1) {
-        s += __shfl_xor_sync(0xffffffffu, s, x);
-        ss += __shfl_xor_sync(0xffffffffu, ss, x);
+        for (int x = 1; x < LANES; x <<= 1) {
+          s += __shfl_xor_sync(0xffffffffu, s, x);
+          ss += __shfl_xor_sync(0xffffffffu, ss, x);
+        }
       }
       const float mu = s / D;
       const float rs = rsqrtf(ss / D - mu * mu + eps);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) f[i] = (f[i] - mu) * rs * gf[i] + bf[i];
-      if (base + j * 32 + lane < chunks) store8(at[j], f);
+      for (int i = 0; i < W; ++i) f[i] = (f[i] - mu) * rs * gf[i] + bf[i];
+      if (lane < USED && base + j * USED + lane < units) {
+#pragma unroll
+        for (int c = 0; c < CH; ++c) store8(at[j] + 8 * c, f + 8 * c);
+      }
     }
   }
 }
 
 // qkv (tokens, 3C) bf16: its q and k thirds normalised in place over each
-// head row of D channels; scale, bias (D,) fp32. Requires D in {32, 64,
+// head row of D channels; scale, bias (D,) fp32. Requires D in {32, 64, 72,
 // 128}, C % D == 0 and a 16-byte aligned qkv.
 static inline cudaError_t launch_head_norm(void* qkv, const void* scale,
                                            const void* bias, int tokens,
                                            int C, int D, float eps,
                                            cudaStream_t stream) {
-  if ((D != 32 && D != 64 && D != 128) || C % D)
+  if ((D != 32 && D != 64 && D != 72 && D != 128) || C % D)
     return cudaErrorInvalidValue;
-  const long chunks = (long)tokens * 2 * C / 8;
-  if (chunks == 0) return cudaSuccess;
   typedef void (*HnKernel)(bf16*, const float*, const float*, long, int,
                            float);
-  const HnKernel kernel = D == 32   ? head_norm_kernel<32>
-                          : D == 64 ? head_norm_kernel<64>
-                                    : head_norm_kernel<128>;
+  const int slot = D == 32 ? 0 : D == 64 ? 1 : D == 72 ? 2 : 3;
+  static const HnKernel kernels[4] = {head_norm_kernel<32>,
+                                      head_norm_kernel<64>,
+                                      head_norm_kernel<72>,
+                                      head_norm_kernel<128>};
+  static const int used[4] = {HnShape<32>::USED, HnShape<64>::USED,
+                              HnShape<72>::USED, HnShape<128>::USED};
+  static const int unroll[4] = {HnShape<32>::UNROLL, HnShape<64>::UNROLL,
+                                HnShape<72>::UNROLL, HnShape<128>::UNROLL};
+  const HnKernel kernel = kernels[slot];
+  // a lane's units: 16-byte chunks, or three of them at D = 72
+  const long units = (long)tokens * 2 * C / (D == 72 ? 24 : 8);
+  if (units == 0) return cudaSuccess;
   // the resident blocks of the card, found once a process for each D
-  static int resident[3] = {0, 0, 0};
-  int& res = resident[D == 32 ? 0 : D == 64 ? 1 : 2];
+  static int resident[4] = {0, 0, 0, 0};
+  int& res = resident[slot];
   if (res == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     TPU1X_TRY(cudaGetDevice(&dev));
@@ -262,11 +302,11 @@ static inline cudaError_t launch_head_norm(void* qkv, const void* scale,
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     res = per_sm * sms;
   }
-  const long per_block = (long)LN_THREADS * HN_UNROLL;
-  const long need = (chunks + per_block - 1) / per_block;
+  const long per_block = (long)(LN_THREADS / 32) * used[slot] * unroll[slot];
+  const long need = (units + per_block - 1) / per_block;
   kernel<<<need < res ? (int)need : res, LN_THREADS, 0, stream>>>(
       static_cast<bf16*>(qkv), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), chunks, C, eps);
+      static_cast<const float*>(bias), units, C, eps);
   return cudaGetLastError();
 }
 

@@ -10,6 +10,9 @@
 // c ^ ((r >> 1) & 3); 128 bytes: c ^ (r & 7)); wgmma's descriptor names
 // the same layout (type 2 or 1), so the tensor cores read the tile where
 // TMA left it. A tile starts on a repeat of its swizzle: 512 or 1024 bytes.
+// With no swizzle (type 0, head_dim 72's last 8 channels) wgmma reads 8 x 8
+// core matrices of 128 contiguous bytes, rows 16 bytes apart, placed by the
+// descriptor's two byte offsets.
 
 #pragma once
 
@@ -20,13 +23,20 @@
 
 namespace tpu1x {
 
-enum { GMMA_SWIZZLE_128B = 1, GMMA_SWIZZLE_64B = 2 };
+enum {
+  GMMA_INTERLEAVE = 0,
+  GMMA_SWIZZLE_128B = 1,
+  GMMA_SWIZZLE_64B = 2
+};
 
 // wgmma shared-memory matrix descriptor. sbo: bytes between groups of 8
 // rows along the operand's strided axis (K-major: 8 rows of M or N;
 // MN-major: 8 rows of K); lbo: bytes between swizzle atoms along the
 // contiguous axis of an MN-major operand wider than one atom (64-byte rows
 // hold 32 bf16 values, 128-byte rows 64), unused where one atom spans it.
+// With no swizzle (GMMA_INTERLEAVE) the roles differ: K-major, sbo between
+// core matrices along M or N and lbo between the two along a k16 step's K;
+// MN-major, lbo between core matrices along K and sbo along M or N.
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t sbo,
                                               uint32_t lbo,
                                               int layout = GMMA_SWIZZLE_64B) {

@@ -18,7 +18,7 @@
 //       shared by q, k and every head, fp32 statistics, rounded to bf16, as
 //       the TPU kernel rounds the normalised rows before q k^T);
 //   (d) attention per (frame, head): K9's flash forward
-//       (csrc/flash_attention.cuh, head_dim 32, 64 or 128) on the q, k and v
+//       (csrc/flash_attention.cuh, head_dim 32, 64, 72 or 128) on the q, k, v
 //       thirds of qkv read in place; with the qk-LN its NORM form, which
 //       rounds the normalised p to bf16 as the TPU kernel does (its
 //       consumers quantize k and v to int8, where the unnormalised
@@ -49,7 +49,7 @@ using namespace tpu1x;
 // are scratch, and so is xn_buf (N, S, C), the pre-LN's output and then the
 // flash forward's lse. Requires what K9 takes of S (64 <= S <= FA_MAXN =
 // 4096, S % 64 == 0: whole frames in shared memory up to 256 tokens,
-// streamed key chunks past it), head_dim D = C / H of 32, 64 or 128, C %
+// streamed key chunks past it), head_dim D = C / H of 32, 64, 72 or 128, C %
 // 64 == 0. Every launch here indexes memory with 64-bit offsets (the GEMM's
 // epilogue, the row passes, the flash forward) or through TMA coordinates
 // of at most N S rows: at GENIE_138M-S1024's evaluator prefill (N = 256, S

@@ -1,5 +1,6 @@
 // Attention over the frame axis of q, k, v shaped (B, T, S, C), causal or
-// not, heads flat in C (head_dim D = 32, 64 or 128, a template parameter),
+// not, heads flat in C (head_dim D = 32, 64, 72 or 128, a template
+// parameter),
 // computed in that layout with no
 // transpose: the forward (K4), and the backward (K6), which writes dq, dk,
 // dv and, where asked, the forward's output o beside them.
@@ -104,6 +105,18 @@
 //     ptxas (sm_90a), head_dim 128: the forward 124 registers (116 causal),
 //     157 in the 32-frame form (144 causal); the backward 139 (139), 179
 //     (158); no spills (192 threads a block: a 255-register cap).
+//   - head_dim 72 (DiT-XL's 16 heads of 72) keeps head_dim 64's tile: 4
+//     heads (groups of 4, 2 or 1), 8 consumer warps, so a stage holds 9/8
+//     of TA_BOX a tensor (TaShape<72>::BOX) and the ring its stages (4
+//     forward, 3 backward). Each tensor comes as two boxes through two
+//     maps, its first 64 channels in the 128-byte swizzle and the last 8 as
+//     16-byte rows with no swizzle, the second box PART bytes on (Rows'
+//     lo8, hi8). A reduction over the head is head_dim 64's four k16 steps
+//     and one m16n8k8 over channels 64-71: no padding. A product with the
+//     head as its N axis takes a ninth n8 tile (ldmatrix .x2 of the
+//     16-byte rows); the 32-frame backward gives it to the second warp of a
+//     pair. Bound at GENIE_138M-h72's train shape (8, 16, 256, 1152): head_dim
+//     32's bytes times 2.25 (0.090 ms forward, 0.158 backward, 0.180 with o).
 //
 // The tile is fixed. Measured with `chip_variants.py ta` on an H100 at
 // the train step's shape (PERF.md section 6), tiles of 1 x 8, 1 x 16 and
@@ -111,7 +124,7 @@
 // each other, 4 warps 2-4% slower; 4 x 8 and 2 x 16 leave the backward
 // one stage (the static_assert below).
 //
-// Requires T <= 32, head_dim 32, 64 or 128, C a multiple of it (any
+// Requires T <= 32, head_dim 32, 64, 72 or 128, C a multiple of it (any
 // number of heads), strides that are multiples of 8 and 16-byte aligned
 // bases.
 
@@ -139,27 +152,41 @@ constexpr int TA_BOX = TA_POSITIONS * 16 * TA_HEADS * 64;
 // the stage), the tensor maps a tensor (HALVES), the heads of a full tile
 // (HEADS) and its consumer warps (WARPS): the problems of a tile halve
 // with each doubling of D (twice the bytes each), and so do the warps.
+// At head_dim 72 the full tile is head_dim 64's: 4 heads, 8 warps, its
+// BOX 9/8 of TA_BOX (144-byte rows), the second map's box (the last 8
+// channels, 16-byte rows) PART bytes into a tensor's.
+__host__ __device__ constexpr int ta_heads(int D) {
+  return D == 72 ? 4 : TA_HEADS * 32 / D;
+}
 template <int D>
 struct TaShape {
-  static_assert(D == 32 || D == 64 || D == 128, "head_dim 32, 64 or 128");
+  static_assert(D == 32 || D == 64 || D == 72 || D == 128,
+                "head_dim 32, 64, 72 or 128");
   static constexpr int ROW = D == 32 ? 64 : 128;
-  static constexpr int HALVES = D == 128 ? 2 : 1;
-  static constexpr int HEADS = TA_HEADS * 32 / D;
-  static constexpr int WARPS = TA_WARPS * 32 / D;
+  static constexpr int HALVES = D == 32 || D == 64 ? 1 : 2;
+  static constexpr int HEADS = ta_heads(D);
+  static constexpr int WARPS = D == 72 ? 8 : TA_WARPS * 32 / D;
   static constexpr int THREADS = (WARPS + 2) * 32;
+  static constexpr int ROWS = TA_POSITIONS * 16 * HEADS;  // rows of a box
+  static constexpr int BOX = ROWS * 2 * D;  // a tensor's bytes in a stage
+  static constexpr int PART = ROWS * ROW;   // the second map's box
   static constexpr CUtensorMapSwizzle SWIZZLE =
       D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
 };
 // 1024 bytes of alignment, and three mbarriers a stage.
+template <int D>
 __host__ __device__ constexpr int ta_stages(int tensors) {
-  return (TA_SMEM_MAX - 1024) / (tensors * TA_BOX + 24) < TA_MAX_STAGES
-             ? (TA_SMEM_MAX - 1024) / (tensors * TA_BOX + 24)
+  return (TA_SMEM_MAX - 1024) / (tensors * TaShape<D>::BOX + 24) <
+                 TA_MAX_STAGES
+             ? (TA_SMEM_MAX - 1024) / (tensors * TaShape<D>::BOX + 24)
              : TA_MAX_STAGES;
 }
+template <int D>
 __host__ __device__ constexpr int ta_smem(int tensors) {
-  return 1024 + ta_stages(tensors) * (tensors * TA_BOX + 24);
+  return 1024 + ta_stages<D>(tensors) * (tensors * TaShape<D>::BOX + 24);
 }
-static_assert(ta_stages(4) >= 2, "the backward's ring needs two stages");
+static_assert(ta_stages<32>(4) >= 2 && ta_stages<72>(4) >= 2,
+              "the backward's ring needs two stages");
 
 // HALVES maps a tensor, tensor i's half j at i HALVES + j.
 template <int D>
@@ -203,24 +230,63 @@ __device__ __forceinline__ uint32_t movt(uint32_t a) {
 
 // Byte offset of 16-byte chunk c of row r (0-7) of rows of 2 D bytes in
 // the swizzle of that width, from a 512- or 1024-byte boundary; at head_dim
-// 128 chunks 8-15 in the second half of the stage's box.
+// 128 chunks 8-15 in the second half of the stage's box; at 72 chunks 0-7
+// (chunk 8 is Rows' own).
 template <int D>
 __device__ __forceinline__ uint32_t chunk_at(int r, int c) {
   if constexpr (D == 32) return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
-  if constexpr (D == 64) return r * 128 + ((c ^ r) << 4);
-  return (c >> 3) * (TA_BOX / 2) + r * 128 + (((c & 7) ^ r) << 4);
+  if constexpr (D == 64 || D == 72) return r * 128 + ((c ^ r) << 4);
+  return (c >> 3) * TaShape<128>::PART + r * 128 + (((c & 7) ^ r) << 4);
 }
 
 // One problem's 16 x D operand of one tensor in a stage: rows 0-7 from
 // `lo`, rows 8-15 from `hi` (tp = 16: the next 8 frames of the same
-// position; tp = 8: the 8 frames of the next position).
+// position; tp = 8: the 8 frames of the next position); at head_dim 72
+// chunk 8 (the last 8 channels) of the same rows from lo8 and hi8.
 template <int D>
 struct Rows {
-  uint32_t lo, hi;
+  uint32_t lo, hi, lo8, hi8;
   __device__ __forceinline__ uint32_t at(int r, int c) const {
+    if constexpr (D == 72)
+      if (c == 8) return (r & 8 ? hi8 : lo8) + (r & 7) * 16;
     return (r & 8 ? hi : lo) + chunk_at<D>(r & 7, c);
   }
 };
+// Rows rlo .. rlo + 7 and rhi .. rhi + 7 of the tensor whose box (the
+// first map's) starts at `t`; a row is one frame of one head of one
+// position, in the box's order.
+template <int D>
+__device__ __forceinline__ Rows<D> rows_of(uint32_t t, int rlo, int rhi) {
+  using Sh = TaShape<D>;
+  return Rows<D>{t + rlo * Sh::ROW, t + rhi * Sh::ROW,
+                 t + Sh::PART + rlo * 16, t + Sh::PART + rhi * 16};
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
+
+// d += a (16x8, row) * b (8x8, col), bf16, fp32 accumulators: head_dim 72's
+// last half k16 step.
+__device__ __forceinline__ void mma_bf16_k8(float* d, const uint32_t* a,
+                                            uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// The B fragment of n8 tile 8 (the last 8 channels at head_dim 72) of a
+// 16 x 72 operand whose rows are the product's reduction axis.
+template <int D>
+__device__ __forceinline__ void tail_b(uint32_t (&yb)[2], const Rows<D>& y,
+                                       int lane) {
+  ldsm_x2_t(yb, y.at((lane & 7) + (lane & 8), 8));
+}
 
 // ldmatrix addresses of a lane for k-step (or column pair) j. Row-major A
 // fragments, and B fragments of the transposed load (rows: the reduction
@@ -276,6 +342,13 @@ __device__ __forceinline__ void rows_by_rows(float (&s)[2][4],
     mma_bf16(s[0], xa[j], &yb[j][0]);
     mma_bf16(s[1], xa[j], &yb[j][2]);
   }
+  if constexpr (D == 72) {  // channels 64-71: x's rows 0-7, 8-15, then y's
+    const int m = lane >> 3, r = (lane & 7) + 8 * (m & 1);
+    uint32_t t[4];
+    ldsm_x4(t, m < 2 ? x.at(r, 8) : y.at(r, 8));
+    mma_bf16_k8(s[0], t, t[2]);
+    mma_bf16_k8(s[1], t, t[3]);
+  }
 }
 
 // acc = A Y, A a 16 x 16 fragment (by rows of Y), Y a 16 x D operand.
@@ -293,6 +366,11 @@ __device__ __forceinline__ void a_by_rows(float (&acc)[D / 8][4],
     ldsm_x4_t(yb, a_lane(y, lane, j));
     mma_bf16(acc[2 * j], a, &yb[0]);
     mma_bf16(acc[2 * j + 1], a, &yb[2]);
+  }
+  if constexpr (D == 72) {
+    uint32_t yb[2];
+    tail_b(yb, y, lane);
+    mma_bf16(acc[8], a, yb);
   }
 }
 
@@ -371,11 +449,11 @@ __device__ __forceinline__ void probabilities(float (&p)[2][4],
 // ---- The wide form (16 < T <= 32): a problem is one position's 32 frames
 // of one head, rows 0-15 block 0 and rows 16-31 block 1 of each operand.
 
-// Block j of a 32-row operand whose first row is at `base`.
+// Block j of a 32-row operand whose first row is row0 of the tensor's box
+// at `t`.
 template <int D>
-__device__ __forceinline__ Rows<D> block_rows(uint32_t base, int j) {
-  const uint32_t lo = base + 16 * j * TaShape<D>::ROW;
-  return Rows<D>{lo, lo + 8 * TaShape<D>::ROW};
+__device__ __forceinline__ Rows<D> block_rows(uint32_t t, int row0, int j) {
+  return rows_of<D>(t, row0 + 16 * j, row0 + 16 * j + 8);
 }
 
 // Whether (query block qb, key block jb) is masked whole: under `causal`
@@ -501,6 +579,11 @@ __device__ __forceinline__ void forward_w(const Rows<D>& q,
       mma_bf16(acc[2 * j], pa[jb], &yb[0]);
       mma_bf16(acc[2 * j + 1], pa[jb], &yb[2]);
     }
+    if constexpr (D == 72) {
+      uint32_t yb[2];
+      tail_b(yb, v[jb], lane);
+      mma_bf16(acc[8], pa[jb], yb);
+    }
   }
   put_rows<false, D>(acc, 1.f, q, lane);
 }
@@ -537,6 +620,56 @@ __device__ __forceinline__ void chunk_product(float (&acc)[2][2][4],
       mma_bf16(acc[r][0], t, &yb[0]);
       mma_bf16(acc[r][1], t, &yb[2]);
     }
+  }
+}
+
+// chunk_product's n8 tile 8 (head_dim 72's last 8 channels): acc[r] over
+// the query or key blocks r, one n8 tile.
+template <bool CAUSAL, bool TRANS, int D>
+__device__ __forceinline__ void tail_product(float (&acc)[2][4],
+                                             const uint32_t (&a)[2][2][4],
+                                             const Rows<D> (&y)[2],
+                                             int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    uint32_t yb[2];
+    tail_b(yb, y[s], lane);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (skipped<CAUSAL>(TRANS ? s : r, TRANS ? r : s)) continue;
+      uint32_t t[4];
+      if constexpr (TRANS) {
+        transpose_a(t, a[s][r]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) t[i] = a[r][s][i];
+      }
+      mma_bf16(acc[r], t, yb);
+    }
+  }
+}
+
+// The 8 columns of n8 tile 8 of a 16 x 72 result, times mul where SCALED,
+// in bf16 over the same columns of `dst`.
+template <bool SCALED, int D>
+__device__ __forceinline__ void put_tail(const float (&acc)[4], float mul,
+                                         const Rows<D>& dst, int lane) {
+  const int g = lane >> 2, q4 = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float x0 = acc[2 * h], x1 = acc[2 * h + 1];
+    if (SCALED) {
+      x0 *= mul;
+      x1 *= mul;
+    }
+    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst.at(g + 8 * h, 8) +
+                                                   4 * q4),
+                 "r"(pack_bf16(x0, x1))
+                 : "memory");
   }
 }
 
@@ -611,6 +744,29 @@ __device__ __forceinline__ void backward_w(
     put_cols<false, D>(acc[0], 1.f, dout[0], lane, c);
     put_cols<false, D>(acc[1], 1.f, dout[1], lane, c);
   }
+  if constexpr (D == 72) {
+    if (half == 1) {  // the last 8 columns, on the pair's second warp
+      float acc[2][4];
+      if (with_o) {
+        tail_product<CAUSAL, false>(acc, pa, v, lane);
+        __syncwarp();
+        put_tail<false>(acc[0], 1.f, v[0], lane);
+        put_tail<false>(acc[1], 1.f, v[1], lane);
+      }
+      tail_product<CAUSAL, false>(acc, dsa, k, lane);
+      __syncwarp();
+      put_tail<true>(acc[0], scale, k[0], lane);
+      put_tail<true>(acc[1], scale, k[1], lane);
+      tail_product<CAUSAL, true>(acc, dsa, q, lane);
+      __syncwarp();
+      put_tail<true>(acc[0], scale, q[0], lane);
+      put_tail<true>(acc[1], scale, q[1], lane);
+      tail_product<CAUSAL, true>(acc, pa, dout, lane);
+      __syncwarp();
+      put_tail<false>(acc[0], 1.f, dout[0], lane);
+      put_tail<false>(acc[1], 1.f, dout[1], lane);
+    }
+  }
 }
 
 // The body of both kernels. grid: the tiles, or the blocks the card keeps
@@ -627,13 +783,12 @@ __device__ __forceinline__ void temporal_body(const TaMaps<D>& maps,
   constexpr int WARPS = Sh::WARPS, NH = Sh::HALVES;
   static_assert(Sh::HEADS % HG == 0, "a head group divides a tile's heads");
   constexpr int NT = BWD ? 4 : 3;  // operands a tile
-  constexpr int STAGES = ta_stages(NT);
-  constexpr uint32_t box = TA_BOX, stage_bytes = NT * box;
+  constexpr int STAGES = ta_stages<D>(NT);
+  constexpr uint32_t box = Sh::BOX, stage_bytes = NT * box;
   extern __shared__ unsigned char ta_raw[];
   const uint32_t ring = (smem_u32(ta_raw) + 1023) & ~1023u;
   const int span = W ? 1 : 16 / a.tp;  // positions a problem
   const int per = a.sg / span * HG;    // problems a tile
-  const uint32_t slot = a.tp * Sh::ROW;  // one (position, head)
   // three mbarriers a stage: the loads landed, the consumers are done, the
   // stores have read the stage
   const uint32_t full = ring + STAGES * stage_bytes;
@@ -662,10 +817,11 @@ __device__ __forceinline__ void temporal_body(const TaMaps<D>& maps,
       if (producer) {
         if (use > 0) mbar_wait(empty + 8 * st, (use - 1) & 1);
         mbar_expect_tx(full + 8 * st, stage_bytes);
-        // tensor i's box (NH boxes of its halves) at base + i box
+        // tensor i's box (NH boxes of its parts, PART apart) at base + i
+        // box
 #pragma unroll
         for (int i = 0; i < NT * NH; ++i)
-          tma_load_5d(base + i / NH * box + i % NH * (box / NH), &maps.in[i],
+          tma_load_5d(base + i / NH * box + i % NH * Sh::PART, &maps.in[i],
                       0, 0, hgi * HG, s0, b, full + 8 * st);
       } else {
         mbar_wait(done + 8 * st, use & 1);
@@ -674,7 +830,7 @@ __device__ __forceinline__ void temporal_body(const TaMaps<D>& maps,
         auto put = [&](int i, uint32_t src) {
 #pragma unroll
           for (int j = 0; j < NH; ++j)
-            tma_store_5d(&maps.out[i * NH + j], src + j * (box / NH), 0, 0,
+            tma_store_5d(&maps.out[i * NH + j], src + j * Sh::PART, 0, 0,
                          hgi * HG, s0, b);
         };
         if (!BWD || a.with_o) put(0, base + (W && !BWD ? 0 : 2 * box));
@@ -702,18 +858,20 @@ __device__ __forceinline__ void temporal_body(const TaMaps<D>& maps,
       // a problem, and both are in the same pass of this loop
       for (int u = warp; u < 2 * per; u += WARPS) {
         const int pi = u >> 1, sl = pi / HG, hl = pi % HG;
-        const uint32_t lo = ring + st * stage_bytes + (sl * HG + hl) * slot;
-        const Rows<D> k[2] = {block_rows<D>(lo + box, 0),
-                              block_rows<D>(lo + box, 1)};
-        const Rows<D> v[2] = {block_rows<D>(lo + 2 * box, 0),
-                              block_rows<D>(lo + 2 * box, 1)};
+        const uint32_t t0 = ring + st * stage_bytes;
+        const int row0 = (sl * HG + hl) * a.tp;  // the problem's first row
+        const Rows<D> k[2] = {block_rows<D>(t0 + box, row0, 0),
+                              block_rows<D>(t0 + box, row0, 1)};
+        const Rows<D> v[2] = {block_rows<D>(t0 + 2 * box, row0, 0),
+                              block_rows<D>(t0 + 2 * box, row0, 1)};
         if constexpr (!BWD) {
-          forward_w<CAUSAL, D>(block_rows<D>(lo, u & 1), k, v, lane, u & 1,
-                               a.T, a.scale);
+          forward_w<CAUSAL, D>(block_rows<D>(t0, row0, u & 1), k, v, lane,
+                               u & 1, a.T, a.scale);
         } else {
-          const Rows<D> q[2] = {block_rows<D>(lo, 0), block_rows<D>(lo, 1)};
-          const Rows<D> dout[2] = {block_rows<D>(lo + 3 * box, 0),
-                                   block_rows<D>(lo + 3 * box, 1)};
+          const Rows<D> q[2] = {block_rows<D>(t0, row0, 0),
+                                block_rows<D>(t0, row0, 1)};
+          const Rows<D> dout[2] = {block_rows<D>(t0 + 3 * box, row0, 0),
+                                   block_rows<D>(t0 + 3 * box, row0, 1)};
           backward_w<CAUSAL, D>(q, k, v, dout, lane, u & 1, warp >> 1,
                                 a.with_o, a.T, a.scale);
         }
@@ -721,13 +879,15 @@ __device__ __forceinline__ void temporal_body(const TaMaps<D>& maps,
     }
     for (int pi = warp; !W && pi < per; pi += WARPS) {
       const int sl = pi / HG * span, hl = pi % HG;
-      // operand i: its box in stage st, the slot of (sl, hl), and rows 8-15
-      // 8 frames on (tp = 16) or one position on (tp = 8); a slot past S
-      // holds zeros, which TMA does not store
-      const uint32_t lo = ring + st * stage_bytes + (sl * HG + hl) * slot;
-      const uint32_t hi = lo + (a.tp == 16 ? 8 * Sh::ROW : HG * slot);
-      const Rows<D> q{lo, hi}, k{lo + box, hi + box},
-          v{lo + 2 * box, hi + 2 * box};
+      // operand i: its box in stage st, the rows of (sl, hl), and rows
+      // 8-15 8 frames on (tp = 16) or one position on (tp = 8); a slot past
+      // S holds zeros, which TMA does not store
+      const uint32_t t0 = ring + st * stage_bytes;
+      const int rlo = (sl * HG + hl) * a.tp;
+      const int rhi = rlo + (a.tp == 16 ? 8 : HG * a.tp);
+      const Rows<D> q = rows_of<D>(t0, rlo, rhi),
+                    k = rows_of<D>(t0 + box, rlo, rhi),
+                    v = rows_of<D>(t0 + 2 * box, rlo, rhi);
       float p[2][4], acc[D / 8][4];
       uint32_t pa[4];
       probabilities<CAUSAL>(p, q, k, lane, a.T, a.tp, a.scale);
@@ -737,7 +897,7 @@ __device__ __forceinline__ void temporal_body(const TaMaps<D>& maps,
         put_rows<false, D>(acc, 1.f, v, lane);
         continue;
       }
-      const Rows<D> dout{lo + 3 * box, hi + 3 * box};
+      const Rows<D> dout = rows_of<D>(t0 + 3 * box, rlo, rhi);
       float dp[2][4];
       rows_by_rows(dp, dout, v, lane);  // dP = dO V^T
       float delta[2] = {0.f, 0.f};
@@ -791,9 +951,10 @@ __global__ void __launch_bounds__(TaShape<D>::THREADS, 1)
 }
 
 // The head group of a tile: the largest of a full tile's heads (8 at
-// head_dim 32, 4 at 64, 2 at 128), 4, 2 and 1 that divides the heads.
+// head_dim 32, 4 at 64 and 72, 2 at 128), 4, 2 and 1 that divides the
+// heads.
 int head_group(int C, int D) {
-  const int heads = C / D, full = TA_HEADS * 32 / D;
+  const int heads = C / D, full = ta_heads(D);
   return heads % full == 0 ? full
          : heads % 4 == 0  ? 4
          : heads % 2 == 0  ? 2
@@ -803,27 +964,34 @@ int head_group(int C, int D) {
 // The (d, t, h, s, b) view of a (B, T, S, C) bf16 tensor with row stride
 // ld (elements) in the swizzle of its 2 D-byte rows; a box is tp frames of
 // hg heads of sg positions of one b. At head_dim 128 HALVES maps, map j
-// the 64 channels of each head from channel 64 j.
+// the 64 channels of each head from channel 64 j; at 72 the first 64
+// channels', then the last 8 channels' with no swizzle.
 template <int D>
 cudaError_t frame_maps(CUtensorMap* maps, const void* base, int B, int T,
                        int S, int C, int ld, int tp, int sg) {
-  constexpr int DH = D / TaShape<D>::HALVES;  // channels a box row
-  const cuuint64_t dims[5] = {DH, (cuuint64_t)T, (cuuint64_t)(C / D),
-                              (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t row = (cuuint64_t)ld * 2;
   const cuuint64_t strides[4] = {row * S, 2 * D, row, row * S * T};
-  const cuuint32_t box[5] = {DH, (cuuint32_t)tp,
-                             (cuuint32_t)head_group(C, D), (cuuint32_t)sg, 1};
-  for (int j = 0; j < TaShape<D>::HALVES; ++j)
-    TPU1X_TRY(encode_map(&maps[j], static_cast<const bf16*>(base) + j * DH,
-                         5, dims, strides, box, TaShape<D>::SWIZZLE));
+  for (int j = 0; j < TaShape<D>::HALVES; ++j) {
+    // channels a box row
+    const int dh = D == 72 ? (j ? 8 : 64) : D / TaShape<D>::HALVES;
+    const cuuint64_t dims[5] = {(cuuint64_t)dh, (cuuint64_t)T,
+                                (cuuint64_t)(C / D), (cuuint64_t)S,
+                                (cuuint64_t)B};
+    const cuuint32_t box[5] = {(cuuint32_t)dh, (cuuint32_t)tp,
+                               (cuuint32_t)head_group(C, D), (cuuint32_t)sg,
+                               1};
+    TPU1X_TRY(encode_map(&maps[j], static_cast<const bf16*>(base) + j * 64,
+                         5, dims, strides, box,
+                         D == 72 && j ? CU_TENSOR_MAP_SWIZZLE_NONE
+                                      : TaShape<D>::SWIZZLE));
+  }
   return cudaSuccess;
 }
 
 // The shapes the kernels take (the wrapper's `_check_qkv` raises first).
 bool ta_ok(int T, int C, int D, int ld) {
-  return T >= 1 && T <= 32 && (D == 32 || D == 64 || D == 128) && C >= D &&
-         C % D == 0 && ld % 8 == 0;
+  return T >= 1 && T <= 32 && (D == 32 || D == 64 || D == 72 || D == 128) &&
+         C >= D && C % D == 0 && ld % 8 == 0;
 }
 
 // The tile at T frames: a box spans 16 frames, or 8 and twice the
@@ -839,7 +1007,7 @@ TaArgs args_of(int B, int T, int S, int C, int D, float scale) {
   const int hg = head_group(C, D);
   a.T = T, a.S = S, a.C = C, a.scale = scale;
   a.tp = T <= 8 ? 8 : T <= 16 ? 16 : 32;
-  a.sg = TA_POSITIONS * (TA_HEADS * 32 / D / hg) * 16 / a.tp;
+  a.sg = TA_POSITIONS * (ta_heads(D) / hg) * 16 / a.tp;
   a.s_tiles = (S + a.sg - 1) / a.sg;
   a.h_groups = C / D / hg;
   a.tiles = B * a.s_tiles * a.h_groups;
@@ -850,7 +1018,8 @@ template <int D, bool BWD, bool CAUSAL, int HG, bool W>
 cudaError_t launch_form(const TaMaps<D>& maps, const TaArgs& a,
                         cudaStream_t stream) {
   if (a.tiles == 0) return cudaSuccess;
-  constexpr int smem = ta_smem(BWD ? 4 : 3), threads = TaShape<D>::THREADS;
+  constexpr int smem = ta_smem<D>(BWD ? 4 : 3),
+                threads = TaShape<D>::THREADS;
   auto kernel = BWD ? temporal_bwd_kernel<D, CAUSAL, HG, W>
                     : temporal_fwd_kernel<D, CAUSAL, HG, W>;
   // the shared-memory limit and the resident blocks, set at the first call
@@ -877,10 +1046,10 @@ cudaError_t launch(const TaMaps<D>& maps, const TaArgs& a,
   if constexpr (D == 128) {
     return hg == 2 ? launch_hg<128, BWD, CAUSAL, 2>(maps, a, stream)
                    : launch_hg<128, BWD, CAUSAL, 1>(maps, a, stream);
-  } else if constexpr (D == 64) {
-    return hg == 4   ? launch_hg<64, BWD, CAUSAL, 4>(maps, a, stream)
-           : hg == 2 ? launch_hg<64, BWD, CAUSAL, 2>(maps, a, stream)
-                     : launch_hg<64, BWD, CAUSAL, 1>(maps, a, stream);
+  } else if constexpr (D == 64 || D == 72) {
+    return hg == 4   ? launch_hg<D, BWD, CAUSAL, 4>(maps, a, stream)
+           : hg == 2 ? launch_hg<D, BWD, CAUSAL, 2>(maps, a, stream)
+                     : launch_hg<D, BWD, CAUSAL, 1>(maps, a, stream);
   } else {
     switch (hg) {
       case TA_HEADS:
@@ -933,7 +1102,7 @@ cudaError_t backward_d(const void* const* in, void* const* out, int B, int T,
 }  // namespace
 
 // q, k, v: element (b, t, s, c) at ((b T + t) S + s) ld + c; out contiguous;
-// heads of D = 32, 64 or 128 channels.
+// heads of D = 32, 64, 72 or 128 channels.
 extern "C" int tpu1x_temporal_attention(const void* q, const void* k,
                                         const void* v, void* out, int B, int T,
                                         int S, int C, int D, int ld,
@@ -943,6 +1112,7 @@ extern "C" int tpu1x_temporal_attention(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (D == 32   ? forward_d<32>
           : D == 64 ? forward_d<64>
+          : D == 72 ? forward_d<72>
                     : forward_d<128>)(q, k, v, out, B, T, S, C, ld, scale,
                                       causal != 0, st);
 }
@@ -962,6 +1132,7 @@ extern "C" int tpu1x_temporal_attention_bwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (D == 32   ? backward_d<32>
           : D == 64 ? backward_d<64>
+          : D == 72 ? backward_d<72>
                     : backward_d<128>)(in, out, B, T, S, C, ld, ld_do, ld_out,
                                        scale, causal != 0, st);
 }

@@ -54,7 +54,12 @@ def check_tensor(t: torch.Tensor, name: str, shape, dtype,
 
 
 # The head widths that every attention kernel of the port is built for.
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 72, 128)
+
+
+def head_dims_text() -> str:
+    """HEAD_DIMS as words: "32, 64, 72 or 128"."""
+    return ", ".join(map(str, HEAD_DIMS[:-1])) + f" or {HEAD_DIMS[-1]}"
 
 
 def head_dim_of(C: int, num_heads: int, what: str) -> int:
@@ -62,14 +67,15 @@ def head_dim_of(C: int, num_heads: int, what: str) -> int:
     for any other head width (the kernels have no fallback)."""
     D = C // num_heads if num_heads > 0 else 0
     require(num_heads > 0 and D * num_heads == C and D in HEAD_DIMS,
-            f"{what} needs head_dim 32, 64 or 128, got C={C}, "
+            f"{what} needs head_dim {head_dims_text()}, got C={C}, "
             f"heads={num_heads}")
     return D
 
 
 # The widest d_model of the decode ring (csrc/decode_attention.cuh: an item
 # holds at least 4 tokens of C / 32 rows, a consumer thread each, and a
-# block at most DA_MAX_ROWS = 256 of them).
+# block at most DA_MAX_ROWS = 256 of them; at head_dim 72 of C / 24 rows,
+# three a head and ten heads a warp, on at most 384 lanes: C <= 2016).
 DECODE_MAX_C = 2048
 
 
@@ -77,9 +83,10 @@ def decode_width_ok(C: int, num_heads: int) -> bool:
     """Whether the decode ring of csrc/decode_attention.cuh (K7, K8 and the
     cache attention of K2 and K3) takes d_model C in `num_heads` heads, as
     its `decode_width_ok` decides: a head width of HEAD_DIMS (so C % 32 ==
-    0, and a head row never lies across a warp) and C <= DECODE_MAX_C. Any
-    such C: where an item's rows are not whole warps, the ring takes more
-    tokens an item or idle lanes (`decode_plan`)."""
+    0, or C % 24 == 0 at head_dim 72, and a head row never lies across a
+    warp) and C <= DECODE_MAX_C. Any such C: where an item's rows are not
+    whole warps, the ring takes more tokens an item or idle lanes
+    (`decode_plan`)."""
     D = C // num_heads if num_heads > 0 else 0
     return (num_heads > 0 and D * num_heads == C and D in HEAD_DIMS
             and 0 < C <= DECODE_MAX_C)

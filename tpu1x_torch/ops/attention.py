@@ -8,7 +8,7 @@ import torch
 
 from tpu1x_torch import kernels
 from tpu1x_torch.ops import remat
-from tpu1x_torch.ops._util import HEAD_DIMS, require
+from tpu1x_torch.ops._util import HEAD_DIMS, head_dims_text, require
 
 NEG_INF = torch.finfo(torch.float32).min
 # `mha` sends fewer tokens than this (the frame axis, T = 16) to the plain
@@ -104,8 +104,8 @@ def _check_shape(q, k, v):
     require(k.shape == q.shape and v.shape == q.shape,
             "q, k, v must share one shape")
     require(D in HEAD_DIMS,
-            f"the flash attention kernels need head_dim 32, 64 or 128, got "
-            f"head_dim={D}")
+            f"the flash attention kernels need head_dim {head_dims_text()}, "
+            f"got head_dim={D}")
     require(FLASH_MIN_TOKENS <= N <= FLASH_MAX_TOKENS and N % 64 == 0,
             f"the flash attention kernels need N % 64 == 0 and "
             f"{FLASH_MIN_TOKENS} <= N <= {FLASH_MAX_TOKENS}, got N={N}")
@@ -118,9 +118,9 @@ def _lse_shape(q):
 
 def flash_mha_fwd(q, k, v, *, scale: float, causal: bool):
     """Check, launch the forward kernel on CUDA q, k, v (..., N, H, D),
-    head_dim D 32, 64 or 128, and count it. Returns (o, lse): o contiguous of
-    q's shape, lse fp32 (..., H, N) as `mha_lse_reference` gives it. CPU
-    tensors take `mha_lse_reference` and count nothing."""
+    head_dim D 32, 64, 72 or 128, and count it. Returns (o, lse): o
+    contiguous of q's shape, lse fp32 (..., H, N) as `mha_lse_reference`
+    gives it. CPU tensors take `mha_lse_reference` and count nothing."""
     if not q.is_cuda:
         return mha_lse_reference(q, k, v, scale=scale, causal=causal)
     _check_shape(q, k, v)
@@ -214,7 +214,7 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launch csrc/flash_attention.cu, which replaces the Pallas kernels
     tpu1x/ops/pallas_attention.py:_flash_mha_bhnd (forward) and, under
     autograd, _flash_mha_bwd_bhnd (backward). The card path takes bf16,
-    head_dim 32, 64 or 128, N % 64 == 0 and 64 <= N <= 4096
+    head_dim 32, 64, 72 or 128, N % 64 == 0 and 64 <= N <= 4096
     (FLASH_MAX_TOKENS);
     fp32 inputs are for the CPU.
     q, k and v are read where they lie, each with its own strides (the last

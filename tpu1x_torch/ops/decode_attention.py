@@ -241,12 +241,13 @@ def temporal_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     CPU tensors take `temporal_decode_attention_plain`. CUDA tensors launch
     csrc/decode_attention.cu, which replaces the Pallas kernel
     tpu1x/ops/decode_attention.py:temporal_decode_attention (_kernel): bf16
-    q, k_cur, v_cur, int32 t_B, `layer` a plain int, head_dim 32, 64 or 128,
-    C <= 2048 (`_util.decode_width_ok`: an item of at least 4 tokens on at
-    most 256 consumer threads), T <= 32, S % 4 == 0 for the int8 cache. q,
-    k_cur, v_cur and `out` may each be strided views, as the column thirds
-    of one qkv product are: last axis contiguous, the other two strides
-    multiples of 8, the data 16-byte aligned (`_check`).
+    q, k_cur, v_cur, int32 t_B, `layer` a plain int, head_dim 32, 64, 72 or
+    128, C <= 2048 (`_util.decode_width_ok`: an item of at least 4 tokens on
+    at most 256 consumer threads, 384 at head_dim 72), T <= 32, S % 4 == 0
+    for the int8 cache. q, k_cur, v_cur and `out` may each be strided
+    views, as the column thirds of one qkv product are: last axis
+    contiguous, the other two strides multiples of 8, the data 16-byte
+    aligned (`_check`).
 
     The TPU kernel multiplies q and k in bf16 and rounds the probabilities
     to bf16 before PV; this kernel keeps both fp32, as the reference does.
@@ -256,7 +257,8 @@ def temporal_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     stages by bulk copies, and a thread per (token, 32 channels) runs an
     online softmax over them in one pass (at head_dim 64 two lanes a head
     row, their halves of each logit summed by a shuffle; at 128 four lanes,
-    two shuffles); an int8 slot's
+    two shuffles; at 72 three lanes of 24 channels, ten heads a warp); an
+    int8 slot's
     scales multiply the logit and the probability, and no dequantized copy
     exists.
     """

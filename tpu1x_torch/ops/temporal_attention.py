@@ -57,8 +57,8 @@ def _check_qkv(q, k, v, num_heads: int) -> int:
             "q, k, v must share one shape")
     require(q.device == k.device == v.device, "q, k, v on different devices")
     require(T <= 32, f"temporal_attention kernels need T <= 32, got {T}")
-    # any number of heads: a tile takes the largest of 256 // D, 4, 2 and 1
-    # heads that divides them
+    # any number of heads: a tile takes the largest of 256 // D (4 at head
+    # dim 72), 4, 2 and 1 heads that divides them
     head_dim_of(C, num_heads, "temporal_attention kernels")
     ld = q.stride(2)
     want = (T * S * ld, S * ld, ld, 1)
@@ -147,7 +147,7 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _bwd_kernel), which recomputes the probabilities from q and k. Both take
     bf16 q, k, v that may be column slices of one (B, T, S, 3C) qkv tensor
     (last axis contiguous, the same strides for all three), T <= 32,
-    head_dim 32, 64 or 128 and any number of heads (`_check_qkv`). The
+    head_dim 32, 64, 72 or 128 and any number of heads (`_check_qkv`). The
     backward returns dq, dk, dv as column slices of one (B, T, S, 3C)
     tensor.
 

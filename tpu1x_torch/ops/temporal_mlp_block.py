@@ -150,7 +150,7 @@ def temporal_mlp_block(x: torch.Tensor, k_cache: torch.Tensor,
     csrc/temporal_mlp_block.cu, which replaces the Pallas kernel
     tpu1x/ops/temporal_mlp_block.py:temporal_mlp_block (_kernel_single):
     bf16 activations, caches and weights, fp32 LN params, int32 t_B, head_dim
-    32, 64 or 128, C <= 2048 (the decode ring's widths,
+    32, 64, 72 or 128, C <= 2048 (the decode ring's widths,
     `_util.decode_width_ok`), F4 % 64 == 0, T <= 32. Six launches on one
     stream:
     the four weight products on the TMA-fed wgmma GEMM of
