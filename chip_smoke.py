@@ -141,8 +141,8 @@
    and decoded.
 11. The training runtime (`check_training_runtime`), in a temporary
    directory it removes: the train CLI (`tpu1x_torch.train.train.main`) on
-   configs/genie_138m.json cut to 8 layers (GENIE_35M's and the head_dim-64
-   phases run theirs at 8 layers too) over a synthetic dataset
+   configs/genie_138m.json cut to 4 layers (`RT_LAYERS`; GENIE_35M's at 4,
+   the configuration phases' at 1) over a synthetic dataset
    (`--overfit_first_batch`, B=8, accumulation 2, 6 updates, a checkpoint
    and an eval at 3, visualize at 6 with `--tokenizer_ckpt` and
    `--lpips_ckpt random`) with exact launch counts per micro-batch, eval
@@ -155,7 +155,7 @@
    relative L2 of the uninterrupted run's; both exports of
    final_checkpt_hf read back bit for bit, and the evaluate CLI on them;
    one process group of world size 1 over NCCL, one update through DDP
-   and one through FSDP2 against the unwrapped step (at 8 layers), and an
+   and one through FSDP2 against the unwrapped step (at 4 layers), and an
    FSDP2 checkpoint round trip; remat (qk_norm off / "attn_outs" / "none",
    pre-LN off / "attn_outs") with launch counts, peak memory, step time
    and gradients against remat off; dropout at 8 layers through the
@@ -164,7 +164,7 @@
    configs/genie_35m.json through `GenieConfig.from_pretrained` at full
    depth and width (32 layers, C = 256, 8 heads, bf16), seeded random
    weights: the rollout as in 4, ten train steps and the step against the
-   plain path as in 6; at 8 layers `score_policies` and `evaluate_dataset`
+   plain path as in 6; at 4 layers `score_policies` and `evaluate_dataset`
    at B = 16 as in 9, and the train CLI on the JSON cut so with its resume
    and exports as in 11; each with exact launch counts, its wall and its
    device time by kernel.
@@ -173,7 +173,7 @@
    gradients, with its times (`check_h64_kernels`: K1 both modes at N =
    16 / 32 / 128, K2, K3, K4, K6, K7 and K8 with both caches, K9, K10,
    K11, K12) and the decode batch sizes of 3; then GENIE_138M-h64
-   (configs/genie_138m.json at 8 heads of 64) at 8 layers: the rollout as
+   (configs/genie_138m.json at 8 heads of 64) at 4 layers: the rollout as
    in 4, ten train steps and the step against the plain path as in 6,
    `score_policies`, the evaluator batch, the train CLI with its resume
    and exports, and the qk_norm int8 rollout and train step; each with
@@ -187,8 +187,8 @@
    and K6 at T = 20, 24 and 32 for C = 512 / 256 / 128 / 64 and at
    head_dim 64, untimed) and the decode batch sizes of 3 at T = 32; then
    GENIE_138M-T32 (configs/genie_138m.json with T = 32 and 16 prompt
-   frames) at 8 layers (the rollout and step at 32 until the S = 1024
-   phase came): the rollout of 16 + 16 frames as in 4, ten train steps
+   frames) at 4 layers (`W32_LAYERS`): the rollout of 16 + 16 frames as
+   in 4, ten train steps
    and the step against the plain path as in 6, `score_policies` (16
    policies of 16 frames after 16 shared), the evaluator batch, the train
    CLI with its resume and exports, and the qk_norm int8 rollout and train
@@ -202,10 +202,10 @@
    16, 1024, 512) cache of 2^32 elements a tensor; untimed at R = 2, K9
    and K10 causal and not and at a negative scale, K1 both modes and K11
    at S = 64, 192, 320, 576, 1024 and 4096 and head_dim 32 and 64); then
-   GENIE_138M-S1024 at 32 layers: the rollout of 8 + 8 frames as in 4 and
-   ten train steps as in 6; the step against the plain path at 8 layers
-   (the plain path's probabilities are 2 GiB a layer at CB = 2); at 8
-   layers `score_policies`, the evaluator batch, the train CLI with its
+   GENIE_138M-S1024 at 4 layers (`S1024_LAYERS`): the rollout of 8 + 8
+   frames as in 4 and ten train steps as in 6; the step against the plain
+   path (the plain path's probabilities are 2 GiB a layer at CB = 2);
+   `score_policies`, the evaluator batch, the train CLI with its
    resume and exports (the tokenizer at 512 px), and the qk_norm int8
    rollout and train step; each with exact launch counts. The plain
    oracle's spatial attention runs in slices of frames (`by_frames`).
@@ -217,30 +217,35 @@
    and 32, K9 and K10 at (128, 256, 4, 128) and, untimed, at N = 64, 128,
    192 and 1024, causal, not and at a negative scale, K11, K12) and the
    decode batch sizes of 3 at 4 heads; then GENIE_138M-h128
-   (configs/genie_138m.json at 4 heads of 128) at 8 layers (since the
-   model widths phase came, for the script's time: the kernel checks keep
-   every head_dim-128 form at full shape): the rollout as in 4, ten train
+   (configs/genie_138m.json at 4 heads of 128) at 4 layers (`H128_LAYERS`,
+   for the script's time: the kernel checks keep every head_dim-128 form
+   at full shape): the rollout as in 4, ten train
    steps and the step against the plain path as in 6, `score_policies`,
    the evaluator batch, the train CLI with its resume and exports, the
    qk_norm int8 rollout and train step, and a `use_mup` rollout and step
    as in 8 (the scale 8 / 128); each with exact launch counts.
 12f. Model widths (`check_widths`, one row of `WIDTH_CONFIGS` after the
    other): the decode ring (K7, K8, both caches, every head width that
-   divides C) and the training LN rows at C = 96, 320, 384, 640, 1152,
-   1600 and 2048, untimed, each row's last tile short
-   (`check_width_sweep`); then GENIE_138M-C384 (configs/genie_138m.json at
-   d_model 384, 6 heads of 64: DiT-S's width) and GENIE_138M-C1600 (1600,
-   25 heads of 64: GPT-2 XL's): each kernel form at the width against its
-   plain version, timed with its bound (`check_width_kernels`: K1 at N =
-   16, K5, K2, K3, K7 and K8 with both caches, K4 and K6 causal and not,
-   K11 and K13 with their LN rows, every gradient), the decode batch sizes
-   of 3, and the entry points as in 12e: the rollout (with its peak
-   memory), ten train steps and the step against the plain path at 32
-   layers, then at 8 layers `score_policies`, the evaluator batch, the
-   train CLI and the qk_norm int8 rollout and train step; each with exact
-   launch counts. GENIE_138M-C1600 is cut for the script's time (its row
-   of `WIDTH_CONFIGS`): the rollout at 16 layers, the step against the
-   plain path at 8 (`plain_layers`), the train CLI at 1.
+   divides C and the ring takes), K5 and the training LN rows at C = 96,
+   320, 384, 576, 640, 1152, 1600, 2016, 2048, 2080, 2304, 3072, 3968 and
+   4096, untimed, each row's last tile short, K1, K2 and K3 once at C =
+   4096 in 32 heads of 128, and every widened wrapper's refusal of C =
+   4128 on the card (`check_width_sweep`); then GENIE_138M-C384
+   (configs/genie_138m.json at d_model 384, 6 heads of 64: DiT-S's width),
+   GENIE_138M-C1600 (1600, 25 heads of 64: GPT-2 XL's) and
+   GENIE_138M-C3072 (3072, 48 heads of 64, 42 layers: CogVideoX-5B's):
+   each kernel form at the width against its plain version, timed with its
+   bound (`check_width_kernels`: K1 at N = 16 (-C3072 also 32 and 128),
+   K5, K2, K3, K7 and K8 with both caches, K4 and K6 causal and not, K11
+   and K13 with their LN rows, every gradient), the decode batch sizes of
+   3, and the entry points as in 12e: the rollout (with its peak memory),
+   ten train steps and the step against the plain path, then
+   `score_policies`, the evaluator batch, the train CLI and the qk_norm
+   int8 rollout and train step; each with exact launch counts. The depths
+   (each row of `WIDTH_CONFIGS`): every path at 4 layers
+   (`WIDTH_LAYERS`), the train CLIs at 1 (`CLI_LAYERS`), and
+   GENIE_138M-C3072's rollout at its full 42 layers, held against the
+   plain path at 4.
 13. Tensor parallelism (`check_tensor_parallel`): K4 and K6 at C = 128
    (4 heads, the kernels' head groups of 4) and C = 64 (2 heads, head
    groups of 2) against their plain versions with their device times and
@@ -259,7 +264,8 @@
    the setups in waves of at most one rank a core, `tp_waves`), all on
    this card, each setup's joined over gloo as one model group: each
    splits the
-   model at 8 layers, pre-LN and qk_norm, and takes one update (exact
+   model at 2 layers (`TP_LAYERS`), pre-LN and qk_norm, and takes one
+   update (exact
    launch counts per rank), held to this process's update from the same
    weights, batch and draws and to the plain path's in bf16 and fp32
    (`tp_update_gates`: the loss within 2e-2, the gradient norm within
@@ -286,7 +292,8 @@
    form, `t32`, with its launches on GENIE_138M-T32's, every kernel's S =
    1024 form, `s1024`, with its launches on GENIE_138M-S1024's, and each
    attention kernel's head_dim-128 form, `h128`, with its launches on
-   GENIE_138M-h128's paths, and every kernel's `c384` and `c1600` entries,
+   GENIE_138M-h128's paths, and every kernel's `c384`, `c1600` and
+   `c3072` entries,
    the width's form where the phase checks one and its launches on that
    configuration's paths), the card line, and last the result line.
 
@@ -341,7 +348,7 @@ from tpu1x_torch.ops import spatial_block as sb
 from tpu1x_torch.ops import spatial_train_block as stb
 from tpu1x_torch.ops import temporal_attention as ta
 from tpu1x_torch.ops import temporal_train_block as ttb
-from tpu1x_torch.ops._util import HEAD_DIMS
+from tpu1x_torch.ops._util import HEAD_DIMS, MAX_C, decode_width_ok
 from tpu1x_torch.ops.layernorm import layer_norm, layer_norm_plain
 from tpu1x_torch.ops.spatial_block import spatial_block, spatial_block_plain
 from tpu1x_torch.ops.temporal_attention import (temporal_attention,
@@ -1319,17 +1326,24 @@ def plain_rollout(cfg, engine, params, prompt, generator, actions=None):
 
 
 def check_rollout(cfg, device, cache_dtype="bf16", per_layer=PER_LAYER,
-                  full=True):
+                  full=True, against_plain=True):
     """One configuration's rollout: counts, output, times, peak memory, and
     the cache and logits against the plain path. `full` False (the
-    combinations run at a cut depth) times one run and skips the profile.
-    A configuration with an action vocabulary rolls out under seeded (B, P
-    + NEW) actions."""
+    combinations run at a cut depth) times one run and skips the profile;
+    `against_plain` False (a depth whose plain path and second cache do not
+    fit beside the kernel path's) skips the plain path and frees the
+    caller's copy of the weights once the engine has its own (GENIE_138M-
+    C3072 at 42 layers: 25.4 GB of fp32 weights a copy, 12.7 GB of bf16
+    serving weights, 33.8 GB of caches). A configuration
+    with an action vocabulary rolls out under seeded (B, P + NEW)
+    actions."""
     g = torch.Generator(device=device).manual_seed(0)
     model = init_model(cfg, device, g)
     engine = RolloutEngine(model, cfg, device=device, maskgit_steps=STEPS,
                            temperature=0.0, cache_dtype=cache_dtype)
-    plain = PlainDecodeEngine(cfg, device=device, cache_dtype=cache_dtype)
+    if not against_plain:  # the engine holds its own copy of the weights
+        del model
+        torch.cuda.empty_cache()
     side = cfg.latent_side_len
     prompt = torch.randint(0, cfg.image_vocab_size, (B, P, side, side),
                            generator=g, device=device)
@@ -1373,8 +1387,6 @@ def check_rollout(cfg, device, cache_dtype="bf16", per_layer=PER_LAYER,
     walls = sorted([wall] + [timed(kernel_path)[1]
                              for _ in range(2 if full else 0)])
     wall = walls[len(walls) // 2]  # the median of three
-    out_plain, wall_plain = timed(plain_path)
-    agree = float((out[:, 0, P:] == out_plain[:, 0, P:]).float().mean())
     device_time = None
     if full:
         # every product of the rollout runs on csrc/gemm_sm90.cuh, and the
@@ -1383,13 +1395,18 @@ def check_rollout(cfg, device, cache_dtype="bf16", per_layer=PER_LAYER,
                                      must=("decode_ring_kernel",),
                                      must_not=("decode_attention_kernel",))
 
-    return dict(launches=launches, rollout_s=wall, rollout_s_runs=walls,
-                plain_rollout_s=wall_plain, s_per_frame=wall / NEW,
-                s_per_frame_per_row=wall / (NEW * B), token_agreement=agree,
-                peak_memory_bytes=peak, layers=cfg.num_layers,
-                qk_norm=cfg.qk_norm, cache_dtype=cache_dtype,
-                action_vocab_size=cfg.action_vocab_size,
-                device_time=device_time,
+    res = dict(launches=launches, rollout_s=wall, rollout_s_runs=walls,
+               s_per_frame=wall / NEW, s_per_frame_per_row=wall / (NEW * B),
+               peak_memory_bytes=peak, layers=cfg.num_layers,
+               qk_norm=cfg.qk_norm, cache_dtype=cache_dtype,
+               action_vocab_size=cfg.action_vocab_size,
+               device_time=device_time)
+    if not against_plain:
+        return res
+    plain = PlainDecodeEngine(cfg, device=device, cache_dtype=cache_dtype)
+    out_plain, wall_plain = timed(plain_path)
+    agree = float((out[:, 0, P:] == out_plain[:, 0, P:]).float().mean())
+    return dict(res, plain_rollout_s=wall_plain, token_agreement=agree,
                 **check_prefill_and_logits(model, cfg, prompt, engine, plain,
                                            actions))
 
@@ -2888,8 +2905,8 @@ def check_evaluation(cfg, device):
 GENIE_35M_CONFIG = Path(__file__).resolve().parent / "configs" / \
     "genie_35m.json"
 # the depth of GENIE_35M's scores, evaluator batch and train CLI (the
-# script's time)
-G35_CUT_LAYERS = 8
+# script's time; 8 until GENIE_138M-C3072's phase came)
+G35_CUT_LAYERS = 4
 
 
 def check_genie_35m(device):
@@ -2953,7 +2970,8 @@ def check_genie_35m(device):
 # ------------------------------------------------------------ head_dim 64
 
 H64_HEADS = 8  # GENIE_138M's width at 8 heads: head_dim 64
-H64_LAYERS = 8  # the depth of the phase's secondary paths
+# the depth of the phase's secondary paths (8 until GENIE_138M-C3072's phase came, for the script's time)
+H64_LAYERS = 4
 
 
 def genie_138m_h64(**overrides) -> GenieConfig:
@@ -3014,7 +3032,8 @@ CLI_LAYERS = 1
 
 
 def check_config_paths(make, label, device, cut_layers, deep_layers=None,
-                       plain_layers=None, rollout_layers=None):
+                       plain_layers=None, rollout_layers=None,
+                       rollout_plain_layers=None):
     """The entry points of the configuration `make(**overrides)` (seeded
     random weights), each by its GENIE_138M counterpart's gates and exact
     launch counts per layer: at `deep_layers` layers (the configuration's
@@ -3023,7 +3042,9 @@ def check_config_paths(make, label, device, cut_layers, deep_layers=None,
     (`check_training`) and the step's gradients against the plain path and
     fp32 (`check_step_against_plain`; at `plain_layers` layers where given,
     a model of its own from the same seed; the rollout at `rollout_layers`
-    where given); at `cut_layers` layers
+    where given, and with `rollout_plain_layers` that rollout without the
+    plain path, which holds a rollout at `rollout_plain_layers` instead,
+    "rollout_against_plain"); at `cut_layers` layers
     `score_policies`, an `evaluate_dataset` batch at B 16, the train CLI on
     the configuration written as JSON into a temporary directory, with its
     resume and exports (`check_cli_run`; at CLI_LAYERS), and
@@ -3039,9 +3060,19 @@ def check_config_paths(make, label, device, cut_layers, deep_layers=None,
     t0 = time.perf_counter()
     out["rollout"] = check_rollout(
         deep if rollout_layers is None else make(num_layers=rollout_layers),
-        device, per_layer=rollout_per_layer(NEW))
+        device, per_layer=rollout_per_layer(NEW),
+        against_plain=rollout_plain_layers is None)
+    torch.cuda.empty_cache()
     walls["rollout"] = time.perf_counter() - t0
     show("rollout", "rollout")
+    if rollout_plain_layers is not None:
+        t0 = time.perf_counter()
+        out["rollout_against_plain"] = check_rollout(
+            make(num_layers=rollout_plain_layers), device,
+            per_layer=rollout_per_layer(NEW), full=False)
+        torch.cuda.empty_cache()
+        walls["rollout against plain"] = time.perf_counter() - t0
+        show("rollout against the plain path", "rollout_against_plain")
     t0 = time.perf_counter()
     model, out["training"] = check_training(deep, device)
     if plain_layers is not None:  # a model that the plain path fits
@@ -3124,7 +3155,8 @@ def check_head_dim_64(device):
 # ------------------------------------------------------- a 32-frame window
 
 W32_T, W32_PROMPT = 32, 16  # GENIE_138M-T32's window and prompt frames
-W32_LAYERS = 8  # the depth of the phase's secondary paths
+# the depth of the phase's secondary paths (8 until GENIE_138M-C3072's phase came, for the script's time)
+W32_LAYERS = 4
 # the frame counts, head counts and C of the untimed K4 / K6 sweep: head
 # groups 8, 8, 4, 2 at head_dim 32, then head_dim 64
 W32_SWEEP_T = (20, 24, 32)
@@ -3262,10 +3294,12 @@ def check_window_32(device):
 # ------------------------------------------------------- a 32 x 32 grid
 
 S1024_S = 1024  # GENIE_138M-S1024's tokens a frame: a 32 x 32 grid
-S1024_LAYERS = 8  # the depth of the phase's secondary paths
+# the depth of the phase's secondary paths (8 until GENIE_138M-C3072's phase came, for the script's time)
+S1024_LAYERS = 4
 # the depth of the step against the plain path: the plain path's autograd
 # keeps every (N, H, S, S) fp32 probability tensor, 2 GiB a layer at CB = 2
-S1024_PLAIN_LAYERS = 8
+# (8 until GENIE_138M-C3072's phase came, for the script's time)
+S1024_PLAIN_LAYERS = 4
 # the untimed sweep of the spatial kernels (R = 2 rows, head_dim 32 and 64)
 S1024_SWEEP_S = (64, 192, 320, 576, 1024, 4096)
 # the kernels line's S = 1024 entry of each kernel: its key in
@@ -3452,7 +3486,8 @@ def check_grid_1024(device):
 # -------------------------------------------------------- head_dim 128
 
 H128_HEADS = 4  # GENIE_138M's width at 4 heads: head_dim 128
-H128_LAYERS = 8  # the depth of the phase's paths
+# the depth of the phase's paths (8 until GENIE_138M-C3072's phase came, for the script's time)
+H128_LAYERS = 4
 # the token counts of K9's and K10's untimed checks at head_dim 128 (R = 4
 # rows; 1024 at R = 2) besides the main path's 256
 H128_SWEEP_N = (64, 192, 1024)
@@ -3603,14 +3638,23 @@ def check_head_dim_128(device):
 
 # ------------------------------------------------------------ model widths
 
-WIDTH_LAYERS = 8  # the depth of the phase's secondary paths
+# the depth of the phase's secondary paths (8 until GENIE_138M-C3072
+# came, for the script's time; at 8 that configuration's qk_norm train
+# step, which keeps its plain fp32 qk-LN's intermediates for the backward
+# without remat, ran out of the card's 80 GB)
+WIDTH_LAYERS = 4
 # the untimed widths of the decode ring's and the LN rows' sweep: C % 256
 # = 96, 64 (320, 1600), 128 (384, 640, 1152) and 0 (2048); items of more
 # tokens (96, 320, 384, 640) or of idle lanes (1152, 1600), and 2048, the
-# widest; head_dim 72's rows of three lanes at 576 (8 heads: 32 of an
+# widest item; head_dim 72's rows of three lanes at 576 (8 heads: 32 of an
 # item's rows on 40 lanes' worth), 1152 (64 on 70) and 2016 (112 on 120,
-# the widest at 72)
-WIDTH_SWEEP_C = (96, 320, 384, 576, 640, 1152, 1600, 2016, 2048)
+# the widest at 72); past 2048 items of head groups and LN rows of a pair
+# of warps: 2080 (65 heads of 32: five groups of 416 channels, 52 rows on
+# 64 lanes; the pair's 5 chunks a lane, the last partial), 2304 (two groups
+# of 1152), 3072 (two of 1536), 3968 (two of 1984; in 31 heads of 128, 31
+# groups of one head) and 4096 (two of 2048), the widest
+WIDTH_SWEEP_C = (96, 320, 384, 576, 640, 1152, 1600, 2016, 2048, 2080, 2304,
+                 3072, 3968, 4096)
 
 
 def genie_138m_c384(**overrides) -> GenieConfig:
@@ -3644,20 +3688,65 @@ def genie_138m_h72(**overrides) -> GenieConfig:
                                            num_layers=28), **overrides))
 
 
+def genie_138m_c3072(**overrides) -> GenieConfig:
+    """GENIE_138M-C3072: the same JSON at d_model 3072 in 48 heads of 64
+    and 42 layers, the width, head split and depth of CogVideoX-5B's
+    transformer (Yang et al. 2024, arXiv:2408.06072; its
+    transformer/config.json: num_attention_heads 48, attention_head_dim
+    64, num_layers 42), a video model of the family past d_model 2048 (S
+    256, T 16 with 8 prompt frames, bf16 compute, fp32 params, mlp_ratio 4;
+    16 C^2 42 = 6.34e9 block weights: 25.4 GB in fp32)."""
+    return dataclasses.replace(GenieConfig.from_pretrained(RT_CONFIG),
+                               **dict(dict(d_model=3072, num_heads=48,
+                                           num_layers=42), **overrides))
+
+
+# GENIE_138M-C3072's depths: its rollout at the full 42 layers (its caches
+# 33.8 GB at B 16, the engine's fp32 weights 25.4 GB and bf16 serving
+# weights 12.7 GB: a peak of 77.0 GB on an H100 80GB HBM3), held against
+# the plain path at WIDTH_LAYERS (the plain path's own cache would not fit
+# beside it); its ten steps and every other path at WIDTH_LAYERS (fp32
+# weights, gradients and two AdamW moments are 101 GB at 42 layers: the
+# full depth trains only sharded across cards)
+C3072_ROLLOUT_LAYERS = 42
+# the kernel checks' K1 frames of a width (N = 16 where not listed)
+WIDTH_K1_FRAMES = {"c3072": (B, 2 * B, B * P)}
+
 # the phase's configurations: key, maker, and the depths that
-# `check_config_paths` takes other than the configuration's 32 layers and
+# `check_config_paths` takes other than the configuration's own and
 # WIDTH_LAYERS, for the script's time. GENIE_138M-C384: its rollout, ten
 # steps and step against the plain path at WIDTH_LAYERS (at 32 until the
-# head_dim-72 phase came). GENIE_138M-C1600 (1.31B block weights): its
-# rollout and the rollout's comparison with the plain path at WIDTH_LAYERS
-# (16 until the head_dim-72 phase came) and the step's at 8 (its train
-# CLI, at CLI_LAYERS as every phase's: at 8 the CLI's CPU-side state
-# copies, resume and exports of 331M parameters took 126.9 of the phase's
-# 254.9 s on an H100 80GB HBM3); its ten train steps stay at 32.
+# head_dim-72 phase came). GENIE_138M-C1600 (1.31B block weights): the
+# same (its rollout at 16 until the head_dim-72 phase came, its ten steps
+# at 32 until GENIE_138M-C3072 came; its train CLI, at CLI_LAYERS as every
+# phase's: at 8 the CLI's CPU-side state copies, resume and exports of
+# 331M parameters took 126.9 of the phase's 254.9 s on an H100 80GB
+# HBM3). GENIE_138M-C3072: the rollout at C3072_ROLLOUT_LAYERS, the rest
+# at WIDTH_LAYERS.
 WIDTH_CONFIGS = (
     ("c384", genie_138m_c384, dict(deep_layers=WIDTH_LAYERS)),
-    ("c1600", genie_138m_c1600,
-     dict(rollout_layers=WIDTH_LAYERS, plain_layers=WIDTH_LAYERS)))
+    ("c1600", genie_138m_c1600, dict(deep_layers=WIDTH_LAYERS)),
+    ("c3072", genie_138m_c3072,
+     dict(deep_layers=WIDTH_LAYERS, rollout_layers=C3072_ROLLOUT_LAYERS,
+          rollout_plain_layers=WIDTH_LAYERS)))
+
+
+def ln_rows_inputs(inp, C, rows):
+    """x (rows, C) bf16 and the LN's fp32 scale and bias, as K5's check
+    draws them."""
+    return (inp.normal(rows, C, mean=0.3),
+            inp.normal(C, std=0.1, mean=1.0, dtype=torch.float32),
+            inp.normal(C, std=0.1, dtype=torch.float32))
+
+
+def check_layer_norm_rows(inp, C, rows=4099):
+    """K5's row pass at (rows, C) against its plain version by its gate
+    (atol = rtol = 3e-2), untimed; 4099 rows: a block's last group of rows
+    is partial."""
+    x, g, b = ln_rows_inputs(inp, C, rows)
+    return dict(max_abs_err=compare(f"layer_norm[C={C}]", layer_norm(x, g, b),
+                                    layer_norm_plain(x, g, b), 3e-2, 3e-2),
+                shape=[rows, C])
 
 
 def check_ln_rows(inp, C, rows=4099):
@@ -3668,9 +3757,7 @@ def check_ln_rows(inp, C, rows=4099):
     gradients, sums over the rows in another order, by the gradient gates.
     4099 rows: the backward's last block and the forward's last warp
     group are partial."""
-    x = inp.normal(rows, C, mean=0.3)
-    g = inp.normal(C, std=0.1, mean=1.0, dtype=torch.float32)
-    b = inp.normal(C, std=0.1, dtype=torch.float32)
+    x, g, b = ln_rows_inputs(inp, C, rows)
     d_xn = inp.normal(rows, C, dtype=torch.float32)
     dout = inp.normal(rows, C)
     name = f"ln_rows[C={C}]"
@@ -3687,35 +3774,126 @@ def check_ln_rows(inp, C, rows=4099):
 
 def check_width_sweep(device, widths=WIDTH_SWEEP_C):
     """The decode ring and the LN rows at each of `widths`, untimed, against
-    their plain versions: K7 and K8 at every head width that divides C
-    (`decode_forms`: B 4, a 2-layer cache of 16 slots), on the bf16 cache
-    at S = 250 and the int8 cache at S = 252, so that the last tile of each
-    row is short at every width (2 of 4 tokens at 1152 and 1600, 26 of 32
-    at 96; int8 takes S % 4 == 0 only); and the training LN rows
-    (`check_ln_rows`)."""
+    their plain versions: K7 and K8 at every head width that divides C and
+    the ring takes (`decode_forms`: B 4, a 2-layer cache of 16 slots), on
+    the bf16 cache at S = 250 and the int8 cache at S = 252, so that the
+    last tile of each row is short at every width (2 of 4 tokens at 1152,
+    1600 and past 2048, 26 of 32 at 96; int8 takes S % 4 == 0 only); K5 and
+    the training LN rows (`check_ln_rows`). At C = MAX_C in heads of 128
+    also K1 (N = 2), K2 and K3 once each (B 16, a 2-layer cache), the only
+    shapes that reach the widest forms of the fused blocks
+    (`check_widest_blocks`); last every widened wrapper refuses C = MAX_C +
+    32 on the card, naming the limit (`check_no_fallback`)."""
     inp = Inputs(13, device)
     out = {}
     for C in widths:
-        for D in (d for d in HEAD_DIMS if C % d == 0):
+        for D in (d for d in HEAD_DIMS if decode_width_ok(C, C // d)):
             for cache, S in (("bf16", 250), ("int8", 252)):
                 kc, vc = inp.normal(16, 2, 4, S, C), inp.normal(16, 2, 4, S, C)
                 out.update(decode_forms(inp, kc, vc, C // D,
                                         f",C={C},D={D},S={S}", (cache,)))
+        out[f"layer_norm[C={C}]"] = check_layer_norm_rows(inp, C)
         out[f"ln_rows[C={C}]"] = check_ln_rows(inp, C)
+    if MAX_C in widths:
+        out.update(check_widest_blocks(inp, MAX_C, MAX_C // 128))
+    if device.type == "cuda":  # CPU tensors take the plain versions
+        out["no_fallback"] = check_no_fallback(inp)
+    return out
+
+
+def check_widest_blocks(inp, C, H):
+    """K1 (pre-LN, N = 2 frames of GRID tokens), K2 and K3 (`check_temporal
+    _mlp_block`, untimed: B 16, a (16, 2, 16, GRID, C) cache) at width C in
+    H heads against their plain versions by the gates of their GENIE_138M
+    checks."""
+    w = spatial_weights(inp, C)
+    x = inp.normal(2, GRID, C)
+    kw = dict(num_heads=H, scale=(C // H) ** -0.5, **w)
+    out = {f"spatial_block[N=2,C={C}]": dict(max_abs_err=compare(
+        f"spatial_block N=2 C={C}", spatial_block(x, **kw),
+        spatial_block_plain(x, **kw), 3e-2, 3e-2), shape=list(x.shape))}
+    caches = (inp.normal(16, 2, B, GRID, C), inp.normal(16, 2, B, GRID, C))
+    for name, pair in (("temporal_mlp_block", False),
+                       ("temporal_mlp_block_pair", True)):
+        out[f"{name}[C={C}]"] = check_temporal_mlp_block(
+            inp, C, H, 2, caches, pair, timed=False)
+    return out
+
+
+def check_no_fallback(inp, C=MAX_C + 32):
+    """Every wrapper that the widths widened, on tensors on the card at
+    width C past MAX_C (K1 at C + 32, since it asks C % 64 == 0 first),
+    raises before a launch, naming the limit: K5, the training LN rows
+    (forward and backward), K13 and K11 with their LN, K1 with its pre-LN,
+    K2, K3, K7 and K8. Returns the messages."""
+    rows = inp.normal(4, C)
+    g = inp.normal(C, dtype=torch.float32)
+    stats = inp.normal(4, 2, dtype=torch.float32)
+    d_xn = inp.normal(4, C, dtype=torch.float32)
+    wb = block_weights(inp, C)
+    H = C // 32
+    T, L, Bt, S = 2, 2, 1, 4
+    kc = inp.normal(T, L, Bt, S, C)
+    t_B = torch.ones(Bt, dtype=torch.int32, device=rows.device)
+    x1, x2 = inp.normal(Bt, S, C), inp.normal(Bt, 2, S, C)
+    q, k, v = (inp.normal(Bt, S, C) for _ in range(3))
+    blk = dict(scale=0.25, num_heads=H, gelu_tanh=True, **wb)
+    K1 = C + 32
+    w1 = spatial_weights(inp, K1)
+    calls = {
+        "layer_norm": lambda: layer_norm(rows, g, g),
+        "ln_fwd": lambda: tk.ln_fwd(rows, g, g),
+        "ln_bwd": lambda: tk.ln_bwd(rows, stats, g, d_xn, rows),
+        "mlp_train_block": lambda: mtb.mlp_train_block_fwd(
+            rows[None], wb["wfc1"], wb["wfc2"], wb["bfc1"], wb["bfc2"],
+            wb["ln_scale"], wb["ln_bias"], gelu_approx=False),
+        "spatial_train_block_bwd": lambda: stb.spatial_train_block_bwd(
+            inp.normal(1, 64, K1), inp.normal(1, 64, K1), w1["wqkv"],
+            w1["wproj"], None, w1["ln_scale"], w1["ln_bias"],
+            proj_bias=True, num_heads=K1 // 32, scale=0.25),
+        "spatial_block": lambda: spatial_block(
+            inp.normal(1, 64, K1), num_heads=K1 // 32, scale=0.25, **w1),
+        "temporal_mlp_block": lambda: temporal_mlp_block(
+            x1, kc, kc, t_B, layer=1, **blk),
+        "temporal_mlp_block_pair": lambda: temporal_mlp_block_pair(
+            x2, kc, kc, t_B, layer=1, **blk),
+        "temporal_decode_attention": lambda: da.temporal_decode_attention(
+            q, kc, kc, k, v, t_B, layer=1, scale=0.25, num_heads=H),
+        "temporal_decode2_attention": lambda: da.temporal_decode2_attention(
+            q, q, kc, kc, k, v, k, v, t_B, layer=1, scale=0.25,
+            num_heads=H),
+    }
+    kernels.reset_launches()
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            if str(MAX_C) not in str(e):
+                raise AssertionError(f"{name} at C={C}: {e}") from e
+            out[name] = str(e)
+            continue
+        raise AssertionError(f"{name} took C={C}, past MAX_C = {MAX_C}")
+    if any(kernels.LAUNCHES.values()):
+        raise AssertionError(f"a refused call launched {kernels.LAUNCHES}")
     return out
 
 
 def check_width_kernels(C, H, key, device):
     """The kernel forms of a width at its main path's shapes (C channels,
     H heads of 64), each against its plain version by the gates of its
-    GENIE_138M check and timed with its bound: K1 at N = 16, K5, K2 and K3,
-    K7 and K8 (bf16 and int8 cache), K4 at the rollout prefill (causal and
-    not) and K6 at the train step, K11 and K13 with their LN rows (output
-    and every gradient). Keys end in "[`key`]"."""
+    GENIE_138M check and timed with its bound: K1 at N = 16 (and at the
+    frames WIDTH_K1_FRAMES lists for `key`), K5, K2 and K3, K7 and K8 (bf16
+    and int8 cache), K4 at the rollout prefill (causal and not) and K6 at
+    the train step, K11 and K13 with their LN rows (output and every
+    gradient). Keys end in "[`key`]"."""
     inp = Inputs(12, device)
-    L = 32
-    out = {f"spatial_block[N={B}]": check_spatial_block(inp, C, H, B),
-           "layer_norm": check_layer_norm(inp, C)}
+    # the caches' depth only places the layer read: past 2048 channels 8
+    # layers, so that the two caches and their fp32 draws fit the card
+    L = 32 if C <= 2048 else 8
+    out = {f"spatial_block[N={N}]": check_spatial_block(inp, C, H, N)
+           for N in WIDTH_K1_FRAMES.get(key, (B,))}
+    out["layer_norm"] = check_layer_norm(inp, C)
     T = 16
     caches = (inp.normal(T, L, B, GRID, C), inp.normal(T, L, B, GRID, C))
     for name, pair in (("temporal_mlp_block", False),
@@ -3740,15 +3918,15 @@ def check_width_kernels(C, H, key, device):
 
 
 def check_widths(device):
-    """GENIE_138M-C384 and -C1600 end to end, one row of WIDTH_CONFIGS
-    after the other, modelled on `check_head_dim_128`: first the decode
-    ring and the LN rows across widths (`check_width_sweep`); then for each
-    configuration its kernel forms at full size (`check_width_kernels`),
-    the decode batch sizes (`check_decode_batches`) and every entry point
-    (`check_config_paths`): the rollout (B 16, 8 + 8 frames), ten train
-    steps and the step against the plain path at 32 layers, then scores,
-    the evaluator, the train CLI and the qk_norm int8 paths at
-    WIDTH_LAYERS, each at the row's own depth where it gives one."""
+    """GENIE_138M-C384, -C1600 and -C3072 end to end, one row of
+    WIDTH_CONFIGS after the other, modelled on `check_head_dim_128`: first
+    the decode ring and the LN rows across widths (`check_width_sweep`);
+    then for each configuration its kernel forms at full size
+    (`check_width_kernels`), the decode batch sizes
+    (`check_decode_batches`) and every entry point (`check_config_paths`):
+    the rollout (B 16, 8 + 8 frames), ten train steps and the step against
+    the plain path, scores, the evaluator, the train CLI and the qk_norm
+    int8 paths, each at the row's depths."""
     walls = {}
     t0 = time.perf_counter()
     out = {"sweep": check_width_sweep(device)}
@@ -3777,7 +3955,8 @@ def check_widths(device):
 
 # ------------------------------------------------------------ head_dim 72
 
-H72_LAYERS = 8  # the depth of the phase's secondary paths
+# the depth of the phase's paths (8 until GENIE_138M-C3072's phase came, for the script's time)
+H72_LAYERS = 4
 H72_RANK_HEADS = 8  # a tp = 2 rank's heads of GENIE_138M-h72
 
 
@@ -3787,10 +3966,12 @@ def check_head_dim_72(device):
     version (`check_head_width_kernels` at C = 1152, 16 heads, and K4 / K6
     at a tp = 2 rank's 8) and the decode batch sizes
     (`check_decode_batches`), then every entry point
-    (`check_config_paths`): the rollout (B 16, 8 + 8 frames) and ten train
-    steps at 28 layers, the step against the plain path, scores, the
-    evaluator and the qk_norm int8 paths at H72_LAYERS, the train CLI at
-    CLI_LAYERS; last a `use_mup` rollout and step at H72_LAYERS
+    (`check_config_paths`): the rollout (B 16, 8 + 8 frames), ten train
+    steps, the step against the plain path, scores, the evaluator and the
+    qk_norm int8 paths at H72_LAYERS (the rollout and the steps at the
+    configuration's 28 layers until GENIE_138M-C3072's phase came, for the
+    script's time), the train CLI at CLI_LAYERS; last a `use_mup` rollout
+    and step at H72_LAYERS
     (`check_variant`: the attention scale 8 / 72 where 72^-0.5 = 0.1179,
     and the width multiplier 1152 / 256 = 4.5)."""
     cfg = genie_138m_h72()
@@ -3806,7 +3987,7 @@ def check_head_dim_72(device):
     walls["kernels"] = time.perf_counter() - t0
     paths, path_walls = check_config_paths(genie_138m_h72, "head_dim 72",
                                            device, H72_LAYERS,
-                                           plain_layers=H72_LAYERS)
+                                           deep_layers=H72_LAYERS)
     out.update(paths)
     t0 = time.perf_counter()
     mup_cfg = genie_138m_h72(num_layers=H72_LAYERS, use_mup=True)
@@ -4260,8 +4441,10 @@ REMAT_QK = {"attn_outs": {"flash_mha": 1, "flash_mha_bwd": 1,
 DROPOUT_PER_LAYER = {"flash_mha": 1, "flash_mha_bwd": 1}
 RT_UPDATES, RT_ACCUMULATE, RT_EVAL_BATCHES, RT_LR = 6, 2, 2, 2e-5
 RT_CONFIG = Path(__file__).resolve().parent / "configs" / "genie_138m.json"
-DDP_LAYERS = 8  # the world-size-1 DDP / FSDP2 check's depth
-RT_LAYERS = 8  # the GENIE_138M train CLI's depth
+# the world-size-1 DDP / FSDP2 check's depth and the GENIE_138M train
+# CLI's (8 until GENIE_138M-C3072's phase came, for the script's time)
+DDP_LAYERS = 4
+RT_LAYERS = 4
 
 
 def instrumented_cli(argv, profile_updates=None):
@@ -4721,7 +4904,9 @@ def check_training_runtime(device, layers=RT_LAYERS):
 
 
 # ---- tensor parallelism: two ranks on the one card, joined over gloo
-TP_LAYERS, TP_ROWS_ROLLOUT, TP_NEW = 8, 16, 2
+# the setups' depth: 8 until GENIE_138M-C3072's phase came, for the
+# script's time
+TP_LAYERS, TP_ROWS_ROLLOUT, TP_NEW = 2, 16, 2
 # AdamW's eps at 1, above every element of the clipped gradient (its norm
 # is at most 1), so that the first update is a smooth function of the
 # gradient: with 1e-8 it is the sign of each element, and an element near 0
@@ -5716,7 +5901,8 @@ def main() -> int:
         w72 = h72["phase_walls_s"]
         print(f"head_dim 72 phase: {time.perf_counter() - t0:.1f} s ("
               + ", ".join(f"{k} {v:.1f} s" for k, v in w72.items())
-              + f"); GENIE_138M-h72 (16 heads of 72, 28 layers): rollout "
+              + f"); GENIE_138M-h72 (16 heads of 72) at {H72_LAYERS} "
+              f"layers: rollout "
               f"{h72['rollout']['s_per_frame']:.4f} s/frame at B={B}, peak "
               f"{h72['rollout']['peak_memory_bytes']} B; train step "
               f"{h72['training']['step_s']:.4f} s, peak "
@@ -5831,7 +6017,7 @@ def main() -> int:
                     e.update(int8_device_ms=q8["device_ms"],
                              int8_bound_ms=q8["bound_ms"])
                 item[tag] = e
-            # the forms at GENIE_138M-C384's and -C1600's widths: their
+            # the forms at the model widths' configurations: their
             # checks where the phase has one, and the launches on each
             # configuration's paths
             for key, _, _ in WIDTH_CONFIGS:

@@ -32,9 +32,9 @@
     python3 chip_variants.py s1024
     python3 chip_variants.py s1024_times
     python3 chip_variants.py k12gate
-    python3 chip_variants.py widths_debug
-    python3 chip_variants.py ab_times [h32 | h64 | h72 | h128 | groups |
-                                      one_head | widths | ln_rows]
+    python3 chip_variants.py widths_debug [NAME ...]
+    python3 chip_variants.py ab_times [h32 | h64 | h72 | h128 | c3072 |
+                                      groups | one_head | widths | ln_rows]
     python3 chip_variants.py c8
 
 Each LIB is a shared library built from a variant of a source in
@@ -243,15 +243,19 @@ in one process on one card; every time is the profiler's device time
   one head a rank takes, with their bounds: K4 / K6 at head groups of 1,
   the GEMM at a GENIE_35M tp = 8 rank's products, and each TP sub-layer's
   launch sequence at the rank's shapes of GENIE_35M at tp = 8 and
-  GENIE_138M-h128 at tp = 4; `widths` the decode ring's (K7, K8, bf16 and
-  int8), K2's and K3's forms at C = 256 and 512, K11, K13 and the LN rows
-  at 512: what the model widths' kernels share with the parent's.
-- `widths_debug`: the decode, temporal+MLP block, train block and
-  layer-norm libraries' ptxas lines, then each check of the model widths
-  phase (`WIDTHS_DEBUG`: the decode ring and the LN rows at C = 96 to
-  2048 with short last tiles, every kernel form of GENIE_138M-C384 and
-  -C1600 at full size, timed with its bound, and the decode batch sizes
-  at both widths), each in a process of its own with a time limit.
+  GENIE_138M-h128 at tp = 4; `widths` K1 (N = 16), K2, K3, K5, K7 and K8
+  (bf16 and int8), K11, K13 and the LN rows at C = 256 (the ring's forms
+  alone), 512, 1600 and 2048, and at 3072 and 4096 where the tree takes
+  them (`width_times`): what the forms past 2048 share with the parent's;
+  `ln_rows` the LN rows alone at C = 384 to 4096 with their bounds.
+- `widths_debug`: the decode, temporal+MLP block, train block, layer-norm
+  and spatial block libraries' ptxas lines, then each check of the model
+  widths phase (`WIDTHS_DEBUG`: the decode ring, K5 and the LN rows at C =
+  96 to 4096 with short last tiles, K1 / K2 / K3 at 4096 and the refusals
+  past it, every kernel form of GENIE_138M-C384, -C1600 and -C3072 at full
+  size, timed with its bound, the decode batch sizes at the three widths,
+  and GENIE_138M-C3072's entry points), each in a process of its own with
+  a time limit.
 - `s1024_debug`: the flash and spatial libraries' ptxas lines, then
   each spatial check of `chip_smoke.py` at GENIE_138M-S1024's grid
   (`S1024_DEBUG`: the S sweep of K9, K10, K1 and K11 at S = 64 to 4096,
@@ -1739,15 +1743,28 @@ def h64_debug(dev, config: str = "h64"):
                   flush=True)
 
 
+def width_paths(key, dev):
+    """`chip_smoke.check_config_paths` of the WIDTH_CONFIGS row `key`, at
+    the row's depths: the configuration's entry points."""
+    _, make, depths = next(r for r in cs.WIDTH_CONFIGS if r[0] == key)
+    return cs.check_config_paths(make, f"GENIE_138M-{key.upper()}", dev,
+                                 cs.WIDTH_LAYERS, **depths)[0]
+
+
 # the checks of `widths_debug`, each run in a process of its own: the
-# decode ring and the LN rows across widths, then each configuration's
-# kernel forms (timed, with their bounds) and decode batch sizes
+# decode ring and the LN rows across widths (C = 96 to 4096, the widest
+# blocks and the refusals past MAX_C), then each configuration's kernel
+# forms (timed, with their bounds) and decode batch sizes, and
+# GENIE_138M-C3072's entry points
 WIDTHS_DEBUG = {
     "sweep": lambda dev: cs.check_width_sweep(dev),
     "c384": lambda dev: cs.check_width_kernels(384, 6, "c384", dev),
     "c1600": lambda dev: cs.check_width_kernels(1600, 25, "c1600", dev),
+    "c3072": lambda dev: cs.check_width_kernels(3072, 48, "c3072", dev),
     "c384_batches": lambda dev: cs.check_decode_batches(384, 6, dev),
     "c1600_batches": lambda dev: cs.check_decode_batches(1600, 25, dev),
+    "c3072_batches": lambda dev: cs.check_decode_batches(3072, 48, dev),
+    "c3072_paths": functools.partial(width_paths, "c3072"),
 }
 
 
@@ -1761,18 +1778,20 @@ def widths_one(name: str) -> int:
     return 0
 
 
-def widths_debug(dev):
+def widths_debug(dev, names=None):
     """The first call after a change of the decode ring or the LN rows:
     every kernel library rebuilt with ptxas's counts (the decode, temporal
-    +MLP block, train block and layer-norm sources' lines printed), then
-    each check of WIDTHS_DEBUG in a process of its own with a time limit,
-    so that a fault or a hang in one leaves the others' results; each
-    check's whole output goes to chiprun_out/widths_NAME.log."""
+    +MLP block, train block, layer-norm and spatial block sources' lines
+    printed), then each check of WIDTHS_DEBUG (or of `names`, `python3
+    chip_variants.py widths_debug NAME ...`) in a process of its own with a
+    time limit, so that a fault or a hang in one leaves the others'
+    results; each check's whole output goes to widths_NAME.log in the
+    output directory."""
     import subprocess
     logs = kernels.build_all(verbose=True)
     for name, log in logs.items():
         if name not in ("decode_attention", "temporal_mlp_block",
-                        "train_block", "layer_norm"):
+                        "train_block", "layer_norm", "spatial_block"):
             continue
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "error",
@@ -1780,11 +1799,12 @@ def widths_debug(dev):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    for name in WIDTHS_DEBUG:
+    for name in names or WIDTHS_DEBUG:
         try:
             res = subprocess.run([sys.executable, __file__, "widths_one",
                                   name], capture_output=True, text=True,
-                                 timeout=300)
+                                 timeout=600 if name.endswith("paths")
+                                 else 300)
             text, rc = res.stdout + res.stderr, res.returncode
         except subprocess.TimeoutExpired:
             text, rc = "timed out", "timeout"
@@ -1841,25 +1861,39 @@ def width_loss(dev):
                 torch.cuda.empty_cache()
 
 
+# `ab_times widths`: (C, heads) of `width_times`; heads of 64 past 512
+WIDTH_TIMES = ((256, 8), (512, 16), (1600, 25), (2048, 32), (3072, 48),
+               (4096, 64))
+
+
 def width_times(dev):
-    """`ab_times widths`: device ms (profiler) of the forms that the model
-    widths' kernels share with GENIE_138M's, through this checkout's
-    wrappers: K2, K3, K7 and K8 (bf16 and int8 cache, chip_smoke.py's
-    t_B) at C = 256 (8 heads) and 512 (16 heads), the cache (16, 32, 16,
-    256, C); K11's backward and K13's forward and backward (erf, with LN)
-    at the pre-LN train step's (128, 256, 512); the LN row passes alone at
-    its 32768 rows of 512. Only names that a tree from before the widths
-    has, so that a parent's copy runs it too."""
+    """`ab_times widths`: device ms (profiler) of the forms that the widths
+    past 2048 share with the parent's, through this checkout's wrappers, at
+    each (C, heads) of WIDTH_TIMES that the tree's width rule takes
+    (`decode_width_ok`: a parent from before the widths past 2048 skips
+    3072 and 4096): K2, K3, K7 and K8 (bf16 and int8 cache, chip_smoke.py's
+    t_B) on a (16, 32, 16, 256, C) cache (8 layers past 2048, for the
+    card's memory); from C = 512 also K1 (pre-LN, N =
+    16), K5 at the prefill's (16, 8, 256, C), K11's backward and K13's
+    forward and backward (erf, with LN) at the pre-LN train step's (128,
+    256, C), and the LN row passes alone at its 32768 rows. Only names that
+    a tree from before the widths has, so that a parent's copy runs it
+    too."""
     from tpu1x_torch.ops import decode_attention as da
     from tpu1x_torch.ops import mlp_train_block as mtb
     from tpu1x_torch.ops import spatial_train_block as stb
     from tpu1x_torch.ops._train_kernels import ln_bwd, ln_fwd
+    from tpu1x_torch.ops._util import decode_width_ok
+    from tpu1x_torch.ops.layernorm import layer_norm
     from tpu1x_torch.ops.temporal_mlp_block import (temporal_mlp_block,
                                                     temporal_mlp_block_pair)
     inp = cs.Inputs(0, dev)
     times = {}
-    L, T = 32, 16
-    for C, H in ((256, 8), (512, 16)):
+    T = 16
+    for C, H in WIDTH_TIMES:
+        if not decode_width_ok(C, H):
+            continue
+        L = 32 if C <= 2048 else 8  # as `chip_smoke.check_width_kernels`
         caches = (inp.normal(T, L, cs.B, 256, C),
                   inp.normal(T, L, cs.B, 256, C))
         wb = cs.block_weights(inp, C)
@@ -1896,35 +1930,47 @@ def width_times(dev):
                     cs.device_ms(run))
         del caches, kq, vq
         torch.cuda.empty_cache()
-    C, H = 512, 16
-    x = inp.normal(cs.TB * 16, 256, C)
-    dout = inp.normal(cs.TB * 16, 256, C)
-    w = cs.spatial_weights(inp, C)
-    times["K11"] = cs.device_ms(lambda: stb.spatial_train_block_bwd(
-        x, dout, w["wqkv"], w["wproj"], None, w["ln_scale"], w["ln_bias"],
-        proj_bias=True, num_heads=H, scale=(C // H) ** -0.5))
-    wb = cs.block_weights(inp, C)
-    w16 = [wb[k] for k in ("wfc1", "wfc2", "bfc1", "bfc2")]
-    ln = (wb["ln_scale"], wb["ln_bias"])
-    times["K13"] = cs.device_ms(lambda: mtb.mlp_train_block_fwd(
-        x, *w16, *ln, gelu_approx=False))
-    times["K13[bwd]"] = cs.device_ms(lambda: mtb.mlp_train_block_bwd(
-        x, dout, *w16[:3], *ln, gelu_approx=False, bias=True))
-    rows = x.reshape(-1, C)
-    xn, stats = ln_fwd(rows, *ln)
-    d_xn = inp.normal(*rows.shape, dtype=torch.float32)
-    times["ln_fwd"] = cs.device_ms(lambda: ln_fwd(rows, *ln))
-    times["ln_bwd"] = cs.device_ms(lambda: ln_bwd(rows, stats, ln[0], d_xn,
-                                                  dout.reshape(-1, C)))
+        if C < 512:
+            continue
+        w = cs.spatial_weights(inp, C)
+        x1 = inp.normal(cs.B, 256, C)
+        times[f"K1[C={C}]"] = cs.device_ms(lambda: sb.spatial_block(
+            x1, num_heads=H, scale=(C // H) ** -0.5, **w))
+        x5 = inp.normal(cs.B, cs.P, 256, C, mean=0.3)
+        times[f"K5[C={C}]"] = cs.device_ms(lambda: layer_norm(
+            x5, w["ln_scale"], w["ln_bias"]))
+        x = inp.normal(cs.TB * 16, 256, C)
+        dout = inp.normal(cs.TB * 16, 256, C)
+        times[f"K11[C={C}]"] = cs.device_ms(
+            lambda: stb.spatial_train_block_bwd(
+                x, dout, w["wqkv"], w["wproj"], None, w["ln_scale"],
+                w["ln_bias"], proj_bias=True, num_heads=H,
+                scale=(C // H) ** -0.5))
+        w16 = [wb[k] for k in ("wfc1", "wfc2", "bfc1", "bfc2")]
+        ln = (wb["ln_scale"], wb["ln_bias"])
+        times[f"K13[C={C}]"] = cs.device_ms(lambda: mtb.mlp_train_block_fwd(
+            x, *w16, *ln, gelu_approx=False))
+        times[f"K13[bwd,C={C}]"] = cs.device_ms(
+            lambda: mtb.mlp_train_block_bwd(x, dout, *w16[:3], *ln,
+                                            gelu_approx=False, bias=True))
+        rows = x.reshape(-1, C)
+        xn, stats = ln_fwd(rows, *ln)
+        d_xn = inp.normal(*rows.shape, dtype=torch.float32)
+        times[f"ln_fwd[C={C}]"] = cs.device_ms(lambda: ln_fwd(rows, *ln))
+        times[f"ln_bwd[C={C}]"] = cs.device_ms(
+            lambda: ln_bwd(rows, stats, ln[0], d_xn, dout.reshape(-1, C)))
+        del x, dout, rows, xn, d_xn, wb, w
+        torch.cuda.empty_cache()
     print(json.dumps({"ab_device_ms": times}), flush=True)
 
 
-def ln_row_times(dev, widths=(384, 1600, 2048), rows=32768):
+def ln_row_times(dev, widths=(384, 1600, 2048, 3072, 4096), rows=32768):
     """`ab_times ln_rows`: device ms (profiler) and byte bound of the
     training LN row passes alone (`_train_kernels.ln_fwd`, `ln_bwd`) at
-    the train step's 32768 rows of GENIE_138M-C384's, -C1600's and the
-    widest C, forms that a tree from before the widths refuses past 1024
-    (so no A/B). One JSON line."""
+    the train step's 32768 rows of GENIE_138M-C384's, -C1600's, 2048 (a
+    warp's widest row), GENIE_138M-C3072's and the widest C (a pair of
+    warps a row past 2048), forms that a tree from before the widths
+    refuses (so no A/B). One JSON line."""
     inp = cs.Inputs(1, dev)
     out = {}
     for C in widths:
@@ -1950,18 +1996,21 @@ def ln_row_times(dev, widths=(384, 1600, 2048), rows=32768):
 
 # `ab_times CONFIG`: each configuration's keyword arguments of `ab_times`.
 # "h32", "h64", "h128": every attention form at 16, 8 or 4 heads of C =
-# 512 with K11, K12 and SDPA beside them; "groups": the head_dim-32 forms
+# 512 with K11, K12 and SDPA beside them; "h72" and "c3072" the same at
+# GENIE_138M-h72's (C = 1152, 16 heads of 72) and -C3072's (3072, 48 heads
+# of 64) widths; "groups": the head_dim-32 forms
 # with K4 and K6 at their head groups of 4 and 2 too, the serving GEMM
 # chain alone and K13 (what the head groups of 1 and the GEMM's
 # overhanging tiles must leave as fast as they were); "one_head": the
 # forms one head a rank takes (`one_head_times`), which a tree from before
 # them refuses; "widths": the decode ring's, K2's, K3's and the LN rows'
-# forms at GENIE_138M's widths (`width_times`); "ln_rows": the LN rows at
-# the model widths' C, with their bounds (`ln_row_times`, no A/B)
+# forms at the model widths up to 4096 (`width_times`); "ln_rows": the LN
+# rows at the model widths' C, with their bounds (`ln_row_times`, no A/B)
 AB_CONFIGS = {"h32": dict(heads=16, extra=True),
               "h64": dict(heads=8, extra=True),
               "h128": dict(heads=4, extra=True),
               "h72": dict(C=1152, heads=16, extra=True),
+              "c3072": dict(C=3072, heads=48, extra=True),
               "groups": dict(heads=16, extra=True, groups=True),
               "one_head": dict(one_head=True),
               "widths": dict(widths=True),
@@ -1974,7 +2023,8 @@ def ab_times(dev, heads: int = 16, extra: bool = False, T: int = 16,
     """Device ms (profiler) of every attention kernel form through this
     checkout's wrappers at GENIE_138M's main-path shapes (C = 512, `heads`
     heads: 16 of 32 channels, or 8 of 64 for `ab_times h64`; at C = 1152 in
-    16 heads of 72, GENIE_138M-h72's, for `ab_times h72`): K1 both modes at
+    16 heads of 72, GENIE_138M-h72's, for `ab_times h72`, and at 3072 in 48
+    heads of 64, GENIE_138M-C3072's, for `ab_times c3072`): K1 both modes at
     N = 16 / 32 / 128, K2, K3, K4 (train, causal and not; prefill), K6
     (causal, with o, non-causal), K7 and K8 (bf16 and int8, chip_smoke.py's
     t_B), K9 and K10 (causal and not); with `extra` also K11's backward,
@@ -2000,7 +2050,9 @@ def ab_times(dev, heads: int = 16, extra: bool = False, T: int = 16,
     from tpu1x_torch.ops import attention as attn
     from tpu1x_torch.ops import decode_attention as da
     from tpu1x_torch.ops import temporal_attention as ta
-    H, L = heads, 32
+    # the caches' depth only places the layer read: 8 past 2048 channels,
+    # for the card's memory, as `chip_smoke.check_width_kernels`
+    H, L = heads, 32 if C <= 2048 else 8
     inp = cs.Inputs(0, dev)
     times, library = {}, {}
     for qk in (False, True):
@@ -2471,6 +2523,14 @@ def main() -> int:
         return s1024_one(sys.argv[2])
     if sys.argv[1:2] == ["widths_one"]:
         return widths_one(sys.argv[2])
+    if sys.argv[1:2] == ["widths_debug"] and len(sys.argv) > 2:
+        if not torch.cuda.is_available() or not set(
+                sys.argv[2:]) <= set(WIDTHS_DEBUG):
+            print(__doc__, file=sys.stderr)
+            return 2
+        widths_debug(torch.device("cuda"), sys.argv[2:])
+        print(cs.card_line(), flush=True)
+        return 0
     if sys.argv[1:2] == ["ab_times"] and len(sys.argv) == 3:
         if not torch.cuda.is_available() or sys.argv[2] not in AB_CONFIGS:
             print(__doc__, file=sys.stderr)

@@ -71,6 +71,10 @@ def caches(rng, int8, t_B, C_=C):
                                                       id="1-C384"),
                                          pytest.param(1, 25, 1600,
                                                       id="1-C1600"),
+                                         pytest.param(1, 48, 3072,
+                                                      id="1-C3072"),
+                                         pytest.param(1, 32, 4096,
+                                                      id="1-C4096"),
                                          pytest.param(1, 2, 144,
                                                       id="1-h72")])
 @pytest.mark.parametrize("int8", [False, True], ids=["plain-cache", "int8"])
@@ -81,7 +85,9 @@ def test_decode_attention_t16(pair, int8, layer, H_, C_):
     the caller's `out` and the k/v copies into `kv_out` are the same. H_ = 1
     at C = 64 and 128: head_dim 64 and 128, the kernel's other head
     widths; 6 and 25 heads of 64 at C = 384 and 1600, GENIE_138M-C384's
-    and -C1600's widths (not multiples of 256); 2 heads of 72 at C = 144
+    and -C1600's widths (not multiples of 256); 48 heads of 64 at C = 3072
+    (GENIE_138M-C3072's) and 32 of 128 at 4096, past 2048 channels, where
+    the card's items hold a group of whole heads; 2 heads of 72 at C = 144
     (head_dim 72)."""
     rng = np.random.default_rng(10 + 2 * pair + int8)
     frames = 2 if pair else 1
@@ -193,6 +199,8 @@ def _refused(case):
         return contract(C_=320)
     if case == "C > 2048":
         return contract(C_=2304)
+    if case == "C > 4096":
+        return contract(C_=4128)
     kw = contract(int8=case in ("one scale", "int8 S % 4", "scale alignment"))
     if case == "one scale":
         kw["v_scale"] = None
@@ -224,7 +232,8 @@ def _refused(case):
 @pytest.mark.parametrize("case,message", [
     ("T = 33", "T <= 32"),
     pytest.param("C = 320", None, id="C = 320-C % 256 == 0"),
-    ("C > 2048", "C <= 2048"),
+    pytest.param("C > 2048", None, id="C > 2048-C <= 2048"),
+    ("C > 4096", "C <= 4096"),
     ("one scale", "both cache scales or neither"),
     ("int8 S % 4", r"S % 4 == 0"),
     ("layer", "layer must be an int"),
@@ -242,9 +251,13 @@ def test_check_refuses(case, message):
     there is no fallback on the card. C = 320 (10 heads of 32), which the
     ring refused while its items' rows had to be whole warps at 4 tokens
     (C % 256 == 0, the case's id), is taken since the ring takes any
-    width up to 2048 (message None: the call returns its strides)."""
+    width up to 2048, and C = 2304, which it refused while 2048 was its
+    limit (the case's id), since past 2048 channels an item holds a group
+    of whole heads, up to MAX_C = 4096 (message None: the call returns its
+    strides)."""
     if message is None:
-        assert tdec._check(**_refused(case)) == [(8 * 3 * 320, 3 * 320)] * 3
+        C_ = 320 if case == "C = 320" else 2304
+        assert tdec._check(**_refused(case)) == [(8 * 3 * C_, 3 * C_)] * 3
         return
     with pytest.raises(ValueError, match=message):
         tdec._check(**_refused(case))

@@ -25,9 +25,9 @@ both packages on the CPU.
   gradients but the weight and LN parameter gradients, sums over the rows
   (atol 2e-4 + rtol 1e-3).
 - The width rule of the decode ring (`_util.decode_width_ok`, shared by
-  K7/K8's and K2/K3's wrappers) takes every C up to 2048 whose head width
-  is 32, 64, 72 or 128, and refuses C = 2080, naming the limit; so does the
-  LN rows' limit.
+  K7/K8's and K2/K3's wrappers) takes every C up to `_util.MAX_C` = 4096
+  whose head width is 32, 64, 72 or 128 (at 72 up to 2016), and refuses C =
+  4128, naming the limit; so does the LN rows' limit, the same constant.
 
 The decode attention and the temporal+MLP block at C = 384 and 1600
 against their JAX kernels are cases of their own ops tests (the `C384` and
@@ -53,7 +53,6 @@ from tpu1x_torch import kernels
 from tpu1x_torch.config import GenieConfig
 from tpu1x_torch.models.sampler import generate_cached_fused
 from tpu1x_torch.models.st_maskgit import STMaskGIT
-from tpu1x_torch.ops import _train_kernels as tk
 from tpu1x_torch.ops import _util
 from tpu1x_torch.ops.mlp_train_block import (mlp_train_block_bwd,
                                              mlp_train_block_fwd)
@@ -281,8 +280,13 @@ def held(name, got, want):
 @pytest.mark.parametrize("C", [1600, 2048])
 def test_mlp_train_block_ln_rows(C):
     """K13 with its LN at C = 1600 (7 chunks of 8 channels a lane on the
-    card) and 2048 (8): 2 x 8 rows, hidden 64, the output and the gradient
-    of x, both weights, both biases, the LN scale and bias."""
+    card) and 2048 (8): `mlp_ln_rows_case`."""
+    mlp_ln_rows_case(C)
+
+
+def mlp_ln_rows_case(C):
+    """K13 with its LN at width C: 2 x 8 rows, hidden 64, the output and the
+    gradient of x, both weights, both biases, the LN scale and bias."""
     from tpu1x.ops.mlp_train_block import mlp_train_block as jax_fn
     rng = np.random.default_rng(C)
     F4 = 64
@@ -309,12 +313,17 @@ def test_mlp_train_block_ln_rows(C):
 
 
 def test_spatial_train_block_ln_rows_at_c1600():
-    """K11's backward with LN1 at C = 1600 (25 heads of 64), 1 x 16 rows:
-    the gradient of x, both weights, the proj bias, the LN scale and bias,
-    and the value through K1's forward."""
+    """K11's backward with LN1 at C = 1600 (25 heads of 64):
+    `spatial_ln_rows_case`."""
+    spatial_ln_rows_case(1600, 25, 7)
+
+
+def spatial_ln_rows_case(C, H, seed):
+    """K11's backward with LN1 at width C in H heads, 1 x 16 rows: the
+    gradient of x, both weights, the proj bias, the LN scale and bias, and
+    the value through K1's forward."""
     from tpu1x.ops.spatial_train_block import spatial_train_block as jax_fn
-    rng = np.random.default_rng(7)
-    C, H = 1600, 25
+    rng = np.random.default_rng(seed)
     args = dict(x=rand(rng, 1, 16, C), wqkv=rand(rng, C, 3 * C, scale=0.02),
                 wproj=rand(rng, C, C, scale=0.02), bqkv=None,
                 bproj=rand(rng, C, scale=0.02),
@@ -343,12 +352,17 @@ def test_spatial_train_block_ln_rows_at_c1600():
 
 # ------------------------------------------------------------ the contract
 
-# (C, head widths that divide it): the untimed widths of chip_smoke.py's
-# width phase and its two configurations
+# (C, head widths that the ring takes there): the untimed widths of
+# chip_smoke.py's width phase and its configurations; past 2048 an item is
+# a group of whole heads (2080: five of 13 heads of 32; 3968 in heads of
+# 128: 31 of one), and heads of 72 end at 2016 (2304 = 32 x 72 is not
+# taken)
 WIDTHS = [(96, (32,)), (320, (32, 64)), (384, (32, 64, 128)),
           (576, (32, 64, 72)), (640, (32, 64, 128)),
           (1152, (32, 64, 72, 128)), (1600, (32, 64)), (2016, (32, 72)),
-          (2048, (32, 64, 128))]
+          (2048, (32, 64, 128)), (2080, (32,)), (2304, (32, 64, 128)),
+          (3072, (32, 64, 128)), (3968, (32, 64, 128)),
+          (4096, (32, 64, 128))]
 
 
 @pytest.mark.parametrize("C,dims", WIDTHS, ids=[str(c) for c, _ in WIDTHS])
@@ -359,13 +373,20 @@ def test_decode_width_rule_takes(C, dims):
 
 
 def test_decode_width_rule_refuses():
-    """C = 2080 (65 heads of 32) is past the ring's 256 rows of an item of
-    4 tokens, and a head width the kernels lack is refused, each naming
-    its limit; the LN rows end at 2048 as well."""
-    assert not _util.decode_width_ok(2080, 65)
-    with pytest.raises(ValueError, match="C <= 2048"):
-        _util.check_decode_width(2080, 65, "decode attention kernel")
+    """C = 4128 (129 heads of 32) is past the one width limit, `_util.MAX_C`
+    = 4096, heads of 72 past 2016 (2304 in 32) are past the ring's lanes of
+    an item, and a head width the kernels lack is refused, each naming its
+    limit; the LN rows end at the same constant."""
+    assert _util.MAX_C == 4096
+    assert not _util.decode_width_ok(4128, 129)
+    with pytest.raises(ValueError, match="C <= 4096"):
+        _util.check_decode_width(4128, 129, "decode attention kernel")
+    assert not _util.decode_width_ok(2304, 32)  # heads of 72
+    with pytest.raises(ValueError, match="C <= 2016"):
+        _util.check_decode_width(2304, 32, "decode attention kernel")
     assert not _util.decode_width_ok(1600, 20)  # heads of 80
     with pytest.raises(ValueError, match="head_dim 32, 64, 72 or 128"):
         _util.check_decode_width(1600, 20, "decode attention kernel")
-    assert _util.DECODE_MAX_C == tk.LN_MAX_C == 2048
+    _util.check_width(4096, "the LayerNorm row pass")
+    with pytest.raises(ValueError, match="C <= 4096"):
+        _util.check_width(4128, "the LayerNorm row pass")

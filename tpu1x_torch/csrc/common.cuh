@@ -30,6 +30,40 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The widest d_model the port's kernels take: K5's row pass (and K1's, K2's
+// and K3's LN), the training LN rows of K11 and K13, and the decode ring
+// (K7, K8 and K2/K3's cache attention). tpu1x_torch/ops/_util.py `MAX_C`
+// is the same value, the limit every wrapper checks.
+constexpr int MAX_C = 4096;
+
+// The sums a and b of one row that G neighbouring warps of a block of WARPS
+// warps hold between them (G = 1: the warp's own), in every lane: each
+// warp's by shuffles, then for G > 1 through shared memory and a named
+// barrier of the G warps (barrier 1 + the group's index in the block),
+// added in warp order, so that every lane of the group holds the same
+// bits. Successive calls of a group alternate `parity`: a slot is written
+// again only after every warp of the group has passed the barrier of the
+// call between, which each reaches after its read of the slot.
+template <int G, int WARPS>
+__device__ __forceinline__ void row_sums(float& a, float& b, int parity) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  if constexpr (G > 1) {
+    __shared__ float2 slots[2][WARPS];
+    const int warp = threadIdx.x >> 5, first = warp - warp % G;
+    if ((threadIdx.x & 31) == 0) slots[parity][warp] = make_float2(a, b);
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + warp / G), "r"(32 * G)
+                 : "memory");
+    a = slots[parity][first].x;
+    b = slots[parity][first].y;
+#pragma unroll
+    for (int i = 1; i < G; ++i) {
+      a += slots[parity][first + i].x;
+      b += slots[parity][first + i].y;
+    }
+  }
+}
+
 // Sum over the 4 lanes (xor 1, 2) that share one 32-channel head when each
 // lane holds 8 channels.
 __device__ __forceinline__ float quad_sum(float v) {

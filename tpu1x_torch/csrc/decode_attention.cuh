@@ -10,11 +10,18 @@
 // all T slots and masked. Under one FMA a byte, so what limits the kernel
 // is bytes in flight and the arithmetic per byte, not the tensor cores
 // (each (token, head) has its own keys):
-//   - a work item is a tile of `ts` tokens of one row b, all heads: for
-//     each slot t, its K rows and its V rows are each one contiguous run
-//     of ts C elements of the cache (and, for int8, its ts scales of K and
-//     of V one run each), so one 1-D bulk copy (cp.async.bulk) a tensor
-//     brings a slot's tile into shared memory, with no tensor map;
+//   - a work item is a tile of `ts` tokens of one row b, all heads up to
+//     C = 2048: for each slot t, its K rows and its V rows are each one
+//     contiguous run of ts C elements of the cache (and, for int8, its ts
+//     scales of K and of V one run each), so one 1-D bulk copy
+//     (cp.async.bulk) a tensor brings a slot's tile into shared memory,
+//     with no tensor map. Past C = 2048 an item is a group of whole heads
+//     of its tokens (the attention over the frame axis is per head): the
+//     heads split into the fewest equal groups of at most 2048 channels
+//     (C = 3072 and 4096: two), so that every per-item size (rows, item
+//     buffer, stage) stays at or below the C = 2048 form's, and a slot's
+//     tile is one bulk copy a token and tensor, cg channels at a stride of
+//     C (`decode_plan`);
 //   - persistent blocks, as many as the card keeps resident, walk the
 //     items sorted by their slot count (t_B on the card), block j taking
 //     the j-th of each round of G items going one way and the (G - 1 -
@@ -99,17 +106,19 @@ constexpr int DA_MAXT = 32;
 // each, whatever the head width), and the shared memory a block gives its
 // item buffer and ring with a bf16 cache (three blocks an SM) and with an
 // int8 cache (four: its arithmetic a byte is the larger); at least two
-// stages. The tokens of an item are DA_ROWS / (C / 32), a
-// multiple of 4 (so that an item's int8 scales are whole 16-byte runs), at
-// least 4, where that makes the rows whole warps (every C % 256 == 0);
-// other widths take more tokens or idle lanes (`decode_plan`). Measured
-// with `chip_variants.py da` (PERF.md section 6).
+// stages. The tokens of an item are DA_ROWS / (cg / 32) for an item of cg
+// channels (C, or a head group's past 2048), a multiple of 4 (so that an
+// item's int8 scales are whole 16-byte runs), at least 4, where that makes
+// the rows whole warps (every cg % 256 == 0); other widths take more
+// tokens or idle lanes (`decode_plan`). Measured with `chip_variants.py
+// da` (PERF.md section 6).
 constexpr int DA_ROWS = 64;
 constexpr int DA_SMEM = 64 * 1024;
 constexpr int DA_SMEM_Q8 = 52 * 1024;
 constexpr int DA_MAX_STAGES = 32;
-// Rows a block may hold (C = 2048 at 4 tokens: the widest C a launch
-// takes, since an item holds at least 4 tokens), and its threads; at
+// Rows a block may hold (2048 channels at 4 tokens: the widest item, since
+// an item holds at least 4 tokens; a wider C splits into head groups of at
+// most DA_MAX_ROWS * 8 channels), and its threads; at
 // head_dim 72 the consumer lanes of 4 tokens of C = 2016 (28 heads, 112
 // rows of three lanes, ten a warp: twelve warps), a form of its own (WIDE)
 // past DA_THREADS: its 13 warps put 4 on an SM sub-partition, a cap of 128
@@ -155,10 +164,12 @@ struct DecodeAttnArgs {
 // The launch's shape, from S, C and the cache type (decode_plan).
 struct DecodePlan {
   int ts;        // tokens of an item
+  int groups;    // head groups of a token: 1 up to 2048 channels
+  int cg;        // an item's channels of a token, C / groups
   int rows;      // (token, 32 channels) rows of an item (24 at head_dim 72)
   int lanes;     // the consumer threads: rows rounded up to a warp (at 72
                  // ten head rows of three lanes a warp)
-  int tiles;     // items of one row b
+  int tiles;     // items of one row b: token tiles times head groups
   int stages;    // stages of the ring
   uint32_t tile_bytes;   // one slot's K (or V) rows of a full item
   uint32_t stage_bytes;  // K, V and the int8 scales
@@ -326,8 +337,11 @@ __global__ void __launch_bounds__(WIDE ? DA_THREADS_72 : DA_THREADS, 1)
   const uint32_t full0 = smem_u32(smem), empty0 = full0 + DA_MAX_STAGES * 8;
   const uint32_t io_full = empty0 + DA_MAX_STAGES * 8, io_empty = io_full + 8;
   const int B = a.B, nb = a.nb, S = a.S, C = a.C, T = a.T;
+  // head groups only past 2048 channels, which head_dim 72 never reaches:
+  // its forms keep the one-group arithmetic (and registers) at compile time
+  const int groups = D == 72 ? 1 : p.groups, cg = D == 72 ? C : p.cg;
   const long items = (long)nb * p.tiles;
-  const uint32_t row_bytes = p.ts * C * 2;  // one tensor of an item in io
+  const uint32_t row_bytes = p.ts * cg * 2;  // one tensor of an item in io
 
   for (int i = threadIdx.x; i < nb; i += blockDim.x)
     slots[i] = max(0, min(a.t_B[i], T));
@@ -361,36 +375,50 @@ __global__ void __launch_bounds__(WIDE ? DA_THREADS_72 : DA_THREADS, 1)
       const long n = da_walk(step, blockIdx.x, gridDim.x);
       if (n >= items) break;
       // an item's index fits 32 bits (DA_MAX_B rows of at most S / 4
-      // tiles): the division in 32 bits
+      // tiles of at most C / 32 head groups): the division in 32 bits
       const int ni = (int)n;
-      const int b = order[ni / p.tiles], s0 = (ni % p.tiles) * p.ts;
+      int tile = ni % p.tiles, c0 = 0;  // token tile, the group's channel
+      if (groups > 1) {
+        const int w = tile;
+        tile = w / groups;
+        c0 = (w - tile * groups) * cg;
+      }
+      const int b = order[ni / p.tiles], s0 = tile * p.ts;
       const int ntok = min(p.ts, S - s0), tb = slots[b];
       // the item's q, k, v rows, once the consumers have read the last ones
       if (step > 0) mbar_wait(io_empty, (step - 1) & 1);
-      mbar_expect_tx(io_full, 3 * F * ntok * C * 2);
+      mbar_expect_tx(io_full, 3 * F * ntok * cg * 2);
 #pragma unroll
       for (int f = 0; f < F; ++f)
         for (int i = 0; i < 3; ++i) {
           const bf16* x = (i == 0 ? a.q[f] : i == 1 ? a.k[f] : a.v[f]) +
-                          b * a.sb[i] + s0 * a.ld[i];
+                          b * a.sb[i] + s0 * a.ld[i] + c0;
           const uint32_t dst = smem_u32(io + (f * 3 + i) * row_bytes);
           for (int j = 0; j < ntok; ++j)
-            bulk_load_hint(dst + j * C * 2, x + j * a.ld[i], C * 2, io_full,
+            bulk_load_hint(dst + j * cg * 2, x + j * a.ld[i], cg * 2, io_full,
                            once);
         }
-      const uint32_t bytes = ntok * C * ELT;
+      // a slot's K (or V) rows of the item: one run of ntok C elements, or
+      // past 2048 channels a run of cg a token, C apart
+      const uint32_t run = cg * ELT, bytes = ntok * run;
+      const int runs = groups == 1 ? 1 : ntok;
+      const uint32_t run_bytes = groups == 1 ? bytes : run;
       for (int t = 0; t < tb; ++t, ++used) {
         if (used >= p.stages) mbar_wait(empty0 + 8 * stage, phase ^ 1);
         const uint32_t bar = full0 + 8 * stage;
         uint8_t* st = ring + (size_t)stage * p.stage_bytes;
         mbar_expect_tx(bar, 2 * bytes + (Q ? 8 * ntok : 0));
-        const long off = ((((long)t * a.L + a.layer) * B + b) * S + s0) * C;
-        bulk_load_hint(smem_u32(st),
-                       static_cast<const uint8_t*>(a.kc) + off * ELT, bytes,
-                       bar, once);
-        bulk_load_hint(smem_u32(st + p.tile_bytes),
-                       static_cast<const uint8_t*>(a.vc) + off * ELT, bytes,
-                       bar, once);
+        const long off =
+            ((((long)t * a.L + a.layer) * B + b) * S + s0) * C + c0;
+        for (int j = 0; j < runs; ++j) {
+          const long at = (off + (long)j * C) * ELT;
+          bulk_load_hint(smem_u32(st + j * run),
+                         static_cast<const uint8_t*>(a.kc) + at, run_bytes,
+                         bar, once);
+          bulk_load_hint(smem_u32(st + p.tile_bytes + j * run),
+                         static_cast<const uint8_t*>(a.vc) + at, run_bytes,
+                         bar, once);
+        }
         if constexpr (Q) {
           const long so = (((long)a.layer * B + b) * T + t) * S + s0;
           bulk_load(smem_u32(st + 2 * p.tile_bytes), a.ksc + so, 4 * ntok,
@@ -410,9 +438,9 @@ __global__ void __launch_bounds__(WIDE ? DA_THREADS_72 : DA_THREADS, 1)
   int r = threadIdx.x;
   if constexpr (D == 72)
     r = (r & 31) < 30 ? 30 * (r >> 5) + (r & 31) : p.rows;
-  const int rw = C / W;
+  const int rw = cg / W;
   const int tok = r / rw;
-  const long hc = (r % rw) * W;
+  const int hr = (r % rw) * W;  // the row's first channel in its group
   const int rot = Q ? (r >> 2) & 1 : (r >> 1) & 3;
   const float sc2 = a.scale * 1.4426950408889634f;  // logits in log2 units
   int stage = 0;
@@ -423,7 +451,13 @@ __global__ void __launch_bounds__(WIDE ? DA_THREADS_72 : DA_THREADS, 1)
     // in 32 bits, as the producer's (the 64-bit division's temporaries
     // cost the pair form a spill at 168 registers)
     const int ni = (int)n;
-    const int b = order[ni / p.tiles], s = (ni % p.tiles) * p.ts + tok;
+    int tile = ni % p.tiles, hc = hr;  // token tile, the row's channel
+    if (groups > 1) {
+      const int w = tile;
+      tile = w / groups;
+      hc += (w - tile * groups) * cg;
+    }
+    const int b = order[ni / p.tiles], s = tile * p.ts + tok;
     // a last tile may be short; idle lanes hold no row
     const bool live = r < p.rows && s < S;
     const int tb = slots[b];
@@ -551,7 +585,12 @@ __global__ void __launch_bounds__(WIDE ? DA_THREADS_72 : DA_THREADS, 1)
 }
 
 // The launch's shape: tokens of an item, its stages from DA_SMEM or
-// DA_SMEM_Q8. An item holds ts tokens of rw = C / 32 rows: DA_ROWS rows'
+// DA_SMEM_Q8. Up to C = 2048 an item holds all C channels of its tokens
+// (groups 1, cg = C); past it the heads split into the fewest equal groups
+// of at most DA_MAX_ROWS * 8 = 2048 channels (C = 2304, 3072, 4096: two of
+// C / 2; 2080, 65 heads of 32: five of 416; 3968 in 31 heads of 128: 31 of
+// 128), and the rule below is cg's. An item holds ts tokens of rw = cg / 32
+// rows: DA_ROWS rows'
 // worth rounded down to a multiple of 4 tokens, at least 4, as at every C
 // % 256 == 0, whose rows are then whole warps. At another C % 32 == 0 the
 // consumers count whole warps on the barriers, so: the next multiple of 4
@@ -564,8 +603,13 @@ __global__ void __launch_bounds__(WIDE ? DA_THREADS_72 : DA_THREADS, 1)
 // dim 72 rows of 24 channels, a head three of them, ten heads a warp: the
 // same rule counts heads by tens (C = 1152: 4 tokens, 64 heads on 7 warps,
 // 224 lanes; 2016: 4, 112 on 12, 384).
-inline DecodePlan decode_plan(int frames, int S, int C, bool q8, int D) {
+inline DecodePlan decode_plan(int frames, int S, int C_all, bool q8, int D) {
   DecodePlan p{};
+  p.groups = 1;
+  for (const int heads = C_all / D; C_all / p.groups > 8 * DA_MAX_ROWS ||
+                                    heads % p.groups;)
+    ++p.groups;
+  const int C = p.cg = C_all / p.groups;
   if (D == 72) {
     const int heads = C / 72;
     p.ts = (DA_ROWS * 24 / C) & ~3;
@@ -586,7 +630,7 @@ inline DecodePlan decode_plan(int frames, int S, int C, bool q8, int D) {
     p.rows = p.ts * rw;
     p.lanes = (p.rows + 31) & ~31;
   }
-  p.tiles = (S + p.ts - 1) / p.ts;
+  p.tiles = (S + p.ts - 1) / p.ts * p.groups;
   p.tile_bytes = (uint32_t)p.ts * C * (q8 ? 1 : 2);
   p.stage_bytes = 2 * p.tile_bytes + (q8 ? 8 * p.ts : 0);
   p.io_bytes = 3 * frames * p.ts * C * 2;
@@ -659,13 +703,14 @@ inline DecodeAttnArgs decode_rows(const DecodeAttnArgs& a, int frames, int b0,
 
 // The widths the ring takes (`decode_plan`): head_dim D of 32, 64, 72 or
 // 128, C a multiple of D (so of 32, or of 24 at head_dim 72, and a head row
-// never across a warp) and at most 8 DA_MAX_ROWS = 2048 (an item holds at
-// least 4 tokens of C / 32 rows; at 72 of C / 24 rows on at most
-// DA_MAX_LANES_72 lanes, C <= 2016). tpu1x_torch/ops/_util.py
+// never across a warp) and at most MAX_C = 4096 (an item holds at least 4
+// tokens of a head group's cg / 32 rows, cg <= 8 DA_MAX_ROWS = 2048); at
+// head_dim 72 at most 8 DA_MAX_ROWS, so C <= 2016 (one group, C / 24 rows
+// on at most DA_MAX_LANES_72 lanes). tpu1x_torch/ops/_util.py
 // `decode_width_ok` states the same rule.
 inline bool decode_width_ok(int C, int D) {
   return (D == 32 || D == 64 || D == 72 || D == 128) && C > 0 &&
-         C % D == 0 && C <= 8 * DA_MAX_ROWS;
+         C % D == 0 && C <= (D == 72 ? 8 * DA_MAX_ROWS : MAX_C);
 }
 
 // Requires frames in {1, 2}, T <= DA_MAXT, a width that decode_width_ok

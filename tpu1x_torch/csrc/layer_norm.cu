@@ -7,7 +7,7 @@
 using namespace tpu1x;
 
 // x, y (rows, C) bf16; scale, bias (C,) fp32, all 16-byte aligned. Requires
-// C % 8 == 0, C <= 2048.
+// C % 8 == 0, C <= MAX_C (4096; a pair of warps a row past 2048).
 extern "C" int tpu1x_layer_norm(const void* x, const void* scale,
                                 const void* bias, void* y, int rows, int C,
                                 float eps, void* stream) {

@@ -5,10 +5,11 @@
 //
 // Replaces the Pallas kernel tpu1x/ops/layernorm.py:layer_norm (_kernel).
 // Bound on the H100: device memory, one read and one write of each row (67
-// MB at the prefill's 32768 x 512, 0.020 ms at 3.35 TB/s); the arithmetic,
-// 7 fp32 operations a value, is a tenth of that. Reaching the bytes' rate
-// takes many loads in flight on every SM (one row a warp, with registers
-// for C = 2048 whatever C, reaches a third of it), so:
+// MB at the prefill's 32768 x 512, 0.020 ms at 3.35 TB/s; 403 MB, 0.120
+// ms, at 32768 x 3072); the arithmetic, 7 fp32 operations a value, is a
+// tenth of that. Reaching the bytes' rate takes many loads in flight on
+// every SM (one row a warp, with registers for C = 2048 whatever C,
+// reaches a third of it), so:
 // - the kernel is templated on V, the 16-byte chunks of 8 channels a lane
 //   holds, ceil(C / 256): at C = 512 a lane holds 2 chunks, and only the
 //   last chunk of a row can lie past C and carries a guard;
@@ -18,9 +19,14 @@
 // - up to V = 4 (C <= 1024) gamma and beta are loaded once a warp as float4
 //   and kept in registers; above, they come through L1 with each row, which
 //   keeps the registers of V = 8 below spilling;
+// - past C = 2048 (LN_MAXV chunks a lane) a row is G = 2 warps', a pair
+//   of neighbouring warps walking rows as one warp does, each lane with V =
+//   ceil(C / 512) chunks: the registers of the V <= 8 forms up to MAX_C =
+//   4096 (V = 12 or 16 in one warp would spill), the row's two sums added
+//   through shared memory after a barrier of the pair (`row_sums`);
 // - the grid is the blocks the card keeps resident (fewer for few rows);
 //   loads and stores are 16 bytes.
-// Any row count; C % 8 == 0, C <= 2048.
+// Any row count; C % 8 == 0, C <= MAX_C.
 // ptxas (sm_90a): registers a thread for V = 1 .. 8: 46, 76, 106, 128, 80,
 // 134, 132, 132 (V = 2, the GENIE widths' C = 512: 76, three blocks of 256
 // threads an SM); no spills, no shared memory.
@@ -33,7 +39,8 @@ namespace tpu1x {
 
 constexpr int LN_THREADS = 256;
 constexpr int LN_WARPS = LN_THREADS / 32;
-constexpr int LN_MAXV = 8;  // chunks of 8 channels a lane: C <= 2048
+constexpr int LN_MAXV = 8;  // chunks of 8 channels a lane: a warp's row
+                            // up to C = 2048, a pair's up to MAX_C
 
 __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -45,25 +52,30 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
   }
 }
 
-template <int V>
+// G warps a row (1, or 2 past LN_MAXV * 256 channels): lane p of a group,
+// p = 32 (warp % G) + lane, holds chunk j of channels (32 G j + p) * 8 ..
+// + 7; at G = 1 the arithmetic of one warp a row.
+template <int V, int G>
 __global__ void __launch_bounds__(LN_THREADS)
     layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
                       const float* __restrict__ b, bf16* __restrict__ y,
                       int rows, int C, float eps) {
   constexpr bool kHold = V <= 4;  // gamma and beta in registers
-  const int lane = threadIdx.x & 31;
-  const int warps = gridDim.x * LN_WARPS;
-  int row = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
-  if (row >= rows) return;  // the whole warp leaves together
-  // chunk j of a lane: channels (j * 32 + lane) * 8 .. + 7
-  auto inside = [&](int j) { return j < V - 1 || (j * 32 + lane) * 8 < C; };
+  constexpr int GROUPS = LN_WARPS / G;  // rows of a block at a time
+  const int warp = threadIdx.x >> 5;
+  const int p = (warp % G) * 32 + (threadIdx.x & 31);
+  const int groups = gridDim.x * GROUPS;
+  int row = blockIdx.x * GROUPS + warp / G;
+  if (row >= rows) return;  // the whole group leaves together
+  // chunk j of a lane: channels (j * 32 G + p) * 8 .. + 7
+  auto inside = [&](int j) { return j < V - 1 || (j * 32 * G + p) * 8 < C; };
 
   float4 gv[kHold ? V : 1][2], bv[kHold ? V : 1][2];
   if constexpr (kHold) {
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       if (inside(j)) {
-        const int c = (j * 32 + lane) * 8;
+        const int c = (j * 32 * G + p) * 8;
         gv[j][0] = __ldg(reinterpret_cast<const float4*>(g + c));
         gv[j][1] = __ldg(reinterpret_cast<const float4*>(g + c) + 1);
         bv[j][0] = __ldg(reinterpret_cast<const float4*>(b + c));
@@ -78,11 +90,12 @@ __global__ void __launch_bounds__(LN_THREADS)
 #pragma unroll
     for (int j = 0; j < V; ++j)
       if (inside(j))
-        dst[j] = __ldcs(reinterpret_cast<const uint4*>(xr + (j * 32 + lane) * 8));
+        dst[j] = __ldcs(
+            reinterpret_cast<const uint4*>(xr + (j * 32 * G + p) * 8));
   };
   load(cur, row);
-  for (;;) {
-    const int next = row + warps;
+  for (int parity = 0;; parity ^= 1) {
+    const int next = row + groups;
     if (next < rows) load(nxt, next);
     float s = 0.f, ss = 0.f;
 #pragma unroll
@@ -97,15 +110,14 @@ __global__ void __launch_bounds__(LN_THREADS)
         }
       }
     }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
+    row_sums<G, LN_WARPS>(s, ss, parity);
     const float mu = s / C;
     const float rs = rsqrtf(ss / C - mu * mu + eps);
     bf16* yr = y + (long)row * C;
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       if (inside(j)) {
-        const int c = (j * 32 + lane) * 8;
+        const int c = (j * 32 * G + p) * 8;
         float4 gg[2], bb[2];
         if constexpr (kHold) {
           gg[0] = gv[j][0], gg[1] = gv[j][1], bb[0] = bv[j][0], bb[1] = bv[j][1];
@@ -133,34 +145,46 @@ __global__ void __launch_bounds__(LN_THREADS)
 
 typedef void (*LnKernel)(const bf16*, const float*, const float*, bf16*, int,
                          int, float);
-static const LnKernel kLnKernels[LN_MAXV] = {
-    layer_norm_kernel<1>, layer_norm_kernel<2>, layer_norm_kernel<3>,
-    layer_norm_kernel<4>, layer_norm_kernel<5>, layer_norm_kernel<6>,
-    layer_norm_kernel<7>, layer_norm_kernel<8>};
+// one warp a row, V = 1 .. LN_MAXV; then a pair of warps a row, V = 5 ..
+// LN_MAXV (C = 2056 .. MAX_C)
+constexpr int LN_FORMS = LN_MAXV + 4;
+static const LnKernel kLnKernels[LN_FORMS] = {
+    layer_norm_kernel<1, 1>, layer_norm_kernel<2, 1>, layer_norm_kernel<3, 1>,
+    layer_norm_kernel<4, 1>, layer_norm_kernel<5, 1>, layer_norm_kernel<6, 1>,
+    layer_norm_kernel<7, 1>, layer_norm_kernel<8, 1>, layer_norm_kernel<5, 2>,
+    layer_norm_kernel<6, 2>, layer_norm_kernel<7, 2>, layer_norm_kernel<8, 2>};
 
+// The form of width C: its slot in kLnKernels, and the warps of a row.
+static inline int ln_form(int C, int* warps_a_row) {
+  const bool pair = C > LN_MAXV * 256;
+  *warps_a_row = pair ? 2 : 1;
+  return pair ? LN_MAXV + (C + 511) / 512 - 5 : (C + 255) / 256 - 1;
+}
 
 // x, y (rows, C) bf16; scale, bias (C,) fp32, all 16-byte aligned. Requires
-// C % 8 == 0, C <= 2048.
+// C % 8 == 0, C <= MAX_C.
 static inline cudaError_t launch_layer_norm(const void* x, const void* scale,
                                      const void* bias, void* y, int rows,
                                      int C, float eps, cudaStream_t stream) {
-  if (C <= 0 || C % 8 || C > LN_MAXV * 256) return cudaErrorInvalidValue;
+  if (C <= 0 || C % 8 || C > MAX_C) return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
-  const int v = (C + 255) / 256;
-  const LnKernel kernel = kLnKernels[v - 1];
-  // the resident blocks of the card, found once a process for each V
-  static int resident[LN_MAXV] = {};
-  if (resident[v - 1] == 0) {
+  int G = 1;
+  const int form = ln_form(C, &G);
+  const LnKernel kernel = kLnKernels[form];
+  // the resident blocks of the card, found once a process for each form
+  static int resident[LN_FORMS] = {};
+  if (resident[form] == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     TPU1X_TRY(cudaGetDevice(&dev));
     TPU1X_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
     TPU1X_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                             LN_THREADS, 0));
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    resident[v - 1] = per_sm * sms;
+    resident[form] = per_sm * sms;
   }
-  const int need = (rows + LN_WARPS - 1) / LN_WARPS;
-  kernel<<<need < resident[v - 1] ? need : resident[v - 1], LN_THREADS, 0,
+  const int per_block = LN_WARPS / G;
+  const int need = (rows + per_block - 1) / per_block;
+  kernel<<<need < resident[form] ? need : resident[form], LN_THREADS, 0,
            stream>>>(static_cast<const bf16*>(x),
                      static_cast<const float*>(scale),
                      static_cast<const float*>(bias), static_cast<bf16*>(y),

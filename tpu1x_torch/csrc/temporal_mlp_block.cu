@@ -49,7 +49,7 @@ using namespace tpu1x;
 // (B*frames*S, C), h_buf (B*frames*S, F4); k_out/v_out (B, S, C), both null
 // or neither. Requires frames in {1, 2}, T <= 32, a width the decode ring
 // takes (decode_width_ok: head_dim D of 32, 64, 72 or 128 dividing C, C <=
-// 2048), F4 % 64 == 0.
+// MAX_C = 4096, at 72 C <= 2016), F4 % 64 == 0.
 extern "C" int tpu1x_temporal_mlp_block(
     const void* x, const void* k_cache, const void* v_cache, const void* t_B,
     const void* wqkv, const void* bqkv, const void* wproj, const void* bproj,

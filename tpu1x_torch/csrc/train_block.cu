@@ -45,25 +45,37 @@ using namespace tpu1x;
 
 namespace {
 
-constexpr int LN_MAXV = 8;  // chunks of 8 channels a lane: C <= 2048
+constexpr int LN_MAXV = 8;  // chunks of 8 channels a lane: a warp's row
+                            // up to C = 2048, a pair's up to MAX_C
+constexpr int LN_WARPS = 8;  // warps of a block (256 threads)
+
+// The row passes take G warps a row: one up to C = LN_MAXV * 256 = 2048, a
+// pair of neighbouring warps past it (up to MAX_C = 4096), so that a lane
+// holds at most LN_MAXV chunks at every width (V = 12 or 16 in one warp
+// would spill); the pair's two sums of a row meet in shared memory
+// (`row_sums`). Lane p of a group, p = 32 (warp % G) + lane, holds chunk i
+// of channels 256 G i + 8 p .. + 7; at G = 1 the arithmetic of one warp a
+// row.
 
 // x (rows, C) bf16 -> xn (rows, C) bf16, stats (rows, 2) fp32 = mean, rstd.
-// One warp per row, a lane holding V = ceil(C / 256) chunks of 8 channels.
-template <int V>
+// One group of G warps per row, a lane holding V = ceil(C / (256 G))
+// chunks of 8 channels.
+template <int V, int G>
 __global__ void ln_fwd_kernel(const bf16* __restrict__ x,
                               const float* __restrict__ scale,
                               const float* __restrict__ bias,
                               bf16* __restrict__ xn, float* __restrict__ stats,
                               int rows, int C, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int warp = threadIdx.x >> 5;
+  const int p = (warp % G) * 32 + (threadIdx.x & 31);
+  const int row = blockIdx.x * (LN_WARPS / G) + warp / G;
   if (row >= rows) return;
   const bf16* xr = x + (long)row * C;
   float f[V][8];
   float s = 0.f, ss = 0.f;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
-    const int c = i * 256 + lane * 8;
+    const int c = i * 256 * G + p * 8;
     if (c < C) {
       load8(xr + c, f[i]);
 #pragma unroll
@@ -73,17 +85,16 @@ __global__ void ln_fwd_kernel(const bf16* __restrict__ x,
       }
     }
   }
-  s = warp_sum(s);
-  ss = warp_sum(ss);
+  row_sums<G, LN_WARPS>(s, ss, 0);
   const float mu = s / C;
   const float rs = rsqrtf(ss / C - mu * mu + eps);
-  if (lane == 0) {
+  if (p == 0) {
     stats[2 * row] = mu;
     stats[2 * row + 1] = rs;
   }
 #pragma unroll
   for (int i = 0; i < V; ++i) {
-    const int c = i * 256 + lane * 8;
+    const int c = i * 256 * G + p * 8;
     if (c < C) {
 #pragma unroll
       for (int e = 0; e < 8; ++e)
@@ -94,33 +105,35 @@ __global__ void ln_fwd_kernel(const bf16* __restrict__ x,
 }
 
 // x, dout, dx (rows, C) bf16; d_xn (rows, C) fp32; stats from ln_fwd;
-// dscale, dbias (C,) fp32, zeroed by the caller. Each warp walks
-// rows_per_block / 8 rows, a lane holding V = ceil(C / 256) chunks of 8
-// channels, and keeps its column sums in registers; the block adds them
-// into `red` (2 C fp32 of dynamic shared memory), then into dscale and
-// dbias with atomics. Up to V = 4 (C <= 1024) a lane also holds gamma and
-// the row (x-hat and the scaled gradient) in registers, five V x 8 arrays.
-// Above, that is 320 fp32 a lane at V = 8, past the 255 registers: gamma
-// lies in shared memory (C fp32 after `red`, 24 KB in all at C = 2048) and
-// the row is read twice, once for the sums (the column sums and the row's
-// two means, which dx needs whole) and once for dx, the second read from L1
-// (a warp's row of x and d_xn is 12 KB at C = 2048); a lane holds the two
+// dscale, dbias (C,) fp32, zeroed by the caller. Each group of G warps
+// walks rows_per_block G / 8 rows, a lane holding V = ceil(C / (256 G))
+// chunks of 8 channels, and keeps its column sums in registers; the block
+// adds them into `red` (2 C fp32 of dynamic shared memory), then into
+// dscale and dbias with atomics. Up to V = 4 at G = 1 (C <= 1024) a lane
+// also holds gamma and the row (x-hat and the scaled gradient) in
+// registers, five V x 8 arrays. Above, that is 320 fp32 a lane at V = 8,
+// past the 255 registers: gamma lies in shared memory (C fp32 after `red`,
+// 24 KB in all at C = 2048, 48 KB at 4096) and the row is read twice, once
+// for the sums (the column sums and the row's two means, which dx needs
+// whole) and once for dx, the second read from L1 (a warp's row of x and
+// d_xn is 12 KB at C = 2048; a pair's 24 KB at 4096); a lane holds the two
 // arrays of column sums.
 // ptxas (sm_90a), registers a thread for V = 1 .. 8: ln_fwd_kernel 32, 39,
 // 48, 54, 62, 70, 76, 85; ln_bwd_kernel 64, 112, 156, 192, 128, 144, 159,
 // 171 (V = 4 at the 54 and 192 of the single C <= 1024 forms it replaced);
 // no spills.
-template <int V>
+template <int V, int G>
 __global__ void __launch_bounds__(256)
     ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ stats,
                   const float* __restrict__ scale, const float* __restrict__ d_xn,
                   const bf16* __restrict__ dout, bf16* __restrict__ dx,
                   float* __restrict__ dscale, float* __restrict__ dbias, int rows,
                   int C, int rows_per_block) {
-  constexpr bool kHold = V <= 4;  // gamma and the row in registers
+  constexpr bool kHold = V <= 4 && G == 1;  // gamma and the row in registers
   extern __shared__ float red[];  // [2][C] column sums, then gamma (C)
   float* const sg = red + 2 * C;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int p = (warp % G) * 32 + (threadIdx.x & 31);
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     red[c] = red[C + c] = 0.f;
     if constexpr (!kHold) sg[c] = scale[c];
@@ -129,7 +142,7 @@ __global__ void __launch_bounds__(256)
   float gs[V][8], gb[V][8], sc[kHold ? V : 1][8];
 #pragma unroll
   for (int i = 0; i < V; ++i) {
-    const int c = i * 256 + lane * 8;
+    const int c = i * 256 * G + p * 8;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       gs[i][e] = gb[i][e] = 0.f;
@@ -148,14 +161,16 @@ __global__ void __launch_bounds__(256)
     for (int e = 0; e < 8; ++e) xh[e] = (xh[e] - mu) * rs;
   };
   const int r_end = min(rows, (blockIdx.x + 1) * rows_per_block);
-  for (int row = blockIdx.x * rows_per_block + warp; row < r_end; row += 8) {
+  int parity = 0;
+  for (int row = blockIdx.x * rows_per_block + warp / G; row < r_end;
+       row += LN_WARPS / G, parity ^= 1) {
     const float mu = stats[2 * row], rs = stats[2 * row + 1];
     float m1 = 0.f, m2 = 0.f;
     if constexpr (kHold) {
       float xh[V][8], dh[V][8];
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        const int c = i * 256 + lane * 8;
+        const int c = i * 256 + p * 8;
         if (c < C) {
           float d[8];
           load_row(row, c, mu, rs, xh[i], d);
@@ -173,7 +188,7 @@ __global__ void __launch_bounds__(256)
       m2 = warp_sum(m2) / C;
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        const int c = i * 256 + lane * 8;
+        const int c = i * 256 + p * 8;
         if (c < C) {
           float o[8];
           load8(dout + (long)row * C + c, o);
@@ -186,7 +201,7 @@ __global__ void __launch_bounds__(256)
     } else {
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        const int c = i * 256 + lane * 8;
+        const int c = i * 256 * G + p * 8;
         if (c < C) {
           float xh[8], d[8];
           load_row(row, c, mu, rs, xh, d);
@@ -200,11 +215,12 @@ __global__ void __launch_bounds__(256)
           }
         }
       }
-      m1 = warp_sum(m1) / C;
-      m2 = warp_sum(m2) / C;
+      row_sums<G, LN_WARPS>(m1, m2, parity);
+      m1 /= C;
+      m2 /= C;
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        const int c = i * 256 + lane * 8;
+        const int c = i * 256 * G + p * 8;
         if (c < C) {
           float xh[8], d[8], o[8];
           load_row(row, c, mu, rs, xh, d);
@@ -219,7 +235,7 @@ __global__ void __launch_bounds__(256)
   }
 #pragma unroll
   for (int i = 0; i < V; ++i) {
-    const int c = i * 256 + lane * 8;
+    const int c = i * 256 * G + p * 8;
     if (c < C) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
@@ -239,12 +255,28 @@ typedef void (*LnFwd)(const bf16*, const float*, const float*, bf16*, float*,
                       int, int, float);
 typedef void (*LnBwd)(const bf16*, const float*, const float*, const float*,
                       const bf16*, bf16*, float*, float*, int, int, int);
-const LnFwd kLnFwd[LN_MAXV] = {
-    ln_fwd_kernel<1>, ln_fwd_kernel<2>, ln_fwd_kernel<3>, ln_fwd_kernel<4>,
-    ln_fwd_kernel<5>, ln_fwd_kernel<6>, ln_fwd_kernel<7>, ln_fwd_kernel<8>};
-const LnBwd kLnBwd[LN_MAXV] = {
-    ln_bwd_kernel<1>, ln_bwd_kernel<2>, ln_bwd_kernel<3>, ln_bwd_kernel<4>,
-    ln_bwd_kernel<5>, ln_bwd_kernel<6>, ln_bwd_kernel<7>, ln_bwd_kernel<8>};
+// one warp a row, V = 1 .. LN_MAXV; then a pair of warps a row, V = 5 ..
+// LN_MAXV (C = 2056 .. MAX_C)
+constexpr int LN_FORMS = LN_MAXV + 4;
+const LnFwd kLnFwd[LN_FORMS] = {
+    ln_fwd_kernel<1, 1>, ln_fwd_kernel<2, 1>, ln_fwd_kernel<3, 1>,
+    ln_fwd_kernel<4, 1>, ln_fwd_kernel<5, 1>, ln_fwd_kernel<6, 1>,
+    ln_fwd_kernel<7, 1>, ln_fwd_kernel<8, 1>, ln_fwd_kernel<5, 2>,
+    ln_fwd_kernel<6, 2>, ln_fwd_kernel<7, 2>, ln_fwd_kernel<8, 2>};
+const LnBwd kLnBwd[LN_FORMS] = {
+    ln_bwd_kernel<1, 1>, ln_bwd_kernel<2, 1>, ln_bwd_kernel<3, 1>,
+    ln_bwd_kernel<4, 1>, ln_bwd_kernel<5, 1>, ln_bwd_kernel<6, 1>,
+    ln_bwd_kernel<7, 1>, ln_bwd_kernel<8, 1>, ln_bwd_kernel<5, 2>,
+    ln_bwd_kernel<6, 2>, ln_bwd_kernel<7, 2>, ln_bwd_kernel<8, 2>};
+
+// The form of width C: its slot in kLnFwd / kLnBwd, its chunks a lane and
+// the warps of a row.
+int ln_form(int C, int* v, int* warps_a_row) {
+  const bool pair = C > LN_MAXV * 256;
+  *warps_a_row = pair ? 2 : 1;
+  *v = pair ? (C + 511) / 512 : (C + 255) / 256;
+  return pair ? LN_MAXV + *v - 5 : *v - 1;
+}
 
 // out (N,) fp32 += column sums of x (rows, N) bf16 at row stride ld.
 // grid (ceil(N / 256), row chunks), 256 threads: a warp covers 256 columns
@@ -365,15 +397,18 @@ extern "C" int tpu1x_col_sum(const void* x, void* out, int rows, int N, long ld,
   return cudaGetLastError();
 }
 
-// Requires C % 8 == 0, 0 < C <= 2048 (LN_MAXV chunks of 8 channels a
-// lane).
+// Requires C % 8 == 0, 0 < C <= MAX_C (4096: LN_MAXV chunks of 8 channels
+// a lane, one warp a row up to 2048, a pair past it).
 extern "C" int tpu1x_ln_fwd(const void* x, const void* scale, const void* bias,
                             void* xn, void* stats, int rows, int C, float eps,
                             void* stream) {
-  if (C <= 0 || C % 8 || C > LN_MAXV * 256) return cudaErrorInvalidValue;
+  if (C <= 0 || C % 8 || C > MAX_C) return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
-  kLnFwd[(C + 255) / 256 - 1]<<<(rows + 7) / 8, 256, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+  int v = 0, G = 1;
+  const int form = ln_form(C, &v, &G);
+  const int per_block = LN_WARPS / G;
+  kLnFwd[form]<<<(rows + per_block - 1) / per_block, 32 * LN_WARPS, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(scale),
       static_cast<const float*>(bias), static_cast<bf16*>(xn),
       static_cast<float*>(stats), rows, C, eps);
@@ -384,12 +419,22 @@ extern "C" int tpu1x_ln_bwd(const void* x, const void* stats, const void* scale,
                             const void* d_xn, const void* dout, void* dx,
                             void* dscale, void* dbias, int rows, int C,
                             void* stream) {
-  if (C <= 0 || C % 8 || C > LN_MAXV * 256) return cudaErrorInvalidValue;
+  if (C <= 0 || C % 8 || C > MAX_C) return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
-  const int rows_per_block = 64, v = (C + 255) / 256;
-  const int smem = (v <= 4 ? 2 : 3) * C * (int)sizeof(float);
-  kLnBwd[v - 1]<<<(rows + rows_per_block - 1) / rows_per_block, 256, smem,
-                  static_cast<cudaStream_t>(stream)>>>(
+  int v = 0, G = 1;
+  const int form = ln_form(C, &v, &G);
+  const int rows_per_block = 64;
+  const int smem = (v <= 4 && G == 1 ? 2 : 3) * C * (int)sizeof(float);
+  // past 48 KB of shared memory (C > 4088 with the pair's sums) only with
+  // the kernel's limit raised, once a process for each form
+  static int limit[LN_FORMS] = {};
+  if (smem > limit[form]) {
+    TPU1X_TRY(cudaFuncSetAttribute(
+        kLnBwd[form], cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+    limit[form] = smem;
+  }
+  kLnBwd[form]<<<(rows + rows_per_block - 1) / rows_per_block, 32 * LN_WARPS,
+                 smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(stats),
       static_cast<const float*>(scale), static_cast<const float*>(d_xn),
       static_cast<const bf16*>(dout), static_cast<bf16*>(dx),

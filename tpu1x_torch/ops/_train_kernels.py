@@ -20,15 +20,12 @@ from typing import Callable, Generator, Optional
 import torch
 
 from tpu1x_torch import kernels
-from tpu1x_torch.ops._util import (check_gemm_shape, dgelu, gelu, ptr,
-                                   require)
+from tpu1x_torch.ops._util import (check_gemm_shape, check_width, dgelu,
+                                   gelu, ptr, require)
 
 BF16 = torch.bfloat16
 ACT = {None: 0, "gelu_tanh": 1, "gelu_erf": 2, "dgelu_tanh": 3, "dgelu_erf": 4}
 MODE = {"nn": 0, "nt": 1, "tn": 2}
-# The widest row of the LayerNorm row kernels (csrc/train_block.cu
-# LN_MAXV: 8 chunks of 8 channels a lane).
-LN_MAX_C = 2048
 
 
 def _rows2d(t: torch.Tensor, name: str) -> None:
@@ -186,9 +183,7 @@ def _ln_args(x, scale, bias=None):
         return rows, C
     require(x.dtype == BF16 and x.is_contiguous()
             and x.data_ptr() % 16 == 0, "LayerNorm rows must be contiguous bf16")
-    require(C % 8 == 0 and 0 < C <= LN_MAX_C,
-            f"the LayerNorm row kernels need C % 8 == 0 and C <= {LN_MAX_C}, "
-            f"got {C}")
+    check_width(C, "the LayerNorm row pass")
     for t in (scale, bias):
         if t is not None:
             require(t.is_cuda and t.dtype == torch.float32

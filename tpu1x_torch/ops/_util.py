@@ -72,11 +72,19 @@ def head_dim_of(C: int, num_heads: int, what: str) -> int:
     return D
 
 
-# The widest d_model of the decode ring (csrc/decode_attention.cuh: an item
-# holds at least 4 tokens of C / 32 rows, a consumer thread each, and a
-# block at most DA_MAX_ROWS = 256 of them; at head_dim 72 of C / 24 rows,
-# three a head and ten heads a warp, on at most 384 lanes: C <= 2016).
-DECODE_MAX_C = 2048
+# The widest d_model of the port's kernels, one limit for every wrapper
+# that checks a width: K5's row pass (and K1's, K2's and K3's LN), the
+# training LN rows (K11, K13, the TP sub-layers) and the decode ring (K7,
+# K8, K2/K3's cache attention). `MAX_C` in csrc/common.cuh is the same
+# value, which the kernels' own rules read: the LN rows hold a row in one
+# warp up to 2048 channels and in a pair of warps past it; the ring's items
+# hold at most 2048 channels of their tokens, past that a group of whole
+# heads.
+MAX_C = 4096
+# head_dim 72's widest C: the ring's rows of 24 channels, three a head and
+# ten heads a warp, on at most 384 lanes (C / 24 rows of an item of 4
+# tokens, no head groups).
+MAX_C_72 = 2016
 
 
 def decode_width_ok(C: int, num_heads: int) -> bool:
@@ -84,22 +92,30 @@ def decode_width_ok(C: int, num_heads: int) -> bool:
     cache attention of K2 and K3) takes d_model C in `num_heads` heads, as
     its `decode_width_ok` decides: a head width of HEAD_DIMS (so C % 32 ==
     0, or C % 24 == 0 at head_dim 72, and a head row never lies across a
-    warp) and C <= DECODE_MAX_C. Any such C: where an item's rows are not
-    whole warps, the ring takes more tokens an item or idle lanes
+    warp) and C <= MAX_C (at head_dim 72 C <= MAX_C_72). Any such C: where
+    an item's rows are not whole warps, the ring takes more tokens an item
+    or idle lanes, and past 2048 channels an item is a group of whole heads
     (`decode_plan`)."""
     D = C // num_heads if num_heads > 0 else 0
     return (num_heads > 0 and D * num_heads == C and D in HEAD_DIMS
-            and 0 < C <= DECODE_MAX_C)
+            and 0 < C <= (MAX_C_72 if D == 72 else MAX_C))
 
 
 def check_decode_width(C: int, num_heads: int, what: str) -> int:
     """Raise, naming the limit, for a width `decode_width_ok` refuses;
     returns the head width."""
     D = head_dim_of(C, num_heads, what)
+    limit, name = (MAX_C_72, "MAX_C_72") if D == 72 else (MAX_C, "MAX_C")
     require(decode_width_ok(C, num_heads),
-            f"{what} needs C <= {DECODE_MAX_C} (the decode ring's rows of an "
-            f"item of 4 tokens), got C={C}")
+            f"{what} needs C <= {limit} at head_dim {D} ({name}), got C={C}")
     return D
+
+
+def check_width(C: int, what: str) -> None:
+    """Raise, naming the limit, unless 0 < C <= MAX_C and C % 8 == 0 (the
+    16-byte chunks of the LN rows)."""
+    require(C % 8 == 0 and 0 < C <= MAX_C,
+            f"{what} needs C % 8 == 0 and C <= {MAX_C} (MAX_C), got {C}")
 
 
 def gemm_shape_ok(M: int, N: int, K: int, form: str = "nn") -> bool:

@@ -242,8 +242,10 @@ def temporal_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     csrc/decode_attention.cu, which replaces the Pallas kernel
     tpu1x/ops/decode_attention.py:temporal_decode_attention (_kernel): bf16
     q, k_cur, v_cur, int32 t_B, `layer` a plain int, head_dim 32, 64, 72 or
-    128, C <= 2048 (`_util.decode_width_ok`: an item of at least 4 tokens on
-    at most 256 consumer threads, 384 at head_dim 72), T <= 32, S % 4 == 0
+    128, C <= MAX_C = 4096 and at head_dim 72 C <= 2016
+    (`_util.decode_width_ok`: an item of at least 4 tokens on at most 256
+    consumer threads, 384 at head_dim 72; past 2048 channels an item holds
+    a group of whole heads of its tokens), T <= 32, S % 4 == 0
     for the int8 cache. q, k_cur, v_cur and `out` may each be strided
     views, as the column thirds of one qkv product are: last axis
     contiguous, the other two strides multiples of 8, the data 16-byte

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from tpu1x_torch import kernels
-from tpu1x_torch.ops._util import check_tensor, require
+from tpu1x_torch.ops._util import check_tensor, check_width
 
 
 def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -31,18 +31,18 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     CPU tensors take `layer_norm_plain`. CUDA tensors launch the kernel in
     csrc/layer_norm.cu, which replaces the Pallas kernel
     tpu1x/ops/layernorm.py:layer_norm: x and the result bf16, scale and bias
-    fp32 (C,), C % 8 == 0 and C <= 2048, any number of rows. The kernel is
-    bound by device memory: each warp walks rows, holding a row in
-    registers between the statistics and the write (each byte moves once)
-    while the next row's 16-byte loads are in flight, with gamma and beta
-    in registers up to C = 1024, on a grid of the blocks the card keeps
-    resident.
+    fp32 (C,), C % 8 == 0 and C <= MAX_C (4096, `_util.MAX_C`), any number
+    of rows. The kernel is bound by device memory: each warp walks rows
+    (past C = 2048 each pair of warps, the row's two sums meeting in shared
+    memory), holding a row in registers between the statistics and the
+    write (each byte moves once) while the next row's 16-byte loads are in
+    flight, with gamma and beta in registers up to C = 1024, on a grid of
+    the blocks the card keeps resident.
     """
     if not x.is_cuda:
         return layer_norm_plain(x, scale, bias, eps)
     C = x.shape[-1]
-    require(C % 8 == 0 and C <= 2048,
-            f"layer_norm kernel needs C % 8 == 0 and C <= 2048, got {C}")
+    check_width(C, "layer_norm kernel")
     check_tensor(x, "x", x.shape, torch.bfloat16, x.device)
     check_tensor(scale, "scale", (C,), torch.float32, x.device)
     check_tensor(bias, "bias", (C,), torch.float32, x.device)

@@ -152,7 +152,8 @@ def mlp_train_block(x: torch.Tensor, wfc1: torch.Tensor, wfc2: torch.Tensor,
     tensors launch `mlp_train_block_fwd` and, under autograd,
     `mlp_train_block_bwd`, which replace the Pallas kernels
     tpu1x/ops/mlp_train_block.py:_mlp_fwd and _mlp_bwd. The card path takes
-    bf16 contiguous x, C % 8 == 0, C <= 2048 (the LN row kernels) and
+    bf16 contiguous x, C % 8 == 0, C <= MAX_C (4096, `_util.MAX_C`: the
+    LN row kernels, a warp a row up to 2048, a pair of warps past it) and
     hidden % 8 == 0 (the GEMM, `_util.gemm_shape_ok`); the LN params are
     optional there too (the qk_norm configs have none).
     Residuals are x and the weights only. Bound on the H100:

@@ -8,8 +8,9 @@ from typing import Optional
 import torch
 
 from tpu1x_torch import kernels
-from tpu1x_torch.ops._util import (check_gemm_shape, check_tensor, dense,
-                                   gelu, head_dim_of, ptr, require)
+from tpu1x_torch.ops._util import (check_gemm_shape, check_tensor,
+                                   check_width, dense, gelu, head_dim_of,
+                                   ptr, require)
 from tpu1x_torch.ops.attention import (FLASH_MAX_TOKENS, FLASH_MIN_TOKENS,
                                        mha_reference)
 from tpu1x_torch.ops.layernorm import layer_norm_plain
@@ -96,6 +97,8 @@ def _check(x, wqkv, wproj, num_heads: int, bqkv=None, bproj=None,
     require((ln_scale is None) == (ln_bias is None)
             and (qk_ln_scale is None) == (qk_ln_bias is None),
             "pass both params of a LayerNorm or neither")
+    if ln_scale is not None:  # the pre-LN: K5's row pass
+        check_width(C, "spatial_block kernel's pre-LN")
     check_tensor(x, "x", (N, S, C), bf, dev)
     check_tensor(wqkv, "wqkv", (C, 3 * C), bf, dev)
     check_tensor(wproj, "wproj", (C, C), bf, dev)
@@ -130,8 +133,8 @@ def spatial_block(x: torch.Tensor, wqkv: torch.Tensor, wproj: torch.Tensor, *,
     ((C, 3C), (C, C), biases (3C,), (C,) or None), fp32 LN params (C,) or
     None, fp32 qk-LN params (head_dim,) or None, S % 64 == 0 with 64 <= S
     <= 4096 (K9's range: whole frames in shared memory up to 256 tokens,
-    key chunks streamed past it), head_dim 32, 64, 72 or 128 and C % 64 == 0
-    (`_check`).
+    key chunks streamed past it), head_dim 32, 64, 72 or 128, C % 64 == 0
+    and, with the pre-LN, C <= MAX_C (4096, `_util.MAX_C`; `_check`).
 
     Bound on the H100: tensor-core operations. One row is 256 KB in bf16
     at S = 256 (1 MB at 1024), more than a block's shared memory, so the

@@ -123,7 +123,8 @@ def spatial_train_block(x: torch.Tensor, wqkv: torch.Tensor,
     tpu1x/ops/spatial_train_block.py:_spatial_bwd (_bwd_kernel, default
     arithmetic). The card path takes bf16 x, S % 64 == 0 with 64 <= S <=
     4096 (K9's and K10's range), head_dim 32, 64, 72 or 128, C % 64 == 0 (K1's
-    forward), C <= 2048 (the LN row kernels); its backward's products take
+    forward), C <= MAX_C (4096, `_util.MAX_C`: the LN row kernels, a warp
+    a row up to 2048, a pair of warps past it); its backward's products take
     a rank's share of the heads under tensor parallelism, C' % 8 == 0
     (`spatial_train_block_steps`, `_util.gemm_shape_ok`),
     and needs the LN params (the qk_norm configs,
